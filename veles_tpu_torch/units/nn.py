@@ -1,0 +1,216 @@
+"""Forward-layer units of the LM family (counterpart of
+veles_tpu/units/nn.py:31-111 and :509-625).
+
+The image-family units (conv, pooling, LRN, dropout, normalizers) come
+with their own slice; ``models/standard.py`` names it when a config asks
+for one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import ops
+from ..ops.activations import ACTIVATIONS
+from .base import Forward, Spec, Unit, dtype_of
+
+
+class All2All(Forward):
+    """Fully-connected layer; ``per_position`` projects only the trailing
+    feature axis ((B, T, E) -> (B, T, out)), else each sample flattens."""
+
+    def __init__(self, output_size: int, *, activation: str = "linear",
+                 weights_scale: float = 1.0, include_bias: bool = True,
+                 compute_dtype=None, name=None, inputs=("@input",),
+                 per_position: bool = False):
+        super().__init__(name, inputs)
+        self.output_size = int(output_size)
+        self.activation = activation
+        self.weights_scale = weights_scale
+        self.include_bias = include_bias
+        self.compute_dtype = dtype_of(compute_dtype)
+        self.per_position = bool(per_position)
+
+    def _in_features(self, in_spec: Spec) -> int:
+        if self.per_position:
+            return int(in_spec.shape[-1])
+        return int(np.prod(in_spec.shape[1:]))
+
+    def output_spec(self, in_specs):
+        s = in_specs[0]
+        if self.per_position:
+            return Spec(tuple(s.shape[:-1]) + (self.output_size,), s.dtype)
+        return Spec((s.shape[0], self.output_size), s.dtype)
+
+    def init(self, generator, in_specs, device):
+        fan_in = self._in_features(in_specs[0])
+        params = {"w": ops.smart_uniform_init(
+            generator, (fan_in, self.output_size), fan_in,
+            scale=self.weights_scale, device=device)}
+        if self.include_bias:
+            params["b"] = torch.zeros((self.output_size,),
+                                      dtype=torch.float32, device=device)
+        return params, {}
+
+    def apply(self, params, state, xs, ctx):
+        x = xs[0]
+        if self.per_position:
+            lead = tuple(x.shape[:-1])
+            x = x.reshape(-1, x.shape[-1])
+        else:
+            lead = None
+            x = x.reshape(x.shape[0], -1)
+        y = ops.dense(x, params["w"], params.get("b"),
+                      compute_dtype=self.compute_dtype)
+        if lead is not None:
+            y = y.reshape(lead + (self.output_size,))
+        return ACTIVATIONS[self.activation](y), state
+
+
+class All2AllTanh(All2All):
+    def __init__(self, output_size, **kw):
+        kw.setdefault("activation", "tanh")
+        super().__init__(output_size, **kw)
+
+
+class All2AllRELU(All2All):
+    def __init__(self, output_size, **kw):
+        kw.setdefault("activation", "relu")
+        super().__init__(output_size, **kw)
+
+
+class All2AllSincos(All2All):
+    def __init__(self, output_size, **kw):
+        kw.setdefault("activation", "sincos")
+        super().__init__(output_size, **kw)
+
+
+class All2AllSoftmax(All2All):
+    """Output layer: emits LOGITS (softmax fuses into the loss)."""
+
+    def __init__(self, output_size, **kw):
+        kw.setdefault("activation", "linear")
+        super().__init__(output_size, **kw)
+
+
+class LayerNorm(Unit):
+    """Layer normalization over the trailing axis, computed in float32,
+    with learnable scale/shift."""
+
+    def __init__(self, eps: float = 1e-5, name=None, inputs=("@input",)):
+        super().__init__(name, inputs)
+        self.eps = float(eps)
+
+    def init(self, generator, in_specs, device):
+        d = in_specs[0].shape[-1]
+        return {"scale": torch.ones((d,), device=device),
+                "shift": torch.zeros((d,), device=device)}, {}
+
+    def apply(self, params, state, xs, ctx):
+        x = xs[0]
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        out = y * params["scale"] + params["shift"]
+        return out.to(x.dtype), state
+
+
+class FFN(Unit):
+    """Per-position two-layer MLP with residual: y = x + W2.act(W1.x)."""
+
+    def __init__(self, d_hidden: int, activation: str = "relu",
+                 residual: bool = True, name=None, inputs=("@input",),
+                 compute_dtype=None):
+        super().__init__(name, inputs)
+        self.d_hidden = int(d_hidden)
+        self.activation = activation
+        self.residual = bool(residual)
+        self.compute_dtype = dtype_of(compute_dtype)
+
+    def init(self, generator, in_specs, device):
+        E = in_specs[0].shape[-1]
+        w1 = ops.smart_uniform_init(generator, (E, self.d_hidden), E,
+                                    device=device)
+        w2 = ops.smart_uniform_init(generator, (self.d_hidden, E),
+                                    self.d_hidden, device=device)
+        return {"w1": w1,
+                "b1": torch.zeros((self.d_hidden,), device=device),
+                "w2": w2,
+                "b2": torch.zeros((E,), device=device)}, {}
+
+    def apply(self, params, state, xs, ctx):
+        x = xs[0]
+        lead = tuple(x.shape[:-1])
+        flat = x.reshape(-1, x.shape[-1])
+        h = ops.dense(flat, params["w1"], params["b1"],
+                      compute_dtype=self.compute_dtype)
+        h = ACTIVATIONS[self.activation](h)
+        y = ops.dense(h, params["w2"], params["b2"],
+                      compute_dtype=self.compute_dtype)
+        y = y.reshape(lead + (x.shape[-1],))
+        if self.residual:
+            y = y + x
+        return y.to(x.dtype), state
+
+
+class Embedding(Unit):
+    """Token embedding: int tokens (B, T) -> (B, T, dim) float32."""
+
+    def __init__(self, vocab: int, dim: int, name=None, inputs=("@input",)):
+        super().__init__(name, inputs)
+        self.vocab = int(vocab)
+        self.dim = int(dim)
+
+    def output_spec(self, in_specs):
+        return Spec(tuple(in_specs[0].shape) + (self.dim,), torch.float32)
+
+    def init(self, generator, in_specs, device):
+        return {"table": ops.smart_uniform_init(
+            generator, (self.vocab, self.dim), self.vocab,
+            device=device)}, {}
+
+    def apply(self, params, state, xs, ctx):
+        return params["table"][xs[0].long()], state
+
+
+def input_vocab(workflow, params) -> Optional[int]:
+    """Embedding-table rows of the chain's front (None without an
+    Embedding): the bound on acceptable input token ids."""
+    for u in workflow.topo_order():
+        if isinstance(u, Embedding):
+            return int(params[u.name]["table"].shape[0])
+    return None
+
+
+class SeqLast(Unit):
+    """(B, T, ...) -> (B, ...): the final time step."""
+
+    def output_spec(self, in_specs):
+        s = in_specs[0]
+        return Spec((s.shape[0],) + tuple(s.shape[2:]), s.dtype)
+
+    def apply(self, params, state, xs, ctx):
+        return xs[0][:, -1], state
+
+
+class EvaluatorSoftmax(Unit):
+    """Softmax cross-entropy loss unit.  Built so that configs build
+    unchanged; the loss itself runs with the training slice."""
+
+    is_evaluator = True
+
+    def __init__(self, name=None, inputs=("@input", "@labels", "@mask")):
+        super().__init__(name, inputs)
+
+    def output_spec(self, in_specs):
+        return Spec((), torch.float32)
+
+    def apply(self, params, state, xs, ctx):
+        raise NotImplementedError(
+            f"{type(self).__name__} {self.name!r}: the loss comes with the "
+            "training slice of the port (ROADMAP.md, slices 2-3); this "
+            "slice serves forward and decode only")

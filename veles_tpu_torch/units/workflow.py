@@ -1,0 +1,199 @@
+"""Workflow: the unit container and its forward/predict steps
+(counterpart of veles_tpu/units/workflow.py).
+
+The JAX package traces the unit DAG into compiled programs; PyTorch runs
+eagerly, so here the DAG is walked in topological order on every call.
+The workflow state keeps the JAX package's layout (``new_state``:
+params / state / opt_state / step / key), so a snapshot moves between
+the two packages by key.  There is no train step yet: it comes with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..logger import Logger
+from ..ops import resolve_device
+from .base import Context, Spec, Unit
+
+
+class WorkflowError(Exception):
+    pass
+
+
+def new_state(params, state, opt_state, step, key):
+    """The workflow state dictionary (veles_tpu/units/workflow.py:43)."""
+    return {"params": params, "state": state, "opt_state": opt_state,
+            "step": step, "key": key}
+
+
+def seed_key(seed: int) -> np.ndarray:
+    """Raw data of the JAX package's ``jax.random.key(seed)`` (threefry:
+    ``[0, seed]`` as uint32), stored in the state's ``key`` slot so a
+    port snapshot restores in the JAX package with a valid key."""
+    return np.asarray([0, int(seed) & 0xFFFFFFFF], np.uint32)
+
+
+class Workflow(Logger):
+    """Container + runner for a unit DAG."""
+
+    def __init__(self, name: str = "Workflow"):
+        self.name = name
+        self.units: List[Unit] = []
+        self._by_name: Dict[str, Unit] = {}
+        self._order: Optional[List[Unit]] = None
+        self._specs: Dict[str, Spec] = {}
+        self.evaluator: Optional[Unit] = None
+
+    def add(self, unit: Unit) -> Unit:
+        if unit.name in self._by_name:
+            raise WorkflowError(f"duplicate unit name {unit.name!r}")
+        self.units.append(unit)
+        self._by_name[unit.name] = unit
+        self._order = None
+        if getattr(unit, "is_evaluator", False):
+            self.evaluator = unit
+        return unit
+
+    def topo_order(self) -> List[Unit]:
+        """Topological order over data edges, with the wiring checks."""
+        if self._order is not None:
+            return self._order
+        order, seen, visiting = [], set(), set()
+
+        def visit(u: Unit):
+            if u.name in seen:
+                return
+            if u.name in visiting:
+                raise WorkflowError(f"cycle through unit {u.name!r}")
+            visiting.add(u.name)
+            for src in u.inputs:
+                if src.startswith("@"):
+                    continue
+                if src not in self._by_name:
+                    raise WorkflowError(
+                        f"unit {u.name!r} consumes unknown source {src!r}")
+                visit(self._by_name[src])
+            visiting.discard(u.name)
+            seen.add(u.name)
+            order.append(u)
+
+        for u in self.units:
+            visit(u)
+        self._order = order
+        return order
+
+    def build(self, input_specs: Dict[str, Spec]) -> Dict[str, Spec]:
+        """Infer output specs in topo order; validates all wiring."""
+        specs = dict(input_specs)
+        for u in self.topo_order():
+            in_specs = []
+            for src in u.inputs:
+                if src not in specs:
+                    raise WorkflowError(
+                        f"unit {u.name!r} needs {src!r} which is neither a "
+                        f"batch key nor an upstream unit output")
+                in_specs.append(specs[src])
+            specs[u.name] = u.output_spec(in_specs)
+        self._specs = specs
+        return specs
+
+    @property
+    def specs(self) -> Dict[str, Spec]:
+        return self._specs
+
+    def init_state(self, seed: int = 0, device=None) -> dict:
+        """Fresh weights from an explicit CPU ``torch.Generator`` seeded
+        with ``seed`` (the same numbers on every device), placed on
+        ``device`` (default: the CUDA card, see ``ops.resolve_device``)."""
+        if not self._specs:
+            raise WorkflowError("call build() before init_state()")
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(int(seed))
+        params, state = {}, {}
+        for u in self.topo_order():
+            p, s = u.init(gen, [self._specs[i] for i in u.inputs], dev)
+            if p:
+                params[u.name] = p
+            if s:
+                state[u.name] = s
+        return new_state(params, state, {}, 0, seed_key(seed))
+
+    def param_shapes(self) -> Dict[str, Dict[str, tuple]]:
+        """unit -> param -> shape the built workflow expects (an init
+        whose tensors land on the meta device)."""
+        if not self._specs:
+            raise WorkflowError("call build() before param_shapes()")
+        gen = torch.Generator().manual_seed(0)
+        out = {}
+        for u in self.topo_order():
+            p, _ = u.init(gen, [self._specs[i] for i in u.inputs], "meta")
+            if p:
+                out[u.name] = {k: tuple(v.shape) for k, v in p.items()}
+        return out
+
+    def forward(self, params, state, batch, ctx: Context, *,
+                only: Optional[set] = None):
+        """Forward over the DAG; returns (all outputs, new unit state)."""
+        outputs = dict(batch)
+        nstate = {}
+        for u in self.topo_order():
+            if only is not None and u.name not in only:
+                continue
+            xs = [outputs[s] for s in u.inputs]
+            y, ns = u.apply(params.get(u.name, {}), state.get(u.name, {}),
+                            xs, ctx)
+            outputs[u.name] = y
+            if ns:
+                nstate[u.name] = ns
+        return outputs, nstate
+
+    def ancestors(self, name: str) -> set:
+        """Unit names needed to compute ``name`` (inclusive)."""
+        need, stack = set(), [name]
+        while stack:
+            n = stack.pop()
+            if n in need or n.startswith("@"):
+                continue
+            need.add(n)
+            stack.extend(self._by_name[n].inputs)
+        return need
+
+    def default_output(self) -> str:
+        """Name of the last forward (non-evaluator) unit."""
+        cands = [u.name for u in self.topo_order()
+                 if not getattr(u, "is_evaluator", False)]
+        if not cands:
+            raise WorkflowError("no forward units")
+        return cands[-1]
+
+    def make_predict_step(self, output_unit: Optional[str] = None):
+        """(wstate, batch) -> output of the last forward (or named) unit,
+        under ``torch.inference_mode``."""
+        if output_unit is None:
+            output_unit = self.default_output()
+        needed = self.ancestors(output_unit)
+
+        def step(wstate, batch):
+            ctx = Context(train=False)
+            with torch.inference_mode():
+                outputs, _ = self.forward(wstate["params"],
+                                          wstate["state"], batch, ctx,
+                                          only=needed)
+            return outputs[output_unit]
+
+        return step
+
+    def checksum(self) -> str:
+        """Stable identity of the graph topology — the same digest the
+        JAX package computes for the same layer list."""
+        desc = [(u.name, type(u).__name__, list(u.inputs))
+                for u in self.topo_order()]
+        return hashlib.sha256(
+            json.dumps(desc, sort_keys=True).encode()).hexdigest()
