@@ -158,6 +158,29 @@ def test_paged_plain_matches_jax_kernel_scratch_rows(rng):
     np.testing.assert_allclose(out, ref, **PAGED_TOL)
 
 
+@pytest.mark.parametrize("window", [None, 3], ids=["full", "window"])
+def test_paged_plain_nan_row_for_corrupt_live_entry(rng, window):
+    """A page-table entry outside the pool makes its row NaN when the
+    entry is live (the CUDA kernel's contract); entries past the span, or
+    before a window, are never read and change nothing."""
+    q, pool_k, pool_v, ptab, _ = _paged_case(rng, B=3, n_ptab=5)
+    rows = pool_k.shape[0]
+    pos = torch.tensor([6, 17, 2], dtype=torch.int32)
+    args = [torch.from_numpy(a) for a in (q, pool_k, pool_v)]
+    kw = dict(page_size=4, n_kv_heads=2, window=window)
+    good = pa.paged_attention_decode_plain(*args, torch.from_numpy(ptab),
+                                           pos, **kw)
+    bad = ptab.copy()
+    bad[0, 1] = rows + 2          # row 0 (pos 6): page 1 is live
+    bad[2, 4] = -1                # row 2 (pos 2): past its span
+    if window is not None:
+        bad[1, 0] = -7            # row 1 (pos 17): before its window
+    out = pa.paged_attention_decode_plain(*args, torch.from_numpy(bad), pos,
+                                          **kw)
+    assert torch.isnan(out[0]).all()
+    assert torch.equal(out[1:], good[1:])
+
+
 def test_paged_plain_matches_jax_kernel_gqa4(rng):
     out, ref = _both(*_paged_case(rng, B=4, Hk=1, G=4, Dh=16), Hk=1)
     np.testing.assert_allclose(out, ref, **PAGED_TOL)

@@ -48,12 +48,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="HTTP port (0 = any free port)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
-    p.add_argument("--batch", type=int, default=None,
-                   help="/predict batch size (default: loader "
-                        "minibatch_size)")
-    p.add_argument("--seq-len", type=int, default=None,
-                   help="/predict sequence length (default: loader "
-                        "seq_len)")
     return p
 
 
@@ -68,8 +62,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     sw = StandardWorkflow(root.workflow.to_dict())
     wf = sw.workflow
-    B = int(args.batch or root.loader.get("minibatch_size", 1))
-    T = int(args.seq_len or root.loader.get("seq_len", 1))
+    B = int(root.loader.get("minibatch_size", 1))
+    T = int(root.loader.get("seq_len", 1))
     wf.build({"@input": Spec((B, T), torch.int32),
               "@labels": Spec((B,), torch.int32),
               "@mask": Spec((B,), torch.float32)})

@@ -186,47 +186,33 @@ void launch(const void* q, const void* k, const void* v, void* out,
         static_cast<float*>(lse), Tq, Tk, H, Hk, scale, causal, window);
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out,
-               void* lse, int B, int Tq, int Tk, int H, int Hk, int D,
-               float scale, int causal, int window, cudaStream_t stream) {
-    switch (D) {
-        case 32: launch<T, 32>(q, k, v, out, lse, B, Tq, Tk, H, Hk, scale,
-                               causal, window, stream); break;
-        case 64: launch<T, 64>(q, k, v, out, lse, B, Tq, Tk, H, Hk, scale,
-                               causal, window, stream); break;
-        // no D = 128: a thread's q row + accumulator + scores exceed 255
-        // registers there (it spills), and its fully unrolled body alone
-        // took minutes of nvcc time
-        default: return (int)cudaErrorInvalidValue;
-    }
-    return 0;
-}
-
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  window: 0 = none.  Returns the CUDA
-// error code of the launch (0 on success); no synchronisation.
+// error code of the launch (0 on success); no synchronisation.  D is 16 or
+// 64: the head widths of the repo's configurations (configs/
+// induction_lm*.json and the bench_lm.py-width model).  (D = 128 is not
+// built: a thread's q row + accumulator + scores exceed 255 registers
+// there, and its fully unrolled body alone took minutes of nvcc time.)
 int vt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                  void* lse, int B, int Tq, int Tk, int H, int Hk, int D,
                  int dtype, float scale, int causal, int window,
                  void* stream) {
     if (B < 1 || Tq < 1 || Tk < 1 || Hk < 1 || H % Hk != 0 ||
-        B * H > 65535)
+        B * H > 65535 || (dtype != 0 && dtype != 1))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    int rc;
-    if (dtype == 0)
-        rc = dispatch_d<float>(q, k, v, out, lse, B, Tq, Tk, H, Hk, D,
-                               scale, causal, window, st);
-    else if (dtype == 1)
-        rc = dispatch_d<__nv_bfloat16>(q, k, v, out, lse, B, Tq, Tk, H, Hk,
-                                       D, scale, causal, window, st);
-    else
-        rc = (int)cudaErrorInvalidValue;
-    if (rc) return rc;
+#define VT_LAUNCH(T, DV)                                                    \
+    launch<T, DV>(q, k, v, out, lse, B, Tq, Tk, H, Hk, scale, causal,       \
+                  window, st)
+    if (D == 16 && dtype == 0) VT_LAUNCH(float, 16);
+    else if (D == 16) VT_LAUNCH(__nv_bfloat16, 16);
+    else if (D == 64 && dtype == 0) VT_LAUNCH(float, 64);
+    else if (D == 64) VT_LAUNCH(__nv_bfloat16, 64);
+    else return (int)cudaErrorInvalidValue;
+#undef VT_LAUNCH
     return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -76,7 +77,6 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         jobs = []
         took = {n: 0.0 for n in names}
-        t0 = time.perf_counter()
         for name in names:
             target = library_path(name)
             if target.exists():
@@ -86,11 +86,19 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
                    str(CSRC / SOURCES[name])]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
-            jobs.append((name, target, tmp, proc))
-        failed = []
-        for name, target, tmp, proc in jobs:
+            jobs.append((name, target, tmp, proc, time.perf_counter()))
+
+        def finish(job):
+            proc, t0 = job[3], job[4]
             log, _ = proc.communicate()
-            took[name] = time.perf_counter() - t0
+            return log, time.perf_counter() - t0
+
+        # one waiter per nvcc, so each source's seconds are its own
+        with ThreadPoolExecutor(max(1, len(jobs))) as pool:
+            done = list(pool.map(finish, jobs))
+        failed = []
+        for (name, target, tmp, proc, _), (log, seconds) in zip(jobs, done):
+            took[name] = seconds
             build_logs[name] = log
             if proc.returncode != 0:
                 failed.append(f"nvcc failed for {SOURCES[name]} "

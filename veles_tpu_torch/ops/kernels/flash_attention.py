@@ -26,7 +26,7 @@ REPLACES = "veles_tpu/ops/pallas_kernels.py:205"
 launches = build.LaunchCounter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
+_HEAD_DIMS = (16, 64)      # configs/induction_lm*.json, bench_lm.py width
 _NEG = -1e30
 
 

@@ -27,8 +27,8 @@ REPLACES = "veles_tpu/ops/pallas_kernels.py:612"
 #: launches of the CUDA kernel (never of the plain version)
 launches = build.LaunchCounter()
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 64)      # configs/induction_lm*.json, bench_lm.py width
 _MAX_GROUP = 8
 
 
@@ -63,7 +63,9 @@ def paged_attention_decode(q, k_pool, v_pool, ptab, pos, *, page_size: int,
     (rows, page_size, Hk, Dh); ptab: (B, n_ptab) int32 physical page per
     logical page (entries past a slot's span point at the scratch row and
     are never read); pos: (B,) int32.  Returns the (B, H, Dh) float32
-    context before the output projection."""
+    context before the output projection.  A row whose live pages include
+    an entry outside [0, rows) comes back NaN: a corrupt page table shows
+    in the output."""
     G = _validate(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads)
     window = check_attention_window(window, True)
     scale = q.shape[2] ** -0.5 if scale is None else float(scale)
@@ -80,26 +82,38 @@ def paged_attention_decode_plain(q, k_pool, v_pool, ptab, pos, *,
                                  scale: Optional[float] = None,
                                  window: Optional[int] = None):
     """The plain version — the gather path: flatten each row's pages to
-    the (B, L, Hk, Dh) logical view, mask with -inf, one-shot softmax."""
+    the (B, L, Hk, Dh) logical view, mask with -inf, one-shot softmax.
+    Rows with a live page-table entry outside the pool are NaN, as the
+    kernel's."""
     G = _validate(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads)
     window = check_attention_window(window, True)
     B, H, Dh = q.shape
     Hk = n_kv_heads
     scale = Dh ** -0.5 if scale is None else float(scale)
-    L = ptab.shape[1] * page_size
+    n_ptab = ptab.shape[1]
+    L = n_ptab * page_size
+    rows = k_pool.shape[0]
     idx = ptab.long()
+    p64 = pos.long()
+    j = torch.arange(n_ptab, device=q.device)
+    live = j[None, :] <= p64[:, None] // page_size
+    if window is not None:
+        live = live & (j[None, :] >= (p64[:, None] - window + 1).clamp_min(0)
+                       // page_size)
+    bad = (live & ((idx < 0) | (idx >= rows))).any(dim=1)
+    idx = idx.clamp(0, rows - 1)
     kf = k_pool[idx].reshape(B, L, Hk, Dh).float()
     vf = v_pool[idx].reshape(B, L, Hk, Dh).float()
     qg = q.reshape(B, Hk, G, Dh).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, kf) * scale
     t = torch.arange(L, device=q.device)
-    p64 = pos.long()
     mask = t[None, :] <= p64[:, None]
     if window is not None:
         mask = mask & (t[None, :] > p64[:, None] - window)
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgt,btkd->bkgd", p, vf).reshape(B, H, Dh)
+    out = torch.einsum("bkgt,btkd->bkgd", p, vf).reshape(B, H, Dh)
+    return out.masked_fill(bad[:, None, None], float("nan"))
 
 
 def _fn():
@@ -107,18 +121,18 @@ def _fn():
     fn = lib.vt_paged_attention_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                        ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
 def _launch(q, k_pool, v_pool, ptab, pos, G, page_size, scale, window):
-    if q.dtype not in _DTYPES or k_pool.dtype not in _DTYPES \
-            or v_pool.dtype != k_pool.dtype:
+    if q.dtype not in _Q_DTYPES or k_pool.dtype != torch.float32 \
+            or v_pool.dtype != torch.float32:
         raise TypeError(f"{NAME}: kernel takes float32/bfloat16 q and "
-                        f"pools, got {q.dtype} / {k_pool.dtype} / "
-                        f"{v_pool.dtype}")
+                        f"float32 pools (the engine's cache type), got "
+                        f"{q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
     if ptab.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"{NAME}: ptab and pos must be int32")
     tensors = (q, k_pool, v_pool, ptab, pos)
@@ -139,8 +153,8 @@ def _launch(q, k_pool, v_pool, ptab, pos, G, page_size, scale, window):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             ptab.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, Hk, Dh,
-            psz, ptab.shape[1], rows, _DTYPES[q.dtype],
-            _DTYPES[k_pool.dtype], scale, int(window or 0), stream)
+            psz, ptab.shape[1], rows, _Q_DTYPES[q.dtype], scale,
+            int(window or 0), stream)
     build.check(lib, rc, NAME)
     launches.inc()
     return out

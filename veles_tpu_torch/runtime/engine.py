@@ -15,9 +15,10 @@ request queue:
   time, as ``_make_paged_prefill_fn`` does (engine.py:574-657).  It reads
   the paged cache through the gather path even when the paged kernel is
   on — the JAX package's prefill passes no ``paged_kernel``
-  (engine.py:622-624).  The pow2 bucket (``prefill_bucket``) is kept for
-  the request's record; its pad positions are no-ops in the JAX program
-  (scratch writes, discarded logits), so they are not run;
+  (engine.py:622-624).  The JAX package pads the prompt to a pow2 bucket
+  only to bound the shapes it compiles; the pad positions are no-ops
+  (scratch writes, discarded logits), and an eager step compiles
+  nothing, so the port runs the prompt's own positions;
 * one decode step advances every slot, with per-slot greedy /
   temperature / top-k / top-p sampling and eos / length retirement
   (engine.py:187-243, ``_sample_slots`` :1024); with ``paged_kernel``
@@ -33,7 +34,6 @@ megastep, KV transfer, hot swap and metrics wait for later slices
 from __future__ import annotations
 
 import collections
-import math
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -68,7 +68,6 @@ class SchedulerCrashed(RuntimeError):
 class ServeGeometry(NamedTuple):
     slots: int
     l_max: int
-    bucket_min: int
     paged: bool
     page_size: int
     pages: int
@@ -79,16 +78,13 @@ class ServeGeometry(NamedTuple):
         return self.l_max // self.page_size if self.paged else 0
 
 
-def resolve_serve_geometry(slots=None, l_max=None, bucket_min=None,
-                           paged=None, page_size=None, pages=None,
+def resolve_serve_geometry(slots=None, l_max=None, paged=None, page_size=None, pages=None,
                            paged_kernel=None) -> ServeGeometry:
     """Slot-batch geometry with ``root.common.serve`` defaults — the JAX
     package's resolution (engine.py:683-746) without megastep."""
     serve = root.common.serve
     slots = int(slots if slots is not None else serve.get("slots", 8))
     l_max = int(l_max if l_max is not None else serve.get("l_max", 512))
-    bucket_min = max(1, int(bucket_min if bucket_min is not None
-                            else serve.get("prefill_bucket_min", 16)))
     if slots < 1 or l_max < 2:
         raise ValueError("need slots >= 1 and l_max >= 2")
     use_paged = bool(serve.get("paged", True) if paged is None else paged)
@@ -101,8 +97,7 @@ def resolve_serve_geometry(slots=None, l_max=None, bucket_min=None,
             raise ValueError(
                 "paged_kernel requires the paged KV layout "
                 "(root.common.serve.paged / paged=True)")
-        return ServeGeometry(slots, l_max, bucket_min, False, psz, 0,
-                             False)
+        return ServeGeometry(slots, l_max, False, psz, 0, False)
     if psz < 1:
         raise ValueError(f"page_size must be >= 1, got {psz}")
     if l_max % psz:
@@ -120,22 +115,14 @@ def resolve_serve_geometry(slots=None, l_max=None, bucket_min=None,
         raise ValueError(
             f"page pool of {pages} pages cannot hold one max-length "
             f"request ({n_ptab} pages of {psz} tokens for l_max {l_max})")
-    return ServeGeometry(slots, l_max, bucket_min, True, psz, pages,
-                         use_kernel)
-
-
-def prefill_bucket(p: int, bucket_min: int, l_max: int) -> int:
-    """Pow2 ceiling of prompt length ``p``, floored at ``bucket_min``,
-    clipped to ``l_max``."""
-    return min(1 << max(0, math.ceil(math.log2(max(p, bucket_min)))),
-               l_max)
+    return ServeGeometry(slots, l_max, True, psz, pages, use_kernel)
 
 
 class _Request:
     __slots__ = ("prompt", "n_steps", "temperature", "top_k", "top_p",
                  "eos_id", "seed", "deadline", "done", "result", "error",
                  "submitted_at", "admitted_at", "first_token_at",
-                 "finished_at", "slot", "page_row", "bucket")
+                 "finished_at", "slot", "page_row")
 
     def __init__(self, prompt, n_steps, temperature, top_k, top_p, eos_id,
                  seed, deadline):
@@ -156,7 +143,6 @@ class _Request:
         self.finished_at = None
         self.slot = None
         self.page_row = None
-        self.bucket = None
 
     @property
     def end_index(self) -> int:
@@ -188,15 +174,13 @@ class DecodeEngine(Logger):
                  page_size: Optional[int] = None,
                  pages: Optional[int] = None,
                  paged_kernel: Optional[bool] = None,
-                 prefill_bucket_min: Optional[int] = None,
                  device=None):
         self.device = resolve_device(device)
         serve = root.common.serve
-        geo = resolve_serve_geometry(slots, l_max, prefill_bucket_min,
-                                     paged=paged, page_size=page_size,
-                                     pages=pages, paged_kernel=paged_kernel)
-        self.slots, self.l_max, self.bucket_min = \
-            geo.slots, geo.l_max, geo.bucket_min
+        geo = resolve_serve_geometry(slots, l_max, paged=paged,
+                                     page_size=page_size, pages=pages,
+                                     paged_kernel=paged_kernel)
+        self.slots, self.l_max = geo.slots, geo.l_max
         self.paged, self.page_size, self.pages = \
             geo.paged, geo.page_size, geo.pages
         self.n_ptab = geo.n_ptab
@@ -546,7 +530,6 @@ class DecodeEngine(Logger):
         req.admitted_at = time.monotonic()
         self._count("admitted")
         P = int(req.prompt.size)
-        req.bucket = prefill_bucket(P, self.bucket_min, self.l_max)
         dev = self.device
         if self.paged:
             self._ptab[slot] = req.page_row
