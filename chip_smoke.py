@@ -7,25 +7,43 @@ Phases, each of which fails the run with a non-zero exit:
 
 1. device: the card's name, capability, and ``nvidia-smi`` name and power
    limit;
-2. build: every CUDA kernel of the serving path, from
-   ``veles_tpu_torch/csrc`` (one nvcc per source, in parallel);
+2. build: every CUDA kernel of the port, from ``veles_tpu_torch/csrc``
+   (one nvcc per source, all in parallel), with each source's seconds and
+   ptxas registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes and at edge cases, each max error beside
-   its tolerance; then each kernel's time, its plain version's time, the
+   at its path's shapes and at edge cases, each error beside its
+   tolerance (the flash backward element by element, see BWD_UNITS); then each kernel's time, its plain version's time, the
    time of the one PyTorch call computing the same function (where there
    is one) and the card's bound for the same work;
-4. main path: the bench_lm.py transformer LM at full width (vocab 1024,
-   dim 512, 4 blocks of 8-head RoPE attention + layer_norm + ffn 2048 +
-   layer_norm, per-position head, bf16 compute), random weights from a
-   numpy seed in the JAX package's flattened-key layout carried in by
-   ``params_from_jax``, served by ``RestfulServer`` over a paged
+4. serving path: the bench_lm.py transformer LM at full width (vocab
+   1024, dim 512, 4 blocks of 8-head RoPE attention + layer_norm + ffn
+   2048 + layer_norm, per-position head, bf16 compute), random weights
+   from a numpy seed in the JAX package's flattened-key layout carried in
+   by ``params_from_jax``, served by ``RestfulServer`` over a paged
    ``DecodeEngine`` (8 slots, l_max 1024, page 16, paged kernel on):
    greedy and sampled ``POST /generate`` (prompt 512, 64 new tokens) and
-   one ``POST /predict`` (16 x 2048 batch); both kernels' launch counts
-   must rise during it; greedy tokens are compared with the port's own
-   ``generate()`` (share reported in bf16; in float32 every token must
-   agree);
-5. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+   one ``POST /predict`` (16 x 2048 batch); the flash-forward and paged
+   kernels' launch counts must rise during it; greedy tokens are compared
+   with the port's own ``generate()`` (share reported in bf16; in float32
+   every token must agree);
+5. training path, full width: the same LM (bf16) trained through
+   ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (32
+   steps of 16 x 2048 tokens, Adam lr 1e-3) and its eval, fed by an
+   ``InductionLoader(per_position=True, seq_len=2048, vocab=1024)`` held
+   on the card; the flash forward, both flash backward and the gather
+   kernels must launch and every loss must be finite; then 8 steps on one
+   fixed batch must cut its loss by 5 % (the epoch's own loss stays near
+   chance, see ``_fixed_batch_descent``); step times, tokens/s and a
+   torch.profiler window of 3 steps (device idle share, top kernels);
+   then one float32 train step through the kernels and one
+   through the plain versions from the same weights and batch, loss and
+   per-parameter gradient norms compared; then the same bf16 epoch again
+   with every kernel of the path replaced by its plain version, whose
+   per-step losses must follow the kernels' (``_plain_epoch_witness``);
+6. quality: ``python -m veles_tpu_torch configs/induction_lm.json
+   --random-seed 1`` as a subprocess on the card (25 epochs) must reach
+   <= 5 % validation error;
+7. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul`` and
@@ -35,10 +53,12 @@ exits non-zero and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
 import urllib.request
+from unittest import mock
 
 import numpy as np
 
@@ -49,9 +69,36 @@ H100_BYTES_S = 3.35e12        # HBM3 bandwidth
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # max |out - plain|
 LSE_TOL = 1e-3
 PAGED_TOL = 1e-4
+# flash backward, held element by element: |kernel - plain| <= BWD_UNITS
+# units u of the dtype (bf16 2^-8, f32 2^-24) times (|plain| + its row's
+# scale), the row being the D entries of one position and head and its
+# scale the row's largest |plain|, or the median |plain| of the whole
+# gradient where that is larger.  One bf16 rounding step of an output is
+# at most one unit, so in bfloat16 (dS, P and the outputs rounded at the
+# same points on both sides) each entry is held to two roundings of its
+# own row's size.  The median floor serves the rows whose exact gradient
+# cancels to about 0 (query 0 of a causal row attends one key, so its
+# dS = P (dP - delta) is rounding noise on both sides).  In float32 the
+# units (1024 u ~ 6e-5) cover the summation order over up to 2048 keys
+# and the cancellation in dP - delta, which leaves a small dQ entry with
+# a larger share of rounding.
+BWD_UNIT = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -24}
+BWD_UNITS = {"bfloat16": 2.0, "float32": 1024.0}
+# full-width float32 train step, kernels vs plain versions: relative
+# difference of the loss and of each parameter's gradient norm
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+# the fixed-batch descent after the epoch: FIXED_STEPS steps on one batch
+# must cut its loss by at least FIXED_MIN_DROP of the first step's
+FIXED_STEPS, FIXED_MIN_DROP = 8, 0.05
+# the epoch through the plain versions: per-step |loss - kernels' loss|
+WITNESS_ATOL = 0.05
+QUALITY_BAR = 5.0               # % validation error, configs/induction_lm
 
 VOCAB, E, LAYERS, HEADS, FFN = 1024, 512, 4, 8, 2048
 PREDICT_B, PREDICT_T = 16, 2048
+TRAIN_B, TRAIN_T, N_TRAIN, N_VALID = 16, 2048, 512, 64
+GATHER_ROWS = 512               # int32 token rows held for the gather check
 SLOTS, L_MAX, PAGE = 8, 1024, 16
 PROMPT, NEW = 512, 64
 F32_PROMPT, F32_NEW = 64, 16    # the float32 agreement run
@@ -128,6 +175,7 @@ def phase_build():
     say({"phase": "build", "seconds": round(wall, 3),
          "per_library_s": {k: round(v, 3) for k, v in took.items()},
          "ptxas": usage})
+    return {"seconds": wall, "per_library_s": took}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -311,6 +359,187 @@ def phase_kernels(torch):
     return timing
 
 
+def _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dtype, causal, window):
+    """Both backward kernels and their plain versions on one input:
+    dO random, lse from the forward kernel, delta = rowsum(dO * O)."""
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    q, k, v, do = (torch.randn(shape, generator=gen).to("cuda", dtype)
+                   for shape in ((B, Tq, H, D), (B, Tk, Hk, D),
+                                 (B, Tk, Hk, D), (B, Tq, H, D)))
+    out, lse = fa.flash_attention(q, k, v, causal, None, window)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    kw = dict(causal=causal, scale=D ** -0.5, window=window)
+    got = {"dq": dq.flash_bwd_dq(*args, **kw)}
+    got["dk"], got["dv"] = dkv.flash_bwd_dkv(*args, **kw)
+    ref = {"dq": dq.flash_bwd_dq_plain(*args, **kw)}
+    ref["dk"], ref["dv"] = dkv.flash_bwd_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    res = {name: bwd_agreement(torch, got[name], ref[name])
+           for name in ("dq", "dk", "dv")}
+    return args, kw, res
+
+
+def bwd_agreement(torch, got, ref):
+    """The flash backward rule (BWD_UNITS above): the worst entry's
+    |kernel - plain| in units u * (|plain| + its row's scale), beside the limit, the largest absolute error, the relative Frobenius
+    error and the median |plain| (the size of a typical entry)."""
+    dt = str(ref.dtype).split(".")[-1]
+    a, b = got.float(), ref.float()
+    err = (a - b).abs()
+    mag = b.abs()
+    median = mag.flatten().median()
+    row = torch.maximum(mag.amax(-1, keepdim=True), median)
+    scale = BWD_UNIT[dt] * (mag + row)
+    units = torch.where(scale > 0, err / scale.clamp_min(1e-38),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return {"units": float(units.max()), "units_tol": BWD_UNITS[dt],
+            "max_abs_err": float(err.max()),
+            "frob_rel_err": float(torch.linalg.vector_norm(a - b)
+                                  / torch.linalg.vector_norm(b)
+                                  .clamp_min(1e-38)),
+            "median_abs_plain": float(median),
+            "finite": bool(torch.isfinite(a).all()),
+            "dtype_ok": got.dtype == ref.dtype}
+
+
+def phase_train_kernels(torch):
+    """The training path's kernels (flash backward dQ and dK/dV, the row
+    gather) against their plain versions, then their times and bounds at
+    the training path's shapes."""
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    from veles_tpu_torch.ops.kernels import gather_rows as gr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("main_bf16_causal_T2048", TRAIN_B, TRAIN_T, TRAIN_T, HEADS,
+              HEADS, 64, bf16, True, None),
+             # configs/induction_lm.json: B=100, T=32, 4 heads of 16
+             ("induction_lm_D16_f32", 100, 32, 32, 4, 4, 16, f32, True,
+              None),
+             ("gqa2_bf16", 2, 512, 512, 8, 4, 64, bf16, True, None),
+             ("window_f32", 2, 777, 777, 8, 8, 64, f32, True, 100),
+             ("gqa2_window_bf16_D16", 2, 300, 300, 4, 2, 16, bf16, True,
+              50),
+             ("noncausal_cross_bf16", 2, 300, 700, 8, 8, 64, bf16, False,
+              None),
+             ("ragged_f32", 3, 1000, 1000, 8, 8, 64, f32, True, None)]
+    checks, main = [], None
+    for name, B, Tq, Tk, H, Hk, D, dt, causal, window in cases:
+        args, kw, res = _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dt,
+                                  causal, window)
+        for kname, grads in ((dq.NAME, ("dq",)), (dkv.NAME, ("dk", "dv"))):
+            rec = {"kernel": kname, "case": name}
+            ok = True
+            for g in grads:
+                r = res[g]
+                rec[g] = {k: r[k] for k in ("units", "units_tol",
+                                            "max_abs_err", "frob_rel_err",
+                                            "median_abs_plain")}
+                ok = ok and r["finite"] and r["dtype_ok"] \
+                    and r["units"] <= r["units_tol"]
+            rec["ok"] = ok
+            checks.append(rec)
+            say(rec)
+        if name.startswith("main"):
+            main = (args, kw, res)
+    # gather: the training minibatch (16 rows of 2048 int32 tokens from a
+    # card-resident set) and an odd row size (21 bytes)
+    rng = np.random.default_rng(3)
+    tokens = torch.randint(0, VOCAB, (GATHER_ROWS, TRAIN_T),
+                           dtype=torch.int32, generator=gen).cuda()
+    idx = rng.integers(0, GATHER_ROWS, TRAIN_B)
+    odd = torch.randint(0, 256, (101, 3, 7), dtype=torch.uint8,
+                        generator=gen).cuda()
+    odd_idx = rng.integers(0, 101, 37)
+    for name, data, ix in (("main_int32_16x2048", tokens, idx),
+                           ("odd_uint8_21_bytes", odd, odd_idx)):
+        out = gr.gather_rows(data, ix)
+        ref = gr.gather_rows_plain(data, torch.from_numpy(ix).cuda())
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out, ref)) and out.is_contiguous()
+        checks.append({"kernel": gr.NAME, "case": name, "bitwise": same,
+                       "max_abs_err": 0.0 if same else None, "tol": 0.0,
+                       "ok": same})
+        say(checks[-1])
+    try:
+        gr.gather_rows(tokens, np.asarray([0, GATHER_ROWS]))
+        refused = False
+    except IndexError:
+        refused = True
+    checks.append({"kernel": gr.NAME, "case": "index_out_of_range_raises",
+                   "ok": refused})
+    say(checks[-1])
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+
+    # timings at the training path's shapes
+    import torch.nn.functional as F
+    args, kw, res = main
+    q, k, v, do, lse, delta = args
+    B, T, H, D = q.shape
+    dq_ms = cuda_ms(torch, lambda: dq.flash_bwd_dq(*args, **kw))
+    dkv_ms = cuda_ms(torch, lambda: dkv.flash_bwd_dkv(*args, **kw))
+    dq_plain = cuda_ms(torch, lambda: dq.flash_bwd_dq_plain(*args, **kw),
+                       iters=5)
+    dkv_plain = cuda_ms(torch, lambda: dkv.flash_bwd_dkv_plain(*args, **kw),
+                        iters=5)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2)
+    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True))
+    pairs = T * (T + 1) // 2
+    elt = q.element_size()
+    rows = B * H * T * 4                       # one float32 per row
+    dq_bound = bound(3 * 2 * B * H * D * pairs, H100_BF16_FLOPS,
+                     5 * q.numel() * elt + 2 * rows)
+    dkv_bound = bound(4 * 2 * B * H * D * pairs, H100_BF16_FLOPS,
+                      6 * q.numel() * elt + 2 * rows)
+    # the kernel alone on card-resident indices, as its plain version and
+    # index_select are timed; the wrapper adds the host range check and
+    # the indices' upload, which the loader pays per batch
+    idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
+    g_ms = cuda_ms(torch, lambda: gr._launch(tokens, idx_t), iters=50)
+    g_wrapper = cuda_ms(torch, lambda: gr.gather_rows(tokens, idx), iters=50)
+    g_plain = cuda_ms(torch, lambda: gr.gather_rows_plain(tokens, idx_t),
+                      iters=50)
+    g_lib = cuda_ms(torch, lambda: torch.index_select(tokens, 0, idx_t),
+                    iters=50)
+    row_bytes = TRAIN_T * 4
+    g_bound = bound(0, H100_BF16_FLOPS,
+                    2 * TRAIN_B * row_bytes + TRAIN_B * 4)
+    shape = {"B": B, "T": T, "H": H, "D": D, "dtype": "bfloat16",
+             "causal": True}
+    timing = {
+        dq.NAME: {"max_abs_err": res["dq"]["max_abs_err"], "ms": dq_ms,
+                  "plain_ms": dq_plain, "library_ms": lib_ms,
+                  "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+                  "shape": shape},
+        dkv.NAME: {"max_abs_err": max(res["dk"]["max_abs_err"],
+                                      res["dv"]["max_abs_err"]),
+                   "ms": dkv_ms, "plain_ms": dkv_plain, "library_ms": lib_ms,
+                   "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+                   "shape": shape},
+        gr.NAME: {"max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
+                  "library_ms": g_lib, "bound_ms": g_bound[0],
+                  "bound_by": g_bound[1], "wrapper_ms": g_wrapper,
+                  "shape": {"rows": GATHER_ROWS, "m": TRAIN_B,
+                            "row_bytes": row_bytes, "dtype": "int32"}},
+    }
+    say({"phase": "train_kernel_timing",
+         "library_note": "library_ms of both flash backward kernels is one "
+                         "SDPA backward (dQ, dK and dV together)",
+         **timing})
+    return timing
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def bench_layers():
@@ -432,9 +661,11 @@ def phase_main_path(torch):
     if logits.shape != (1, PREDICT_T, VOCAB) \
             or not np.isfinite(logits).all():
         fail(f"/predict logits shape {logits.shape} or not finite")
-    missing = [n for n, c in launches.items() if c < 1]
+    from veles_tpu_torch.ops.kernels import flash_attention, paged_attention
+    missing = [k.NAME for k in (flash_attention, paged_attention)
+               if launches[k.NAME] < 1]
     if missing:
-        fail(f"the main path never launched {missing}")
+        fail(f"the serving path never launched {missing}")
 
     # greedy agreement with the port's own generate() (dense cache, no
     # kernel), bf16 model: reported
@@ -483,6 +714,293 @@ def phase_main_path(torch):
     return launches
 
 
+def _train_workflow(torch, compute_dtype):
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    return StandardWorkflow({"name": "bench_lm", "layers": bench_layers(),
+                             "compute_dtype": compute_dtype,
+                             "optimizer": "adam",
+                             "optimizer_args": {"lr": 1e-3},
+                             "max_epochs": 1})
+
+
+def _loss_and_grad_norms(torch, wf, params, batch):
+    """Loss and each parameter's gradient norm of one forward/backward
+    (the train step's core) on ``params``."""
+    from veles_tpu_torch.ops.optimizers import tree_leaves, tree_map
+    from veles_tpu_torch.units.base import Context
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    outputs, _ = wf.forward(live, {}, batch, Context(train=True))
+    loss = outputs[wf.evaluator.name]
+    names = [f"{u}/{k}" for u in sorted(live) for k in sorted(live[u])]
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return float(loss.detach()), {n: float(g.float().norm())
+                         for n, g in zip(names, grads)}
+
+
+def _train_epoch(torch):
+    """One epoch and its eval of the full-width bf16 LM through
+    ``StandardWorkflow.make_trainer`` -> ``Trainer`` over a card-resident
+    InductionLoader (init seed 0), every kernel's count set to 0 just
+    before and read just after; per-step wall and loss recorded."""
+    from veles_tpu_torch.models.lm import InductionLoader
+    from veles_tpu_torch.ops.kernels import KERNELS
+    t_data = time.perf_counter()
+    loader = InductionLoader(minibatch_size=TRAIN_B, n_train=N_TRAIN,
+                             n_valid=N_VALID, seq_len=TRAIN_T, vocab=VOCAB,
+                             per_position=True, device=DEVICE)
+    t_data = time.perf_counter() - t_data
+    sw = _train_workflow(torch, "bfloat16")
+    trainer = sw.make_trainer(loader, device=DEVICE)
+    step_s, losses = [], []
+    for kern in KERNELS:
+        kern.launches.reset()
+    trainer.initialize(seed=0)
+    inner = trainer._train_step
+
+    def timed_step(wstate, batch):      # per-step wall and loss
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wstate, mets = inner(wstate, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(mets["loss"])
+        return wstate, mets
+
+    trainer._train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        results = trainer.run()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer._train_step = inner
+    return {"trainer": trainer, "results": results, "wall": wall,
+            "data_s": t_data, "step_s": step_s,
+            "losses": [float(x) for x in losses],
+            "launches": {k.NAME: k.launches.count for k in KERNELS}}
+
+
+def phase_train(torch):
+    """The training path at full width: Trainer over a card-resident
+    InductionLoader for one epoch, kernel launches counted over it; then
+    the same epoch through the plain versions as a witness of the loss
+    curve."""
+    from veles_tpu_torch.ops.kernels import (flash_attention, flash_bwd_dkv,
+                                             flash_bwd_dq, gather_rows)
+    from veles_tpu_torch.runtime.snapshotter import params_from_jax
+    from veles_tpu_torch.units.workflow import new_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = _train_epoch(torch)
+    trainer, step_s, losses = run["trainer"], run["step_s"], run["losses"]
+    launches, wall = run["launches"], run["wall"]
+    hist = trainer.decision.history
+    train_loss = hist[0]["train"]["loss"] if hist else float("nan")
+    valid = hist[0]["valid"] if hist else {}
+    steps = len(step_s)
+    med = float(np.median(step_s)) if step_s else float("nan")
+    rec = {"phase": "train", "steps": steps, "epochs": len(hist),
+           "data_s": run["data_s"], "run_s": wall,
+           "step_ms_median": med * 1e3,
+           "step_ms_max": max(step_s) * 1e3 if step_s else None,
+           "first_step_ms": step_s[0] * 1e3 if step_s else None,
+           "train_tokens_per_s": TRAIN_B * TRAIN_T / med,
+           "epoch_tokens_per_s": steps * TRAIN_B * TRAIN_T / wall,
+           "loss_first8": losses[:8], "loss_last8": losses[-8:],
+           "train_loss": train_loss, "valid": valid,
+           "results": run["results"], "launches": launches}
+    say(rec)
+    path_kernels = (flash_attention, flash_bwd_dq, flash_bwd_dkv,
+                    gather_rows)
+    missing = [k.NAME for k in path_kernels if launches[k.NAME] < 1]
+    if missing:
+        fail(f"the training path never launched {missing}")
+    if steps != N_TRAIN // TRAIN_B or not all(np.isfinite(losses)):
+        fail(f"training ran {steps} steps or a loss is not finite: "
+             f"{losses}")
+    descent = _fixed_batch_descent(trainer)
+    say({"phase": "train_fixed_batch", **descent})
+    if not descent["ok"]:
+        fail(f"the training loss did not fall on a fixed batch: {descent}")
+    profile = _train_profile(torch, trainer)
+    say({"phase": "train_profile", **profile})
+    agreement = _train_step_f32_check(torch, trainer, params_from_jax,
+                                      new_state)
+    say({"phase": "train_f32_kernel_vs_plain", **agreement})
+    if not agreement["ok"]:
+        fail(f"float32 train step: kernels and plain versions disagree: "
+             f"{agreement}")
+    witness = _plain_epoch_witness(torch, losses, path_kernels)
+    say({"phase": "train_plain_witness", **witness})
+    if not witness["ok"]:
+        fail(f"the epoch through the plain versions does not follow the "
+             f"kernels' loss curve: {witness}")
+    return launches
+
+
+def _plain_epoch_witness(torch, kernel_losses, path_kernels):
+    """The same epoch (same init, batches and order) with every kernel of
+    the path replaced by its plain version: its per-step losses beside
+    the kernels', and no kernel launched."""
+    with plain_routes(path_kernels):
+        run = _train_epoch(torch)
+    plain = run["losses"]
+    launched = {k.NAME: run["launches"][k.NAME] for k in path_kernels}
+    diff = [abs(a - b) for a, b in zip(kernel_losses, plain)]
+
+    def mean(xs):
+        return float(np.mean(xs)) if xs else float("nan")
+
+    return {"steps": len(plain), "losses_plain": plain,
+            "losses_kernels": kernel_losses,
+            "max_abs_diff": max(diff) if diff else None,
+            "atol": WITNESS_ATOL,
+            "first8_mean": [mean(kernel_losses[:8]), mean(plain[:8])],
+            "last8_mean": [mean(kernel_losses[-8:]), mean(plain[-8:])],
+            "plain_step_ms_median": float(np.median(run["step_s"])) * 1e3,
+            "kernel_launches": launched,
+            "ok": (len(plain) == len(kernel_losses) == N_TRAIN // TRAIN_B
+                   and all(np.isfinite(plain))
+                   and not any(launched.values())
+                   and max(diff) <= WITNESS_ATOL)}
+
+
+def _fixed_batch_descent(trainer):
+    """bench_lm.py's check: train steps repeated on one constant batch
+    (the next epoch's first) must drive its loss down.  Over the epoch
+    itself the loss stays near chance (ln 1024 = 6.93): only the second
+    copy of each repeated segment and the trigger's last position, ~80
+    of a minibatch's 32768 positions, carry a learnable target, and the
+    induction circuit that predicts them takes far more than 32 steps to
+    form."""
+    from veles_tpu_torch.loader.base import TRAIN
+    batch = next(trainer.loader.iter_epoch(TRAIN, 1))
+    losses = []
+    for _ in range(FIXED_STEPS):
+        trainer.wstate, mets = trainer._train_step(trainer.wstate, batch)
+        losses.append(mets["loss"])
+    losses = [float(x) for x in losses]
+    return {"steps": FIXED_STEPS, "losses": losses,
+            "min_drop": FIXED_MIN_DROP,
+            "ok": bool(np.all(np.isfinite(losses))
+                       and losses[-1] <= (1 - FIXED_MIN_DROP) * losses[0])}
+
+
+def _train_profile(torch, trainer):
+    """Device busy time by kernel over 3 train steps (torch.profiler);
+    the idle share is 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    from veles_tpu_torch.loader.base import TRAIN
+    batches = [b for _, b in zip(range(3),
+                                 trainer.loader.iter_epoch(TRAIN, 0))]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            trainer.wstate, _ = trainer._train_step(trainer.wstate, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _busy(prof, wall, "3 train steps, 16 x 2048 tokens each")
+
+
+def _busy(prof, wall, window):
+    busy = {}
+    for evt in prof.key_averages():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        t = (getattr(evt, "self_device_time_total", None)
+             or getattr(evt, "self_cuda_time_total", 0) or 0)
+        if t > 0:
+            busy[evt.key] = busy.get(evt.key, 0.0) + t / 1e6
+    total = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:10]
+    return {"window": window, "wall_s": wall,
+            "device_busy_s": total if busy else None,
+            "device_idle_share": (1.0 - total / wall) if busy else None,
+            "top_kernels_s": [[k[:90], v] for k, v in top]}
+
+
+def plain_routes(modules):
+    """Context in which each kernel module's wrapper takes its plain
+    version on the card (its ``kernel_route`` patched to False)."""
+    import contextlib
+    stack = contextlib.ExitStack()
+    for mod in modules:
+        stack.enter_context(mock.patch.object(mod, "kernel_route",
+                                              lambda x, name: False))
+    return stack
+
+
+def _train_step_f32_check(torch, trainer, params_from_jax, new_state):
+    """One float32 forward/backward of the full-width LM through the
+    kernels and one through the plain versions (the flash wrappers'
+    routing patched to the plain path), same weights and batch."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    wf = _train_workflow(torch, None).workflow
+    wf.build({k: v for k, v in trainer.workflow.specs.items()
+              if k.startswith("@")})
+    params = params_from_jax(jax_layout_weights(wf, seed=0), wf,
+                             device=DEVICE)
+    batch = next(trainer.loader.iter_epoch(TRAIN, 0))
+    flash = (fa, dq, dkv)
+    before = [m.launches.count for m in flash]
+    k_loss, k_norms = _loss_and_grad_norms(torch, wf, params, batch)
+    mid = [m.launches.count for m in flash]
+    with plain_routes(flash):
+        p_loss, p_norms = _loss_and_grad_norms(torch, wf, params, batch)
+    after = [m.launches.count for m in flash]
+    # every flash kernel ran on the kernel side and none on the plain side
+    launched = all(m > b for m, b in zip(mid, before)) and after == mid
+    loss_rel = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
+    grad_rel = {n: abs(k_norms[n] - p_norms[n]) / max(p_norms[n], 1e-12)
+                for n in p_norms}
+    worst = max(grad_rel, key=grad_rel.get)
+    attn = {n: [k_norms[n], p_norms[n]] for n in p_norms
+            if n.startswith("attn0/")}
+    return {"loss_kernels": k_loss, "loss_plain": p_loss,
+            "loss_rel_diff": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+            "grad_norm_max_rel_diff": grad_rel[worst], "worst": worst,
+            "grad_rtol": STEP_GRAD_RTOL, "attn0_grad_norms": attn,
+            "kernels_launched": launched,
+            "ok": (launched and loss_rel <= STEP_LOSS_RTOL
+                   and grad_rel[worst] <= STEP_GRAD_RTOL
+                   and all(v > 0 for v in p_norms.values()))}
+
+
+def phase_quality(torch):
+    """The family's quality bar through the CLI, on the card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "veles_tpu_torch",
+           os.path.join(here, "configs", "induction_lm.json"),
+           "--random-seed", "1"]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                           timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the induction_lm CLI run exceeded 600 s")
+    took = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the induction_lm CLI run exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    epochs = [ln for ln in r.stderr.splitlines() if "error_pct=" in ln]
+    rec = {"phase": "quality", "config": "configs/induction_lm.json",
+           "best_error_pct": res["best_value"],
+           "best_epoch": res["best_epoch"], "epochs": res["epochs"],
+           "seconds": took, "train_samples_per_s":
+               res["train_samples_per_s"], "bar": QUALITY_BAR,
+           "per_epoch": [ln.split("Decision: ")[-1] for ln in epochs]}
+    say(rec)
+    if not res["best_value"] <= QUALITY_BAR:
+        fail(f"induction_lm reached {res['best_value']} % validation "
+             f"error, above the {QUALITY_BAR} % bar")
+    return rec
+
+
 def phase_profile(torch, engine, prompts):
     """Device busy time by kernel over one serving window (SLOTS prompts
     of 64 tokens prefilled, 32 tokens decoded), from torch.profiler; the
@@ -499,20 +1017,7 @@ def phase_profile(torch, engine, prompts):
         if DEVICE == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = {}
-    for evt in prof.key_averages():
-        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            continue
-        t = (getattr(evt, "self_device_time_total", None)
-             or getattr(evt, "self_cuda_time_total", 0) or 0)
-        if t > 0:
-            busy[evt.key] = busy.get(evt.key, 0.0) + t / 1e6
-    total = sum(busy.values())
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
-    return {"window": f"{SLOTS} x (prefill 64 + decode 32)", "wall_s": wall,
-            "device_busy_s": total if busy else None,
-            "device_idle_share": (1.0 - total / wall) if busy else None,
-            "top_kernels_s": [[k[:90], v] for k, v in top]}
+    return _busy(prof, wall, f"{SLOTS} x (prefill 64 + decode 32)")
 
 
 def main():
@@ -532,7 +1037,16 @@ def main():
     name, smi = phase_device(torch)
     phase_build()
     timing = phase_kernels(torch)
-    launches = phase_main_path(torch)
+    timing.update(phase_train_kernels(torch))
+    serve_launches = phase_main_path(torch)
+    train_launches = phase_train(torch)
+    phase_quality(torch)
+    # each kernel's launches on its own path: paged decode on the serving
+    # path, the rest on the training path (flash forward runs on both;
+    # its serving count is in the http phase line)
+    launches = dict(train_launches)
+    launches["paged_attention_decode"] = serve_launches[
+        "paged_attention_decode"]
     line = []
     for kern in KERNELS:
         t = timing[kern.NAME]

@@ -52,21 +52,28 @@ def vocab_of(layers):
     return layers[0]["vocab"]
 
 
-def build_pair(layers, B=2, T=12, seed=0):
+def build_pair(layers, B=2, T=12, seed=0, optimizers=None,
+               per_position=False):
     """(jax_wf, jax_wstate, port_wf, port_wstate) on shared weights: the
-    JAX package initializes, the port receives the same numpy values."""
+    JAX package initializes, the port receives the same numpy values.
+    ``optimizers=(jax_optimizer, port_optimizer)`` gives both states the
+    optimizer's fresh ``opt_state`` (else the port's stays empty);
+    ``per_position`` builds (B, T) labels and masks (per-position head)."""
+    lab = (B, T) if per_position else (B,)
     jwf = jax_build("parity", layers)
     jwf.build({"@input": vt.Spec((B, T), jnp.int32),
-               "@labels": vt.Spec((B,), jnp.int32),
-               "@mask": vt.Spec((B,), jnp.float32)})
-    jws = jwf.init_state(jax.random.key(seed), jax_opt.SGD(0.1))
+               "@labels": vt.Spec(lab, jnp.int32),
+               "@mask": vt.Spec(lab, jnp.float32)})
+    jopt = jax_opt.SGD(0.1) if optimizers is None else optimizers[0]
+    jws = jwf.init_state(jax.random.key(seed), jopt)
     pwf = port_build("parity", layers)
     pwf.build({"@input": Spec((B, T), torch.int32),
-               "@labels": Spec((B,), torch.int32),
-               "@mask": Spec((B,), torch.float32)})
+               "@labels": Spec(lab, torch.int32),
+               "@mask": Spec(lab, torch.float32)})
     params = params_from_jax(jax.device_get(jws["params"]), pwf,
                              device="cpu")
-    return jwf, jws, pwf, new_state(params, {}, {}, 0, None)
+    opt_state = {} if optimizers is None else optimizers[1].init(params)
+    return jwf, jws, pwf, new_state(params, {}, opt_state, 0, None)
 
 
 def tokens(rng, shape, vocab):

@@ -98,10 +98,22 @@ def test_unported_layer_type_names_its_slice():
 
 
 def test_evaluator_builds_but_names_training_slice():
+    """The training slice has come: the config's optimizer is built and
+    the evaluator computes the masked softmax cross-entropy."""
     from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.ops import optimizers
     sw = StandardWorkflow({"layers": induction_layers(),
                            "optimizer": "adam",
                            "optimizer_args": {"lr": 1e-3}})
-    assert sw.optimizer == {"kind": "adam", "args": {"lr": 1e-3}}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        sw.workflow.evaluator.apply({}, {}, [], Context())
+    assert isinstance(sw.optimizer, optimizers.Adam)
+    assert float(sw.optimizer.schedule(0)) == pytest.approx(1e-3)
+    logits = torch.tensor([[2.0, 0.0], [0.0, 2.0], [5.0, 0.0]])
+    labels = torch.tensor([0, 0, 1], dtype=torch.int32)
+    mask = torch.tensor([1.0, 1.0, 0.0])
+    loss, _ = sw.workflow.evaluator.apply({}, {}, [logits, labels, mask],
+                                          Context())
+    ref = torch.nn.functional.cross_entropy(logits[:2], labels[:2].long())
+    assert float(loss) == pytest.approx(float(ref), rel=1e-6)
+    mets = sw.workflow.evaluator.metrics({}, {}, [logits, labels, mask],
+                                         Context())
+    assert (float(mets["n_err"]), float(mets["n_samples"])) == (1.0, 2.0)

@@ -1,15 +1,21 @@
-"""Command line of the port: serve a config's workflow from a snapshot.
+"""Command line of the port: train a config's workflow, or serve it from a
+snapshot (counterpart of veles_tpu/__main__.py's training path :262-303
+and ``--serve``).
 
+    python -m veles_tpu_torch CONFIG [root.path=value ...] \\
+        [--random-seed S] [--max-epochs N] [--snapshot-dir D] \\
+        [--snapshot PATH] [--device cpu]
     python -m veles_tpu_torch CONFIG --snapshot SNAP --serve PORT \\
         [--device cpu] [root.common.serve.slots=4 ...]
 
-``CONFIG`` is a ``configs/*.json`` file (its ``workflow`` section builds
-the model, its ``loader`` section gives the /predict batch shape);
-``SNAP`` is a snapshot manifest written by either package.  The server
-answers ``POST /predict`` and ``POST /generate`` (through the
-continuous-batching engine) until SIGINT or SIGTERM.  It runs on the
-CUDA card unless ``--device cpu`` is given.  Training and the rest of
-the JAX package's CLI come with later slices.
+``CONFIG`` is a ``configs/*.json`` file: its ``workflow`` section builds
+the model and optimizer, its ``loader`` section names the loader and its
+arguments.  Without ``--serve`` the run trains (``--snapshot`` resumes
+from a snapshot of either package) and prints the results dict as one
+JSON line.  With ``--serve`` it answers ``POST /predict`` and ``POST
+/generate`` (through the continuous-batching engine) from the snapshot's
+weights until SIGINT or SIGTERM.  Everything runs on the CUDA card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -23,29 +29,59 @@ import threading
 import numpy as np
 import torch
 
+from . import prng
 from .config import apply_overrides, root
 from .logger import Logger, setup_logging
 from .models.standard import StandardWorkflow
 from .ops import resolve_device
+from .runtime.decision import Decision
 from .runtime.engine import DecodeEngine
 from .runtime.restful import RestfulServer
-from .runtime.snapshotter import wstate_from_snapshot
+from .runtime.snapshotter import Snapshotter, wstate_from_snapshot
 from .units.base import Spec
 from .units.workflow import WorkflowError
+
+#: loader names of the JAX CLI (veles_tpu/__main__.py:38-45) the port
+#: has; the others name the slice that brings them
+LOADERS = {"induction": ("veles_tpu_torch.models.lm", "InductionLoader")}
+PENDING_LOADERS = {"mnist": "slice 6 (image/conv family)",
+                   "cifar": "slice 6 (image/conv family)",
+                   "stl": "slice 6 (image/conv family)",
+                   "imagenet_synthetic": "slice 6 (image/conv family)"}
+
+
+def make_loader(name: str, **args):
+    if name not in LOADERS:
+        if name in PENDING_LOADERS:
+            raise NotImplementedError(
+                f"loader {name!r} is not ported yet; it comes with "
+                f"ROADMAP.md {PENDING_LOADERS[name]}")
+        raise KeyError(f"unknown loader {name!r}")
+    import importlib
+    mod, attr = LOADERS[name]
+    return getattr(importlib.import_module(mod), attr)(**args)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m veles_tpu_torch",
-        description="Serve a veles config's workflow from a snapshot on "
-                    "the CUDA card (PyTorch port).")
+        description="Train a veles config's workflow, or serve it from a "
+                    "snapshot, on the CUDA card (PyTorch port).")
     p.add_argument("config", help="configs/*.json workflow config")
     p.add_argument("overrides", nargs="*",
                    help="root.path=value config overrides")
-    p.add_argument("--snapshot", required=True,
-                   help="snapshot manifest (.json) to load weights from")
-    p.add_argument("--serve", type=int, required=True, metavar="PORT",
-                   help="HTTP port (0 = any free port)")
+    p.add_argument("--snapshot",
+                   help="snapshot manifest (.json): weights to serve with "
+                        "--serve, else the training run to resume")
+    p.add_argument("--serve", type=int, default=None, metavar="PORT",
+                   help="serve over HTTP instead of training (0 = any "
+                        "free port); needs --snapshot")
+    p.add_argument("--random-seed", type=int, default=None,
+                   help="root.common.random_seed (loader shuffles and "
+                        "initial weights)")
+    p.add_argument("--max-epochs", type=int, default=None)
+    p.add_argument("--snapshot-dir", default=None,
+                   help="write a snapshot after each epoch here")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     return p
@@ -54,12 +90,44 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     setup_logging()
-    log = Logger()
     with open(args.config) as f:
         root.update(json.load(f))
     apply_overrides(root, [o[len("root."):] if o.startswith("root.") else o
                            for o in args.overrides])
+    if args.random_seed is not None:
+        root.common.random_seed = args.random_seed
+        prng.streams.reset()
     device = resolve_device(args.device)
+    if args.serve is not None:
+        if not args.snapshot:
+            raise SystemExit("--serve needs --snapshot (the weights)")
+        return _serve(args, device)
+    return _train(args, device)
+
+
+def _train(args, device) -> int:
+    wf_cfg = root.workflow.to_dict()
+    sw = StandardWorkflow(wf_cfg)
+    loader_cfg = root.loader.to_dict() if "loader" in root else {}
+    loader = make_loader(loader_cfg.pop("name", "mnist"), device=device,
+                         **loader_cfg)
+    decision = Decision(
+        max_epochs=args.max_epochs or wf_cfg.get("max_epochs"),
+        fail_iterations=wf_cfg.get("fail_iterations", 50))
+    snap = None
+    if args.snapshot_dir:
+        snap = Snapshotter(wf_cfg.get("name", "workflow"), args.snapshot_dir)
+    trainer = sw.make_trainer(loader, decision, snap, device=device)
+    trainer.initialize()
+    if args.snapshot:
+        trainer.restore(args.snapshot)
+    results = trainer.run()
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+def _serve(args, device) -> int:
+    log = Logger()
     sw = StandardWorkflow(root.workflow.to_dict())
     wf = sw.workflow
     B = int(root.loader.get("minibatch_size", 1))

@@ -1,16 +1,17 @@
-"""StandardWorkflow: build a workflow from a config layer list
+"""StandardWorkflow: build a workflow and its optimizer from a config
 (counterpart of veles_tpu/models/standard.py).
 
-``LAYER_TYPES`` holds the types this slice ports; a config that names a
-type of a later slice fails with an error that names the slice.  The
-optimizer settings are kept as data only (the optimizers come with the
-training slice).
+``LAYER_TYPES`` holds the types the port has; a config that names a type
+of a later slice fails with an error that names the slice.  A layer's
+``hyperparams`` key lands in the optimizer's per-unit table.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import inspect
+from typing import Dict, Optional, Sequence
 
+from ..ops.optimizers import HyperParams, LR_POLICIES, OPTIMIZERS, Optimizer
 from ..units import nn, parallel_nn
 from ..units.workflow import Workflow
 
@@ -83,25 +84,66 @@ def build_workflow(name: str, layers: Sequence[dict], *,
     if loss == "softmax":
         wf.add(nn.EvaluatorSoftmax(name="evaluator",
                                    inputs=(prev, "@labels", "@mask")))
-    elif loss != "none":
+    elif loss in ("mse", "mse_input"):
         raise NotImplementedError(
-            f"loss {loss!r} comes with the training slice of the port "
-            "(ROADMAP.md, slices 2-3)")
+            f"loss {loss!r} comes with the image/autoencoder slice of the "
+            "port (ROADMAP.md, slice 6)")
+    elif loss != "none":
+        raise ValueError(f"unknown loss {loss!r}")
     return wf
 
 
+def build_optimizer(kind: str, layers: Sequence[dict],
+                    **kwargs) -> Optimizer:
+    """Optimizer from its name and the per-layer ``hyperparams`` of the
+    layer configs (veles_tpu/models/standard.py:118-149).  ``lr_policy``
+    may be a config dict ``{"type": "exp"|"inv"|"step"|"fixed"|
+    "warmup_cosine", ...args}``; without a ``base`` it starts from the
+    optimizer's own default lr."""
+    policy = kwargs.get("lr_policy")
+    if isinstance(policy, dict):
+        p = dict(policy)
+        ptype = p.pop("type")
+        if "base" not in p and "lr" not in kwargs:
+            sig = inspect.signature(OPTIMIZERS[kind]).parameters.get("lr")
+            if sig is not None and sig.default is not inspect.Parameter.empty:
+                p["base"] = sig.default
+        p.setdefault("base", kwargs.get("lr", 0.01))
+        kwargs["lr_policy"] = LR_POLICIES[ptype](**p)
+    per_unit: Dict[str, HyperParams] = {}
+    for i, spec in enumerate(layers):
+        hp = spec.get("hyperparams")
+        if hp:
+            lname = spec.get("name", f"l{i}_{spec['type']}")
+            per_unit[lname] = HyperParams(**hp) \
+                if isinstance(hp, dict) else hp
+    return OPTIMIZERS[kind](per_unit=per_unit, **kwargs)
+
+
 class StandardWorkflow:
-    """Workflow + optimizer settings from one config dict (the shape of
-    a ``configs/*.json`` "workflow" section)."""
+    """Workflow + optimizer + decision settings from one config dict (the
+    shape of a ``configs/*.json`` "workflow" section)."""
 
     def __init__(self, config: dict):
         self.config = dict(config)
+        layers = self.config["layers"]
         self.workflow = build_workflow(
-            self.config.get("name", "StandardWorkflow"),
-            self.config["layers"],
+            self.config.get("name", "StandardWorkflow"), layers,
             loss=self.config.get("loss", "softmax"),
             compute_dtype=self.config.get("compute_dtype"))
-        # kept as data: the optimizers come with the training slice
-        self.optimizer = {"kind": self.config.get("optimizer", "momentum"),
-                          "args": dict(self.config.get("optimizer_args",
-                                                       {}))}
+        self.optimizer = build_optimizer(
+            self.config.get("optimizer", "momentum"), layers,
+            **dict(self.config.get("optimizer_args", {})))
+
+    def make_trainer(self, loader, decision=None, snapshotter=None, *,
+                     device=None):
+        """A :class:`~veles_tpu_torch.runtime.trainer.Trainer` over this
+        workflow and optimizer (default decision: the config's
+        ``max_epochs`` and ``fail_iterations``)."""
+        from ..runtime.decision import Decision
+        from ..runtime.trainer import Trainer
+        decision = decision or Decision(
+            max_epochs=self.config.get("max_epochs"),
+            fail_iterations=self.config.get("fail_iterations", 50))
+        return Trainer(self.workflow, loader, self.optimizer, decision,
+                       snapshotter, device=device)

@@ -30,7 +30,10 @@ BUILD_DIR = _PKG / "_build"
 #: library name -> source file under csrc/
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "paged_attention": "paged_attention.cu",
+    "gather_rows": "gather_rows.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,11 +1,15 @@
 """Flash-attention forward: the hand-written CUDA kernel
-(``csrc/flash_fwd.cu``) and its plain PyTorch version.
+(``csrc/flash_fwd.cu``) and its plain PyTorch version, joined with the
+two backward kernels into one ``torch.autograd.Function``.
 
 Replaces ``veles_tpu/ops/pallas_kernels.py`` ``_flash_fwd`` (pallas_call
-at :205).  :func:`flash_attention` is the wrapper every caller uses: a
-tensor on a Hopper card launches the kernel, a CPU tensor takes
-:func:`flash_attention_plain` (``ops.kernel_route``).  The backward
-kernels (dQ, dK/dV) come with the training slice.
+at :205) and the ``custom_vjp`` around it (:450-489).
+:func:`flash_attention` is the wrapper every caller uses: a tensor on a
+Hopper card launches the kernel, a CPU tensor takes
+:func:`flash_attention_plain` (``ops.kernel_route``).  Its output carries
+the gradient: the backward saves (q, k, v, out, lse) and calls
+:func:`.flash_bwd_dq.flash_bwd_dq` and :func:`.flash_bwd_dkv.flash_bwd_dkv`
+— the dQ and dK/dV kernels on the card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import torch
 
 from .. import check_attention_window, check_gqa_heads, kernel_route
 from . import build
+from .flash_bwd_dkv import flash_bwd_dkv
+from .flash_bwd_dq import flash_bwd_dq
 
 NAME = "flash_attention"
 SOURCE = "veles_tpu_torch/csrc/flash_fwd.cu"
@@ -34,13 +40,14 @@ def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None,
                     window: Optional[int] = None, *,
                     block_k: int = 512):
-    """Blockwise online-softmax attention forward.
+    """Blockwise online-softmax attention, differentiable in q, k and v.
 
     q: (B, Tq, H, D); k/v: (B, Tk, H_kv, D) with H_kv dividing H
     (grouped-query attention, no repeat on the kernel path).  ``window=W``
     (causal only) keeps keys in (q - W, q].  Returns ``(out, lse)``: out
-    like q, lse (B, H, Tq) float32 row logsumexp.  ``block_k`` is the key
-    block of the plain version's scan (the kernel's tiles are fixed)."""
+    like q, lse (B, H, Tq) float32 row logsumexp (not differentiable).
+    ``block_k`` is the key block of the plain versions' scans (the
+    kernels' tiles are fixed)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention wants (B, T, H, D) q/k/v")
     if k.shape != v.shape or q.shape[0] != k.shape[0] \
@@ -50,10 +57,43 @@ def flash_attention(q, k, v, causal: bool = False,
     check_gqa_heads(q.shape[2], k.shape[2])
     window = check_attention_window(window, causal)
     scale = q.shape[3] ** -0.5 if scale is None else float(scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, scale, window,
+                                     block_k)
+    return _forward(q, k, v, causal, scale, window, block_k)
+
+
+def _forward(q, k, v, causal, scale, window, block_k):
     if kernel_route(q, NAME):
         return _launch(q, k, v, causal, scale, window)
     return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                  window=window, block_k=block_k)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The ``custom_vjp`` of pallas_kernels.py:450-489: the forward keeps
+    (q, k, v, out, lse); the backward is the two-pass recompute — delta =
+    rowsum(dO * O) as a PyTorch expression (:375-378), then dQ and dK/dV.
+    The attention matrix is never stored in either direction."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, block_k):
+        out, lse = _forward(q, k, v, causal, scale, window, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, scale=scale, window=window,
+                        block_k=block_k)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        delta = (dout.float() * out.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta, **ctx.args)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, **ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False,

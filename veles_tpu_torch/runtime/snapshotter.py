@@ -6,7 +6,12 @@ the flattened workflow-state paths (``params/emb/table``,
 ``state/__emptydict__``, ...) — the same ``_flatten``/``_unflatten``
 scheme (snapshotter.py:75-134) and the same ``tensors_sha256`` integrity
 check (:186-213), so a snapshot written by either package loads in the
-other with byte-identical tensors.
+other with byte-identical tensors.  The trainer's payload (wstate with
+``opt_state``, loader, decision, prng, config, ``workflow_checksum``)
+is the JAX ``Trainer``'s, so a training run resumes in either package.
+The epoch throttle (``tick``), the ``_current``/``_best`` symlinks and
+keep-last-K retention follow snapshotter.py:141-272; the walk-back past
+corrupt snapshots, the sqlite and http sources are not ported.
 
 :func:`params_from_jax` carries weights across: a nested numpy tree, a
 full workflow state, or a flat ``"emb/table"``-keyed dict in the JAX
@@ -19,9 +24,10 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import threading
 import time
 import zipfile
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -114,23 +120,65 @@ def _commit_bytes(target: str, data: bytes) -> None:
 
 class Snapshotter(Logger):
     """Write and read snapshots in the JAX package's manifest + npz
-    format (``<prefix>_<tag>.json`` + ``.npz``, ``_current`` symlink)."""
+    format (``<prefix>_<tag>.json`` + ``.npz``, ``_current``/``_best``
+    symlinks), with interval and time throttling."""
 
-    def __init__(self, prefix: str, directory: str = "snapshots", *,
-                 compression: bool = True):
+    def __init__(self, prefix: str, directory: Optional[str] = None, *,
+                 compression: bool = True, interval: int = 1,
+                 time_interval: float = 0.0):
+        if directory is None:
+            from ..config import root
+            directory = str(root.common.get("snapshot_dir", "snapshots")
+                            or "snapshots")
         self.prefix = prefix
         self.directory = directory
         self.compression = compression
+        self.interval = interval          # epochs between snapshots
+        self.time_interval = time_interval  # min seconds between snapshots
+        self._lock = threading.Lock()
+        self._last_time = 0.0             # guarded-by: self._lock
+        self._counter = 0                 # guarded-by: self._lock
+        self.last_path: Optional[str] = None
 
-    def save(self, tag: str, payload: Dict[str, Any]) -> str:
+    def tick(self, *, best: bool = False) -> bool:
+        """Advance the throttle and report whether this epoch snapshots:
+        every ``interval``-th call and at least ``time_interval`` seconds
+        after the last snapshot, or always when ``best``."""
+        with self._lock:
+            self._counter += 1
+            now = time.time()
+            if not best:
+                if self._counter % max(self.interval, 1) != 0:
+                    return False
+                if now - self._last_time < self.time_interval:
+                    return False
+            self._last_time = now
+            return True
+
+    def maybe_save(self, tag: str, payload: Dict[str, Any], *,
+                   best: bool = False) -> Optional[str]:
+        """Throttled save."""
+        if not self.tick(best=best):
+            return None
+        return self.save(tag, payload, best=best)
+
+    def save(self, tag: str, payload: Dict[str, Any], *,
+             best: bool = False) -> str:
         """``payload["wstate"]`` (tensors or numpy) goes to the npz, every
-        other key to the manifest.  Returns the manifest path."""
+        other key to the manifest; both are fsynced before the
+        ``_current`` (and with ``best`` the ``_best``) symlink flips to
+        the new manifest.  ``root.common.snapshot_keep`` > 0 removes all
+        but the newest K snapshots afterwards (symlink targets are kept).
+        Returns the manifest path."""
+        from ..config import root
         os.makedirs(self.directory, exist_ok=True)
         base = f"{self.prefix}_{tag}"
         npz_path = os.path.join(self.directory, base + ".npz")
         tensors = _flatten(payload.get("wstate", {}))
         saver = np.savez_compressed if self.compression else np.savez
         saver(npz_path, **tensors)
+        with open(npz_path, "rb") as f:
+            os.fsync(f.fileno())
         manifest = {k: v for k, v in payload.items() if k != "wstate"}
         manifest["tensors"] = base + ".npz"
         manifest["tensors_sha256"] = sha256_files([npz_path])
@@ -138,14 +186,38 @@ class Snapshotter(Logger):
         man_path = os.path.join(self.directory, base + ".json")
         _commit_bytes(man_path, json.dumps(manifest, indent=1,
                                            default=repr).encode())
-        link = os.path.join(self.directory, self.prefix + "_current.json")
-        tmp = link + ".tmp"
-        if os.path.lexists(tmp):
-            os.remove(tmp)
-        os.symlink(os.path.basename(man_path), tmp)
-        os.replace(tmp, link)
-        self.info("snapshot %s", man_path)
+        for link, active in (("_current", True), ("_best", best)):
+            if not active:
+                continue
+            lpath = os.path.join(self.directory, self.prefix + link + ".json")
+            tmp = lpath + ".tmp"
+            if os.path.lexists(tmp):
+                os.remove(tmp)
+            os.symlink(os.path.basename(man_path), tmp)
+            os.replace(tmp, lpath)
+        self.info("snapshot %s%s", man_path, " [best]" if best else "")
+        self.last_path = man_path
+        keep = int(root.common.get("snapshot_keep", 0) or 0)
+        if keep > 0:
+            self._gc(keep)
         return man_path
+
+    def _gc(self, keep: int) -> None:
+        """Keep-last-K retention over this prefix's snapshots; the
+        ``_current``/``_best`` targets are never removed."""
+        snaps = list_snapshots(self.directory, prefix=self.prefix + "_")
+        protected = {os.path.realpath(os.path.join(
+            self.directory, self.prefix + link + ".json"))
+            for link in ("_current", "_best")}
+        for ent in snaps[:-keep]:
+            if os.path.realpath(ent["path"]) in protected:
+                continue
+            for p in (ent["path"],
+                      os.path.join(self.directory, ent["tensors"])):
+                try:
+                    os.remove(p)
+                except FileNotFoundError:
+                    pass
 
     @staticmethod
     def load(path: str, *, verify: bool = True) -> Dict[str, Any]:
@@ -181,6 +253,82 @@ class Snapshotter(Logger):
         payload = dict(manifest)
         payload["wstate"] = _unflatten(flat)
         return payload
+
+    @staticmethod
+    def restore_wstate(payload: Dict[str, Any], like: dict) -> dict:
+        """The saved workflow state cast leaf by leaf to the dtype and
+        device of ``like`` (the live state of the same workflow and
+        optimizer): tensors become tensors on ``like``'s devices, numpy
+        leaves (the key) numpy, and the integer step an int.  A
+        structure that differs raises ``ValueError``."""
+        def cast(saved, template, path):
+            if isinstance(template, dict):
+                if not isinstance(saved, dict) or set(saved) != set(template):
+                    raise ValueError(
+                        f"snapshot state structure does not match this "
+                        f"workflow's at {path or '/'}: "
+                        f"{sorted(saved) if isinstance(saved, dict) else saved!r}"
+                        f" vs {sorted(template)} (different optimizer or "
+                        "architecture? the checksum only covers graph "
+                        "topology)")
+                return {k: cast(saved[k], v, f"{path}/{k}")
+                        for k, v in template.items()}
+            if isinstance(template, (tuple, list)):
+                if not isinstance(saved, (tuple, list)) \
+                        or len(saved) != len(template):
+                    raise ValueError(f"snapshot state structure does not "
+                                     f"match this workflow's at {path}")
+                return type(template)(cast(a, b, f"{path}/{i}") for i, (a, b)
+                                      in enumerate(zip(saved, template)))
+            if isinstance(template, torch.Tensor):
+                return torch.from_numpy(np.array(saved, copy=True)).to(
+                    device=template.device, dtype=template.dtype)
+            if isinstance(template, np.ndarray):
+                return np.asarray(saved).astype(template.dtype)
+            if isinstance(template, int):
+                return int(np.asarray(saved))
+            return saved
+
+        return cast(payload["wstate"], like, "")
+
+
+def list_snapshots(directory: str, prefix: Optional[str] = None) -> list:
+    """Snapshot manifests in ``directory`` (symlinks skipped), oldest to
+    newest by their ``saved_at``."""
+    out = []
+    if not os.path.isdir(directory):
+        return out
+    for fn in sorted(os.listdir(directory)):
+        path = os.path.join(directory, fn)
+        if not fn.endswith(".json") or os.path.islink(path):
+            continue
+        if prefix and not fn.startswith(prefix):
+            continue
+        try:
+            with open(path) as f:
+                man = json.load(f)
+        except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+            continue
+        if not isinstance(man, dict) or "tensors" not in man:
+            continue
+        out.append({"path": path, "saved_at": float(man.get("saved_at", 0)),
+                    "tensors": man["tensors"]})
+    out.sort(key=lambda e: (e["saved_at"], e["path"]))
+    return out
+
+
+def wstate_to_numpy(wstate: dict) -> dict:
+    """Host copy of a workflow state in the JAX package's leaf types:
+    tensors to numpy, the integer step to an int32 scalar."""
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(conv(v) for v in x)
+        return _to_numpy(x)
+    out = conv(wstate)
+    out["step"] = np.asarray(wstate["step"], np.int32)
+    return out
 
 
 def params_from_jax(tree, workflow=None, *, device=None) -> dict:

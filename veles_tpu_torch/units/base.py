@@ -11,7 +11,7 @@ between the two packages by key.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,12 +31,23 @@ class Spec:
 
 @dataclasses.dataclass
 class Context:
-    """Per-call context threaded through apply(): the train/eval flag and
-    the device mesh (None: single device — the only layout this slice
-    runs).  Stochastic units, when a later slice ports them, take an
-    explicit ``torch.Generator`` here."""
+    """Per-call context threaded through apply(): the train/eval flag, the
+    device mesh (None: single device — the only layout the port runs yet)
+    and, in a train step, the ``torch.Generator`` stochastic units draw
+    from (where the JAX step splits its key).  The generator is made by
+    ``make_generator`` on first use, so a step that draws nothing makes
+    none."""
     train: bool = False
     mesh: Optional[Any] = None
+    make_generator: Optional[Callable[[], torch.Generator]] = None
+    _generator: Optional[torch.Generator] = dataclasses.field(
+        default=None, init=False, repr=False)
+
+    @property
+    def generator(self) -> Optional[torch.Generator]:
+        if self._generator is None and self.make_generator is not None:
+            self._generator = self.make_generator()
+        return self._generator
 
 
 def dtype_of(name) -> Optional[torch.dtype]:

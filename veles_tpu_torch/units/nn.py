@@ -1,5 +1,5 @@
-"""Forward-layer units of the LM family (counterpart of
-veles_tpu/units/nn.py:31-111 and :509-625).
+"""Units of the LM family (counterpart of veles_tpu/units/nn.py:31-111,
+:509-625 and the softmax evaluator :659-694).
 
 The image-family units (conv, pooling, LRN, dropout, normalizers) come
 with their own slice; ``models/standard.py`` names it when a config asks
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..ops import losses
 from ..ops.activations import ACTIVATIONS
 from .base import Forward, Spec, Unit, dtype_of
 
@@ -198,8 +199,11 @@ class SeqLast(Unit):
 
 
 class EvaluatorSoftmax(Unit):
-    """Softmax cross-entropy loss unit.  Built so that configs build
-    unchanged; the loss itself runs with the training slice."""
+    """Softmax cross-entropy over logits + integer labels, with the
+    loader's ``@mask`` keeping metrics exact on padded batches
+    (veles_tpu/units/nn.py:659-694).  Sequence form: logits (B, T, V) with
+    labels (B, T) give the per-position loss; a per-sample mask broadcasts
+    across positions and the metrics count positions."""
 
     is_evaluator = True
 
@@ -209,8 +213,23 @@ class EvaluatorSoftmax(Unit):
     def output_spec(self, in_specs):
         return Spec((), torch.float32)
 
+    @staticmethod
+    def _mask(xs):
+        m = xs[2] if len(xs) > 2 else None
+        labels = xs[1]
+        if m is not None and m.dim() < labels.dim():
+            m = m.reshape(tuple(m.shape) + (1,) * (labels.dim() - m.dim())
+                          ).expand(labels.shape)
+        return m
+
     def apply(self, params, state, xs, ctx):
-        raise NotImplementedError(
-            f"{type(self).__name__} {self.name!r}: the loss comes with the "
-            "training slice of the port (ROADMAP.md, slices 2-3); this "
-            "slice serves forward and decode only")
+        loss, _ = losses.softmax_cross_entropy(xs[0], xs[1],
+                                               mask=self._mask(xs))
+        return loss, state
+
+    def metrics(self, params, state, xs, ctx):
+        mask = self._mask(xs)
+        loss, n_err = losses.softmax_cross_entropy(xs[0], xs[1], mask=mask)
+        n = mask.sum() if mask is not None else torch.tensor(
+            float(np.prod(xs[1].shape)), device=xs[0].device)
+        return {"loss": loss, "n_err": n_err, "n_samples": n}

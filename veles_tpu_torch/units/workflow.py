@@ -1,25 +1,29 @@
-"""Workflow: the unit container and its forward/predict steps
+"""Workflow: the unit container and its train, eval and predict steps
 (counterpart of veles_tpu/units/workflow.py).
 
 The JAX package traces the unit DAG into compiled programs; PyTorch runs
 eagerly, so here the DAG is walked in topological order on every call.
 The workflow state keeps the JAX package's layout (``new_state``:
 params / state / opt_state / step / key), so a snapshot moves between
-the two packages by key.  There is no train step yet: it comes with the
-training slice.
+the two packages by key.  PyTorch has no buffer donation: the train step
+updates the state it is given in place (parameters by ``copy_`` under
+``torch.no_grad``) and returns it.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..logger import Logger
 from ..ops import resolve_device
+from ..ops.optimizers import (Optimizer, guarded_update, tree_leaves,
+                              tree_map, tree_select)
 from .base import Context, Spec, Unit
 
 
@@ -108,10 +112,12 @@ class Workflow(Logger):
     def specs(self) -> Dict[str, Spec]:
         return self._specs
 
-    def init_state(self, seed: int = 0, device=None) -> dict:
+    def init_state(self, seed: int = 0, optimizer: Optional[Optimizer] = None,
+                   device=None) -> dict:
         """Fresh weights from an explicit CPU ``torch.Generator`` seeded
         with ``seed`` (the same numbers on every device), placed on
-        ``device`` (default: the CUDA card, see ``ops.resolve_device``)."""
+        ``device`` (default: the CUDA card, see ``ops.resolve_device``);
+        ``opt_state`` from ``optimizer.init`` (empty without one)."""
         if not self._specs:
             raise WorkflowError("call build() before init_state()")
         dev = resolve_device(device)
@@ -123,7 +129,8 @@ class Workflow(Logger):
                 params[u.name] = p
             if s:
                 state[u.name] = s
-        return new_state(params, state, {}, 0, seed_key(seed))
+        opt_state = optimizer.init(params) if optimizer is not None else {}
+        return new_state(params, state, opt_state, 0, seed_key(seed))
 
     def param_shapes(self) -> Dict[str, Dict[str, tuple]]:
         """unit -> param -> shape the built workflow expects (an init
@@ -165,6 +172,102 @@ class Workflow(Logger):
             stack.extend(self._by_name[n].inputs)
         return need
 
+    def _metrics(self, params, state, outputs, ctx) -> Dict[str, Any]:
+        if self.evaluator is None:
+            return {}
+        ev = self.evaluator
+        xs = [outputs[s] for s in ev.inputs]
+        return ev.metrics(params.get(ev.name, {}), state.get(ev.name, {}),
+                          xs, ctx)
+
+    def make_train_step(self, optimizer: Optimizer):
+        """(wstate, batch) -> (wstate, metrics): forward, gradients,
+        ``guarded_update`` (the anomaly skip and ``clip_norm`` from
+        ``root.common.train``), the skip metrics, step + 1 — the contract
+        of veles_tpu/units/workflow.py:214-310.  The parameters are
+        updated in place and the optimizer state replaced, in the state
+        dict the caller passed; metrics stay on the device (nothing is
+        read back to the host)."""
+        if self.evaluator is None:
+            raise WorkflowError("a train step needs an evaluator unit")
+        from ..config import root
+        sentinel = bool(root.common.train.get("sentinel", True))
+        clip = float(root.common.train.get("clip_norm", 0.0) or 0.0)
+        ev = self.evaluator
+
+        def step(wstate, batch):
+            params = wstate["params"]
+            ctx = Context(train=True, make_generator=functools.partial(
+                _step_generator, wstate.get("key"), wstate["step"],
+                params))
+            live = tree_map(lambda t: t.detach().requires_grad_(True),
+                            params)
+            with torch.enable_grad():
+                outputs, nstate = self.forward(live, wstate["state"], batch,
+                                               ctx)
+                loss = outputs[ev.name]
+                leaves = tree_leaves(live)
+                flat = iter(torch.autograd.grad(loss, leaves,
+                                                allow_unused=True))
+            # same leaf order as tree_leaves; an unused param gets zeros
+            grads = tree_map(lambda p: _grad_or_zeros(next(flat), p),
+                             params)
+            with torch.no_grad():
+                outs = {k: (v.detach() if torch.is_tensor(v) else v)
+                        for k, v in outputs.items()}
+                mets = self._metrics(params, wstate["state"], outs, ctx)
+                new_params, opt_state, ok, gnorm = guarded_update(
+                    optimizer, grads, wstate["opt_state"], params,
+                    wstate["step"], loss.detach(), clip_norm=clip,
+                    sentinel=sentinel)
+                if ok is not None:
+                    # a skipped step adds nothing to the epoch sums
+                    mets = {k: torch.where(ok, v, torch.zeros_like(v))
+                            for k, v in mets.items()}
+                    mets["anomaly_steps"] = (~ok).float()
+                if gnorm is not None:
+                    mets["grad_norm"] = gnorm if ok is None else \
+                        torch.where(ok, gnorm, torch.zeros_like(gnorm))
+                tree_map(lambda dst, src: dst.copy_(src), params,
+                         new_params)
+                state = {**wstate["state"], **nstate}
+                if ok is not None:
+                    state = {k: (tree_select(ok, v, wstate["state"][k])
+                                 if k in wstate["state"] else v)
+                             for k, v in state.items()}
+            wstate.update(state=state, opt_state=opt_state,
+                          step=wstate["step"] + 1)
+            return wstate, mets
+
+        return step
+
+    def make_eval_step(self):
+        """(wstate, batch) -> the evaluator's metrics, under
+        ``torch.inference_mode``."""
+
+        def step(wstate, batch):
+            ctx = Context(train=False)
+            with torch.inference_mode():
+                outputs, _ = self.forward(wstate["params"], wstate["state"],
+                                          batch, ctx)
+                return self._metrics(wstate["params"], wstate["state"],
+                                     outputs, ctx)
+
+        return step
+
+    def n_params(self, wstate) -> int:
+        return sum(int(t.numel()) for t in tree_leaves(wstate["params"]))
+
+    def gather_results(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        """JSON-able result dict (veles_tpu/units/workflow.py:575-584)."""
+        out = {"workflow": self.name, "checksum": self.checksum()}
+        for k, v in metrics.items():
+            try:
+                out[k] = float(v)
+            except (TypeError, ValueError):
+                out[k] = repr(v)
+        return out
+
     def default_output(self) -> str:
         """Name of the last forward (non-evaluator) unit."""
         cands = [u.name for u in self.topo_order()
@@ -197,3 +300,21 @@ class Workflow(Logger):
                 for u in self.topo_order()]
         return hashlib.sha256(
             json.dumps(desc, sort_keys=True).encode()).hexdigest()
+
+
+def _step_generator(key, step, params) -> Optional[torch.Generator]:
+    """The train step's generator, seeded from the state's key and step
+    (where the JAX step splits its key), on the parameters' device; None
+    for a state without a key."""
+    if key is None:
+        return None
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else "cpu"
+    seed = np.random.SeedSequence(
+        [int(x) for x in np.asarray(key).ravel()]
+        + [int(step)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=dev).manual_seed(int(seed))
+
+
+def _grad_or_zeros(g, p):
+    return torch.zeros_like(p) if g is None else g
