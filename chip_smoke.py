@@ -40,10 +40,25 @@ Phases, each of which fails the run with a non-zero exit:
    per-parameter gradient norms compared; then the same bf16 epoch again
    with every kernel of the path replaced by its plain version, whose
    per-step losses must follow the kernels' (``_plain_epoch_witness``);
-6. quality: ``python -m veles_tpu_torch configs/induction_lm.json
+6. image kernels: fused dropout (AlexNet's drop6/drop7 shape, 512 x
+   4096 float32, and the edges; forward and gradient) and mean/disp
+   normalize (norm0's shape, 512 x 227 x 227 x 3, uint8 and float32)
+   against their plain versions, bitwise, then their times and bounds;
+7. image path, full width: ``alexnet_e2e_device_workflow`` (bf16
+   compute, momentum SGD with l2) trained through
+   ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (8
+   steps of 512) and its eval, from a 4096 + 512 image uint8 store held
+   on the card (random crop 227 and mirror there); mean/disp must launch
+   at least 9 times and dropout 32 (2 forward + 2 backward per step),
+   every loss must be finite; step times, samples/s and a torch.profiler
+   window of 3 steps; one float32 step through the kernels and one
+   through the plain versions from the same weights, batch and key
+   (cuDNN deterministic, TF32 off), loss, gradient norms and the drop6/
+   drop7 masks compared; one ``make_predict_step("fc8")`` batch;
+8. quality: ``python -m veles_tpu_torch configs/induction_lm.json
    --random-seed 1`` as a subprocess on the card (25 epochs) must reach
    <= 5 % validation error;
-7. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+9. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul`` and
@@ -94,6 +109,10 @@ FIXED_STEPS, FIXED_MIN_DROP = 8, 0.05
 # the epoch through the plain versions: per-step |loss - kernels' loss|
 WITNESS_ATOL = 0.05
 QUALITY_BAR = 5.0               # % validation error, configs/induction_lm
+# the image path: AlexNet e2e (bench.py's timed_e2e) at minibatch 512
+IMG_B, IMG_TRAIN, IMG_VALID = 512, 4096, 512
+DROP_ROWS, DROP_COLS, DROP_RATE = 512, 4096, 0.5    # drop6/drop7
+IMG_MIN_LAUNCHES = {"mean_disp_normalize": 9, "fused_dropout": 32}
 
 VOCAB, E, LAYERS, HEADS, FFN = 1024, 512, 4, 8, 2048
 PREDICT_B, PREDICT_T = 16, 2048
@@ -540,6 +559,244 @@ def phase_train_kernels(torch):
     return timing
 
 
+def phase_image_kernels(torch):
+    """The image path's kernels (fused dropout, mean/disp normalize)
+    against their plain versions, bitwise, at the path's shapes and the
+    edges; then their times and bounds at the path's shapes."""
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops.kernels import fused_dropout as fd
+    from veles_tpu_torch.ops.kernels import mean_disp as md
+    gen = torch.Generator().manual_seed(6)
+    checks = []
+    drop = [("main_f32_512x4096", (DROP_ROWS, DROP_COLS), torch.float32,
+             DROP_RATE, 2769742244),
+            ("r0.1_1d", (100003,), torch.float32, 0.1, 3),
+            ("r0.9_cols_300", (5, 7, 300), torch.float32, 0.9, 99),
+            ("cols_8320", (3, 8320), torch.float32, 0.5, 0xC0FFEE),
+            ("bf16_odd", (16, 203), torch.bfloat16, 0.3, 11),
+            ("nhwc_f32", (64, 13, 13, 256), torch.float32, 0.5, 5)]
+    main_drop = None
+    for name, shape, dt, rate, seed in drop:
+        x = torch.randn(shape, generator=gen).to("cuda", dt)
+        g = torch.randn(shape, generator=gen).to("cuda", dt)
+        xr = x.detach().requires_grad_(True)
+        y = fd.fused_dropout(xr, seed, rate)
+        (gx,) = torch.autograd.grad(y, xr, g)
+        y = y.detach()
+        ref = fd.fused_dropout_plain(x, seed, rate)
+        ref_g = fd.fused_dropout_plain(g, seed, rate)
+        torch.cuda.synchronize()
+        err = max(float((y.float() - ref.float()).abs().max()),
+                  float((gx.float() - ref_g.float()).abs().max()))
+        bitwise = torch.equal(y, ref) and torch.equal(gx, ref_g)
+        kept = float((ref != 0).float().mean())
+        checks.append({"kernel": fd.NAME, "case": name, "rate": rate,
+                       "forward_and_grad_bitwise": bitwise,
+                       "max_abs_err": err, "tol": 0.0, "kept_share": kept,
+                       "ok": bitwise and err == 0.0})
+        say(checks[-1])
+        if name.startswith("main"):
+            main_drop = (x, seed, rate, err)
+    md_cases = [("main_uint8_512x227x227x3", (IMG_B, 227, 227, 3),
+                 torch.uint8),
+                ("main_f32_512x227x227x3", (IMG_B, 227, 227, 3),
+                 torch.float32),
+                ("odd_uint8_4x13x13x3", (4, 13, 13, 3), torch.uint8),
+                ("tiny_f32_3x5", (3, 5), torch.float32)]
+    main_md = None
+    for name, shape, dt in md_cases:
+        x = (torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+             if dt == torch.uint8
+             else torch.randn(shape, generator=gen) * 50 + 100).to("cuda")
+        feat = shape[1:]
+        mean = (torch.rand(feat, generator=gen) * 50 + 100).cuda()
+        rdisp = (torch.rand(feat, generator=gen) * 0.01 + 0.01).cuda()
+        out = md.mean_disp_normalize(x, mean, rdisp)
+        ref = md.mean_disp_normalize_plain(x, mean, rdisp)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        bitwise = torch.equal(out, ref)
+        checks.append({"kernel": md.NAME, "case": name, "bitwise": bitwise,
+                       "max_abs_err": err, "tol": 0.0,
+                       "ok": bitwise and err == 0.0})
+        say(checks[-1])
+        if name == "main_uint8_512x227x227x3":
+            main_md = (x, mean, rdisp, err)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+
+    x, seed, rate, d_err = main_drop
+    d_ms = cuda_ms(torch, lambda: fd._launch(x, seed, rate), iters=100)
+    d_plain = cuda_ms(torch, lambda: fd.fused_dropout_plain(x, seed, rate))
+    d_lib = cuda_ms(torch, lambda: F.dropout(x, rate, training=True),
+                    iters=100)
+    d_bound = bound(0, H100_F32_FLOPS, 2 * x.numel() * x.element_size())
+    xm, mean, rdisp, m_err = main_md
+    m_ms = cuda_ms(torch, lambda: md._launch(xm, mean, rdisp), iters=50)
+    m_plain = cuda_ms(torch, lambda: md.mean_disp_normalize_plain(
+        xm, mean, rdisp))
+    m_bytes = xm.numel() * xm.element_size() + xm.numel() * 4 \
+        + 2 * mean.numel() * 4
+    m_bound = bound(2 * xm.numel(), H100_F32_FLOPS, m_bytes)
+    timing = {
+        fd.NAME: {"max_abs_err": d_err, "ms": d_ms, "plain_ms": d_plain,
+                  "library_ms": d_lib, "bound_ms": d_bound[0],
+                  "bound_by": d_bound[1],
+                  "library_note": "F.dropout at the same shape and rate: "
+                                  "another mask stream",
+                  "shape": {"rows": DROP_ROWS, "cols": DROP_COLS,
+                            "dtype": "float32", "rate": rate}},
+        md.NAME: {"max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain,
+                  "library_ms": None, "bound_ms": m_bound[0],
+                  "bound_by": m_bound[1], "bytes": m_bytes,
+                  "shape": {"N": IMG_B, "features": [227, 227, 3],
+                            "dtype": "uint8"}},
+    }
+    say({"phase": "image_kernel_timing", **timing})
+    return timing
+
+
+def _image_epoch(torch):
+    """One epoch and its eval of the full-width AlexNet e2e workflow
+    through ``make_trainer`` -> ``Trainer`` over its card-resident
+    augmented loader (init seed 0), launches counted (``_counted_run``);
+    the store's synthesis and upload timed apart."""
+    from veles_tpu_torch.models.alexnet import alexnet_e2e_device_workflow
+    from veles_tpu_torch.runtime.decision import Decision
+    t_data = time.perf_counter()
+    sw = alexnet_e2e_device_workflow(minibatch_size=IMG_B, n_train=IMG_TRAIN,
+                                     n_valid=IMG_VALID, device=DEVICE)
+    sw.loader.initialize()
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t_data
+    if not sw.loader.on_device:
+        fail("the AlexNet store is not on the card")
+    return _counted_run(torch, sw.make_trainer(
+        sw.loader, Decision(max_epochs=1), device=DEVICE), t_data)
+
+
+def phase_image(torch):
+    """The image path at full width: AlexNet e2e through the Trainer for
+    one epoch over the card-resident store, launches counted over it;
+    then a profiled window, the float32 kernels-vs-plain step and one
+    predict batch."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.ops.kernels import (fused_dropout, gather_rows,
+                                             mean_disp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = _image_epoch(torch)
+    trainer, step_s, losses = run["trainer"], run["step_s"], run["losses"]
+    launches, wall = run["launches"], run["wall"]
+    hist = trainer.decision.history
+    steps = len(step_s)
+    med = float(np.median(step_s)) if step_s else float("nan")
+    rec = {"phase": "image_train", "steps": steps, "epochs": len(hist),
+           "store": list(trainer.loader._data[TRAIN].shape[1:]),
+           "store_bytes": sum(int(a.nbytes)
+                              for a in trainer.loader._data.values()),
+           "data_s": run["data_s"], "run_s": wall,
+           "step_ms_median": med * 1e3,
+           "step_ms_max": max(step_s) * 1e3 if step_s else None,
+           "first_step_ms": step_s[0] * 1e3 if step_s else None,
+           "train_samples_per_s": IMG_B / med,
+           "epoch_samples_per_s": steps * IMG_B / wall,
+           "losses": losses,
+           "train": hist[0]["train"] if hist else None,
+           "valid": hist[0]["valid"] if hist else None,
+           "launches": launches}
+    say(rec)
+    low = {k: launches[k] for k, n in IMG_MIN_LAUNCHES.items()
+           if launches[k] < n}
+    if low or launches[gather_rows.NAME] < 1:
+        fail(f"the image path launched too few kernels: {launches} (at "
+             f"least {IMG_MIN_LAUNCHES} and a gather)")
+    if steps != IMG_TRAIN // IMG_B or not all(np.isfinite(losses)):
+        fail(f"the image epoch ran {steps} steps or a loss is not finite: "
+             f"{losses}")
+    profile = _train_profile(torch, trainer,
+                             f"3 AlexNet train steps, {IMG_B} images each")
+    say({"phase": "image_profile", **profile})
+    agreement = _image_step_f32_check(torch, trainer, (fused_dropout,
+                                                       mean_disp))
+    say({"phase": "image_f32_kernel_vs_plain", **agreement})
+    if not agreement["ok"]:
+        fail(f"float32 AlexNet step: kernels and plain versions disagree: "
+             f"{agreement}")
+    pred = _image_predict(torch, trainer, fused_dropout, mean_disp)
+    say({"phase": "image_predict", **pred})
+    if not pred["ok"]:
+        fail(f"AlexNet predict: {pred}")
+    return launches
+
+
+def _image_step_f32_check(torch, trainer, kernels):
+    """One float32 forward/backward of the full-width AlexNet through the
+    kernels and one through the plain versions (both wrappers' routes
+    patched), from the trainer's weights and unit state, its first train
+    batch and one key; cuDNN deterministic and TF32 off."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.models.alexnet import _e2e_config
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.units.workflow import seed_key, split_state_key
+    wf = StandardWorkflow(_e2e_config(compute_dtype=None)).workflow
+    wf.build({k: v for k, v in trainer.workflow.specs.items()
+              if k.startswith("@")})
+    ws = trainer.wstate
+    batch = next(trainer.loader.iter_epoch(TRAIN, 0))
+    _, sub = split_state_key(seed_key(0))
+    drops = ("drop6", "drop7")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = [m.launches.count for m in kernels]
+        k_loss, k_norms, k_zero = _loss_and_grad_norms(
+            torch, wf, ws["params"], batch, ws["state"], sub, drops)
+        mid = [m.launches.count for m in kernels]
+        with plain_routes(kernels):
+            p_loss, p_norms, p_zero = _loss_and_grad_norms(
+                torch, wf, ws["params"], batch, ws["state"], sub, drops)
+        after = [m.launches.count for m in kernels]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    launched = all(m > b for m, b in zip(mid, before)) and after == mid
+    masks = {n: bool(torch.equal(k_zero[n], p_zero[n])) for n in drops}
+    dropped = {n: float(p_zero[n].float().mean()) for n in drops}
+    loss_rel = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
+    grad_rel = {n: abs(k_norms[n] - p_norms[n]) / max(p_norms[n], 1e-12)
+                for n in p_norms}
+    worst = max(grad_rel, key=grad_rel.get)
+    return {"loss_kernels": k_loss, "loss_plain": p_loss,
+            "loss_rel_diff": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+            "grad_norm_max_rel_diff": grad_rel[worst], "worst": worst,
+            "grad_rtol": STEP_GRAD_RTOL, "masks_identical": masks,
+            "zero_share": dropped, "kernels_launched": launched,
+            "ok": (launched and all(masks.values())
+                   and np.isfinite(k_loss)
+                   and loss_rel <= STEP_LOSS_RTOL
+                   and grad_rel[worst] <= STEP_GRAD_RTOL
+                   and all(v > 0 for v in p_norms.values()))}
+
+
+def _image_predict(torch, trainer, dropout, mean_disp):
+    """One ``make_predict_step("fc8")`` batch: finite logits of (512,
+    1000); dropout is the identity (no launch), mean/disp launches."""
+    from veles_tpu_torch.loader.base import VALID
+    step = trainer.workflow.make_predict_step("fc8")
+    batch = next(trainer.loader.iter_epoch(VALID, 0))
+    before = (dropout.launches.count, mean_disp.launches.count)
+    y = step(trainer.wstate, batch)
+    torch.cuda.synchronize()
+    after = (dropout.launches.count, mean_disp.launches.count)
+    return {"shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
+            "dropout_launches": after[0] - before[0],
+            "mean_disp_launches": after[1] - before[1],
+            "ok": (tuple(y.shape) == (IMG_B, 1000)
+                   and bool(torch.isfinite(y).all())
+                   and after[0] == before[0] and after[1] == before[1] + 1)}
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def bench_layers():
@@ -723,34 +980,44 @@ def _train_workflow(torch, compute_dtype):
                              "max_epochs": 1})
 
 
-def _loss_and_grad_norms(torch, wf, params, batch):
+def _loss_and_grad_norms(torch, wf, params, batch, state=None, key=None,
+                         zeros_of=()):
     """Loss and each parameter's gradient norm of one forward/backward
-    (the train step's core) on ``params``."""
+    (the train step's core) on ``params``, with the unit ``state`` and
+    the step ``key``; and the zero pattern of each unit in ``zeros_of``."""
     from veles_tpu_torch.ops.optimizers import tree_leaves, tree_map
     from veles_tpu_torch.units.base import Context
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    outputs, _ = wf.forward(live, {}, batch, Context(train=True))
+    outputs, _ = wf.forward(live, state or {}, batch,
+                            Context(train=True, key=key))
     loss = outputs[wf.evaluator.name]
     names = [f"{u}/{k}" for u in sorted(live) for k in sorted(live[u])]
     grads = torch.autograd.grad(loss, tree_leaves(live))
+    zeros = {n: (outputs[n] == 0).detach() for n in zeros_of}
     return float(loss.detach()), {n: float(g.float().norm())
-                         for n, g in zip(names, grads)}
+                                  for n, g in zip(names, grads)}, zeros
 
 
 def _train_epoch(torch):
     """One epoch and its eval of the full-width bf16 LM through
     ``StandardWorkflow.make_trainer`` -> ``Trainer`` over a card-resident
-    InductionLoader (init seed 0), every kernel's count set to 0 just
-    before and read just after; per-step wall and loss recorded."""
+    InductionLoader (init seed 0), launches counted (``_counted_run``)."""
     from veles_tpu_torch.models.lm import InductionLoader
-    from veles_tpu_torch.ops.kernels import KERNELS
     t_data = time.perf_counter()
     loader = InductionLoader(minibatch_size=TRAIN_B, n_train=N_TRAIN,
                              n_valid=N_VALID, seq_len=TRAIN_T, vocab=VOCAB,
                              per_position=True, device=DEVICE)
     t_data = time.perf_counter() - t_data
     sw = _train_workflow(torch, "bfloat16")
-    trainer = sw.make_trainer(loader, device=DEVICE)
+    return _counted_run(torch, sw.make_trainer(loader, device=DEVICE),
+                        t_data)
+
+
+def _counted_run(torch, trainer, t_data):
+    """``trainer.initialize(seed=0)`` and ``run()``, every kernel's count
+    set to 0 just before and read just after; per-step wall and loss
+    recorded."""
+    from veles_tpu_torch.ops.kernels import KERNELS
     step_s, losses = [], []
     for kern in KERNELS:
         kern.launches.reset()
@@ -885,7 +1152,8 @@ def _fixed_batch_descent(trainer):
                        and losses[-1] <= (1 - FIXED_MIN_DROP) * losses[0])}
 
 
-def _train_profile(torch, trainer):
+def _train_profile(torch, trainer,
+                   window="3 train steps, 16 x 2048 tokens each"):
     """Device busy time by kernel over 3 train steps (torch.profiler);
     the idle share is 1 - busy / wall."""
     from torch.profiler import ProfilerActivity, profile
@@ -900,7 +1168,7 @@ def _train_profile(torch, trainer):
             trainer.wstate, _ = trainer._train_step(trainer.wstate, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _busy(prof, wall, "3 train steps, 16 x 2048 tokens each")
+    return _busy(prof, wall, window)
 
 
 def _busy(prof, wall, window):
@@ -947,10 +1215,10 @@ def _train_step_f32_check(torch, trainer, params_from_jax, new_state):
     batch = next(trainer.loader.iter_epoch(TRAIN, 0))
     flash = (fa, dq, dkv)
     before = [m.launches.count for m in flash]
-    k_loss, k_norms = _loss_and_grad_norms(torch, wf, params, batch)
+    k_loss, k_norms, _ = _loss_and_grad_norms(torch, wf, params, batch)
     mid = [m.launches.count for m in flash]
     with plain_routes(flash):
-        p_loss, p_norms = _loss_and_grad_norms(torch, wf, params, batch)
+        p_loss, p_norms, _ = _loss_and_grad_norms(torch, wf, params, batch)
     after = [m.launches.count for m in flash]
     # every flash kernel ran on the kernel side and none on the plain side
     launched = all(m > b for m, b in zip(mid, before)) and after == mid
@@ -1038,15 +1306,20 @@ def main():
     phase_build()
     timing = phase_kernels(torch)
     timing.update(phase_train_kernels(torch))
+    timing.update(phase_image_kernels(torch))
     serve_launches = phase_main_path(torch)
     train_launches = phase_train(torch)
+    image_launches = phase_image(torch)
     phase_quality(torch)
     # each kernel's launches on its own path: paged decode on the serving
-    # path, the rest on the training path (flash forward runs on both;
-    # its serving count is in the http phase line)
+    # path, dropout and mean/disp on the image path, the rest on the LM
+    # training path (flash forward runs on both LM paths, the gather on
+    # both training paths; the other counts are in the phase lines)
     launches = dict(train_launches)
     launches["paged_attention_decode"] = serve_launches[
         "paged_attention_decode"]
+    for kname in IMG_MIN_LAUNCHES:
+        launches[kname] = image_launches[kname]
     line = []
     for kern in KERNELS:
         t = timing[kern.NAME]

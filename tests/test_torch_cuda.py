@@ -15,7 +15,8 @@ dtype (bf16 2^-8, f32 2^-24) times (|plain| + its row's largest |plain|,
 or the gradient's median |plain| where that is larger); the row gather
 bitwise; an attention unit's weight gradients
 kernel vs plain path rtol 1e-4 of each gradient's largest entry in
-float32.
+float32; fused dropout (forward and gradient) and mean/disp normalize
+bitwise.
 """
 
 import contextlib
@@ -31,7 +32,9 @@ import numpy as np  # noqa: E402
 from veles_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv  # noqa: E402
 from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq  # noqa: E402
+from veles_tpu_torch.ops.kernels import fused_dropout as fd  # noqa: E402
 from veles_tpu_torch.ops.kernels import gather_rows as gr  # noqa: E402
+from veles_tpu_torch.ops.kernels import mean_disp as md  # noqa: E402
 from veles_tpu_torch.ops.kernels import paged_attention as pa  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -251,3 +254,57 @@ def test_gather_kernel_refuses_an_index_out_of_range(card):
         with pytest.raises(IndexError, match="out of range"):
             gr.gather_rows(data, np.asarray(bad))
     assert gr.launches.count == before
+
+
+@pytest.mark.parametrize("shape,dtype,rate,seed", [
+    ((512, 4096), torch.float32, 0.5, 2769742244),
+    ((1000,), torch.float32, 0.1, 3), ((5, 7, 300), torch.float32, 0.9, 99),
+    ((3, 8320), torch.float32, 0.5, 0xC0FFEE),
+    ((16, 203), torch.bfloat16, 0.3, 11),
+    ((4, 13, 13, 8), torch.float16, 0.5, 5)],
+    ids=["alexnet_fc", "1d", "cols_300_r0.9", "cols_8320", "bf16_odd",
+         "f16_nhwc"])
+def test_fused_dropout_kernel_matches_plain_bitwise(card, shape, dtype, rate,
+                                                    seed):
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(shape, generator=gen).to(card, dtype).requires_grad_(True)
+    g = torch.randn(shape, generator=gen).to(card, dtype)
+    before = fd.launches.count
+    y = fd.fused_dropout(x, seed, rate)
+    (gx,) = torch.autograd.grad(y, x, g)
+    assert fd.launches.count == before + 2        # forward and backward
+    ref = fd.fused_dropout_plain(x.detach(), seed, rate)
+    ref_g = fd.fused_dropout_plain(g, seed, rate)
+    assert y.dtype == dtype and torch.equal(y, ref)
+    assert torch.equal(gx, ref_g)
+    assert torch.equal(y == 0, gx == 0)          # one mask for both passes
+
+
+def test_fused_dropout_kernel_reads_a_misaligned_view(card):
+    base = torch.randn(4 * 1025 + 1, device=card)
+    x = base[1:].view(4, 1025)                  # 4-byte offset: no vectors
+    assert x.data_ptr() % 16 != 0
+    y = fd.fused_dropout(x, 77, 0.5)
+    assert torch.equal(y, fd.fused_dropout_plain(x, 77, 0.5))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fd.fused_dropout(torch.zeros(4, device=card, dtype=torch.float64),
+                         1, 0.5)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((64, 227, 227, 3), torch.uint8), ((8, 227, 227, 3), torch.float32),
+    ((4, 13, 13, 3), torch.uint8), ((3, 5), torch.float32)],
+    ids=["alexnet_uint8", "alexnet_f32", "odd_uint8", "tiny_f32"])
+def test_mean_disp_kernel_matches_plain_bitwise(card, shape, dtype):
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+         if dtype == torch.uint8
+         else torch.randn(shape, generator=gen) * 50 + 100).to(card)
+    feat = shape[1:]
+    mean = (torch.rand(feat, generator=gen) * 50 + 100).to(card)
+    rdisp = (torch.rand(feat, generator=gen) * 0.01 + 0.01).to(card)
+    before = md.launches.count
+    out = md.mean_disp_normalize(x, mean, rdisp)
+    assert md.launches.count == before + 1
+    ref = md.mean_disp_normalize_plain(x, mean, rdisp)
+    assert out.dtype == torch.float32 and torch.equal(out, ref)

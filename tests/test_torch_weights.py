@@ -148,6 +148,7 @@ def test_importing_the_port_loads_no_jax():
         "import veles_tpu_torch.runtime.restful, veles_tpu_torch.runtime."
         "engine, veles_tpu_torch.runtime.generate\n"
         "import veles_tpu_torch.ops.kernels\n"
+        "import veles_tpu_torch.models.alexnet, veles_tpu_torch.loader\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'veles_tpu'))\n"

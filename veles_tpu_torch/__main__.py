@@ -43,11 +43,12 @@ from .units.workflow import WorkflowError
 
 #: loader names of the JAX CLI (veles_tpu/__main__.py:38-45) the port
 #: has; the others name the slice that brings them
-LOADERS = {"induction": ("veles_tpu_torch.models.lm", "InductionLoader")}
+LOADERS = {"induction": ("veles_tpu_torch.models.lm", "InductionLoader"),
+           "imagenet_synthetic": ("veles_tpu_torch.models.alexnet",
+                                  "ImagenetSyntheticLoader")}
 PENDING_LOADERS = {"mnist": "slice 6 (image/conv family)",
                    "cifar": "slice 6 (image/conv family)",
-                   "stl": "slice 6 (image/conv family)",
-                   "imagenet_synthetic": "slice 6 (image/conv family)"}
+                   "stl": "slice 6 (image/conv family)"}
 
 
 def make_loader(name: str, **args):

@@ -1,6 +1,6 @@
-"""Fullbatch loader: the whole dataset held on the card, each minibatch
-gathered there (counterpart of veles_tpu/loader/fullbatch.py:37-230,
-``FullBatchLoader`` only).
+"""Fullbatch loaders: the whole dataset held on the card, each minibatch
+gathered there (counterpart of veles_tpu/loader/fullbatch.py:37-384:
+``FullBatchLoader`` and the image store's ``FullBatchAugmentedLoader``).
 
 ``initialize`` uploads every class's arrays once; ``make_batch`` sends
 only the minibatch's indices (a few bytes), gathers every device-resident
@@ -81,4 +81,120 @@ class FullBatchLoader(ArrayLoader):
         batch = {key: gather_rows(arr, idx)
                  for key, arr in self._dev_data[klass].items()}
         batch["@mask"] = self.padding_mask(len(chunk))
+        return batch
+
+
+class FullBatchAugmentedLoader(FullBatchLoader):
+    """Random crop + mirror over a uint8 image store held on the card
+    (counterpart of veles_tpu/loader/fullbatch.py:232-384).
+
+    Train batches get crop offsets and flips drawn from (loader seed,
+    epoch, class, first index) by numpy PCG64 (``_draw_aug``, copied as
+    is), so crops and flips are the JAX package's bits; valid/test
+    batches get the center crop and no flip.  Per step the host sends the
+    minibatch's indices, a (B, 2) offset array and a (B,) flip mask: the
+    rows come through the ``gather_rows`` kernel, and the crop and mirror
+    are one advanced-indexing op with per-sample row and column index
+    tensors (a mirrored sample's column index runs backwards).
+    ``force_host=True`` takes the host form (:meth:`fill_minibatch`),
+    pixel-identical."""
+
+    def __init__(self, *args, crop_hw, mirror: bool = True, **kw):
+        super().__init__(*args, **kw)
+        self.crop_hw = tuple(int(c) for c in crop_hw)
+        self.mirror = bool(mirror)
+        self._aug_epoch = 0
+
+    def initialize(self):
+        # validated before the (GB-scale) upload
+        ch, cw = self.crop_hw
+        for klass in (TEST, VALID, TRAIN):
+            if self._data.get(klass) is None:
+                continue
+            if self._data[klass].ndim < 3:
+                raise ValueError(
+                    f"class-{klass} store must be (N, H, W[, C]) images, "
+                    f"got shape {self._data[klass].shape}")
+            hs, ws = self._store_hw(klass)
+            if ch > hs or cw > ws:
+                raise ValueError(
+                    f"crop_hw {self.crop_hw} exceeds class-{klass} store "
+                    f"geometry {(hs, ws)}")
+        super().initialize()
+
+    def _store_hw(self, klass: int):
+        return self._data[klass].shape[1:3]
+
+    def iter_epoch(self, klass, epoch=None):
+        # only a TRAIN iterator sets the epoch the crops are drawn for
+        if klass == TRAIN:
+            self._aug_epoch = (self.epoch_number if epoch is None
+                               else int(epoch))
+        yield from super().iter_epoch(klass, epoch)
+
+    def _draw_aug(self, n: int, klass: int, anchor: int):
+        """(offsets (n,2) int32, flips (n,) bool) for one minibatch —
+        deterministic in (loader seed, epoch, klass, first index),
+        matching the epoch_permutation determinism contract."""
+        hs, ws = self._store_hw(klass)
+        ch, cw = self.crop_hw
+        if klass == TRAIN:
+            from .. import prng
+            rng = np.random.Generator(np.random.PCG64(
+                [prng.get(self.prng_name).seed, self._aug_epoch, klass,
+                 anchor, 0xC407]))
+            offs = np.stack([rng.integers(0, hs - ch + 1, n),
+                             rng.integers(0, ws - cw + 1, n)],
+                            1).astype(np.int32)
+            flips = (rng.random(n) < 0.5) if self.mirror \
+                else np.zeros(n, bool)
+        else:
+            offs = np.broadcast_to(
+                np.array([(hs - ch) // 2, (ws - cw) // 2], np.int32),
+                (n, 2)).copy()
+            flips = np.zeros(n, bool)
+        return offs, flips
+
+    def crop(self, imgs: torch.Tensor, offs, flips) -> torch.Tensor:
+        """(B, H, W, ...) -> (B, ch, cw, ...): each sample's crop at its
+        offset, columns reversed where it flips, as one indexing op."""
+        dev = imgs.device
+        ch, cw = self.crop_hw
+        offs = torch.from_numpy(np.asarray(offs, np.int64)).to(dev)
+        flips = torch.from_numpy(np.asarray(flips, bool)).to(dev)
+        ar_h = torch.arange(ch, device=dev)
+        ar_w = torch.arange(cw, device=dev)
+        rows = offs[:, :1] + ar_h
+        cols = offs[:, 1:] + torch.where(flips[:, None], cw - 1 - ar_w, ar_w)
+        b = torch.arange(imgs.shape[0], device=dev)
+        return imgs[b[:, None, None], rows[:, :, None], cols[:, None, :]]
+
+    def make_batch(self, chunk: np.ndarray, klass: int):
+        if not self.on_device:
+            return super(FullBatchLoader, self).make_batch(chunk, klass)
+        valid_n = len(chunk)
+        idx = self.padded_index(chunk)
+        anchor = int(idx[0]) if valid_n else 0
+        offs, flips = self._draw_aug(self.minibatch_size, klass, anchor)
+        batch = {key: gather_rows(arr, idx)
+                 for key, arr in self._dev_data[klass].items()}
+        batch["@input"] = self.crop(batch["@input"], offs, flips)
+        batch["@mask"] = self.padding_mask(valid_n)
+        return batch
+
+    def fill_minibatch(self, indices, klass):
+        """The host form: numpy slicing, pixel-identical to the device
+        path (same ``_draw_aug`` descriptors)."""
+        batch = super().fill_minibatch(indices, klass)
+        ch, cw = self.crop_hw
+        offs, flips = self._draw_aug(
+            len(indices), klass, int(indices[0]) if len(indices) else 0)
+        imgs = batch["@input"]
+        out = np.empty(imgs.shape[:1] + (ch, cw) + imgs.shape[3:],
+                       imgs.dtype)
+        for i in range(len(imgs)):
+            oy, ox = offs[i]
+            c = imgs[i, oy:oy + ch, ox:ox + cw]
+            out[i] = c[:, ::-1] if flips[i] else c
+        batch["@input"] = out
         return batch

@@ -26,6 +26,14 @@ LAYER_TYPES = {
     "ffn": nn.FFN,
     "layer_norm": nn.LayerNorm,
     "seq_last": nn.SeqLast,
+    "conv": nn.Conv,
+    "conv_relu": nn.ConvRELU,
+    "conv_tanh": nn.ConvTanh,
+    "max_pooling": nn.MaxPooling,
+    "avg_pooling": nn.AvgPooling,
+    "dropout": nn.Dropout,
+    "lrn": nn.LRN,
+    "norm": nn.MeanDispNormalizer,
 }
 
 #: layer types of the JAX package not ported yet -> the ROADMAP.md slice
@@ -36,17 +44,9 @@ PENDING_TYPES = {
     "rnn": "slice 7 (recurrent units)",
     "gru": "slice 7 (recurrent units)",
     "lstm": "slice 7 (recurrent units)",
-    "conv": "slice 6 (image/conv family)",
-    "conv_relu": "slice 6 (image/conv family)",
-    "conv_tanh": "slice 6 (image/conv family)",
     "deconv": "slice 6 (image/conv family)",
-    "max_pooling": "slice 6 (image/conv family)",
-    "avg_pooling": "slice 6 (image/conv family)",
     "stochastic_abs_pooling": "slice 6 (image/conv family)",
     "depool": "slice 6 (image/conv family)",
-    "dropout": "slice 6 (image/conv family)",
-    "lrn": "slice 6 (image/conv family)",
-    "norm": "slice 6 (image/conv family)",
     "flatten": "slice 6 (image/conv family)",
     "reshape": "slice 6 (image/conv family)",
 }

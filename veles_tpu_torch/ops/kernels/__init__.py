@@ -9,15 +9,17 @@ module                     replaces (veles_tpu/ops/pallas_kernels.py)
 ``flash_bwd_dkv``          ``_flash_bwd`` dK/dV (pallas_call :411)
 ``paged_attention``        ``paged_attention_decode`` (pallas_call :612)
 ``gather_rows``            ``gather_rows_packed`` (pallas_call :818)
+``fused_dropout``          ``_dropout_apply`` (pallas_call :694)
+``mean_disp``              ``mean_disp_normalize`` (pallas_call :760)
 =========================  ===============================================
 
 Sources live in ``veles_tpu_torch/csrc``; :mod:`.build` compiles them at
 first use.
 """
 
-from . import (flash_attention, flash_bwd_dkv, flash_bwd_dq, gather_rows,
-               paged_attention)
+from . import (flash_attention, flash_bwd_dkv, flash_bwd_dq, fused_dropout,
+               gather_rows, mean_disp, paged_attention)
 
 #: every kernel module of the port (chip_smoke.py and the docs walk it)
 KERNELS = (flash_attention, flash_bwd_dq, flash_bwd_dkv, paged_attention,
-           gather_rows)
+           fused_dropout, mean_disp, gather_rows)

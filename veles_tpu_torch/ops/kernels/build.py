@@ -34,6 +34,8 @@ SOURCES = {
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "paged_attention": "paged_attention.cu",
     "gather_rows": "gather_rows.cu",
+    "fused_dropout": "fused_dropout.cu",
+    "mean_disp": "mean_disp.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -15,12 +15,62 @@ payload's ``"prng"`` entry restores in either package.
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from .config import root
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(key, count) -> Tuple[int, int]:
+    """Threefry-2x32 (20 rounds, JAX's default PRNG) of the uint32 pair
+    ``count`` under the uint32 pair ``key``."""
+    k0, k1 = (int(v) & _M32 for v in key)
+    x0, x1 = (int(v) & _M32 for v in count)
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def split(key) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``jax.random.split(key)`` (two keys) of a raw uint32 pair."""
+    return threefry2x32(key, (0, 0)), threefry2x32(key, (0, 1))
+
+
+def fold_in(key, data: int) -> Tuple[int, int]:
+    """``jax.random.fold_in(key, data)`` of a raw uint32 pair."""
+    return threefry2x32(key, (0, int(data) & _M32))
+
+
+def bits32(key) -> int:
+    """``jax.random.bits(key, dtype=uint32)``: one 32-bit draw."""
+    a, b = threefry2x32(key, (0, 0))
+    return a ^ b
+
+
+def name_hash(name: str) -> int:
+    """The unit-name hash ``Context.unit_key`` folds into the step key
+    (veles_tpu/units/base.py:90-97)."""
+    h = 0
+    for c in name:
+        h = (h * 131 + ord(c)) % (2 ** 31 - 1)
+    return h
+
 
 
 class RandomStream:

@@ -331,6 +331,34 @@ def wstate_to_numpy(wstate: dict) -> dict:
     return out
 
 
+def _tensors(tree, slot: str, dev, want=None) -> dict:
+    """``{unit: {name: tensor}}`` on ``dev`` from the nested numpy tree;
+    values keep their dtype and bytes.  With ``want`` (unit -> name ->
+    shape) a name or shape that differs raises ``ValueError``."""
+    out = {}
+    for unit, sub in tree.items():
+        if not isinstance(sub, dict):
+            raise ValueError(f"{slot}/{unit}: expected a dict of tensors")
+        out[unit] = {
+            name: torch.from_numpy(np.array(_to_numpy(v), copy=True)).to(dev)
+            for name, v in sub.items()}
+    if want is not None:
+        got = {u: {k: tuple(t.shape) for k, t in p.items()}
+               for u, p in out.items()}
+        if want != got:
+            diffs = []
+            for u in sorted(set(want) | set(got)):
+                w, g = want.get(u, {}), got.get(u, {})
+                for k in sorted(set(w) | set(g)):
+                    if w.get(k) != g.get(k):
+                        diffs.append(f"{slot}/{u}/{k}: expected "
+                                     f"{w.get(k)}, got {g.get(k)}")
+            what = "weights" if slot == "params" else "unit state"
+            raise ValueError(f"{what} do not fit the workflow: "
+                             + "; ".join(diffs[:8]))
+    return out
+
+
 def params_from_jax(tree, workflow=None, *, device=None) -> dict:
     """The port's ``{unit: {param: tensor}}`` from weights in the JAX
     layout: a nested numpy tree, a whole workflow state (its ``params``
@@ -345,32 +373,31 @@ def params_from_jax(tree, workflow=None, *, device=None) -> dict:
         tree = tree["params"]
     if isinstance(tree, dict) and tree and all(
             isinstance(k, str) and "/" in k for k in tree):
-        flat = {}
-        for k, v in tree.items():
-            flat[k[len("params/"):] if k.startswith("params/") else k] = v
-        tree = _unflatten(flat)
-    params = {}
-    for unit, sub in tree.items():
-        if not isinstance(sub, dict):
-            raise ValueError(f"params/{unit}: expected a dict of tensors")
-        params[unit] = {
-            name: torch.from_numpy(np.array(_to_numpy(v), copy=True)).to(dev)
-            for name, v in sub.items()}
-    if workflow is not None:
-        want = workflow.param_shapes()
-        got = {u: {k: tuple(t.shape) for k, t in p.items()}
-               for u, p in params.items()}
-        if want != got:
-            diffs = []
-            for u in sorted(set(want) | set(got)):
-                w, g = want.get(u, {}), got.get(u, {})
-                for k in sorted(set(w) | set(g)):
-                    if w.get(k) != g.get(k):
-                        diffs.append(f"{u}/{k}: expected {w.get(k)}, "
-                                     f"got {g.get(k)}")
-            raise ValueError("weights do not fit the workflow: "
-                             + "; ".join(diffs[:8]))
-    return params
+        tree = _unflatten({k[len("params/"):] if k.startswith("params/")
+                           else k: v for k, v in tree.items()})
+    want = workflow.param_shapes() if workflow is not None else None
+    return _tensors(tree, "params", dev, want)
+
+
+def wstate_from_jax(tree, workflow=None, *, optimizer=None,
+                    device=None) -> dict:
+    """A port workflow state from a JAX workflow state (a nested numpy
+    dict, as a snapshot's ``wstate`` gives it, the key as its raw uint32
+    data): ``params`` as :func:`params_from_jax`, the
+    unit ``state`` (normalizer statistics) byte for byte, the ``key`` and
+    the ``step``.  With ``workflow`` both params and unit state are
+    checked against it.  ``opt_state`` is ``optimizer.init(params)``
+    (empty without one)."""
+    from ..units.workflow import new_state
+    dev = resolve_device(device)
+    params = params_from_jax(tree, workflow, device=dev)
+    want = workflow.state_shapes() if workflow is not None else None
+    state = _tensors(tree.get("state", {}), "state", dev, want)
+    key = tree.get("key")
+    key = None if key is None else np.asarray(key, np.uint32).reshape(2)
+    step = int(np.asarray(tree.get("step", 0)))
+    opt_state = optimizer.init(params) if optimizer is not None else {}
+    return new_state(params, state, opt_state, step, key)
 
 
 def params_to_numpy(params) -> dict:
@@ -381,10 +408,9 @@ def params_to_numpy(params) -> dict:
 
 def wstate_from_snapshot(path: str, workflow, *, device=None) -> dict:
     """A serving workflow state from a snapshot of either package:
-    parameters carried across (checked against ``workflow``), the rest
-    of the state kept as host data."""
-    from ..units.workflow import new_state
+    parameters and unit state carried across (checked against
+    ``workflow``), the optimizer state kept as host data."""
     ws = Snapshotter.load(path)["wstate"]
-    return new_state(params_from_jax(ws, workflow, device=device),
-                     {}, ws.get("opt_state", {}), ws.get("step", 0),
-                     ws.get("key"))
+    out = wstate_from_jax(ws, workflow, device=device)
+    out["opt_state"] = ws.get("opt_state", {})
+    return out

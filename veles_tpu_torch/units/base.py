@@ -15,6 +15,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
+from .. import prng
 from ..logger import Logger
 
 
@@ -33,13 +34,17 @@ class Spec:
 class Context:
     """Per-call context threaded through apply(): the train/eval flag, the
     device mesh (None: single device — the only layout the port runs yet)
-    and, in a train step, the ``torch.Generator`` stochastic units draw
-    from (where the JAX step splits its key).  The generator is made by
-    ``make_generator`` on first use, so a step that draws nothing makes
-    none."""
+    and, in a train step, the step's PRNG key: the raw uint32 pair the
+    JAX step passes as ``sub`` (veles_tpu/units/base.py:47-97).  Units
+    draw from ``unit_key(name)``, the JAX package's per-name fold, so a
+    dropout mask equals the JAX package's.  ``generator`` is a
+    ``torch.Generator`` made by ``make_generator`` on first use, for
+    draws that have no JAX counterpart to match; a step that draws
+    nothing makes none."""
     train: bool = False
     mesh: Optional[Any] = None
     make_generator: Optional[Callable[[], torch.Generator]] = None
+    key: Optional[Tuple[int, int]] = None
     _generator: Optional[torch.Generator] = dataclasses.field(
         default=None, init=False, repr=False)
 
@@ -48,6 +53,13 @@ class Context:
         if self._generator is None and self.make_generator is not None:
             self._generator = self.make_generator()
         return self._generator
+
+    def unit_key(self, name: str) -> Optional[Tuple[int, int]]:
+        """``fold_in(key, hash(name))`` as ``Context.unit_key`` of the
+        JAX package computes it; None without a key."""
+        if self.key is None:
+            return None
+        return prng.fold_in(self.key, prng.name_hash(name))
 
 
 def dtype_of(name) -> Optional[torch.dtype]:

@@ -1,9 +1,13 @@
-"""Units of the LM family (counterpart of veles_tpu/units/nn.py:31-111,
-:509-625 and the softmax evaluator :659-694).
+"""Forward units (counterpart of veles_tpu/units/nn.py): the LM family
+(:31-111, :509-625), the image family's Conv/ConvRELU/ConvTanh,
+MaxPooling/AvgPooling, Dropout, LRN and MeanDispNormalizer (:114-167,
+:209-235, :264-497), and the softmax evaluator (:659-694).
 
-The image-family units (conv, pooling, LRN, dropout, normalizers) come
-with their own slice; ``models/standard.py`` names it when a config asks
-for one.
+Image activations are NHWC and conv weights HWIO, the JAX package's
+layouts, so weights move across unchanged and the dropout mask (a hash of
+each element's row-major index) is the JAX package's.  Deconv, Depool,
+StochasticAbsPooling, Flatten and Reshape come with the rest of the image
+slice; ``models/standard.py`` names it when a config asks for one.
 """
 
 from __future__ import annotations
@@ -13,9 +17,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import ops
+from .. import ops, prng
 from ..ops import losses
 from ..ops.activations import ACTIVATIONS
+from ..ops.convolution import conv2d, conv_padding, pair
+from ..ops.kernels.fused_dropout import fused_dropout
+from ..ops.lrn import METHODS as LRN_METHODS
+from ..ops.lrn import local_response_norm
+from ..ops.normalize import mean_disp_normalize
+from ..ops.pooling import avg_pool, max_pool
 from .base import Forward, Spec, Unit, dtype_of
 
 
@@ -95,6 +105,181 @@ class All2AllSoftmax(All2All):
     def __init__(self, output_size, **kw):
         kw.setdefault("activation", "linear")
         super().__init__(output_size, **kw)
+
+
+class Conv(Forward):
+    """2-D convolution (NHWC activations, HWIO weights) with an optional
+    activation."""
+
+    def __init__(self, n_kernels: int, kx: int = 3, ky: Optional[int] = None,
+                 *, stride=1, padding="SAME", activation="linear",
+                 weights_scale=1.0, include_bias=True, compute_dtype=None,
+                 name=None, inputs=("@input",)):
+        super().__init__(name, inputs)
+        self.n_kernels = int(n_kernels)
+        self.kx = int(kx)
+        self.ky = int(ky if ky is not None else kx)
+        self.stride = stride
+        self.padding = padding
+        self.activation = activation
+        self.weights_scale = weights_scale
+        self.include_bias = include_bias
+        self.compute_dtype = dtype_of(compute_dtype)
+
+    def output_spec(self, in_specs):
+        n, h, w, _ = in_specs[0].shape
+        stride = pair(self.stride)
+        pads = conv_padding(self.padding, (h, w), (self.ky, self.kx), stride)
+        hw = [(size + lo + hi - k) // s + 1 for size, (lo, hi), k, s in
+              zip((h, w), pads, (self.ky, self.kx), stride)]
+        return Spec((n, *hw, self.n_kernels), in_specs[0].dtype)
+
+    def init(self, generator, in_specs, device):
+        cin = in_specs[0].shape[-1]
+        fan_in = self.kx * self.ky * cin
+        params = {"w": ops.smart_uniform_init(
+            generator, (self.ky, self.kx, cin, self.n_kernels), fan_in,
+            scale=self.weights_scale, device=device)}
+        if self.include_bias:
+            params["b"] = torch.zeros((self.n_kernels,), dtype=torch.float32,
+                                      device=device)
+        return params, {}
+
+    def apply(self, params, state, xs, ctx):
+        y = conv2d(xs[0], params["w"], params.get("b"), stride=self.stride,
+                   padding=self.padding, compute_dtype=self.compute_dtype)
+        return ACTIVATIONS[self.activation](y), state
+
+
+class ConvRELU(Conv):
+    def __init__(self, n_kernels, kx=3, ky=None, **kw):
+        kw.setdefault("activation", "relu")
+        super().__init__(n_kernels, kx, ky, **kw)
+
+
+class ConvTanh(Conv):
+    def __init__(self, n_kernels, kx=3, ky=None, **kw):
+        kw.setdefault("activation", "tanh")
+        super().__init__(n_kernels, kx, ky, **kw)
+
+
+class _Pooling(Unit):
+    """VALID pooling over NHWC windows (stride defaults to the window)."""
+
+    pool = None
+
+    def __init__(self, window=2, stride=None, name=None, inputs=("@input",)):
+        super().__init__(name, inputs)
+        self.window = window
+        self.stride = stride
+
+    def output_spec(self, in_specs):
+        n, h, w, c = in_specs[0].shape
+        win = pair(self.window)
+        st = pair(self.stride) if self.stride is not None else win
+        return Spec((n, (h - win[0]) // st[0] + 1, (w - win[1]) // st[1] + 1,
+                     c), in_specs[0].dtype)
+
+    def apply(self, params, state, xs, ctx):
+        return self.pool(xs[0], self.window, self.stride), state
+
+
+class MaxPooling(_Pooling):
+    pool = staticmethod(max_pool)
+
+
+class AvgPooling(_Pooling):
+    pool = staticmethod(avg_pool)
+
+
+class Dropout(Unit):
+    """Inverted dropout; the identity at eval or at ratio <= 0.
+
+    The JAX package's kernel formulation on every device: the seed is
+    ``bits32(fold_in(step key, hash(name)))`` (units/nn.py:338-345) and
+    the mask the ``fused_dropout`` kernel's hash, so the mask equals the
+    JAX package's with ``use_pallas=True`` bit for bit.  The JAX
+    package's other formulation, a threefry Bernoulli mask
+    (units/nn.py:346-348), is not ported: ``use_pallas=False`` raises."""
+
+    stochastic = True
+
+    def __init__(self, dropout_ratio=0.5, name=None, inputs=("@input",),
+                 use_pallas=None):
+        super().__init__(name, inputs)
+        if use_pallas is not None and not use_pallas:
+            raise NotImplementedError(
+                f"Dropout {self.name!r}: use_pallas=False asks for the JAX "
+                "package's threefry Bernoulli mask, which the port does not "
+                "have; it computes the fused kernel's mask on every device "
+                "(use_pallas None or True)")
+        self.ratio = float(dropout_ratio)
+        self.use_pallas = use_pallas
+
+    def apply(self, params, state, xs, ctx):
+        x = xs[0]
+        if not ctx.train or self.ratio <= 0.0:
+            return x, state
+        key = ctx.unit_key(self.name)
+        if key is None:
+            raise ValueError(f"Dropout {self.name!r}: a train-mode call "
+                             "needs the step key (Context.key)")
+        return fused_dropout(x, prng.bits32(key), self.ratio), state
+
+
+class LRN(Unit):
+    """Local response normalization across channels.  ``method``:
+    "cumsum", "band" or "band_bf16" (ops/lrn.py); "auto" resolves to
+    "cumsum", the JAX package's pick with autotune off
+    (units/nn.py:379-382)."""
+
+    def __init__(self, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None,
+                 inputs=("@input",), method="cumsum"):
+        super().__init__(name, inputs)
+        self.n, self.k, self.alpha, self.beta = n, k, alpha, beta
+        method = "cumsum" if method == "auto" else method
+        if method not in LRN_METHODS:
+            raise ValueError(f"LRN {self.name!r}: unknown method {method!r}")
+        self.method = method
+
+    def apply(self, params, state, xs, ctx):
+        return local_response_norm(
+            xs[0], n=self.n, k=self.k, alpha=self.alpha, beta=self.beta,
+            method=self.method), state
+
+
+class MeanDispNormalizer(Unit):
+    """(x - mean) * rdisp with the dataset statistics in unit state
+    (``mean``, ``rdisp``, float32), through the ``mean_disp`` kernel on
+    the card.  ``use_pallas`` is accepted and changes nothing: the JAX
+    package's XLA and Pallas forms are bitwise equal."""
+
+    def __init__(self, mean=None, rdisp=None, name=None, inputs=("@input",),
+                 use_pallas=None):
+        super().__init__(name, inputs)
+        self._mean = mean
+        self._rdisp = rdisp
+        self.use_pallas = use_pallas
+
+    def output_spec(self, in_specs):
+        return Spec(in_specs[0].shape, torch.float32)
+
+    def init(self, generator, in_specs, device):
+        shape = tuple(in_specs[0].shape[1:])
+
+        def stat(value, fill):
+            if value is None:
+                return torch.full(shape, fill, dtype=torch.float32,
+                                  device=device)
+            arr = np.array(value, dtype=np.float32)
+            return torch.from_numpy(arr).to(device)
+
+        return {}, {"mean": stat(self._mean, 0.0),
+                    "rdisp": stat(self._rdisp, 1.0)}
+
+    def apply(self, params, state, xs, ctx):
+        return mean_disp_normalize(xs[0], state["mean"],
+                                   state["rdisp"]), state
 
 
 class LayerNorm(Unit):

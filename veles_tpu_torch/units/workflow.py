@@ -20,6 +20,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import prng
 from ..logger import Logger
 from ..ops import resolve_device
 from ..ops.optimizers import (Optimizer, guarded_update, tree_leaves,
@@ -135,15 +136,25 @@ class Workflow(Logger):
     def param_shapes(self) -> Dict[str, Dict[str, tuple]]:
         """unit -> param -> shape the built workflow expects (an init
         whose tensors land on the meta device)."""
+        return self._init_shapes()[0]
+
+    def state_shapes(self) -> Dict[str, Dict[str, tuple]]:
+        """unit -> unit-state entry -> shape the built workflow expects
+        (the normalizers' ``mean``/``rdisp``)."""
+        return self._init_shapes()[1]
+
+    def _init_shapes(self):
         if not self._specs:
             raise WorkflowError("call build() before param_shapes()")
         gen = torch.Generator().manual_seed(0)
-        out = {}
+        params, state = {}, {}
         for u in self.topo_order():
-            p, _ = u.init(gen, [self._specs[i] for i in u.inputs], "meta")
+            p, s = u.init(gen, [self._specs[i] for i in u.inputs], "meta")
             if p:
-                out[u.name] = {k: tuple(v.shape) for k, v in p.items()}
-        return out
+                params[u.name] = {k: tuple(v.shape) for k, v in p.items()}
+            if s:
+                state[u.name] = {k: tuple(v.shape) for k, v in s.items()}
+        return params, state
 
     def forward(self, params, state, batch, ctx: Context, *,
                 only: Optional[set] = None):
@@ -183,11 +194,11 @@ class Workflow(Logger):
     def make_train_step(self, optimizer: Optimizer):
         """(wstate, batch) -> (wstate, metrics): forward, gradients,
         ``guarded_update`` (the anomaly skip and ``clip_norm`` from
-        ``root.common.train``), the skip metrics, step + 1 — the contract
-        of veles_tpu/units/workflow.py:214-310.  The parameters are
-        updated in place and the optimizer state replaced, in the state
-        dict the caller passed; metrics stay on the device (nothing is
-        read back to the host)."""
+        ``root.common.train``), the skip metrics, step + 1 and the key
+        split — the contract of veles_tpu/units/workflow.py:214-310.
+        The parameters are updated in place and the optimizer state
+        replaced, in the state dict the caller passed; metrics stay on
+        the device (nothing is read back to the host)."""
         if self.evaluator is None:
             raise WorkflowError("a train step needs an evaluator unit")
         from ..config import root
@@ -197,9 +208,10 @@ class Workflow(Logger):
 
         def step(wstate, batch):
             params = wstate["params"]
-            ctx = Context(train=True, make_generator=functools.partial(
-                _step_generator, wstate.get("key"), wstate["step"],
-                params))
+            key, sub = split_state_key(wstate.get("key"))
+            ctx = Context(train=True, key=sub,
+                          make_generator=functools.partial(
+                              _step_generator, sub, params))
             live = tree_map(lambda t: t.detach().requires_grad_(True),
                             params)
             with torch.enable_grad():
@@ -236,7 +248,7 @@ class Workflow(Logger):
                                  if k in wstate["state"] else v)
                              for k, v in state.items()}
             wstate.update(state=state, opt_state=opt_state,
-                          step=wstate["step"] + 1)
+                          step=wstate["step"] + 1, key=key)
             return wstate, mets
 
         return step
@@ -302,18 +314,27 @@ class Workflow(Logger):
             json.dumps(desc, sort_keys=True).encode()).hexdigest()
 
 
-def _step_generator(key, step, params) -> Optional[torch.Generator]:
-    """The train step's generator, seeded from the state's key and step
-    (where the JAX step splits its key), on the parameters' device; None
-    for a state without a key."""
+def split_state_key(key):
+    """``key, sub = jax.random.split(wstate["key"])`` of the JAX train
+    step (veles_tpu/units/workflow.py:239), on the host: the new state
+    key as the uint32 array ``seed_key`` stores, and ``sub`` (the step's
+    ``Context.key``) as a pair of ints.  A state without a key keeps
+    none."""
     if key is None:
+        return None, None
+    new, sub = prng.split(np.asarray(key).ravel())
+    return np.asarray(new, np.uint32), sub
+
+
+def _step_generator(sub, params) -> Optional[torch.Generator]:
+    """The train step's generator, seeded from its ``sub`` key, on the
+    parameters' device; None for a state without a key."""
+    if sub is None:
         return None
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else "cpu"
-    seed = np.random.SeedSequence(
-        [int(x) for x in np.asarray(key).ravel()]
-        + [int(step)]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=dev).manual_seed(int(seed))
+    return torch.Generator(device=dev).manual_seed(
+        (int(sub[0]) << 32) | int(sub[1]))
 
 
 def _grad_or_zeros(g, p):
