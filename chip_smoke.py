@@ -11,10 +11,12 @@ Phases, each of which fails the run with a non-zero exit:
    (one nvcc per source, all in parallel), with each source's seconds and
    ptxas registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at its path's shapes and at edge cases, each error beside its
-   tolerance (the flash backward element by element, see BWD_UNITS); then each kernel's time, its plain version's time, the
-   time of the one PyTorch call computing the same function (where there
-   is one) and the card's bound for the same work;
+   at its path's shapes and at edge cases (for the flash forward and
+   dK/dV, the variant launched: tensor cores for bf16, SIMT for float32),
+   each error beside its tolerance (the flash backward element by
+   element, see BWD_UNITS); then each kernel's time, its plain version's
+   time, the time of the one PyTorch call computing the same function
+   (where there is one) and the card's bound for the same work;
 4. serving path: the bench_lm.py transformer LM at full width (vocab
    1024, dim 512, 4 blocks of 8-head RoPE attention + layer_norm + ffn
    2048 + layer_norm, per-position head, bf16 compute), random weights
@@ -31,7 +33,8 @@ Phases, each of which fails the run with a non-zero exit:
    steps of 16 x 2048 tokens, Adam lr 1e-3) and its eval, fed by an
    ``InductionLoader(per_position=True, seq_len=2048, vocab=1024)`` held
    on the card; the flash forward, both flash backward and the gather
-   kernels must launch and every loss must be finite; then 8 steps on one
+   kernels must launch, every bf16 flash forward and dK/dV launch on the
+   tensor-core variant, and every loss must be finite; then 8 steps on one
    fixed batch must cut its loss by 5 % (the epoch's own loss stays near
    chance, see ``_fixed_batch_descent``); step times, tokens/s and a
    torch.profiler window of 3 steps (device idle share, top kernels);
@@ -96,7 +99,9 @@ PAGED_TOL = 1e-4
 # dS = P (dP - delta) is rounding noise on both sides).  In float32 the
 # units (1024 u ~ 6e-5) cover the summation order over up to 2048 keys
 # and the cancellation in dP - delta, which leaves a small dQ entry with
-# a larger share of rounding.
+# a larger share of rounding.  A gradient whose exact value is 0 (dQ and
+# dK at causal Tq = Tk = 1) has no size of its own: it is held to
+# BWD_UNITS units of the terms that cancel (see _bwd_case).
 BWD_UNIT = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -24}
 BWD_UNITS = {"bfloat16": 2.0, "float32": 1024.0}
 # full-width float32 train step, kernels vs plain versions: relative
@@ -183,18 +188,47 @@ def phase_device(torch):
 
 # -- phase 2 ------------------------------------------------------------------
 
+def ptxas_usage(log):
+    """Registers and spill bytes of each kernel instance in an nvcc -Xptxas
+    -v log, keyed by its name as the toolkit's ``cu++filt -p`` demangles
+    it: {"void (anonymous namespace)::flash_fwd_tc<64>": {"registers": 108,
+    "spill_stores": 0, "spill_loads": 0}, ...}."""
+    import re
+    from veles_tpu_torch.ops.kernels import build
+    usage, name, spill = {}, None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            usage[name] = {"registers": int(m.group(1)),
+                           "spill_stores": spill[0], "spill_loads": spill[1]}
+            name, spill = None, (0, 0)
+    if not usage:
+        return usage
+    filt = os.path.join(os.path.dirname(build.nvcc_path()), "cu++filt")
+    names = subprocess.run([filt, "-p"], input="\n".join(usage),
+                           capture_output=True, text=True, timeout=60,
+                           check=True).stdout.splitlines()
+    return dict(zip(names, usage.values()))
+
+
 def phase_build():
     from veles_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
     took = build.build()
     wall = time.perf_counter() - t0
-    usage = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, log in build.build_logs.items()}
+    usage = {n: ptxas_usage(log) for n, log in build.build_logs.items()}
     say({"phase": "build", "seconds": round(wall, 3),
          "per_library_s": {k: round(v, 3) for k, v in took.items()},
          "ptxas": usage})
-    return {"seconds": wall, "per_library_s": took}
+    return {"seconds": wall, "per_library_s": took, "ptxas": usage}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -205,14 +239,36 @@ def _flash_case(torch, gen, B, Tq, Tk, H, Hk, D, dtype, causal, window):
     q = torch.randn((B, Tq, H, D), generator=gen).to(dev, dtype)
     k = torch.randn((B, Tk, Hk, D), generator=gen).to(dev, dtype)
     v = torch.randn((B, Tk, Hk, D), generator=gen).to(dev, dtype)
+    before = fa.launches.by_variant()
     out, lse = fa.flash_attention(q, k, v, causal, None, window)
+    ran = _variant_delta(before, fa.launches.by_variant())
     ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     lerr = float((lse - ref_lse).abs().max())
     finite = bool(torch.isfinite(out.float()).all())
-    return (q, k, v), err, lerr, finite
+    return (q, k, v), err, lerr, finite, ran
+
+
+def _variant_delta(before, after):
+    """The variants launched between two ``launches.by_variant()``."""
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def expected_variant(dtype):
+    """The flash forward's and dK/dV's variant for a dtype: the
+    tensor-core kernels take bf16, the SIMT kernels float32."""
+    return {"tc": 1} if str(dtype).endswith("bfloat16") else {"simt": 1}
+
+
+def _instance_usage(*libs):
+    """ptxas registers and spills of every kernel instance of the
+    libraries (from this run's build log)."""
+    from veles_tpu_torch.ops.kernels import build
+    return {k: v for lib in libs
+            for k, v in ptxas_usage(build.build_logs.get(lib, "")).items()}
 
 
 def _paged_inputs(torch, gen, S, H, Hk, Dh, psz, n_ptab, q_dtype, pos,
@@ -267,28 +323,43 @@ def phase_kernels(torch):
     gen = torch.Generator().manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     checks = []
-    # flash forward: the /predict shape first, then the edges
+    # flash forward: the /predict shape first, then the edges (bf16 on
+    # the tensor-core kernel, whose tiles are 128 rows by 64 keys)
     flash = [("main_bf16_causal_T2048", PREDICT_B, PREDICT_T, PREDICT_T,
               HEADS, HEADS, 64, bf16, True, None),
              ("gqa_bf16", 2, 512, 512, 8, 2, 64, bf16, True, None),
+             ("gqa2_bf16", 2, 300, 300, 8, 4, 64, bf16, True, None),
              ("window_bf16", 2, 1024, 1024, 8, 8, 64, bf16, True, 256),
+             ("window_below_tile_bf16", 2, 400, 400, 8, 8, 64, bf16, True,
+              50),
              ("ragged_bf16", 3, 1000, 1000, 8, 8, 64, bf16, True, None),
+             ("T1_bf16", 2, 1, 1, 8, 8, 64, bf16, True, None),
+             ("T63_bf16", 2, 63, 63, 8, 8, 64, bf16, True, None),
+             ("T65_bf16", 2, 65, 65, 8, 8, 64, bf16, True, None),
+             ("T129_bf16", 2, 129, 129, 8, 8, 64, bf16, True, None),
              ("noncausal_cross_bf16", 2, 300, 700, 8, 8, 64, bf16, False,
               None),
+             ("cross_Tk_below_tile_bf16", 2, 200, 40, 8, 8, 64, bf16, False,
+              None),
+             # rows 164.. see no key (causal, window 64, Tq > Tk)
+             ("rows_without_keys_bf16", 2, 300, 100, 8, 8, 64, bf16, True,
+              64),
              ("f32_causal_gqa_window", 2, 777, 777, 8, 4, 64, f32, True,
               100),
              # head dim 16: configs/induction_lm*.json (E=64, 4 heads)
              ("induction_lm_D16_f32", 4, 128, 128, 4, 4, 16, f32, True,
               None),
              ("induction_lm_D16_bf16", 4, 128, 128, 4, 4, 16, bf16, True,
-              None)]
+              None),
+             ("D16_bf16_T2048", 4, 2048, 2048, 4, 4, 16, bf16, True, None)]
     main_flash = None
     for name, B, Tq, Tk, H, Hk, D, dt, causal, window in flash:
-        args, err, lerr, finite = _flash_case(torch, gen, B, Tq, Tk, H, Hk,
-                                              D, dt, causal, window)
+        args, err, lerr, finite, ran = _flash_case(
+            torch, gen, B, Tq, Tk, H, Hk, D, dt, causal, window)
         tol = FLASH_TOL[str(dt).split(".")[-1]]
-        ok = finite and err <= tol and lerr <= LSE_TOL
-        checks.append({"kernel": fa.NAME, "case": name,
+        ok = (finite and err <= tol and lerr <= LSE_TOL
+              and ran == expected_variant(dt))
+        checks.append({"kernel": fa.NAME, "case": name, "variant": ran,
                        "max_abs_err": err, "tol": tol,
                        "lse_max_abs_err": lerr, "lse_tol": LSE_TOL,
                        "ok": ok})
@@ -363,7 +434,11 @@ def phase_kernels(torch):
     timing = {
         fa.NAME: {"max_abs_err": ferr, "ms": f_ms, "plain_ms": f_plain,
                   "library_ms": f_lib, "bound_ms": f_bound,
-                  "bound_by": f_by,
+                  "bound_by": f_by, "variant": "tc",
+                  "source": fa.SOURCES["tc"],
+                  "tflops": f_flops / f_ms / 1e9,
+                  "bound_share": f_bound / f_ms,
+                  "ptxas": _instance_usage("flash_fwd_tc", "flash_fwd"),
                   "shape": {"B": B, "T": T, "H": H, "D": D,
                             "dtype": "bfloat16", "causal": causal}},
         pa.NAME: {"max_abs_err": perr, "ms": p_ms, "plain_ms": p_plain,
@@ -392,19 +467,35 @@ def _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dtype, causal, window):
     args = (q, k, v, do, lse, delta)
     kw = dict(causal=causal, scale=D ** -0.5, window=window)
     got = {"dq": dq.flash_bwd_dq(*args, **kw)}
+    before = dkv.launches.by_variant()
     got["dk"], got["dv"] = dkv.flash_bwd_dkv(*args, **kw)
+    ran = _variant_delta(before, dkv.launches.by_variant())
     ref = {"dq": dq.flash_bwd_dq_plain(*args, **kw)}
     ref["dk"], ref["dv"] = dkv.flash_bwd_dkv_plain(*args, **kw)
     torch.cuda.synchronize()
-    res = {name: bwd_agreement(torch, got[name], ref[name])
+    # causal Tq = Tk = 1: P = 1 and dP = delta, so the exact dQ and dK are
+    # 0 and each side holds only its own rounding of dP - delta: those two
+    # are held in units of the terms that cancel, |dO| |V| scale times |K|
+    # (dQ) or |Q| (dK)
+    zero = {}
+    if causal and Tq == Tk == 1:
+        terms = float(do.float().abs().max() * v.float().abs().max()) \
+            * kw["scale"]
+        zero = {"dq": terms * float(k.float().abs().max()),
+                "dk": terms * float(q.float().abs().max())}
+    res = {name: bwd_agreement(torch, got[name], ref[name], zero.get(name))
            for name in ("dq", "dk", "dv")}
+    res["dkv_variant"] = ran
     return args, kw, res
 
 
-def bwd_agreement(torch, got, ref):
+def bwd_agreement(torch, got, ref, zero_terms=None):
     """The flash backward rule (BWD_UNITS above): the worst entry's
-    |kernel - plain| in units u * (|plain| + its row's scale), beside the limit, the largest absolute error, the relative Frobenius
-    error and the median |plain| (the size of a typical entry)."""
+    |kernel - plain| in units u * (|plain| + its row's scale), or, for a
+    gradient whose exact value is 0, in units u * ``zero_terms`` (the size
+    of the terms that cancel); beside the limit, the largest absolute
+    error, the relative Frobenius error and the median |plain| (the size
+    of a typical entry)."""
     dt = str(ref.dtype).split(".")[-1]
     a, b = got.float(), ref.float()
     err = (a - b).abs()
@@ -414,6 +505,8 @@ def bwd_agreement(torch, got, ref):
     scale = BWD_UNIT[dt] * (mag + row)
     units = torch.where(scale > 0, err / scale.clamp_min(1e-38),
                         torch.where(err > 0, float("inf"), 0.0))
+    if zero_terms is not None:
+        units = err / (BWD_UNIT[dt] * zero_terms)
     return {"units": float(units.max()), "units_tol": BWD_UNITS[dt],
             "max_abs_err": float(err.max()),
             "frob_rel_err": float(torch.linalg.vector_norm(a - b)
@@ -446,7 +539,22 @@ def phase_train_kernels(torch):
               50),
              ("noncausal_cross_bf16", 2, 300, 700, 8, 8, 64, bf16, False,
               None),
-             ("ragged_f32", 3, 1000, 1000, 8, 8, 64, f32, True, None)]
+             ("ragged_f32", 3, 1000, 1000, 8, 8, 64, f32, True, None),
+             # edges of the tensor-core dK/dV's tiles (64 keys by 64
+             # query rows); at T=1 the exact dQ and dK are 0 (see _bwd_case)
+             ("T1_bf16", 2, 1, 1, 8, 8, 64, bf16, True, None),
+             ("Tq1_Tk65_bf16", 2, 1, 65, 8, 8, 64, bf16, False, None),
+             ("T63_bf16", 2, 63, 63, 8, 8, 64, bf16, True, None),
+             ("T65_bf16", 2, 65, 65, 8, 8, 64, bf16, True, None),
+             ("T129_bf16", 2, 129, 129, 8, 8, 64, bf16, True, None),
+             ("cross_Tk_below_tile_bf16", 2, 200, 40, 8, 8, 64, bf16, False,
+              None),
+             ("gqa4_bf16", 2, 300, 300, 8, 2, 64, bf16, True, None),
+             ("window_below_tile_bf16", 2, 400, 400, 8, 8, 64, bf16, True,
+              50),
+             ("rows_without_keys_bf16", 2, 300, 100, 8, 8, 64, bf16, True,
+              64),
+             ("D16_bf16_T2048", 2, 2048, 2048, 4, 4, 16, bf16, True, None)]
     checks, main = [], None
     for name, B, Tq, Tk, H, Hk, D, dt, causal, window in cases:
         args, kw, res = _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dt,
@@ -454,6 +562,9 @@ def phase_train_kernels(torch):
         for kname, grads in ((dq.NAME, ("dq",)), (dkv.NAME, ("dk", "dv"))):
             rec = {"kernel": kname, "case": name}
             ok = True
+            if kname == dkv.NAME:
+                rec["variant"] = res["dkv_variant"]
+                ok = res["dkv_variant"] == expected_variant(dt)
             for g in grads:
                 r = res[g]
                 rec[g] = {k: r[k] for k in ("units", "units_tol",
@@ -466,6 +577,15 @@ def phase_train_kernels(torch):
             say(rec)
         if name.startswith("main"):
             main = (args, kw, res)
+    # no float atomics: two backward runs at full width give the same bits
+    args, kw, _ = main
+    first = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
+    second = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    checks.append({"kernel": dkv.NAME, "case": "main_two_runs_bitwise",
+                   "dq_dk_dv_equal": same, "ok": all(same)})
+    say(checks[-1])
+    del first, second
     # gather: the training minibatch (16 rows of 2048 int32 tokens from a
     # card-resident set) and an odd row size (21 bytes)
     rng = np.random.default_rng(3)
@@ -517,9 +637,11 @@ def phase_train_kernels(torch):
     pairs = T * (T + 1) // 2
     elt = q.element_size()
     rows = B * H * T * 4                       # one float32 per row
-    dq_bound = bound(3 * 2 * B * H * D * pairs, H100_BF16_FLOPS,
+    dq_flops = 3 * 2 * B * H * D * pairs
+    dkv_flops = 4 * 2 * B * H * D * pairs
+    dq_bound = bound(dq_flops, H100_BF16_FLOPS,
                      5 * q.numel() * elt + 2 * rows)
-    dkv_bound = bound(4 * 2 * B * H * D * pairs, H100_BF16_FLOPS,
+    dkv_bound = bound(dkv_flops, H100_BF16_FLOPS,
                       6 * q.numel() * elt + 2 * rows)
     # the kernel alone on card-resident indices, as its plain version and
     # index_select are timed; the wrapper adds the host range check and
@@ -540,11 +662,19 @@ def phase_train_kernels(torch):
         dq.NAME: {"max_abs_err": res["dq"]["max_abs_err"], "ms": dq_ms,
                   "plain_ms": dq_plain, "library_ms": lib_ms,
                   "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+                  "variant": "simt", "tflops": dq_flops / dq_ms / 1e9,
+                  "bound_share": dq_bound[0] / dq_ms,
+                  "ptxas": _instance_usage("flash_bwd_dq"),
                   "shape": shape},
         dkv.NAME: {"max_abs_err": max(res["dk"]["max_abs_err"],
                                       res["dv"]["max_abs_err"]),
                    "ms": dkv_ms, "plain_ms": dkv_plain, "library_ms": lib_ms,
                    "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+                   "variant": "tc", "source": dkv.SOURCES["tc"],
+                   "tflops": dkv_flops / dkv_ms / 1e9,
+                   "bound_share": dkv_bound[0] / dkv_ms,
+                   "ptxas": _instance_usage("flash_bwd_dkv_tc",
+                                            "flash_bwd_dkv"),
                    "shape": shape},
         gr.NAME: {"max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
                   "library_ms": g_lib, "bound_ms": g_bound[0],
@@ -897,13 +1027,16 @@ def phase_main_path(torch):
             "input": row.tolist()})["output"], np.float32)
         t_predict = time.perf_counter() - t0
         launches = {k.NAME: k.launches.count for k in KERNELS}
+        variants = {k.NAME: k.launches.by_variant() for k in KERNELS
+                    if k.launches.by_variant()}
         stats = engine.stats()
         profile = phase_profile(torch, engine, prompts)
     finally:
         srv.stop()
         engine.stop()
     say({"phase": "http", "requests": {"sent": 3, "ok": 3, "failed": 0},
-         "launches": launches, "greedy_request_s": t_greedy,
+         "launches": launches, "variants": variants,
+         "greedy_request_s": t_greedy,
          "predict_request_s": t_predict, "engine": stats})
     say({"phase": "profile", **profile})
 
@@ -1043,7 +1176,9 @@ def _counted_run(torch, trainer, t_data):
     return {"trainer": trainer, "results": results, "wall": wall,
             "data_s": t_data, "step_s": step_s,
             "losses": [float(x) for x in losses],
-            "launches": {k.NAME: k.launches.count for k in KERNELS}}
+            "launches": {k.NAME: k.launches.count for k in KERNELS},
+            "variants": {k.NAME: k.launches.by_variant() for k in KERNELS
+                         if k.launches.by_variant()}}
 
 
 def phase_train(torch):
@@ -1074,13 +1209,21 @@ def phase_train(torch):
            "epoch_tokens_per_s": steps * TRAIN_B * TRAIN_T / wall,
            "loss_first8": losses[:8], "loss_last8": losses[-8:],
            "train_loss": train_loss, "valid": valid,
-           "results": run["results"], "launches": launches}
+           "results": run["results"], "launches": launches,
+           "variants": run["variants"]}
     say(rec)
     path_kernels = (flash_attention, flash_bwd_dq, flash_bwd_dkv,
                     gather_rows)
     missing = [k.NAME for k in path_kernels if launches[k.NAME] < 1]
     if missing:
         fail(f"the training path never launched {missing}")
+    # every bf16 flash forward and dK/dV launch on the tensor cores
+    off_tc = {k.NAME: run["variants"].get(k.NAME) for k in
+              (flash_attention, flash_bwd_dkv)
+              if run["variants"].get(k.NAME) != {"tc": launches[k.NAME]}}
+    if off_tc:
+        fail(f"bf16 flash launches outside the tensor-core variant: "
+             f"{off_tc}")
     if steps != N_TRAIN // TRAIN_B or not all(np.isfinite(losses)):
         fail(f"training ran {steps} steps or a loss is not finite: "
              f"{losses}")
@@ -1155,7 +1298,8 @@ def _fixed_batch_descent(trainer):
 def _train_profile(torch, trainer,
                    window="3 train steps, 16 x 2048 tokens each"):
     """Device busy time by kernel over 3 train steps (torch.profiler);
-    the idle share is 1 - busy / wall."""
+    the idle share is 1 - busy / wall; the flash kernels' device ms a
+    step."""
     from torch.profiler import ProfilerActivity, profile
     from veles_tpu_torch.loader.base import TRAIN
     batches = [b for _, b in zip(range(3),
@@ -1168,10 +1312,15 @@ def _train_profile(torch, trainer,
             trainer.wstate, _ = trainer._train_step(trainer.wstate, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _busy(prof, wall, window)
+    return _busy(prof, wall, window, steps=len(batches))
 
 
-def _busy(prof, wall, window):
+#: kernel-name pieces whose device time a profiled step reports apart
+FLASH_KERNELS = ("flash_fwd_tc", "flash_fwd_kernel", "flash_bwd_dkv_tc",
+                 "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+
+
+def _busy(prof, wall, window, steps=None):
     busy = {}
     for evt in prof.key_averages():
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
@@ -1182,10 +1331,15 @@ def _busy(prof, wall, window):
             busy[evt.key] = busy.get(evt.key, 0.0) + t / 1e6
     total = sum(busy.values())
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:10]
-    return {"window": window, "wall_s": wall,
-            "device_busy_s": total if busy else None,
-            "device_idle_share": (1.0 - total / wall) if busy else None,
-            "top_kernels_s": [[k[:90], v] for k, v in top]}
+    rec = {"window": window, "wall_s": wall,
+           "device_busy_s": total if busy else None,
+           "device_idle_share": (1.0 - total / wall) if busy else None,
+           "top_kernels_s": [[k[:90], v] for k, v in top]}
+    if steps:
+        rec["flash_device_ms_per_step"] = {
+            part: sum(v for k, v in busy.items() if part in k) / steps * 1e3
+            for part in FLASH_KERNELS}
+    return rec
 
 
 def plain_routes(modules):
@@ -1323,8 +1477,10 @@ def main():
     line = []
     for kern in KERNELS:
         t = timing[kern.NAME]
+        extra = {"variant": t["variant"]} if "variant" in t else {}
         line.append({"name": kern.NAME, "route": "cuda",
-                     "source": kern.SOURCE, "replaces": kern.REPLACES,
+                     "source": t.get("source", kern.SOURCE),
+                     "replaces": kern.REPLACES, **extra,
                      "launches": launches[kern.NAME],
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

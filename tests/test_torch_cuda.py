@@ -12,7 +12,9 @@ chip_smoke.py's: max |kernel - plain| 1e-4 in float32, 2e-2 in bfloat16
 (one bf16 ulp near 1), lse 1e-3; paged decode 1e-4; the flash backward
 kernels element by element, |kernel - plain| <= BWD_UNITS units u of the
 dtype (bf16 2^-8, f32 2^-24) times (|plain| + its row's largest |plain|,
-or the gradient's median |plain| where that is larger); the row gather
+or the gradient's median |plain| where that is larger), and a gradient
+whose exact value is 0 to BWD_UNITS units of the terms that cancel; the
+row gather
 bitwise; an attention unit's weight gradients
 kernel vs plain path rtol 1e-4 of each gradient's largest entry in
 float32; fused dropout (forward and gradient) and mean/disp normalize
@@ -55,13 +57,35 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize(
-    "B,Tq,Tk,H,Hk,D,dtype,causal,window",
-    [(2, 200, 200, 4, 4, 16, torch.float32, True, None),
-     (2, 200, 200, 4, 4, 16, torch.bfloat16, True, None),
-     (2, 300, 300, 8, 2, 64, torch.float32, True, 100),
-     (2, 257, 513, 8, 8, 64, torch.bfloat16, False, None)],
-    ids=["D16_f32", "D16_bf16", "D64_f32_gqa_window", "D64_bf16_cross"])
+bf16 = torch.bfloat16
+
+# (B, Tq, Tk, H, Hk, D, dtype, causal, window).  bf16 runs on the
+# tensor-core kernels, whose tiles are 128 query rows by 64 keys (forward)
+# and 64 keys by 64 query rows (dK/dV): the edge cases cut them.
+FLASH_CASES = {
+    "D16_f32": (2, 200, 200, 4, 4, 16, torch.float32, True, None),
+    "D16_bf16": (2, 200, 200, 4, 4, 16, bf16, True, None),
+    "D64_f32_gqa_window": (2, 300, 300, 8, 2, 64, torch.float32, True, 100),
+    "D64_bf16_cross": (2, 257, 513, 8, 8, 64, bf16, False, None),
+    "bf16_T1": (2, 1, 1, 8, 8, 64, bf16, True, None),
+    "bf16_T63": (2, 63, 63, 8, 8, 64, bf16, True, None),
+    "bf16_T65": (2, 65, 65, 8, 8, 64, bf16, True, None),
+    "bf16_T129": (2, 129, 129, 8, 8, 64, bf16, True, None),
+    "bf16_cross_Tk_below_tile": (2, 200, 40, 8, 8, 64, bf16, False, None),
+    "bf16_gqa2": (2, 300, 300, 8, 4, 64, bf16, True, None),
+    "bf16_gqa4": (2, 300, 300, 8, 2, 64, bf16, True, None),
+    "bf16_window_below_tile": (2, 400, 400, 8, 8, 64, bf16, True, 50),
+    "bf16_rows_without_keys": (2, 300, 100, 8, 8, 64, bf16, True, 64),
+    "bf16_D16_T2048": (2, 2048, 2048, 4, 4, 16, bf16, True, None),
+}
+
+
+def _variant(dtype):
+    return "tc" if dtype == bf16 else "simt"
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,Hk,D,dtype,causal,window",
+                         list(FLASH_CASES.values()), ids=list(FLASH_CASES))
 def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Hk, D, dtype, causal,
                                     window):
     gen = torch.Generator().manual_seed(0)
@@ -69,11 +93,16 @@ def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Hk, D, dtype, causal,
     k = torch.randn((B, Tk, Hk, D), generator=gen).to(card, dtype)
     v = torch.randn((B, Tk, Hk, D), generator=gen).to(card, dtype)
     before = fa.launches.count
+    variants = fa.launches.by_variant()
     out, lse = fa.flash_attention(q, k, v, causal, None, window)
     assert fa.launches.count == before + 1
+    after = fa.launches.by_variant()
+    vname = _variant(dtype)
+    assert after.get(vname, 0) == variants.get(vname, 0) + 1
     ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
     assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
     assert float((out.float() - ref.float()).abs().max()) <= FLASH_TOL[dtype]
     assert float((lse - ref_lse).abs().max()) <= LSE_TOL
 
@@ -134,6 +163,23 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):
         fa.flash_attention(x, x, x, True)
 
 
+def test_flash_kernels_refuse_a_misaligned_bf16_view(card):
+    """A bf16 view at an odd element offset cannot feed the tensor-core
+    kernels' 16-byte copies: the wrappers raise naming the kernel, and
+    nothing launches (no SIMT kernel, no plain version)."""
+    base = torch.zeros(2 * 64 * 8 * 64 + 1, device=card, dtype=bf16)
+    x = base[1:].view(2, 64, 8, 64)
+    assert x.data_ptr() % 16 != 0
+    ok = torch.zeros_like(x)
+    lse = torch.zeros((2, 8, 64), device=card)
+    before = (fa.launches.count, dkv.launches.count)
+    with pytest.raises(ValueError, match="flash_attention.*aligned"):
+        fa.flash_attention(x, ok, ok, True)
+    with pytest.raises(ValueError, match="flash_bwd_dkv.*aligned"):
+        dkv.flash_bwd_dkv(ok, ok, ok, x, lse, lse, causal=True, scale=0.125)
+    assert (fa.launches.count, dkv.launches.count) == before
+
+
 def _bwd_inputs(card, B, Tq, Tk, H, Hk, D, dtype, causal, window, seed=2):
     gen = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=gen).to(card, dtype)
@@ -145,27 +191,54 @@ def _bwd_inputs(card, B, Tq, Tk, H, Hk, D, dtype, causal, window, seed=2):
                                            window=window)
 
 
-BWD_CASES = [(2, 200, 200, 4, 4, 16, torch.float32, True, None),
-             (2, 256, 256, 8, 8, 64, torch.bfloat16, True, None),
-             (2, 300, 300, 8, 2, 64, torch.float32, True, 100),
-             (2, 257, 513, 8, 8, 64, torch.bfloat16, False, None)]
-BWD_IDS = ["D16_f32", "D64_bf16", "D64_f32_gqa_window", "D64_bf16_cross"]
+BWD_CASES = {
+    "D16_f32": (2, 200, 200, 4, 4, 16, torch.float32, True, None),
+    "D64_bf16": (2, 256, 256, 8, 8, 64, bf16, True, None),
+    "D64_f32_gqa_window": (2, 300, 300, 8, 2, 64, torch.float32, True, 100),
+    "D64_bf16_cross": (2, 257, 513, 8, 8, 64, bf16, False, None),
+    "bf16_Tq1_Tk65": (2, 1, 65, 8, 8, 64, bf16, False, None),
+    **{name: FLASH_CASES[name] for name in (
+        "bf16_T1", "bf16_T63", "bf16_T65", "bf16_T129",
+        "bf16_cross_Tk_below_tile", "bf16_gqa2", "bf16_gqa4",
+        "bf16_window_below_tile", "bf16_rows_without_keys",
+        "bf16_D16_T2048")},
+}
 
 
-@pytest.mark.parametrize("B,Tq,Tk,H,Hk,D,dtype,causal,window", BWD_CASES,
-                         ids=BWD_IDS)
+@pytest.mark.parametrize("B,Tq,Tk,H,Hk,D,dtype,causal,window",
+                         list(BWD_CASES.values()), ids=list(BWD_CASES))
 def test_flash_bwd_kernels_match_plain(card, B, Tq, Tk, H, Hk, D, dtype,
                                        causal, window):
     args, kw = _bwd_inputs(card, B, Tq, Tk, H, Hk, D, dtype, causal, window)
     before = (dq.launches.count, dkv.launches.count)
+    variants = dkv.launches.by_variant()
     got = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
     assert (dq.launches.count, dkv.launches.count) == (before[0] + 1,
                                                        before[1] + 1)
+    vname = _variant(dtype)
+    assert dkv.launches.by_variant().get(vname, 0) \
+        == variants.get(vname, 0) + 1
     ref = (dq.flash_bwd_dq_plain(*args, **kw),) + dkv.flash_bwd_dkv_plain(
         *args, **kw)
-    for g, r in zip(got, ref):
+    q, k, v, do = args[:4]
+    # causal Tq = Tk = 1: P = 1 and dP = delta, so the exact dQ and dK
+    # are 0 and each side holds only its own rounding of dP - delta; those
+    # two are held in units of the terms that cancel (|dO| |V| scale
+    # times |K| or |Q|), dV as every other gradient
+    zero = (causal and Tq == Tk == 1)
+    terms = _amax(do) * _amax(v) * kw["scale"]
+    for name, g, r, other in zip(("dq", "dk", "dv"), got, ref, (k, q, None)):
         assert g.dtype == dtype and g.shape == r.shape
-        assert _bwd_units(g, r) <= BWD_UNITS[dtype]
+        if zero and other is not None:
+            err = float((g.float() - r.float()).abs().max())
+            assert err <= BWD_UNITS[dtype] * BWD_UNIT[dtype] * terms \
+                * _amax(other), name
+        else:
+            assert _bwd_units(g, r) <= BWD_UNITS[dtype], name
+
+
+def _amax(t):
+    return float(t.float().abs().max())
 
 
 def _bwd_units(got, ref):
@@ -181,15 +254,33 @@ def _bwd_units(got, ref):
     return float(units.max())
 
 
-def test_flash_bwd_kernels_are_deterministic(card):
-    """No float atomics: two backward runs give the same bits."""
-    args, kw = _bwd_inputs(card, 2, 384, 384, 8, 2, 64, torch.bfloat16,
-                           True, None)
+@pytest.mark.parametrize("B,T,H,Hk", [(2, 384, 8, 2), (16, 2048, 8, 8)],
+                         ids=["gqa_384", "full_width_2048"])
+def test_flash_bwd_kernels_are_deterministic(card, B, T, H, Hk):
+    """No float atomics: two backward runs give the same bits (the
+    tensor-core dK/dV and the dQ kernel, bf16, up to the training path's
+    full width)."""
+    args, kw = _bwd_inputs(card, B, T, T, H, Hk, 64, bf16, True, None)
     first = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
     second = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args,
                                                                   **kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_bf16_attention_launches_only_the_tensor_core_variants(card):
+    """A bf16 forward and backward through the autograd.Function counts
+    its flash forward and dK/dV launches on the tensor-core variant and
+    none on the SIMT one."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((2, 256, 8, 64), generator=gen).to(card, bf16)
+               .requires_grad_(True) for _ in range(3))
+    for m in (fa, dkv):
+        m.launches.reset()
+    out, _ = fa.flash_attention(q, k, v, True)
+    torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    assert fa.launches.by_variant() == {"tc": 1}
+    assert dkv.launches.by_variant() == {"tc": 1}
 
 
 def _attention_grads(card, x, unit, params):

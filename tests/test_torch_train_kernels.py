@@ -24,6 +24,7 @@ from veles_tpu.ops import pallas_kernels as pk  # noqa: E402
 from veles_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv  # noqa: E402
 from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq  # noqa: E402
+from veles_tpu_torch.ops.kernels import flash_bwd_common as fc  # noqa: E402
 from veles_tpu_torch.ops.kernels import gather_rows as gr  # noqa: E402
 
 torch.set_num_threads(2)
@@ -129,6 +130,50 @@ def test_bwd_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError, match="multiple"):
         dkv.flash_bwd_dkv(x, x[:, :, :0], x[:, :, :0], x, lse, lse,
                           causal=True, scale=0.25)
+
+
+# -- which flash kernel a CUDA call launches (decided on CPU tensors) -------
+
+@pytest.mark.parametrize("name", [fa.NAME, dkv.NAME])
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "simt"),
+                                           (torch.bfloat16, "tc")],
+                         ids=["f32_simt", "bf16_tensor_cores"])
+def test_kernel_variant_follows_the_dtype(name, dtype, variant):
+    """float32 takes the SIMT kernel and bfloat16 the tensor-core one, at
+    every shape: odd T, Tq != Tk, head dim 16 or 64."""
+    for shape in ((1, 1, 8, 64), (3, 65, 4, 16), (2, 129, 8, 64)):
+        ts = [torch.zeros(shape, dtype=dtype) for _ in range(4)]
+        fc.check_kernel_inputs(name, ts, shape[3], shape[0] * shape[2])
+        assert fc.kernel_variant(name, ts) == variant
+
+
+@pytest.mark.parametrize("name", [fa.NAME, dkv.NAME])
+def test_kernel_variant_refuses_a_misaligned_bf16_view(name):
+    """A bf16 view at an odd element offset cannot feed the 16-byte
+    copies: refused with the kernel's name, never routed elsewhere; the
+    same view in float32 (the SIMT kernel) is taken."""
+    base = torch.zeros(2 * 64 * 8 * 64 + 1, dtype=torch.bfloat16)
+    x = base[1:].view(2, 64, 8, 64)
+    assert x.is_contiguous() and x.data_ptr() % fc.TC_ALIGN != 0
+    ok = torch.zeros_like(x)
+    fc.check_kernel_inputs(name, (ok, ok, x), 64, 16)
+    with pytest.raises(ValueError, match=f"{name}: .*16-byte aligned"):
+        fc.kernel_variant(name, (ok, ok, x))
+    f32 = torch.zeros(2 * 64 * 8 * 64 + 1)[1:].view(2, 64, 8, 64)
+    assert fc.kernel_variant(name, (f32, f32, f32)) == "simt"
+
+
+def test_kernel_inputs_refuse_what_no_variant_takes():
+    x = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fc.check_kernel_inputs(fa.NAME, (torch.zeros(1, 8, 2, 32),) * 3,
+                               32, 2)
+    with pytest.raises(TypeError, match="one dtype"):
+        fc.check_kernel_inputs(dkv.NAME, (x, x.float(), x), 64, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fc.check_kernel_inputs(fa.NAME, (x.half(),) * 3, 64, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.check_kernel_inputs(fa.NAME, (x.transpose(1, 2),) * 3, 64, 2)
 
 
 # -- the fullbatch row gather ------------------------------------------------

@@ -1,8 +1,11 @@
-// Flash-attention backward, dK and dV, for Hopper (sm_90a); plain C
-// interface for ctypes.
+// Flash-attention backward, dK and dV, for Hopper (sm_90a), float32
+// instances, on the SIMT cores; plain C interface for ctypes.  The bf16
+// instances run on the tensor cores in flash_bwd_dkv_tc.cu (the wrapper
+// routes by dtype).
 //
 // Replaces the TPU kernel veles_tpu/ops/pallas_kernels.py `_flash_bwd`'s
-// dK/dV pallas_call (:411, kernel body `_flash_bwd_dkv_kernel` :312-357).
+// dK/dV pallas_call (:411, kernel body `_flash_bwd_dkv_kernel` :312-357)
+// for float32 inputs.
 // Wrapper and plain PyTorch version: veles_tpu_torch/ops/kernels/
 // flash_bwd_dkv.py.
 //
@@ -20,8 +23,11 @@
 //
 // What bounds it on this card: four products of (T x D) by (D x T) per
 // (b, h), ~4 x 34 GFLOP at the training path's shape (B=16, T=2048, H=8,
-// D=64, causal) against ~10 MB of traffic: the bf16 tensor-core rate
-// bounds it.  This first version uses plain float32 FMAs.
+// D=64, causal) against ~10 MB of traffic.  In float32 the bound is the
+// f32 rate outside the tensor cores (67 TFLOP/s): the tensor cores cannot
+// hold f32 to this kernel's bound (1024 units of 2^-24) without a 3xTF32
+// split.  The f32 instances serve chip_smoke.py's f32 train step and
+// edge cases and configs/induction_lm.json's quality run (f32, D=16).
 //
 // Design: one block per (b*Hk, tile of ROWS keys); TPR = D/16 threads per
 // key row, each owning 16 of its head dims, so a thread keeps k, v and
@@ -35,7 +41,6 @@
 // of the block can see are skipped (`_flash_block_live`, as a row range).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -48,18 +53,10 @@ template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
     return x;
 }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-        __nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
     return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-        float x) {
-    return __float2bfloat16(x);  // round to nearest even
 }
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -197,26 +194,24 @@ void launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dk and dv share it);
+// float32 q, k, v, dout, dk and dv (bfloat16 is flash_bwd_dkv_tc.cu's);
 // lse and delta are float32 (B, H, Tq).  D is 16 or 64.  window: 0 =
 // none.  Returns the CUDA error code of the launch (0 on success); no
 // synchronisation.
 int vt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int B, int Tq, int Tk, int H,
-                     int Hk, int D, int dtype, float scale, int causal,
-                     int window, void* stream) {
+                     int Hk, int D, float scale, int causal, int window,
+                     void* stream) {
     if (B < 1 || Tq < 1 || Tk < 1 || Hk < 1 || H % Hk != 0 ||
-        B * Hk > 65535 || (dtype != 0 && dtype != 1))
+        B * Hk > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VT_LAUNCH(T, DV)                                                    \
     launch<T, DV>(q, k, v, dout, lse, delta, dk, dv, B, Tq, Tk, H, Hk,      \
                   scale, causal, window, st)
-    if (D == 16 && dtype == 0) VT_LAUNCH(float, 16);
-    else if (D == 16) VT_LAUNCH(__nv_bfloat16, 16);
-    else if (D == 64 && dtype == 0) VT_LAUNCH(float, 64);
-    else if (D == 64) VT_LAUNCH(__nv_bfloat16, 64);
+    if (D == 16) VT_LAUNCH(float, 16);
+    else if (D == 64) VT_LAUNCH(float, 64);
     else return (int)cudaErrorInvalidValue;
 #undef VT_LAUNCH
     return (int)cudaGetLastError();

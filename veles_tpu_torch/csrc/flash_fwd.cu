@@ -1,9 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward for Hopper (sm_90a), float32 instances, on the
+// SIMT cores; plain C interface for ctypes.  The bf16 instances run on the
+// tensor cores in flash_fwd_tc.cu (the wrapper routes by dtype).
 //
 // Replaces the TPU kernel veles_tpu/ops/pallas_kernels.py `_flash_fwd`
-// (pallas_call at :205, kernel body `_flash_fwd_kernel` at :85-154).
-// Wrapper and plain PyTorch version: veles_tpu_torch/ops/kernels/
-// flash_attention.py.
+// (pallas_call at :205, kernel body `_flash_fwd_kernel` at :85-154) for
+// float32 q/k/v.  Wrapper and plain PyTorch version: veles_tpu_torch/ops/
+// kernels/flash_attention.py.
 //
 // Computes, per (batch b, q head h, query row i):
 //   out[b,i,h,:] = softmax_j(q[b,i,h,:] . k[b,j,kh,:] * scale) @ v[b,:,kh,:]
@@ -11,25 +13,23 @@
 // over the keys j the mask leaves live (j < Tk; with causal j <= i; with a
 // window W also j > i - W), with kh = h / (H / Hk) (grouped-query
 // attention: the q head reads its kv head in place, never a repeat).
-// Inputs are f32 or bf16 in the (B, T, H, D) layout; scores, the online
-// softmax state (m, l) and the accumulator are f32; the probabilities are
-// rounded to the input type before the P.V product, as the TPU kernel
-// does with p.astype(v.dtype).  Masked scores are -1e30 (not -inf): a row
-// with no live key ends with l = 0 and writes 0, never NaN.
+// Scores, the online softmax state (m, l) and the accumulator are f32.
+// Masked scores are -1e30 (not -inf): a row with no live key ends with
+// l = 0 and writes 0, never NaN.
 //
-// What bounds it on this card: at the serving path's shape (B=16, T=2048,
-// H=8, D=64, causal) the work is ~69 GFLOP against ~8 MB of traffic, so
-// the card's bound is its bf16 tensor-core rate (989 TFLOP/s, ~69 us).
-// This first version does the arithmetic with plain f32 FMAs (67 TFLOP/s
-// peak outside the tensor cores), so it sits far above that bound: it is
-// written to be right first; mma/wgmma tiles are later work.
+// Why float32 stays here: the tensor cores cannot hold f32 to this
+// kernel's bound against its plain version (1e-4) without a 3xTF32 split.
+// The f32 instances serve the parity checks (chip_smoke.py's f32 train
+// step, the f32 engine-vs-generate() run) and configs/induction_lm.json's
+// quality run (no compute_dtype, so f32 at head dim 16).  Their bound is
+// the f32 rate outside the tensor cores (67 TFLOP/s).
 //
-// Design against that: one block per (b*h, tile of BLOCK_Q query rows),
+// Design: one block per (b*h, tile of BLOCK_Q query rows),
 // one thread per query row holding its q row and accumulator in
 // registers.  The TPU kernel's sequential k grid axis ("arbitrary"
 // dimension semantics, scratch m/l/acc carried across grid steps) becomes
 // a loop inside the block: K/V tiles of BLOCK_K keys are staged once in
-// shared memory (converted to f32) and read by every row of the block as
+// shared memory and read by every row of the block as
 // broadcasts.  Whole tiles past the causal diagonal, and with a window
 // wholly before it, are never loaded (the TPU kernel's
 // `_flash_block_live` skip).  Ragged T needs no padding: rows >= Tq do no
@@ -37,7 +37,6 @@
 // ever produced.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -50,18 +49,10 @@ template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
     return x;
 }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-        __nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
     return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-        float x) {
-    return __float2bfloat16(x);  // round to nearest even
 }
 
 template <typename T, int D>
@@ -190,27 +181,25 @@ void launch(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  window: 0 = none.  Returns the CUDA
-// error code of the launch (0 on success); no synchronisation.  D is 16 or
-// 64: the head widths of the repo's configurations (configs/
-// induction_lm*.json and the bench_lm.py-width model).  (D = 128 is not
+// float32 q/k/v/out (bfloat16 is flash_fwd_tc.cu's).  window: 0 = none.
+// Returns the CUDA error code of the launch (0 on success); no
+// synchronisation.  D is 16 or 64: the head widths of the repo's
+// configurations (configs/induction_lm*.json and the bench_lm.py-width
+// model).  (D = 128 is not
 // built: a thread's q row + accumulator + scores exceed 255 registers
 // there, and its fully unrolled body alone took minutes of nvcc time.)
 int vt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                  void* lse, int B, int Tq, int Tk, int H, int Hk, int D,
-                 int dtype, float scale, int causal, int window,
-                 void* stream) {
+                 float scale, int causal, int window, void* stream) {
     if (B < 1 || Tq < 1 || Tk < 1 || Hk < 1 || H % Hk != 0 ||
-        B * H > 65535 || (dtype != 0 && dtype != 1))
+        B * H > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VT_LAUNCH(T, DV)                                                    \
     launch<T, DV>(q, k, v, out, lse, B, Tq, Tk, H, Hk, scale, causal,       \
                   window, st)
-    if (D == 16 && dtype == 0) VT_LAUNCH(float, 16);
-    else if (D == 16) VT_LAUNCH(__nv_bfloat16, 16);
-    else if (D == 64 && dtype == 0) VT_LAUNCH(float, 64);
-    else if (D == 64) VT_LAUNCH(__nv_bfloat16, 64);
+    if (D == 16) VT_LAUNCH(float, 16);
+    else if (D == 64) VT_LAUNCH(float, 64);
     else return (int)cudaErrorInvalidValue;
 #undef VT_LAUNCH
     return (int)cudaGetLastError();

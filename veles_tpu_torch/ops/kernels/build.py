@@ -27,11 +27,14 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-#: library name -> source file under csrc/
+#: library name -> source file under csrc/ (``*.cuh`` headers there are
+#: shared: a change to one rebuilds every library)
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
+    "flash_fwd_tc": "flash_fwd_tc.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
+    "flash_bwd_dkv_tc": "flash_bwd_dkv_tc.cu",
     "paged_attention": "paged_attention.cu",
     "gather_rows": "gather_rows.cu",
     "fused_dropout": "fused_dropout.cu",
@@ -67,7 +70,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -141,20 +145,31 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 class LaunchCounter:
     """Plain count of a kernel's launches; the wrapper adds one exactly
     where it launches the kernel, so a run can show that its main path
-    went through the kernel."""
+    went through the kernel.  A kernel built in variants (the flash
+    kernels: ``"tc"`` tensor cores for bf16, ``"simt"`` for float32) names
+    the variant it launched, and :meth:`by_variant` counts each."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._n = 0
+        self._variants: Dict[str, int] = {}
 
-    def inc(self) -> None:
+    def inc(self, variant: Optional[str] = None) -> None:
         with self._lock:
             self._n += 1
+            if variant is not None:
+                self._variants[variant] = self._variants.get(variant, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._variants = {}
 
     @property
     def count(self) -> int:
         return self._n
+
+    def by_variant(self) -> Dict[str, int]:
+        """Launches per variant since the last reset."""
+        with self._lock:
+            return dict(self._variants)

@@ -1,6 +1,10 @@
-"""Flash-attention forward: the hand-written CUDA kernel
-(``csrc/flash_fwd.cu``) and its plain PyTorch version, joined with the
-two backward kernels into one ``torch.autograd.Function``.
+"""Flash-attention forward: the hand-written CUDA kernels and their plain
+PyTorch version, joined with the two backward kernels into one
+``torch.autograd.Function``.
+
+Two variants, chosen by dtype alone (``kernel_variant``): bfloat16 runs
+on the tensor cores (``csrc/flash_fwd_tc.cu``, wgmma), float32 on the
+SIMT cores (``csrc/flash_fwd.cu``); ``launches.by_variant()`` counts each.
 
 Replaces ``veles_tpu/ops/pallas_kernels.py`` ``_flash_fwd`` (pallas_call
 at :205) and the ``custom_vjp`` around it (:450-489).
@@ -21,18 +25,20 @@ import torch
 
 from .. import check_attention_window, check_gqa_heads, kernel_route
 from . import build
+from .flash_bwd_common import check_kernel_inputs, kernel_variant
 from .flash_bwd_dkv import flash_bwd_dkv
 from .flash_bwd_dq import flash_bwd_dq
 
 NAME = "flash_attention"
-SOURCE = "veles_tpu_torch/csrc/flash_fwd.cu"
+#: the source of each variant; SOURCE is the bf16 main path's
+SOURCES = {"tc": "veles_tpu_torch/csrc/flash_fwd_tc.cu",
+           "simt": "veles_tpu_torch/csrc/flash_fwd.cu"}
+SOURCE = SOURCES["tc"]
 REPLACES = "veles_tpu/ops/pallas_kernels.py:205"
 
-#: launches of the CUDA kernel (never of the plain version)
+#: launches of the CUDA kernels, by variant (never of the plain version)
 launches = build.LaunchCounter()
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 64)      # configs/induction_lm*.json, bench_lm.py width
 _NEG = -1e30
 
 
@@ -140,40 +146,29 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
     return out, m + torch.log(denom)
 
 
-def _fn():
-    lib = build.load("flash_fwd")
-    fn = lib.vt_flash_fwd
+def _fn(variant):
+    lib = build.load("flash_fwd_tc" if variant == "tc" else "flash_fwd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.vt_flash_fwd_tc if variant == "tc" else lib.vt_flash_fwd
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                       i, i, p]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+    fn.restype = ctypes.c_int
     return lib, fn
 
 
 def _launch(q, k, v, causal, scale, window):
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{NAME}: kernel takes float32 or bfloat16 q/k/v "
-                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError(f"{NAME}: kernel needs contiguous (B, T, H, D) "
-                         "q/k/v")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError(f"{NAME}: q/k/v on different devices")
+    """Launch the variant ``q``'s dtype picks."""
     B, Tq, H, D = q.shape
     Tk, Hk = k.shape[1], k.shape[2]
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{NAME}: kernel takes head dim in {_HEAD_DIMS}, "
-                         f"got {D}")
-    if B * H > 65535:
-        raise ValueError(f"{NAME}: B*H={B * H} exceeds the grid limit")
+    check_kernel_inputs(NAME, (q, k, v), D, B * H)
+    variant = kernel_variant(NAME, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    lib, fn = _fn()
+    lib, fn = _fn(variant)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Tq, Tk, H, Hk, D, _DTYPES[q.dtype], scale,
-            int(causal), int(window or 0), stream)
+            lse.data_ptr(), B, Tq, Tk, H, Hk, D, scale, int(causal),
+            int(window or 0), stream)
     build.check(lib, rc, NAME)
-    launches.inc()
+    launches.inc(variant)
     return out, lse

@@ -1,9 +1,10 @@
-"""What the two flash-attention backward wrappers share: argument checks
-and the plain versions' recompute loop.
+"""What the flash-attention wrappers share: argument checks, the choice
+of kernel variant, and the backward plain versions' recompute loop.
 
-:mod:`.flash_bwd_dq` and :mod:`.flash_bwd_dkv` each pick their own route
-(``ops.kernel_route`` on their own input) and then use these helpers, so
-either route can be switched without touching the other.
+:mod:`.flash_attention`, :mod:`.flash_bwd_dq` and :mod:`.flash_bwd_dkv`
+each pick their own route (``ops.kernel_route`` on their own input) and
+then use these helpers, so any route can be switched without touching the
+others.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from .. import check_gqa_heads
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64)       # configs/induction_lm*.json, bench_lm.py width
+#: base alignment the tensor-core kernels' 16-byte row copies need
+TC_ALIGN = 16
 
 
 def check_bwd_shapes(name, q, k, v, dout, lse, delta):
@@ -32,24 +35,56 @@ def check_bwd_shapes(name, q, k, v, dout, lse, delta):
                          f"{(B, H, Tq)}")
 
 
+def check_kernel_inputs(name, tensors, head_dim, rows):
+    """Raise on what the CUDA kernels do not take: ``tensors`` (q, k, v
+    and, backward, dout) of one dtype, float32 or bfloat16, contiguous and
+    on one device; head dim in :data:`HEAD_DIMS`; ``rows`` = B*H within
+    the grid."""
+    dtypes = [t.dtype for t in tensors]
+    if dtypes[0] not in DTYPES or any(d != dtypes[0] for d in dtypes):
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16 inputs "
+                        f"of one dtype, got {dtypes}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: kernel needs contiguous inputs")
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: inputs on different devices")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{name}: kernel takes head dim in {HEAD_DIMS}, "
+                         f"got {head_dim}")
+    if rows > 65535:
+        raise ValueError(f"{name}: B*H={rows} exceeds the grid limit")
+
+
 def check_kernel_args(name, q, k, v, dout, lse, delta):
-    """Raise on what the CUDA kernels do not take (dtypes, layout, head
-    dim, grid size)."""
-    B, _, H, D = q.shape
-    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in (k, v, dout)):
-        raise TypeError(f"{name}: kernel takes float32 or bfloat16 "
-                        "q/k/v/dout of one dtype")
+    """:func:`check_kernel_inputs` for a backward kernel, and lse and
+    delta float32, contiguous and on q's device."""
+    check_kernel_inputs(name, (q, k, v, dout), q.shape[3],
+                        q.shape[0] * q.shape[2])
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError(f"{name}: lse and delta must be float32")
-    if not all(t.is_contiguous() for t in (q, k, v, dout, lse, delta)):
+    if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError(f"{name}: kernel needs contiguous inputs")
-    if any(t.device != q.device for t in (k, v, dout, lse, delta)):
+    if lse.device != q.device or delta.device != q.device:
         raise ValueError(f"{name}: inputs on different devices")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: kernel takes head dim in {HEAD_DIMS}, "
-                         f"got {D}")
-    if B * H > 65535:
-        raise ValueError(f"{name}: B*H={B * H} exceeds the grid limit")
+
+
+def kernel_variant(name, tensors):
+    """The variant a CUDA call of the flash forward or dK/dV kernel
+    launches, chosen by dtype and never by shape: ``"tc"`` (the tensor-core
+    kernel) for bfloat16, ``"simt"`` for float32.  The tensor-core kernels
+    copy each row in 16-byte pieces, so a bf16 tensor whose base is not
+    16-byte aligned (a view at an odd element offset) raises, naming the
+    kernel: it is never sent to the SIMT kernel or the plain version.
+    Call after :func:`check_kernel_inputs`."""
+    if tensors[0].dtype == torch.float32:
+        return "simt"
+    bad = [i for i, t in enumerate(tensors) if t.data_ptr() % TC_ALIGN]
+    if bad:
+        raise ValueError(f"{name}: the bf16 tensor-core kernel needs "
+                         f"{TC_ALIGN}-byte aligned inputs; input(s) {bad} "
+                         "start off that boundary (a view at an odd "
+                         "offset?): pass a contiguous copy")
+    return "tc"
 
 
 def key_blocks(q, k, v, dout, lse, delta, *, causal, scale, window, block_k):

@@ -79,5 +79,5 @@ def _launch(q, k, v, dout, lse, delta, causal, scale, window):
             Hk, D, DTYPES[q.dtype], scale, int(causal), int(window or 0),
             stream)
     build.check(lib, rc, NAME)
-    launches.inc()
+    launches.inc("simt")
     return dq
