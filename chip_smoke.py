@@ -11,12 +11,15 @@ Phases, each of which fails the run with a non-zero exit:
    (one nvcc per source, all in parallel), with each source's seconds and
    ptxas registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at its path's shapes and at edge cases (for the flash forward and
-   dK/dV, the variant launched: tensor cores for bf16, SIMT for float32),
+   at its path's shapes and at edge cases (for the flash kernels, the
+   variant launched: tensor cores for bf16, SIMT for float32; for paged
+   decode, the edges of its per-row split across a cluster of blocks, a
+   corrupt page-table entry, and two runs bitwise equal),
    each error beside its tolerance (the flash backward element by
    element, see BWD_UNITS); then each kernel's time, its plain version's
    time, the time of the one PyTorch call computing the same function
-   (where there is one) and the card's bound for the same work;
+   (where there is one) and the card's bound for the same work (paged
+   decode also with a cold L2, 128 MiB written before each launch);
 4. serving path: the bench_lm.py transformer LM at full width (vocab
    1024, dim 512, 4 blocks of 8-head RoPE attention + layer_norm + ffn
    2048 + layer_norm, per-position head, bf16 compute), random weights
@@ -25,7 +28,8 @@ Phases, each of which fails the run with a non-zero exit:
    ``DecodeEngine`` (8 slots, l_max 1024, page 16, paged kernel on):
    greedy and sampled ``POST /generate`` (prompt 512, 64 new tokens) and
    one ``POST /predict`` (16 x 2048 batch); the flash-forward and paged
-   kernels' launch counts must rise during it; greedy tokens are compared
+   kernels' launch counts must rise during it, paged decode exactly once
+   per layer per decode step; greedy tokens are compared
    with the port's own ``generate()`` (share reported in bf16; in float32
    every token must agree);
 5. training path, full width: the same LM (bf16) trained through
@@ -33,8 +37,8 @@ Phases, each of which fails the run with a non-zero exit:
    steps of 16 x 2048 tokens, Adam lr 1e-3) and its eval, fed by an
    ``InductionLoader(per_position=True, seq_len=2048, vocab=1024)`` held
    on the card; the flash forward, both flash backward and the gather
-   kernels must launch, every bf16 flash forward and dK/dV launch on the
-   tensor-core variant, and every loss must be finite; then 8 steps on one
+   kernels must launch, every bf16 flash launch (forward, dQ, dK/dV) on
+   the tensor-core variant, and every loss must be finite; then 8 steps on one
    fixed batch must cut its loss by 5 % (the epoch's own loss stays near
    chance, see ``_fixed_batch_descent``); step times, tokens/s and a
    torch.profiler window of 3 steps (device idle share, top kernels);
@@ -157,6 +161,28 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+def cold_l2_ms(torch, fn, iters=20, flush_bytes=128 << 20):
+    """Mean milliseconds of ``fn`` alone with a cold L2: before each
+    launch the stream writes ``flush_bytes`` (2.5x the 50 MB L2) to a
+    scratch buffer, and a pair of CUDA events brackets ``fn`` only.  As
+    in :func:`cuda_ms`, the stream spins first so that the host has
+    queued every launch before the first event runs."""
+    scratch = torch.empty(flush_bytes // 4, dtype=torch.float32,
+                          device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(200_000_000)
+    for t0, t1 in events:
+        scratch.fill_(1.0)
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return sum(t0.elapsed_time(t1) for t0, t1 in events) / iters
+
+
 def bound(flops, peak, nbytes):
     ops_ms = flops / peak * 1e3
     bytes_ms = nbytes / H100_BYTES_S * 1e3
@@ -258,8 +284,8 @@ def _variant_delta(before, after):
 
 
 def expected_variant(dtype):
-    """The flash forward's and dK/dV's variant for a dtype: the
-    tensor-core kernels take bf16, the SIMT kernels float32."""
+    """A flash kernel's variant for a dtype: the tensor-core kernels take
+    bf16, the SIMT kernels float32."""
     return {"tc": 1} if str(dtype).endswith("bfloat16") else {"simt": 1}
 
 
@@ -288,13 +314,15 @@ def _paged_inputs(torch, gen, S, H, Hk, Dh, psz, n_ptab, q_dtype, pos,
 
 def _corrupt_ptab_check(torch, gen, pos):
     """A live page-table entry outside the pool turns its row into NaN in
-    the kernel and in the plain version alike; an out-of-range entry past
-    a row's span is never read, so that row stays finite."""
+    the kernel and in the plain version alike, whichever block of the
+    row's split reads it; an out-of-range entry past a row's span is
+    never read, so that row stays finite."""
     from veles_tpu_torch.ops.kernels import paged_attention as pa
     q, pk, pv, ptab, ppos = _paged_inputs(
         torch, gen, SLOTS, HEADS, HEADS, 64, PAGE, L_MAX // PAGE,
         torch.float32, pos, True)
     rows = pk.shape[0]
+    ptab[1, 60] = rows + 7              # row 1 (pos L-1): the last split
     ptab[2, 0] = rows + 5               # row 2 (pos 17): a live page
     ptab[3, -1] = -1                    # row 3 (pos 544): past its span
     out = pa.paged_attention_decode(q, pk, pv, ptab, ppos, page_size=PAGE,
@@ -306,10 +334,10 @@ def _corrupt_ptab_check(torch, gen, pos):
                 .nonzero().flatten()]
     ref_nan = [int(b) for b in torch.isnan(ref).any(-1).any(-1)
                .nonzero().flatten()]
-    keep = [b for b in range(SLOTS) if b != 2]
+    keep = [b for b in range(SLOTS) if b not in (1, 2)]
     err = float((out[keep] - ref[keep]).abs().max())
-    ok = (nan_rows == [2] and ref_nan == [2]
-          and bool(torch.isnan(out[2]).all()) and err <= PAGED_TOL)
+    ok = (nan_rows == [1, 2] and ref_nan == [1, 2]
+          and bool(torch.isnan(out[1:3]).all()) and err <= PAGED_TOL)
     return {"kernel": pa.NAME, "case": "corrupt_ptab_nan_row",
             "nan_rows": nan_rows, "plain_nan_rows": ref_nan,
             "max_abs_err": err, "tol": PAGED_TOL, "ok": ok}
@@ -372,12 +400,20 @@ def phase_kernels(torch):
     L = (L_MAX // PAGE) * PAGE
     main_pos = [int(x) for x in PROMPT + rng.integers(0, NEW, SLOTS)]
     edge_pos = [0, L - 1, 17, 544, 300, 700, 15, 16]
+    split_pos = [127, 128, 255, 256, 511, 512, L - 1, L - 15]
     paged = [("main_bf16q_f32pool", HEADS, HEADS, 64, bf16, main_pos, None,
               True),
              ("edges_f32", HEADS, HEADS, 64, f32, edge_pos, None, True),
              ("window_f32", HEADS, HEADS, 64, f32, edge_pos, 100, True),
              ("gqa_f32", HEADS, 2, 64, f32, edge_pos, None, False),
              ("gqa_window_bf16q", HEADS, 2, 64, bf16, edge_pos, 40, True),
+             # the edges of the kernel's split (8 blocks a row, 8 pages of
+             # 16 a block at pos L-1)
+             ("split_edges_f32", HEADS, HEADS, 64, f32, split_pos, None,
+              True),
+             ("window_across_splits_f32", HEADS, HEADS, 64, f32, edge_pos,
+              200, True),
+             ("window_1_f32", HEADS, HEADS, 64, f32, edge_pos, 1, True),
              ("induction_lm_D16_f32", 4, 4, 16, f32, edge_pos, None, True),
              ("induction_lm_D16_bf16q", 4, 4, 16, bf16, edge_pos, None,
               True)]
@@ -398,6 +434,15 @@ def phase_kernels(torch):
         if name.startswith("main"):
             main_paged = (args, err, pos, H, Hk)
     checks.append(_corrupt_ptab_check(torch, gen, edge_pos))
+    say(checks[-1])
+    # fixed splits merged in rank order: two runs give the same bits
+    args = main_paged[0]
+    twice = [pa.paged_attention_decode(*args, page_size=PAGE,
+                                       n_kv_heads=main_paged[4])
+             for _ in range(2)]
+    same = bool(torch.equal(*twice))
+    checks.append({"kernel": pa.NAME, "case": "main_two_runs_bitwise",
+                   "equal": same, "ok": same})
     say(checks[-1])
     bad = [c for c in checks if not c["ok"]]
     if bad:
@@ -422,6 +467,8 @@ def phase_kernels(torch):
     pq, pk_, pv_, ptab, ppos = args
     p_ms = cuda_ms(torch, lambda: pa.paged_attention_decode(
         *args, page_size=PAGE, n_kv_heads=Hkp), iters=50)
+    p_cold = cold_l2_ms(torch, lambda: pa.paged_attention_decode(
+        *args, page_size=PAGE, n_kv_heads=Hkp))
     p_plain = cuda_ms(torch, lambda: pa.paged_attention_decode_plain(
         *args, page_size=PAGE, n_kv_heads=Hkp), iters=20)
     live = sum(p + 1 for p in pos)
@@ -443,7 +490,10 @@ def phase_kernels(torch):
                             "dtype": "bfloat16", "causal": causal}},
         pa.NAME: {"max_abs_err": perr, "ms": p_ms, "plain_ms": p_plain,
                   "library_ms": None, "bound_ms": p_bound,
-                  "bound_by": p_by,
+                  "bound_by": p_by, "cold_l2_ms": p_cold,
+                  "bound_share": p_bound / p_cold,
+                  "gb_per_s_cold": p_bytes / p_cold / 1e6,
+                  "ptxas": _instance_usage("paged_attention"),
                   "shape": {"S": SLOTS, "H": Hp, "Hk": Hkp, "Dh": 64,
                             "page_size": PAGE, "n_ptab": L_MAX // PAGE,
                             "q": "bfloat16", "pool": "float32",
@@ -466,7 +516,9 @@ def _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dtype, causal, window):
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta)
     kw = dict(causal=causal, scale=D ** -0.5, window=window)
+    before_dq = dq.launches.by_variant()
     got = {"dq": dq.flash_bwd_dq(*args, **kw)}
+    ran_dq = _variant_delta(before_dq, dq.launches.by_variant())
     before = dkv.launches.by_variant()
     got["dk"], got["dv"] = dkv.flash_bwd_dkv(*args, **kw)
     ran = _variant_delta(before, dkv.launches.by_variant())
@@ -485,7 +537,7 @@ def _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dtype, causal, window):
                 "dk": terms * float(q.float().abs().max())}
     res = {name: bwd_agreement(torch, got[name], ref[name], zero.get(name))
            for name in ("dq", "dk", "dv")}
-    res["dkv_variant"] = ran
+    res["variant"] = {dq.NAME: ran_dq, dkv.NAME: ran}
     return args, kw, res
 
 
@@ -540,8 +592,9 @@ def phase_train_kernels(torch):
              ("noncausal_cross_bf16", 2, 300, 700, 8, 8, 64, bf16, False,
               None),
              ("ragged_f32", 3, 1000, 1000, 8, 8, 64, f32, True, None),
-             # edges of the tensor-core dK/dV's tiles (64 keys by 64
-             # query rows); at T=1 the exact dQ and dK are 0 (see _bwd_case)
+             # edges of the tensor-core dQ's and dK/dV's tiles (64 query
+             # rows by 64 keys); at T=1 the exact dQ and dK are 0 (see
+             # _bwd_case)
              ("T1_bf16", 2, 1, 1, 8, 8, 64, bf16, True, None),
              ("Tq1_Tk65_bf16", 2, 1, 65, 8, 8, 64, bf16, False, None),
              ("T63_bf16", 2, 63, 63, 8, 8, 64, bf16, True, None),
@@ -560,11 +613,9 @@ def phase_train_kernels(torch):
         args, kw, res = _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dt,
                                   causal, window)
         for kname, grads in ((dq.NAME, ("dq",)), (dkv.NAME, ("dk", "dv"))):
-            rec = {"kernel": kname, "case": name}
-            ok = True
-            if kname == dkv.NAME:
-                rec["variant"] = res["dkv_variant"]
-                ok = res["dkv_variant"] == expected_variant(dt)
+            rec = {"kernel": kname, "case": name,
+                   "variant": res["variant"][kname]}
+            ok = res["variant"][kname] == expected_variant(dt)
             for g in grads:
                 r = res[g]
                 rec[g] = {k: r[k] for k in ("units", "units_tol",
@@ -662,9 +713,11 @@ def phase_train_kernels(torch):
         dq.NAME: {"max_abs_err": res["dq"]["max_abs_err"], "ms": dq_ms,
                   "plain_ms": dq_plain, "library_ms": lib_ms,
                   "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
-                  "variant": "simt", "tflops": dq_flops / dq_ms / 1e9,
+                  "variant": "tc", "source": dq.SOURCES["tc"],
+                  "tflops": dq_flops / dq_ms / 1e9,
                   "bound_share": dq_bound[0] / dq_ms,
-                  "ptxas": _instance_usage("flash_bwd_dq"),
+                  "ptxas": _instance_usage("flash_bwd_dq_tc",
+                                           "flash_bwd_dq"),
                   "shape": shape},
         dkv.NAME: {"max_abs_err": max(res["dk"]["max_abs_err"],
                                       res["dv"]["max_abs_err"]),
@@ -1056,6 +1109,11 @@ def phase_main_path(torch):
                if launches[k.NAME] < 1]
     if missing:
         fail(f"the serving path never launched {missing}")
+    per_step = LAYERS * stats["decode_steps"]
+    if launches[paged_attention.NAME] != per_step:
+        fail(f"paged decode launched {launches[paged_attention.NAME]} "
+             f"times over {stats['decode_steps']} decode steps of "
+             f"{LAYERS} layers (want one a layer a step: {per_step})")
 
     # greedy agreement with the port's own generate() (dense cache, no
     # kernel), bf16 model: reported
@@ -1217,9 +1275,9 @@ def phase_train(torch):
     missing = [k.NAME for k in path_kernels if launches[k.NAME] < 1]
     if missing:
         fail(f"the training path never launched {missing}")
-    # every bf16 flash forward and dK/dV launch on the tensor cores
+    # every bf16 flash launch (forward, dQ, dK/dV) on the tensor cores
     off_tc = {k.NAME: run["variants"].get(k.NAME) for k in
-              (flash_attention, flash_bwd_dkv)
+              (flash_attention, flash_bwd_dq, flash_bwd_dkv)
               if run["variants"].get(k.NAME) != {"tc": launches[k.NAME]}}
     if off_tc:
         fail(f"bf16 flash launches outside the tensor-core variant: "
@@ -1317,7 +1375,8 @@ def _train_profile(torch, trainer,
 
 #: kernel-name pieces whose device time a profiled step reports apart
 FLASH_KERNELS = ("flash_fwd_tc", "flash_fwd_kernel", "flash_bwd_dkv_tc",
-                 "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+                 "flash_bwd_dkv_kernel", "flash_bwd_dq_tc",
+                 "flash_bwd_dq_kernel")
 
 
 def _busy(prof, wall, window, steps=None):

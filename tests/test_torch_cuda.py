@@ -153,6 +153,70 @@ def test_paged_kernel_corrupt_live_entry_gives_nan_row(card):
     assert float((out[keep] - ref[keep]).abs().max()) <= PAGED_TOL
 
 
+# (H, Hk, Dh, q dtype, positions, window, pages a row) at page 16: the
+# kernel splits each row's live pages across a cluster of 8 blocks (8
+# pages a block at pos 1023 of 64 pages), so these cut the splits'
+# edges; at 256 pages a block's split outgrows the 128 keys it stages at
+# once and goes in chunks
+PAGED_SPLIT_CASES = {
+    "pos_on_page_edges": (8, 8, 64, torch.float32,
+                          [15, 16, 127, 128, 255, 256, 511, 512], None, 64),
+    "pos_L_minus_1": (8, 8, 64, torch.bfloat16, [1023, 1022, 1009, 0],
+                      None, 64),
+    "window_across_splits": (8, 8, 64, torch.float32, [1023, 700, 130, 300],
+                             200, 64),
+    "window_1_pos_0": (8, 8, 64, torch.float32, [0, 1023, 16, 17], 1, 64),
+    "gqa4": (8, 2, 64, torch.float32, [1023, 544, 17, 300], None, 64),
+    "D16": (4, 4, 16, torch.bfloat16, [1023, 544, 0, 129], 64, 64),
+    "chunked_splits": (8, 4, 64, torch.float32, [4095, 2100, 1100, 129],
+                       None, 256),
+    "chunked_splits_D16_window": (4, 4, 16, torch.bfloat16,
+                                  [4095, 3000, 2047, 5], 3000, 256),
+}
+
+
+@pytest.mark.parametrize("H,Hk,Dh,q_dtype,pos,window,n_ptab",
+                         list(PAGED_SPLIT_CASES.values()),
+                         ids=list(PAGED_SPLIT_CASES))
+def test_paged_kernel_split_edges_match_plain(card, H, Hk, Dh, q_dtype, pos,
+                                              window, n_ptab):
+    args = _paged(card, H, Hk, Dh, q_dtype, pos, S=len(pos), n_ptab=n_ptab)
+    out = pa.paged_attention_decode(*args, page_size=16, n_kv_heads=Hk,
+                                    window=window)
+    ref = pa.paged_attention_decode_plain(*args, page_size=16,
+                                          n_kv_heads=Hk, window=window)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= PAGED_TOL
+
+
+def test_paged_kernel_corrupt_entry_in_a_later_split_gives_nan_row(card):
+    """The bad-entry flag of one block of the cluster reaches the merge:
+    the whole row is NaN, not a softmax over the other splits."""
+    q, pk, pv, ptab, pos = _paged(card, 8, 8, 64, torch.float32,
+                                  [1023, 1023, 544, 100], S=4, n_ptab=64)
+    ptab[0, 60] = pk.shape[0] + 3        # row 0: page 60, the last split
+    ptab[2, 30] = -2                     # row 2 (35 live pages): split 7
+    out = pa.paged_attention_decode(q, pk, pv, ptab, pos, page_size=16,
+                                    n_kv_heads=8)
+    ref = pa.paged_attention_decode_plain(q, pk, pv, ptab, pos,
+                                          page_size=16, n_kv_heads=8)
+    for b in (0, 2):
+        assert bool(torch.isnan(out[b]).all())
+        assert bool(torch.isnan(ref[b]).all())
+    keep = [1, 3]
+    assert bool(torch.isfinite(out[keep]).all())
+    assert float((out[keep] - ref[keep]).abs().max()) <= PAGED_TOL
+
+
+def test_paged_kernel_is_deterministic(card):
+    """Fixed splits merged in rank order: two runs give the same bits."""
+    args = _paged(card, 8, 8, 64, torch.bfloat16,
+                  [1023, 544, 530, 17, 0, 700, 600, 129], S=8, n_ptab=64)
+    first = pa.paged_attention_decode(*args, page_size=16, n_kv_heads=8)
+    second = pa.paged_attention_decode(*args, page_size=16, n_kv_heads=8)
+    assert torch.equal(first, second)
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):
     q, pk, pv, ptab, pos = _paged(card, 8, 8, 64, torch.float32, [5, 6, 7, 8])
     with pytest.raises(TypeError, match="float32 pools"):
@@ -172,12 +236,15 @@ def test_flash_kernels_refuse_a_misaligned_bf16_view(card):
     assert x.data_ptr() % 16 != 0
     ok = torch.zeros_like(x)
     lse = torch.zeros((2, 8, 64), device=card)
-    before = (fa.launches.count, dkv.launches.count)
+    before = (fa.launches.count, dq.launches.count, dkv.launches.count)
     with pytest.raises(ValueError, match="flash_attention.*aligned"):
         fa.flash_attention(x, ok, ok, True)
+    with pytest.raises(ValueError, match="flash_bwd_dq.*aligned"):
+        dq.flash_bwd_dq(ok, x, ok, ok, lse, lse, causal=True, scale=0.125)
     with pytest.raises(ValueError, match="flash_bwd_dkv.*aligned"):
         dkv.flash_bwd_dkv(ok, ok, ok, x, lse, lse, causal=True, scale=0.125)
-    assert (fa.launches.count, dkv.launches.count) == before
+    assert (fa.launches.count, dq.launches.count,
+            dkv.launches.count) == before
 
 
 def _bwd_inputs(card, B, Tq, Tk, H, Hk, D, dtype, causal, window, seed=2):
@@ -212,12 +279,15 @@ def test_flash_bwd_kernels_match_plain(card, B, Tq, Tk, H, Hk, D, dtype,
     args, kw = _bwd_inputs(card, B, Tq, Tk, H, Hk, D, dtype, causal, window)
     before = (dq.launches.count, dkv.launches.count)
     variants = dkv.launches.by_variant()
+    dq_variants = dq.launches.by_variant()
     got = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
     assert (dq.launches.count, dkv.launches.count) == (before[0] + 1,
                                                        before[1] + 1)
     vname = _variant(dtype)
     assert dkv.launches.by_variant().get(vname, 0) \
         == variants.get(vname, 0) + 1
+    assert dq.launches.by_variant().get(vname, 0) \
+        == dq_variants.get(vname, 0) + 1
     ref = (dq.flash_bwd_dq_plain(*args, **kw),) + dkv.flash_bwd_dkv_plain(
         *args, **kw)
     q, k, v, do = args[:4]
@@ -270,16 +340,17 @@ def test_flash_bwd_kernels_are_deterministic(card, B, T, H, Hk):
 
 def test_bf16_attention_launches_only_the_tensor_core_variants(card):
     """A bf16 forward and backward through the autograd.Function counts
-    its flash forward and dK/dV launches on the tensor-core variant and
-    none on the SIMT one."""
+    its flash forward, dQ and dK/dV launches on the tensor-core variant
+    and none on the SIMT one."""
     gen = torch.Generator().manual_seed(7)
     q, k, v = (torch.randn((2, 256, 8, 64), generator=gen).to(card, bf16)
                .requires_grad_(True) for _ in range(3))
-    for m in (fa, dkv):
+    for m in (fa, dq, dkv):
         m.launches.reset()
     out, _ = fa.flash_attention(q, k, v, True)
     torch.autograd.grad(out.float().square().sum(), (q, k, v))
     assert fa.launches.by_variant() == {"tc": 1}
+    assert dq.launches.by_variant() == {"tc": 1}
     assert dkv.launches.by_variant() == {"tc": 1}
 
 

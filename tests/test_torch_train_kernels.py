@@ -134,7 +134,7 @@ def test_bwd_wrappers_refuse_bad_shapes():
 
 # -- which flash kernel a CUDA call launches (decided on CPU tensors) -------
 
-@pytest.mark.parametrize("name", [fa.NAME, dkv.NAME])
+@pytest.mark.parametrize("name", [fa.NAME, dq.NAME, dkv.NAME])
 @pytest.mark.parametrize("dtype,variant", [(torch.float32, "simt"),
                                            (torch.bfloat16, "tc")],
                          ids=["f32_simt", "bf16_tensor_cores"])
@@ -147,7 +147,7 @@ def test_kernel_variant_follows_the_dtype(name, dtype, variant):
         assert fc.kernel_variant(name, ts) == variant
 
 
-@pytest.mark.parametrize("name", [fa.NAME, dkv.NAME])
+@pytest.mark.parametrize("name", [fa.NAME, dq.NAME, dkv.NAME])
 def test_kernel_variant_refuses_a_misaligned_bf16_view(name):
     """A bf16 view at an odd element offset cannot feed the 16-byte
     copies: refused with the kernel's name, never routed elsewhere; the

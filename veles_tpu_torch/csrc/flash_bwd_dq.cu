@@ -1,10 +1,11 @@
-// Flash-attention backward, dQ, for Hopper (sm_90a); plain C interface for
-// ctypes.
+// Flash-attention backward, dQ, for Hopper (sm_90a), float32 instances,
+// on the SIMT cores; plain C interface for ctypes.  The bf16 instances run
+// on the tensor cores in flash_bwd_dq_tc.cu (the wrapper routes by dtype).
 //
 // Replaces the TPU kernel veles_tpu/ops/pallas_kernels.py `_flash_bwd`'s
-// dQ pallas_call (:384, kernel body `_flash_bwd_dq_kernel` :269-309).
-// Wrapper and plain PyTorch version: veles_tpu_torch/ops/kernels/
-// flash_bwd_dq.py.
+// dQ pallas_call (:384, kernel body `_flash_bwd_dq_kernel` :269-309) for
+// float32 inputs.  Wrapper and plain PyTorch version: veles_tpu_torch/ops/
+// kernels/flash_bwd_dq.py.
 //
 // Computes, per (batch b, q head h, query row i), by recompute from the
 // forward's row logsumexp (never storing P):
@@ -15,16 +16,17 @@
 // kh = h / (H / Hk).  delta_i = rowsum(dO_i * O_i) comes from the caller
 // (a PyTorch expression, as the JAX package leaves it to XLA).  round()
 // is the cast of dS to k's dtype before the dS.K product (:297): identity
-// in float32, round-to-nearest-even in bfloat16.  Scores, p, ds and the
-// accumulator are float32; dq is written in q's dtype.  P is forced to 0
-// by the mask (the TPU kernel's `_flash_bwd_mask`), never left to exp
-// underflow: a row with no live key carries lse = -1e30.
+// in float32.  Scores, p, ds, the accumulator and dq are float32.  P is
+// forced to 0 by the mask (the TPU kernel's `_flash_bwd_mask`), never left
+// to exp underflow: a row with no live key carries lse = -1e30.
 //
 // What bounds it on this card: three products of (T x D) by (D x T) per
 // (b, h), ~3 x 34 GFLOP at the training path's shape (B=16, T=2048, H=8,
-// D=64, causal) against ~10 MB of traffic, so the bound is the bf16
-// tensor-core rate (989 TFLOP/s).  This first version uses plain float32
-// FMAs (67 TFLOP/s outside the tensor cores): right first, fast later.
+// D=64, causal) against ~10 MB of traffic.  In float32 the bound is the
+// f32 rate outside the tensor cores (67 TFLOP/s): the tensor cores cannot
+// hold f32 to this kernel's bound (1024 units of 2^-24) without a 3xTF32
+// split.  The f32 instances serve chip_smoke.py's f32 train step and edge
+// cases and configs/induction_lm.json's quality run (f32, D=16).
 //
 // Design: one block per (b*h, tile of ROWS query rows); TPR = D/16 threads
 // per query row, each owning 16 of its head dims (d = lane + TPR * t), so
@@ -38,7 +40,6 @@
 // (`_flash_block_live`, as a key range).  Ragged T needs no padding.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -51,18 +52,10 @@ template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
     return x;
 }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-        __nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
     return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-        float x) {
-    return __float2bfloat16(x);  // round to nearest even
 }
 
 // x rounded to T and widened back: the cast the TPU kernel makes before
@@ -189,26 +182,23 @@ void launch(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and dq share it); lse
-// and delta are float32 (B, H, Tq).  D is 16 or 64, the head widths of
-// the repo's configurations.  window: 0 = none.  Returns the CUDA error
-// code of the launch (0 on success); no synchronisation.
+// float32 q, k, v, dout and dq (bfloat16 is flash_bwd_dq_tc.cu's); lse
+// and delta are float32 (B, H, Tq).  D is 16 or 64.  window: 0 = none.
+// Returns the CUDA error code of the launch (0 on success); no
+// synchronisation.
 int vt_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dq, int B, int Tq, int Tk, int H, int Hk, int D,
-                    int dtype, float scale, int causal, int window,
-                    void* stream) {
+                    float scale, int causal, int window, void* stream) {
     if (B < 1 || Tq < 1 || Tk < 1 || Hk < 1 || H % Hk != 0 ||
-        B * H > 65535 || (dtype != 0 && dtype != 1))
+        B * H > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VT_LAUNCH(T, DV)                                                    \
     launch<T, DV>(q, k, v, dout, lse, delta, dq, B, Tq, Tk, H, Hk, scale,   \
                   causal, window, st)
-    if (D == 16 && dtype == 0) VT_LAUNCH(float, 16);
-    else if (D == 16) VT_LAUNCH(__nv_bfloat16, 16);
-    else if (D == 64 && dtype == 0) VT_LAUNCH(float, 64);
-    else if (D == 64) VT_LAUNCH(__nv_bfloat16, 64);
+    if (D == 16) VT_LAUNCH(float, 16);
+    else if (D == 64) VT_LAUNCH(float, 64);
     else return (int)cudaErrorInvalidValue;
 #undef VT_LAUNCH
     return (int)cudaGetLastError();

@@ -1,9 +1,11 @@
 // Tensor-core building blocks for Hopper (sm_90a) shared by the flash
-// kernels' bf16 instances (flash_fwd_tc.cu, flash_bwd_dkv_tc.cu): 16-byte
-// cp.async copies into the swizzled shared-memory layout that wgmma reads,
-// wgmma shared-memory descriptors, and the warpgroup products themselves
-// as inline PTX.  No CUTLASS: the handful of instructions the two kernels
-// use are written out here, which keeps nvcc at seconds per source.
+// kernels' bf16 instances (flash_fwd_tc.cu, flash_bwd_dq_tc.cu,
+// flash_bwd_dkv_tc.cu): 16-byte cp.async copies into the swizzled
+// shared-memory layout that wgmma reads, wgmma shared-memory descriptors,
+// and the warpgroup products themselves as inline PTX.  No CUTLASS: the
+// handful of instructions the kernels use are written out here, which
+// keeps nvcc at seconds per source.  paged_attention.cu takes the cp.async
+// copies alone.
 //
 // Shared-memory tiles.  A tile holds rows of D bf16 (D = 64: 128 bytes;
 // D = 16: 32 bytes), row r at r * 2D bytes, and its 16-byte chunks

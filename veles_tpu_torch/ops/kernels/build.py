@@ -33,6 +33,7 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_fwd_tc": "flash_fwd_tc.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_bwd_dq_tc": "flash_bwd_dq_tc.cu",
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "flash_bwd_dkv_tc": "flash_bwd_dkv_tc.cu",
     "paged_attention": "paged_attention.cu",

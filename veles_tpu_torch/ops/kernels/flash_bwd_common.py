@@ -69,7 +69,7 @@ def check_kernel_args(name, q, k, v, dout, lse, delta):
 
 
 def kernel_variant(name, tensors):
-    """The variant a CUDA call of the flash forward or dK/dV kernel
+    """The variant a CUDA call of a flash kernel (forward, dQ, dK/dV)
     launches, chosen by dtype and never by shape: ``"tc"`` (the tensor-core
     kernel) for bfloat16, ``"simt"`` for float32.  The tensor-core kernels
     copy each row in 16-byte pieces, so a bf16 tensor whose base is not

@@ -1,5 +1,10 @@
-"""Flash-attention backward, dQ: the hand-written CUDA kernel
-(``csrc/flash_bwd_dq.cu``) and its plain PyTorch version.
+"""Flash-attention backward, dQ: the hand-written CUDA kernels and their
+plain PyTorch version.
+
+Two variants, chosen by dtype alone (``kernel_variant``): bfloat16 runs
+on the tensor cores (``csrc/flash_bwd_dq_tc.cu``, wgmma), float32 on the
+SIMT cores (``csrc/flash_bwd_dq.cu``); ``launches.by_variant()`` counts
+each.
 
 Replaces ``veles_tpu/ops/pallas_kernels.py`` ``_flash_bwd``'s dQ
 pallas_call (:384, body ``_flash_bwd_dq_kernel`` :269-309).  The
@@ -16,14 +21,17 @@ import torch
 
 from .. import check_attention_window, kernel_route
 from . import build
-from .flash_bwd_common import (DTYPES, check_bwd_shapes, check_kernel_args,
-                               key_blocks)
+from .flash_bwd_common import (check_bwd_shapes, check_kernel_args,
+                               kernel_variant, key_blocks)
 
 NAME = "flash_bwd_dq"
-SOURCE = "veles_tpu_torch/csrc/flash_bwd_dq.cu"
+#: the source of each variant; SOURCE is the bf16 main path's
+SOURCES = {"tc": "veles_tpu_torch/csrc/flash_bwd_dq_tc.cu",
+           "simt": "veles_tpu_torch/csrc/flash_bwd_dq.cu"}
+SOURCE = SOURCES["tc"]
 REPLACES = "veles_tpu/ops/pallas_kernels.py:384"
 
-#: launches of the CUDA kernel (never of the plain version)
+#: launches of the CUDA kernels, by variant (never of the plain version)
 launches = build.LaunchCounter()
 
 
@@ -57,27 +65,27 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, *, causal: bool,
     return dq.to(q.dtype).transpose(1, 2).contiguous()
 
 
-def _fn():
-    lib = build.load("flash_bwd_dq")
-    fn = lib.vt_flash_bwd_dq
+def _fn(variant):
+    lib = build.load("flash_bwd_dq_tc" if variant == "tc" else "flash_bwd_dq")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.vt_flash_bwd_dq_tc if variant == "tc" else lib.vt_flash_bwd_dq
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, i, p]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+    fn.restype = ctypes.c_int
     return lib, fn
 
 
 def _launch(q, k, v, dout, lse, delta, causal, scale, window):
+    """Launch the variant ``q``'s dtype picks."""
+    variant = kernel_variant(NAME, (q, k, v, dout))
     B, Tq, H, D = q.shape
     Tk, Hk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    lib, fn = _fn()
+    lib, fn = _fn(variant)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, Tq, Tk, H,
-            Hk, D, DTYPES[q.dtype], scale, int(causal), int(window or 0),
-            stream)
+            Hk, D, scale, int(causal), int(window or 0), stream)
     build.check(lib, rc, NAME)
-    launches.inc("simt")
+    launches.inc(variant)
     return dq

@@ -1,5 +1,7 @@
 """Paged-attention decode: the hand-written CUDA kernel
-(``csrc/paged_attention.cu``) and its plain PyTorch version.
+(``csrc/paged_attention.cu``, each row's live pages split across a
+thread-block cluster and merged in one launch) and its plain PyTorch
+version.
 
 Replaces ``veles_tpu/ops/pallas_kernels.py`` ``paged_attention_decode``
 (pallas_call at :612).  :func:`paged_attention_decode` is the wrapper the
@@ -140,6 +142,9 @@ def _launch(q, k_pool, v_pool, ptab, pos, G, page_size, scale, window):
         raise ValueError(f"{NAME}: inputs on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{NAME}: kernel needs contiguous inputs")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{NAME}: the kernel reads pool rows in 16-byte "
+                         "pieces and needs 16-byte aligned pools")
     B, H, Dh = q.shape
     rows, psz, Hk, _ = k_pool.shape
     if Dh not in _HEAD_DIMS:
