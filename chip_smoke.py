@@ -16,9 +16,11 @@ Phases, each of which fails the run with a non-zero exit:
    decode, the edges of its per-row split across a cluster of blocks, a
    corrupt page-table entry, and two runs bitwise equal),
    each error beside its tolerance (the flash backward element by
-   element, see BWD_UNITS); then each kernel's time, its plain version's
-   time, the time of the one PyTorch call computing the same function
-   (where there is one) and the card's bound for the same work (paged
+   element, see BWD_UNITS; the row gather in both its entries, one array
+   with its host check and the loaders' batch of every array of a class
+   in one launch); then each kernel's time, its plain version's time,
+   the time of the one PyTorch call computing the same function (where
+   there is one) and the card's bound for the same work (paged
    decode also with a cold L2, 128 MiB written before each launch);
 4. serving path: the bench_lm.py transformer LM at full width (vocab
    1024, dim 512, 4 blocks of 8-head RoPE attention + layer_norm + ffn
@@ -36,17 +38,30 @@ Phases, each of which fails the run with a non-zero exit:
    ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (32
    steps of 16 x 2048 tokens, Adam lr 1e-3) and its eval, fed by an
    ``InductionLoader(per_position=True, seq_len=2048, vocab=1024)`` held
-   on the card; the flash forward, both flash backward and the gather
-   kernels must launch, every bf16 flash launch (forward, dQ, dK/dV) on
-   the tensor-core variant, and every loss must be finite; then 8 steps on one
-   fixed batch must cut its loss by 5 % (the epoch's own loss stays near
-   chance, see ``_fixed_batch_descent``); step times, tokens/s and a
-   torch.profiler window of 3 steps (device idle share, top kernels);
-   then one float32 train step through the kernels and one
-   through the plain versions from the same weights and batch, loss and
-   per-parameter gradient norms compared; then the same bf16 epoch again
-   with every kernel of the path replaced by its plain version, whose
-   per-step losses must follow the kernels' (``_plain_epoch_witness``);
+   on the card; the train and eval steps come from the trainer's
+   ``StepCache`` captured as CUDA graphs (2 captures, no recapture), the
+   launch counts include every replay's; the flash forward, both flash
+   backward and the gather kernels must launch, every bf16 flash launch
+   (forward, dQ, dK/dV) on the tensor-core variant, the gather exactly
+   once per batch (36 over the epoch and its eval), and every loss must
+   be finite; then 8 steps on one fixed batch must cut its loss by 5 %
+   (the epoch's own loss stays near chance, see
+   ``_fixed_batch_descent``); step times, tokens/s and a torch.profiler
+   window of 3 steps (device idle share, top kernels); the host time a
+   batch costs (``make_batch`` and its one gather launch, beside the
+   former path of one gather call per array); then one float32 train step
+   through the kernels and one through the plain versions from the same
+   weights and batch, loss and per-parameter gradient norms compared;
+   then the same bf16 epoch again with every kernel of the path replaced
+   by its plain version, whose per-step losses must follow the kernels'
+   (``_plain_epoch_witness``); then, in bf16 and in float32, 8 steps and
+   an eval through the eager step (``StepCache(capture=False)``) and the
+   captured one from one init and batch order, which must leave the same
+   parameters, optimizer state and epoch sums bit for bit (each side's
+   median step and, bf16, its idle share printed); then a Decision
+   rollback through a captured trainer's loop (Adam at lr 0, so epoch 1
+   repeats epoch 0), which must halve the lr multiplier in the captured
+   state and recapture nothing;
 6. image kernels: fused dropout (AlexNet's drop6/drop7 shape, 512 x
    4096 float32, and the edges; forward and gradient) and mean/disp
    normalize (norm0's shape, 512 x 227 x 227 x 3, uint8 and float32)
@@ -55,9 +70,11 @@ Phases, each of which fails the run with a non-zero exit:
    compute, momentum SGD with l2) trained through
    ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (8
    steps of 512) and its eval, from a 4096 + 512 image uint8 store held
-   on the card (random crop 227 and mirror there); mean/disp must launch
-   at least 9 times and dropout 32 (2 forward + 2 backward per step),
-   every loss must be finite; step times, samples/s and a torch.profiler
+   on the card (random crop 227 and mirror there); the train step runs
+   eagerly (dropout takes its seed by value each step, which the
+   ``StepCache`` states as its reason) and the eval step is captured;
+   mean/disp must launch at least 9 times and dropout 32 (2 forward + 2
+   backward per step), every loss must be finite; step times, samples/s and a torch.profiler
    window of 3 steps; one float32 step through the kernels and one
    through the plain versions from the same weights, batch and key
    (cuDNN deterministic, TF32 off), loss, gradient norms and the drop6/
@@ -76,6 +93,7 @@ exits non-zero and prints no result.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -126,6 +144,7 @@ IMG_MIN_LAUNCHES = {"mean_disp_normalize": 9, "fused_dropout": 32}
 VOCAB, E, LAYERS, HEADS, FFN = 1024, 512, 4, 8, 2048
 PREDICT_B, PREDICT_T = 16, 2048
 TRAIN_B, TRAIN_T, N_TRAIN, N_VALID = 16, 2048, 512, 64
+WITNESS_STEPS = 8               # eager vs captured steps, bitwise
 GATHER_ROWS = 512               # int32 token rows held for the gather check
 SLOTS, L_MAX, PAGE = 8, 1024, 16
 PROMPT, NEW = 512, 64
@@ -637,8 +656,9 @@ def phase_train_kernels(torch):
                    "dq_dk_dv_equal": same, "ok": all(same)})
     say(checks[-1])
     del first, second
-    # gather: the training minibatch (16 rows of 2048 int32 tokens from a
-    # card-resident set) and an odd row size (21 bytes)
+    # gather, single array (the wrapper with its host check): the training
+    # minibatch (16 rows of 2048 int32 tokens from a card-resident set) and
+    # an odd row size (21 bytes)
     rng = np.random.default_rng(3)
     tokens = torch.randint(0, VOCAB, (GATHER_ROWS, TRAIN_T),
                            dtype=torch.int32, generator=gen).cuda()
@@ -664,6 +684,43 @@ def phase_train_kernels(torch):
     checks.append({"kernel": gr.NAME, "case": "index_out_of_range_raises",
                    "ok": refused})
     say(checks[-1])
+    # the loaders' batch gather (every array of a class and the mask in
+    # one launch): one, two, three and four arrays, every copy unit, a
+    # padded tail, the last batch of an epoch
+    batch_cases = [
+        ("batch_lm_train_3_arrays_epoch_end",
+         [((TRAIN_T,), torch.int32), ((TRAIN_T,), torch.int32),
+          ((TRAIN_T,), torch.float32)], GATHER_ROWS, TRAIN_B, TRAIN_B,
+         GATHER_ROWS - TRAIN_B),
+        ("batch_one_array", [((TRAIN_T,), torch.int32)], GATHER_ROWS,
+         TRAIN_B, TRAIN_B, 0),
+        ("batch_two_padded_tail", [((TRAIN_T,), torch.int32),
+                                   ((TRAIN_T,), torch.int32)], 500,
+         TRAIN_B, 4, 496),
+        ("batch_odd_rows_every_unit", [((3, 7), torch.uint8),
+                                       ((5,), torch.int16),
+                                       ((3,), torch.float32),
+                                       ((2,), torch.float64)], 101, 37, 30,
+         64)]
+    for name, specs, n, m, count, offset in batch_cases:
+        arrays = [torch.randint(0, 1 << 14, (n,) + shp, generator=gen)
+                  .to(dt).cuda() for shp, dt in specs]
+        order = rng.permutation(n)[:offset + count]
+        perm = gr.index_tensor(order, n, offset + m, "cuda")
+        outs = [torch.empty((m,) + a.shape[1:], dtype=a.dtype,
+                            device="cuda") for a in arrays]
+        refs = [torch.empty_like(o) for o in outs]
+        mask = torch.empty(m, device="cuda")
+        ref_mask = torch.empty(m, device="cuda")
+        gr.gather_batch(arrays, outs, perm, offset, count, mask)
+        gr.gather_batch_plain(arrays, refs, perm, offset, count, ref_mask)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(o, r) for o, r in zip(outs, refs))
+                and bool(torch.equal(mask, ref_mask)))
+        checks.append({"kernel": gr.NAME, "case": name, "arrays": len(specs),
+                       "bitwise": same, "max_abs_err": 0.0 if same else None,
+                       "tol": 0.0, "ok": same})
+        say(checks[-1])
     bad = [c for c in checks if not c["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -694,19 +751,35 @@ def phase_train_kernels(torch):
                      5 * q.numel() * elt + 2 * rows)
     dkv_bound = bound(dkv_flops, H100_BF16_FLOPS,
                       6 * q.numel() * elt + 2 * rows)
-    # the kernel alone on card-resident indices, as its plain version and
-    # index_select are timed; the wrapper adds the host range check and
-    # the indices' upload, which the loader pays per batch
-    idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
-    g_ms = cuda_ms(torch, lambda: gr._launch(tokens, idx_t), iters=50)
-    g_wrapper = cuda_ms(torch, lambda: gr.gather_rows(tokens, idx), iters=50)
-    g_plain = cuda_ms(torch, lambda: gr.gather_rows_plain(tokens, idx_t),
-                      iters=50)
-    g_lib = cuda_ms(torch, lambda: torch.index_select(tokens, 0, idx_t),
-                    iters=50)
+    # the batch gather at the LM train class's shape (tokens, labels and
+    # per-position masks, 16 rows of 2048 each, from a card-resident set):
+    # the kernel on the epoch's order as the loader launches it; the plain
+    # version; no single PyTorch call gathers several arrays, so no
+    # library time.  The single-array wrapper alone, beside it: its kernel,
+    # index_select, and the wrapper with its host check and upload
+    lm_arrays = [tokens, torch.randint(0, VOCAB, tokens.shape,
+                                       dtype=torch.int32,
+                                       generator=gen).cuda(),
+                 torch.rand(tokens.shape, generator=gen).cuda()]
+    perm = gr.index_tensor(rng.permutation(GATHER_ROWS), GATHER_ROWS,
+                           GATHER_ROWS, "cuda")
+    outs = [torch.empty((TRAIN_B,) + a.shape[1:], dtype=a.dtype,
+                        device="cuda") for a in lm_arrays]
+    mask = torch.empty(TRAIN_B, device="cuda")
+    g_ms = cuda_ms(torch, lambda: gr.gather_batch(
+        lm_arrays, outs, perm, 0, TRAIN_B, mask), iters=50)
+    g_plain = cuda_ms(torch, lambda: gr.gather_batch_plain(
+        lm_arrays, outs, perm, 0, TRAIN_B, mask), iters=50)
     row_bytes = TRAIN_T * 4
     g_bound = bound(0, H100_BF16_FLOPS,
-                    2 * TRAIN_B * row_bytes + TRAIN_B * 4)
+                    2 * len(lm_arrays) * TRAIN_B * row_bytes
+                    + 2 * TRAIN_B * 4)
+    idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
+    rows_ms = cuda_ms(torch, lambda: gr._launch(tokens, idx_t), iters=50)
+    rows_wrapper = cuda_ms(torch, lambda: gr.gather_rows(tokens, idx),
+                           iters=50)
+    rows_lib = cuda_ms(torch, lambda: torch.index_select(tokens, 0, idx_t),
+                       iters=50)
     shape = {"B": B, "T": T, "H": H, "D": D, "dtype": "bfloat16",
              "causal": True}
     timing = {
@@ -730,14 +803,18 @@ def phase_train_kernels(torch):
                                             "flash_bwd_dkv"),
                    "shape": shape},
         gr.NAME: {"max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
-                  "library_ms": g_lib, "bound_ms": g_bound[0],
-                  "bound_by": g_bound[1], "wrapper_ms": g_wrapper,
+                  "library_ms": None, "bound_ms": g_bound[0],
+                  "bound_by": g_bound[1], "variant": "batch",
+                  "rows_kernel_ms": rows_ms, "rows_wrapper_ms": rows_wrapper,
+                  "rows_index_select_ms": rows_lib,
                   "shape": {"rows": GATHER_ROWS, "m": TRAIN_B,
-                            "row_bytes": row_bytes, "dtype": "int32"}},
+                            "arrays": ["int32", "int32", "float32"],
+                            "row_bytes": row_bytes}},
     }
     say({"phase": "train_kernel_timing",
          "library_note": "library_ms of both flash backward kernels is one "
-                         "SDPA backward (dQ, dK and dV together)",
+                         "SDPA backward (dQ, dK and dV together); the batch "
+                         "gather has no single PyTorch call",
          **timing})
     return timing
 
@@ -888,7 +965,7 @@ def phase_image(torch):
            "losses": losses,
            "train": hist[0]["train"] if hist else None,
            "valid": hist[0]["valid"] if hist else None,
-           "launches": launches}
+           "launches": launches, "step_cache": run["step_cache"]}
     say(rec)
     low = {k: launches[k] for k, n in IMG_MIN_LAUNCHES.items()
            if launches[k] < n}
@@ -898,6 +975,12 @@ def phase_image(torch):
     if steps != IMG_TRAIN // IMG_B or not all(np.isfinite(losses)):
         fail(f"the image epoch ran {steps} steps or a loss is not finite: "
              f"{losses}")
+    # dropout takes its seed by value each step: the train step runs
+    # eagerly and says why; the eval step is captured
+    st = run["step_cache"]
+    if st["train"] != {"captured": False, "reason": "dropout seed"} \
+            or not st["eval"]["captured"]:
+        fail(f"AlexNet's steps: {st}")
     profile = _train_profile(torch, trainer,
                              f"3 AlexNet train steps, {IMG_B} images each")
     say({"phase": "image_profile", **profile})
@@ -1162,12 +1245,12 @@ def phase_main_path(torch):
     return launches
 
 
-def _train_workflow(torch, compute_dtype):
+def _train_workflow(torch, compute_dtype, lr=1e-3):
     from veles_tpu_torch.models.standard import StandardWorkflow
     return StandardWorkflow({"name": "bench_lm", "layers": bench_layers(),
                              "compute_dtype": compute_dtype,
                              "optimizer": "adam",
-                             "optimizer_args": {"lr": 1e-3},
+                             "optimizer_args": {"lr": lr},
                              "max_epochs": 1})
 
 
@@ -1221,9 +1304,12 @@ def _counted_run(torch, trainer, t_data):
         wstate, mets = inner(wstate, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        losses.append(mets["loss"])
+        # a captured step's metrics are its graph's outputs: read now
+        losses.append(float(mets["loss"]))
         return wstate, mets
 
+    # the trainer stages batches for a captured step (see Trainer._batches)
+    timed_step.captured = getattr(inner, "captured", False)
     trainer._train_step = timed_step
     try:
         t0 = time.perf_counter()
@@ -1232,11 +1318,11 @@ def _counted_run(torch, trainer, t_data):
     finally:
         trainer._train_step = inner
     return {"trainer": trainer, "results": results, "wall": wall,
-            "data_s": t_data, "step_s": step_s,
-            "losses": [float(x) for x in losses],
+            "data_s": t_data, "step_s": step_s, "losses": losses,
             "launches": {k.NAME: k.launches.count for k in KERNELS},
             "variants": {k.NAME: k.launches.by_variant() for k in KERNELS
-                         if k.launches.by_variant()}}
+                         if k.launches.by_variant()},
+            "step_cache": trainer.step_cache.stats()}
 
 
 def phase_train(torch):
@@ -1268,13 +1354,24 @@ def phase_train(torch):
            "loss_first8": losses[:8], "loss_last8": losses[-8:],
            "train_loss": train_loss, "valid": valid,
            "results": run["results"], "launches": launches,
-           "variants": run["variants"]}
+           "variants": run["variants"], "step_cache": run["step_cache"]}
     say(rec)
     path_kernels = (flash_attention, flash_bwd_dq, flash_bwd_dkv,
                     gather_rows)
     missing = [k.NAME for k in path_kernels if launches[k.NAME] < 1]
     if missing:
         fail(f"the training path never launched {missing}")
+    st = run["step_cache"]
+    if not (st["train"]["captured"] and st["eval"]["captured"]
+            and st["captures"] == st["compiles"] == 2
+            and st["recompiles"] == 0):
+        fail(f"the LM steps were not captured once each: {st}")
+    # one batch gather a train step and an eval batch, nothing else
+    batches = steps + N_VALID // TRAIN_B
+    if run["variants"].get(gather_rows.NAME) != {"batch": batches}:
+        fail(f"the LM epoch launched {run['variants'].get(gather_rows.NAME)}"
+             f" gathers, not one batch gather for each of {batches} "
+             "batches")
     # every bf16 flash launch (forward, dQ, dK/dV) on the tensor cores
     off_tc = {k.NAME: run["variants"].get(k.NAME) for k in
               (flash_attention, flash_bwd_dq, flash_bwd_dkv)
@@ -1291,6 +1388,13 @@ def phase_train(torch):
         fail(f"the training loss did not fall on a fixed batch: {descent}")
     profile = _train_profile(torch, trainer)
     say({"phase": "train_profile", **profile})
+    trace = profile["launch_trace"]
+    if not (trace["ok"] and trace["captured"] and trace["per_replay"]):
+        fail(f"the captured steps' counted launches are not the kernels "
+             f"the trace shows: {trace}")
+    host = _gather_host_time(torch, trainer)
+    say({"phase": "train_gather_host", **host})
+    say({"phase": "train_relu_backward", **_relu_backward_timing(torch)})
     agreement = _train_step_f32_check(torch, trainer, params_from_jax,
                                       new_state)
     say({"phase": "train_f32_kernel_vs_plain", **agreement})
@@ -1302,7 +1406,188 @@ def phase_train(torch):
     if not witness["ok"]:
         fail(f"the epoch through the plain versions does not follow the "
              f"kernels' loss curve: {witness}")
+    del trainer, run
+    torch.cuda.empty_cache()
+    for dtype in ("bfloat16", None):
+        eager = _capture_witness(torch, dtype)
+        say({"phase": "train_capture_witness", **eager})
+        if not eager["ok"]:
+            fail(f"the captured steps differ from the eager ones: {eager}")
+    rollback = _rollback_check(torch)
+    say({"phase": "train_rollback", **rollback})
+    if not rollback["ok"]:
+        fail(f"a Decision rollback recaptured or did not roll back: "
+             f"{rollback}")
     return launches
+
+
+def _witness_trainer(torch, dtype, capture, n_steps, lr=1e-3,
+                     decision=None):
+    """A full-width LM trainer over a card-resident loader of ``n_steps``
+    train batches and one valid batch, Adam at ``lr``, capture on or
+    off."""
+    from veles_tpu_torch.models.lm import InductionLoader
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    loader = InductionLoader(minibatch_size=TRAIN_B,
+                             n_train=n_steps * TRAIN_B, n_valid=TRAIN_B,
+                             seq_len=TRAIN_T, vocab=VOCAB, per_position=True,
+                             device=DEVICE)
+    sw = _train_workflow(torch, dtype, lr)
+    return sw.make_trainer(loader, decision or Decision(max_epochs=1),
+                           device=DEVICE,
+                           step_cache=StepCache(capture=capture))
+
+
+def _state_diff(torch, a, b):
+    """Names of the state leaves (params, optimizer state, unit state)
+    where two workflow states differ in any bit."""
+    from veles_tpu_torch.runtime.snapshotter import _flatten
+    fa = _flatten({k: a[k] for k in ("params", "opt_state", "state")})
+    fb = _flatten({k: b[k] for k in ("params", "opt_state", "state")})
+    return sorted(k for k in set(fa) | set(fb)
+                  if k not in fa or k not in fb
+                  or fa[k].tobytes() != fb[k].tobytes())
+
+
+def _capture_witness(torch, dtype):
+    """WITNESS_STEPS steps and an eval from one init and one batch order,
+    through the eager step (``StepCache(capture=False)``) and the captured
+    one: parameters, optimizer and unit state, and the epoch sums, bit
+    for bit; each side's median step, and (bf16) its idle share over 3
+    profiled steps.  Where the two differ, a second eager run says whether
+    the eager step itself repeats."""
+    from veles_tpu_torch.runtime.snapshotter import wstate_to_numpy
+    runs, states = {}, {}
+    for capture in (False, True):
+        run = _counted_run(torch, _witness_trainer(
+            torch, dtype, capture, WITNESS_STEPS), 0.0)
+        trainer = run["trainer"]
+        states[capture] = wstate_to_numpy(trainer.wstate)
+        runs[capture] = {
+            "step_ms_median": float(np.median(run["step_s"])) * 1e3,
+            "step_ms": [x * 1e3 for x in run["step_s"]],
+            "epoch": trainer.decision.history[0],
+            "step_cache": run["step_cache"]}
+        if dtype == "bfloat16":
+            prof = _train_profile(torch, trainer)
+            runs[capture]["idle_share"] = prof["device_idle_share"]
+            runs[capture]["launch_trace_ok"] = prof["launch_trace"]["ok"]
+            runs[capture]["device_busy_ms_per_step"] = (
+                prof["device_busy_s"] / 3 * 1e3
+                if prof["device_busy_s"] is not None else None)
+        del trainer, run
+        torch.cuda.empty_cache()
+    diff = _state_diff(torch, states[False], states[True])
+    sums_equal = runs[False]["epoch"] == runs[True]["epoch"]
+    rec = {"dtype": dtype or "float32", "steps": WITNESS_STEPS,
+           "eager": runs[False], "captured": runs[True],
+           "state_leaves_differing": diff, "epoch_sums_equal": sums_equal,
+           "captured_ok": runs[True]["step_cache"]["train"]["captured"]
+           and runs[True]["step_cache"]["eval"]["captured"]}
+    if diff or not sums_equal:
+        again = _counted_run(torch, _witness_trainer(
+            torch, dtype, False, WITNESS_STEPS), 0.0)
+        rec["eager_repeat_leaves_differing"] = _state_diff(
+            torch, states[False], wstate_to_numpy(again["trainer"].wstate))
+        del again
+        torch.cuda.empty_cache()
+    rec["ok"] = (rec["captured_ok"] and not diff and sums_equal
+                 and all(r.get("launch_trace_ok", True)
+                         for r in runs.values()))
+    return rec
+
+
+def _rollback_check(torch):
+    """The Decision's rollback through the loop of a captured full-width
+    trainer: Adam at lr 0 over 2 epochs of 2 steps, ``rollback_after=1``,
+    so epoch 1 repeats epoch 0's validation error and rolls back; the lr
+    multiplier lands in the captured state's opt_state scalar, and the
+    cache shows 2 captures, no hit and no recapture."""
+    from veles_tpu_torch.ops.optimizers import LR_MULT_KEY
+    from veles_tpu_torch.runtime.decision import Decision
+    dec = Decision(max_epochs=2, fail_iterations=10, rollback_after=1)
+    trainer = _witness_trainer(torch, "bfloat16", True, 2, lr=0.0,
+                               decision=dec)
+    trainer.initialize(seed=0)
+    mult = trainer.wstate["opt_state"][LR_MULT_KEY]
+    trainer.run()
+    st = trainer.step_cache.stats()
+    rec = {"step_cache": st, "lr_multiplier": dec.lr_multiplier,
+           "opt_state_lr_mult": float(mult),
+           "same_tensor": trainer.wstate["opt_state"][LR_MULT_KEY] is mult,
+           "history": [h["valid"] for h in dec.history]}
+    rec["ok"] = (st["captures"] == st["compiles"] == 2
+                 and st["recompiles"] == 0
+                 and st["hits"] == 0 and st["train"]["captured"]
+                 and st["eval"]["captured"] and dec.lr_multiplier == 0.5
+                 and rec["opt_state_lr_mult"] == 0.5 and rec["same_tensor"])
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _relu_backward_timing(torch):
+    """What ReLU's JAX tie gradient (0.5 at exactly 0: ``heaviside`` and
+    a product) costs beside ``clamp_min``'s own backward (one
+    ``threshold_backward``), each a forward and backward at one FFN
+    hidden layer of a train step (16 x 2048 rows of FFN, float32); the
+    difference times LAYERS is the step's share."""
+    from veles_tpu_torch.ops.activations import relu
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn(TRAIN_B * TRAIN_T, FFN, device=DEVICE, generator=gen,
+                    requires_grad=True)
+    g = torch.randn(x.shape, device=DEVICE, generator=gen)
+    tie = cuda_ms(torch, lambda: torch.autograd.grad(relu(x), x, g))
+    lib = cuda_ms(torch, lambda: torch.autograd.grad(
+        torch.clamp_min(x, 0), x, g))
+    return {"shape": list(x.shape), "tie_gradient_ms": tie,
+            "clamp_min_ms": lib, "step_ms_added": (tie - lib) * LAYERS}
+
+
+def _gather_host_time(torch, trainer, n=32):
+    """Host time a train batch costs: ``make_batch`` (a DeviceBatch over
+    the epoch's order, uploaded with the first) and its gather into the
+    captured step's static inputs (one launch, and the per-position mask's
+    product), each per batch, no synchronisation; beside it the former
+    composition, one ``gather_rows`` call per array (host range check,
+    int32 cast, pageable upload of the indices) and the arange mask."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.ops.kernels import gather_rows as gr
+    loader = trainer.loader
+    inputs = trainer._train_step.inputs
+    n = min(n, loader.n_minibatches(TRAIN))
+    torch.cuda.synchronize()
+    it = loader.iter_epoch(TRAIN, 0)
+    make, gather = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        b = next(it)
+        t1 = time.perf_counter()
+        b.gather(inputs)
+        gather.append(time.perf_counter() - t1)
+        make.append(t1 - t0)
+    torch.cuda.synchronize()
+    order = loader.epoch_order(TRAIN, 0)
+    arrays = loader._dev_data[TRAIN]
+    legacy = []
+    for i in range(n):
+        chunk = loader.chunk(order, i)
+        t0 = time.perf_counter()
+        idx = loader.padded_index(chunk)
+        rows = {k: gr.gather_rows(a, idx) for k, a in arrays.items()}
+        pad = (torch.arange(TRAIN_B, device=DEVICE) < len(chunk)).float()
+        rows["@mask"] = pad[:, None] * rows.pop("@rowmask")
+        legacy.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {"batches": n, "make_batch_us_median": float(np.median(make))
+            * 1e6, "make_batch_us_first": make[0] * 1e6,
+            "gather_us_median": float(np.median(gather)) * 1e6,
+            "per_batch_us_median": float(np.median(
+                [a + b for a, b in zip(make[1:], gather[1:])])) * 1e6,
+            "per_array_path_us_median": float(np.median(legacy)) * 1e6,
+            "gather_launches_per_batch": {"now": 1,
+                                          "per_array_path": len(arrays)}}
 
 
 def _plain_epoch_witness(torch, kernel_losses, path_kernels):
@@ -1345,8 +1630,7 @@ def _fixed_batch_descent(trainer):
     losses = []
     for _ in range(FIXED_STEPS):
         trainer.wstate, mets = trainer._train_step(trainer.wstate, batch)
-        losses.append(mets["loss"])
-    losses = [float(x) for x in losses]
+        losses.append(float(mets["loss"]))
     return {"steps": FIXED_STEPS, "losses": losses,
             "min_drop": FIXED_MIN_DROP,
             "ok": bool(np.all(np.isfinite(losses))
@@ -1357,20 +1641,91 @@ def _train_profile(torch, trainer,
                    window="3 train steps, 16 x 2048 tokens each"):
     """Device busy time by kernel over 3 train steps (torch.profiler);
     the idle share is 1 - busy / wall; the flash kernels' device ms a
-    step."""
-    from torch.profiler import ProfilerActivity, profile
+    step; the launch counters held against the trace.  A fourth step
+    runs first as the profiler's warm-up, traced and discarded: the
+    trace can miss a kernel launched right after it starts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     from veles_tpu_torch.loader.base import TRAIN
-    batches = [b for _, b in zip(range(3),
-                                 trainer.loader.iter_epoch(TRAIN, 0))]
+    from veles_tpu_torch.ops.kernels import KERNELS
+    warm, *batches = [b for _, b in zip(range(4),
+                                        trainer.loader.iter_epoch(TRAIN, 0))]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        trainer.wstate, _ = trainer._train_step(trainer.wstate, warm)
+        torch.cuda.synchronize()
+        prof.step()
+        counted0 = {k.NAME: k.launches.state() for k in KERNELS}
         t0 = time.perf_counter()
         for b in batches:
             trainer.wstate, _ = trainer._train_step(trainer.wstate, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _busy(prof, wall, window, steps=len(batches))
+    rec = _busy(prof, wall, window, steps=len(batches))
+    rec["launch_trace"] = _launch_trace_check(
+        prof, trainer, counted0, len(batches))
+    return rec
+
+
+#: the ``__global__`` function each wrapper launches, by the variant its
+#: launch counter names (None: a kernel built in one variant)
+KERNEL_SYMBOLS = {
+    "flash_attention": {"tc": "flash_fwd_tc", "simt": "flash_fwd_kernel"},
+    "flash_bwd_dq": {"tc": "flash_bwd_dq_tc", "simt": "flash_bwd_dq_kernel"},
+    "flash_bwd_dkv": {"tc": "flash_bwd_dkv_tc",
+                      "simt": "flash_bwd_dkv_kernel"},
+    "gather_rows": {"batch": "gather_batch_kernel",
+                    "rows": "gather_rows_kernel"},
+    "fused_dropout": {None: "dropout_kernel"},
+    "mean_disp_normalize": {None: "mean_disp_kernel"},
+    "paged_attention_decode": {None: "paged_decode_kernel"},
+}
+
+
+def _launch_trace_check(prof, trainer, counted0, steps):
+    """The launch counts of a profiled window held against the kernels
+    the device ran: for every wrapper and variant, the kernels of its
+    ``__global__`` name in the trace must equal the counter's change over
+    the window, and a captured train step's share of that change must be
+    ``steps`` times what the cache recorded at capture.  So a replayed
+    graph that no longer runs a kernel it counts, or runs one it does not
+    count, fails."""
+    from veles_tpu_torch.ops.kernels import KERNELS
+    traced = {}
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            traced[evt.key] = traced.get(evt.key, 0) + int(evt.count)
+    seen, counted, bad = {}, {}, []
+    for k in KERNELS:
+        (n0, v0), (n1, v1) = counted0[k.NAME], k.launches.state()
+        for variant, sym in KERNEL_SYMBOLS[k.NAME].items():
+            label = k.NAME if variant is None else f"{k.NAME}/{variant}"
+            # the symbol as a whole name: PyTorch's own
+            # fused_dropout_kernel_vec is not our dropout_kernel
+            pat = re.compile(rf"(?<!\w){sym}(?!\w)")
+            seen[label] = sum(c for name, c in traced.items()
+                              if pat.search(name))
+            counted[label] = (n1 - n0 if variant is None
+                              else v1.get(variant, 0) - v0.get(variant, 0))
+            if seen[label] != counted[label]:
+                bad.append(f"{label}: traced {seen[label]}, counted "
+                           f"{counted[label]}")
+    step = trainer._train_step
+    replay = {}
+    for counter, (n, variants) in getattr(step, "launches", ()):
+        k = next(k for k in KERNELS if k.launches is counter)
+        for variant, c in (variants or {None: n}).items():
+            label = k.NAME if variant is None else f"{k.NAME}/{variant}"
+            replay[label] = c
+            if counted.get(label, 0) < steps * c:
+                bad.append(f"{label}: counted {counted.get(label, 0)}, "
+                           f"under {steps} replays of {c}")
+    return {"traced": {k: v for k, v in seen.items() if v},
+            "counted": {k: v for k, v in counted.items() if v},
+            "per_replay": replay, "steps": steps,
+            "captured": bool(getattr(step, "captured", False)),
+            "mismatch": bad, "ok": not bad}
 
 
 #: kernel-name pieces whose device time a profiled step reports apart
@@ -1382,7 +1737,10 @@ FLASH_KERNELS = ("flash_fwd_tc", "flash_fwd_kernel", "flash_bwd_dkv_tc",
 def _busy(prof, wall, window, steps=None):
     busy = {}
     for evt in prof.key_averages():
-        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        # the schedule's step range also shows on the device's timeline,
+        # as a span over the step's kernels, not as a kernel
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA") \
+                or evt.key.startswith("ProfilerStep"):
             continue
         t = (getattr(evt, "self_device_time_total", None)
              or getattr(evt, "self_cuda_time_total", 0) or 0)
@@ -1395,6 +1753,9 @@ def _busy(prof, wall, window, steps=None):
            "device_idle_share": (1.0 - total / wall) if busy else None,
            "top_kernels_s": [[k[:90], v] for k, v in top]}
     if steps:
+        # ReLU's tie gradient's own kernel (its product is one of many)
+        rec["heaviside_device_ms_per_step"] = sum(
+            v for k, v in busy.items() if "heaviside" in k) / steps * 1e3
         rec["flash_device_ms_per_step"] = {
             part: sum(v for k, v in busy.items() if part in k) / steps * 1e3
             for part in FLASH_KERNELS}

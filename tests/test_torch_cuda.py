@@ -18,7 +18,8 @@ row gather
 bitwise; an attention unit's weight gradients
 kernel vs plain path rtol 1e-4 of each gradient's largest entry in
 float32; fused dropout (forward and gradient) and mean/disp normalize
-bitwise.
+bitwise; the one-launch batch gather bitwise; a captured train step
+(``runtime/step_cache.py``) bitwise equal to the eager one over 8 steps.
 """
 
 import contextlib
@@ -470,3 +471,169 @@ def test_mean_disp_kernel_matches_plain_bitwise(card, shape, dtype):
     assert md.launches.count == before + 1
     ref = md.mean_disp_normalize_plain(x, mean, rdisp)
     assert out.dtype == torch.float32 and torch.equal(out, ref)
+
+
+# (array specs, rows, m, count, offset): one, two and three arrays, every
+# copy unit, a padded tail, the last batch of an epoch
+BATCH_CASES = {
+    "lm_train_3_arrays": ([((2048,), torch.int32), ((2048,), torch.int32),
+                           ((2048,), torch.float32)], 512, 16, 16, 496),
+    "two_padded_tail": ([((2048,), torch.int32), ((2048,), torch.int32)],
+                        70, 16, 6, 64),
+    "odd_rows_every_unit": ([((3, 7), torch.uint8), ((5,), torch.int16),
+                             ((3,), torch.float32), ((2,), torch.float64)],
+                            101, 37, 30, 64),
+    "one_uint8_image": ([((256, 256, 3), torch.uint8)], 40, 8, 8, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(BATCH_CASES), ids=list(BATCH_CASES))
+def test_gather_batch_kernel_matches_plain_bitwise(card, case):
+    specs, n, m, count, offset = BATCH_CASES[case]
+    gen = torch.Generator().manual_seed(6)
+    arrays = [torch.randint(0, 1 << 14, (n,) + s, generator=gen).to(dt)
+              .to(card) for s, dt in specs]
+    order = np.random.default_rng(6).permutation(n)[:offset + count]
+    perm = gr.index_tensor(order, n, offset + m, card)
+    outs = [torch.empty((m,) + a.shape[1:], dtype=a.dtype, device=card)
+            for a in arrays]
+    refs = [torch.empty_like(o) for o in outs]
+    mask, ref_mask = torch.empty(m, device=card), torch.empty(m, device=card)
+    before = gr.launches.by_variant().get("batch", 0)
+    gr.gather_batch(arrays, outs, perm, offset, count, mask)
+    assert gr.launches.by_variant()["batch"] == before + 1
+    gr.gather_batch_plain(arrays, refs, perm, offset, count, ref_mask)
+    torch.cuda.synchronize()
+    for o, r in zip(outs, refs):
+        assert torch.equal(o, r)
+    assert torch.equal(mask, ref_mask)
+    assert mask.sum().item() == count
+
+
+def _lm_trainer(card, capture, dtype, snapshotter=None, epochs=1,
+                n_train=64, force_host=False):
+    """The bench LM's layer types at a narrow width (2 blocks, dim 64, 4
+    heads of 16, vocab 64) over a card-resident per-position
+    InductionLoader (8 x 128 tokens a batch), Adam; capture on or off."""
+    from veles_tpu_torch.models.lm import InductionLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    layers = [{"type": "embedding", "vocab": 64, "dim": 64, "name": "emb"}]
+    for i in range(2):
+        layers += [{"type": "attention", "n_heads": 4, "rope": True,
+                    "residual": True, "name": f"attn{i}"},
+                   {"type": "layer_norm", "name": f"ln{i}a"},
+                   {"type": "ffn", "d_hidden": 128, "name": f"ffn{i}"},
+                   {"type": "layer_norm", "name": f"ln{i}b"}]
+    layers.append({"type": "all2all", "output_size": 64,
+                   "per_position": True, "name": "head"})
+    sw = StandardWorkflow({"name": "lm", "layers": layers,
+                           "compute_dtype": dtype, "optimizer": "adam",
+                           "optimizer_args": {"lr": 1e-3}})
+    loader = InductionLoader(minibatch_size=8, n_train=n_train, n_valid=16,
+                             seq_len=128, vocab=64, per_position=True,
+                             device=card, force_host=force_host)
+    tr = sw.make_trainer(loader, Decision(max_epochs=epochs), snapshotter,
+                         device=card, step_cache=StepCache(capture=capture))
+    tr.initialize(seed=0)
+    return tr
+
+
+def _state_equal(a, b):
+    from veles_tpu_torch.ops.optimizers import tree_leaves
+    la = tree_leaves({k: a[k] for k in ("params", "opt_state", "state")})
+    lb = tree_leaves({k: b[k] for k in ("params", "opt_state", "state")})
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("dtype,force_host", [
+    ("bfloat16", False), (None, False), ("bfloat16", True)],
+    ids=["bf16", "f32", "bf16_host_batches"])
+def test_captured_train_step_equals_eager_bitwise(card, dtype, force_host):
+    """8 steps and an eval from one init: the captured steps leave the
+    eager steps' parameters, optimizer state and epoch sums, bit for
+    bit, whether the batches are gathered on the card or come from the
+    host (pinned, copied into the static inputs)."""
+    eager = _lm_trainer(card, False, dtype, force_host=force_host)
+    captured = _lm_trainer(card, True, dtype, force_host=force_host)
+    assert captured.step_cache.stats()["train"] == {"captured": True,
+                                                    "reason": None}
+    assert eager.step_cache.stats()["train"]["reason"] == "capture=False"
+    eager.run()
+    captured.run()
+    assert captured.step_cache.stats()["eval"]["captured"]
+    assert captured.wstate["step"] == eager.wstate["step"] == 8
+    assert (captured.wstate["key"] == eager.wstate["key"]).all()
+    assert _state_equal(captured.wstate, eager.wstate)
+    assert captured.decision.history == eager.decision.history
+
+
+def test_replays_count_their_launches(card):
+    """A replay adds the launches its capture recorded (by variant): a
+    captured epoch counts the eager epoch's launches plus the warm-up
+    steps', and one batch gather a step."""
+    from veles_tpu_torch.ops.kernels import KERNELS
+    from veles_tpu_torch.runtime.step_cache import WARMUP_STEPS
+    counts = {}
+    for capture in (False, True):
+        for k in KERNELS:
+            k.launches.reset()
+        _lm_trainer(card, capture, "bfloat16").run()
+        counts[capture] = {k.NAME: k.launches.state() for k in KERNELS}
+    # per step: 2 layers' forward (train and eval), dQ and dK/dV (train)
+    warm = {fa.NAME: 2 * WARMUP_STEPS * 2, dq.NAME: 2 * WARMUP_STEPS,
+            dkv.NAME: 2 * WARMUP_STEPS}
+    for name, (n, variants) in counts[False].items():
+        got_n, got_v = counts[True][name]
+        assert got_n == n + warm.get(name, 0), name
+        if name in warm:
+            assert got_v == {"tc": got_n}, name
+    assert counts[True][gr.NAME] == counts[False][gr.NAME] \
+        == (8 + 2, {"batch": 10})          # 8 train + 2 valid batches
+
+
+def test_zero_recaptures_across_restore(card, tmp_path):
+    """``Trainer.restore`` writes into the captured state's tensors: no
+    recapture, and the next epoch equals an eager trainer's from the same
+    snapshot, bitwise."""
+    from veles_tpu_torch.runtime.snapshotter import Snapshotter
+    snap = Snapshotter("cap", str(tmp_path))
+    _lm_trainer(card, True, "bfloat16", snap).run()
+    runs = {}
+    for capture in (True, False):
+        tr = _lm_trainer(card, capture, "bfloat16", epochs=2)
+        compiles = tr.step_cache.compiles
+        tr.restore(snap.last_path)
+        assert tr.step_cache.compiles == compiles
+        tr.run()
+        assert tr.step_cache.recompiles == 0
+        assert tr.step_cache.compiles == compiles + 1     # eval, lazily
+        runs[capture] = tr
+    assert _state_equal(runs[True].wstate, runs[False].wstate)
+    assert runs[True].decision.history == runs[False].decision.history
+
+
+def test_a_failed_capture_raises(card):
+    """A step that cannot be captured (here: it reads a value back to
+    the host) raises; the cache never falls back to the eager step."""
+    from veles_tpu_torch.runtime.step_cache import StepCache
+
+    class HostRead:
+        kind = "eval"
+
+        def begin(self, wstate):
+            return None
+
+        def run(self, wstate, batch, sub):
+            return {"n": torch.tensor(float(batch["x"].sum().item()),
+                                      device=card)}
+
+    cache = StepCache()
+    with pytest.raises(RuntimeError):
+        cache.get_step("eval", ("host_read",), HostRead,
+                       ({"params": {}}, {"x": torch.ones(4, device=card)}))
+    assert cache.compiles == 0
+    torch.cuda.synchronize()
+    assert torch.ones(2, device=card).sum().item() == 2.0

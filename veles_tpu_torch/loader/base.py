@@ -10,8 +10,7 @@ veles_tpu/loader/base.py, which holds no JAX, rewired to the port).
 * **Checkpointable.** ``state()``/``set_state()`` capture epoch and
   position in the JAX package's layout.
 
-Left out here: the fault-injection hook of ``_fetch_batch``
-(runtime/faults.py is not ported) and the normalizers (image slice).
+Left out here: the normalizers (image slice).
 """
 
 from __future__ import annotations
@@ -115,35 +114,46 @@ class Loader(Logger):
             n = -(-n // self.shard_count)
         return -(-n // self.minibatch_size) if n else 0
 
+    def epoch_order(self, klass: int, epoch: Optional[int] = None
+                    ) -> np.ndarray:
+        """The sample order this host serves for (class, epoch): the
+        epoch permutation, under sharding its strided slice."""
+        perm = self.epoch_permutation(klass, epoch)
+        if self.shard_count > 1:
+            perm = perm[self.shard_index::self.shard_count]
+        return perm
+
     def iter_epoch(self, klass: int, epoch: Optional[int] = None
                    ) -> Iterator[Dict[str, np.ndarray]]:
         """Yield fixed-size padded batches with '@mask'.  Under sharding,
         this host sees a strided slice of the permutation, and every
         shard yields the same number of batches."""
-        perm = self.epoch_permutation(klass, epoch)
-        n_batches = self.n_minibatches(klass)
-        if self.shard_count > 1:
-            perm = perm[self.shard_index::self.shard_count]
+        order = self.epoch_order(klass, epoch)
+        for i in range(self.n_minibatches(klass)):
+            yield self._fetch_batch(self.chunk(order, i), klass, i)
+
+    def chunk(self, order: np.ndarray, i: int) -> np.ndarray:
+        """Batch ``i``'s slice of ``order`` (empty once a shard is
+        exhausted: a fully-masked batch)."""
         bs = self.minibatch_size
-        for i in range(n_batches):
-            chunk = perm[i * bs:(i + 1) * bs]
-            if len(chunk) == 0:  # shard exhausted: fully-masked batch
-                chunk = np.zeros(0, np.int64)
-            yield self._fetch_batch(chunk, klass, i)
+        chunk = order[i * bs:(i + 1) * bs]
+        return chunk if len(chunk) else np.zeros(0, np.int64)
 
     def _fetch_batch(self, chunk: np.ndarray, klass: int,
-                     batch_index: int) -> Dict[str, np.ndarray]:
-        """``make_batch`` with bounded transient-read retry:
-        ``OSError`` retries up to ``root.common.loader.retries`` times
-        with exponential backoff, then raises :class:`LoaderError` naming
-        the batch."""
+                     batch_index: int, **kw) -> Dict[str, np.ndarray]:
+        """``make_batch(chunk, klass, **kw)`` with bounded transient-read
+        retry: ``OSError`` retries up to ``root.common.loader.retries``
+        times with exponential backoff, then raises :class:`LoaderError`
+        naming the batch.  The fault harness (``runtime/faults.py``) can
+        fail a batch's first fetch or slow every fetch."""
         from ..config import root
         retries = int(root.common.loader.get("retries", 2))
         backoff = float(root.common.loader.get("retry_backoff_s", 0.05))
         attempt = 0
         while True:
             try:
-                return self.make_batch(chunk, klass)
+                self._maybe_inject_fault(batch_index)
+                return self.make_batch(chunk, klass, **kw)
             except OSError as e:
                 if attempt >= retries:
                     raise LoaderError(
@@ -157,6 +167,22 @@ class Loader(Logger):
                     attempt + 1, retries + 1, e, delay)
                 time.sleep(delay)
                 attempt += 1
+
+    def _maybe_inject_fault(self, batch_index: int) -> None:
+        """An armed ``loader_ioerror_at_batch`` raises OSError on the
+        first fetch of that index (so the retry above recovers);
+        ``slow_batch_ms`` stalls every fetch (veles_tpu/loader/base.py
+        :192-208)."""
+        from ..runtime import faults
+        if not faults.enabled():
+            return
+        plan = faults.get_plan()
+        if plan.slow_batch_ms > 0:
+            time.sleep(plan.slow_batch_ms / 1e3)
+        if (batch_index in plan.loader_ioerror_at_batch
+                and faults.fire_once("loader_ioerror", batch_index)):
+            raise OSError(
+                f"injected loader IOError at batch {batch_index}")
 
     def make_batch(self, chunk: np.ndarray, klass: int
                    ) -> Dict[str, np.ndarray]:

@@ -2,27 +2,74 @@
 gathered there (counterpart of veles_tpu/loader/fullbatch.py:37-384:
 ``FullBatchLoader`` and the image store's ``FullBatchAugmentedLoader``).
 
-``initialize`` uploads every class's arrays once; ``make_batch`` sends
-only the minibatch's indices (a few bytes), gathers every device-resident
-array through the ``gather_rows`` kernel (``ops/kernels/gather_rows.py``,
-the counterpart of the TPU's ``gather_rows_packed``) and builds ``@mask``
-on the device.  Not carried over: the TPU's packed row layout, its
-row-size envelope and autotune pick (on the card the kernel is the
-gather), and the silent host fallback after a failed upload — a failed
-upload raises here.  ``force_host=True`` is the caller's explicit choice
-of the host gather (numpy batches).
+``initialize`` uploads every class's arrays once.  An epoch uploads its
+row order once (``gather_rows.index_tensor``: padded with index 0 to
+whole minibatches, checked against the row count on the host, copied
+from pinned memory without blocking), and each batch is then a
+:class:`DeviceBatch`: ``(offset, count)`` into that order.  Its
+:meth:`~DeviceBatch.gather` draws every array of the class and the
+``@mask`` row in one launch of the ``gather_batch`` kernel
+(``ops/kernels/gather_rows.py``, the counterpart of the TPU's
+``gather_rows_packed``, as the JAX loader gathers a class's whole tree in
+one jitted call, fullbatch.py:149-171), into tensors the caller gives (a
+captured step's static inputs) or fresh ones; read as a mapping, a
+``DeviceBatch`` gathers into fresh tensors on first use.  Not carried
+over: the TPU's packed row layout, its row-size envelope and autotune
+pick (on the card the kernel is the gather), and the silent host fallback
+after a failed upload — a failed upload raises here.  ``force_host=True``
+is the caller's explicit choice of the host gather (numpy batches).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from collections.abc import Mapping
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..ops import resolve_device
-from ..ops.kernels.gather_rows import gather_rows
+from ..ops.kernels.gather_rows import gather_batch, index_tensor
+from ..units.base import Spec
 from .base import ArrayLoader, TEST, TRAIN, VALID
+
+
+class DeviceBatch(Mapping):
+    """One minibatch of a card-resident class before its gather: rows
+    ``[offset, offset + minibatch)`` of the epoch's order ``perm`` (an
+    index tensor on the card), ``count`` of them real, the rest padding.
+    ``aug`` carries the augmented loader's crop offsets and flips."""
+
+    __slots__ = ("loader", "klass", "perm", "offset", "count", "aug",
+                 "_fresh")
+
+    def __init__(self, loader, klass, perm, offset, count, aug=None):
+        self.loader, self.klass, self.perm = loader, klass, perm
+        self.offset, self.count, self.aug = offset, count, aug
+        self._fresh = None
+
+    def gather(self, out: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """The batch's tensors, written into ``out``'s (same keys, shapes
+        and dtypes as :meth:`specs`) or into fresh ones."""
+        return self.loader.gather_batch(self, out)
+
+    def specs(self) -> Dict[str, Spec]:
+        return self.loader.batch_specs(self.klass)
+
+    def _batch(self):
+        if self._fresh is None:
+            self._fresh = self.gather()
+        return self._fresh
+
+    def __getitem__(self, key):
+        return self._batch()[key]
+
+    def __iter__(self):
+        return iter(self._batch())
+
+    def __len__(self):
+        return len(self._batch())
 
 
 class FullBatchLoader(ArrayLoader):
@@ -68,19 +115,55 @@ class FullBatchLoader(ArrayLoader):
         idx[:len(chunk)] = chunk
         return idx
 
-    def padding_mask(self, valid_n: int) -> torch.Tensor:
-        """(minibatch,) float32 on the device: 1 for the chunk's rows, 0
-        for padding."""
-        return (torch.arange(self.minibatch_size, device=self.device)
-                < valid_n).float()
+    def iter_epoch(self, klass, epoch=None):
+        """The base contract; on the card every batch is a
+        :class:`DeviceBatch` over the epoch's order, uploaded once."""
+        if not self.on_device:
+            yield from super().iter_epoch(klass, epoch)
+            return
+        order = self.epoch_order(klass, epoch)
+        n = self.n_minibatches(klass)
+        bs = self.minibatch_size
+        perm = index_tensor(order, self.class_lengths[klass], n * bs,
+                            self.device)
+        for i in range(n):
+            yield self._fetch_batch(self.chunk(order, i), klass, i,
+                                    perm=perm, offset=i * bs)
 
-    def make_batch(self, chunk: np.ndarray, klass: int):
+    def make_batch(self, chunk: np.ndarray, klass: int, *, perm=None,
+                   offset: int = 0):
+        """On the card, the :class:`DeviceBatch` of ``chunk``: rows
+        ``offset`` on of the epoch's order ``perm`` (``iter_epoch``'s)."""
         if not self.on_device:
             return super().make_batch(chunk, klass)
-        idx = self.padded_index(chunk)
-        batch = {key: gather_rows(arr, idx)
-                 for key, arr in self._dev_data[klass].items()}
-        batch["@mask"] = self.padding_mask(len(chunk))
+        if perm is None:
+            raise ValueError("a card-resident batch reads the epoch's "
+                             "order on the card: make it through "
+                             "iter_epoch")
+        return DeviceBatch(self, klass, perm, offset, len(chunk))
+
+    def batch_specs(self, klass: int) -> Dict[str, Spec]:
+        """Shape and dtype of every tensor of a class's device batch."""
+        m = self.minibatch_size
+        out = {key: Spec((m,) + tuple(arr.shape[1:]), arr.dtype)
+               for key, arr in self._dev_data[klass].items()}
+        out["@mask"] = Spec((m,), torch.float32)
+        return out
+
+    def gather_batch(self, ref: DeviceBatch, out=None
+                     ) -> Dict[str, torch.Tensor]:
+        """Every array of ``ref``'s class and its ``@mask`` in one
+        ``gather_batch`` launch, into ``out``'s tensors where given."""
+        arrays = self._dev_data[ref.klass]
+        m = self.minibatch_size
+        out = out or {}
+        batch = {key: out[key] if key in out else torch.empty(
+            (m,) + tuple(arr.shape[1:]), dtype=arr.dtype, device=arr.device)
+            for key, arr in arrays.items()}
+        batch["@mask"] = out["@mask"] if "@mask" in out else torch.empty(
+            m, dtype=torch.float32, device=self.device)
+        gather_batch(list(arrays.values()), [batch[k] for k in arrays],
+                     ref.perm, ref.offset, ref.count, batch["@mask"])
         return batch
 
 
@@ -91,11 +174,11 @@ class FullBatchAugmentedLoader(FullBatchLoader):
     Train batches get crop offsets and flips drawn from (loader seed,
     epoch, class, first index) by numpy PCG64 (``_draw_aug``, copied as
     is), so crops and flips are the JAX package's bits; valid/test
-    batches get the center crop and no flip.  Per step the host sends the
-    minibatch's indices, a (B, 2) offset array and a (B,) flip mask: the
-    rows come through the ``gather_rows`` kernel, and the crop and mirror
-    are one advanced-indexing op with per-sample row and column index
-    tensors (a mirrored sample's column index runs backwards).
+    batches get the center crop and no flip.  Per step the host sends a
+    (B, 2) offset array and a (B,) flip mask: the rows come through the
+    ``gather_batch`` kernel, and the crop and mirror are one
+    advanced-indexing op with per-sample row and column index tensors (a
+    mirrored sample's column index runs backwards).
     ``force_host=True`` takes the host form (:meth:`fill_minibatch`),
     pixel-identical."""
 
@@ -169,17 +252,27 @@ class FullBatchAugmentedLoader(FullBatchLoader):
         b = torch.arange(imgs.shape[0], device=dev)
         return imgs[b[:, None, None], rows[:, :, None], cols[:, None, :]]
 
-    def make_batch(self, chunk: np.ndarray, klass: int):
-        if not self.on_device:
-            return super(FullBatchLoader, self).make_batch(chunk, klass)
-        valid_n = len(chunk)
-        idx = self.padded_index(chunk)
-        anchor = int(idx[0]) if valid_n else 0
-        offs, flips = self._draw_aug(self.minibatch_size, klass, anchor)
-        batch = {key: gather_rows(arr, idx)
-                 for key, arr in self._dev_data[klass].items()}
-        batch["@input"] = self.crop(batch["@input"], offs, flips)
-        batch["@mask"] = self.padding_mask(valid_n)
+    def make_batch(self, chunk: np.ndarray, klass: int, **kw):
+        batch = super().make_batch(chunk, klass, **kw)
+        if isinstance(batch, DeviceBatch):
+            anchor = int(chunk[0]) if len(chunk) else 0
+            batch.aug = self._draw_aug(self.minibatch_size, klass, anchor)
+        return batch
+
+    def batch_specs(self, klass: int) -> Dict[str, Spec]:
+        out = super().batch_specs(klass)
+        s = out["@input"]
+        out["@input"] = Spec(s.shape[:1] + self.crop_hw + s.shape[3:],
+                             s.dtype)
+        return out
+
+    def gather_batch(self, ref: DeviceBatch, out=None):
+        """The store's rows in one launch (whole images, into a scratch
+        tensor), then the crop and mirror into ``@input``."""
+        scratch = {k: v for k, v in (out or {}).items() if k != "@input"}
+        batch = super().gather_batch(ref, scratch)
+        crop = self.crop(batch["@input"], *ref.aug)
+        batch["@input"] = crop if not out else out["@input"].copy_(crop)
         return batch
 
     def fill_minibatch(self, indices, klass):

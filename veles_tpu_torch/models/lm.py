@@ -15,7 +15,7 @@ import torch
 
 from ..loader.base import TRAIN, VALID
 from ..loader.fullbatch import FullBatchLoader
-from ..ops.kernels.gather_rows import gather_rows
+from ..units.base import Spec
 
 
 def synth_induction(n_train: int = 20000, n_valid: int = 4000,
@@ -104,36 +104,50 @@ class InductionLoader(FullBatchLoader):
                          minibatch_size=minibatch_size, **kw)
         self.vocab = vocab
         self.seq_len = seq_len
-        self._dev_train_mask = None
+        self._last = None
 
     def _upload(self):
         super()._upload()
         if self._train_mask is not None:
-            self._dev_train_mask = torch.from_numpy(self._train_mask).to(
-                self.device)
+            # gathered with the class's other arrays, then folded into
+            # @mask (gather_batch below)
+            self._dev_data[TRAIN]["@rowmask"] = torch.from_numpy(
+                self._train_mask).to(self.device)
+            self._last = torch.zeros(self.seq_len, device=self.device)
+            self._last[-1] = 1.0
 
-    def make_batch(self, chunk, klass):
-        batch = super().make_batch(chunk, klass)
-        if not self.per_position:
+    def make_batch(self, chunk, klass, **kw):
+        batch = super().make_batch(chunk, klass, **kw)
+        if not self.per_position or self.on_device:
             return batch
-        if not self.on_device:
-            pad = np.asarray(batch["@mask"], np.float32)  # (bs,)
-            m = np.repeat(pad[:, None], self.seq_len, axis=1)
-            if klass == TRAIN:
-                m = m * self._train_mask[self.padded_index(chunk)]
-            else:
-                m[:, :-1] = 0.0  # metric = last-position recall only
-            batch["@mask"] = m
-            return batch
-        pad = batch["@mask"][:, None]
+        pad = np.asarray(batch["@mask"], np.float32)  # (bs,)
+        m = np.repeat(pad[:, None], self.seq_len, axis=1)
         if klass == TRAIN:
-            m = pad * gather_rows(self._dev_train_mask,
-                                  self.padded_index(chunk))
+            m = m * self._train_mask[self.padded_index(chunk)]
         else:
-            last = torch.zeros(self.seq_len, device=pad.device)
-            last[-1] = 1.0
-            m = pad * last
+            m[:, :-1] = 0.0  # metric = last-position recall only
         batch["@mask"] = m
+        return batch
+
+    def batch_specs(self, klass):
+        out = super().batch_specs(klass)
+        if self.per_position:
+            out.pop("@rowmask", None)
+            out["@mask"] = Spec(out["@input"].shape, torch.float32)
+        return out
+
+    def gather_batch(self, ref, out=None):
+        """Per position, ``@mask`` = the padding row mask times the
+        gathered per-sample train mask (train) or the last position only
+        (valid): one gather launch and one product."""
+        if not self.per_position:
+            return super().gather_batch(ref, out)
+        out = out or {}
+        batch = super().gather_batch(
+            ref, {k: v for k, v in out.items() if k != "@mask"})
+        pad = batch.pop("@mask")[:, None]
+        rows = batch.pop("@rowmask") if ref.klass == TRAIN else self._last
+        batch["@mask"] = torch.mul(pad, rows, out=out.get("@mask"))
         return batch
 
 

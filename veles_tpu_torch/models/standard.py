@@ -136,14 +136,15 @@ class StandardWorkflow:
             **dict(self.config.get("optimizer_args", {})))
 
     def make_trainer(self, loader, decision=None, snapshotter=None, *,
-                     device=None):
+                     device=None, step_cache=None):
         """A :class:`~veles_tpu_torch.runtime.trainer.Trainer` over this
         workflow and optimizer (default decision: the config's
-        ``max_epochs`` and ``fail_iterations``)."""
+        ``max_epochs`` and ``fail_iterations``; default ``step_cache``: a
+        fresh one that captures on the card)."""
         from ..runtime.decision import Decision
         from ..runtime.trainer import Trainer
         decision = decision or Decision(
             max_epochs=self.config.get("max_epochs"),
             fail_iterations=self.config.get("fail_iterations", 50))
         return Trainer(self.workflow, loader, self.optimizer, decision,
-                       snapshotter, device=device)
+                       snapshotter, device=device, step_cache=step_cache)

@@ -11,8 +11,28 @@ from __future__ import annotations
 import torch
 
 
+class _ReLU(torch.autograd.Function):
+    """``max(x, 0)`` with the JAX package's gradient: ``jnp.maximum``
+    splits a tie evenly, so the gradient at exactly 0 is 0.5 (1 above,
+    0 below), where ``torch.clamp_min``'s is 1.  The forward is
+    ``clamp_min`` itself, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp_min(x, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        # heaviside: 0 below, 1 above, the given 0.5 at 0 (and 0 at NaN),
+        # the factor JAX multiplies the cotangent by
+        half = torch.full((), 0.5, dtype=x.dtype, device=x.device)
+        return g * torch.heaviside(x, half).to(g.dtype)
+
+
 def relu(x):
-    return torch.clamp_min(x, 0)
+    return _ReLU.apply(x)
 
 
 def scaled_tanh(x):
@@ -42,8 +62,9 @@ ACTIVATIONS = {
 def rope_inv_freq(half: int, base: float, device) -> torch.Tensor:
     """Per-pair angular frequency ``base ** (-i / half)``, float32."""
     exponent = -torch.arange(half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.tensor(base, dtype=torch.float32, device=device),
-                     exponent)
+    # a fill, not a host-to-device copy, so a captured step can hold it
+    return torch.pow(torch.full((), base, dtype=torch.float32,
+                                device=device), exponent)
 
 
 def rotate_pairs(x, cos, sin):

@@ -166,6 +166,25 @@ class LaunchCounter:
             self._n = 0
             self._variants = {}
 
+    def state(self):
+        """``(count, {variant: count})`` now: what a CUDA-graph capture
+        reads before and after, since a capture records launches and runs
+        none (``runtime/step_cache.py``)."""
+        with self._lock:
+            return self._n, dict(self._variants)
+
+    def set_state(self, state) -> None:
+        """Back to a :meth:`state` (the capture's recorded calls undone)."""
+        with self._lock:
+            self._n, self._variants = state[0], dict(state[1])
+
+    def add(self, n: int, variants: Optional[Dict[str, int]] = None) -> None:
+        """``n`` launches at once (a graph replay's recorded launches)."""
+        with self._lock:
+            self._n += n
+            for v, c in (variants or {}).items():
+                self._variants[v] = self._variants.get(v, 0) + c
+
     @property
     def count(self) -> int:
         return self._n

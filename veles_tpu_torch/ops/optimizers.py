@@ -10,9 +10,14 @@ t)`` with a per-leaf scalar ``t``) and moves between the packages.  The
 workflow's train step copies the results into its tensors in place.
 
 All update math runs in float32 on the parameters' device; the learning
-rate is a float32 scalar tensor there, and the reserved ``opt_state``
-scalars (the rollback lr multiplier and the anomaly counters) are device
-tensors too, so nothing in a step reads a value back to the host.
+rate is a float32 scalar tensor there (the train step passes its own,
+which the host fills from ``schedule(step)`` before each step, so a
+captured step reads the new value on every replay), and the reserved
+``opt_state`` scalars (the rollback lr multiplier and the anomaly
+counters) are device tensors too, so nothing in a step reads a value back
+to the host.  :func:`tree_assign` writes a result tree into the live
+state's tensors in place, the one way the train step, rollback and
+restore change the state.
 """
 
 from __future__ import annotations
@@ -115,6 +120,45 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_assign(dst, src, path: str = ""):
+    """Write ``src``'s leaves into ``dst``'s tensors in place and return
+    ``dst``: a tensor leaf is ``copy_``-ed (dtype cast as ``.to`` casts;
+    numpy leaves are taken on the host first), a dict gains the keys of
+    ``src`` it lacks, and a dict entry that holds no tensor (the state's
+    step, its host key) is replaced.  The tensors a captured step reads
+    stay the same objects, so a ``src`` that does not fit them (another
+    shape or structure, e.g. a snapshot of another width) raises
+    ``ValueError`` naming the path instead of rebinding them."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict):
+            raise ValueError(f"state at {path or '/'} is a dict; cannot "
+                             f"write a {type(src).__name__} into it")
+        for k, v in src.items():
+            if k in dst and _holds_tensor(dst[k]):
+                tree_assign(dst[k], v, f"{path}/{k}")
+            else:
+                dst[k] = v
+        return dst
+    if isinstance(dst, (list, tuple)):
+        if not isinstance(src, (list, tuple)) or len(src) != len(dst):
+            raise ValueError(f"state at {path or '/'} holds {len(dst)} "
+                             f"leaves; cannot write {src!r:.60} into it")
+        for i, (d, v) in enumerate(zip(dst, src)):
+            tree_assign(d, v, f"{path}/{i}")
+        return dst
+    if tuple(np.shape(src)) != tuple(dst.shape):
+        raise ValueError(f"state tensor {path or '/'} has shape "
+                         f"{tuple(dst.shape)}; cannot write shape "
+                         f"{tuple(np.shape(src))} into it in place")
+    dst.copy_(src if torch.is_tensor(src)
+              else torch.from_numpy(np.asarray(src)))
+    return dst
+
+
+def _holds_tensor(tree) -> bool:
+    return any(torch.is_tensor(x) for x in tree_leaves(tree))
+
+
 def global_grad_norm(grads) -> torch.Tensor:
     """float32 global L2 norm over every gradient leaf."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
@@ -128,23 +172,33 @@ def tree_select(ok, new_tree, old_tree):
 
 
 def guarded_update(optimizer: "Optimizer", grads, opt_state, params, step,
-                   loss, *, clip_norm: float = 0.0, sentinel: bool = True):
+                   loss, *, clip_norm: float = 0.0, sentinel: bool = True,
+                   lr=None, inject_nan=None):
     """Anomaly-guarded optimizer update (veles_tpu/ops/optimizers.py:
     134-197): runs ``optimizer.update`` and, with ``sentinel`` on, keeps
     the old params and slots where the loss or the gradients' global norm
     is not finite, advancing ``ANOM_SKIP_KEY``/``ANOM_CONSEC_KEY``.
     ``clip_norm > 0`` rescales the gradients to that global norm first.
-    Returns ``(params, opt_state, ok, gnorm)``; ``ok``/``gnorm`` are
-    ``None`` where that machinery is off."""
+    ``lr`` (a float32 device scalar) replaces ``schedule(step)``;
+    ``inject_nan`` (a bool device scalar, the fault harness's
+    ``nan_grad_at_step``) poisons every floating gradient with NaN where
+    it is true.  Returns ``(params, opt_state, ok, gnorm)``;
+    ``ok``/``gnorm`` are ``None`` where that machinery is off."""
+    if inject_nan is not None:
+        grads = tree_map(
+            lambda g: torch.where(inject_nan, torch.full(
+                (), float("nan"), dtype=g.dtype, device=g.device), g)
+            if g.is_floating_point() else g, grads)
     clip_norm = float(clip_norm or 0.0)
     if not sentinel and clip_norm <= 0.0:
-        p, s = optimizer.update(grads, opt_state, params, step)
+        p, s = optimizer.update(grads, opt_state, params, step, lr=lr)
         return p, s, None, None
     gnorm = global_grad_norm(grads)
     if clip_norm > 0.0:
         scale = torch.clamp_max(clip_norm / gnorm, 1.0)
         grads = tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
-    new_params, new_opt = optimizer.update(grads, opt_state, params, step)
+    new_params, new_opt = optimizer.update(grads, opt_state, params, step,
+                                           lr=lr)
     if not sentinel:
         return new_params, new_opt, None, gnorm
     ok = torch.isfinite(loss.float()) & torch.isfinite(gnorm)
@@ -209,10 +263,13 @@ class Optimizer:
     def _hp(self, unit_name: str) -> HyperParams:
         return self.per_unit.get(unit_name, HyperParams())
 
-    def update(self, grads, state, params, step):
-        dev = tree_leaves(params)[0].device
-        lr = torch.full((), float(self.schedule(step)), dtype=torch.float32,
-                        device=dev)
+    def update(self, grads, state, params, step, *, lr=None):
+        """``lr``: the float32 device scalar of ``schedule(step)`` (the
+        train step's); None computes it here."""
+        if lr is None:
+            lr = torch.full((), float(self.schedule(step)),
+                            dtype=torch.float32,
+                            device=tree_leaves(params)[0].device)
         lr_mult = state.get(LR_MULT_KEY)
         if lr_mult is not None:
             lr = lr * lr_mult

@@ -45,6 +45,7 @@ from ..config import root
 from ..logger import Logger
 from ..ops import resolve_device
 from ..units.base import Context
+from ..units.nn import input_vocab
 from .generate import DecodePlan, row_seeds, sample_rows
 
 
@@ -195,6 +196,9 @@ class DecodeEngine(Logger):
                        for u, p in wstate["params"].items()}
         self.plan = DecodePlan(workflow, output_unit)
         self._ctx = Context(train=False)
+        # the embedding table's rows: the bound on prompt token ids (the
+        # REST guard's), checked in submit before anything is enqueued
+        self._input_vocab = input_vocab(workflow, self.params)
 
         S = self.slots
         if self.paged:
@@ -271,9 +275,15 @@ class DecodeEngine(Logger):
         (np.int32, prompt + generated, trimmed at eos) or ``error``.
         Raises :class:`EngineOverloaded` when the queue is full or the
         page pool cannot host the request while slots are free."""
-        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
+        hi = self._input_vocab if self._input_vocab is not None else 2 ** 31
+        if prompt.min() < 0 or prompt.max() >= hi:
+            raise ValueError(
+                f"prompt token ids must be in [0, {hi}) "
+                f"(got min {prompt.min()}, max {prompt.max()})")
+        prompt = prompt.astype(np.int32)
         n_steps = int(n_steps)
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")

@@ -10,8 +10,10 @@ other with byte-identical tensors.  The trainer's payload (wstate with
 ``opt_state``, loader, decision, prng, config, ``workflow_checksum``)
 is the JAX ``Trainer``'s, so a training run resumes in either package.
 The epoch throttle (``tick``), the ``_current``/``_best`` symlinks and
-keep-last-K retention follow snapshotter.py:141-272; the walk-back past
-corrupt snapshots, the sqlite and http sources are not ported.
+keep-last-K retention follow snapshotter.py:141-272, the walk-back past
+corrupt snapshots (:func:`restore_with_walkback`), ``snapshot_checksum``
+and ``compare_snapshots`` :568-672; the sqlite and http sources are not
+ported.
 
 :func:`params_from_jax` carries weights across: a nested numpy tree, a
 full workflow state, or a flat ``"emb/table"``-keyed dict in the JAX
@@ -27,7 +29,7 @@ import os
 import threading
 import time
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -200,6 +202,14 @@ class Snapshotter(Logger):
         keep = int(root.common.get("snapshot_keep", 0) or 0)
         if keep > 0:
             self._gc(keep)
+        # fault harness: a torn write discovered only at restore time
+        from .faults import get_plan
+        if get_plan().truncate_snapshot:
+            size = max(os.path.getsize(npz_path) // 2, 1)
+            with open(npz_path, "rb+") as f:
+                f.truncate(size)
+            self.warning("fault injection: truncated %s to %d bytes",
+                         npz_path, size)
         return man_path
 
     def _gc(self, keep: int) -> None:
@@ -260,7 +270,7 @@ class Snapshotter(Logger):
         device of ``like`` (the live state of the same workflow and
         optimizer): tensors become tensors on ``like``'s devices, numpy
         leaves (the key) numpy, and the integer step an int.  A
-        structure that differs raises ``ValueError``."""
+        structure or a tensor shape that differs raises ``ValueError``."""
         def cast(saved, template, path):
             if isinstance(template, dict):
                 if not isinstance(saved, dict) or set(saved) != set(template):
@@ -281,12 +291,20 @@ class Snapshotter(Logger):
                 return type(template)(cast(a, b, f"{path}/{i}") for i, (a, b)
                                       in enumerate(zip(saved, template)))
             if isinstance(template, torch.Tensor):
+                if np.shape(saved) != tuple(template.shape):
+                    raise ValueError(
+                        f"snapshot tensor {path} has shape "
+                        f"{np.shape(saved)}, this workflow's "
+                        f"{tuple(template.shape)} (another width? the "
+                        "checksum only covers graph topology)")
                 return torch.from_numpy(np.array(saved, copy=True)).to(
                     device=template.device, dtype=template.dtype)
             if isinstance(template, np.ndarray):
                 return np.asarray(saved).astype(template.dtype)
             if isinstance(template, int):
                 return int(np.asarray(saved))
+            if template is None:    # a state without a key keeps none
+                return None
             return saved
 
         return cast(payload["wstate"], like, "")
@@ -315,6 +333,95 @@ def list_snapshots(directory: str, prefix: Optional[str] = None) -> list:
                     "tensors": man["tensors"]})
     out.sort(key=lambda e: (e["saved_at"], e["path"]))
     return out
+
+
+def snapshot_checksum(path: str) -> str:
+    """sha256 hex digest of the tensors blob a manifest references (two
+    snapshots with identical weights hash identically); '' when the blob
+    cannot be read — callers treat '' as "unknown", never as a match."""
+    try:
+        with open(path) as f:
+            man = json.load(f)
+        npz = os.path.join(os.path.dirname(path), man["tensors"])
+        return sha256_files([npz])
+    except (OSError, KeyError, TypeError, ValueError,
+            json.JSONDecodeError):
+        return ""
+
+
+def restore_with_walkback(path: str) -> Tuple[Dict[str, Any], str,
+                                              List[dict]]:
+    """Load the snapshot at ``path``; on corruption, walk back through the
+    snapshots in the same directory (newest to oldest by ``saved_at``) to
+    the newest VALID one.  Returns ``(payload, used_path, skipped)``,
+    ``skipped`` listing ``{"path", "reason"}`` of every snapshot rejected
+    on the way.  Raises :class:`SnapshotCorruptError` when nothing in the
+    directory loads; a missing ``path`` raises as it is (most likely a
+    typo: restoring a sibling the caller never named would be worse)."""
+    skipped: List[dict] = []
+    target = os.path.realpath(path)
+    try:
+        return Snapshotter.load(path), target, skipped
+    except SnapshotCorruptError as e:
+        skipped.append({"path": target,
+                        "reason": f"{type(e).__name__}: {e}"})
+    directory = os.path.dirname(path) or "."
+    seen = {target}
+    for ent in reversed(list_snapshots(directory)):
+        real = os.path.realpath(ent["path"])
+        if real in seen:
+            continue
+        seen.add(real)
+        try:
+            return Snapshotter.load(ent["path"]), real, skipped
+        except (SnapshotCorruptError, OSError, KeyError, ValueError) as e:
+            skipped.append(
+                {"path": real, "reason": f"{type(e).__name__}: {e}"})
+    raise SnapshotCorruptError(
+        f"no valid snapshot found in {directory!r}; rejected "
+        + "; ".join(f"{s['path']} ({s['reason']})" for s in skipped))
+
+
+def compare_snapshots(path_a: str, path_b: str) -> Dict[str, Any]:
+    """Per-tensor diff of two snapshots (manifests or their symlinks):
+    ``{"rows", "only_a", "only_b", "meta"}``, each row with key, shape,
+    dtype and max |d| / mean |d| / max relative d (0-denominators
+    excluded), or ``mismatch`` where shape or dtype differ; ``meta`` maps
+    the manifest fields that differ to their (a, b) values."""
+    pa, pb = Snapshotter.load(path_a), Snapshotter.load(path_b)
+    fa = _flatten(pa.get("wstate", {}))
+    fb = _flatten(pb.get("wstate", {}))
+    rows = []
+    for k in sorted(set(fa) & set(fb)):
+        a, b = np.asarray(fa[k]), np.asarray(fb[k])
+        if a.shape != b.shape or a.dtype != b.dtype:
+            rows.append({"key": k, "mismatch": True,
+                         "shape_a": list(a.shape), "dtype_a": str(a.dtype),
+                         "shape_b": list(b.shape), "dtype_b": str(b.dtype)})
+            continue
+        af = a.astype(np.float64, copy=False)
+        bf = b.astype(np.float64, copy=False)
+        d = np.abs(af - bf)
+        denom = np.maximum(np.abs(af), np.abs(bf))
+        nz = denom > 0
+        rows.append({
+            "key": k, "mismatch": False,
+            "shape": list(a.shape), "dtype": str(a.dtype),
+            "max_abs": float(d.max()) if d.size else 0.0,
+            "mean_abs": float(d.mean()) if d.size else 0.0,
+            "max_rel": float((d[nz] / denom[nz]).max()) if nz.any()
+            else 0.0,
+        })
+    skip = {"tensors", "saved_at", "wstate"}
+    meta = {}
+    for k in sorted((set(pa) | set(pb)) - skip):
+        va, vb = pa.get(k), pb.get(k)
+        if va != vb:
+            meta[k] = [va, vb]
+    return {"rows": rows,
+            "only_a": sorted(set(fa) - set(fb)),
+            "only_b": sorted(set(fb) - set(fa)),
+            "meta": meta}
 
 
 def wstate_to_numpy(wstate: dict) -> dict:

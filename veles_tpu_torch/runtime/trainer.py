@@ -1,20 +1,27 @@
 """Trainer: the host-side epoch loop tying loader + workflow + decision +
-snapshotter together (counterpart of veles_tpu/runtime/trainer.py:57-537
-and :674-743).
+snapshotter together (counterpart of veles_tpu/runtime/trainer.py:57-743).
 
-Every step runs the workflow's eager train step on the device; the
-per-epoch metric sums stay there as tensors and are read back once per
-epoch.  A worker thread assembles the next batches (the fullbatch
-loader's gather kernel, or a host batch and its copy to the device)
-while the current step runs.  The Decision's rollback restores the best
-state and scales the learning rate through the ``__lr_mult__`` scalar of
-``opt_state``; snapshots carry the JAX ``Trainer``'s payload, so a run
-resumes in either package.
+The train and eval steps come from a :class:`~.step_cache.StepCache`,
+built once per workflow lifetime and on the card captured once as CUDA
+graphs (eval lazily, on the first eval epoch); the per-epoch metric sums
+stay on the device as tensors and are read back once per epoch.  A
+worker thread assembles the next batches while the current step runs:
+for an eager step the whole batch on the device (the fullbatch loader's
+gather, or a host batch and its copy); for a captured step only the
+host-side work (a card-resident batch stays a ``DeviceBatch``, a host
+batch becomes pinned tensors), because the step's static inputs are
+written by the thread that replays it, right before the replay.
+Rollback, restore, the lr multiplier and anomaly escalation write into
+the live state's tensors in place, so none of them recaptures.  The
+Decision's rollback restores the best state and scales the learning
+rate through the ``__lr_mult__`` scalar of ``opt_state``; after
+``root.common.train.anomaly_patience`` consecutive anomalous steps the
+trainer rolls back too, to the best state or the last snapshot (walking
+back past corrupt ones).  Snapshots carry the JAX ``Trainer``'s payload,
+so a run resumes in either package.
 
-Left out here (ROADMAP.md, slice 3): escalation to a rollback after
-consecutive anomalous steps, the snapshot walk-back, the step cache, the
-goodput/MFU gauges, the metrics registry, the memory ledger, and the
-mesh, multi-host and pipeline schedules.
+Left out here (ROADMAP.md, slice 3): the goodput/MFU gauges, the memory
+ledger, and the mesh, multi-host and pipeline schedules.
 """
 
 from __future__ import annotations
@@ -32,11 +39,15 @@ from ..config import root
 from ..loader.base import TEST, TRAIN, VALID, Loader
 from ..logger import Logger
 from ..ops import resolve_device
-from ..ops.optimizers import LR_MULT_KEY, Optimizer, reserved_opt_neutral
+from ..ops.optimizers import (ANOM_CONSEC_KEY, LR_MULT_KEY, Optimizer,
+                              reserved_opt_neutral, tree_assign)
 from ..units.base import Spec
 from ..units.workflow import Workflow
 from .decision import Decision
-from .snapshotter import Snapshotter, wstate_to_numpy
+from .metrics import registry
+from .snapshotter import (Snapshotter, restore_with_walkback,
+                          wstate_to_numpy)
+from .step_cache import StepCache
 
 
 def aggregate_epoch_metrics(sums: Dict[str, float]) -> Dict[str, float]:
@@ -71,7 +82,8 @@ class Trainer(Logger):
     def __init__(self, workflow: Workflow, loader: Loader,
                  optimizer: Optimizer, decision: Optional[Decision] = None,
                  snapshotter: Optional[Snapshotter] = None, *,
-                 prefetch: int = 2, device=None):
+                 prefetch: int = 2, device=None,
+                 step_cache: Optional[StepCache] = None):
         self.workflow = workflow
         self.loader = loader
         self.optimizer = optimizer
@@ -79,13 +91,27 @@ class Trainer(Logger):
         self.snapshotter = snapshotter
         self.prefetch = prefetch  # batches assembled ahead (0 = inline)
         self.device = resolve_device(device)
+        self.step_cache = step_cache if step_cache is not None \
+            else StepCache()
         self.wstate = None
         self._train_step = None
         self._eval_step = None
+        self._eval_entry = None
         self._best_wstate = None
         self.results: Dict[str, Any] = {}
         self.anomaly_steps_skipped = 0
         self.anomaly_rollbacks = 0
+        self.snapshot_walkbacks = 0
+        reg = registry()
+        self._m_anom = reg.counter(
+            "vt_train_anomaly_skips_total",
+            "train steps skipped by the in-step anomaly sentinel")
+        self._m_rollbacks = reg.counter(
+            "vt_train_anomaly_rollbacks_total",
+            "rollbacks escalated from consecutive anomalous steps")
+        self._m_walkbacks = reg.counter(
+            "vt_snapshot_walkbacks_total",
+            "corrupt snapshots skipped on the way to a valid one")
 
     # -- setup -------------------------------------------------------------
     def initialize(self, seed: Optional[int] = None,
@@ -96,8 +122,10 @@ class Trainer(Logger):
         self.loader.initialize()
         batch = next(self.loader.iter_epoch(
             TRAIN if self.loader.class_lengths[TRAIN] else VALID))
-        self.workflow.build({k: Spec(tuple(v.shape), _dtype(v))
-                             for k, v in batch.items()})
+        # a card-resident batch knows its specs before any gather
+        specs = batch.specs() if hasattr(batch, "specs") else {
+            k: Spec(tuple(v.shape), _dtype(v)) for k, v in batch.items()}
+        self.workflow.build(specs)
         if wstate is not None:
             self.wstate = wstate
         else:
@@ -105,28 +133,67 @@ class Trainer(Logger):
                 seed = prng.get("init").next_seed() & 0x7FFFFFFF
             self.wstate = self.workflow.init_state(seed, self.optimizer,
                                                    self.device)
-        self._train_step = self.workflow.make_train_step(self.optimizer)
-        self._eval_step = self.workflow.make_eval_step()
+        self._batch_spec = specs
+        self._compile_steps()
         self.info("workflow %s: %d params", self.workflow.name,
                   self.workflow.n_params(self.wstate))
 
-    # -- epoch passes -------------------------------------------------------
-    def _place_batch(self, batch):
-        """Host (numpy) arrays to tensors on the trainer's device;
-        tensors already there pass through."""
-        return {k: (v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.asarray(v))).to(self.device)
-                for k, v in batch.items()}
+    def _compile_steps(self) -> None:
+        """The train step from the StepCache (on the card: captured over
+        this state and a zero batch, the static inputs the eval step
+        shares); the eval step on the first eval epoch.  A rollback, a
+        restore or a re-``initialize`` with unchanged shapes is a hit."""
+        key = self.step_cache.trainer_key(
+            self.workflow, self.optimizer, self.wstate, self._batch_spec,
+            self.device)
+        inputs = {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
+                  for k, s in self._batch_spec.items()}
+        args = (self.wstate, inputs)
+        pin = (self.workflow, self.optimizer)
+        self._train_step = self.step_cache.get_step(
+            "train", key,
+            lambda: self.workflow.make_train_step(self.optimizer), args,
+            pin=pin, workflow=self.workflow)
+        self._eval_step = None
+        self._eval_entry = (key, args, pin)
 
-    def _batches(self, klass: int, epoch):
-        """Device-placed batch stream; with ``prefetch`` > 0 a worker
+    def _ensure_eval_step(self):
+        if self._eval_step is None:
+            key, (_, inputs), pin = self._eval_entry
+            self._eval_step = self.step_cache.get_step(
+                "eval", key, self.workflow.make_eval_step,
+                (self.wstate, inputs), pin=pin, workflow=self.workflow)
+        return self._eval_step
+
+    # -- epoch passes -------------------------------------------------------
+    def _place_batch(self, batch, staged: bool):
+        """A batch as the step takes it.  For an eager step: tensors on
+        the trainer's device (a card-resident batch gathered).  For a
+        captured one (``staged``) only the host-side work: a
+        card-resident batch passes through and host arrays become pinned
+        tensors; the step writes either into its static inputs."""
+        if staged and hasattr(batch, "gather"):
+            return batch
+        if hasattr(batch, "gather"):
+            return batch.gather()
+        out = {k: v if isinstance(v, torch.Tensor)
+               else torch.from_numpy(np.asarray(v))
+               for k, v in batch.items()}
+        if staged:
+            return {k: v if v.is_cuda else v.pin_memory()
+                    for k, v in out.items()}
+        return {k: v.to(self.device) for k, v in out.items()}
+
+    def _batches(self, klass: int, epoch, step):
+        """The batch stream of ``step``; with ``prefetch`` > 0 a worker
         thread assembles up to ``prefetch`` batches ahead of the step
-        (its launches share the default stream with the step's, so they
-        run in order)."""
+        (an eager step's device work there shares the default stream with
+        the step's, so it runs in order)."""
+        staged = getattr(step, "captured", False)
         it = self.loader.iter_epoch(klass, epoch)
         if self.prefetch <= 0:
             for item in it:
-                yield self._place_batch(item)
+                yield self._place_batch(item, staged)
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         end = object()
@@ -145,7 +212,7 @@ class Trainer(Logger):
         def worker():
             try:
                 for item in it:
-                    if not put(self._place_batch(item)):
+                    if not put(self._place_batch(item, staged)):
                         return
                 put(end)
             except BaseException as e:  # re-raised on the consumer side
@@ -168,23 +235,26 @@ class Trainer(Logger):
     def _run_epoch_train(self, epoch: int) -> Dict[str, float]:
         sums: Dict[str, Any] = {}
         n = 0
-        for batch in self._batches(TRAIN, epoch):
+        for batch in self._batches(TRAIN, epoch, self._train_step):
             self.wstate, mets = self._train_step(self.wstate, batch)
-            # summed on the device: no host read per step
+            # summed on the device, in stream order before the next step
+            # (a captured step's metrics are its graph's static outputs):
+            # no host read per step
             for k, v in mets.items():
-                sums[k] = sums[k] + v if k in sums else v
+                sums[k] = sums[k] + v if k in sums else v.clone()
             n += 1
         return aggregate_epoch_metrics(_read_sums(sums, n))
 
     def _run_epoch_eval(self, klass: int, epoch: int) -> Dict[str, float]:
         if self.loader.class_lengths[klass] == 0:
             return {}
+        step = self._ensure_eval_step()
         sums: Dict[str, Any] = {}
         n = 0
-        for batch in self._batches(klass, epoch):
-            mets = self._eval_step(self.wstate, batch)
+        for batch in self._batches(klass, epoch, step):
+            mets = step(self.wstate, batch)
             for k, v in mets.items():
-                sums[k] = sums[k] + v if k in sums else v
+                sums[k] = sums[k] + v if k in sums else v.clone()
             n += 1
         return aggregate_epoch_metrics(_read_sums(sums, n))
 
@@ -210,14 +280,15 @@ class Trainer(Logger):
                           time.time() - t_train)
             stop = self.decision.on_epoch(epoch, train_mets, valid_mets)
             if self.decision.improved \
-                    and self.decision.rollback_after is not None:
+                    and (self.decision.rollback_after is not None
+                         or self._anomaly_patience() > 0):
                 self._best_wstate = wstate_to_numpy(self.wstate)
             if self.decision.want_rollback and self._best_wstate is not None:
                 # rollback to the best state + lr drop, written into the
-                # opt_state multiplier the train step reads
-                self.wstate = Snapshotter.restore_wstate(
-                    {"wstate": self._best_wstate}, like=self.wstate)
-                self.wstate = self._apply_lr_multiplier(self.wstate)
+                # live tensors and the opt_state multiplier the train step
+                # reads: no recapture
+                self._write_state({"wstate": self._best_wstate})
+                self._apply_lr_multiplier()
             # advance first so a restored snapshot resumes at the NEXT epoch
             self.loader.next_epoch()
             if (self.snapshotter is not None
@@ -238,33 +309,107 @@ class Trainer(Logger):
             "train_samples_per_s": samples_done / max(elapsed, 1e-9),
             "anomaly_steps_skipped": self.anomaly_steps_skipped,
             "anomaly_rollbacks": self.anomaly_rollbacks,
+            "snapshot_walkbacks": self.snapshot_walkbacks,
             **{f"test_{k}": v for k, v in test_mets.items()},
         })
         return self.results
 
+    # -- anomaly sentinel escalation ------------------------------------------
+    def _anomaly_patience(self) -> int:
+        return int(root.common.train.get("anomaly_patience", 0) or 0)
+
     def _check_anomalies(self, epoch: int, train_mets: Dict[str, float]):
-        """Count the steps the in-step guard skipped this epoch."""
+        """Count the steps the in-step guard skipped this epoch, and when
+        the consecutive-anomaly counter of ``opt_state`` reaches
+        ``root.common.train.anomaly_patience``, escalate
+        (veles_tpu/runtime/trainer.py:539-579).  One device read an
+        epoch, only with a patience set."""
         skipped = int(train_mets.get("anomaly_steps", 0))
         if skipped:
             self.anomaly_steps_skipped += skipped
+            self._m_anom.inc(skipped)
             self.warning("epoch %d: %d anomalous step(s) skipped "
                          "(non-finite loss/grad norm)", epoch, skipped)
+        patience = self._anomaly_patience()
+        opt_state = (self.wstate or {}).get("opt_state")
+        if patience <= 0 or not isinstance(opt_state, dict) \
+                or ANOM_CONSEC_KEY not in opt_state:
+            return
+        consec = int(opt_state[ANOM_CONSEC_KEY])
+        if consec >= patience:
+            self._escalate_anomaly(epoch, consec)
 
-    # -- lr multiplier, payload, restore -------------------------------------
-    def _apply_lr_multiplier(self, wstate):
+    def _escalate_anomaly(self, epoch: int, consec: int) -> None:
+        """Skipping alone cannot cure a run that keeps diverging: restore
+        the best state (or the last snapshot, walking back past corrupt
+        ones), scale the lr multiplier down and zero the consecutive
+        counter (trainer.py:581-621).  Pure writes into the live tensors:
+        no recapture."""
+        self.anomaly_rollbacks += 1
+        self._m_rollbacks.inc()
+        dec = self.decision
+        dec.lr_multiplier *= dec.rollback_lr_scale
+        source = None
+        if self._best_wstate is not None:
+            self._write_state({"wstate": self._best_wstate})
+            source = "in-memory best state"
+        elif self.snapshotter is not None \
+                and self.snapshotter.last_path is not None:
+            payload, used, skipped = restore_with_walkback(
+                self.snapshotter.last_path)
+            self._note_walkback(skipped)
+            self._adapt_reserved_opt_keys(payload)
+            self._write_state(payload)
+            source = used
+        else:
+            self.warning("anomaly escalation has no snapshot or best "
+                         "state to roll back to; keeping current params")
+        self._apply_lr_multiplier()
+        opt_state = self.wstate.get("opt_state")
+        if isinstance(opt_state, dict) and ANOM_CONSEC_KEY in opt_state:
+            opt_state[ANOM_CONSEC_KEY].fill_(0)
+        self.error(
+            "anomaly escalation at epoch %d: %d consecutive anomalous "
+            "steps >= patience %d — restored %s, lr multiplier now %g",
+            epoch, consec, self._anomaly_patience(), source or "nothing",
+            dec.lr_multiplier)
+
+    def _note_walkback(self, skipped) -> None:
+        if not skipped:
+            return
+        self.snapshot_walkbacks += len(skipped)
+        self._m_walkbacks.inc(len(skipped))
+        for s in skipped:
+            self.warning("snapshot walk-back: skipped %s (%s)",
+                         s["path"], s["reason"])
+
+    # -- state writes, lr multiplier, payload, restore -----------------------
+    def _write_state(self, payload: Dict[str, Any]) -> None:
+        """``payload["wstate"]`` (host numpy) checked against the live
+        state's structure and written into its tensors in place."""
+        tree_assign(self.wstate, Snapshotter.restore_wstate(
+            payload, like=self.wstate))
+
+    def _apply_lr_multiplier(self) -> None:
         """Write ``decision.lr_multiplier`` into the ``__lr_mult__``
         opt_state scalar the train step multiplies onto its schedule."""
         mult = float(getattr(self.decision, "lr_multiplier", 1.0))
-        opt_state = wstate.get("opt_state")
+        opt_state = self.wstate.get("opt_state")
         if not isinstance(opt_state, dict) or LR_MULT_KEY not in opt_state:
             if mult != 1.0:
                 self.warning("optimizer state carries no %s slot; lr "
                              "multiplier %g NOT applied", LR_MULT_KEY, mult)
-            return wstate
-        opt_state[LR_MULT_KEY] = torch.full(
-            (), mult, dtype=torch.float32,
-            device=opt_state[LR_MULT_KEY].device)
-        return wstate
+            return
+        opt_state[LR_MULT_KEY].fill_(mult)
+
+    def effective_lr(self, step: int = 0) -> float:
+        """The learning rate the train step applies at ``step``: the base
+        schedule times the rollback multiplier in opt_state."""
+        lr = float(self.optimizer.schedule(step))
+        opt_state = (self.wstate or {}).get("opt_state")
+        if isinstance(opt_state, dict) and LR_MULT_KEY in opt_state:
+            lr *= float(opt_state[LR_MULT_KEY])
+        return lr
 
     def _payload(self) -> Dict[str, Any]:
         """The JAX ``Trainer``'s snapshot payload (trainer.py:682-690)."""
@@ -295,9 +440,15 @@ class Trainer(Logger):
     def restore(self, path: str, *, force: bool = False) -> None:
         """Resume from a snapshot manifest of either package: a workflow
         checksum that differs is fatal unless ``force``; weights,
-        optimizer state, loader, decision and PRNG streams are restored,
-        then the decision's lr multiplier is re-applied."""
-        payload = Snapshotter.load(path)
+        optimizer state, loader, decision and PRNG streams are restored
+        (into the live tensors: no recapture), then the decision's lr
+        multiplier is re-applied.  A corrupt snapshot walks back to the
+        newest valid one in its directory, each one skipped counted in
+        ``snapshot_walkbacks``."""
+        payload, used, skipped = restore_with_walkback(path)
+        self._note_walkback(skipped)
+        if skipped:
+            self.warning("restoring %s instead of corrupt %s", used, path)
         if self.wstate is None:
             self.initialize()
         if payload.get("workflow_checksum") != self.workflow.checksum():
@@ -308,11 +459,11 @@ class Trainer(Logger):
                 raise ValueError(msg + "; pass force=True to override")
             self.warning("%s — forcing restore", msg)
         self._adapt_reserved_opt_keys(payload)
-        self.wstate = Snapshotter.restore_wstate(payload, like=self.wstate)
+        self._write_state(payload)
         self.loader.set_state(payload["loader"])
         self.decision.set_state(payload["decision"])
         prng.streams.set_state(payload["prng"])
-        self.wstate = self._apply_lr_multiplier(self.wstate)
+        self._apply_lr_multiplier()
 
 
 def _dtype(v) -> torch.dtype:

@@ -79,6 +79,11 @@ class Unit(Logger):
     """Base of every dataflow node: ``inputs`` names the upstream units
     (or ``@batch`` keys) whose outputs it consumes."""
 
+    #: why a train step holding this unit cannot be captured as a CUDA
+    #: graph (``runtime/step_cache.py``), or None: a unit whose train-mode
+    #: forward takes a per-step host value names it here
+    capture_blocker: Optional[str] = None
+
     def __init__(self, name: Optional[str] = None,
                  inputs: Sequence[str] = ("@input",)):
         self.name = name or type(self).__name__

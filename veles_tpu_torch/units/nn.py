@@ -216,6 +216,13 @@ class Dropout(Unit):
         self.ratio = float(dropout_ratio)
         self.use_pallas = use_pallas
 
+    @property
+    def capture_blocker(self):
+        # the mask's seed comes from the step key on the host and reaches
+        # the kernel by value (ops/kernels/fused_dropout.py), so a captured
+        # step would replay one mask
+        return "dropout seed" if self.ratio > 0.0 else None
+
     def apply(self, params, state, xs, ctx):
         x = xs[0]
         if not ctx.train or self.ratio <= 0.0:

@@ -2,12 +2,13 @@
 (counterpart of veles_tpu/units/workflow.py).
 
 The JAX package traces the unit DAG into compiled programs; PyTorch runs
-eagerly, so here the DAG is walked in topological order on every call.
-The workflow state keeps the JAX package's layout (``new_state``:
-params / state / opt_state / step / key), so a snapshot moves between
-the two packages by key.  PyTorch has no buffer donation: the train step
-updates the state it is given in place (parameters by ``copy_`` under
-``torch.no_grad``) and returns it.
+eagerly, so here the DAG is walked in topological order on every call
+(and ``runtime/step_cache.py`` captures a step once as a CUDA graph on
+the card).  The workflow state keeps the JAX package's layout
+(``new_state``: params / state / opt_state / step / key), so a snapshot
+moves between the two packages by key.  PyTorch has no buffer donation:
+the train step writes every updated tensor into the state's tensor it
+read (``copy_`` under ``torch.no_grad``) and returns the same state.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ import torch
 from .. import prng
 from ..logger import Logger
 from ..ops import resolve_device
-from ..ops.optimizers import (Optimizer, guarded_update, tree_leaves,
-                              tree_map, tree_select)
+from ..ops.optimizers import (Optimizer, guarded_update, tree_assign,
+                              tree_leaves, tree_map, tree_select)
 from .base import Context, Spec, Unit
 
 
@@ -191,81 +192,20 @@ class Workflow(Logger):
         return ev.metrics(params.get(ev.name, {}), state.get(ev.name, {}),
                           xs, ctx)
 
-    def make_train_step(self, optimizer: Optimizer):
+    def make_train_step(self, optimizer: Optimizer) -> "TrainStep":
         """(wstate, batch) -> (wstate, metrics): forward, gradients,
         ``guarded_update`` (the anomaly skip and ``clip_norm`` from
         ``root.common.train``), the skip metrics, step + 1 and the key
-        split — the contract of veles_tpu/units/workflow.py:214-310.
-        The parameters are updated in place and the optimizer state
-        replaced, in the state dict the caller passed; metrics stay on
-        the device (nothing is read back to the host)."""
+        split — the contract of veles_tpu/units/workflow.py:214-310; see
+        :class:`TrainStep`."""
         if self.evaluator is None:
             raise WorkflowError("a train step needs an evaluator unit")
-        from ..config import root
-        sentinel = bool(root.common.train.get("sentinel", True))
-        clip = float(root.common.train.get("clip_norm", 0.0) or 0.0)
-        ev = self.evaluator
+        return TrainStep(self, optimizer)
 
-        def step(wstate, batch):
-            params = wstate["params"]
-            key, sub = split_state_key(wstate.get("key"))
-            ctx = Context(train=True, key=sub,
-                          make_generator=functools.partial(
-                              _step_generator, sub, params))
-            live = tree_map(lambda t: t.detach().requires_grad_(True),
-                            params)
-            with torch.enable_grad():
-                outputs, nstate = self.forward(live, wstate["state"], batch,
-                                               ctx)
-                loss = outputs[ev.name]
-                leaves = tree_leaves(live)
-                flat = iter(torch.autograd.grad(loss, leaves,
-                                                allow_unused=True))
-            # same leaf order as tree_leaves; an unused param gets zeros
-            grads = tree_map(lambda p: _grad_or_zeros(next(flat), p),
-                             params)
-            with torch.no_grad():
-                outs = {k: (v.detach() if torch.is_tensor(v) else v)
-                        for k, v in outputs.items()}
-                mets = self._metrics(params, wstate["state"], outs, ctx)
-                new_params, opt_state, ok, gnorm = guarded_update(
-                    optimizer, grads, wstate["opt_state"], params,
-                    wstate["step"], loss.detach(), clip_norm=clip,
-                    sentinel=sentinel)
-                if ok is not None:
-                    # a skipped step adds nothing to the epoch sums
-                    mets = {k: torch.where(ok, v, torch.zeros_like(v))
-                            for k, v in mets.items()}
-                    mets["anomaly_steps"] = (~ok).float()
-                if gnorm is not None:
-                    mets["grad_norm"] = gnorm if ok is None else \
-                        torch.where(ok, gnorm, torch.zeros_like(gnorm))
-                tree_map(lambda dst, src: dst.copy_(src), params,
-                         new_params)
-                state = {**wstate["state"], **nstate}
-                if ok is not None:
-                    state = {k: (tree_select(ok, v, wstate["state"][k])
-                                 if k in wstate["state"] else v)
-                             for k, v in state.items()}
-            wstate.update(state=state, opt_state=opt_state,
-                          step=wstate["step"] + 1, key=key)
-            return wstate, mets
-
-        return step
-
-    def make_eval_step(self):
+    def make_eval_step(self) -> "EvalStep":
         """(wstate, batch) -> the evaluator's metrics, under
         ``torch.inference_mode``."""
-
-        def step(wstate, batch):
-            ctx = Context(train=False)
-            with torch.inference_mode():
-                outputs, _ = self.forward(wstate["params"], wstate["state"],
-                                          batch, ctx)
-                return self._metrics(wstate["params"], wstate["state"],
-                                     outputs, ctx)
-
-        return step
+        return EvalStep(self)
 
     def n_params(self, wstate) -> int:
         return sum(int(t.numel()) for t in tree_leaves(wstate["params"]))
@@ -312,6 +252,130 @@ class Workflow(Logger):
                 for u in self.topo_order()]
         return hashlib.sha256(
             json.dumps(desc, sort_keys=True).encode()).hexdigest()
+
+
+class TrainStep:
+    """The train step in its two parts, so that ``runtime/step_cache.py``
+    can capture the device part as a CUDA graph and replay it:
+
+    * :meth:`begin` (host): the learning rate ``schedule(step)`` (numpy,
+      as the JAX package's host schedule) and the fault harness's NaN flag
+      for this step go into a 2-entry float32 staging tensor on the
+      device, by one non-blocking copy from pinned memory on the card;
+      the key is split (``split_state_key``) and the step advanced;
+    * :meth:`run` (device): forward, gradients, the guarded update reading
+      the learning rate and the flag from the staging tensor, and every
+      updated tensor written back into the tensor of ``wstate`` it came
+      from (``tree_assign``): parameters, optimizer slots and scalars,
+      unit state.  Metrics stay on the device.
+
+    Calling the step runs both, so the eager and the captured step run the
+    same code.  ``root.common.train`` (sentinel, clip_norm) and the fault
+    plan's ``nan_grad_at_step`` are read once, here, as the JAX package
+    reads them at trace time."""
+
+    kind = "train"
+
+    def __init__(self, workflow: "Workflow", optimizer: Optimizer):
+        from ..config import root
+        from ..runtime.faults import get_plan
+        self.workflow = workflow
+        self.optimizer = optimizer
+        self.sentinel = bool(root.common.train.get("sentinel", True))
+        self.clip = float(root.common.train.get("clip_norm", 0.0) or 0.0)
+        self.inject = frozenset(get_plan().nan_grad_at_step)
+        self.scalars: Optional[torch.Tensor] = None  # (lr, NaN flag)
+
+    def __call__(self, wstate, batch):
+        sub = self.begin(wstate)
+        return wstate, self.run(wstate, batch, sub)
+
+    def begin(self, wstate):
+        """The host part; returns the step's ``sub`` key."""
+        step = int(wstate["step"])
+        vals = torch.from_numpy(np.asarray(
+            [self.optimizer.schedule(step), step in self.inject],
+            np.float32))
+        if self.scalars is None:
+            dev = tree_leaves(wstate["params"])[0].device
+            self.scalars = torch.zeros(2, dtype=torch.float32, device=dev)
+        if self.scalars.is_cuda:
+            self.scalars.copy_(vals.pin_memory(), non_blocking=True)
+        else:
+            self.scalars.copy_(vals)
+        key, sub = split_state_key(wstate.get("key"))
+        wstate["step"] = step + 1
+        wstate["key"] = key
+        return sub
+
+    def run(self, wstate, batch, sub):
+        """The device part: updates ``wstate``'s tensors in place and
+        returns the step's metrics (device tensors)."""
+        wf, ev = self.workflow, self.workflow.evaluator
+        params = wstate["params"]
+        ctx = Context(train=True, key=sub,
+                      make_generator=functools.partial(
+                          _step_generator, sub, params))
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            outputs, nstate = wf.forward(live, wstate["state"], batch, ctx)
+            loss = outputs[ev.name]
+            leaves = tree_leaves(live)
+            flat = iter(torch.autograd.grad(loss, leaves,
+                                            allow_unused=True))
+        # same leaf order as tree_leaves; an unused param gets zeros
+        grads = tree_map(lambda p: _grad_or_zeros(next(flat), p), params)
+        with torch.no_grad():
+            outs = {k: (v.detach() if torch.is_tensor(v) else v)
+                    for k, v in outputs.items()}
+            mets = wf._metrics(params, wstate["state"], outs, ctx)
+            new_params, opt_state, ok, gnorm = guarded_update(
+                self.optimizer, grads, wstate["opt_state"], params, None,
+                loss.detach(), clip_norm=self.clip, sentinel=self.sentinel,
+                lr=self.scalars[0],
+                inject_nan=(self.scalars[1] != 0) if self.inject else None)
+            if ok is not None:
+                # a skipped step adds nothing to the epoch sums
+                mets = {k: torch.where(ok, v, torch.zeros_like(v))
+                        for k, v in mets.items()}
+                mets["anomaly_steps"] = (~ok).float()
+            if gnorm is not None:
+                mets["grad_norm"] = gnorm if ok is None else \
+                    torch.where(ok, gnorm, torch.zeros_like(gnorm))
+            tree_assign(params, new_params)
+            state = {**wstate["state"], **nstate}
+            if ok is not None:
+                state = {k: (tree_select(ok, v, wstate["state"][k])
+                             if k in wstate["state"] else v)
+                         for k, v in state.items()}
+            tree_assign(wstate["state"], state)
+            tree_assign(wstate["opt_state"], opt_state)
+        return mets
+
+
+class EvalStep:
+    """The eval step: the evaluator's metrics of a forward under
+    ``torch.inference_mode``; :meth:`begin` has no host part."""
+
+    kind = "eval"
+
+    def __init__(self, workflow: "Workflow"):
+        self.workflow = workflow
+
+    def __call__(self, wstate, batch):
+        return self.run(wstate, batch, None)
+
+    def begin(self, wstate):
+        return None
+
+    def run(self, wstate, batch, sub):
+        wf = self.workflow
+        ctx = Context(train=False)
+        with torch.inference_mode():
+            outputs, _ = wf.forward(wstate["params"], wstate["state"],
+                                    batch, ctx)
+            return wf._metrics(wstate["params"], wstate["state"], outputs,
+                               ctx)
 
 
 def split_state_key(key):
