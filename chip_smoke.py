@@ -27,13 +27,28 @@ Phases, each of which fails the run with a non-zero exit:
    2048 + layer_norm, per-position head, bf16 compute), random weights
    from a numpy seed in the JAX package's flattened-key layout carried in
    by ``params_from_jax``, served by ``RestfulServer`` over a paged
-   ``DecodeEngine`` (8 slots, l_max 1024, page 16, paged kernel on):
-   greedy and sampled ``POST /generate`` (prompt 512, 64 new tokens) and
-   one ``POST /predict`` (16 x 2048 batch); the flash-forward and paged
-   kernels' launch counts must rise during it, paged decode exactly once
-   per layer per decode step; greedy tokens are compared
-   with the port's own ``generate()`` (share reported in bf16; in float32
-   every token must agree);
+   ``DecodeEngine`` (8 slots, l_max 1024, page 16, paged kernel on) whose
+   decode and prefill steps are captured as CUDA graphs when it is built:
+   greedy and sampled ``POST /generate`` (prompt 512, 64 new tokens), one
+   ``POST /predict`` (16 x 2048 batch), then 8 requests sharing a
+   256-token system prompt (prefix hits and copy-on-write admissions),
+   a 960-token prompt submitted while they decode (4 prefill slices of
+   256) and a streamed request stopped by a stop sequence taken from its
+   own greedy continuation; the flash-forward and paged kernels' launch
+   counts must rise during it, paged decode exactly once per layer per
+   decode step, replays counted, and decode and prefill captured once
+   each with no recapture; a window of 8 x (64 + 32) timed, and a
+   profiled one (8 x (16 + 8)) holding the counted launches against the
+   trace, on this engine and on one with ``capture=False`` (its metrics
+   printed beside the captured ones, its tokens equal); 32 scheduler iterations
+   with admissions and retirements on a captured and an eager engine,
+   tokens and KV pool equal bit for bit; greedy tokens compared with
+   the port's own ``generate()`` (share reported in bf16, with the first
+   position where row 0 parts from it through the paged kernel and
+   through the gather path; in float32 every token must agree), and a
+   float32 engine whose 64-page pool cannot hold both of two requests,
+   where a class-0 request preempts a class-2 one whose tokens must
+   equal its uninterrupted run (the same request alone on that engine);
 5. training path, full width: the same LM (bf16) trained through
    ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (32
    steps of 16 x 2048 tokens, Adam lr 1e-3) and its eval, fed by an
@@ -91,6 +106,7 @@ or without the ``veles_tpu_torch`` package beside this file, the script
 exits non-zero and prints no result.
 """
 
+import hashlib
 import json
 import os
 import re
@@ -149,6 +165,17 @@ GATHER_ROWS = 512               # int32 token rows held for the gather check
 SLOTS, L_MAX, PAGE = 8, 1024, 16
 PROMPT, NEW = 512, 64
 F32_PROMPT, F32_NEW = 64, 16    # the float32 agreement run
+# the scheduler traffic: SHARED_N requests of a shared system prompt and
+# their own tails; one long prompt cut into prefill_chunk (256) slices
+SHARED_N, SHARED_PREFIX, SHARED_TAIL = 8, 256, 256
+CHUNKED_PROMPT, CHUNKED_NEW = 960, 64
+# the float32 preemption: a pool of PREEMPT_POOL pages (the least that
+# holds one l_max request) hosts the class-2 victim (48 pages) or the
+# class-0 arrival (36), never both
+PREEMPT_POOL, PREEMPT_PROMPT, PREEMPT_VICTIM_NEW = 64, 512, 256
+WITNESS_ITERS = 32              # scheduler iterations, eager vs captured
+WINDOW_PROMPT, WINDOW_NEW = 64, 32      # the eager-vs-captured window
+PROFILE_PROMPT, PROFILE_NEW = 16, 8     # the profiled serving window
 DEVICE = "cuda"                # the main path's device
 
 
@@ -157,7 +184,13 @@ def fail(msg):
     sys.exit(1)
 
 
+_START = time.perf_counter()
+
+
 def say(obj):
+    if isinstance(obj, dict) and "phase" in obj:
+        # when the line was printed, in seconds since the script started
+        obj = {**obj, "at_s": round(time.perf_counter() - _START, 3)}
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
@@ -1125,10 +1158,120 @@ def _workflow(torch, compute_dtype):
     return wf
 
 
+def _serve_metrics(stats, wall):
+    """The serving metrics of one traffic run, from ``engine.stats()``
+    deltas over it and its wall seconds."""
+    return {"decode_tokens_per_s_all_slots": stats["decode_tokens_per_s"],
+            "decode_step_s_p50": stats["decode_step_s_p50"],
+            "decode_step_s_max": stats["decode_step_s_max"],
+            "ttft_s_mean": stats["ttft_s_mean"],
+            "ttft_s_max": stats["ttft_s_max"],
+            "prefill_tokens_per_s": (stats["prefill_tokens"]
+                                     / max(wall - stats["decode_seconds"],
+                                           1e-9)),
+            "request_tokens_per_s": SLOTS * NEW / wall}
+
+
+def _novel_pair(gen):
+    """The first k whose pair gen[k:k+2] does not occur earlier: a stop
+    sequence on it ends a stream at exactly k + 2 tokens."""
+    return next(k for k in range(len(gen) - 1)
+                if list(gen[k:k + 2]) not in
+                [list(gen[j:j + 2]) for j in range(k)])
+
+
+def _stream(port, body, timeout=900):
+    """POST /generate with ``"stream": true``: the NDJSON frames."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate",
+        data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.headers["Content-Type"] != "application/x-ndjson":
+            fail(f"a streamed /generate answered {r.headers['Content-Type']}")
+        return [json.loads(line) for line in r if line.strip()]
+
+
+def _scheduler_traffic(torch, engine, port, rng, greedy):
+    """The scheduler's features on the serving engine, through HTTP:
+    SHARED_N requests sharing a SHARED_PREFIX-token system prompt (one
+    first, then the rest together: they map its pages copy-on-write),
+    one CHUNKED_PROMPT-token prompt submitted while they decode (cut into
+    slices of the engine's prefill_chunk), and one streamed request
+    whose stop sequence comes from its own greedy continuation."""
+    import threading
+    sysp = rng.integers(0, VOCAB, SHARED_PREFIX)
+    shared = [np.concatenate([sysp, rng.integers(0, VOCAB, SHARED_TAIL)])
+              for _ in range(SHARED_N)]
+    long_p = rng.integers(0, VOCAB, CHUNKED_PROMPT)
+    out, errors = {}, []
+
+    def post(i, prompt, steps):
+        try:
+            out[i] = np.asarray(_post(port, "/generate", {
+                "prompt": [prompt.tolist()], "steps": steps})["tokens"])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    s0 = engine.stats()
+    t0 = time.perf_counter()
+    post(0, shared[0], NEW)             # warms the system prompt's pages
+    threads = [threading.Thread(target=post, args=(i, shared[i], NEW))
+               for i in range(1, SHARED_N)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 600
+    while engine.stats()["occupancy"] < 2 and time.monotonic() < deadline:
+        time.sleep(0.001)
+    decoding_at_submit = engine.stats()["occupancy"]
+    lt = threading.Thread(target=post, args=("long", long_p, CHUNKED_NEW))
+    lt.start()
+    for t in threads + [lt]:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    s1 = engine.stats()
+    g0 = greedy[0, PROMPT:]
+    k = _novel_pair(g0)
+    frames = _stream(port, {"prompt": greedy[:1, :PROMPT].tolist(),
+                            "steps": NEW, "stop": [g0[k:k + 2].tolist()]})
+    pages0, pages1 = s0["pages"], s1["pages"]
+    rec = {"shared_requests": SHARED_N, "shared_prefix": SHARED_PREFIX,
+           "shared_tail": SHARED_TAIL, "new": NEW, "wall_s": wall,
+           "prefix_hit_pages": (pages1["prefix_hit_pages"]
+                                - pages0["prefix_hit_pages"]),
+           "cow_admissions": (pages1["cow_admissions"]
+                              - pages0["cow_admissions"]),
+           "evictions": pages1["evictions"] - pages0["evictions"],
+           "chunked_prompt": CHUNKED_PROMPT,
+           "prefill_chunk": engine.prefill_chunk,
+           "slots_decoding_at_its_submit": decoding_at_submit,
+           "prefill_calls": s1["prefill_calls"] - s0["prefill_calls"],
+           "admitted": s1["admitted"] - s0["admitted"],
+           "stream_stop_at": k + 2,
+           "stream_finish": frames[-1],
+           "errors": errors}
+    # prefill calls: the first request's whole prompt, the others' tails
+    # past the shared pages, the long prompt, each in chunk slices
+    chunk = engine.prefill_chunk
+    want_calls = (-(-(SHARED_PREFIX + SHARED_TAIL) // chunk)
+                  + (SHARED_N - 1) * -(-SHARED_TAIL // chunk)
+                  + -(-CHUNKED_PROMPT // chunk))
+    rec["prefill_calls_expected"] = want_calls
+    stream_toks = [f["token"] for f in frames[:-1]]
+    rec["ok"] = (not errors and len(out) == SHARED_N + 1
+                 and rec["prefix_hit_pages"] > 0
+                 and rec["cow_admissions"] > 0
+                 and decoding_at_submit >= 1
+                 and rec["prefill_calls"] == want_calls
+                 and out["long"].shape == (1, CHUNKED_PROMPT + CHUNKED_NEW)
+                 and frames[-1].get("finish_reason") == "stop"
+                 and stream_toks == g0[:k + 2].tolist())
+    return rec
+
+
 def phase_main_path(torch):
     from veles_tpu_torch.ops.kernels import KERNELS
     from veles_tpu_torch.runtime.engine import DecodeEngine
-    from veles_tpu_torch.runtime.generate import generate
     from veles_tpu_torch.runtime.restful import RestfulServer
     from veles_tpu_torch.runtime.snapshotter import params_from_jax
     from veles_tpu_torch.units.workflow import new_state
@@ -1137,6 +1280,7 @@ def phase_main_path(torch):
     flat = jax_layout_weights(wf, seed=0)
     wstate = new_state(params_from_jax(flat, wf, device=DEVICE), {}, {}, 0,
                        None)
+    # the decode and prefill steps are captured when the engine is built
     engine = DecodeEngine(wf, wstate, slots=SLOTS, l_max=L_MAX,
                           page_size=PAGE, paged=True, paged_kernel=True,
                           window_ms=2.0, device=DEVICE).start()
@@ -1162,18 +1306,23 @@ def phase_main_path(torch):
         logits = np.asarray(_post(srv.port, "/predict", {
             "input": row.tolist()})["output"], np.float32)
         t_predict = time.perf_counter() - t0
+        scheduler = _scheduler_traffic(torch, engine, srv.port, rng, greedy)
+        window_metrics, window = serving_window(torch, engine)
+        profile = phase_profile(torch, engine)
         launches = {k.NAME: k.launches.count for k in KERNELS}
         variants = {k.NAME: k.launches.by_variant() for k in KERNELS
                     if k.launches.by_variant()}
         stats = engine.stats()
-        profile = phase_profile(torch, engine, prompts)
     finally:
         srv.stop()
         engine.stop()
     say({"phase": "http", "requests": {"sent": 3, "ok": 3, "failed": 0},
+         "greedy_sha256": hashlib.sha256(greedy.astype(np.int32)
+                                         .tobytes()).hexdigest(),
          "launches": launches, "variants": variants,
          "greedy_request_s": t_greedy,
          "predict_request_s": t_predict, "engine": stats})
+    say({"phase": "serving_scheduler", **scheduler})
     say({"phase": "profile", **profile})
 
     if greedy.shape != (SLOTS, PROMPT + NEW) \
@@ -1187,6 +1336,8 @@ def phase_main_path(torch):
     if logits.shape != (1, PREDICT_T, VOCAB) \
             or not np.isfinite(logits).all():
         fail(f"/predict logits shape {logits.shape} or not finite")
+    if not scheduler["ok"]:
+        fail(f"the scheduler traffic failed its checks: {scheduler}")
     from veles_tpu_torch.ops.kernels import flash_attention, paged_attention
     missing = [k.NAME for k in (flash_attention, paged_attention)
                if launches[k.NAME] < 1]
@@ -1197,11 +1348,183 @@ def phase_main_path(torch):
         fail(f"paged decode launched {launches[paged_attention.NAME]} "
              f"times over {stats['decode_steps']} decode steps of "
              f"{LAYERS} layers (want one a layer a step: {per_step})")
+    comp = stats["compile"]
+    if not (stats["capture"]["decode"]["captured"]
+            and stats["capture"]["prefill"]["captured"]
+            and comp["captures"] == comp["compiles"] == 2
+            and comp["recompiles"] == 0):
+        fail(f"decode and prefill must be captured once each, with no "
+             f"recapture: {stats['capture']} {comp}")
+    trace = profile["launch_trace"]
+    if not (trace["ok"] and trace["captured"]
+            and trace["per_replay"].get(paged_attention.NAME) == LAYERS):
+        fail(f"the serving graphs' counted launches are not the kernels "
+             f"the trace shows: {trace}")
+    # the greedy request (SLOTS prompts of PROMPT, NEW new tokens) on the
+    # captured engine; the profiled window on it and on an eager one
+    say({"phase": "serving_metrics", "slots": SLOTS,
+         "greedy_request": {"prompt": PROMPT, "new": NEW,
+                            **_serve_metrics(stats_greedy, t_greedy)},
+         "window": {"prompt": WINDOW_PROMPT, "new": WINDOW_NEW,
+                    "captured": {**window_metrics,
+                                 "idle_share": profile["device_idle_share"]},
+                    "eager": _eager_serving(torch, wf, wstate, window)}})
+    say({"phase": "serving_capture_witness",
+         **_serving_witness(torch, wf, wstate)})
+    _serving_agreement(torch, wf, wstate, flat, prompts, greedy)
+    return launches
 
-    # greedy agreement with the port's own generate() (dense cache, no
-    # kernel), bf16 model: reported
+
+def _eager_serving(torch, wf, wstate, window):
+    """The serving window and the profiled one again on an engine whose
+    steps run eagerly (``capture=False``): its metrics and idle share,
+    and its tokens against the captured engine's."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    eng = DecodeEngine(wf, wstate, slots=SLOTS, l_max=L_MAX,
+                       page_size=PAGE, paged=True, paged_kernel=True,
+                       window_ms=2.0, capture=False, device=DEVICE).start()
+    try:
+        metrics, tokens = serving_window(torch, eng)
+        profile = phase_profile(torch, eng)
+    finally:
+        eng.stop()
+    if eng.stats()["capture"]["decode"]["reason"] != "capture=False":
+        fail(f"the eager engine captured: {eng.stats()['capture']}")
+    if not np.array_equal(tokens, window):
+        r, t = (int(x) for x in np.argwhere(tokens != window)[0])
+        fail(f"the eager and the captured engine disagree at row {r}, "
+             f"position {t}")
+    # reported, not held: the trace of the eager window has dropped a
+    # kernel launch of the scheduler thread (27 of 28 in one run)
+    return {"mode": "eager", **metrics,
+            "idle_share": profile["device_idle_share"],
+            "tokens_equal_captured": True,
+            "launch_trace": profile["launch_trace"]}
+
+
+def _drive(torch, engine, script, iters):
+    """The scheduler's iteration (admit, one chunk slice, one decode
+    step) run on this thread ``iters`` times, ``script[i]``'s requests
+    submitted before iteration i: the same calls in the same order on
+    every engine, so page allocation and every input repeat exactly."""
+    import threading
+    engine._thread = threading.current_thread()    # submit() wants one
+    reqs = []
+    try:
+        for i in range(iters):
+            for prompt, n, kw in script.get(i, ()):
+                reqs.append(engine.submit(prompt, n, **kw))
+            engine._admit()
+            engine._advance_prefills()
+            if engine._active.any():
+                engine._step_once()
+    finally:
+        engine._thread = None
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return reqs
+
+
+def _serving_witness(torch, wf, wstate):
+    """Captured against eager serving, bit for bit: WITNESS_ITERS
+    scheduler iterations on two fresh engines, with admissions (a prefix
+    hit, a chunked prompt, a sampled row) and retirements mid-flight;
+    every request's tokens, the token rows and the KV pool must be
+    equal."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    rng = np.random.default_rng(5)
+    sysp = rng.integers(0, VOCAB, 64)
+    script = {0: [(rng.integers(0, VOCAB, 40), 24, {}),
+                  (np.concatenate([sysp, rng.integers(0, VOCAB, 9)]), 40,
+                   {})],
+              3: [(rng.integers(0, VOCAB, 20), 8,
+                   dict(temperature=0.8, top_k=50, seed=3))],
+              9: [(np.concatenate([sysp, rng.integers(0, VOCAB, 5)]), 16,
+                   {})],
+              12: [(rng.integers(0, VOCAB, 300), 12, {})]}
+    runs = {}
+    for capture in (True, False):
+        eng = DecodeEngine(wf, wstate, slots=SLOTS, l_max=L_MAX,
+                           page_size=PAGE, paged=True, paged_kernel=True,
+                           window_ms=0.0, capture=capture, device=DEVICE)
+        t0 = time.perf_counter()
+        reqs = _drive(torch, eng, script, WITNESS_ITERS)
+        runs[capture] = (eng, reqs, time.perf_counter() - t0)
+    (cap, creqs, cwall), (eag, ereqs, ewall) = runs[True], runs[False]
+    done = [a.done.is_set() and b.done.is_set() for a, b in zip(creqs,
+                                                                ereqs)]
+    tokens_equal = all(np.array_equal(a.result, b.result)
+                       for a, b, d in zip(creqs, ereqs, done) if d)
+    pools_equal = all(torch.equal(cap._caches[n][k], eag._caches[n][k])
+                      for n in cap._caches for k in ("k", "v"))
+    st = cap.stats()
+    rec = {"iterations": WITNESS_ITERS, "requests": len(creqs),
+           "retired": sum(done),
+           "decode_steps": st["decode_steps"],
+           "prefill_calls": st["prefill_calls"],
+           "prefix_hit_pages": st["pages"]["prefix_hit_pages"],
+           "captured": st["capture"],
+           "eager_reason": eag.stats()["capture"]["decode"]["reason"],
+           "tokens_equal": tokens_equal,
+           "token_rows_equal": bool(np.array_equal(cap._toks, eag._toks)),
+           "pools_equal": pools_equal,
+           "captured_wall_s": cwall, "eager_wall_s": ewall}
+    rec["ok"] = (tokens_equal and pools_equal and rec["token_rows_equal"]
+                 and sum(done) >= 2 and rec["prefix_hit_pages"] > 0
+                 and st["prefill_calls"] > st["admitted"]
+                 and st["capture"]["decode"]["captured"]
+                 and st["capture"]["prefill"]["captured"])
+    if not rec["ok"]:
+        fail(f"captured serving is not eager serving bit for bit: {rec}")
+    return rec
+
+
+def _first_diff(a, b):
+    d = np.argwhere(a != b)
+    return None if not len(d) else int(d[0][0])
+
+
+def _serving_agreement(torch, wf, wstate, flat, prompts, greedy):
+    """Greedy agreement with the port's generate() (dense cache, no
+    kernel): bf16 reported, with the first position where row 0 parts
+    from generate() through the paged kernel and through the gather read
+    path; float32 required token for token; and a float32 engine whose
+    pool is too small for its queue, where a class-0 request preempts a
+    class-2 one whose tokens must equal its uninterrupted run (the same
+    request alone on that engine)."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    from veles_tpu_torch.runtime.generate import generate
+    from veles_tpu_torch.runtime.snapshotter import params_from_jax
+    from veles_tpu_torch.units.workflow import new_state
     ref = generate(wf, wstate, prompts, NEW).cpu().numpy()
     bf16_share = float(np.mean(ref[:, PROMPT:] == greedy[:, PROMPT:]))
+    gather = DecodeEngine(wf, wstate, slots=SLOTS, l_max=L_MAX,
+                          page_size=PAGE, paged=True, paged_kernel=False,
+                          window_ms=2.0, device=DEVICE).start()
+    try:
+        g_gather = gather.generate(prompts, NEW, timeout=900)
+    finally:
+        gather.stop()
+    gather_share = float(np.mean(ref[:, PROMPT:] == g_gather[:, PROMPT:]))
+    # where one row parts: through the kernel or the gather read path,
+    # and against generate() of that row alone (batch 1, as the engine's
+    # prefill), which separates the read path from the batch shape
+    parting = [r for r in range(SLOTS)
+               if _first_diff(greedy[r, PROMPT:], ref[r, PROMPT:])
+               is not None]
+    r = parting[0] if parting else 0
+    ref1 = generate(wf, wstate, prompts[r:r + 1], NEW).cpu().numpy()[0]
+    parts = {"rows_parting": parting, "row": r,
+             "kernel_vs_generate": _first_diff(greedy[r, PROMPT:],
+                                               ref[r, PROMPT:]),
+             "gather_vs_generate": _first_diff(g_gather[r, PROMPT:],
+                                               ref[r, PROMPT:]),
+             "kernel_vs_gather": _first_diff(greedy[r, PROMPT:],
+                                             g_gather[r, PROMPT:]),
+             "kernel_vs_generate_row_alone": _first_diff(
+                 greedy[r, PROMPT:], ref1[PROMPT:]),
+             "generate_batch_vs_row_alone": _first_diff(ref[r, PROMPT:],
+                                                        ref1[PROMPT:])}
     # float32 model on the same weights: engine (paged kernel) vs
     # generate() on a shorter prompt, must agree
     wf32 = _workflow(torch, None)
@@ -1209,40 +1532,64 @@ def phase_main_path(torch):
                      None)
     eng32 = DecodeEngine(wf32, ws32, slots=SLOTS, l_max=L_MAX,
                          page_size=PAGE, paged=True, paged_kernel=True,
-                         window_ms=0.0, device=DEVICE).start()
+                         pages=PREEMPT_POOL, window_ms=0.0,
+                         device=DEVICE).start()
     short = prompts[:, :F32_PROMPT]
+    rng = np.random.default_rng(9)
+    vic_p = rng.integers(0, VOCAB, PREEMPT_PROMPT).astype(np.int32)
+    hi_p = rng.integers(0, VOCAB, PREEMPT_PROMPT).astype(np.int32)
     try:
         e32 = eng32.generate(short, F32_NEW, timeout=900)
+        victim = eng32.submit(vic_p, PREEMPT_VICTIM_NEW, priority=2)
+        deadline = time.monotonic() + 300
+        while victim.first_token_at is None and time.monotonic() < deadline:
+            time.sleep(0.001)
+        high = eng32.submit(hi_p, NEW, priority=0)
+        if not (victim.done.wait(900) and high.done.wait(900)):
+            fail("the preemption requests did not finish")
+        pre = eng32.stats()
+        # the victim's uninterrupted run: the same request alone
+        alone = eng32.submit(vic_p, PREEMPT_VICTIM_NEW, priority=2)
+        if not alone.done.wait(900) or alone.error is not None:
+            fail(f"the victim's uninterrupted run failed: {alone.error}")
+        vic_ref = alone.result
     finally:
         eng32.stop()
     g32 = generate(wf32, ws32, short, F32_NEW).cpu().numpy()
     f32_share = float(np.mean(e32[:, F32_PROMPT:] == g32[:, F32_PROMPT:]))
     differ = np.argwhere(e32[:, F32_PROMPT:] != g32[:, F32_PROMPT:])
+    preempt = {"pool_pages": PREEMPT_POOL, "victim_class": 2,
+               "victim_prompt": PREEMPT_PROMPT,
+               "victim_new": PREEMPT_VICTIM_NEW,
+               "preemptions": pre["admission"]["preemptions"],
+               "victim_preemptions": victim.preemptions,
+               "victim_error": repr(victim.error),
+               "high_error": repr(high.error),
+               "victim_equals_uninterrupted": bool(
+                   victim.error is None
+                   and np.array_equal(victim.result, vic_ref)),
+               "victim_first_diff": (None if victim.error is not None
+                                     else _first_diff(victim.result,
+                                                      vic_ref)),
+               "captures": pre["compile"]["captures"],
+               "recompiles": pre["compile"]["recompiles"]}
     agreement = {"bf16_engine_vs_generate_share": bf16_share,
+                 "bf16_gather_engine_vs_generate_share": gather_share,
+                 "bf16_first_differing_position": parts,
                  "f32_engine_vs_generate_share": f32_share,
                  "bf16_prompt": PROMPT, "bf16_new": NEW,
-                 "f32_prompt": F32_PROMPT, "f32_new": F32_NEW}
+                 "f32_prompt": F32_PROMPT, "f32_new": F32_NEW,
+                 "f32_preemption": preempt}
     say({"phase": "agreement", **agreement})
     if len(differ):
         r, t = (int(x) for x in differ[0])
         fail(f"float32 engine and generate() disagree at row {r}, "
              f"generated position {t} (engine {int(e32[r, F32_PROMPT + t])}"
              f", generate() {int(g32[r, F32_PROMPT + t])}): {agreement}")
-    # the greedy request alone: SLOTS prompts prefilled one after
-    # another, then every slot decoding together (full occupancy)
-    say({"phase": "serving_metrics",
-         "slots": SLOTS,
-         "decode_tokens_per_s_all_slots":
-             stats_greedy["decode_tokens_per_s"],
-         "decode_step_s_p50": stats_greedy["decode_step_s_p50"],
-         "decode_step_s_max": stats_greedy["decode_step_s_max"],
-         "ttft_s_mean": stats_greedy["ttft_s_mean"],
-         "ttft_s_max": stats_greedy["ttft_s_max"],
-         "prefill_tokens_per_s": (stats_greedy["prefill_tokens"]
-                                  / max(t_greedy - stats_greedy[
-                                      "decode_seconds"], 1e-9)),
-         "request_tokens_per_s": SLOTS * NEW / t_greedy})
-    return launches
+    if not (preempt["victim_preemptions"] >= 1
+            and preempt["victim_equals_uninterrupted"]
+            and high.error is None and preempt["recompiles"] == 0):
+        fail(f"the float32 preemption check failed: {preempt}")
 
 
 def _train_workflow(torch, compute_dtype, lr=1e-3):
@@ -1656,6 +2003,7 @@ def _train_profile(torch, trainer,
         trainer.wstate, _ = trainer._train_step(trainer.wstate, warm)
         torch.cuda.synchronize()
         prof.step()
+        _settle(torch)
         counted0 = {k.NAME: k.launches.state() for k in KERNELS}
         t0 = time.perf_counter()
         for b in batches:
@@ -1664,8 +2012,17 @@ def _train_profile(torch, trainer,
         wall = time.perf_counter() - t0
     rec = _busy(prof, wall, window, steps=len(batches))
     rec["launch_trace"] = _launch_trace_check(
-        prof, trainer, counted0, len(batches))
+        prof, counted0, [(trainer._train_step, len(batches))])
     return rec
+
+
+def _settle(torch):
+    """A pause after the profiler's step into its active window: kernels
+    launched right after ``prof.step()`` have been missing from the
+    trace (the window's first gather and flash forward, in one run of
+    each kind), so the window starts once the profiler has."""
+    time.sleep(0.1)
+    torch.cuda.synchronize()
 
 
 #: the ``__global__`` function each wrapper launches, by the variant its
@@ -1683,14 +2040,15 @@ KERNEL_SYMBOLS = {
 }
 
 
-def _launch_trace_check(prof, trainer, counted0, steps):
+def _launch_trace_check(prof, counted0, replays):
     """The launch counts of a profiled window held against the kernels
     the device ran: for every wrapper and variant, the kernels of its
     ``__global__`` name in the trace must equal the counter's change over
-    the window, and a captured train step's share of that change must be
-    ``steps`` times what the cache recorded at capture.  So a replayed
-    graph that no longer runs a kernel it counts, or runs one it does not
-    count, fails."""
+    the window, and each captured step's share of that change must be at
+    least its replays in the window (``replays``: ``[(step, n)]``) times
+    what the cache recorded at capture.  So a replayed graph that no
+    longer runs a kernel it counts, or runs one it does not count,
+    fails."""
     from veles_tpu_torch.ops.kernels import KERNELS
     traced = {}
     for evt in prof.key_averages():
@@ -1711,20 +2069,21 @@ def _launch_trace_check(prof, trainer, counted0, steps):
             if seen[label] != counted[label]:
                 bad.append(f"{label}: traced {seen[label]}, counted "
                            f"{counted[label]}")
-    step = trainer._train_step
     replay = {}
-    for counter, (n, variants) in getattr(step, "launches", ()):
-        k = next(k for k in KERNELS if k.launches is counter)
-        for variant, c in (variants or {None: n}).items():
-            label = k.NAME if variant is None else f"{k.NAME}/{variant}"
-            replay[label] = c
-            if counted.get(label, 0) < steps * c:
-                bad.append(f"{label}: counted {counted.get(label, 0)}, "
-                           f"under {steps} replays of {c}")
+    for step, steps in replays:
+        for counter, (n, variants) in getattr(step, "launches", ()):
+            k = next(k for k in KERNELS if k.launches is counter)
+            for variant, c in (variants or {None: n}).items():
+                label = k.NAME if variant is None else f"{k.NAME}/{variant}"
+                replay[label] = replay.get(label, 0) + c
+                if counted.get(label, 0) < steps * c:
+                    bad.append(f"{label}: counted {counted.get(label, 0)}, "
+                               f"under {steps} replays of {c}")
     return {"traced": {k: v for k, v in seen.items() if v},
             "counted": {k: v for k, v in counted.items() if v},
-            "per_replay": replay, "steps": steps,
-            "captured": bool(getattr(step, "captured", False)),
+            "per_replay": replay, "steps": [n for _, n in replays],
+            "captured": all(getattr(step, "captured", False)
+                            for step, _ in replays),
             "mismatch": bad, "ok": not bad}
 
 
@@ -1843,23 +2202,71 @@ def phase_quality(torch):
     return rec
 
 
-def phase_profile(torch, engine, prompts):
-    """Device busy time by kernel over one serving window (SLOTS prompts
-    of 64 tokens prefilled, 32 tokens decoded), from torch.profiler; the
-    idle share is 1 - busy / wall.  Reports null when the profiler saw
-    no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-    short = prompts[:, :64]
-    acts = [ProfilerActivity.CPU]
-    if DEVICE == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+def serving_window(torch, engine):
+    """One serving window, SLOTS fresh prompts of WINDOW_PROMPT tokens
+    submitted together and WINDOW_NEW tokens decoded: its metrics (TTFT
+    of its requests, its decode steps, its prefill rate) and tokens."""
+    prompts = np.random.default_rng(11).integers(
+        0, VOCAB, (SLOTS, WINDOW_PROMPT)).astype(np.int32)
+    s0 = engine.stats()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, WINDOW_NEW) for p in prompts]
+    for r in reqs:
+        if not r.done.wait(900) or r.error is not None:
+            fail(f"a serving window request failed: {r.error}")
+    wall = time.perf_counter() - t0
+    s1 = engine.stats()
+    steps = s1["decode_steps"] - s0["decode_steps"]
+    step_s = list(engine._step_s)[-steps:]
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    decode_s = s1["decode_seconds"] - s0["decode_seconds"]
+    return {"decode_tokens_per_s_all_slots":
+                (s1["decode_tokens"] - s0["decode_tokens"]) / decode_s,
+            "decode_step_s_p50": float(np.median(step_s)),
+            "decode_step_s_max": float(np.max(step_s)),
+            "ttft_s_mean": float(np.mean(ttft)),
+            "ttft_s_max": float(max(ttft)),
+            "prefill_tokens_per_s":
+                ((s1["prefill_tokens"] - s0["prefill_tokens"])
+                 / max(wall - decode_s, 1e-9)),
+            "wall_s": wall}, np.stack([r.result for r in reqs])
+
+
+def phase_profile(torch, engine):
+    """Device busy time by kernel over a short serving window (SLOTS
+    fresh prompts of PROFILE_PROMPT tokens, PROFILE_NEW decoded) from
+    torch.profiler, device activity only; the idle share is 1 - busy /
+    wall; the launch counters held against the trace, each graph's
+    replays counted (one decode step a replay, one prompt position a
+    prefill replay).  The window is short because the profiler's
+    processing of its trace takes about 1 ms a kernel on the host.  A
+    shorter warm-up request runs first, traced and discarded: the trace
+    can miss a kernel launched right after it starts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from veles_tpu_torch.ops.kernels import KERNELS
+    prompts = np.random.default_rng(12).integers(
+        0, VOCAB, (SLOTS, PROFILE_PROMPT)).astype(np.int32)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        engine.generate(prompts[:, :4], 2, timeout=900)
+        torch.cuda.synchronize()
+        prof.step()
+        _settle(torch)
+        counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+        s0 = engine.stats()
         t0 = time.perf_counter()
-        engine.generate(short, 32, timeout=900)
-        if DEVICE == "cuda":
-            torch.cuda.synchronize()
+        engine.generate(prompts, PROFILE_NEW, timeout=900)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _busy(prof, wall, f"{SLOTS} x (prefill 64 + decode 32)")
+        s1 = engine.stats()
+    rec = _busy(prof, wall, f"{SLOTS} x (prefill {PROFILE_PROMPT} + "
+                            f"decode {PROFILE_NEW})")
+    rec["launch_trace"] = _launch_trace_check(prof, counted0, [
+        (engine._fns["decode"], s1["decode_steps"] - s0["decode_steps"]),
+        (engine._fns["prefill"],
+         s1["prefill_tokens"] - s0["prefill_tokens"])])
+    return rec
 
 
 def main():
@@ -1876,15 +2283,23 @@ def main():
         fail(f"the veles_tpu_torch package is not beside chip_smoke.py "
              f"({e})")
     t_start = time.perf_counter()
-    name, smi = phase_device(torch)
-    phase_build()
-    timing = phase_kernels(torch)
-    timing.update(phase_train_kernels(torch))
-    timing.update(phase_image_kernels(torch))
-    serve_launches = phase_main_path(torch)
-    train_launches = phase_train(torch)
-    image_launches = phase_image(torch)
-    phase_quality(torch)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = time.perf_counter() - t0
+        return out
+
+    name, smi = timed("device", phase_device, torch)
+    timed("build", phase_build)
+    timing = timed("kernels", phase_kernels, torch)
+    timing.update(timed("train_kernels", phase_train_kernels, torch))
+    timing.update(timed("image_kernels", phase_image_kernels, torch))
+    serve_launches = timed("serving", phase_main_path, torch)
+    train_launches = timed("train", phase_train, torch)
+    image_launches = timed("image", phase_image, torch)
+    timed("quality", phase_quality, torch)
     # each kernel's launches on its own path: paged decode on the serving
     # path, dropout and mean/disp on the image path, the rest on the LM
     # training path (flash forward runs on both LM paths, the gather on
@@ -1906,7 +2321,8 @@ def main():
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    say({"phase": "done", "seconds": time.perf_counter() - t_start})
+    say({"phase": "done", "seconds": time.perf_counter() - t_start,
+         "by_phase": seconds})
     say({"kernels": line})
     say(smi)
     say({"ok": True, "device": {"platform": "gpu", "kind": name,

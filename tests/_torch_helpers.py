@@ -2,8 +2,11 @@
 list built in both packages, with the JAX package's initial weights
 carried into the port (float32, on the CPU)."""
 
+import contextlib
 import json
 import os
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -78,3 +81,42 @@ def build_pair(layers, B=2, T=12, seed=0, optimizers=None,
 
 def tokens(rng, shape, vocab):
     return rng.integers(0, vocab, shape).astype(np.int32)
+
+
+# -- serving (tests/test_torch_serving_*.py) ---------------------------------
+
+#: the served LM family (bench_lm.py's layer types) at a narrow width
+SERVE_LAYERS = narrow_bench_layers()
+SERVE_V = SERVE_LAYERS[0]["vocab"]
+
+
+def serve_pair(seed=21):
+    """(jax_wf, jax_wstate, port_wf, port_wstate) of SERVE_LAYERS."""
+    return build_pair(SERVE_LAYERS, B=2, T=12, seed=seed)
+
+
+def wait_for(cond, timeout=60.0, what=""):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.002)
+
+
+def wait_busy(eng, timeout=60.0):
+    """Until a slot decodes and nothing is queued (either package)."""
+    wait_for(lambda: eng.stats()["occupancy"] >= 1
+             and eng.stats()["queue_depth"] == 0, timeout, "engine busy")
+
+
+@contextlib.contextmanager
+def held(eng, method="_step_once"):
+    """Hold a started port engine's scheduler at its next call of
+    ``method`` (the decode step, or ``_admit``) for the body of the
+    block; the rest of the scheduler waits with it."""
+    gate = threading.Event()
+    orig = getattr(eng, method)
+    setattr(eng, method, lambda: (gate.wait(120), orig()))
+    try:
+        yield
+    finally:
+        gate.set()

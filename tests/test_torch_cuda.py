@@ -19,7 +19,9 @@ bitwise; an attention unit's weight gradients
 kernel vs plain path rtol 1e-4 of each gradient's largest entry in
 float32; fused dropout (forward and gradient) and mean/disp normalize
 bitwise; the one-launch batch gather bitwise; a captured train step
-(``runtime/step_cache.py``) bitwise equal to the eager one over 8 steps.
+(``runtime/step_cache.py``) bitwise equal to the eager one over 8 steps;
+the serving engine's captured decode and prefill steps bitwise equal to
+its eager ones (tokens, token rows and KV pool).
 """
 
 import contextlib
@@ -637,3 +639,172 @@ def test_a_failed_capture_raises(card):
     assert cache.compiles == 0
     torch.cuda.synchronize()
     assert torch.ones(2, device=card).sum().item() == 2.0
+
+
+# -- the serving engine's captured decode and prefill steps -------------------
+
+def _serve_lm(device, dtype):
+    """The bench LM's layer types at a narrow width (2 blocks, dim 64, 4
+    heads of 16, vocab 64), random weights from seed 0."""
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.units.base import Spec
+    layers = [{"type": "embedding", "vocab": 64, "dim": 64, "name": "emb"}]
+    for i in range(2):
+        layers += [{"type": "attention", "n_heads": 4, "rope": True,
+                    "residual": True, "name": f"attn{i}"},
+                   {"type": "layer_norm", "name": f"ln{i}a"},
+                   {"type": "ffn", "d_hidden": 128, "name": f"ffn{i}"},
+                   {"type": "layer_norm", "name": f"ln{i}b"}]
+    layers.append({"type": "all2all", "output_size": 64,
+                   "per_position": True, "name": "head"})
+    wf = StandardWorkflow({"name": "lm", "layers": layers,
+                           "compute_dtype": dtype}).workflow
+    wf.build({"@input": Spec((2, 16), torch.int32),
+              "@labels": Spec((2, 16), torch.int32),
+              "@mask": Spec((2,), torch.float32)})
+    return wf, wf.init_state(0, device=device)
+
+
+def _drive(eng, script, iters):
+    """Run the scheduler's iteration (admit, one chunk slice, one decode
+    step) on this thread, ``iters`` times, submitting ``script[i]``'s
+    requests before iteration i: the same calls in the same order on
+    every engine, so page allocation and every input repeat exactly."""
+    import threading
+    eng._thread = threading.current_thread()     # submit() wants a runner
+    reqs = []
+    try:
+        for i in range(iters):
+            for prompt, n, kw in script.get(i, ()):
+                reqs.append(eng.submit(prompt, n, **kw))
+            eng._admit()
+            eng._advance_prefills()
+            if eng._active.any():
+                eng._step_once()
+    finally:
+        eng._thread = None
+    torch.cuda.synchronize()
+    return reqs
+
+
+def _serve_script(seed=3):
+    """Admissions at iterations 0, 3, 9 and 17 (one sampled, one sharing
+    a prefix, one chunked), retirements at different lengths."""
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, 64, 32).astype(np.int32)
+    return {0: [(rng.integers(0, 64, 20), 12, {}),
+                (np.concatenate([sysp, rng.integers(0, 64, 5)]), 30, {})],
+            3: [(rng.integers(0, 64, 9), 6,
+                 dict(temperature=0.9, top_k=8, seed=5))],
+            9: [(np.concatenate([sysp, rng.integers(0, 64, 3)]), 10, {})],
+            17: [(rng.integers(0, 64, 70), 8, {})]}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", None], ids=["bf16", "f32"])
+def test_captured_decode_equals_eager_bitwise(card, dtype):
+    """32 scheduler iterations with admissions (a prefix hit, a chunked
+    prompt, a sampled row) and retirements mid-flight, through the
+    captured decode and prefill graphs and through the eager steps: the
+    same tokens for every request and the same KV pool, bit for bit."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _serve_lm(card, dtype)
+    engines = {}
+    for capture in (True, False):
+        eng = DecodeEngine(wf, ws, slots=4, l_max=128, page_size=16,
+                           paged_kernel=True, prefill_chunk=32,
+                           window_ms=0.0, capture=capture, device=card)
+        engines[capture] = (eng, _drive(eng, _serve_script(), 32))
+    (cap, creqs), (eag, ereqs) = engines[True], engines[False]
+    assert cap.stats()["capture"]["decode"] == {"captured": True,
+                                                "reason": None}
+    assert eag.stats()["capture"]["decode"]["reason"] == "capture=False"
+    assert [r.done.is_set() for r in creqs] == \
+        [r.done.is_set() for r in ereqs]
+    assert sum(r.done.is_set() for r in creqs) >= 3     # retired mid-run
+    for a, b in zip(creqs, ereqs):
+        if a.done.is_set():
+            np.testing.assert_array_equal(a.result, b.result)
+    assert cap.stats()["pages"]["prefix_hit_pages"] >= 2
+    assert cap.stats()["prefill_calls"] > cap.stats()["admitted"]
+    np.testing.assert_array_equal(cap._toks, eag._toks)
+    for name in cap._caches:
+        for k in ("k", "v"):
+            assert torch.equal(cap._caches[name][k], eag._caches[name][k])
+
+
+def test_captured_prefill_equals_eager_bitwise(card):
+    """One 80-token prompt prefilled in slices of 32 through the
+    prefill graph and through the eager step: the same last-position
+    logits and the same pages, bit for bit."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine, _Request
+    wf, ws = _serve_lm(card, "bfloat16")
+    prompt = np.random.default_rng(1).integers(0, 64, 80).astype(np.int32)
+    out = {}
+    for capture in (True, False):
+        eng = DecodeEngine(wf, ws, slots=2, l_max=128, page_size=16,
+                           window_ms=0.0, capture=capture, device=card)
+        req = _Request(prompt, 4, 0.0, None, None, None, 0, 1e18)
+        assert eng._reserve_pages(req)
+        logits = [eng._prefill_logits(0, req, prompt, s, min(32, 80 - s))
+                  .clone() for s in (0, 32, 64)]
+        torch.cuda.synchronize()
+        out[capture] = (logits, {n: c["k"].clone()
+                                 for n, c in eng._caches.items()})
+    for a, b in zip(out[True][0], out[False][0]):
+        assert torch.equal(a, b)
+    for n in out[True][1]:
+        assert torch.equal(out[True][1][n], out[False][1][n])
+
+
+def test_serving_captures_stay_flat_and_count_replays(card):
+    """Decode and prefill are captured once each when the engine is
+    built; a prefix hit, a chunked prefill, a preemption and a shed
+    capture nothing more, and the paged-decode launches are one a layer
+    per decode step, every one a replay."""
+    from veles_tpu_torch.ops.kernels import paged_attention as pa
+    from veles_tpu_torch.runtime.engine import (DecodeEngine,
+                                                EngineOverloaded)
+    wf, ws = _serve_lm(card, "bfloat16")
+    eng = DecodeEngine(wf, ws, slots=2, l_max=128, page_size=16,
+                       paged_kernel=True, prefill_chunk=32, pages=12,
+                       queue_depth=2, priorities=2, window_ms=0.0,
+                       device=card)
+    pa.launches.reset()
+    eng.start()
+    rng = np.random.default_rng(4)
+    sysp = rng.integers(0, 64, 32)
+    try:
+        eng.generate(np.concatenate([sysp, rng.integers(0, 64, 4)])[None],
+                     4, timeout=300)
+        eng.generate(np.concatenate([sysp, rng.integers(0, 64, 70)])[None],
+                     4, timeout=300)                 # hit + chunks
+        # hold the scheduler at its next decode step: the victim runs,
+        # the class-0 arrival needs its pages, two class-1 arrivals fill
+        # the queue and two more are shed
+        import threading
+        import time
+        gate = threading.Event()
+        step = eng._step_once
+        eng._step_once = lambda: (gate.wait(300), step())
+        victim = eng.submit(rng.integers(0, 64, 8), 100, priority=1)
+        while not eng._active.any():
+            time.sleep(0.001)
+        high = eng.submit(rng.integers(0, 64, 8), 100, priority=0)
+        shed = 0
+        for _ in range(4):
+            try:
+                eng.submit(rng.integers(0, 64, 8), 4, priority=1)
+            except EngineOverloaded:
+                shed += 1
+        gate.set()
+        assert victim.done.wait(300) and high.done.wait(300)
+        assert victim.error is None and high.error is None
+    finally:
+        eng.stop()
+    st = eng.stats()
+    assert st["compile"]["compiles"] == st["compile"]["captures"] == 2
+    assert st["compile"]["recompiles"] == 0
+    assert st["pages"]["prefix_hit_pages"] >= 2
+    assert st["prefill_calls"] > st["admitted"]
+    assert st["admission"]["preemptions"] >= 1 and shed >= 1
+    assert pa.launches.count == 2 * st["decode_steps"]

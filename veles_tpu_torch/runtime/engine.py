@@ -5,35 +5,75 @@ The engine owns a fixed slot batch of KV caches for its lifetime — dense
 ``(slots, l_max)`` rows, or (the default) a pool of fixed-size pages that
 every slot maps through its own page table, with one scratch row that
 absorbs the writes of inactive slots.  A scheduler thread owns the
-request queue:
+request queue and every device call:
 
-* admission happens mid-flight into free slots; a paged admission
-  allocates the pages of the request's whole span first, and a request
-  the pool cannot host while slots are free is refused with 429
-  (:class:`EngineOverloaded`) — so is one that finds the queue full;
-* prefill runs the prompt through the decode step one position at a
-  time, as ``_make_paged_prefill_fn`` does (engine.py:574-657).  It reads
-  the paged cache through the gather path even when the paged kernel is
-  on — the JAX package's prefill passes no ``paged_kernel``
-  (engine.py:622-624).  The JAX package pads the prompt to a pow2 bucket
-  only to bound the shapes it compiles; the pad positions are no-ops
-  (scratch writes, discarded logits), and an eager step compiles
-  nothing, so the port runs the prompt's own positions;
-* one decode step advances every slot, with per-slot greedy /
-  temperature / top-k / top-p sampling and eos / length retirement
-  (engine.py:187-243, ``_sample_slots`` :1024); with ``paged_kernel``
-  the paged read goes through the paged-decode CUDA kernel;
-* deadlines fail a request loudly (queued or decoding).
+* **priority classes** (engine.py:952-1022, :2009-2252): requests carry
+  a class, 0 (highest) to ``priorities - 1``; the queue pops the highest
+  class first, FIFO within a class; a hard-full queue lets an arrival
+  displace the youngest not-yet-started request of a strictly lower
+  class, and the SLO-driven :class:`~.admission.AdmissionController`
+  closes the queue window for the low classes first under a burn.  A
+  shed answers :class:`EngineOverloaded` with an adaptive Retry-After
+  (HTTP 429, :2536-2577);
+* **preemption** (:2698-2844): an arrival that finds no free slot, or a
+  pool too small for it, preempts the running slot of the lowest class
+  strictly below its own (youngest run first), unless even every such
+  slot's pages could not host it.  The victim's generated tokens are
+  harvested and it is requeued at the front of its class; its resume
+  re-prefills prompt + generated so far, so its stream is the
+  uninterrupted one;
+* **paged pool with a prefix cache** (:2862-3025): refcounted pages, a
+  free list and a chained sha256 index over full prompt pages
+  (:func:`prefix_page_hashes`).  A request maps the full prompt pages it
+  shares read-only and prefills from its first divergent page on into
+  private pages — copy-on-write where no page is ever copied, since
+  shared pages are only read.  Refcount-0 cached pages stay resident
+  until the least recently used one is evicted for a new page; a request
+  the pool cannot host while slots are free is refused with 429, its
+  cached prefix discounted;
+* **prefill from an offset, chunked** (:465-657, :3364-3548): the
+  prefill continues at global positions ``start .. start + n - 1`` (the
+  prefix-hit boundary, or a chunk boundary) and samples the first token
+  at fold position ``P - 1``; prompts longer than ``prefill_chunk`` are
+  cut into slices interleaved with decode steps, bitwise an unchunked
+  prefill.  It reads the paged cache through the gather path, as the
+  JAX package's prefill does (no ``paged_kernel``, :622-624);
+* one **decode step** advances every slot, with per-slot greedy /
+  temperature / top-k / top-p sampling and eos / length retirement; with
+  ``paged_kernel`` the paged read goes through the paged-decode CUDA
+  kernel;
+* **streaming** (:767-863, :1667-1712, :3689-3764): a request may open
+  a frame feed numbered by global generated-token index, with stop
+  sequences matched at flush time (a match may span a flush boundary or
+  fall on the prefill's first token), finish reasons ``length`` /
+  ``eos`` / ``stop`` / ``deadline`` / ``error``, and the resume form
+  ``emitted_prefix`` that continues an interrupted stream bitwise;
+* deadlines fail a request loudly (queued, mid-prefill or decoding).
 
-Prefix sharing / copy-on-write, chunked prefill, priorities and
-preemption, admission control, streaming, speculative decoding,
-megastep, KV transfer, hot swap and metrics wait for later slices
-(ROADMAP.md, slice 5 (b)-(g)).
+On the card the paged layout's decode and prefill steps are captured as
+CUDA graphs through :class:`~.step_cache.StepCache` when the engine is
+built — the counterpart of the JAX package's "compiled once, flat after
+warmup".  Each reads its inputs from one static int32 device buffer that
+the host fills by one non-blocking copy from pinned memory: decode
+``[token | position | active | page table]`` for every slot, prefill
+``[effective prompt | page-table row | position index]``, whose one
+position step reads its token and position on the card at the index the
+graph advances itself, and is replayed once per prompt position.  The
+graphs end at the logits; sampling (host-seeded generators,
+``generate.sample_rows``) runs after them.  The dense layout stays eager
+(its masked write has a data-dependent shape), and ``stats()["capture"]``
+says so, as it says ``"cpu"`` on the host.
+
+Left out, for later slices (ROADMAP.md queue 1 item 3): speculative
+verify, megastep, VTKV1 page export/import, hot swap, beam search, the
+batch lane, and the serving half of ``runtime/faults.py``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import hashlib
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -46,12 +86,17 @@ from ..logger import Logger
 from ..ops import resolve_device
 from ..units.base import Context
 from ..units.nn import input_vocab
+from .admission import AdmissionController
 from .generate import DecodePlan, row_seeds, sample_rows
+from .metrics import registry
+from .slo import slo_tracker
+from .step_cache import StepCache
 
 
 class EngineOverloaded(RuntimeError):
-    """The queue or the page pool is full; retry after ``retry_after_s``
-    seconds (HTTP 429 + Retry-After in restful.py)."""
+    """The queue, the admission window or the page pool is full; retry
+    after ``retry_after_s`` seconds (HTTP 429 + Retry-After in
+    restful.py)."""
 
     def __init__(self, msg: str, retry_after_s: float = 1.0):
         super().__init__(msg)
@@ -64,6 +109,21 @@ class EngineStopped(RuntimeError):
 
 class SchedulerCrashed(RuntimeError):
     """The scheduler loop died; every pending request failed with this."""
+
+
+def prefix_page_hashes(prompt, page_size: int) -> list:
+    """Chained sha256 digests of a prompt's FULL ``page_size``-token
+    pages: page ``i``'s key covers tokens ``0 .. (i+1)*page_size`` (KV
+    content depends on the whole prefix).  Hashes are over the int32
+    byte view, as the JAX package's (engine.py:116)."""
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    psz = int(page_size)
+    hashes, h = [], b""
+    for i in range(int(prompt.size) // psz):
+        h = hashlib.sha256(
+            h + prompt[i * psz:(i + 1) * psz].tobytes()).digest()
+        hashes.append(h)
+    return hashes
 
 
 class ServeGeometry(NamedTuple):
@@ -119,14 +179,121 @@ def resolve_serve_geometry(slots=None, l_max=None, paged=None, page_size=None, p
     return ServeGeometry(slots, l_max, True, psz, pages, use_kernel)
 
 
+def serving_params(plan: DecodePlan, params, device) -> dict:
+    """The decode plan's parameters on ``device``, each weight matrix of
+    a unit with a compute dtype stored in that dtype once.  A step then
+    casts nothing: the attention's ``w.to(dt)`` returns the stored copy,
+    ``ops.dense``'s ``w.to(dt).float()`` widens it, and both give the
+    bits the per-step cast of the float32 weight gives (the decode path's
+    activations are float32, so ``dense``'s result type is unchanged).
+    On the card the casts were a quarter of a captured prefill step's
+    device time."""
+    units = [u for _, u in plan.seq_handlers] + list(plan.flat_units)
+    low = {u.name: u.compute_dtype for u in units
+           if getattr(u, "compute_dtype", None) is not None}
+    return {u: {k: (t.to(device, low[u]) if u in low and t.dim() >= 2
+                    else t.to(device))
+                for k, t in p.items()}
+            for u, p in params.items()}
+
+
+class _StreamHandle:
+    """Incremental token feed for one streaming request
+    (engine.py:767-863).  The scheduler thread is the only producer: it
+    pushes frames numbered by the GLOBAL generated-token index, so a
+    resume seeded from an emitted prefix numbers its first frame one past
+    the interrupted run's last.  :meth:`events` always ends with exactly
+    one terminal event.  The buffer is bounded: a consumer that stops
+    draining gets its stream closed with an overflow error (the request
+    itself still retires unary)."""
+
+    __slots__ = ("_cond", "_frames", "next_i", "prompt_tokens",
+                 "buffer_tokens", "closed", "finish_reason", "error",
+                 "overflowed")
+
+    def __init__(self, start_i: int, prompt_tokens: int,
+                 buffer_tokens: int):
+        self._cond = threading.Condition()
+        self._frames = collections.deque()  # pending (i, token)  # guarded-by: self._cond
+        # next global generated index the engine will push; the
+        # scheduler thread is the sole writer
+        self.next_i = int(start_i)          # guarded-by: self._cond
+        self.prompt_tokens = int(prompt_tokens)
+        self.buffer_tokens = int(buffer_tokens)
+        self.closed = False                 # guarded-by: self._cond
+        self.finish_reason = None           # guarded-by: self._cond
+        self.error: Optional[str] = None    # guarded-by: self._cond
+        self.overflowed = False             # guarded-by: self._cond
+
+    def push(self, start_i: int, tokens) -> int:
+        """Append frames numbered ``start_i`` onward, skipping indices
+        already pushed; returns the number appended."""
+        n = 0
+        with self._cond:
+            if self.closed:
+                return 0
+            i = int(start_i)
+            for t in tokens:
+                if i >= self.next_i:
+                    self._frames.append((i, int(t)))
+                    self.next_i = i + 1
+                    n += 1
+                i += 1
+            if self.buffer_tokens and len(self._frames) > self.buffer_tokens:
+                self.overflowed = True
+                self.closed = True
+                self.finish_reason = "error"
+                self.error = (f"stream buffer overflow: consumer left "
+                              f"more than {self.buffer_tokens} frames "
+                              "undrained (serve.stream.buffer_tokens)")
+            self._cond.notify_all()
+        return n
+
+    def close(self, finish_reason: str, error: Optional[str] = None):
+        """Mark the stream terminal (the first close wins)."""
+        with self._cond:
+            if not self.closed:
+                self.closed = True
+                self.finish_reason = finish_reason
+                self.error = error
+            self._cond.notify_all()
+
+    def events(self, timeout_s: Optional[float] = None):
+        """Every pending ``("token", i, tok)`` frame in index order, then
+        exactly one ``("done", finish_reason, error)``.  ``timeout_s``
+        bounds the total wait; expiry raises :class:`TimeoutError`."""
+        end = None if timeout_s is None else time.monotonic() + timeout_s
+        while True:
+            with self._cond:
+                while not self._frames and not self.closed:
+                    rem = 1.0 if end is None else end - time.monotonic()
+                    if rem <= 0:
+                        raise TimeoutError(
+                            "stream consumer timed out waiting for the "
+                            "next frame")
+                    self._cond.wait(min(rem, 1.0))
+                frames = list(self._frames)
+                self._frames.clear()
+                closed = self.closed
+                reason, err = self.finish_reason, self.error
+            for i, t in frames:
+                yield ("token", i, t)
+            if closed:
+                yield ("done", reason, err)
+                return
+
+
 class _Request:
     __slots__ = ("prompt", "n_steps", "temperature", "top_k", "top_p",
                  "eos_id", "seed", "deadline", "done", "result", "error",
                  "submitted_at", "admitted_at", "first_token_at",
-                 "finished_at", "slot", "page_row")
+                 "finished_at", "run_started_at", "slot", "page_row",
+                 "prefix_start", "page_hashes", "priority", "gen",
+                 "preemptions", "chunk_next", "_eff", "stream", "stop_seqs",
+                 "stop_hit")
 
     def __init__(self, prompt, n_steps, temperature, top_k, top_p, eos_id,
-                 seed, deadline):
+                 seed, deadline, priority: int = 0):
         self.prompt = prompt            # (P,) np.int32
         self.n_steps = n_steps
         self.temperature = temperature
@@ -139,16 +306,38 @@ class _Request:
         self.result = None              # np.int32 tokens, prompt included
         self.error: Optional[Exception] = None
         self.submitted_at = time.monotonic()
-        self.admitted_at = None
+        self.admitted_at = None         # first admission (left the queue)
         self.first_token_at = None
         self.finished_at = None
+        self.run_started_at = None      # latest admission into a slot
         self.slot = None
-        self.page_row = None
+        self.page_row = None            # paged: this request's page table
+        self.prefix_start = 0           # paged: first un-shared position
+        self.page_hashes = ()           # paged: chained full-page hashes
+        self.priority = int(priority)   # request class, 0 = highest
+        # tokens generated before a preemption (or the resume form's
+        # emitted prefix): an admission prefills prompt + gen
+        self.gen = np.empty(0, np.int32)
+        self.preemptions = 0
+        self.chunk_next = 0             # next global position to prefill
+        self._eff = None                # memoized effective prompt
+        self.stream: Optional[_StreamHandle] = None
+        self.stop_seqs = ()
+        self.stop_hit = False
 
     @property
     def end_index(self) -> int:
-        """Global index of the final token."""
+        """Global index of the final token (invariant across
+        preemptions)."""
         return int(self.prompt.size) + int(self.n_steps) - 1
+
+    def effective_prompt(self):
+        """What an admission prefills: the prompt and every token
+        generated before a preemption."""
+        if self._eff is None:
+            self._eff = (np.concatenate([self.prompt, self.gen])
+                         if self.gen.size else self.prompt)
+        return self._eff
 
     def finish(self, result=None, error=None):
         self.result, self.error = result, error
@@ -156,13 +345,148 @@ class _Request:
         self.done.set()
 
 
+class _PrioQueue:
+    """Strict-priority FIFO over ``priorities`` classes (0 = highest),
+    engine.py:952-1022.  Not thread-safe on its own: every mutation
+    happens under the engine's ``_qlock``."""
+
+    __slots__ = ("_qs",)
+
+    def __init__(self, priorities: int):
+        self._qs = [collections.deque()
+                    for _ in range(max(1, int(priorities)))]
+
+    def __len__(self):
+        return sum(len(q) for q in self._qs)
+
+    def __bool__(self):
+        return any(self._qs)
+
+    def __iter__(self):
+        for q in self._qs:
+            yield from q
+
+    def append(self, req):
+        self._qs[req.priority].append(req)
+
+    def appendleft(self, req):
+        self._qs[req.priority].appendleft(req)
+
+    def popleft(self):
+        for q in self._qs:
+            if q:
+                return q.popleft()
+        return None
+
+    def steal_lower(self, priority: int):
+        """Remove and return the youngest not-yet-started queued request
+        of the lowest class strictly below ``priority``'s; None when
+        nothing displaceable is queued.  A preempted resume
+        (``preemptions > 0``) holds committed work and is never
+        displaced."""
+        for c in range(len(self._qs) - 1, int(priority), -1):
+            q = self._qs[c]
+            for i in range(len(q) - 1, -1, -1):
+                if q[i].preemptions == 0:
+                    r = q[i]
+                    del q[i]
+                    return r
+        return None
+
+    def remove_if(self, pred):
+        """Remove and return every queued request matching ``pred``."""
+        out = []
+        for i, q in enumerate(self._qs):
+            kept = collections.deque()
+            for r in q:
+                (out if pred(r) else kept).append(r)
+            self._qs[i] = kept
+        return out
+
+    def clear(self):
+        for q in self._qs:
+            q.clear()
+
+
+class _ServeStep:
+    """One of the paged engine's two device steps over its static inputs
+    (one int32 device buffer, ``inputs["buf"]``), in the shape
+    ``StepCache`` builds and captures: ``begin`` (no host part), ``run``
+    (the device part) and the eager call ``(caches, batch) -> outputs``,
+    which first copies ``batch["buf"]`` (pinned memory on the card) into
+    the static buffer unless ``batch`` is None."""
+
+    def __init__(self, engine, size: int):
+        self.plan, self.params = engine.plan, engine.params
+        self.ctx = engine._ctx
+        self.slots, self.n_ptab = engine.slots, engine.n_ptab
+        self.l_max, self.page_size = engine.l_max, engine.page_size
+        self.paged_kernel = engine.paged_kernel
+        self.inputs = {"buf": torch.zeros(size, dtype=torch.int32,
+                                          device=engine.device)}
+
+    def begin(self, caches):
+        return None
+
+    def __call__(self, caches, batch):
+        if batch is not None:
+            self.inputs["buf"].copy_(batch["buf"], non_blocking=True)
+        return self.run(caches, self.inputs, None)
+
+
+class _DecodeStep(_ServeStep):
+    """Every slot one position: ``buf`` = token (S) | position (S) |
+    active (S) | page table (S x n_ptab); inactive slots write the
+    scratch page.  Outputs the (S, V) logits."""
+
+    kind = "decode"
+
+    def run(self, caches, inputs, host):
+        b = inputs["buf"]
+        S = self.slots
+        with torch.no_grad():
+            logits, _ = self.plan.step(
+                self.params, caches, b[:S].long(), b[S:2 * S], self.ctx,
+                pages=(b[3 * S:].view(S, self.n_ptab), self.page_size,
+                       b[2 * S:3 * S] != 0),
+                paged_kernel=self.paged_kernel)
+        return {"logits": logits}
+
+
+class _PrefillStep(_ServeStep):
+    """One prompt position of one slot: ``buf`` = effective prompt
+    (l_max) | the slot's page-table row (n_ptab) | position index (1).
+    The step reads its token and position at the index and advances the
+    index by one on the card, so a chunk of n positions is one load and
+    n calls.  KV goes through the page table, reads through the gather
+    path.  Outputs the (1, V) logits of the position."""
+
+    kind = "prefill"
+
+    def run(self, caches, inputs, host):
+        b = inputs["buf"]
+        L, n = self.l_max, self.n_ptab
+        idx = b[L + n:L + n + 1]
+        with torch.no_grad():
+            # the step reads the position before the index advances
+            logits, _ = self.plan.step(
+                self.params, caches, b.index_select(0, idx.long()), idx,
+                self.ctx, pages=(b[L:L + n].view(1, n), self.page_size,
+                                 None))
+            idx.add_(1)
+        return {"logits": logits}
+
+
 class DecodeEngine(Logger):
     """Continuous-batching decode engine over a :class:`DecodePlan`.
 
     ``slots`` / ``l_max`` / ``window_ms`` / ``queue_depth`` /
-    ``deadline_s`` / the paged knobs default from ``root.common.serve``.
-    ``device`` defaults to the CUDA card (``ops.resolve_device``); the
-    workflow state's parameters are moved there."""
+    ``deadline_s`` / the paged knobs / ``priorities`` / ``preempt`` /
+    ``prefill_chunk`` default from ``root.common.serve``; ``admission``
+    injects an :class:`AdmissionController` (tests).  ``device`` defaults
+    to the CUDA card (``ops.resolve_device``); the workflow state's
+    parameters are moved there.  ``capture=False`` keeps the paged steps
+    eager on the card (the eager-versus-captured witness)."""
 
     def __init__(self, workflow, wstate, *, slots: Optional[int] = None,
                  l_max: Optional[int] = None,
@@ -175,6 +499,11 @@ class DecodeEngine(Logger):
                  page_size: Optional[int] = None,
                  pages: Optional[int] = None,
                  paged_kernel: Optional[bool] = None,
+                 priorities: Optional[int] = None,
+                 preempt: Optional[bool] = None,
+                 prefill_chunk: Optional[int] = None,
+                 admission: Optional[AdmissionController] = None,
+                 capture: bool = True,
                  device=None):
         self.device = resolve_device(device)
         serve = root.common.serve
@@ -192,9 +521,25 @@ class DecodeEngine(Logger):
                                else serve.get("queue_depth", 64))
         self.deadline_s = float(deadline_s if deadline_s is not None
                                 else serve.get("deadline_s", 120.0))
-        self.params = {u: {k: t.to(self.device) for k, t in p.items()}
-                       for u, p in wstate["params"].items()}
+        self.priorities = max(1, int(serve.get("priorities", 3)
+                                     if priorities is None else priorities))
+        self.preempt = bool(serve.get("preempt", True)
+                            if preempt is None else preempt)
+        self.prefill_chunk = int(serve.get("prefill_chunk", 256)
+                                 if prefill_chunk is None else prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
+        self.stream_buffer_tokens = int(
+            serve.stream.get("buffer_tokens", 4096))
         self.plan = DecodePlan(workflow, output_unit)
+        self.params = serving_params(self.plan, wstate["params"],
+                                     self.device)
+        # recurrent carried state is position-recurrent from token 0 and
+        # is not paged: such a chain takes no prefix shortcut
+        # (engine.py:1118; the port's DecodePlan has no recurrent units
+        # yet, so every chain it accepts qualifies)
+        self._prefix_ok = not getattr(self.plan, "_rec_units", ())
         self._ctx = Context(train=False)
         # the embedding table's rows: the bound on prompt token ids (the
         # REST guard's), checked in submit before anything is enqueued
@@ -219,24 +564,38 @@ class DecodeEngine(Logger):
         self._end = np.zeros(S, np.int64)
         self._seeds = np.zeros(S, np.int64)
         self._slot_req: list = [None] * S
+        # slots whose admission is mid-(chunked-)prefill
+        self._chunking: set = set()
 
         # paged pool: refcounted pages, a free list, the per-slot page
-        # table (scratch row = index ``pages``) and its device copy
+        # table (scratch row = index ``pages``), the prefix index (hash
+        # -> page) and its reverse, and an LRU tick per page
         if self.paged:
             self._scratch = self.pages
             self._ptab = np.full((S, self.n_ptab), self._scratch, np.int32)
-            self._ptab_dev = None        # refreshed when _ptab changes
             self._page_lock = threading.Lock()
             self._page_ref = np.zeros(self.pages, np.int32)  # guarded-by: self._page_lock
             self._page_free = list(range(self.pages))  # guarded-by: self._page_lock
-            self._pool_rejected = 0      # guarded-by: self._page_lock
+            self._prefix_index: dict = {}  # guarded-by: self._page_lock
+            self._page_key: dict = {}      # guarded-by: self._page_lock
+            self._page_tick = np.zeros(self.pages, np.int64)  # guarded-by: self._page_lock
+            self._tick = 0                 # guarded-by: self._page_lock
+            self._prefix_hit_pages = 0     # guarded-by: self._page_lock
+            self._prefix_miss_pages = 0    # guarded-by: self._page_lock
+            self._evictions = 0            # guarded-by: self._page_lock
+            self._cow_admissions = 0       # guarded-by: self._page_lock
+            self._pool_rejected = 0        # guarded-by: self._page_lock
 
-        self._queue: collections.deque = collections.deque()  # guarded-by: self._qlock
+        self._queue = _PrioQueue(self.priorities)  # guarded-by: self._qlock
         self._qlock = threading.Lock()
+        self._shed_by_class: dict = {}   # guarded-by: self._qlock
+        self._streams: set = set()       # guarded-by: self._qlock
         self._wake = threading.Event()
         self._stop_evt = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._died = False
+        self._qwait_ewma = 0.0           # scheduler-thread-written
+        self._tokens_per_s = 0.0         # scheduler-thread-written
 
         self._stats_lock = threading.Lock()
         self._n = collections.Counter()   # guarded-by: self._stats_lock
@@ -246,9 +605,71 @@ class DecodeEngine(Logger):
         # head width (the logits' last dim): top_k's keep-all sentinel
         self._vocab = int(workflow.specs[self.plan.output].shape[-1])
 
+        self._init_metrics()
+        self._slo = slo_tracker()
+        self._admission = (admission if admission is not None
+                           else AdmissionController(
+                               queue_depth=self.queue_depth,
+                               priorities=self.priorities,
+                               burn_fn=self._slo.max_burn,
+                               gauge=self._g_window))
+
+        # the paged layout's two steps, built (on the card: captured)
+        # once for the engine's lifetime, with their pinned staging
+        # buffers; the scheduler thread replays them on its own stream
+        self.step_cache = StepCache(capture=capture)
+        on_card = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if on_card else None
+        if self.paged:
+            key = (id(self), S, self.l_max, self.page_size, self.pages,
+                   self.paged_kernel, str(cache_dtype), str(self.device))
+            steps = {"decode": _DecodeStep(self, S * (3 + self.n_ptab)),
+                     "prefill": _PrefillStep(
+                         self, self.l_max + self.n_ptab + 1)}
+            self._fns, self._stage = {}, {}
+            for kind, step in steps.items():
+                self._fns[kind] = self.step_cache.get_step(
+                    kind, key, lambda s=step: s, (self._caches, step.inputs))
+                self._stage[kind] = torch.zeros(
+                    step.inputs["buf"].numel(), dtype=torch.int32,
+                    pin_memory=on_card)
+            # the prefill's staging buffer is read by a copy no sampling
+            # waits for on an intermediate chunk: this event fences it
+            self._prefill_staged = torch.cuda.Event() if on_card else None
+
+    def _init_metrics(self):
+        reg = registry()
+        self._m_requests = reg.counter(
+            "vt_requests_total",
+            "decode requests by terminal outcome (ok, 429 shed, 504 "
+            "deadline, crash, stopped)", labels=("outcome",))
+        self._m_shed = reg.counter(
+            "vt_shed_total", "requests shed (pool 429, admission-window "
+            "429, hard-full displacement) by request class",
+            labels=("priority",))
+        self._m_preempt = reg.counter(
+            "vt_preemptions_total",
+            "running slots preempted for a higher-class request")
+        self._m_queue_wait = reg.histogram(
+            "vt_request_queue_wait_seconds",
+            "time a request waited between submit() and its first "
+            "admission into a slot")
+        self._m_ttft = reg.histogram(
+            "vt_request_ttft_seconds", "submit-to-first-token latency")
+        self._m_decode_step = reg.histogram(
+            "vt_decode_step_seconds",
+            "wall time of one decode step (every slot one position)")
+        self._g_window = reg.gauge(
+            "vt_admission_window",
+            "queued requests the admission controller currently admits")
+
     # -- lifecycle ---------------------------------------------------------
     def start(self):
         if self._thread is None:
+            if self._stream is not None:
+                # the caches, static inputs and graphs were made on the
+                # building thread's stream; the scheduler's takes over
+                torch.cuda.synchronize(self.device)
             self._stop_evt.clear()
             self._thread = threading.Thread(
                 target=self._loop, name="decode-engine", daemon=True)
@@ -267,26 +688,77 @@ class DecodeEngine(Logger):
             self._thread = None
 
     # -- requests ----------------------------------------------------------
+    def _check_ids(self, ids, what: str):
+        hi = self._input_vocab if self._input_vocab is not None else 2 ** 31
+        if ids.size and (ids.min() < 0 or ids.max() >= hi):
+            raise ValueError(
+                f"{what} token ids must be in [0, {hi}) "
+                f"(got min {ids.min()}, max {ids.max()})")
+
     def submit(self, prompt, n_steps: int, *, temperature: float = 0.0,
                top_k: Optional[int] = None, top_p: Optional[float] = None,
                eos_id: Optional[int] = None, seed: int = 0,
-               deadline_s: Optional[float] = None) -> _Request:
+               deadline_s: Optional[float] = None, priority: int = 0,
+               stream: bool = False, emitted_prefix=None,
+               stop=None) -> _Request:
         """Enqueue one sequence; its ``done`` event fires with ``result``
-        (np.int32, prompt + generated, trimmed at eos) or ``error``.
-        Raises :class:`EngineOverloaded` when the queue is full or the
-        page pool cannot host the request while slots are free."""
+        (np.int32, prompt + generated, trimmed at eos or a stop match) or
+        ``error``.
+
+        ``priority`` is the request class, 0 (highest) to
+        ``priorities - 1``.  ``stream=True`` opens ``req.stream`` (a
+        :class:`_StreamHandle`; consume ``req.stream.events()``).
+        ``stop`` (streaming only) is a list of token-id sequences that
+        end generation with finish reason ``"stop"``.  ``emitted_prefix``
+        is the resume form: the ORIGINAL prompt, ``n_steps`` and seed
+        plus the tokens an interrupted run delivered; the continuation
+        is the uninterrupted run's and its frames are numbered from
+        ``len(emitted_prefix)``.  Raises :class:`EngineOverloaded` when
+        the request is shed (queue or admission window full, nothing
+        lower to displace; or the page pool cannot host it while slots
+        are free)."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
-        hi = self._input_vocab if self._input_vocab is not None else 2 ** 31
-        if prompt.min() < 0 or prompt.max() >= hi:
-            raise ValueError(
-                f"prompt token ids must be in [0, {hi}) "
-                f"(got min {prompt.min()}, max {prompt.max()})")
+        self._check_ids(prompt, "prompt")
         prompt = prompt.astype(np.int32)
         n_steps = int(n_steps)
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
+        pref = None
+        if emitted_prefix is not None:
+            pref = np.asarray(emitted_prefix, np.int64).reshape(-1)
+            # at n_steps the resume would have nothing left to generate,
+            # yet a prefill always samples one token
+            if pref.size >= n_steps:
+                raise ValueError(
+                    f"emitted_prefix holds {pref.size} tokens but "
+                    f"n_steps is {n_steps}; the resume form needs at "
+                    "least one token left to generate (pass the "
+                    "ORIGINAL n_steps, not the remainder)")
+            self._check_ids(pref, "emitted_prefix")
+            pref = pref.astype(np.int32)
+        stop_seqs = ()
+        if stop:
+            stop_seqs = tuple(np.asarray(s, np.int32).reshape(-1)
+                              for s in stop)
+            if not stream:
+                raise ValueError(
+                    "stop sequences ride the streaming path (their "
+                    "detection runs at flush time); pass stream=True")
+            if len(stop_seqs) > 16:
+                raise ValueError(
+                    f"at most 16 stop sequences, got {len(stop_seqs)}")
+            for s in stop_seqs:
+                if not 1 <= s.size <= 32:
+                    raise ValueError(
+                        "each stop sequence must hold 1..32 tokens, "
+                        f"got {s.size}")
+        priority = int(priority)
+        if not 0 <= priority < self.priorities:
+            raise ValueError(
+                f"priority must be in [0, {self.priorities}) "
+                f"(serve.priorities classes, 0 = highest), got {priority}")
         if top_k is not None and int(top_k) < 1:
             raise ValueError(f"top_k must be >= 1, got {top_k}")
         if top_p is not None and not 0.0 < float(top_p) <= 1.0:
@@ -306,39 +778,82 @@ class DecodeEngine(Logger):
                        None if eos_id is None else int(eos_id), int(seed),
                        time.monotonic() + (self.deadline_s
                                            if deadline_s is None
-                                           else float(deadline_s)))
+                                           else float(deadline_s)),
+                       priority=priority)
+        if pref is not None and pref.size:
+            # the resume form IS the preemption resume state
+            req.gen = pref
+        req.stop_seqs = stop_seqs
+        if stream:
+            req.stream = self._acquire_stream(req)
         if self.paged:
-            need = self._page_span(prompt.size, n_steps)
+            # pool backpressure while slots are free, the request's
+            # cached prefix discounted; queueing when a lower-class slot
+            # could be preempted for its pages
+            eff = req.effective_prompt()
+            need = self._page_span(eff.size, req.end_index - eff.size + 1)
+            hashes = self._prefix_hashes(eff)
+            req.page_hashes = hashes
             with self._page_lock:
-                avail = len(self._page_free)
+                need -= self._prefix_hits_locked(hashes, eff.size)
+                avail = self.pages - int(np.count_nonzero(self._page_ref))
             with self._qlock:
-                free_slots = sum(r is None for r in self._slot_req)
+                free_slots = self.slots - int(self._active.sum())
                 pool_bound = need > avail and free_slots > len(self._queue)
+                if pool_bound and self.preempt and any(
+                        r is not None and r.priority > priority
+                        for r in self._slot_req):
+                    pool_bound = False
             if pool_bound:
                 with self._page_lock:
                     self._pool_rejected += 1
-                self._count("rejected")
+                self._count_shed(priority)
+                self._m_requests.labels(outcome="429").inc()
+                self._release_stream(req, "429")
                 raise EngineOverloaded(
-                    f"page pool exhausted ({avail} of {self.pages} pages "
-                    f"free, request needs {need})")
+                    f"page pool exhausted ({avail} of {self.pages} "
+                    f"pages free, request needs {need} beyond its "
+                    "cached prefix)", self._retry_after())
+        evicted = None
         with self._qlock:
-            full = len(self._queue) >= self.queue_depth
-            if not full:
+            # the controller's window (priority-scaled) bounds what the
+            # hard queue_depth bounds alone; a full queue lets the
+            # arrival displace the youngest queued strictly-lower class
+            qlen = len(self._queue)
+            limit = min(self.queue_depth,
+                        self._admission.allowance(priority))
+            overloaded = qlen >= limit
+            if overloaded:
+                evicted = self._queue.steal_lower(priority)
+                if evicted is not None:
+                    overloaded = False
+            if not overloaded:
                 self._queue.append(req)
-        if full:
-            self._count("rejected")
+        if evicted is not None:
+            retry = self._retry_after()
+            self._count_shed(evicted.priority)
+            evicted.finish(error=EngineOverloaded(
+                "shed from a full queue by a higher-priority arrival",
+                retry))
+            self._observe_finish(evicted, "429")
+        if overloaded:
+            self._count_shed(priority)
+            self._m_requests.labels(outcome="429").inc()
+            self._release_stream(req, "429")
             raise EngineOverloaded(
-                f"queue full ({self.queue_depth} pending requests)")
+                f"admission window full ({qlen} pending, window "
+                f"{limit} for class {priority} of "
+                f"{self.queue_depth} hard depth)", self._retry_after())
         self._wake.set()
         return req
 
     def generate(self, prompt, n_steps: int, *, temperature: float = 0.0,
                  top_k=None, top_p=None, eos_id=None, seed: int = 0,
-                 timeout: Optional[float] = None):
+                 timeout: Optional[float] = None, priority: int = 0):
         """Blocking batch decode with the ``generate()`` contract:
         (B, P) -> (B, P + n_steps) np.int32, rows past their eos padded
         with ``eos_id``.  Row r samples with ``row_seeds(seed, B)[r]``,
-        as ``generate()`` does."""
+        as ``generate()`` does; every row rides class ``priority``."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 2:
             raise ValueError("prompt must be (B, P)")
@@ -350,7 +865,7 @@ class DecodeEngine(Logger):
                 reqs.append(self.submit(
                     prompt[r], n_steps, temperature=temperature,
                     top_k=top_k, top_p=top_p, eos_id=eos_id,
-                    seed=seeds[r]))
+                    seed=seeds[r], priority=priority))
             out = np.full((B, P + n_steps),
                           eos_id if eos_id is not None else 0, np.int32)
             for r, req in enumerate(reqs):
@@ -368,10 +883,96 @@ class DecodeEngine(Logger):
                     req.deadline = 0.0
             raise
 
+    # -- stream handles ----------------------------------------------------
+    def _acquire_stream(self, req: _Request) -> _StreamHandle:
+        """Open the request's frame feed, numbered from its emitted
+        prefix, and register it in the live set."""
+        h = _StreamHandle(int(req.gen.size), int(req.prompt.size),
+                          self.stream_buffer_tokens)
+        with self._qlock:
+            self._streams.add(h)
+        return h
+
+    def _release_stream(self, req: _Request, outcome: str):
+        """Close and unregister the request's stream (no-op for unary
+        requests): ok -> stop / eos / length, 504 -> deadline, anything
+        else -> error."""
+        h = req.stream
+        if h is None:
+            return
+        err = None
+        if outcome == "ok":
+            gen_n = (0 if req.result is None
+                     else int(req.result.size) - int(req.prompt.size))
+            if req.stop_hit:
+                reason = "stop"
+            elif (req.eos_id is not None and gen_n
+                    and gen_n < int(req.n_steps)
+                    and int(req.result[-1]) == int(req.eos_id)):
+                reason = "eos"
+            else:
+                reason = "length"
+        elif outcome == "504":
+            reason = "deadline"
+            err = (str(req.error) if req.error is not None
+                   else "request deadline expired")
+        else:
+            reason = "error"
+            err = str(req.error) if req.error is not None else outcome
+        h.close(reason, err)
+        with self._qlock:
+            self._streams.discard(h)
+
+    def _observe_finish(self, req: _Request, outcome: str):
+        """Every terminal edge: the stream closes, the outcome counts."""
+        self._release_stream(req, outcome)
+        self._m_requests.labels(outcome=outcome).inc()
+
     # -- stats -------------------------------------------------------------
     def _count(self, key: str, n: int = 1):
         with self._stats_lock:
             self._n[key] += n
+
+    def _count_shed(self, priority: int):
+        """One shed in every ledger: rejected, shed by class, the
+        ``vt_shed_total`` series.  Takes ``_qlock``: call outside it."""
+        self._count("rejected")
+        self._m_shed.labels(priority=str(priority)).inc()
+        with self._qlock:
+            self._shed_by_class[priority] = \
+                self._shed_by_class.get(priority, 0) + 1
+
+    def _retry_after(self) -> float:
+        """429 Retry-After from actual congestion: queued decode work
+        over recent throughput, floored by the queue-wait EWMA, scaled by
+        how far the admission window is closed; in [1, 60] s
+        (engine.py:2560-2577)."""
+        with self._qlock:
+            queued = sum(r.n_steps for r in self._queue) or 1
+        est = max(queued / max(self._tokens_per_s, 1.0), self._qwait_ewma)
+        est *= self._admission.backoff_factor()
+        return min(60.0, max(1.0, est))
+
+    def _pages_summary(self) -> Optional[dict]:
+        if not self.paged:
+            return None
+        with self._page_lock:
+            used = int(np.count_nonzero(self._page_ref))
+            cached = sum(1 for pid in self._page_key
+                         if self._page_ref[pid] == 0)
+            hit, miss = self._prefix_hit_pages, self._prefix_miss_pages
+            evictions, cow = self._evictions, self._cow_admissions
+            rejected = self._pool_rejected
+        lookups = hit + miss
+        return {"page_size": self.page_size, "pages": self.pages,
+                "used": used, "cached": cached,
+                "free": self.pages - used - cached,
+                "prefix_hit_pages": hit, "prefix_miss_pages": miss,
+                "prefix_hit_rate": round(hit / lookups, 3) if lookups
+                else 0.0,
+                "prefix_tokens_reused": hit * self.page_size,
+                "evictions": evictions, "cow_admissions": cow,
+                "pool_rejected": rejected}
 
     def stats(self) -> dict:
         with self._stats_lock:
@@ -381,11 +982,17 @@ class DecodeEngine(Logger):
             wall = self._decode_wall
         with self._qlock:
             qlen = len(self._queue)
+            shed = {str(k): v for k, v in sorted(self._shed_by_class.items())}
+            streams = len(self._streams)
+        compile_ = self.step_cache.stats()
+        capture = {kind: (compile_[kind] if self.paged else
+                          {"captured": False, "reason": "dense layout"})
+                   for kind in ("decode", "prefill")}
         out = {
             "device": str(self.device),
             "slots": self.slots, "l_max": self.l_max,
             "occupancy": int(self._active.sum()),
-            "queue_depth": qlen,
+            "queue_depth": qlen, "queue_limit": self.queue_depth,
             "admitted": n.get("admitted", 0),
             "retired": n.get("retired", 0),
             "rejected": n.get("rejected", 0),
@@ -393,6 +1000,7 @@ class DecodeEngine(Logger):
             "decode_steps": n.get("decode_steps", 0),
             "decode_tokens": n.get("decode_tokens", 0),
             "prefill_tokens": n.get("prefill_tokens", 0),
+            "prefill_calls": n.get("prefill_calls", 0),
             "decode_seconds": wall,
             "decode_tokens_per_s": (n.get("decode_tokens", 0) / wall
                                     if wall > 0 else 0.0),
@@ -403,35 +1011,50 @@ class DecodeEngine(Logger):
                                   else None),
             "decode_step_s_max": float(np.max(steps)) if steps else None,
             "paged": self.paged, "paged_kernel": self.paged_kernel,
+            "streams": streams,
+            "admission": {**self._admission.state(),
+                          "priorities": self.priorities,
+                          "preempt": self.preempt,
+                          "prefill_chunk": self.prefill_chunk,
+                          "preemptions": n.get("preemptions", 0),
+                          "shed_by_class": shed},
+            "compile": compile_, "capture": capture,
         }
-        if self.paged:
-            with self._page_lock:
-                free = len(self._page_free)
-                rej = self._pool_rejected
-            out["pages"] = {"total": self.pages, "free": free,
-                            "used": self.pages - free,
-                            "page_size": self.page_size,
-                            "pool_rejected": rej}
+        pages = self._pages_summary()
+        if pages is not None:
+            out["pages"] = pages
         return out
 
     # -- scheduler ---------------------------------------------------------
     def _loop(self):
+        ctx = (torch.cuda.stream(self._stream) if self._stream is not None
+               else contextlib.nullcontext())
         try:
-            while not self._stop_evt.is_set():
-                with self._qlock:
-                    pending = bool(self._queue)
-                if not self._active.any() and not pending:
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
-                    continue
-                if not self._active.any() and self.window_s > 0:
-                    # batching window: concurrent arrivals are admitted
-                    # together and share the first decode steps
-                    time.sleep(self.window_s)
-                self._expire_queue()
-                self._admit()
-                if self._active.any():
-                    self._step_once()
+            with ctx:
+                while not self._stop_evt.is_set():
+                    # the SLO windows rotate and the admission controller
+                    # evaluates on the scheduler's heartbeat
+                    self._slo.tick()
+                    self._admission.tick()
+                    with self._qlock:
+                        pending = bool(self._queue)
+                    if not self._active.any() and not pending \
+                            and not self._chunking:
+                        self._wake.wait(timeout=0.05)
+                        self._wake.clear()
+                        continue
+                    if not self._active.any() and not self._chunking \
+                            and self.window_s > 0:
+                        # batching window: concurrent arrivals are
+                        # admitted together and share the first steps
+                        time.sleep(self.window_s)
+                    self._expire_queue()
+                    self._admit()
+                    # one bounded slice per mid-prefill slot, then one
+                    # decode step: a long prompt and decoding take turns
+                    self._advance_prefills()
+                    if self._active.any():
+                        self._step_once()
         except Exception as e:  # noqa: BLE001 — a dead scheduler must
             # fail pending work loudly, not hang every client
             self._died = True
@@ -442,76 +1065,249 @@ class DecodeEngine(Logger):
             self._fail_all(EngineStopped("engine stopped"))
 
     def _fail_all(self, err: Exception):
+        outcome = "crash" if isinstance(err, SchedulerCrashed) \
+            else "stopped"
         with self._qlock:
             pending = list(self._queue)
             self._queue.clear()
         for req in pending:
             req.finish(error=err)
+            self._observe_finish(req, outcome)
         for s, req in enumerate(self._slot_req):
             if req is not None:
                 req.finish(error=err)
                 self._slot_req[s] = None
+                self._observe_finish(req, outcome)
             self._release_slot_pages(s)
+        self._chunking.clear()
         self._active[:] = False
+
+    def _timeout(self, req: _Request, where: str):
+        self._count("timeouts")
+        req.finish(error=TimeoutError(
+            f"request deadline expired {where}"))
+        self._observe_finish(req, "504")
 
     def _expire_queue(self):
         now = time.monotonic()
         with self._qlock:
-            expired = [r for r in self._queue if now > r.deadline]
-            for r in expired:
-                self._queue.remove(r)
+            expired = self._queue.remove_if(lambda r: now > r.deadline)
         for r in expired:
-            self._count("timeouts")
-            r.finish(error=TimeoutError(
-                "request deadline expired while queued"))
+            self._timeout(r, "while queued")
 
     def _free_slot(self) -> Optional[int]:
+        """A slot neither decoding nor mid-(chunked-)prefill."""
         for s in range(self.slots):
-            if self._slot_req[s] is None:
+            if not self._active[s] and self._slot_req[s] is None:
                 return s
         return None
 
-    def _admit(self):
+    def _pick_victim(self, priority: int) -> Optional[int]:
+        """The occupied slot of the lowest class strictly below
+        ``priority``, the youngest run among ties; None when preemption
+        is off or nothing lower runs."""
+        if not self.preempt:
+            return None
+        best, best_key = None, None
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is None or req.priority <= priority:
+                continue
+            k = (req.priority, req.run_started_at or 0.0)
+            if best is None or k > best_key:
+                best, best_key = s, k
+        return best
+
+    def _preempt_can_free(self, req) -> bool:
+        """Could preempting every strictly-lower-class slot free enough
+        pages for ``req``?  False means preemption can never satisfy it:
+        requeue instead of evicting victims for nothing."""
+        eff = req.effective_prompt()
+        P = int(eff.size)
+        need = self._page_span(P, req.end_index - P + 1)
+        hashes = req.page_hashes or self._prefix_hashes(eff)
+        reclaimable = set()
+        for s in range(self.slots):
+            r = self._slot_req[s]
+            if r is not None and r.priority > req.priority:
+                reclaimable.update(int(p) for p in np.unique(self._ptab[s])
+                                   if p != self._scratch)
+        with self._page_lock:
+            need -= self._prefix_hits_locked(hashes, P)
+            avail = self.pages - int(np.count_nonzero(self._page_ref))
+        return need <= avail + len(reclaimable)
+
+    def _preempt(self, slot: int):
+        """Retire-and-requeue the slot for a higher class: harvest its
+        generated tokens into ``req.gen`` (the resume re-prefills prompt
+        + gen), release its pages, requeue it at the front of its
+        class."""
+        req = self._slot_req[slot]
+        if self._active[slot]:
+            eff_len = int(req.prompt.size) + int(req.gen.size)
+            fresh = self._toks[slot, eff_len:int(self._pos[slot]) + 1]
+            if fresh.size:
+                req.gen = np.concatenate([req.gen, fresh.astype(np.int32)])
+        self._active[slot] = False
+        self._chunking.discard(slot)
+        self._slot_req[slot] = None
+        self._release_slot_pages(slot)
+        req.slot = None
+        req.page_row = None
+        req.prefix_start = 0
+        req.page_hashes = ()
+        req.chunk_next = 0
+        req._eff = None                 # the prompt grew by the harvest
+        req.preemptions += 1
+        self._count("preemptions")
+        self._m_preempt.inc()
+        with self._qlock:
+            self._queue.appendleft(req)
+
+    def _admit(self) -> int:
+        """Move queued requests into free slots; when the head of the
+        queue outranks a running slot and no capacity is free (slots, or
+        pages), preempt.  Returns the number admitted."""
+        n = 0
         while True:
+            with self._qlock:
+                req = self._queue.popleft()
+            if req is None:
+                return n
+            if time.monotonic() > req.deadline:
+                self._timeout(req, "while queued")
+                continue
             slot = self._free_slot()
             if slot is None:
-                return
-            with self._qlock:
-                req = self._queue.popleft() if self._queue else None
-            if req is None:
-                return
-            if time.monotonic() > req.deadline:
-                self._count("timeouts")
-                req.finish(error=TimeoutError(
-                    "request deadline expired while queued"))
-                continue
-            if self.paged and not self._reserve_pages(req):
+                victim = self._pick_victim(req.priority)
+                if victim is None or (
+                        self.paged and not self._preempt_can_free(req)):
+                    with self._qlock:
+                        self._queue.appendleft(req)
+                    return n
+                self._preempt(victim)
+                slot = self._free_slot()
+            while self.paged and not self._reserve_pages(req):
                 # pages free as slots retire; deadlines bound the wait
-                with self._qlock:
-                    self._queue.appendleft(req)
-                return
-            self._prefill(slot, req)
+                victim = self._pick_victim(req.priority)
+                if victim is None or not self._preempt_can_free(req):
+                    with self._qlock:
+                        self._queue.appendleft(req)
+                    return n
+                self._preempt(victim)
+            self._prefill(int(slot), req)
+            n += 1
 
-    # -- page pool ---------------------------------------------------------
+    # -- page pool (the scheduler thread mutates; _page_lock guards the
+    # cross-thread reads in submit() and stats()) --------------------------
+    def _touch(self, pid: int):  # requires-lock: self._page_lock
+        self._tick += 1
+        self._page_tick[pid] = self._tick
+
     def _page_span(self, P: int, n_steps: int) -> int:
         """Pages a request can ever reference: KV lands at positions
         0 .. P + n_steps - 2 (the final token's KV is never computed)."""
         return -(-(int(P) + int(n_steps) - 1) // self.page_size)
 
+    def _prefix_hashes(self, prompt):
+        if not self._prefix_ok:
+            return []
+        return prefix_page_hashes(prompt, self.page_size)
+
+    def _prefix_hits_locked(self, hashes, P: int) -> int:  # requires-lock: self._page_lock
+        """Leading pages already in the prefix index, capped so at least
+        the prompt's last token is recomputed (its logits give the first
+        token)."""
+        hits = 0
+        for h in hashes:
+            if h not in self._prefix_index:
+                break
+            hits += 1
+        while hits and hits * self.page_size > P - 1:
+            hits -= 1
+        return hits
+
     def _reserve_pages(self, req) -> bool:
-        need = self._page_span(req.prompt.size, req.n_steps)
+        """Map the request onto the pool: its prefix hits shared
+        read-only (refcount + 1), fresh pages for the rest of its span.
+        Sets ``page_row`` / ``prefix_start`` / ``page_hashes``; on a
+        shortage rolls back and returns False."""
+        psz = self.page_size
+        eff = req.effective_prompt()
+        P = int(eff.size)
+        need = self._page_span(P, req.end_index - P + 1)
+        hashes = req.page_hashes or self._prefix_hashes(eff)
         with self._page_lock:
-            if len(self._page_free) < need:
-                return False
+            hits = self._prefix_hits_locked(hashes, P)
             row = np.full(self.n_ptab, self._scratch, np.int32)
-            for i in range(need):
-                pid = self._page_free.pop()
-                self._page_ref[pid] = 1
+            taken = []
+            for i in range(hits):
+                pid = self._prefix_index[hashes[i]]
+                self._page_ref[pid] += 1
+                self._touch(pid)
                 row[i] = pid
+                taken.append(pid)
+            for i in range(hits, need):
+                pid = self._alloc_page_locked()
+                if pid is None:          # shortage: roll back, requeue
+                    for p in taken:
+                        self._page_ref[p] -= 1
+                        if self._page_ref[p] <= 0:
+                            self._page_ref[p] = 0
+                            if p not in self._page_key:
+                                self._page_free.append(p)
+                    return False
+                row[i] = pid
+                taken.append(pid)
+            self._prefix_hit_pages += hits
+            self._prefix_miss_pages += max(P // psz - hits, 0)
+            if hits:
+                # copy-on-write admission: the shared prefix is mapped
+                # read-only, the first divergent page on is private
+                self._cow_admissions += 1
         req.page_row = row
+        req.prefix_start = hits * psz
+        req.page_hashes = hashes
         return True
 
+    def _alloc_page_locked(self):  # requires-lock: self._page_lock
+        """A free page, else the least recently used cached page
+        (refcount 0, still in the prefix index) evicted; None when the
+        pool is exhausted."""
+        if self._page_free:
+            pid = self._page_free.pop()
+        else:
+            pid, best_tick = None, None
+            for p in self._page_key:
+                if self._page_ref[p] == 0 and (
+                        pid is None or self._page_tick[p] < best_tick):
+                    pid, best_tick = p, self._page_tick[p]
+            if pid is None:
+                return None
+            del self._prefix_index[self._page_key.pop(pid)]
+            self._evictions += 1
+        self._page_ref[pid] = 1
+        self._touch(pid)
+        return pid
+
+    def _register_prefix_pages(self, req):
+        """After a prefill: publish the request's freshly computed FULL
+        prompt pages in the prefix index.  Pages holding the prompt's
+        partial tail or generated tokens stay private."""
+        full = int(req.effective_prompt().size) // self.page_size
+        hits = req.prefix_start // self.page_size
+        with self._page_lock:
+            for i in range(hits, min(full, len(req.page_hashes))):
+                h = req.page_hashes[i]
+                pid = int(req.page_row[i])
+                if h not in self._prefix_index:
+                    self._prefix_index[h] = pid
+                    self._page_key[pid] = h
+                self._touch(pid)
+
     def _release_slot_pages(self, slot: int):
+        """Drop the slot's references; a refcount-0 page returns to the
+        free list unless the prefix index still caches it."""
         if not self.paged:
             return
         with self._page_lock:
@@ -522,55 +1318,119 @@ class DecodeEngine(Logger):
                 self._page_ref[pid] -= 1
                 if self._page_ref[pid] <= 0:
                     self._page_ref[pid] = 0
-                    self._page_free.append(pid)
+                    if pid not in self._page_key:
+                        self._page_free.append(pid)
         self._ptab[slot] = self._scratch
-        self._ptab_dev = None
-
-    def _ptab_device(self):
-        if self._ptab_dev is None:
-            self._ptab_dev = torch.from_numpy(self._ptab).to(self.device)
-        return self._ptab_dev
 
     # -- device work -------------------------------------------------------
     def _prefill(self, slot: int, req: _Request):
-        """Admit ``req`` into ``slot``: run its prompt through the decode
-        step (gather path on the paged layout), sample its first token."""
+        """Admit ``req`` into ``slot``: its un-shared tail prefills in one
+        call, or, longer than ``prefill_chunk``, registers for chunked
+        prefill (one slice per scheduler iteration)."""
         self._slot_req[slot] = req
         req.slot = slot
-        req.admitted_at = time.monotonic()
-        self._count("admitted")
-        P = int(req.prompt.size)
-        dev = self.device
+        now = time.monotonic()
+        req.run_started_at = now
+        if req.admitted_at is None:
+            # first admission only: a resume's wait was observed once
+            req.admitted_at = now
+            wait = now - req.submitted_at
+            self._m_queue_wait.observe(wait)
+            self._qwait_ewma = wait if self._qwait_ewma <= 0 \
+                else 0.9 * self._qwait_ewma + 0.1 * wait
+            self._count("admitted")
+        eff = req.effective_prompt()
+        P = int(eff.size)
+        start = req.prefix_start if self.paged else 0
         if self.paged:
             self._ptab[slot] = req.page_row
-            self._ptab_dev = None
-        topk = req.top_k if req.top_k is not None else self._vocab
-        topp = req.top_p if req.top_p is not None else 1.0
-        with torch.inference_mode():
-            toks = torch.from_numpy(req.prompt.astype(np.int64)).to(dev)
-            positions = torch.arange(P, dtype=torch.int32, device=dev)
-            if self.paged:
-                ptab_row = torch.from_numpy(req.page_row).to(dev)[None]
-                caches = self._caches
-            else:
-                caches = {name: {"k": c["k"][slot:slot + 1],
-                                 "v": c["v"][slot:slot + 1]}
-                          for name, c in self._caches.items()}
-            for i in range(P):
-                pages = ((ptab_row, self.page_size, None) if self.paged
-                         else None)
+        if 0 < self.prefill_chunk < P - start:
+            req.chunk_next = start
+            self._chunking.add(slot)
+            return
+        self._prefill_call(slot, req, eff, start, P - start, last=True)
+
+    def _advance_prefills(self):
+        """One chunk slice per mid-prefill slot, and the mid-prefill
+        deadline sweep."""
+        for slot in sorted(self._chunking):
+            req = self._slot_req[slot]
+            if time.monotonic() > req.deadline:
+                self._chunking.discard(slot)
+                self._slot_req[slot] = None
+                self._release_slot_pages(slot)
+                self._timeout(req, "mid-prefill")
+                continue
+            eff = req.effective_prompt()
+            P = int(eff.size)
+            cur = req.chunk_next
+            n = min(self.prefill_chunk, P - cur)
+            last = cur + n >= P
+            self._prefill_call(slot, req, eff, cur, n, last=last)
+            req.chunk_next = cur + n
+            if last:
+                self._chunking.discard(slot)
+
+    def _prefill_logits(self, slot: int, req: _Request, eff, start: int,
+                        n: int):
+        """Run positions ``start .. start + n - 1`` of ``eff`` into the
+        slot's cache; returns the last position's (1, V) logits."""
+        if self.paged:
+            if self._prefill_staged is not None:
+                # the previous chunk's copy out of the pinned buffer
+                self._prefill_staged.synchronize()
+            L, m = self.l_max, self.n_ptab
+            buf = self._stage["prefill"].numpy()
+            buf[:eff.size] = eff
+            buf[L:L + m] = req.page_row
+            buf[L + m] = start
+            fn = self._fns["prefill"]
+            out = fn(self._caches, {"buf": self._stage["prefill"]})
+            if self._prefill_staged is not None:
+                self._prefill_staged.record()
+            for _ in range(n - 1):
+                out = fn(self._caches, None)
+            return out["logits"]
+        dev = self.device
+        with torch.no_grad():
+            toks = torch.from_numpy(
+                eff[start:start + n].astype(np.int64)).to(dev)
+            positions = torch.arange(start, start + n, dtype=torch.int32,
+                                     device=dev)
+            caches = {name: {"k": c["k"][slot:slot + 1],
+                             "v": c["v"][slot:slot + 1]}
+                      for name, c in self._caches.items()}
+            for i in range(n):
                 logits, _ = self.plan.step(self.params, caches,
                                            toks[i:i + 1],
-                                           positions[i:i + 1], self._ctx,
-                                           pages=pages)
+                                           positions[i:i + 1], self._ctx)
+        return logits
+
+    def _prefill_call(self, slot: int, req: _Request, eff, start: int,
+                      new_len: int, *, last: bool):
+        """One prefill over ``eff[start:start + new_len]`` (a whole tail
+        or one chunk slice).  ``last`` samples the first token at global
+        fold position ``P - 1`` and runs the admission bookkeeping."""
+        logits = self._prefill_logits(slot, req, eff, start, new_len)
+        self._count("prefill_tokens", new_len)
+        self._count("prefill_calls")
+        if not last:
+            return
+        P = int(eff.size)
+        topk = req.top_k if req.top_k is not None else self._vocab
+        topp = req.top_p if req.top_p is not None else 1.0
+        with torch.no_grad():
             first = int(sample_rows(logits, [req.temperature], [topk],
                                     [topp], [req.seed], [P - 1])[0])
+        if self.paged:
+            self._register_prefix_pages(req)
         now = time.monotonic()
-        req.first_token_at = now
-        with self._stats_lock:
-            self._ttft.append(now - req.submitted_at)
-            self._n["prefill_tokens"] += P
-        self._toks[slot, :P] = req.prompt
+        if req.first_token_at is None:
+            # TTFT once, at the actual first token (not a resume's)
+            req.first_token_at = now
+            self._m_ttft.observe(now - req.submitted_at)
+            with self._stats_lock:
+                self._ttft.append(now - req.submitted_at)
         self._toks[slot, P] = first
         self._pos[slot] = P
         self._temp[slot] = req.temperature
@@ -579,11 +1439,39 @@ class DecodeEngine(Logger):
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         self._end[slot] = req.end_index
         self._seeds[slot] = req.seed
+        if req.stream is not None:
+            req.stream.push(int(req.gen.size), (first,))
         done = (P >= req.end_index
                 or (req.eos_id is not None and first == req.eos_id))
+        if not done and req.stop_seqs:
+            tail = np.concatenate([req.gen, np.asarray([first], np.int32)])
+            if self._match_stop(req, tail, int(req.gen.size)) is not None:
+                req.stop_hit = True
+                done = True
         self._active[slot] = not done
         if done:
             self._retire(slot)
+
+    def _decode_logits(self, tok, pos, active):
+        """One decode step's (S, V) logits: the paged step from its
+        staging buffer (on the card, the graph's replay), or the dense
+        layout's eager step."""
+        S = self.slots
+        if self.paged:
+            buf = self._stage["decode"].numpy()
+            buf[:S] = tok
+            buf[S:2 * S] = pos
+            buf[2 * S:3 * S] = active
+            buf[3 * S:] = self._ptab.reshape(-1)
+            return self._fns["decode"](
+                self._caches, {"buf": self._stage["decode"]})["logits"]
+        dev = self.device
+        with torch.no_grad():
+            logits, _ = self.plan.step(
+                self.params, self._caches, torch.from_numpy(tok).to(dev),
+                torch.from_numpy(pos).to(dev), self._ctx,
+                write_ok=torch.from_numpy(active).to(dev))
+        return logits
 
     def _step_once(self):
         """One decode step over every slot (inactive slots ride along:
@@ -593,20 +1481,8 @@ class DecodeEngine(Logger):
         rows = np.arange(S)
         pos = self._pos.copy()
         active = self._active.copy()
-        dev = self.device
-        with torch.inference_mode():
-            tok = torch.from_numpy(self._toks[rows, pos]).to(dev)
-            pos_d = torch.from_numpy(pos).to(dev)
-            act_d = torch.from_numpy(active).to(dev)
-            if self.paged:
-                logits, _ = self.plan.step(
-                    self.params, self._caches, tok, pos_d, self._ctx,
-                    pages=(self._ptab_device(), self.page_size, act_d),
-                    paged_kernel=self.paged_kernel)
-            else:
-                logits, _ = self.plan.step(self.params, self._caches, tok,
-                                           pos_d, self._ctx,
-                                           write_ok=act_d)
+        logits = self._decode_logits(self._toks[rows, pos], pos, active)
+        with torch.no_grad():
             nxt = sample_rows(logits, np.where(active, self._temp, 0.0),
                               self._topk, self._topp, self._seeds,
                               pos).cpu().numpy()
@@ -617,11 +1493,24 @@ class DecodeEngine(Logger):
         self._pos = new_pos.astype(np.int32)
         self._active = active & ~finished
         wall = time.monotonic() - t0
+        n_active = int(active.sum())
+        self._m_decode_step.observe(wall)
+        self._tokens_per_s = n_active / max(wall, 1e-9)
         with self._stats_lock:
             self._n["decode_steps"] += 1
-            self._n["decode_tokens"] += int(active.sum())
+            self._n["decode_tokens"] += n_active
             self._decode_wall += wall
             self._step_s.append(wall)
+        self._post_step(finished)
+
+    def _post_step(self, finished):
+        """Stream flush (first: a deadline below must deliver this
+        step's tokens before its terminal frame), retirement, and the
+        mid-flight deadline sweep."""
+        with self._qlock:
+            flush = bool(self._streams)
+        if flush:
+            self._flush_streams()
         for slot in np.flatnonzero(finished):
             self._retire(int(slot))
         now = time.monotonic()
@@ -631,9 +1520,64 @@ class DecodeEngine(Logger):
                 self._active[slot] = False
                 self._slot_req[slot] = None
                 self._release_slot_pages(int(slot))
-                self._count("timeouts")
-                req.finish(error=TimeoutError(
-                    "request deadline expired while decoding"))
+                self._timeout(req, "while decoding")
+
+    @staticmethod
+    def _match_stop(req: _Request, gen_all, start: int):
+        """Earliest count ``n`` of generated tokens to keep such that a
+        stop sequence ends at ``gen_all[n - 1]``, scanning match ends at
+        index >= ``start`` only (a sequence spanning a flush boundary
+        still matches: its end is new).  None = no match."""
+        for j in range(int(start), int(gen_all.size)):
+            for seq in req.stop_seqs:
+                ln = int(seq.size)
+                if ln <= j + 1 and np.array_equal(
+                        gen_all[j + 1 - ln:j + 1], seq):
+                    return j + 1
+        return None
+
+    def _stop_retire(self, slot: int, n_keep: int):
+        """Retire on a stop match, keeping the generated tokens through
+        the match (``n_keep``, the resume prefix counted)."""
+        req = self._slot_req[slot]
+        self._active[slot] = False
+        self._slot_req[slot] = None
+        self._release_slot_pages(slot)
+        req.stop_hit = True
+        P = int(req.prompt.size) + int(req.gen.size)
+        fresh = self._toks[slot, P:P + n_keep - int(req.gen.size)]
+        self._count("retired")
+        req.finish(result=np.concatenate(
+            [req.prompt, req.gen, fresh.astype(np.int32)]))
+        self._observe_finish(req, "ok")
+
+    def _flush_streams(self):
+        """Push every streaming slot's new tokens as frames, matching
+        stop sequences first so no frame past a stop point streams."""
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            # a mid-chunk slot still carries the previous occupant's _pos
+            if req is None or req.stream is None or slot in self._chunking:
+                continue
+            h = req.stream
+            P = int(req.prompt.size)
+            total = int(self._pos[slot]) + 1 - P
+            start = h.next_i        # the scheduler thread is the writer
+            if total <= start:
+                continue
+            lim, n_keep = total, None
+            if req.stop_seqs and not req.stop_hit:
+                gen_all = np.concatenate([
+                    req.gen,
+                    self._toks[slot, P + int(req.gen.size):P + total]
+                    .astype(np.int32)])
+                n_keep = self._match_stop(req, gen_all, start)
+                if n_keep is not None:
+                    lim = n_keep
+            if lim > start:
+                h.push(start, self._toks[slot, P + start:P + lim])
+            if n_keep is not None:
+                self._stop_retire(slot, n_keep)
 
     def _retire(self, slot: int):
         req = self._slot_req[slot]
@@ -643,7 +1587,10 @@ class DecodeEngine(Logger):
         self._release_slot_pages(slot)
         if req is None:
             return
-        P = int(req.prompt.size)
+        # the result: the request's own prompt, what a preemption (or
+        # the resume form) already holds, and this run's tokens
+        P = int(req.prompt.size) + int(req.gen.size)
         gen = self._toks[slot, P:int(self._pos[slot]) + 1].astype(np.int32)
         self._count("retired")
-        req.finish(result=np.concatenate([req.prompt, gen]))
+        req.finish(result=np.concatenate([req.prompt, req.gen, gen]))
+        self._observe_finish(req, "ok")

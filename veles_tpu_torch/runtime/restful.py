@@ -4,15 +4,24 @@
   full forward of the workflow's head, batched and padded to the build
   batch size (on the card the attention runs the flash-forward kernel);
 * ``POST /generate`` ``{"prompt": [[...]], "steps": N, "temperature",
-  "top_k", "top_p", "eos_id", "seed"}`` -> ``{"tokens": [[...]]}``:
-  through the continuous-batching :class:`DecodeEngine` when one is
-  attached, else the port's ``generate()``; a full queue or page pool
-  answers 429 with ``Retry-After``;
+  "top_k", "top_p", "eos_id", "seed", "priority"}`` -> ``{"tokens":
+  [[...]]}``: through the continuous-batching :class:`DecodeEngine` when
+  one is attached, else the port's ``generate()``.  The request class
+  comes from the body's ``priority`` or the ``X-Priority`` header (the
+  body wins, restful.py:457-471 of the JAX package); a shed answers 429
+  with ``Retry-After`` and the un-rounded ``retry_after_s`` in the body;
+* ``POST /generate`` with ``"stream": true`` (one prompt row, plus
+  optional ``"stop"`` token-id sequences, the resume form's
+  ``"emitted_prefix"`` and ``"deadline_s"``): NDJSON frames ``{"i": n,
+  "token": t}`` numbered by global generated index, then one terminal
+  ``{"done": true, "finish_reason", "usage"}`` line (+ ``"error"``),
+  restful.py:766-920 of the JAX package;
 * ``GET /healthz`` (liveness), ``GET /ready`` (200 once the engine runs),
   ``GET /engine`` (engine stats).
 
-Beam search, streaming and the deploy / jobs / experiments control
-planes come with later slices.
+Beam search (``beams``; ROADMAP.md queue 1 item 2), the batch lane
+(``batch``; with the job manager, queue 1 item 7) and the deploy / jobs
+/ experiments control planes come with later slices.
 """
 
 from __future__ import annotations
@@ -118,6 +127,15 @@ class RestfulServer(Logger):
                     if req is None:
                         return
                     if path == "/generate":
+                        # the X-Priority header is the proxy-friendly
+                        # spelling of the body key; the body wins
+                        hdr = self.headers.get("X-Priority")
+                        if hdr is not None:
+                            req.setdefault("priority", hdr)
+                        if req.get("stream"):
+                            # errors raise before any header is written
+                            outer.stream_generate(req, self)
+                            return
                         self._reply(outer.decode(req))
                     else:
                         self._reply({"output":
@@ -169,8 +187,7 @@ class RestfulServer(Logger):
         build batch size (the last chunk zero-padded)."""
         if np.issubdtype(self.input_dtype, np.integer):
             xi = np.asarray(x, np.int64)
-            vocab = self._vocab_size()
-            hi = vocab if vocab is not None else 2 ** 31
+            hi = self._vocab_bound()
             if xi.size and (xi.min() < 0 or xi.max() >= hi):
                 raise ValueError(
                     f"input token ids must be in [0, {hi}) "
@@ -195,32 +212,18 @@ class RestfulServer(Logger):
             outs.append(y.float().cpu().numpy())
         return np.concatenate(outs)
 
-    def decode(self, req: dict) -> dict:
-        """POST /generate body -> {"tokens": [[...]]}."""
-        if self.workflow is None and self.engine is None:
-            raise ValueError("this server has no workflow or engine; "
-                             "/generate is off")
-        unported = [k for k in ("stream", "stop", "emitted_prefix",
-                                "batch", "priority") if req.get(k)]
+    def _refuse_unported(self, req: dict):
         if _req_int(req.get("beams", 1), "beams") != 1:
-            unported.append("beams")
-        if unported:
-            raise ValueError(f"{unported} not served by this slice of the "
-                             "port (ROADMAP.md slice 5)")
-        prompt = np.asarray(req["prompt"])
-        if not np.issubdtype(prompt.dtype, np.integer):
-            raise ValueError("prompt token ids must be integers "
-                             f"(got dtype {prompt.dtype})")
-        prompt = prompt.astype(np.int64)
-        if prompt.ndim != 2 or 0 in prompt.shape:
-            raise ValueError("prompt must be a non-empty 2-D "
-                             "[[ids], ...] array")
-        vocab = self._vocab_size()
-        hi = vocab if vocab is not None else 2 ** 31
-        if prompt.min() < 0 or prompt.max() >= hi:
-            raise ValueError(
-                f"prompt token ids must be in [0, {hi}) "
-                f"(got min {prompt.min()}, max {prompt.max()})")
+            raise ValueError("beams: beam search is not served by the port "
+                             "yet (generate_beam, ROADMAP.md queue 1 "
+                             "item 2)")
+        if req.get("batch"):
+            raise ValueError("batch: the batch lane is not served by the "
+                             "port yet (it comes with the job manager, "
+                             "ROADMAP.md queue 1 item 7)")
+
+    def _sampling(self, req: dict, hi: int):
+        """steps and the sampling fields of a /generate body, checked."""
         steps = _req_int(req.get("steps", 16), "steps")
         if not 0 < steps <= 65536:
             raise ValueError(f"steps must be in [1, 65536], got {steps}")
@@ -240,16 +243,146 @@ class RestfulServer(Logger):
                 raise ValueError(f"eos_id {eos_id} is outside the model "
                                  f"vocabulary [0, {hi})")
         seed = _req_int(req.get("seed", 0), "seed")
-        kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
-                  eos_id=eos_id, seed=seed)
+        return steps, dict(temperature=temperature, top_k=top_k,
+                           top_p=top_p, eos_id=eos_id, seed=seed)
+
+    def _vocab_bound(self) -> int:
+        vocab = self._vocab_size()
+        return vocab if vocab is not None else 2 ** 31
+
+    def decode(self, req: dict) -> dict:
+        """POST /generate body -> {"tokens": [[...]]}."""
+        if self.workflow is None and self.engine is None:
+            raise ValueError("this server has no workflow or engine; "
+                             "/generate is off")
+        self._refuse_unported(req)
+        if req.get("stop") is not None \
+                or req.get("emitted_prefix") is not None:
+            # ignoring either would answer a wrong unary 200
+            raise ValueError(
+                'stop and emitted_prefix ride the streaming path; add '
+                '{"stream": true}')
+        priority = _req_int(req.get("priority", 0), "priority")
+        if priority and self.engine is None:
+            raise ValueError(
+                "priority classes need engine= serving (per-request "
+                "generate() has no queue to prioritize)")
+        prompt = np.asarray(req["prompt"])
+        if not np.issubdtype(prompt.dtype, np.integer):
+            raise ValueError("prompt token ids must be integers "
+                             f"(got dtype {prompt.dtype})")
+        prompt = prompt.astype(np.int64)
+        if prompt.ndim != 2 or 0 in prompt.shape:
+            raise ValueError("prompt must be a non-empty 2-D "
+                             "[[ids], ...] array")
+        hi = self._vocab_bound()
+        if prompt.min() < 0 or prompt.max() >= hi:
+            raise ValueError(
+                f"prompt token ids must be in [0, {hi}) "
+                f"(got min {prompt.min()}, max {prompt.max()})")
+        steps, kw = self._sampling(req, hi)
         if self.engine is not None:
             toks = self.engine.generate(prompt.astype(np.int32), steps,
-                                        **kw)
+                                        priority=priority, **kw)
         else:
             toks = generate(self.workflow, self.wstate,
                             prompt.astype(np.int32), steps,
                             **kw).cpu().numpy()
         return {"tokens": np.asarray(toks).tolist()}
+
+    def _stream_submit(self, req: dict):
+        """Validate a ``{"stream": true}`` body and submit it to the
+        engine's streaming path; returns ``(request, consumer timeout)``.
+        Every error raises before a header is written, so a malformed
+        body gets the unary path's 400/429/5xx."""
+        if self.engine is None:
+            raise ValueError(
+                "streaming needs engine= serving (per-request "
+                "generate() has no incremental token feed)")
+        self._refuse_unported(req)
+        prompt = np.asarray(req["prompt"])
+        if not np.issubdtype(prompt.dtype, np.integer):
+            raise ValueError("prompt token ids must be integers "
+                             f"(got dtype {prompt.dtype})")
+        if prompt.ndim == 2 and prompt.shape[0] == 1:
+            prompt = prompt.reshape(-1)
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise ValueError("a streamed prompt is ONE non-empty "
+                             "sequence: [ids] or [[ids]]")
+        hi = self._vocab_bound()
+        if prompt.min() < 0 or prompt.max() >= hi:
+            raise ValueError(
+                f"prompt token ids must be in [0, {hi}) "
+                f"(got min {prompt.min()}, max {prompt.max()})")
+        steps, kw = self._sampling(req, hi)
+        priority = _req_int(req.get("priority", 0), "priority")
+        pref = req.get("emitted_prefix")
+        if pref is not None:
+            pref = np.asarray(pref)
+            if pref.size and not np.issubdtype(pref.dtype, np.integer):
+                raise ValueError("emitted_prefix must hold integer "
+                                 "token ids")
+            pref = pref.reshape(-1).astype(np.int64)
+        stop = req.get("stop")
+        if stop is not None:
+            if not isinstance(stop, (list, tuple)):
+                raise ValueError(
+                    'stop must be a list of token-id sequences, e.g. '
+                    '{"stop": [[13, 198]]}')
+            stop = [np.asarray(s, np.int64).reshape(-1) for s in stop]
+            for s in stop:
+                if s.size and (s.min() < 0 or s.max() >= hi):
+                    raise ValueError(f"stop token ids must be in [0, {hi})")
+        deadline_s = req.get("deadline_s")
+        if deadline_s is not None:
+            deadline_s = float(deadline_s)
+            if not deadline_s > 0:
+                raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        r = self.engine.submit(
+            prompt.astype(np.int32), steps, deadline_s=deadline_s,
+            priority=priority, stream=True, emitted_prefix=pref, stop=stop,
+            **kw)
+        # a hang guard over the engine-enforced deadline, not a second one
+        wait = (deadline_s if deadline_s is not None
+                else self.engine.deadline_s) + 30.0
+        return r, wait
+
+    def stream_generate(self, req: dict, handler):
+        """POST /generate with ``{"stream": true}``: one NDJSON line per
+        token frame, then exactly one terminal line; the reply closes the
+        connection to frame the stream."""
+        r, wait = self._stream_submit(req)
+        h = r.stream
+        handler.send_response(200)
+        handler.send_header("Content-Type", "application/x-ndjson")
+        handler.send_header("Cache-Control", "no-store")
+        handler.send_header("Connection", "close")
+        handler.end_headers()
+        try:
+            for ev in h.events(timeout_s=wait):
+                if ev[0] == "token":
+                    line = {"i": ev[1], "token": ev[2]}
+                else:
+                    _, reason, err = ev
+                    line = {"done": True, "finish_reason": reason,
+                            "usage": {"prompt_tokens": h.prompt_tokens,
+                                      "completion_tokens": int(h.next_i)}}
+                    if err is not None:
+                        line["error"] = err
+                handler.wfile.write((json.dumps(line) + "\n").encode())
+                handler.wfile.flush()
+        except TimeoutError:
+            # the hang guard tripped: a best-effort terminal frame
+            try:
+                handler.wfile.write((json.dumps(
+                    {"done": True, "finish_reason": "error",
+                     "error": "stream stalled past its deadline"})
+                    + "\n").encode())
+            except OSError:
+                pass
+        except OSError:
+            # the consumer went away; the request retires unary
+            pass
 
     def start(self):
         self._thread = threading.Thread(target=self.httpd.serve_forever,

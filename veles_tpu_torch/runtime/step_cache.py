@@ -1,5 +1,6 @@
 """StepCache: each train and eval step built once per workflow lifetime,
-and on the card captured once as a CUDA graph (counterpart of
+and each serving engine's decode and prefill step once per engine, and
+on the card captured once as a CUDA graph (counterpart of
 veles_tpu/runtime/step_cache.py:89-299).
 
 The JAX package compiles each step program once, ahead of time, and
@@ -117,9 +118,12 @@ def _counters():
 class CapturedStep:
     """A step captured as a CUDA graph over ``state``'s tensors and the
     static ``inputs``; called as the eager step is: ``(wstate, batch) ->
-    (wstate, metrics)`` for train, ``-> metrics`` for eval.  The returned
-    state is the captured one and the metrics are the graph's static
-    output tensors: read them before the next call."""
+    (wstate, metrics)`` for train, ``-> outputs`` for the other kinds
+    (eval; the engine's decode and prefill, whose state is the KV
+    caches).  The returned state is the captured one and the outputs are
+    the graph's static output tensors: read them before the next call.
+    A ``None`` batch replays on what the static inputs hold (the prefill
+    step advances its own position index on the card)."""
 
     captured = True
 
@@ -132,7 +136,8 @@ class CapturedStep:
         if wstate is not self.state:
             tree_assign(self.state, wstate)
         self.step.begin(self.state)
-        self.load(batch)
+        if batch is not None:           # None: replay on what they hold
+            self.load(batch)
         self.graph.replay()
         for counter, (n, variants) in self.launches:
             counter.add(n, variants)
