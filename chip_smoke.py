@@ -28,7 +28,8 @@ Phases, each of which fails the run with a non-zero exit:
    from a numpy seed in the JAX package's flattened-key layout carried in
    by ``params_from_jax``, served by ``RestfulServer`` over a paged
    ``DecodeEngine`` (8 slots, l_max 1024, page 16, paged kernel on) whose
-   decode and prefill steps are captured as CUDA graphs when it is built:
+   decode (sampling and greedy-only) and prefill steps are captured as
+   CUDA graphs when it is built:
    greedy and sampled ``POST /generate`` (prompt 512, 64 new tokens), one
    ``POST /predict`` (16 x 2048 batch), then 8 requests sharing a
    256-token system prompt (prefix hits and copy-on-write admissions),
@@ -36,7 +37,7 @@ Phases, each of which fails the run with a non-zero exit:
    256) and a streamed request stopped by a stop sequence taken from its
    own greedy continuation; the flash-forward and paged kernels' launch
    counts must rise during it, paged decode exactly once per layer per
-   decode step, replays counted, and decode and prefill captured once
+   decode step, replays counted, and the three programs captured once
    each with no recapture; a window of 8 x (64 + 32) timed, and a
    profiled one (8 x (16 + 8)) holding the counted launches against the
    trace, on this engine and on one with ``capture=False`` (its metrics
@@ -49,6 +50,21 @@ Phases, each of which fails the run with a non-zero exit:
    float32 engine whose 64-page pool cannot hold both of two requests,
    where a class-0 request preempts a class-2 one whose tokens must
    equal its uninterrupted run (the same request alone on that engine);
+   then the greedy request on a megastep (N=8) engine and on a fresh
+   N=1 engine, in bf16 and in float32, whose tokens must equal the N=1
+   engine's, with a profiled
+   decode window of one megastep replay beside one of N=1 steps; 8
+   prompts of a repeated 32-token phrase (one row sampled) on a
+   speculative (k=4) engine under its own policy, then timed under a
+   fixed policy of a verify dispatch every iteration and of decode steps
+   alone, whose tokens must equal the non-spec engine's, with a
+   profiled window of one verify replay (every
+   replay's paged launches held against the trace: 4 a decode, 32 a
+   megastep, 20 a verify); each graph's device time and the sampler's
+   alone; and a VTKV1 round trip over REST (``GET /kv/pages``, ``PUT
+   /kv/pages``) into a fresh engine that must then hit every imported
+   page, prefill only the new tail and give the exporter's tokens, a
+   corrupted blob answered 400 with the pool unchanged;
 5. training path, full width: the same LM (bf16) trained through
    ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (32
    steps of 16 x 2048 tokens, Adam lr 1e-3) and its eval, fed by an
@@ -113,6 +129,7 @@ import re
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from unittest import mock
 
@@ -176,6 +193,12 @@ PREEMPT_POOL, PREEMPT_PROMPT, PREEMPT_VICTIM_NEW = 64, 512, 256
 WITNESS_ITERS = 32              # scheduler iterations, eager vs captured
 WINDOW_PROMPT, WINDOW_NEW = 64, 32      # the eager-vs-captured window
 PROFILE_PROMPT, PROFILE_NEW = 16, 8     # the profiled serving window
+MEGASTEP_N = 8                  # decode micro-steps a megastep dispatch
+# speculative verify: SLOTS prompts, each a random SPEC_PHRASE-token
+# phrase repeated to SPEC_PROMPT tokens, SPEC_NEW new tokens (the last
+# row sampled), drafts of SPEC_K tokens
+SPEC_K, SPEC_PHRASE, SPEC_PROMPT, SPEC_NEW = 4, 32, 256, 64
+KV_PROMPT, KV_TAIL, KV_NEW = 256, 64, 32   # the VTKV1 round trip
 DEVICE = "cuda"                # the main path's device
 
 
@@ -1309,6 +1332,11 @@ def phase_main_path(torch):
         scheduler = _scheduler_traffic(torch, engine, srv.port, rng, greedy)
         window_metrics, window = serving_window(torch, engine)
         profile = phase_profile(torch, engine)
+        main_device_ms = _replay_ms(torch, engine)   # idle: slots retired
+        mega, mega_engines = _megastep_phase(torch, wf, wstate, flat,
+                                             prompts, greedy)
+        spec, spec_engine = _spec_phase(torch, wf, wstate, engine)
+        kv, kv_engine = _kv_phase(torch, wf, wstate, engine, srv.port)
         launches = {k.NAME: k.launches.count for k in KERNELS}
         variants = {k.NAME: k.launches.by_variant() for k in KERNELS
                     if k.launches.by_variant()}
@@ -1324,6 +1352,9 @@ def phase_main_path(torch):
          "predict_request_s": t_predict, "engine": stats})
     say({"phase": "serving_scheduler", **scheduler})
     say({"phase": "profile", **profile})
+    say({"phase": "serving_megastep", **mega})
+    say({"phase": "serving_spec", **spec})
+    say({"phase": "serving_kv_transfer", **kv})
 
     if greedy.shape != (SLOTS, PROMPT + NEW) \
             or sampled.shape != (1, PROMPT + NEW):
@@ -1343,18 +1374,25 @@ def phase_main_path(torch):
                if launches[k.NAME] < 1]
     if missing:
         fail(f"the serving path never launched {missing}")
-    per_step = LAYERS * stats["decode_steps"]
-    if launches[paged_attention.NAME] != per_step:
+    # one launch a layer a decode micro-step (a megastep dispatch runs
+    # N, a verify dispatch K + 1), every engine of the serving phase, and
+    # the eager warm-ups of each capture of the engines built after the
+    # counters were reset
+    per_step = _micro_steps(stats, False) + sum(
+        _micro_steps(st, True) for st in [spec_engine, kv_engine]
+        + mega_engines)
+    if launches[paged_attention.NAME] != LAYERS * per_step:
         fail(f"paged decode launched {launches[paged_attention.NAME]} "
-             f"times over {stats['decode_steps']} decode steps of "
-             f"{LAYERS} layers (want one a layer a step: {per_step})")
+             f"times over the serving engines' {per_step} micro-steps of "
+             f"{LAYERS} layers (want one a layer a micro-step)")
     comp = stats["compile"]
-    if not (stats["capture"]["decode"]["captured"]
-            and stats["capture"]["prefill"]["captured"]
-            and comp["captures"] == comp["compiles"] == 2
+    if not (all(stats["capture"][k]["captured"]
+                for k in ("decode", "decode_greedy", "prefill"))
+            and comp["captures"] == comp["compiles"] == 3
             and comp["recompiles"] == 0):
-        fail(f"decode and prefill must be captured once each, with no "
-             f"recapture: {stats['capture']} {comp}")
+        fail(f"decode (sampling and greedy-only) and prefill must be "
+             f"captured once each, with no recapture: {stats['capture']} "
+             f"{comp}")
     trace = profile["launch_trace"]
     if not (trace["ok"] and trace["captured"]
             and trace["per_replay"].get(paged_attention.NAME) == LAYERS):
@@ -1365,6 +1403,7 @@ def phase_main_path(torch):
     say({"phase": "serving_metrics", "slots": SLOTS,
          "greedy_request": {"prompt": PROMPT, "new": NEW,
                             **_serve_metrics(stats_greedy, t_greedy)},
+         "device_ms": main_device_ms,
          "window": {"prompt": WINDOW_PROMPT, "new": WINDOW_NEW,
                     "captured": {**window_metrics,
                                  "idle_share": profile["device_idle_share"]},
@@ -1373,6 +1412,471 @@ def phase_main_path(torch):
          **_serving_witness(torch, wf, wstate)})
     _serving_agreement(torch, wf, wstate, flat, prompts, greedy)
     return launches
+
+
+def _micro_steps(st, warmups):
+    """Decode micro-steps an engine ran (its ``stats()``): N a megastep
+    dispatch, K + 1 a verify dispatch, and with ``warmups`` the eager
+    warm-up steps ``StepCache`` runs before each capture."""
+    from veles_tpu_torch.runtime.step_cache import WARMUP_STEPS
+    k1 = st["spec"]["k"] + 1 if "spec" in st else 0
+    n = st["decode_steps"] + k1 * (st["spec"]["verify_steps"] if k1 else 0)
+    if warmups:
+        per = {"decode": 1, "megastep": st.get("megastep", {}).get("n", 0),
+               "verify": k1}
+        n += WARMUP_STEPS * sum(
+            per[name.removesuffix("_greedy")]
+            for name, cap in st["capture"].items()
+            if name != "prefill" and cap.get("captured"))
+    return n
+
+
+def _engine_metrics(engine, s0, s1, wall):
+    """Serving metrics between two ``stats()`` of one engine."""
+    steps = _step_times(engine, s0, s1)
+    decode_s = s1["decode_seconds"] - s0["decode_seconds"]
+    c0, c1 = _dispatch_counts(s0), _dispatch_counts(s1)
+    return {"decode_tokens_per_s_all_slots":
+                (s1["decode_tokens"] - s0["decode_tokens"]) / decode_s,
+            "decode_step_s_p50": float(np.median(steps)),
+            "decode_step_s_max": float(np.max(steps)),
+            "decode_steps": s1["decode_steps"] - s0["decode_steps"],
+            "dispatches": {k: c1[k] - c0[k] for k in c1},
+            "wall_s": wall}
+
+
+def _timed_generate(engine, prompts, new, **kw):
+    s0 = engine.stats()
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, new, timeout=900, **kw)
+    wall = time.perf_counter() - t0
+    return toks, _engine_metrics(engine, s0, engine.stats(), wall)
+
+
+def _decode_window(torch, engine, prompts, advance):
+    """A profiled window of decode dispatches alone, on a stopped engine
+    driven on this thread: ``prompts`` (SLOTS rows, PROFILE_NEW new
+    tokens each) are admitted and prefilled before the window; in it,
+    ``advance(engine, i)`` runs until every slot retired.  Device busy
+    share and top kernels as :func:`phase_profile`'s; every counted
+    launch held against the trace, the replays of each graph counted."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from veles_tpu_torch.ops.kernels import KERNELS
+    engine._thread = threading.current_thread()    # submit() wants one
+    try:
+        reqs = [engine.submit(row, PROFILE_NEW) for row in prompts]
+        engine._admit()
+        while engine._chunking:
+            engine._advance_prefills()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            torch.ones(1, device=engine.device).sum()
+            torch.cuda.synchronize()
+            prof.step()
+            _settle(torch)
+            counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+            s0 = engine.stats()
+            t0 = time.perf_counter()
+            i = 0
+            while engine._active.any():
+                advance(engine, i)
+                i += 1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s1 = engine.stats()
+    finally:
+        engine._thread = None
+    if not all(r.done.is_set() and r.error is None for r in reqs):
+        fail("a profiled decode window's request did not finish")
+    c0, c1 = _dispatch_counts(s0), _dispatch_counts(s1)
+    rec = _busy(prof, wall, f"{len(prompts)} x decode {PROFILE_NEW - 1} "
+                            "after the prefill")
+    rec["replays"] = {k: c1[k] - c0[k] for k in engine._fns}
+    rec["launch_trace"] = _launch_trace_check(prof, counted0, [
+        (engine._fns[k], n) for k, n in rec["replays"].items()])
+    return rec
+
+
+def _replay_ms(torch, engine):
+    """Device milliseconds of one replay of each captured token-step
+    graph of an idle engine (sampling and greedy-only) (CUDA events over back-to-back replays; the
+    kernels are the same whatever the slots hold, and the launch
+    counters do not move), the host wall of one replay launched on an
+    idle card, and the device milliseconds of the sampler alone at the
+    decode step's shape, captured the same way."""
+    from veles_tpu_torch.runtime.generate import (gumbel_noise,
+                                                  sample_slots)
+    out = {}
+    for kind in engine._fns:
+        if kind == "prefill":
+            continue
+        graph = engine._fns[kind].graph
+        out[f"{kind}_replay_ms"] = cuda_ms(torch, graph.replay)
+        # one replay from an idle card, as a dispatch runs it: host wall
+        # from the launch to the end of its work
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.replay()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[f"{kind}_replay_wall_ms"] = float(np.median(walls)) * 1e3
+    dev = engine.device
+    logits = torch.randn(SLOTS, VOCAB, device=dev)
+    temp = torch.full((SLOTS,), 0.8, device=dev)
+    topk = torch.full((SLOTS,), 50, dtype=torch.int64, device=dev)
+    topp = torch.full((SLOTS,), 0.95, device=dev)
+    keys = torch.arange(SLOTS, dtype=torch.int64, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sample_slots(logits, temp, topk, topp, gumbel_noise(keys, VOCAB))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sample_slots(logits, temp, topk, topp, gumbel_noise(keys, VOCAB))
+    out["sampler_ms"] = cuda_ms(torch, graph.replay)
+    return out
+
+
+def _megastep_phase(torch, wf, wstate, flat, prompts, greedy):
+    """Megastep N=MEGASTEP_N: the greedy SLOTS x (PROMPT + NEW) request
+    on a fresh captured megastep engine, its tokens bitwise the N=1
+    engine's (``greedy``), then the profiled window on it (its
+    megastep replays' paged launches held against the trace), and on a
+    fresh N=1 engine built the same way; the same request in float32 on
+    an N=1 and an N=MEGASTEP_N engine, tokens bitwise.  Returns the
+    record and the engines' last stats."""
+    from veles_tpu_torch.ops.kernels import paged_attention
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    from veles_tpu_torch.runtime.snapshotter import params_from_jax
+    from veles_tpu_torch.units.workflow import new_state
+
+    def build(wf_, ws_, n):
+        return DecodeEngine(wf_, ws_, slots=SLOTS, l_max=L_MAX,
+                            page_size=PAGE, paged=True, paged_kernel=True,
+                            window_ms=2.0, megastep=n, device=DEVICE)
+
+    eng = build(wf, wstate, MEGASTEP_N)
+    window = np.random.default_rng(12).integers(
+        0, VOCAB, (SLOTS, PROFILE_PROMPT)).astype(np.int32)
+    # the same decode window as N=1 steps and as one megastep
+    profile_n1 = _decode_window(torch, eng, window,
+                                lambda e, i: e._step_once())
+    profile = _decode_window(torch, eng, window,
+                             lambda e, i: e._advance_once())
+    eng.start()
+    try:
+        toks, metrics = _timed_generate(eng, prompts, NEW)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    replays = _replay_ms(torch, eng)
+    # the same request on a fresh N=1 engine, built as this one was
+    n1 = build(wf, wstate, 1).start()
+    try:
+        n1_toks, n1_metrics = _timed_generate(n1, prompts, NEW)
+        n1_stats = n1.stats()
+    finally:
+        n1.stop()
+    wf32 = _workflow(torch, None)
+    ws32 = new_state(params_from_jax(flat, wf32, device=DEVICE), {}, {}, 0,
+                     None)
+    f32, f32_stats = {}, []
+    for n in (1, MEGASTEP_N):
+        e = build(wf32, ws32, n).start()
+        try:
+            f32[n] = _timed_generate(e, prompts, NEW)
+            f32_stats.append(e.stats())
+        finally:
+            e.stop()
+    trace = profile["launch_trace"]
+    paged = paged_attention.NAME
+    rec = {"n": MEGASTEP_N, "prompt": PROMPT, "new": NEW,
+           "bf16": metrics, "bf16_n1": n1_metrics, "mega_dispatches":
+               st["megastep"]["mega_dispatches"],
+           "tokens_equal_n1_bf16": bool(np.array_equal(toks, greedy)
+                                        and np.array_equal(n1_toks, greedy)),
+           "f32": {"n1": f32[1][1], "megastep": f32[MEGASTEP_N][1]},
+           "tokens_equal_n1_f32": bool(np.array_equal(
+               f32[1][0], f32[MEGASTEP_N][0])),
+           "idle_share": profile["device_idle_share"],
+           "idle_share_n1": profile_n1["device_idle_share"],
+           "device_ms": replays,
+           "profile": profile, "profile_n1": profile_n1,
+           "compile": st["compile"]}
+    rec["ok"] = (rec["tokens_equal_n1_bf16"] and rec["tokens_equal_n1_f32"]
+                 and rec["mega_dispatches"] > 0
+                 and st["capture"]["megastep"]["captured"]
+                 and st["capture"]["megastep_greedy"]["captured"]
+                 and st["compile"]["captures"] == 5
+                 and st["compile"]["recompiles"] == 0
+                 and trace["ok"] and trace["captured"]
+                 and profile["replays"]["megastep_greedy"] == 1
+                 and trace["per_replay_by_kind"]["megastep"].get(paged)
+                 == LAYERS * MEGASTEP_N
+                 and trace["replayed"].get(paged)
+                 == trace["counted"].get(paged)
+                 and profile_n1["launch_trace"]["ok"]
+                 and profile_n1["replays"]["decode_greedy"]
+                 == PROFILE_NEW - 1)
+    if not rec["ok"]:
+        fail(f"the megastep checks failed: {rec}")
+    return rec, [st, n1_stats] + f32_stats
+
+
+def _driven_run(torch, engine, prompts, new, kws, advance):
+    """``prompts`` submitted together to a stopped engine and driven on
+    this thread: admitted and prefilled, then ``advance(engine, i)``
+    until every slot retired (the timed part).  Returns the tokens, the
+    engine's stats before and after the timed part, and its wall."""
+    import threading
+    engine._thread = threading.current_thread()    # submit() wants one
+    try:
+        reqs = [engine.submit(p, new, **kw) for p, kw in zip(prompts, kws)]
+        engine._admit()
+        while engine._chunking:
+            engine._advance_prefills()
+        torch.cuda.synchronize()
+        s0 = engine.stats()
+        t0 = time.perf_counter()
+        i = 0
+        while engine._active.any():
+            advance(engine, i)
+            i += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s1 = engine.stats()
+    finally:
+        engine._thread = None
+    if not all(r.done.is_set() and r.error is None for r in reqs):
+        fail("a driven run's request did not finish")
+    return np.stack([r.result for r in reqs]), s0, s1, wall
+
+
+def _verify_always(e, i):
+    """A verify dispatch of the drafter's proposals where it has any (an
+    empty draft advances every slot by its bonus token)."""
+    draft = e._spec_drafts()
+    e._verify_once(draft if draft is not None else
+                   np.full((e.slots, e.spec_k), -1, np.int32))
+
+
+def _spec_phase(torch, wf, wstate, engine):
+    """Speculative verify k=SPEC_K on a fresh captured engine: SLOTS
+    prompts of a repeated SPEC_PHRASE-token phrase, SPEC_NEW tokens each
+    (the last row sampled), first under the engine's own policy from
+    cold (random weights do not follow the phrase, so the policy parks
+    after its first verify), then timed under a fixed policy of one
+    verify dispatch every iteration and of decode steps alone; every
+    run's tokens must be bitwise the non-spec ``engine``'s on the same
+    requests.  Then a profiled window driven on this thread with one
+    verify dispatch, its paged launches held against the trace."""
+    from veles_tpu_torch.ops.kernels import paged_attention
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    rng = np.random.default_rng(21)
+    phrases = rng.integers(0, VOCAB, (SLOTS, SPEC_PHRASE))
+    prompts = np.stack([np.resize(p, SPEC_PROMPT) for p in phrases]
+                       ).astype(np.int32)
+    kws = [{}] * (SLOTS - 1) + [dict(temperature=0.8, top_k=50, seed=7)]
+
+    def run(eng):
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, SPEC_NEW, **kw) for p, kw in zip(prompts, kws)]
+        for r in reqs:
+            if not r.done.wait(900) or r.error is not None:
+                fail(f"a speculative-phase request failed: {r.error}")
+        return np.stack([r.result for r in reqs]), time.perf_counter() - t0
+
+    def verify_first(e, i):
+        # one verify dispatch, then decode steps
+        if i == 0:
+            _verify_always(e, i)
+        else:
+            e._step_once()
+
+    eng = DecodeEngine(wf, wstate, slots=SLOTS, l_max=L_MAX,
+                       page_size=PAGE, paged=True, paged_kernel=True,
+                       window_ms=2.0, spec=True, spec_k=SPEC_K,
+                       device=DEVICE).start()
+    try:
+        s0 = eng.stats()
+        toks, wall = run(eng)
+        s1 = eng.stats()
+        ratio = eng._verify_wall_ewma / max(eng._step_wall_ewma, 1e-12)
+    finally:
+        eng.stop()
+    # the timed part: the same requests under a fixed policy, every
+    # dispatch a verify, then every dispatch a decode step
+    vtoks, v0, v1, vwall = _driven_run(torch, eng, prompts, SPEC_NEW, kws,
+                                       _verify_always)
+    dtoks, d0, d1, dwall = _driven_run(torch, eng, prompts, SPEC_NEW, kws,
+                                       lambda e, i: e._step_once())
+    # the profiled window, driven on this thread
+    profile = _decode_window(
+        torch, eng, np.stack([np.resize(p, 2 * SPEC_PHRASE)
+                              for p in phrases]).astype(np.int32),
+        verify_first)
+    s2 = eng.stats()
+    replays = _replay_ms(torch, eng)
+    ref, ref_wall = run(engine)
+    sp0, sp1 = v0["spec"], v1["spec"]
+    verify = sp1["verify_steps"] - sp0["verify_steps"]
+    proposed = sp1["proposed"] - sp0["proposed"]
+    accepted = sp1["accepted"] - sp0["accepted"]
+    vsec = sp1["verify_seconds"] - sp0["verify_seconds"]
+    decode_n = (_kind_count(_dispatch_counts(d1), "decode")
+                - _kind_count(_dispatch_counts(d0), "decode"))
+    decode_s = d1["decode_seconds"] - d0["decode_seconds"]
+    pol0, pol1 = s0["spec"], s1["spec"]
+    trace = profile["launch_trace"]
+    paged = paged_attention.NAME
+    rec = {"k": SPEC_K, "prompt": SPEC_PROMPT, "phrase": SPEC_PHRASE,
+           "new": SPEC_NEW, "sampled_rows": 1,
+           "policy": {
+               "verify_steps": pol1["verify_steps"] - pol0["verify_steps"],
+               "proposed": pol1["proposed"] - pol0["proposed"],
+               "accepted": pol1["accepted"] - pol0["accepted"],
+               "verify_over_decode_wall_ewma": ratio,
+               "wall_s": wall, "non_spec_wall_s": ref_wall,
+               "decode_tokens_per_s_all_slots":
+                   ((s1["decode_tokens"] - s0["decode_tokens"])
+                    / (s1["decode_seconds"] - s0["decode_seconds"])),
+               "tokens_equal_non_spec": bool(np.array_equal(toks, ref))},
+           "verify_steps": verify, "decode_steps": decode_n,
+           "proposed": proposed, "accepted": accepted,
+           "accept_rate": accepted / proposed if proposed else None,
+           "tokens_per_verify": ((sp1["emitted"] - sp0["emitted"]) / verify
+                                 if verify else None),
+           "verify_wall_ms_mean": vsec / verify * 1e3 if verify else None,
+           "decode_wall_ms_mean": (decode_s / decode_n * 1e3
+                                   if decode_n else None),
+           "verify_over_decode_wall": ((vsec / verify) / (decode_s / decode_n)
+                                       if verify and decode_n else None),
+           "verify_run_wall_s": vwall, "decode_run_wall_s": dwall,
+           "verify_run_replays": {k: v - v0["replays"][k]
+                                  for k, v in v1["replays"].items()},
+           "tokens_equal_non_spec": bool(np.array_equal(toks, ref)
+                                         and np.array_equal(vtoks, ref)
+                                         and np.array_equal(dtoks, ref)),
+           "device_ms": replays,
+           "profile": profile, "compile": s2["compile"]}
+    rec["ok"] = (rec["tokens_equal_non_spec"]
+                 and profile["replays"]["verify_greedy"] == 1
+                 and s2["capture"]["verify"]["captured"]
+                 and s2["capture"]["verify_greedy"]["captured"]
+                 and s2["compile"]["captures"] == 5
+                 and s2["compile"]["recompiles"] == 0
+                 and trace["ok"] and trace["captured"]
+                 and trace["per_replay_by_kind"]["verify"].get(paged)
+                 == LAYERS * (SPEC_K + 1)
+                 and trace["replayed"].get(paged)
+                 == trace["counted"].get(paged)
+                 and rec["policy"]["verify_steps"] > 0
+                 and verify >= SPEC_NEW // (SPEC_K + 1)
+                 and v1["dispatches"] - v0["dispatches"] == verify
+                 and _kind_count(rec["verify_run_replays"], "verify")
+                 == verify
+                 and decode_n == d1["dispatches"] - d0["dispatches"])
+    if not rec["ok"]:
+        fail(f"the speculative checks failed: {rec}")
+    return rec, s2
+
+
+def _http_bytes(port, path, data=None, method=None):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, e.read()
+
+
+def _kv_phase(torch, wf, wstate, engine, port):
+    """VTKV1 over REST: ``engine`` (A) prefills a KV_PROMPT-token prompt,
+    ``GET /kv/pages?hashes=`` exports its pages and ``PUT /kv/pages``
+    imports them into a fresh captured engine B on the same weights; a
+    request of that prompt and a KV_TAIL-token tail must hit every
+    shared page on B, prefill only the tail there, and give A's greedy
+    tokens bit for bit (float32 pools); a corrupted blob must get 400
+    with B's pool unchanged."""
+    from veles_tpu_torch.runtime.engine import (DecodeEngine,
+                                                prefix_page_hashes)
+    from veles_tpu_torch.runtime.restful import RestfulServer
+    rng = np.random.default_rng(31)
+    shared = rng.integers(0, VOCAB, KV_PROMPT).astype(np.int32)
+    full = np.concatenate([shared, rng.integers(0, VOCAB, KV_TAIL)
+                           ]).astype(np.int32)[None]
+    engine.generate(shared[None], 2, timeout=900)
+    hashes = prefix_page_hashes(shared, PAGE)
+    t0 = time.perf_counter()
+    code, blob = _http_bytes(port, "/kv/pages?hashes="
+                             + ",".join(h.hex() for h in hashes))
+    t_export = time.perf_counter() - t0
+    if code != 200:
+        fail(f"GET /kv/pages answered {code}: {blob[:300]}")
+    ref = engine.generate(full, KV_NEW, timeout=900)
+    b = DecodeEngine(wf, wstate, slots=SLOTS, l_max=L_MAX, page_size=PAGE,
+                     paged=True, paged_kernel=True, window_ms=2.0,
+                     device=DEVICE)
+    srv = RestfulServer(wf.make_predict_step(), wstate, PREDICT_B,
+                        (PREDICT_T,), port=0, workflow=wf, engine=b,
+                        device=DEVICE)
+    b.start()
+    srv.start()
+    try:
+        pools = {(n, k): t.clone() for n, c in b._caches.items()
+                 for k, t in c.items()}
+        bad = bytearray(blob)
+        bad[-1] ^= 0xFF
+        bad_code, bad_body = _http_bytes(srv.port, "/kv/pages", bytes(bad),
+                                         "PUT")
+        torch.cuda.synchronize()
+        untouched = all(torch.equal(b._caches[n][k], t)
+                        for (n, k), t in pools.items())
+        del pools
+        t0 = time.perf_counter()
+        code, body = _http_bytes(srv.port, "/kv/pages", blob, "PUT")
+        t_import = time.perf_counter() - t0
+        if code != 200:
+            fail(f"PUT /kv/pages answered {code}: {body[:300]}")
+        s0 = b.stats()
+        got = b.generate(full, KV_NEW, timeout=900)
+        s1 = b.stats()
+    finally:
+        srv.stop()
+        b.stop()
+    n = len(hashes)
+    rec = {"prompt": KV_PROMPT, "tail": KV_TAIL, "new": KV_NEW,
+           "pages": n, "blob_bytes": len(blob),
+           "bytes_per_page": len(blob) / n,
+           "export_ms_per_page": t_export / n * 1e3,
+           "import_ms_per_page": t_import / n * 1e3,
+           "imported": json.loads(body)["imported"],
+           "prefix_hit_pages": (s1["pages"]["prefix_hit_pages"]
+                                - s0["pages"]["prefix_hit_pages"]),
+           "remote_hit_pages": s1["kv_transfer"]["remote_hit_pages"],
+           "prefill_tokens": s1["prefill_tokens"] - s0["prefill_tokens"],
+           "tokens_equal_a": bool(np.array_equal(got, ref)),
+           "corrupt_status": bad_code,
+           "corrupt_pool_unchanged": untouched,
+           "compile": s1["compile"]}
+    rec["ok"] = (rec["imported"] == n == KV_PROMPT // PAGE
+                 and rec["prefix_hit_pages"] == n
+                 and rec["remote_hit_pages"] == n
+                 and rec["prefill_tokens"] == KV_TAIL
+                 and rec["tokens_equal_a"] and bad_code == 400
+                 and b"integrity" in bad_body and untouched
+                 and s1["compile"]["recompiles"] == 0)
+    if not rec["ok"]:
+        fail(f"the VTKV1 round trip failed its checks: {rec}")
+    return rec, s1
 
 
 def _eager_serving(torch, wf, wstate, window):
@@ -2046,7 +2550,8 @@ def _launch_trace_check(prof, counted0, replays):
     ``__global__`` name in the trace must equal the counter's change over
     the window, and each captured step's share of that change must be at
     least its replays in the window (``replays``: ``[(step, n)]``) times
-    what the cache recorded at capture.  So a replayed graph that no
+    what the cache recorded at capture (``per_replay`` sums one replay
+    of each program the window replayed).  So a replayed graph that no
     longer runs a kernel it counts, or runs one it does not count,
     fails."""
     from veles_tpu_torch.ops.kernels import KERNELS
@@ -2069,19 +2574,25 @@ def _launch_trace_check(prof, counted0, replays):
             if seen[label] != counted[label]:
                 bad.append(f"{label}: traced {seen[label]}, counted "
                            f"{counted[label]}")
-    replay = {}
+    replay, by_kind, replayed = {}, {}, {}
     for step, steps in replays:
+        if not steps:       # a program the window did not replay
+            continue
+        kind = getattr(getattr(step, "step", None), "kind", None)
         for counter, (n, variants) in getattr(step, "launches", ()):
             k = next(k for k in KERNELS if k.launches is counter)
             for variant, c in (variants or {None: n}).items():
                 label = k.NAME if variant is None else f"{k.NAME}/{variant}"
                 replay[label] = replay.get(label, 0) + c
+                by_kind.setdefault(kind, {})[label] = c
+                replayed[label] = replayed.get(label, 0) + steps * c
                 if counted.get(label, 0) < steps * c:
                     bad.append(f"{label}: counted {counted.get(label, 0)}, "
                                f"under {steps} replays of {c}")
     return {"traced": {k: v for k, v in seen.items() if v},
             "counted": {k: v for k, v in counted.items() if v},
-            "per_replay": replay, "steps": [n for _, n in replays],
+            "per_replay": replay, "per_replay_by_kind": by_kind,
+            "replayed": replayed, "steps": [n for _, n in replays],
             "captured": all(getattr(step, "captured", False)
                             for step, _ in replays),
             "mismatch": bad, "ok": not bad}
@@ -2202,6 +2713,26 @@ def phase_quality(torch):
     return rec
 
 
+def _dispatch_counts(st):
+    """Replays of each program in ``engine.stats()``: the token programs
+    by name (``decode``, ``megastep_greedy``, ...) and prefill."""
+    return {**st["replays"], "prefill": st["prefill_tokens"]}
+
+
+def _kind_count(counts, kind):
+    """Dispatches of a program kind, sampling and greedy-only."""
+    return counts.get(kind, 0) + counts.get(kind + "_greedy", 0)
+
+
+def _step_times(engine, s0, s1):
+    """The per-token step walls of the decode and megastep dispatches
+    between two ``stats()`` (the engine keeps one a dispatch)."""
+    c0, c1 = _dispatch_counts(s0), _dispatch_counts(s1)
+    n = sum(_kind_count(c1, k) - _kind_count(c0, k)
+            for k in ("decode", "megastep"))
+    return list(engine._step_s)[-n:] if n else []
+
+
 def serving_window(torch, engine):
     """One serving window, SLOTS fresh prompts of WINDOW_PROMPT tokens
     submitted together and WINDOW_NEW tokens decoded: its metrics (TTFT
@@ -2216,8 +2747,7 @@ def serving_window(torch, engine):
             fail(f"a serving window request failed: {r.error}")
     wall = time.perf_counter() - t0
     s1 = engine.stats()
-    steps = s1["decode_steps"] - s0["decode_steps"]
-    step_s = list(engine._step_s)[-steps:]
+    step_s = _step_times(engine, s0, s1)
     ttft = [r.first_token_at - r.submitted_at for r in reqs]
     decode_s = s1["decode_seconds"] - s0["decode_seconds"]
     return {"decode_tokens_per_s_all_slots":
@@ -2262,10 +2792,10 @@ def phase_profile(torch, engine):
         s1 = engine.stats()
     rec = _busy(prof, wall, f"{SLOTS} x (prefill {PROFILE_PROMPT} + "
                             f"decode {PROFILE_NEW})")
+    c0, c1 = _dispatch_counts(s0), _dispatch_counts(s1)
+    rec["replays"] = {k: c1[k] - c0[k] for k in engine._fns}
     rec["launch_trace"] = _launch_trace_check(prof, counted0, [
-        (engine._fns["decode"], s1["decode_steps"] - s0["decode_steps"]),
-        (engine._fns["prefill"],
-         s1["prefill_tokens"] - s0["prefill_tokens"])])
+        (engine._fns[k], n) for k, n in rec["replays"].items()])
     return rec
 
 

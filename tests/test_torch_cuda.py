@@ -20,8 +20,9 @@ kernel vs plain path rtol 1e-4 of each gradient's largest entry in
 float32; fused dropout (forward and gradient) and mean/disp normalize
 bitwise; the one-launch batch gather bitwise; a captured train step
 (``runtime/step_cache.py``) bitwise equal to the eager one over 8 steps;
-the serving engine's captured decode and prefill steps bitwise equal to
-its eager ones (tokens, token rows and KV pool).
+the serving engine's captured decode, prefill, megastep and verify steps
+bitwise equal to its eager ones (tokens, token rows and KV pool), their
+replays' paged launches, and the sampler's noise bits equal to the CPU's.
 """
 
 import contextlib
@@ -665,8 +666,9 @@ def _serve_lm(device, dtype):
     return wf, wf.init_state(0, device=device)
 
 
-def _drive(eng, script, iters):
-    """Run the scheduler's iteration (admit, one chunk slice, one decode
+def _drive(eng, script, iters, advance=None):
+    """Run the scheduler's iteration (admit, one chunk slice, one advance
+    of the decoding slots: ``advance(eng, i)``, by default one decode
     step) on this thread, ``iters`` times, submitting ``script[i]``'s
     requests before iteration i: the same calls in the same order on
     every engine, so page allocation and every input repeat exactly."""
@@ -680,11 +682,30 @@ def _drive(eng, script, iters):
             eng._admit()
             eng._advance_prefills()
             if eng._active.any():
-                eng._step_once()
+                if advance is None:
+                    eng._step_once()
+                else:
+                    advance(eng, i)
     finally:
         eng._thread = None
     torch.cuda.synchronize()
     return reqs
+
+
+def _fixed_policy(eng, i):
+    """A timing-free scheduler policy for comparing engines: even
+    iterations fuse a megastep where every slot is busy, else verify a
+    draft where one exists, else one decode step; odd iterations try the
+    draft first."""
+    draft = eng._spec_drafts()
+    if i % 2 == 0 and eng._mega_ready():
+        eng._megastep_once()
+    elif draft is not None:
+        eng._verify_once(draft)
+    elif eng._mega_ready():
+        eng._megastep_once()
+    else:
+        eng._step_once()
 
 
 def _serve_script(seed=3):
@@ -757,8 +778,8 @@ def test_captured_prefill_equals_eager_bitwise(card):
 
 
 def test_serving_captures_stay_flat_and_count_replays(card):
-    """Decode and prefill are captured once each when the engine is
-    built; a prefix hit, a chunked prefill, a preemption and a shed
+    """Decode (sampling and greedy-only) and prefill are captured once
+    each when the engine is built; a prefix hit, a chunked prefill, a preemption and a shed
     capture nothing more, and the paged-decode launches are one a layer
     per decode step, every one a replay."""
     from veles_tpu_torch.ops.kernels import paged_attention as pa
@@ -802,9 +823,156 @@ def test_serving_captures_stay_flat_and_count_replays(card):
     finally:
         eng.stop()
     st = eng.stats()
-    assert st["compile"]["compiles"] == st["compile"]["captures"] == 2
+    assert st["compile"]["compiles"] == st["compile"]["captures"] == 3
     assert st["compile"]["recompiles"] == 0
     assert st["pages"]["prefix_hit_pages"] >= 2
     assert st["prefill_calls"] > st["admitted"]
     assert st["admission"]["preemptions"] >= 1 and shed >= 1
     assert pa.launches.count == 2 * st["decode_steps"]
+
+
+# -- megastep, speculative verify, KV-page import -----------------------------
+
+def _mega_spec_script(seed=6):
+    """Four requests at iteration 0 (one sampled, one a repeated phrase
+    the drafter predicts), a prefix hit at 8, a chunked prompt at 14."""
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, 64, 32).astype(np.int32)
+    phrase = np.resize(rng.integers(0, 64, 6), 30).astype(np.int32)
+    return {0: [(np.concatenate([sysp, rng.integers(0, 64, 5)]), 40, {}),
+                (phrase, 36, {}),
+                (rng.integers(0, 64, 12), 20,
+                 dict(temperature=0.9, top_k=8, seed=5)),
+                (rng.integers(0, 64, 9), 14, {})],
+            8: [(np.concatenate([sysp, rng.integers(0, 64, 3)]), 10, {})],
+            14: [(rng.integers(0, 64, 70), 8, {})]}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", None], ids=["bf16", "f32"])
+def test_captured_megastep_and_verify_equal_eager_bitwise(card, dtype):
+    """40 scheduler iterations under a fixed policy that runs megasteps
+    (N=4) and verify steps (K=3) beside decode steps, through the
+    captured graphs and through the eager steps: the same tokens for
+    every request, token rows and KV pool, bit for bit."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _serve_lm(card, dtype)
+    runs = {}
+    for capture in (True, False):
+        eng = DecodeEngine(wf, ws, slots=4, l_max=128, page_size=16,
+                           paged_kernel=True, prefill_chunk=32,
+                           window_ms=0.0, megastep=4, spec=True, spec_k=3,
+                           capture=capture, device=card)
+        runs[capture] = (eng, _drive(eng, _mega_spec_script(), 40,
+                                     _fixed_policy))
+    (cap, creqs), (eag, ereqs) = runs[True], runs[False]
+    for kind in ("decode", "prefill", "megastep", "verify",
+                 "decode_greedy", "megastep_greedy", "verify_greedy"):
+        assert cap.stats()["capture"][kind] == {"captured": True,
+                                                "reason": None}
+    for eng in (cap, eag):
+        st = eng.stats()
+        assert st["megastep"]["mega_dispatches"] > 0, st
+        assert st["spec"]["verify_steps"] > 0, st
+        assert st["spec"]["accepted"] > 0, st
+    assert [r.done.is_set() for r in creqs] == \
+        [r.done.is_set() for r in ereqs]
+    assert sum(r.done.is_set() for r in creqs) >= 3
+    for a, b in zip(creqs, ereqs):
+        if a.done.is_set():
+            np.testing.assert_array_equal(a.result, b.result)
+    np.testing.assert_array_equal(cap._toks, eag._toks)
+    for name in cap._caches:
+        for k in ("k", "v"):
+            assert torch.equal(cap._caches[name][k], eag._caches[name][k])
+
+
+def test_megastep_and_verify_replays_count_their_paged_launches(card):
+    """A megastep replay adds N paged launches a layer, a verify replay
+    K + 1, a decode replay 1, each as its graph recorded at capture, in
+    the sampling and the greedy-only program alike."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _serve_lm(card, "bfloat16")
+    eng = DecodeEngine(wf, ws, slots=2, l_max=128, page_size=16,
+                       paged_kernel=True, window_ms=0.0, megastep=4,
+                       spec=True, spec_k=3, device=card)
+    layers = 2
+    per = {"decode": layers, "megastep": 4 * layers,
+           "verify": 4 * layers}
+    for kind, n in per.items():
+        for name in (kind, kind + "_greedy"):
+            assert [m for c, (m, _) in eng._fns[name].launches
+                    if c is pa.launches] == [n], name
+    _drive(eng, {0: [(np.arange(20) % 7, 30, {}),
+                     (np.arange(9) % 5, 30, {})]}, 1, lambda e, i: None)
+    draft = np.full((2, 3), -1, np.int32)
+    for kind, call in (("decode", eng._step_once),
+                       ("megastep", eng._megastep_once),
+                       ("verify", lambda: eng._verify_once(draft))):
+        n0 = pa.launches.count
+        call()
+        torch.cuda.synchronize()
+        assert pa.launches.count - n0 == per[kind], kind
+
+
+def test_four_captures_stay_flat_across_hits_chunks_preemption_imports(card):
+    """With megastep and spec on, the engine captures decode, megastep
+    and verify (each sampling and greedy-only) and prefill when it is
+    built; a prefix hit, a chunked
+    prefill, a preemption and a KV-page import capture nothing more."""
+    import threading
+    import time
+    from veles_tpu_torch.runtime.engine import (DecodeEngine,
+                                                prefix_page_hashes)
+    wf, ws = _serve_lm(card, "bfloat16")
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, 64, 48)
+    src = DecodeEngine(wf, ws, slots=2, l_max=128, page_size=16,
+                       window_ms=0.0, capture=False, device=card).start()
+    try:
+        src.generate(shared[None], 2, timeout=300)
+        blob = src.export_pages(prefix_page_hashes(shared, 16))
+    finally:
+        src.stop()
+    eng = DecodeEngine(wf, ws, slots=2, l_max=128, page_size=16,
+                       paged_kernel=True, prefill_chunk=32, pages=12,
+                       priorities=2, window_ms=0.0, megastep=4, spec=True,
+                       spec_k=3, device=card)
+    assert eng.stats()["compile"]["captures"] == 7
+    eng.start()
+    try:
+        assert eng.import_pages(blob)["imported"] == 3
+        eng.generate(np.concatenate([shared, rng.integers(0, 64, 4)])[None],
+                     4, timeout=300)                  # remote hit
+        eng.generate(np.concatenate([shared, rng.integers(0, 64, 40)])[None],
+                     4, timeout=300)                  # hit + chunks
+        gate = threading.Event()
+        step = eng._advance_once
+        eng._advance_once = lambda: (gate.wait(300), step())
+        victim = eng.submit(rng.integers(0, 64, 8), 100, priority=1)
+        while not eng._active.any():
+            time.sleep(0.001)
+        high = eng.submit(rng.integers(0, 64, 8), 100, priority=0)
+        gate.set()
+        assert victim.done.wait(300) and high.done.wait(300)
+        assert victim.error is None and high.error is None
+    finally:
+        eng.stop()
+    st = eng.stats()
+    assert st["compile"]["compiles"] == st["compile"]["captures"] == 7
+    assert st["compile"]["recompiles"] == 0 and st["compile"]["hits"] == 0
+    assert st["kv_transfer"]["remote_hit_pages"] >= 2
+    assert st["admission"]["preemptions"] >= 1
+
+
+def test_sampler_noise_bits_match_the_cpu(card):
+    """The integer hash of the Gumbel noise is the same on the card as
+    on the CPU; the float32 logs within 1e-6."""
+    from veles_tpu_torch.runtime.generate import (fold_keys, gumbel_noise,
+                                                  noise_bits)
+    keys = torch.cat([fold_keys([s], p, "cpu") for s, p in (
+        (0, 0), (1, 5), (-7, 77), (2 ** 62 + 11, 1023), (12345, 511))])
+    assert torch.equal(noise_bits(keys.to(card), 1024).cpu(),
+                       noise_bits(keys, 1024))
+    torch.testing.assert_close(gumbel_noise(keys.to(card), 1024).cpu(),
+                               gumbel_noise(keys, 1024), rtol=1e-6,
+                               atol=1e-6)

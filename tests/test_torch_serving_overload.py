@@ -115,9 +115,11 @@ def test_decode_step_leaves_inactive_rows_untouched(lm, paged):
         eng._ptab[1] = [4, 5, 6, 7]
     before = {n: {k: t.clone() for k, t in c.items()}
               for n, c in eng._caches.items()}
-    tok = np.array([3, 5], np.int64)
-    pos = np.array([5, 9], np.int32)
-    eng._decode_logits(tok, pos, np.array([True, False]))
+    eng._toks[0, 5], eng._toks[1, 9] = 3, 5
+    eng._pos[:] = [5, 9]
+    eng._active[:] = [True, False]
+    eng._end[:] = 30
+    eng._dispatch("decode")
     for name, c in eng._caches.items():
         for k in ("k", "v"):
             b, a = before[name][k], c[k]
@@ -326,9 +328,10 @@ def test_no_futile_preemption_when_pages_cannot_suffice(rng, lm):
 # -- capture counters ---------------------------------------------------------
 
 def test_capture_counters_flat_and_the_cpu_is_named(rng, lm):
-    """The paged engine builds its decode and prefill steps once, when
-    it is built: chunked prefills, preemptions, displacement and sheds
-    under concurrent submitters add no build and no recapture.  On the
+    """The paged engine builds its decode (sampling and greedy-only) and
+    prefill steps once, when it is built: chunked prefills, preemptions,
+    displacement and sheds under concurrent submitters add no build and
+    no recapture.  On the
     CPU nothing is captured and stats() says why; the dense layout says
     it stays eager."""
     import threading
@@ -338,8 +341,9 @@ def test_capture_counters_flat_and_the_cpu_is_named(rng, lm):
         st = eng.stats()
         assert st["capture"] == {
             "decode": {"captured": False, "reason": "cpu"},
+            "decode_greedy": {"captured": False, "reason": "cpu"},
             "prefill": {"captured": False, "reason": "cpu"}}
-        assert st["compile"]["compiles"] == 2
+        assert st["compile"]["compiles"] == 3
         ok, shed = [0], [0]
         lock = threading.Lock()
 
@@ -362,7 +366,7 @@ def test_capture_counters_flat_and_the_cpu_is_named(rng, lm):
             t.join(timeout=240)
         assert ok[0] + shed[0] == 16 and ok[0] >= 1
         st = eng.stats()
-        assert st["compile"]["compiles"] == 2
+        assert st["compile"]["compiles"] == 3
         assert st["compile"]["recompiles"] == 0
         assert st["compile"]["hits"] == 0
     finally:

@@ -65,7 +65,9 @@ def _mul32(z: torch.Tensor, m: int) -> torch.Tensor:
     return (z * lo + (((z * hi) & 0xFFFF) << 16)) & _M32
 
 
-def _splitmix32_t(z: torch.Tensor) -> torch.Tensor:
+def splitmix32_tensor(z: torch.Tensor) -> torch.Tensor:
+    """:func:`splitmix32` elementwise over int64 tensors holding uint32
+    values (no product overflows int64)."""
     z = (z + _GOLDEN) & _M32
     z = _mul32(z ^ (z >> 16), _MIX1)
     z = _mul32(z ^ (z >> 13), _MIX2)
@@ -77,7 +79,7 @@ def keep_mask(n: int, seed: int, rate: float, device) -> torch.Tensor:
     ``n`` elements, flat."""
     rate32, scale = rate_and_scale(rate)
     lin = torch.arange(n, dtype=torch.int64, device=device) & _M32
-    bits = _splitmix32_t(lin ^ splitmix32(seed))
+    bits = splitmix32_tensor(lin ^ splitmix32(seed))
     u = (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
     thr = torch.tensor(rate32, device=device)
     return torch.where(u >= thr, torch.tensor(scale, device=device),

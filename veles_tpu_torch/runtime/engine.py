@@ -39,9 +39,25 @@ request queue and every device call:
   prefill.  It reads the paged cache through the gather path, as the
   JAX package's prefill does (no ``paged_kernel``, :622-624);
 * one **decode step** advances every slot, with per-slot greedy /
-  temperature / top-k / top-p sampling and eos / length retirement; with
+  temperature / top-k / top-p sampling and eos / length retirement
+  inside the step (``make_decode_fn``'s ``step_tail``, :211-243); with
   ``paged_kernel`` the paged read goes through the paged-decode CUDA
   kernel;
+* **megastep** (:335-410, :3582-3595, :3893-3935): with
+  ``serve.megastep = N > 1`` and every slot busy, nothing queued and no
+  prompt mid-chunk, one dispatch runs N micro-steps of the same step
+  body, a slot retiring at micro-step i writing only to the scratch page
+  from then on;
+* **speculative verify** (:246-332, :419-462, :3549-3686, :3845-3891):
+  with ``serve.spec.enabled`` an n-gram drafter (:func:`ngram_draft`)
+  proposes up to ``spec.k`` tokens per slot from the host's token
+  history, and one dispatch runs K + 1 micro-steps that accept the
+  longest draft prefix equal to what the sampler picks, plus the bonus
+  token, under the JAX package's measured-payoff policy;
+* **KV-page transfer** (VTKV1, :140, :3028-3362): full prompt pages
+  exported by their chained prefix hashes and imported into another
+  engine's pool on the scheduler thread at a step boundary, written into
+  the pool tensors in place;
 * **streaming** (:767-863, :1667-1712, :3689-3764): a request may open
   a frame feed numbered by global generated-token index, with stop
   sequences matched at flush time (a match may span a flush boundary or
@@ -50,23 +66,35 @@ request queue and every device call:
   ``emitted_prefix`` that continues an interrupted stream bitwise;
 * deadlines fail a request loudly (queued, mid-prefill or decoding).
 
-On the card the paged layout's decode and prefill steps are captured as
-CUDA graphs through :class:`~.step_cache.StepCache` when the engine is
-built — the counterpart of the JAX package's "compiled once, flat after
-warmup".  Each reads its inputs from one static int32 device buffer that
-the host fills by one non-blocking copy from pinned memory: decode
-``[token | position | active | page table]`` for every slot, prefill
-``[effective prompt | page-table row | position index]``, whose one
-position step reads its token and position on the card at the index the
-graph advances itself, and is replayed once per prompt position.  The
-graphs end at the logits; sampling (host-seeded generators,
-``generate.sample_rows``) runs after them.  The dense layout stays eager
-(its masked write has a data-dependent shape), and ``stats()["capture"]``
-says so, as it says ``"cpu"`` on the host.
+The per-slot state lives on the device as static tensors the steps read
+and write: one int32 buffer (position, active flag, temperature, top-k,
+top-p, eos, end and the page table of every slot), the (S, l_max) token
+matrix and the (S, l_max) table of each slot's ``fold_seed(seed,
+position)``, filled on the host when the slot is admitted (folding in
+the graph took ~0.45 ms of small kernels a micro-step on an H100).  The
+host keeps a mirror of all three; it loads the mirror onto the device
+(non-blocking copies from pinned memory) before a dispatch when
+admission, retirement, preemption or a deadline changed it, and reads
+back positions, active flags, finished flags, counts and the fresh
+tokens in one copy after every dispatch.  Stream flushes, stop
+matching, the drafter and retirement read the mirror after that copy.
 
-Left out, for later slices (ROADMAP.md queue 1 item 3): speculative
-verify, megastep, VTKV1 page export/import, hot swap, beam search, the
-batch lane, and the serving half of ``runtime/faults.py``.
+On the card the paged layout's steps are captured as CUDA graphs
+through :class:`~.step_cache.StepCache` when the engine is built — the
+counterpart of the JAX package's "compiled once, flat after warmup":
+decode, prefill, and verify and megastep where enabled.  Each token
+step is built twice, sampling and greedy-only: the host replays the
+greedy-only program when no live slot samples, so an all-greedy batch
+pays no noise or filter (the JAX package skips them with ``lax.cond``).
+Prefill reads ``[effective prompt | page-table row | position index]``
+from one static int32 buffer filled from pinned memory; its one
+position step reads its token and position on the card at the index
+the graph advances itself, and is replayed once per prompt position.  The dense layout stays eager
+(its masked write has a data-dependent shape) with the same step body,
+and ``stats()["capture"]`` says so, as it says ``"cpu"`` on the host.
+
+Left out, for later slices (ROADMAP.md queue 1 item 3): hot swap, beam
+search, the batch lane, and the serving half of ``runtime/faults.py``.
 """
 
 from __future__ import annotations
@@ -74,6 +102,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import hashlib
+import json
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -87,10 +116,22 @@ from ..ops import resolve_device
 from ..units.base import Context
 from ..units.nn import input_vocab
 from .admission import AdmissionController
-from .generate import DecodePlan, row_seeds, sample_rows
+from .generate import (DecodePlan, fold_keys, fold_seed_array,
+                       gumbel_noise, row_seeds, sample_slots,
+                       sampling_tensors)
 from .metrics import registry
 from .slo import slo_tracker
-from .step_cache import StepCache
+from .step_cache import StepCache, tree_signature
+
+# KV-page transfer wire magic (engine.py:140): the version byte in the
+# tag makes a format bump reject loudly instead of misparsing
+_KV_MAGIC = b"VTKV1\x00"
+
+#: parked / cold speculative-drafting probe interval in scheduler ticks
+#: (engine.py:419): a workload the drafter cannot pay for decays to plain
+#: decode plus one drafting attempt, and one measuring verify step, every
+#: this many ticks
+_SPEC_PROBE_TICKS = 64
 
 
 class EngineOverloaded(RuntimeError):
@@ -133,6 +174,7 @@ class ServeGeometry(NamedTuple):
     page_size: int
     pages: int
     paged_kernel: bool = False
+    megastep: int = 1
 
     @property
     def n_ptab(self) -> int:
@@ -140,9 +182,9 @@ class ServeGeometry(NamedTuple):
 
 
 def resolve_serve_geometry(slots=None, l_max=None, paged=None, page_size=None, pages=None,
-                           paged_kernel=None) -> ServeGeometry:
+                           paged_kernel=None, megastep=None) -> ServeGeometry:
     """Slot-batch geometry with ``root.common.serve`` defaults — the JAX
-    package's resolution (engine.py:683-746) without megastep."""
+    package's resolution (engine.py:683-746) without prefill buckets."""
     serve = root.common.serve
     slots = int(slots if slots is not None else serve.get("slots", 8))
     l_max = int(l_max if l_max is not None else serve.get("l_max", 512))
@@ -153,12 +195,15 @@ def resolve_serve_geometry(slots=None, l_max=None, paged=None, page_size=None, p
               else serve.get("page_size", 16))
     use_kernel = bool(serve.get("paged_kernel", False)
                       if paged_kernel is None else paged_kernel)
+    mega = int(serve.get("megastep", 1) if megastep is None else megastep)
+    if mega < 1:
+        raise ValueError(f"serve.megastep must be >= 1, got {mega}")
     if not use_paged:
         if paged_kernel:
             raise ValueError(
                 "paged_kernel requires the paged KV layout "
                 "(root.common.serve.paged / paged=True)")
-        return ServeGeometry(slots, l_max, False, psz, 0, False)
+        return ServeGeometry(slots, l_max, False, psz, 0, False, mega)
     if psz < 1:
         raise ValueError(f"page_size must be >= 1, got {psz}")
     if l_max % psz:
@@ -176,7 +221,39 @@ def resolve_serve_geometry(slots=None, l_max=None, paged=None, page_size=None, p
         raise ValueError(
             f"page pool of {pages} pages cannot hold one max-length "
             f"request ({n_ptab} pages of {psz} tokens for l_max {l_max})")
-    return ServeGeometry(slots, l_max, True, psz, pages, use_kernel)
+    return ServeGeometry(slots, l_max, True, psz, pages, use_kernel, mega)
+
+
+def ngram_draft(hist, k: int, *, n_max: int = 3, n_min: int = 1):
+    """Prompt-lookup / n-gram drafter (engine.py:422-462): the ``k``
+    tokens that followed the most recent earlier occurrence of the
+    history's trailing n-gram, longest n first, as a (k,) int32 row
+    padded with ``-1``; None when no n-gram of any tried length recurs.
+    A draft is a guess the verify step checks against the sampler's own
+    picks: a bad one costs micro-steps, never tokens.  The search is
+    ``bytes.rfind`` over the int32 buffer, with an alignment walk that
+    rejects byte-level matches off a 4-byte boundary."""
+    hist = np.ascontiguousarray(hist, np.int32)
+    L = int(hist.size)
+    buf = hist.tobytes()
+    for n in range(n_max, n_min - 1, -1):
+        if L < n + 2:       # the pattern, an earlier occurrence and at
+            continue        # least one continuation token
+        pat = buf[(L - n) * 4:]
+        # the match must end before the trailing pattern itself
+        off = buf.rfind(pat, 0, (L - 1) * 4)
+        while off >= 0 and off % 4:
+            off = buf.rfind(pat, 0, off + len(pat) - 1)
+        if off < 0:
+            continue
+        start = off // 4 + n
+        cont = hist[start:start + k]
+        if not cont.size:
+            continue
+        row = np.full(k, -1, np.int32)
+        row[:cont.size] = cont
+        return row
+    return None
 
 
 def serving_params(plan: DecodePlan, params, device) -> dict:
@@ -408,49 +485,149 @@ class _PrioQueue:
             q.clear()
 
 
-class _ServeStep:
-    """One of the paged engine's two device steps over its static inputs
-    (one int32 device buffer, ``inputs["buf"]``), in the shape
-    ``StepCache`` builds and captures: ``begin`` (no host part), ``run``
-    (the device part) and the eager call ``(caches, batch) -> outputs``,
-    which first copies ``batch["buf"]`` (pinned memory on the card) into
-    the static buffer unless ``batch`` is None."""
+def _state_layout(S: int, n_ptab: int) -> dict:
+    """Element offsets of each field in the int32 per-slot state buffer.
+    ``serial`` counts each slot's admissions: the steps do not read it,
+    but an admission always changes the buffer, so the host reloads the
+    token and key tables with it."""
+    off, out = 0, {}
+    for name, n in (("serial", S), ("pos", S), ("active", S),
+                    ("temp", S), ("topk", S), ("topp", S), ("eos", S),
+                    ("end", S), ("ptab", S * n_ptab)):
+        out[name] = (off, off + n)
+        off += n
+    out["size"] = off
+    return out
 
-    def __init__(self, engine, size: int):
+
+def _state_views(buf: torch.Tensor, layout: dict, S: int) -> dict:
+    """Typed views of the state buffer's fields (writes go through)."""
+    f = {k: buf[v[0]:v[1]] for k, v in layout.items() if k != "size"}
+    f["temp"] = f["temp"].view(torch.float32)
+    f["topp"] = f["topp"].view(torch.float32)
+    f["ptab"] = f["ptab"].view(S, f["ptab"].numel() // S)
+    return f
+
+
+class _ServeStep:
+    """One of the engine's device steps in the shape ``StepCache`` builds
+    and captures: ``begin`` (no host part), ``run`` (the device part)
+    and the eager call ``(state, batch) -> outputs``, which first copies
+    ``batch``'s tensors (pinned memory on the card) into the static
+    inputs unless ``batch`` is None."""
+
+    def __init__(self, engine, inputs: dict):
         self.plan, self.params = engine.plan, engine.params
         self.ctx = engine._ctx
         self.slots, self.n_ptab = engine.slots, engine.n_ptab
         self.l_max, self.page_size = engine.l_max, engine.page_size
-        self.paged_kernel = engine.paged_kernel
-        self.inputs = {"buf": torch.zeros(size, dtype=torch.int32,
-                                          device=engine.device)}
+        self.paged, self.paged_kernel = engine.paged, engine.paged_kernel
+        self.layout = engine._layout
+        self.inputs = inputs
 
-    def begin(self, caches):
+    def begin(self, state):
         return None
 
-    def __call__(self, caches, batch):
+    def __call__(self, state, batch):
         if batch is not None:
-            self.inputs["buf"].copy_(batch["buf"], non_blocking=True)
-        return self.run(caches, self.inputs, None)
+            for k, v in batch.items():
+                self.inputs[k].copy_(v, non_blocking=True)
+        return self.run(state, self.inputs, None)
 
 
-class _DecodeStep(_ServeStep):
-    """Every slot one position: ``buf`` = token (S) | position (S) |
-    active (S) | page table (S x n_ptab); inactive slots write the
-    scratch page.  Outputs the (S, V) logits."""
+class _TokenStep(_ServeStep):
+    """``n`` micro-steps of the decode step body over the slot state
+    ``{"caches", "st", "toks", "keys"}`` (engine.py:211-243): feed each
+    live slot its token at its position, sample with the slot's
+    parameters and its seed's fold at that global position (``keys``,
+    :func:`~.generate.sample_slots`), write the token at ``pos + 1``,
+    retire on eos or the length bound.
+    A slot not alive feeds its last token again with its KV write routed
+    to the scratch page (paged) or dropped (dense), so its state stays
+    unchanged.  ``kind``:
 
-    kind = "decode"
+    * ``"decode"`` (n = 1) and ``"megastep"`` (n = N, engine.py:366-397):
+      every live slot advances each micro-step; ``count`` is the tokens
+      it emitted;
+    * ``"verify"`` (n = K + 1, engine.py:284-319): micro-step i < K
+      keeps a slot alive only while its sampled token equals its draft
+      ``inputs["draft"][:, i]`` (``-1`` never matches); the last one is
+      the bonus token; ``count`` is the accepted drafts.
 
-    def run(self, caches, inputs, host):
-        b = inputs["buf"]
-        S = self.slots
+    With ``sampled=False`` (the program ``name`` is ``kind + "_greedy"``)
+    every slot takes ``logits.float().argmax(-1)``, bitwise a greedy
+    row of the sampling program, without its noise and filter: the host
+    replays it when no live slot samples.
+
+    Outputs ``{"rb": int32 [pos | active | finished | count | tokens (S,
+    n)]}``, everything the host reads back after the dispatch."""
+
+    def __init__(self, engine, kind: str, n: int, sampled: bool):
+        S = engine.slots
+        inputs = ({"draft": torch.full((S, n - 1), -1, dtype=torch.int32,
+                                       device=engine.device)}
+                  if kind == "verify" else {})
+        super().__init__(engine, inputs)
+        self.kind, self.n, self.vocab = kind, n, engine._vocab
+        self.sampled = sampled
+        self.name = kind if sampled else kind + "_greedy"
+        self.rows = torch.arange(S, device=engine.device)
+        self.offsets = torch.arange(n, device=engine.device)
+
+    def run(self, state, inputs, host):
+        S, rows = self.slots, self.rows
+        f = _state_views(state["st"], self.layout, S)
+        toks, caches, pos = state["toks"], state["caches"], f["pos"]
+        keys = state["keys"]
+        active = f["active"] != 0
+        alive = active
+        fin = torch.zeros_like(active)
+        count = torch.zeros_like(pos)
+        outs = []
+        draft = inputs.get("draft")
         with torch.no_grad():
-            logits, _ = self.plan.step(
-                self.params, caches, b[:S].long(), b[S:2 * S], self.ctx,
-                pages=(b[3 * S:].view(S, self.n_ptab), self.page_size,
-                       b[2 * S:3 * S] != 0),
-                paged_kernel=self.paged_kernel)
-        return {"logits": logits}
+            # every micro-step's noise in one pass: a slot alive at
+            # micro-step i sits at position pos + i (a slot not alive
+            # samples a token nobody reads)
+            if self.sampled:
+                ahead = (pos.long()[:, None] + self.offsets).clamp(
+                    max=self.l_max - 1)
+                noise = gumbel_noise(keys.gather(1, ahead).reshape(-1),
+                                     self.vocab).view(S, self.n, -1)
+            for i in range(self.n):
+                p = pos.clone()
+                tok = toks[rows, p.long()]
+                if self.paged:
+                    logits, _ = self.plan.step(
+                        self.params, caches, tok, p, self.ctx,
+                        pages=(f["ptab"], self.page_size, alive),
+                        paged_kernel=self.paged_kernel)
+                else:
+                    logits, _ = self.plan.step(self.params, caches, tok, p,
+                                               self.ctx, write_ok=alive)
+                nxt = (sample_slots(logits, f["temp"], f["topk"],
+                                    f["topp"], noise[:, i])
+                       if self.sampled else logits.float().argmax(-1))
+                new_p = torch.where(alive, p + 1, p)
+                at = new_p.long().clamp(max=self.l_max - 1)
+                toks[rows, at] = torch.where(alive, nxt.to(toks.dtype),
+                                             toks[rows, at])
+                done = alive & ((nxt == f["eos"]) | (new_p >= f["end"]))
+                if draft is None:
+                    count += alive
+                    alive = alive & ~done
+                else:
+                    match = alive & (nxt == draft[:, min(i, self.n - 2)]) \
+                        if i < self.n - 1 else torch.zeros_like(alive)
+                    count += match
+                    alive = alive & match & ~done
+                fin = fin | done
+                pos.copy_(new_p)
+                outs.append(nxt.to(torch.int32))
+            f["active"].copy_(active & ~fin)
+        rb = torch.cat([pos, f["active"], fin.to(torch.int32), count,
+                        torch.stack(outs, 1).reshape(-1)])
+        return {"rb": rb}
 
 
 class _PrefillStep(_ServeStep):
@@ -459,9 +636,15 @@ class _PrefillStep(_ServeStep):
     The step reads its token and position at the index and advances the
     index by one on the card, so a chunk of n positions is one load and
     n calls.  KV goes through the page table, reads through the gather
-    path.  Outputs the (1, V) logits of the position."""
+    path.  Its state is the KV caches; outputs the (1, V) logits of the
+    position."""
 
     kind = "prefill"
+
+    def __init__(self, engine):
+        super().__init__(engine, {"buf": torch.zeros(
+            engine.l_max + engine.n_ptab + 1, dtype=torch.int32,
+            device=engine.device)})
 
     def run(self, caches, inputs, host):
         b = inputs["buf"]
@@ -482,11 +665,13 @@ class DecodeEngine(Logger):
 
     ``slots`` / ``l_max`` / ``window_ms`` / ``queue_depth`` /
     ``deadline_s`` / the paged knobs / ``priorities`` / ``preempt`` /
-    ``prefill_chunk`` default from ``root.common.serve``; ``admission``
-    injects an :class:`AdmissionController` (tests).  ``device`` defaults
-    to the CUDA card (``ops.resolve_device``); the workflow state's
-    parameters are moved there.  ``capture=False`` keeps the paged steps
-    eager on the card (the eager-versus-captured witness)."""
+    ``prefill_chunk`` / ``megastep`` default from ``root.common.serve``,
+    ``spec`` / ``spec_k`` from ``root.common.serve.spec`` (whose
+    ``drafter`` must be ``"ngram"``); ``admission`` injects an
+    :class:`AdmissionController` (tests).  ``device`` defaults to the
+    CUDA card (``ops.resolve_device``); the workflow state's parameters
+    are moved there.  ``capture=False`` keeps the paged steps eager on
+    the card (the eager-versus-captured witness)."""
 
     def __init__(self, workflow, wstate, *, slots: Optional[int] = None,
                  l_max: Optional[int] = None,
@@ -502,6 +687,9 @@ class DecodeEngine(Logger):
                  priorities: Optional[int] = None,
                  preempt: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None,
+                 megastep: Optional[int] = None,
+                 spec: Optional[bool] = None,
+                 spec_k: Optional[int] = None,
                  admission: Optional[AdmissionController] = None,
                  capture: bool = True,
                  device=None):
@@ -509,12 +697,29 @@ class DecodeEngine(Logger):
         serve = root.common.serve
         geo = resolve_serve_geometry(slots, l_max, paged=paged,
                                      page_size=page_size, pages=pages,
-                                     paged_kernel=paged_kernel)
+                                     paged_kernel=paged_kernel,
+                                     megastep=megastep)
         self.slots, self.l_max = geo.slots, geo.l_max
         self.paged, self.page_size, self.pages = \
             geo.paged, geo.page_size, geo.pages
         self.n_ptab = geo.n_ptab
         self.paged_kernel = geo.paged_kernel
+        self.megastep = geo.megastep
+        # speculative decoding (engine.py:1181-1195): the host drafter
+        # proposes up to spec_k tokens a slot, one verify step checks them
+        self.spec = bool(serve.spec.get("enabled", False)
+                         if spec is None else spec)
+        self.spec_k = int(serve.spec.get("k", 4)
+                          if spec_k is None else spec_k)
+        self.spec_drafter = str(serve.spec.get("drafter", "ngram"))
+        if self.spec:
+            if self.spec_k < 1:
+                raise ValueError(
+                    f"serve.spec.k must be >= 1, got {self.spec_k}")
+            if self.spec_drafter != "ngram":
+                raise ValueError(
+                    f"unknown speculative drafter {self.spec_drafter!r} "
+                    "(supported: 'ngram')")
         self.window_s = float(window_ms if window_ms is not None
                               else serve.get("window_ms", 2.0)) / 1e3
         self.queue_depth = int(queue_depth if queue_depth is not None
@@ -553,8 +758,22 @@ class DecodeEngine(Logger):
         else:
             self._caches = self.plan.init_caches(
                 self.params, S, self.l_max, cache_dtype, self.device)
-        # host-side per-slot state (scheduler thread)
-        self._toks = np.zeros((S, self.l_max), np.int64)
+        # the per-slot state on the device (one int32 buffer, the token
+        # matrix and the fold-key table, which the steps read and write)
+        # and its host mirror (scheduler thread); the mirror's pinned
+        # staging copies load the device state when the host changed it
+        on_card = self.device.type == "cuda"
+        self._layout = _state_layout(S, self.n_ptab)
+        self._st_stage = torch.zeros(self._layout["size"], dtype=torch.int32,
+                                     pin_memory=on_card)
+        self._st_synced = np.zeros(self._layout["size"], np.int32)
+        self._toks_stage = torch.zeros((S, self.l_max), dtype=torch.int32,
+                                       pin_memory=on_card)
+        self._toks = self._toks_stage.numpy()   # prompt and tokens a slot
+        self._keys_stage = torch.zeros((S, self.l_max), dtype=torch.int64,
+                                       pin_memory=on_card)
+        # each slot's fold_seed(seed, position) at every position
+        self._keys = self._keys_stage.numpy()
         self._pos = np.zeros(S, np.int32)       # index of last written tok
         self._active = np.zeros(S, bool)
         self._temp = np.zeros(S, np.float32)
@@ -562,8 +781,16 @@ class DecodeEngine(Logger):
         self._topp = np.ones(S, np.float32)
         self._eos = np.full(S, -1, np.int64)
         self._end = np.zeros(S, np.int64)
-        self._seeds = np.zeros(S, np.int64)
+        self._serial = np.zeros(S, np.int32)
         self._slot_req: list = [None] * S
+        self._dstate = {
+            "caches": self._caches,
+            "st": torch.zeros(self._layout["size"], dtype=torch.int32,
+                              device=self.device),
+            "toks": torch.zeros((S, self.l_max), dtype=torch.int32,
+                                device=self.device),
+            "keys": torch.zeros((S, self.l_max), dtype=torch.int64,
+                                device=self.device)}
         # slots whose admission is mid-(chunked-)prefill
         self._chunking: set = set()
 
@@ -585,6 +812,27 @@ class DecodeEngine(Logger):
             self._evictions = 0            # guarded-by: self._page_lock
             self._cow_admissions = 0       # guarded-by: self._page_lock
             self._pool_rejected = 0        # guarded-by: self._page_lock
+            # KV-page transfer: pages that arrived by import_pages (a
+            # prefix hit on one counts as a remote hit) and the volume
+            self._imported_pages: set = set()  # guarded-by: self._page_lock
+            self._remote_hit_pages = 0     # guarded-by: self._page_lock
+            self._kv_exported_pages = 0    # guarded-by: self._page_lock
+            self._kv_imported_pages = 0    # guarded-by: self._page_lock
+            self._kv_export_bytes = 0      # guarded-by: self._page_lock
+            self._kv_import_bytes = 0      # guarded-by: self._page_lock
+        # staged KV-page imports, applied by the scheduler thread at a
+        # step boundary (it owns every cache write); always empty on a
+        # dense engine, whose import_pages refuses before staging
+        self._kv_imports: collections.deque = collections.deque()  # guarded-by: self._kv_import_lock
+        self._kv_import_lock = threading.Lock()
+        # the blob's weights version: the parameter tree's signature,
+        # framework named (a JAX engine's pages never serve here: the
+        # two frameworks' KV rows differ in their last bits), and the
+        # hot-swap count (no hot swap in this slice of the port)
+        self._swaps = 0
+        self._kv_sig = hashlib.sha256(repr(
+            ("veles_tpu_torch", tree_signature(self.params))).encode()
+        ).hexdigest()[:12]
 
         self._queue = _PrioQueue(self.priorities)  # guarded-by: self._qlock
         self._qlock = threading.Lock()
@@ -601,7 +849,19 @@ class DecodeEngine(Logger):
         self._n = collections.Counter()   # guarded-by: self._stats_lock
         self._ttft = collections.deque(maxlen=1024)  # guarded-by: self._stats_lock
         self._step_s = collections.deque(maxlen=4096)  # guarded-by: self._stats_lock
+        self._replays = collections.Counter()  # guarded-by: self._stats_lock
         self._decode_wall = 0.0           # guarded-by: self._stats_lock
+        self._verify_wall = 0.0           # guarded-by: self._stats_lock
+        # the speculative policy's measured state (engine.py:1357-1375,
+        # scheduler thread): decode and verify wall EWMAs, an accept EWMA
+        # that starts optimistic so the first drafts run and measure, and
+        # an attempt counter armed so the first tick drafts
+        self._step_wall_ewma = 0.0
+        self._verify_wall_ewma = 0.0
+        self._accept_ewma = 1.0
+        self._ticks_since_attempt = _SPEC_PROBE_TICKS
+        self._spec_attempts = 0
+        self._spec_rate_mark = (float("-inf"), 0, 0)
         # head width (the logits' last dim): top_k's keep-all sentinel
         self._vocab = int(workflow.specs[self.plan.output].shape[-1])
 
@@ -614,28 +874,45 @@ class DecodeEngine(Logger):
                                burn_fn=self._slo.max_burn,
                                gauge=self._g_window))
 
-        # the paged layout's two steps, built (on the card: captured)
-        # once for the engine's lifetime, with their pinned staging
-        # buffers; the scheduler thread replays them on its own stream
+        # the steps, built (paged, on the card: captured) once for the
+        # engine's lifetime — decode, prefill, and megastep and verify
+        # where enabled — with the pinned staging buffers of their
+        # inputs; the scheduler thread replays them on its own stream
         self.step_cache = StepCache(capture=capture)
-        on_card = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if on_card else None
+        # each token program twice: sampling, and greedy-only (the
+        # sampled half's noise and filter are ~60 small kernels a
+        # micro-step, paid for nothing when every live slot is greedy)
+        kinds = [("decode", 1)]
+        if self.megastep > 1:
+            kinds.append(("megastep", self.megastep))
+        if self.spec:
+            kinds.append(("verify", self.spec_k + 1))
+        steps = [_TokenStep(self, kind, n, sampled)
+                 for kind, n in kinds for sampled in (True, False)]
         if self.paged:
-            key = (id(self), S, self.l_max, self.page_size, self.pages,
-                   self.paged_kernel, str(cache_dtype), str(self.device))
-            steps = {"decode": _DecodeStep(self, S * (3 + self.n_ptab)),
-                     "prefill": _PrefillStep(
-                         self, self.l_max + self.n_ptab + 1)}
-            self._fns, self._stage = {}, {}
-            for kind, step in steps.items():
-                self._fns[kind] = self.step_cache.get_step(
-                    kind, key, lambda s=step: s, (self._caches, step.inputs))
-                self._stage[kind] = torch.zeros(
-                    step.inputs["buf"].numel(), dtype=torch.int32,
-                    pin_memory=on_card)
-            # the prefill's staging buffer is read by a copy no sampling
-            # waits for on an intermediate chunk: this event fences it
-            self._prefill_staged = torch.cuda.Event() if on_card else None
+            steps.append(_PrefillStep(self))
+        key = (id(self), S, self.l_max, self.page_size, self.pages,
+               self.paged_kernel, str(cache_dtype), str(self.device))
+        self._fns, self._stage = {}, {}
+        for step in steps:
+            name = getattr(step, "name", step.kind)
+            if not self.paged:
+                self._fns[name] = step           # dense: eager
+            else:
+                state = self._caches if step.kind == "prefill" \
+                    else self._dstate
+                self._fns[name] = self.step_cache.get_step(
+                    name, key + (getattr(step, "n", 0),),
+                    lambda s=step: s, (state, step.inputs))
+            for iname, t in step.inputs.items():
+                if iname not in self._stage:     # one per input name
+                    self._stage[iname] = torch.zeros(
+                        t.shape, dtype=t.dtype, pin_memory=on_card)
+        # the prefill's staging buffer is read by a copy no sampling
+        # waits for on an intermediate chunk: this event fences it
+        self._prefill_staged = torch.cuda.Event() \
+            if on_card and self.paged else None
 
     def _init_metrics(self):
         reg = registry()
@@ -662,6 +939,42 @@ class DecodeEngine(Logger):
         self._g_window = reg.gauge(
             "vt_admission_window",
             "queued requests the admission controller currently admits")
+        self._g_megastep_n = reg.gauge(
+            "vt_megastep_n",
+            "configured decode micro-steps fused per megastep dispatch "
+            "(1 = megastep off)")
+        self._g_megastep_n.set(self.megastep)
+        self._m_spec_proposed = reg.counter(
+            "vt_spec_proposed_total",
+            "draft tokens proposed to the speculative verify step")
+        self._m_spec_accepted = reg.counter(
+            "vt_spec_accepted_total",
+            "draft tokens accepted (emitted token matched the proposal)")
+        self._g_spec_accept_rate = reg.gauge(
+            "vt_spec_accept_rate",
+            "accepted / proposed draft tokens over the recent window "
+            "(0.5 s; 0 when nothing was proposed)")
+        self._m_spec_verify = reg.histogram(
+            "vt_spec_verify_step_seconds",
+            "wall time of one speculative verify step (every active slot "
+            "scores k + 1 positions in one dispatch)")
+        self._m_kv_exported = reg.counter(
+            "vt_kv_pages_exported_total",
+            "prefix pages serialized by export_pages (GET /kv/pages)")
+        self._m_kv_imported = reg.counter(
+            "vt_kv_pages_imported_total",
+            "prefix pages written into the pool by import_pages (PUT "
+            "/kv/pages); skipped duplicates and pool-full drops not "
+            "included")
+        self._m_kv_bytes = reg.counter(
+            "vt_kv_transfer_bytes_total",
+            "serialized KV-page wire bytes, by transfer direction",
+            labels=("direction",))
+        self._m_kv_seconds = reg.histogram(
+            "vt_kv_transfer_seconds",
+            "wall time of one export_pages / import_pages call "
+            "(serialize, or validate and apply), by direction",
+            labels=("direction",))
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -980,6 +1293,9 @@ class DecodeEngine(Logger):
             ttft = list(self._ttft)
             steps = list(self._step_s)
             wall = self._decode_wall
+            verify_wall = self._verify_wall
+            replays = {name: self._replays[name] for name in self._fns
+                       if name != "prefill"}
         with self._qlock:
             qlen = len(self._queue)
             shed = {str(k): v for k, v in sorted(self._shed_by_class.items())}
@@ -987,7 +1303,7 @@ class DecodeEngine(Logger):
         compile_ = self.step_cache.stats()
         capture = {kind: (compile_[kind] if self.paged else
                           {"captured": False, "reason": "dense layout"})
-                   for kind in ("decode", "prefill")}
+                   for kind in self._fns}
         out = {
             "device": str(self.device),
             "slots": self.slots, "l_max": self.l_max,
@@ -998,6 +1314,10 @@ class DecodeEngine(Logger):
             "rejected": n.get("rejected", 0),
             "timeouts": n.get("timeouts", 0),
             "decode_steps": n.get("decode_steps", 0),
+            "dispatches": n.get("dispatches", 0),
+            # token-advancing dispatches by program (kind, and kind +
+            # "_greedy" where no live slot sampled)
+            "replays": replays,
             "decode_tokens": n.get("decode_tokens", 0),
             "prefill_tokens": n.get("prefill_tokens", 0),
             "prefill_calls": n.get("prefill_calls", 0),
@@ -1020,9 +1340,24 @@ class DecodeEngine(Logger):
                           "shed_by_class": shed},
             "compile": compile_, "capture": capture,
         }
+        if self.spec:
+            proposed = n.get("spec_proposed", 0)
+            accepted = n.get("spec_accepted", 0)
+            out["spec"] = {"k": self.spec_k, "drafter": self.spec_drafter,
+                           "proposed": proposed, "accepted": accepted,
+                           "verify_steps": n.get("verify_steps", 0),
+                           "accept_rate": round(accepted / max(proposed, 1),
+                                                4),
+                           # tokens the verify steps emitted, their wall
+                           "emitted": n.get("spec_emitted", 0),
+                           "verify_seconds": verify_wall}
+        if self.megastep > 1:
+            out["megastep"] = {"n": self.megastep,
+                               "mega_dispatches": n.get("mega_dispatches", 0)}
         pages = self._pages_summary()
         if pages is not None:
             out["pages"] = pages
+            out["kv_transfer"] = self._kv_transfer_summary()
         return out
 
     # -- scheduler ---------------------------------------------------------
@@ -1036,6 +1371,10 @@ class DecodeEngine(Logger):
                     # evaluates on the scheduler's heartbeat
                     self._slo.tick()
                     self._admission.tick()
+                    self._publish_gauges()
+                    # a step boundary: staged KV-page imports land here
+                    # (the scheduler thread writes every cache)
+                    self._apply_kv_imports()
                     with self._qlock:
                         pending = bool(self._queue)
                     if not self._active.any() and not pending \
@@ -1054,7 +1393,7 @@ class DecodeEngine(Logger):
                     # decode step: a long prompt and decoding take turns
                     self._advance_prefills()
                     if self._active.any():
-                        self._step_once()
+                        self._advance_once()
         except Exception as e:  # noqa: BLE001 — a dead scheduler must
             # fail pending work loudly, not hang every client
             self._died = True
@@ -1062,6 +1401,9 @@ class DecodeEngine(Logger):
             self._fail_all(SchedulerCrashed(
                 f"engine scheduler crashed: {type(e).__name__}: {e}"))
         finally:
+            # staged imports drain so their callers do not wait out their
+            # timeout
+            self._apply_kv_imports()
             self._fail_all(EngineStopped("engine stopped"))
 
     def _fail_all(self, err: Exception):
@@ -1241,12 +1583,14 @@ class DecodeEngine(Logger):
             hits = self._prefix_hits_locked(hashes, P)
             row = np.full(self.n_ptab, self._scratch, np.int32)
             taken = []
+            remote = 0
             for i in range(hits):
                 pid = self._prefix_index[hashes[i]]
                 self._page_ref[pid] += 1
                 self._touch(pid)
                 row[i] = pid
                 taken.append(pid)
+                remote += pid in self._imported_pages
             for i in range(hits, need):
                 pid = self._alloc_page_locked()
                 if pid is None:          # shortage: roll back, requeue
@@ -1261,6 +1605,8 @@ class DecodeEngine(Logger):
                 taken.append(pid)
             self._prefix_hit_pages += hits
             self._prefix_miss_pages += max(P // psz - hits, 0)
+            # hits on pages a peer prefilled and shipped (import_pages)
+            self._remote_hit_pages += remote
             if hits:
                 # copy-on-write admission: the shared prefix is mapped
                 # read-only, the first divergent page on is private
@@ -1287,6 +1633,7 @@ class DecodeEngine(Logger):
             del self._prefix_index[self._page_key.pop(pid)]
             self._evictions += 1
         self._page_ref[pid] = 1
+        self._imported_pages.discard(pid)
         self._touch(pid)
         return pid
 
@@ -1321,6 +1668,293 @@ class DecodeEngine(Logger):
                     if pid not in self._page_key:
                         self._page_free.append(pid)
         self._ptab[slot] = self._scratch
+
+    # -- KV-page transfer (engine.py:3028-3362): magic + length-prefixed
+    # JSON header (page size, weights version, each cache entry's dtype
+    # and row shape, each page's hash and sha256) + the raw page rows;
+    # pages are named by the prefix index's chained hashes, so an
+    # imported page is the page a local prefill computes ---------------
+    def _require_transfer(self):
+        """Transfer needs content-addressed pages: a dense engine and a
+        chain without prefix reuse refuse (REST 400)."""
+        if not self.paged:
+            raise ValueError(
+                "KV-page transfer requires the paged KV layout "
+                "(serve.paged=True); dense caches have no "
+                "content-addressed pages to ship")
+        if not self._prefix_ok:
+            raise ValueError(
+                "KV-page transfer requires prefix reuse, which recurrent "
+                "units disable (their cache content is not a pure "
+                "function of a whole-page prompt prefix)")
+
+    @property
+    def kv_wver(self) -> str:
+        """The weights version stamped into every blob: the parameter
+        tree's signature hash (framework named) and the hot-swap count;
+        import refuses any other."""
+        return f"{self._kv_sig}.{self._swaps}"
+
+    def _kv_xfer_entries(self) -> list:
+        """Per-entry wire layout ``(name, part, dtype, row_shape)`` over
+        the attention caches in sorted order (the JAX package's)."""
+        return [(name, part,
+                 str(self._caches[name][part].dtype).replace("torch.", ""),
+                 tuple(int(d) for d in self._caches[name][part].shape[1:]))
+                for name in sorted(self.plan.attn_keys())
+                for part in ("k", "v")]
+
+    def _kv_page_bytes(self) -> int:
+        """Wire payload bytes of one page (every cache entry)."""
+        return sum(self._caches[n][p][0].numel()
+                   * self._caches[n][p].element_size()
+                   for n, p, _dt, _s in self._kv_xfer_entries())
+
+    @staticmethod
+    def _norm_hash(h) -> bytes:
+        """Raw sha256 digests inside, hex on the wire and in queries."""
+        return bytes.fromhex(h) if isinstance(h, str) else bytes(h)
+
+    def hot_page_hashes(self, k: int) -> list:
+        """The K hottest cached prefix pages (refcount, then recency,
+        descending) as raw digests."""
+        self._require_transfer()
+        with self._page_lock:
+            ranked = sorted(self._page_key.items(),
+                            key=lambda it: (int(self._page_ref[it[0]]),
+                                            int(self._page_tick[it[0]])),
+                            reverse=True)
+            return [h for _pid, h in ranked[:max(int(k), 0)]]
+
+    def export_pages(self, prefix_hashes) -> bytes:
+        """The requested prefix pages that are resident (others are
+        omitted) in the wire format.  The pages are pinned (refcount + 1)
+        for the read, so eviction cannot recycle one mid-read; a
+        registered page is written only by its own prefill."""
+        self._require_transfer()
+        t0 = time.monotonic()
+        pinned = []
+        with self._page_lock:
+            seen = set()
+            for h in prefix_hashes:
+                h = self._norm_hash(h)
+                pid = self._prefix_index.get(h)
+                if pid is None or h in seen:
+                    continue
+                seen.add(h)
+                self._page_ref[pid] += 1
+                self._touch(pid)
+                pinned.append((h, pid))
+        try:
+            entries = self._kv_xfer_entries()
+            rows = []
+            if pinned:
+                idx = torch.as_tensor([pid for _h, pid in pinned],
+                                      device=self.device)
+                rows = [self._caches[n][p].index_select(0, idx).cpu()
+                        .view(torch.uint8).reshape(len(pinned), -1).numpy()
+                        for n, p, _dt, _s in entries]
+            pages, payload = [], bytearray()
+            for i, (h, _pid) in enumerate(pinned):
+                page = b"".join(r[i].tobytes() for r in rows)
+                pages.append({"hash": h.hex(),
+                              "sha256": hashlib.sha256(page).hexdigest()})
+                payload += page
+        finally:
+            with self._page_lock:
+                for _h, pid in pinned:
+                    self._page_ref[pid] -= 1
+                    if self._page_ref[pid] <= 0:
+                        self._page_ref[pid] = 0
+                        if pid not in self._page_key:
+                            self._page_free.append(pid)
+        hdr = json.dumps({
+            "page_size": self.page_size, "wver": self.kv_wver,
+            "entries": [[n, p, dt, list(sh)] for n, p, dt, sh in entries],
+            "pages": pages}).encode()
+        blob = _KV_MAGIC + len(hdr).to_bytes(4, "little") + hdr \
+            + bytes(payload)
+        with self._page_lock:
+            self._kv_exported_pages += len(pinned)
+            self._kv_export_bytes += len(blob)
+        self._m_kv_exported.inc(len(pinned))
+        self._m_kv_bytes.labels(direction="out").inc(len(blob))
+        self._m_kv_seconds.labels(direction="out").observe(
+            time.monotonic() - t0)
+        return blob
+
+    def _decode_pages_blob(self, blob) -> list:
+        """Validate a blob against the local geometry and weights
+        version: ``[(hash, [row tensors in entry order]), ...]`` on the
+        host.  Every defect raises ValueError (REST 400): a page of other
+        KV entering the prefix index would break bitwise serving for
+        every request that hits it."""
+        blob = bytes(blob)
+        if blob[:len(_KV_MAGIC)] != _KV_MAGIC:
+            raise ValueError("not a KV-page blob (bad magic)")
+        off = len(_KV_MAGIC)
+        if len(blob) < off + 4:
+            raise ValueError("truncated KV-page blob (no header)")
+        n = int.from_bytes(blob[off:off + 4], "little")
+        off += 4
+        try:
+            hdr = json.loads(blob[off:off + n].decode())
+        except (UnicodeDecodeError, json.JSONDecodeError) as e:
+            raise ValueError(f"corrupt KV-page header: {e}") from e
+        if not isinstance(hdr, dict):
+            raise ValueError("corrupt KV-page header: not an object")
+        off += n
+        if hdr.get("page_size") != self.page_size:
+            raise ValueError(
+                f"page_size mismatch: blob {hdr.get('page_size')} vs "
+                f"local {self.page_size}")
+        if str(hdr.get("wver")) != self.kv_wver:
+            raise ValueError(
+                f"weights-version mismatch: blob {hdr.get('wver')!r} vs "
+                f"local {self.kv_wver!r} — pages computed under other "
+                "weights (or by another framework) cannot serve here")
+        entries = self._kv_xfer_entries()
+        if hdr.get("entries") != [[n_, p, dt, list(sh)]
+                                  for n_, p, dt, sh in entries]:
+            raise ValueError(
+                "cache-entry layout mismatch (names/dtypes/shapes differ "
+                "from the local paged caches)")
+        sizes = [(self._caches[n_][p].dtype, sh,
+                  self._caches[n_][p][0].numel()
+                  * self._caches[n_][p].element_size())
+                 for n_, p, _dt, sh in entries]
+        page_bytes = sum(sz for _d, _s, sz in sizes)
+        pages_hdr = hdr.get("pages") or []
+        if not isinstance(pages_hdr, list) or not all(
+                isinstance(m, dict) for m in pages_hdr):
+            raise ValueError("corrupt KV-page header: pages")
+        if len(blob) - off != page_bytes * len(pages_hdr):
+            raise ValueError(
+                f"payload size mismatch: {len(blob) - off} bytes for "
+                f"{len(pages_hdr)} pages of {page_bytes}")
+        out = []
+        for meta in pages_hdr:
+            page = blob[off:off + page_bytes]
+            off += page_bytes
+            if hashlib.sha256(page).hexdigest() != meta.get("sha256"):
+                raise ValueError("page integrity check failed for "
+                                 f"{meta.get('hash')!r}")
+            try:
+                h = self._norm_hash(str(meta.get("hash")))
+            except ValueError as e:
+                raise ValueError(f"corrupt page hash: {e}") from e
+            rows, p_off = [], 0
+            for dt, sh, sz in sizes:
+                raw = np.frombuffer(page, np.uint8, sz, p_off).copy()
+                rows.append(torch.from_numpy(raw).view(dt).reshape(sh))
+                p_off += sz
+            out.append((h, rows))
+        return out
+
+    def import_pages(self, blob, *, timeout: float = 30.0) -> dict:
+        """A peer's prefix pages into the local pool.  Validation is
+        all-or-nothing (ValueError, the pool untouched); the apply is per
+        page: resident hashes are skipped, and a page is dropped when
+        every pool page is referenced.  The writes land on the scheduler
+        thread at a step boundary (inline on a stopped engine), into the
+        pool tensors the captured steps read; imported pages enter the
+        prefix index at refcount 0, cached and evictable."""
+        self._require_transfer()
+        t0 = time.monotonic()
+        pages = self._decode_pages_blob(blob)
+        box = {"applied": None, "error": None}
+        done = threading.Event()
+        with self._kv_import_lock:
+            self._kv_imports.append((pages, box, done))
+        if self.started:
+            self._wake.set()
+        else:
+            self._apply_kv_imports()
+        deadline = time.monotonic() + float(timeout)
+        while not done.wait(0.05):
+            if not self.started:
+                # stopped between the enqueue and its drain: apply here
+                self._apply_kv_imports()
+            elif time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"KV-page import not applied within {timeout}s "
+                    "(scheduler wedged?)")
+        if box["error"]:
+            raise ValueError(f"KV-page import failed mid-apply: "
+                             f"{box['error']}")
+        imported, skipped, dropped, hashes = box["applied"]
+        with self._page_lock:
+            self._kv_imported_pages += imported
+            self._kv_import_bytes += len(blob)
+        self._m_kv_imported.inc(imported)
+        self._m_kv_bytes.labels(direction="in").inc(len(blob))
+        self._m_kv_seconds.labels(direction="in").observe(
+            time.monotonic() - t0)
+        return {"imported": imported, "skipped": skipped,
+                "dropped": dropped, "hashes": [h.hex() for h in hashes]}
+
+    def _apply_kv_imports(self):
+        """Drain the staged imports: per page skip a resident hash, claim
+        a pool page, write its rows into the pool tensors in place
+        (index copy: a captured graph keeps reading the same tensors),
+        publish it in the prefix index.  A failed write returns the page
+        and fails that import's caller, never the scheduler."""
+        while True:
+            with self._kv_import_lock:
+                if not self._kv_imports:
+                    return
+                pages, box, done = self._kv_imports.popleft()
+            imported = skipped = dropped = 0
+            hashes = []
+            entries = self._kv_xfer_entries()
+            try:
+                for h, rows in pages:
+                    with self._page_lock:
+                        pid = self._prefix_index.get(h)
+                        if pid is not None:
+                            self._touch(pid)
+                            skipped += 1
+                            hashes.append(h)
+                            continue
+                        pid = self._alloc_page_locked()
+                    if pid is None:     # every page referenced: stays cold
+                        dropped += 1
+                        continue
+                    try:
+                        with torch.no_grad():
+                            for (n, p, _dt, _sh), row in zip(entries, rows):
+                                self._caches[n][p][pid].copy_(row)
+                    except Exception:
+                        with self._page_lock:
+                            self._page_ref[pid] = 0
+                            self._page_free.append(pid)
+                        raise
+                    with self._page_lock:
+                        self._page_ref[pid] = 0
+                        self._prefix_index[h] = pid
+                        self._page_key[pid] = h
+                        self._imported_pages.add(pid)
+                        self._touch(pid)
+                    imported += 1
+                    hashes.append(h)
+            except Exception as e:  # noqa: BLE001 — the importer's call
+                # fails, the shared scheduler does not
+                box["error"] = f"{type(e).__name__}: {e}"
+            box["applied"] = (imported, skipped, dropped, hashes)
+            done.set()
+
+    def _kv_transfer_summary(self) -> dict:
+        """``stats()["kv_transfer"]``: volume, remote hits, wire bytes a
+        page and the weights version."""
+        with self._page_lock:
+            out = {"exported_pages": self._kv_exported_pages,
+                   "imported_pages": self._kv_imported_pages,
+                   "export_bytes": self._kv_export_bytes,
+                   "import_bytes": self._kv_import_bytes,
+                   "remote_hit_pages": self._remote_hit_pages}
+        out["page_bytes"] = self._kv_page_bytes() if self._prefix_ok else 0
+        out["wver"] = self.kv_wver
+        return out
 
     # -- device work -------------------------------------------------------
     def _prefill(self, slot: int, req: _Request):
@@ -1380,12 +2014,12 @@ class DecodeEngine(Logger):
                 # the previous chunk's copy out of the pinned buffer
                 self._prefill_staged.synchronize()
             L, m = self.l_max, self.n_ptab
-            buf = self._stage["prefill"].numpy()
+            buf = self._stage["buf"].numpy()
             buf[:eff.size] = eff
             buf[L:L + m] = req.page_row
             buf[L + m] = start
             fn = self._fns["prefill"]
-            out = fn(self._caches, {"buf": self._stage["prefill"]})
+            out = fn(self._caches, {"buf": self._stage["buf"]})
             if self._prefill_staged is not None:
                 self._prefill_staged.record()
             for _ in range(n - 1):
@@ -1420,8 +2054,13 @@ class DecodeEngine(Logger):
         topk = req.top_k if req.top_k is not None else self._vocab
         topp = req.top_p if req.top_p is not None else 1.0
         with torch.no_grad():
-            first = int(sample_rows(logits, [req.temperature], [topk],
-                                    [topp], [req.seed], [P - 1])[0])
+            dev = logits.device
+            first = int((sample_slots(
+                logits, *sampling_tensors([req.temperature], [topk], [topp],
+                                          dev),
+                gumbel_noise(fold_keys([req.seed], P - 1, dev),
+                             self._vocab)) if req.temperature > 0
+                else logits.float().argmax(-1))[0])
         if self.paged:
             self._register_prefix_pages(req)
         now = time.monotonic()
@@ -1431,6 +2070,8 @@ class DecodeEngine(Logger):
             self._m_ttft.observe(now - req.submitted_at)
             with self._stats_lock:
                 self._ttft.append(now - req.submitted_at)
+        # the whole history: the drafter reads it, and the step its last
+        self._toks[slot, :P] = eff
         self._toks[slot, P] = first
         self._pos[slot] = P
         self._temp[slot] = req.temperature
@@ -1438,7 +2079,8 @@ class DecodeEngine(Logger):
         self._topp[slot] = topp
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         self._end[slot] = req.end_index
-        self._seeds[slot] = req.seed
+        self._keys[slot] = fold_seed_array(req.seed, np.arange(self.l_max))
+        self._serial[slot] += 1
         if req.stream is not None:
             req.stream.push(int(req.gen.size), (first,))
         done = (P >= req.end_index
@@ -1452,56 +2094,238 @@ class DecodeEngine(Logger):
         if done:
             self._retire(slot)
 
-    def _decode_logits(self, tok, pos, active):
-        """One decode step's (S, V) logits: the paged step from its
-        staging buffer (on the card, the graph's replay), or the dense
-        layout's eager step."""
-        S = self.slots
+    def _stage_state(self) -> bool:
+        """Pack the host mirror into the pinned state buffer; True when
+        it differs from what the device holds."""
+        S, lay = self.slots, self._layout
+        b = self._st_stage.numpy()
+
+        def put(name, vals, dt=np.int32):
+            lo, hi = lay[name]
+            b[lo:hi].view(dt)[:] = vals
+
+        put("serial", self._serial)
+        put("pos", self._pos)
+        put("active", self._active)
+        put("temp", self._temp, np.float32)
+        put("topk", self._topk)
+        put("topp", self._topp, np.float32)
+        put("eos", self._eos)
+        put("end", self._end)
         if self.paged:
-            buf = self._stage["decode"].numpy()
-            buf[:S] = tok
-            buf[S:2 * S] = pos
-            buf[2 * S:3 * S] = active
-            buf[3 * S:] = self._ptab.reshape(-1)
-            return self._fns["decode"](
-                self._caches, {"buf": self._stage["decode"]})["logits"]
-        dev = self.device
-        with torch.no_grad():
-            logits, _ = self.plan.step(
-                self.params, self._caches, torch.from_numpy(tok).to(dev),
-                torch.from_numpy(pos).to(dev), self._ctx,
-                write_ok=torch.from_numpy(active).to(dev))
-        return logits
+            put("ptab", self._ptab.reshape(-1))
+        return not np.array_equal(b, self._st_synced)
+
+    def _dispatch(self, kind: str, batch=None):
+        """One token-advancing dispatch: load the mirror onto the device
+        when the host changed it (admission, retirement, preemption, a
+        deadline, a page-table row), run the step (on the card: replay
+        its graph), read back positions, active and finished flags,
+        counts and the fresh tokens in one copy, and update the mirror.
+        The ``kind``'s greedy-only program runs when no live slot
+        samples.  Returns (finished, count, emitted) host arrays of
+        (S,)."""
+        if self._stage_state():
+            self._dstate["st"].copy_(self._st_stage, non_blocking=True)
+            self._dstate["toks"].copy_(self._toks_stage, non_blocking=True)
+            self._dstate["keys"].copy_(self._keys_stage, non_blocking=True)
+        name = kind if (self._temp[self._active] > 0).any() \
+            else kind + "_greedy"
+        rb = self._fns[name](self._dstate, batch)["rb"].cpu().numpy()
+        with self._stats_lock:
+            self._replays[name] += 1
+        S = self.slots
+        new_pos = rb[:S]
+        emitted = new_pos - self._pos
+        out = rb[4 * S:].reshape(S, -1)
+        for s in np.flatnonzero(emitted):
+            p = int(self._pos[s])
+            self._toks[s, p + 1:p + 1 + emitted[s]] = out[s, :emitted[s]]
+        self._pos[:] = new_pos
+        self._active[:] = rb[S:2 * S] != 0
+        self._stage_state()
+        self._st_synced[:] = self._st_stage.numpy()
+        return rb[2 * S:3 * S] != 0, rb[3 * S:4 * S], emitted
+
+    def _advance_once(self):
+        """One scheduler advance of every active slot (engine.py:
+        3549-3580): a verify step when the drafter proposed and the
+        measured payoff test passes (undrafted slots ride along on their
+        ``-1`` rows and advance one token), else a megastep when every
+        slot is busy and nothing waits, else one decode step.  When even
+        a best-case draft could not pay (:meth:`_spec_worthwhile`) the
+        drafter is skipped: an undraftable workload decays to plain
+        decode plus one attempt every ``_SPEC_PROBE_TICKS`` ticks."""
+        draft = None
+        if self.spec and self._spec_worthwhile():
+            probe = self._ticks_since_attempt >= _SPEC_PROBE_TICKS \
+                and self._verify_wall_ewma > 0
+            draft = self._spec_drafts()
+            self._ticks_since_attempt = 0   # attempt consumed either way
+            self._spec_attempts += 1
+            # a parked-regime probe that found a draft runs the verify
+            # unconditionally: it refreshes the accept EWMA the payoff
+            # test reads
+            if draft is not None and not probe \
+                    and not self._verify_pays(draft):
+                draft = None
+        if draft is not None:
+            self._verify_once(draft)
+        elif self.megastep > 1 and self._mega_ready():
+            self._megastep_once()
+        else:
+            self._step_once()
+
+    def _mega_ready(self) -> bool:
+        """May this iteration fuse N micro-steps (engine.py:3582-3595)?
+        Only with every slot busy, the queue empty and no slot mid-
+        chunked-prefill: any pending work drops the iteration to N = 1,
+        so admission, preemption and the next chunk slice never wait on
+        a fused block."""
+        with self._qlock:
+            queued = bool(self._queue)
+        return bool(self._active.all()) and not queued \
+            and not self._chunking
+
+    def _spec_worthwhile(self) -> bool:
+        """Could a verify step pay if every active slot drafted at the
+        recent accept rate (engine.py:3597-3617)?  Profitable (measured
+        EWMAs, payoff positive): draft every tick; cold (no verify wall
+        measured): draft, for at most 64 attempts; parked or cold budget
+        spent: one attempt every ``_SPEC_PROBE_TICKS``."""
+        if self._verify_wall_ewma > 0 and self._step_wall_ewma > 0:
+            ratio = self._verify_wall_ewma / max(self._step_wall_ewma,
+                                                 1e-9)
+            if 1 + self.spec_k * self._accept_ewma >= ratio:
+                return True
+        elif self._spec_attempts < 64:
+            return True
+        return self._ticks_since_attempt >= _SPEC_PROBE_TICKS
+
+    def _verify_pays(self, draft) -> bool:
+        """One verify step must be expected to emit what the same wall
+        spent on decode steps would (engine.py:3619-3638): ``active +
+        proposed * accept_ewma >= active * verify_wall / decode_wall``;
+        yes until both walls are measured."""
+        if self._verify_wall_ewma <= 0 or self._step_wall_ewma <= 0:
+            return True
+        active = int(self._active.sum())
+        proposed = int((draft >= 0).sum())
+        ratio = self._verify_wall_ewma / max(self._step_wall_ewma, 1e-9)
+        return active + proposed * self._accept_ewma >= active * ratio
+
+    def _spec_drafts(self):
+        """(S, K) int32 draft matrix from the n-gram drafter over each
+        active slot's history, or None when no slot drafted
+        (engine.py:3640-3668).  The history is the host mirror, current
+        after every dispatch's read-back (the JAX package syncs its own
+        copy lazily, ``_sync_hist``)."""
+        draft = None
+        for s in np.flatnonzero(self._active):
+            if self._slot_req[s] is None:
+                continue
+            pos, end = int(self._pos[s]), int(self._end[s])
+            # one token left: a draft could accept nothing
+            if end - pos < 2:
+                continue
+            row = ngram_draft(self._toks[s, :pos + 1], self.spec_k)
+            if row is None:
+                continue
+            # proposals past the slot's length bound are dead weight
+            row[min(self.spec_k, end - pos - 1):] = -1
+            if not (row >= 0).any():
+                continue
+            if draft is None:
+                draft = np.full((self.slots, self.spec_k), -1, np.int32)
+            draft[s] = row
+        return draft
+
+    def _account(self, key: Optional[str], wall: float, tokens: int,
+                 steps: int = 1):
+        """A dispatch's counts: ``steps`` decode micro-steps (0 for a
+        verify), ``tokens`` emitted over ``wall`` seconds."""
+        self._tokens_per_s = tokens / max(wall, 1e-9)
+        with self._stats_lock:
+            if key is not None:
+                self._n[key] += 1
+            self._n["dispatches"] += 1
+            self._n["decode_steps"] += steps
+            self._n["decode_tokens"] += tokens
+            self._decode_wall += wall
+            if steps:
+                self._step_s.append(wall / steps)
+        if self.spec and steps:
+            self._ticks_since_attempt += 1
 
     def _step_once(self):
         """One decode step over every slot (inactive slots ride along:
         their KV writes go to the scratch row / nowhere)."""
         t0 = time.monotonic()
-        S = self.slots
-        rows = np.arange(S)
-        pos = self._pos.copy()
-        active = self._active.copy()
-        logits = self._decode_logits(self._toks[rows, pos], pos, active)
-        with torch.no_grad():
-            nxt = sample_rows(logits, np.where(active, self._temp, 0.0),
-                              self._topk, self._topp, self._seeds,
-                              pos).cpu().numpy()
-        new_pos = np.where(active, pos + 1, pos)
-        cur = self._toks[rows, new_pos]
-        self._toks[rows, new_pos] = np.where(active, nxt, cur)
-        finished = active & ((nxt == self._eos) | (new_pos >= self._end))
-        self._pos = new_pos.astype(np.int32)
-        self._active = active & ~finished
+        n_active = int(self._active.sum())
+        finished, _, _ = self._dispatch("decode")
         wall = time.monotonic() - t0
-        n_active = int(active.sum())
         self._m_decode_step.observe(wall)
-        self._tokens_per_s = n_active / max(wall, 1e-9)
-        with self._stats_lock:
-            self._n["decode_steps"] += 1
-            self._n["decode_tokens"] += n_active
-            self._decode_wall += wall
-            self._step_s.append(wall)
+        self._step_wall_ewma = wall if self._step_wall_ewma <= 0 \
+            else 0.9 * self._step_wall_ewma + 0.1 * wall
+        self._account(None, wall, n_active)
         self._post_step(finished)
+
+    def _megastep_once(self):
+        """One megastep dispatch (engine.py:3893-3935): every slot
+        advances up to N tokens, retiring inside the block on eos or its
+        length bound; the host pays one scheduler pass for the block.
+        Counted as N micro-steps, the per-token wall (dispatch wall / N)
+        observed as the decode step."""
+        t0 = time.monotonic()
+        finished, emitted, _ = self._dispatch("megastep")
+        wall = time.monotonic() - t0
+        per_tok = wall / self.megastep
+        self._m_decode_step.observe(per_tok)
+        self._step_wall_ewma = per_tok if self._step_wall_ewma <= 0 \
+            else 0.9 * self._step_wall_ewma + 0.1 * per_tok
+        self._account("mega_dispatches", wall, int(emitted.sum()),
+                      self.megastep)
+        self._post_step(finished)
+
+    def _verify_once(self, draft):
+        """One speculative verify step (engine.py:3845-3891): every
+        active slot scores its K + 1 positions in one dispatch and
+        advances by its accepted prefix plus the bonus token; bitwise the
+        decode path's tokens, since the sampler picks every one."""
+        t0 = time.monotonic()
+        self._stage["draft"].numpy()[:] = draft
+        finished, accepted, emitted = self._dispatch(
+            "verify", {"draft": self._stage["draft"]})
+        wall = time.monotonic() - t0
+        proposed, acc = int((draft >= 0).sum()), int(accepted.sum())
+        self._m_spec_proposed.inc(proposed)
+        self._m_spec_accepted.inc(acc)
+        self._m_spec_verify.observe(wall)
+        self._count("spec_proposed", proposed)
+        self._count("spec_accepted", acc)
+        self._count("spec_emitted", int(emitted.sum()))
+        with self._stats_lock:
+            self._verify_wall += wall
+        self._verify_wall_ewma = wall if self._verify_wall_ewma <= 0 \
+            else 0.9 * self._verify_wall_ewma + 0.1 * wall
+        if proposed:
+            self._accept_ewma = 0.8 * self._accept_ewma \
+                + 0.2 * acc / proposed
+        self._account("verify_steps", wall, int(emitted.sum()), 0)
+        self._post_step(finished)
+
+    def _publish_gauges(self):
+        """The windowed accept rate (0.5 s, engine.py:2431-2449), first
+        published on the scheduler's first tick."""
+        now = time.monotonic()
+        t, prop0, acc0 = self._spec_rate_mark
+        if not self.spec or now - t < 0.5:
+            return
+        with self._stats_lock:
+            prop, acc = self._n["spec_proposed"], self._n["spec_accepted"]
+        self._g_spec_accept_rate.set((acc - acc0) / (prop - prop0)
+                                     if prop > prop0 else 0.0)
+        self._spec_rate_mark = (now, prop, acc)
 
     def _post_step(self, finished):
         """Stream flush (first: a deadline below must deliver this

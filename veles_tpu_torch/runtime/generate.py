@@ -9,11 +9,14 @@ the copy).  ``generate`` prefills the prompt through the same step
 (teacher-forced) and decodes greedily or by temperature sampling with
 optional top-k / top-p.
 
-Sampling draws Gumbel noise from an explicit ``torch.Generator`` seeded
-by ``fold_seed(seed, position)`` per row, so a stream depends only on
-(seed, position): the engine and ``generate`` give the same sampled
-tokens for the same seed.  The numbers cannot match the JAX package's
-threefry streams; greedy tokens are what the two packages share.
+Sampling (:func:`sample_slots`) is a function of tensors only, so the
+engine runs it inside its captured decode graphs: the Gumbel noise of
+row ``r`` and vocabulary entry ``v`` is a counter-based hash of
+``(fold_seed(seed, position), v)`` in integer tensor ops, so a stream
+depends only on (seed, position) and the engine and ``generate`` give the
+same sampled tokens for the same seed.  The numbers cannot match the JAX
+package's threefry streams; greedy tokens are what the two packages
+share.
 
 Recurrent, mixture-of-experts and pipeline-stack units come with later
 slices of the port (ROADMAP.md); a chain holding one raises.
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.activations import rope_inv_freq, rotary_embedding, rotate_pairs
+from ..ops.kernels.fused_dropout import splitmix32_tensor
 from ..ops.kernels.paged_attention import paged_attention_decode
 from ..units import nn
 from ..units.base import Context
@@ -34,15 +38,31 @@ from ..units.parallel_nn import MultiHeadAttention
 from ..units.workflow import WorkflowError
 
 _MASK64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
+_FOLD = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
 
 
 def fold_seed(seed: int, value: int) -> int:
     """Deterministic 63-bit mix of (seed, value) — splitmix64 over the
     pair; the port's counterpart of ``jax.random.fold_in``."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + int(value) + 1) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    z = (int(seed) * _FOLD[0] + int(value) + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * _FOLD[1]) & _MASK64
+    z = ((z ^ (z >> 27)) * _FOLD[2]) & _MASK64
     return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+def fold_seed_array(seed: int, values) -> np.ndarray:
+    """:func:`fold_seed` of one seed over an array of values, bit for bit,
+    as int64: numpy's uint64 products wrap mod 2^64 by definition.  The
+    engine folds a slot's seed at every position once, when the slot is
+    admitted, so its decode steps read the fold instead of computing it."""
+    g = [np.uint64(c) for c in _FOLD]
+    z = np.asarray(values, np.uint64) + np.uint64(1) \
+        + np.uint64(int(seed) * _FOLD[0] & _MASK64)
+    z = (z ^ (z >> np.uint64(30))) * g[1]
+    z = (z ^ (z >> np.uint64(27))) * g[2]
+    z = (z ^ (z >> np.uint64(31))) & np.uint64((1 << 63) - 1)
+    return z.astype(np.int64)
 
 
 def _attn_cache_init(u, params, B: int, L: int, dtype, device, *,
@@ -264,46 +284,84 @@ class DecodePlan:
         return x, caches
 
 
-def _gumbel(V: int, seed: int, device) -> torch.Tensor:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    u = torch.rand((V,), generator=gen, device=device)
-    return -torch.log(-torch.log(u.clamp_min(1e-20)))
+def noise_bits(keys: torch.Tensor, V: int) -> torch.Tensor:
+    """(S, V) int64 32-bit hash of each row's fold key (``fold_seed(seed,
+    position)``, int64) and the vocabulary index: ``splitmix32(v ^ lo ^
+    hi)`` over the key's 32-bit halves, in integer tensor ops — the same
+    bits on every device."""
+    row = (keys & _M32) ^ (keys >> 32)
+    v = torch.arange(V, dtype=torch.int64, device=keys.device)
+    return splitmix32_tensor(v[None, :] ^ row[:, None])
 
 
-def sample_rows(logits, temperature, top_k, top_p, seeds, positions):
-    """Per-row next-token choice from (S, V) logits; the sampling
-    parameters are host arrays of length S.  ``temperature <= 0`` picks
-    the argmax; otherwise temperature scaling, then top-k (``top_k >= V``
-    keeps all), then top-p on the filtered logits (``top_p = 1`` keeps
-    all), then a Gumbel-max draw with the row's noise seeded by
-    ``fold_seed(seeds[r], positions[r])`` — the op order of the JAX
-    package's ``sample_logits`` / ``_sample_slots``."""
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Float32 Gumbel noise ``-log(-log(u))`` of 32-bit hashes: ``u``
+    takes the top 23 bits, centred in its 2^-23 bin, so every ``u`` from
+    2^-24 to 1 - 2^-24 is exact in float32 and the noise is finite (24
+    bits would round the top bin's centre up to 1.0)."""
+    u = ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / 8388608.0)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(keys: torch.Tensor, V: int) -> torch.Tensor:
+    """(S, V) float32 Gumbel noise of :func:`noise_bits`, in the
+    device's float32 logs."""
+    return gumbel_from_bits(noise_bits(keys, V))
+
+
+def filter_logits(logits, temperature, top_k, top_p):
+    """The sampled rows' candidates: (S, V) float32 logits scaled by the
+    temperature (a safe divisor where the row is greedy), then top-k
+    (``top_k >= V`` keeps all), then top-p on the filtered logits
+    (``top_p = 1`` keeps all); filtered entries are ``-inf``.  The op
+    order of the JAX package's ``_sample_slots``
+    (veles_tpu/runtime/engine.py:1024-1066)."""
     lg = logits.float()
-    out = lg.argmax(-1)
-    temperature = np.asarray(temperature, np.float32)
-    rows = np.flatnonzero(temperature > 0)
-    if rows.size == 0:
-        return out
-    dev = lg.device
-    idx = torch.as_tensor(rows, device=dev)
     V = lg.shape[-1]
-    x = lg[idx] / torch.as_tensor(temperature[rows], device=dev)[:, None]
+    x = lg / torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))[:, None]
     srt = x.sort(-1, descending=True).values
-    kk = np.clip(np.asarray(top_k, np.int64)[rows] - 1, 0, V - 1)
-    kth = srt.gather(1, torch.as_tensor(kk, device=dev)[:, None])
+    kth = srt.gather(1, (top_k.long() - 1).clamp(0, V - 1)[:, None])
     x2 = x.masked_fill(x < kth, float("-inf"))
-    srt2 = x2.sort(-1, descending=True).values
+    # the sorted x2: the filter is monotone, so it maps sorted to sorted
+    srt2 = srt.masked_fill(srt < kth, float("-inf"))
     probs = torch.softmax(srt2, -1)
     csum = probs.cumsum(-1) - probs
-    tp = torch.as_tensor(np.asarray(top_p, np.float32)[rows], device=dev)
-    cut = ((csum < tp[:, None]).sum(-1) - 1).clamp_min(0)
+    cut = ((csum < top_p[:, None]).sum(-1) - 1).clamp_min(0)
     thresh = srt2.gather(1, cut[:, None])
-    x3 = x2.masked_fill(x2 < thresh, float("-inf"))
-    noise = torch.stack([_gumbel(V, fold_seed(seeds[r], positions[r]), dev)
-                         for r in rows])
-    out[idx] = (x3 + noise).argmax(-1)
-    return out
+    return x2.masked_fill(x2 < thresh, float("-inf"))
+
+
+def sample_slots(logits, temperature, top_k, top_p, noise):
+    """Per-row next-token choice from (S, V) logits, every argument a
+    tensor on the logits' device (temperature and top_p float32, top_k
+    integer, ``noise`` the rows' (S, V) :func:`gumbel_noise`): no host
+    value and no host branch, so a CUDA graph captures it.  Greedy rows
+    (``temperature <= 0``) take ``logits.float().argmax(-1)``, the
+    others the Gumbel-max draw ``argmax(filter_logits(...) + noise)``.
+    The JAX package skips the sampled half with a runtime branch when
+    every row is greedy; this computes both halves every call and picks
+    per row, and its callers skip it on the host instead (the engine
+    replays a greedy-only program when no live slot samples).  Returns
+    int64 (S,)."""
+    x3 = filter_logits(logits, temperature, top_k, top_p)
+    return torch.where(temperature > 0, (x3 + noise).argmax(-1),
+                       logits.float().argmax(-1))
+
+
+def sampling_tensors(temperature, top_k, top_p, device):
+    """The per-row filter arguments of :func:`sample_slots` from host
+    values (lists or arrays of one length), on ``device``."""
+    return (torch.as_tensor(np.asarray(temperature, np.float32),
+                            device=device),
+            torch.as_tensor(np.asarray(top_k, np.int64), device=device),
+            torch.as_tensor(np.asarray(top_p, np.float32), device=device))
+
+
+def fold_keys(seeds, position: int, device) -> torch.Tensor:
+    """The rows' ``fold_seed(seed, position)`` as an int64 tensor."""
+    return torch.as_tensor([fold_seed(s, position) for s in seeds],
+                           dtype=torch.int64, device=device)
 
 
 def params_device(params) -> torch.device:
@@ -344,7 +402,6 @@ def generate(wf, wstate, prompt, n_steps: int, *, temperature: float = 0.0,
     plan = DecodePlan(wf, output_unit)
     ctx = Context(train=False)
     seeds = row_seeds(seed, B)
-    temp = np.full(B, float(temperature), np.float32)
     V = None
     with torch.inference_mode():
         caches = plan.init_caches(params, B, L, cache_dtype, dev)
@@ -358,12 +415,12 @@ def generate(wf, wstate, prompt, n_steps: int, *, temperature: float = 0.0,
                 continue
             if V is None:
                 V = logits.shape[-1]
-            nxt = sample_rows(
-                logits, temp,
-                np.full(B, V if top_k is None else int(top_k), np.int64),
-                np.full(B, 1.0 if top_p is None else float(top_p),
-                        np.float32),
-                seeds, [pos] * B)
+                samp = sampling_tensors(
+                    [temperature] * B, [V if top_k is None else top_k] * B,
+                    [1.0 if top_p is None else top_p] * B, dev)
+            nxt = (sample_slots(logits, *samp, gumbel_noise(
+                fold_keys(seeds, pos, dev), V)) if temperature > 0
+                else logits.float().argmax(-1))
             if eos_id is not None:
                 nxt = torch.where(alive, nxt, torch.full_like(nxt, eos_id))
                 alive = alive & (nxt != eos_id)

@@ -17,7 +17,15 @@
   ``{"done": true, "finish_reason", "usage"}`` line (+ ``"error"``),
   restful.py:766-920 of the JAX package;
 * ``GET /healthz`` (liveness), ``GET /ready`` (200 once the engine runs),
-  ``GET /engine`` (engine stats).
+  ``GET /engine`` (engine stats), ``GET /metrics`` (the registry's
+  Prometheus text), ``GET /slo.json`` (the rolling SLO windows),
+  restful.py:176-188 of the JAX package;
+* ``GET /kv/pages?hashes=hex,hex`` or ``?top=K`` (the K hottest cached
+  pages) answers the engine's serialized prefix pages (VTKV1,
+  ``application/octet-stream``), and ``PUT /kv/pages`` imports such a
+  blob (413 over ``serve.max_body_mb``, 400 on any validation defect or
+  a dense engine, 504 when the import is not applied in time),
+  restful.py:224-248 and :270-316.
 
 Beam search (``beams``; ROADMAP.md queue 1 item 2), the batch lane
 (``batch``; with the job manager, queue 1 item 7) and the deploy / jobs
@@ -30,6 +38,7 @@ import http.server
 import json
 import threading
 from typing import Callable, Optional
+from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 import torch
@@ -39,6 +48,8 @@ from ..logger import Logger
 from ..ops import resolve_device
 from .engine import EngineOverloaded, EngineStopped, SchedulerCrashed
 from .generate import generate
+from .metrics import registry
+from .slo import slo_tracker
 
 
 def reply_json(handler, obj, code=200, headers=()):
@@ -52,9 +63,18 @@ def reply_json(handler, obj, code=200, headers=()):
     handler.wfile.write(body)
 
 
-def read_json_body(handler):
-    """POST body as JSON, or None after answering 413 itself when the
-    body exceeds ``root.common.serve.max_body_mb``."""
+def reply_bytes(handler, body: bytes, content_type: str):
+    handler.send_response(200)
+    handler.send_header("Content-Type", content_type)
+    handler.send_header("Content-Length", str(len(body)))
+    handler.end_headers()
+    handler.wfile.write(body)
+
+
+def read_body(handler):
+    """The request body's bytes, or None after answering 413 itself when
+    it exceeds ``root.common.serve.max_body_mb`` (checked before the
+    body is read)."""
     n = max(int(handler.headers.get("Content-Length", 0)), 0)
     cap = int(float(root.common.serve.get("max_body_mb", 64)) * 2 ** 20)
     if n > cap:
@@ -63,7 +83,16 @@ def read_json_body(handler):
                                       "(root.common.serve.max_body_mb)"},
                    code=413)
         return None
-    return json.loads(handler.rfile.read(n)) if n else {}
+    return handler.rfile.read(n) if n else b""
+
+
+def read_json_body(handler):
+    """POST body as JSON, or None after answering 413 itself (see
+    :func:`read_body`)."""
+    body = read_body(handler)
+    if body is None:
+        return None
+    return json.loads(body) if body else {}
 
 
 def _req_int(v, name):
@@ -106,7 +135,20 @@ class RestfulServer(Logger):
 
             def do_GET(self):
                 path = self.path.split("?", 1)[0].rstrip("/")
-                if path == "/healthz":
+                if path == "/metrics":
+                    reply_bytes(self, registry().render().encode(),
+                                "text/plain; version=0.0.4; charset=utf-8")
+                elif path == "/slo.json":
+                    self._reply(slo_tracker().doc())
+                elif path == "/kv/pages" and outer.engine is not None:
+                    try:
+                        blob = outer.export_kv_pages(
+                            parse_qs(urlsplit(self.path).query))
+                    except ValueError as e:
+                        self._reply({"error": str(e)}, code=400)
+                        return
+                    reply_bytes(self, blob, "application/octet-stream")
+                elif path == "/healthz":
                     self._reply({"status": "alive"})
                 elif path == "/ready":
                     ok, why = outer.readiness()
@@ -116,6 +158,25 @@ class RestfulServer(Logger):
                     self._reply(outer.engine.stats())
                 else:
                     self.send_error(404)
+
+            def do_PUT(self):
+                path = self.path.split("?", 1)[0].rstrip("/")
+                if path != "/kv/pages" or outer.engine is None:
+                    self.send_error(404)
+                    return
+                blob = read_body(self)
+                if blob is None:
+                    return
+                try:
+                    self._reply(outer.engine.import_pages(blob))
+                except ValueError as e:
+                    self._reply({"error": str(e)}, code=400)
+                except TimeoutError as e:
+                    self._reply({"error": str(e)}, code=504)
+                except Exception as e:  # noqa: BLE001 — server answers
+                    self.log_error("KV-page import failed: %r", e)
+                    self._reply({"error": f"{type(e).__name__}: {e}"},
+                                code=500)
 
             def do_POST(self):
                 path = self.path.split("?", 1)[0].rstrip("/")
@@ -170,6 +231,18 @@ class RestfulServer(Logger):
         self.httpd = http.server.ThreadingHTTPServer((host, port), Handler)
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
+
+    def export_kv_pages(self, query: dict) -> bytes:
+        """GET /kv/pages: ``top=K`` ships the K hottest cached pages,
+        else ``hashes=hex,hex`` names them; ValueError (400) on a dense
+        engine or a malformed query."""
+        if "top" in query:
+            hashes = self.engine.hot_page_hashes(
+                _req_int(query["top"][0], "top"))
+        else:
+            hashes = [h for part in query.get("hashes", [])
+                      for h in part.split(",") if h]
+        return self.engine.export_pages(hashes)
 
     def readiness(self):
         if self.engine is not None and not self.engine.started:

@@ -1,7 +1,7 @@
 """StepCache: each train and eval step built once per workflow lifetime,
-and each serving engine's decode and prefill step once per engine, and
-on the card captured once as a CUDA graph (counterpart of
-veles_tpu/runtime/step_cache.py:89-299).
+and each serving engine's decode, prefill, megastep and verify steps
+once per engine, and on the card captured once as a CUDA graph
+(counterpart of veles_tpu/runtime/step_cache.py:89-299).
 
 The JAX package compiles each step program once, ahead of time, and
 never again on a Decision rollback, a ``Trainer.restore`` or a
@@ -119,9 +119,10 @@ class CapturedStep:
     """A step captured as a CUDA graph over ``state``'s tensors and the
     static ``inputs``; called as the eager step is: ``(wstate, batch) ->
     (wstate, metrics)`` for train, ``-> outputs`` for the other kinds
-    (eval; the engine's decode and prefill, whose state is the KV
-    caches).  The returned state is the captured one and the outputs are
-    the graph's static output tensors: read them before the next call.
+    (eval; the engine's serving steps, whose state is the KV caches and
+    the slot state).  The returned state is the captured one and the
+    outputs are the graph's static output tensors: read them before the
+    next call.
     A ``None`` batch replays on what the static inputs hold (the prefill
     step advances its own position index on the card)."""
 
@@ -210,7 +211,7 @@ class StepCache(Logger):
         t0 = time.perf_counter()
         step = builder()
         wstate, inputs = args
-        on_card = any(t.is_cuda for t in tree_leaves(inputs)
+        on_card = any(t.is_cuda for t in tree_leaves(args)
                       if torch.is_tensor(t))
         if not on_card:
             reason = "cpu"
@@ -238,7 +239,7 @@ class StepCache(Logger):
         return fn
 
     def _capture(self, step, wstate, inputs) -> CapturedStep:
-        dev = next(t.device for t in tree_leaves(inputs)
+        dev = next(t.device for t in tree_leaves((wstate, inputs))
                    if torch.is_tensor(t))
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(device=dev)
