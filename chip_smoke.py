@@ -64,7 +64,22 @@ Phases, each of which fails the run with a non-zero exit:
    alone; and a VTKV1 round trip over REST (``GET /kv/pages``, ``PUT
    /kv/pages``) into a fresh engine that must then hit every imported
    page, prefill only the new tail and give the exporter's tokens, a
-   corrupted blob answered 400 with the pool unchanged;
+   corrupted blob answered 400 with the pool unchanged; then, each with
+   the launch counts set to 0 at its start, the bf16 KV cache (the
+   greedy request on bf16-cache and f32-pool engines in turns, captured
+   against eager on a bf16 pool bit for bit, float32 agreement with
+   ``generate(cache_dtype=bfloat16)`` 1.0, the bf16-pool launches one a
+   layer a micro-step) and the lifecycle in float32 through
+   ``RestfulServer`` with a ``DeployController`` (a hot swap under load
+   of 32 clients by ``POST /admin/reload`` of a seed-1 snapshot: at
+   least 16 requests in the engine at the flip by its own count, no
+   request failed, captures flat, one staged copy of the weights at the
+   swap's allocation peak, the tokens after it a fresh engine's
+   on those weights bit for bit, prefix hits restarted, a VTKV1 blob from
+   before it refused; stage then abort; ``/memory.json`` against the
+   allocator; ``/trace.json``'s request spans; a 1 s ``/debug/profile``
+   whose trace holds the paged kernel, a second one 409; beams 4 and 1
+   on ``/generate``; a drain with requests in flight);
 5. training path, full width: the same LM (bf16) trained through
    ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (32
    steps of 16 x 2048 tokens, Adam lr 1e-3) and its eval, fed by an
@@ -199,6 +214,13 @@ MEGASTEP_N = 8                  # decode micro-steps a megastep dispatch
 # row sampled), drafts of SPEC_K tokens
 SPEC_K, SPEC_PHRASE, SPEC_PROMPT, SPEC_NEW = 4, 32, 256, 64
 KV_PROMPT, KV_TAIL, KV_NEW = 256, 64, 32   # the VTKV1 round trip
+# the lifecycle: LIFE_THREADS clients looping greedy (LIFE_PROMPT +
+# LIFE_NEW) requests across the swap, at least LIFE_IN_FLIGHT of them
+# held by the engine (queued, prefilling or decoding) at the flip; the
+# drain's in-flight requests run DRAIN_NEW
+LIFE_THREADS, LIFE_IN_FLIGHT, LIFE_PROMPT, LIFE_NEW = 32, 16, 64, 32
+DRAIN_NEW = 128
+TRACE_CHECKED = 64             # the newest request spans held to nesting
 DEVICE = "cuda"                # the main path's device
 
 
@@ -373,10 +395,13 @@ def _instance_usage(*libs):
 
 
 def _paged_inputs(torch, gen, S, H, Hk, Dh, psz, n_ptab, q_dtype, pos,
-                  scratch_tail):
+                  scratch_tail, pool_dtype=None):
     rows = S * n_ptab + 1
-    pk = torch.randn((rows, psz, Hk, Dh), generator=gen).cuda()
-    pv = torch.randn((rows, psz, Hk, Dh), generator=gen).cuda()
+    pool_dtype = pool_dtype or torch.float32
+    pk = torch.randn((rows, psz, Hk, Dh), generator=gen).cuda().to(
+        pool_dtype)
+    pv = torch.randn((rows, psz, Hk, Dh), generator=gen).cuda().to(
+        pool_dtype)
     ptab = torch.randperm(rows - 1, generator=gen)[:S * n_ptab].reshape(
         S, n_ptab).to(torch.int32)
     if scratch_tail:                   # entries past each span: scratch
@@ -476,6 +501,9 @@ def phase_kernels(torch):
     main_pos = [int(x) for x in PROMPT + rng.integers(0, NEW, SLOTS)]
     edge_pos = [0, L - 1, 17, 544, 300, 700, 15, 16]
     split_pos = [127, 128, 255, 256, 511, 512, L - 1, L - 15]
+    # (name, H, Hk, Dh, q dtype, positions, window, scratch tail, pool
+    # dtype): the f32 pool first, then the bf16 pool of an engine with
+    # cache_dtype=torch.bfloat16 (its main shape and the split edges)
     paged = [("main_bf16q_f32pool", HEADS, HEADS, 64, bf16, main_pos, None,
               True),
              ("edges_f32", HEADS, HEADS, 64, f32, edge_pos, None, True),
@@ -492,33 +520,50 @@ def phase_kernels(torch):
              ("induction_lm_D16_f32", 4, 4, 16, f32, edge_pos, None, True),
              ("induction_lm_D16_bf16q", 4, 4, 16, bf16, edge_pos, None,
               True)]
-    main_paged = None
-    for name, H, Hk, Dh, qdt, pos, window, scratch in paged:
+    paged = [c + (f32,) for c in paged] + [
+        ("main_bf16q_bf16pool", HEADS, HEADS, 64, bf16, main_pos, None,
+         True, bf16),
+        ("bf16pool_edges_f32q", HEADS, HEADS, 64, f32, edge_pos, None, True,
+         bf16),
+        ("bf16pool_split_edges", HEADS, HEADS, 64, bf16, split_pos, None,
+         True, bf16),
+        ("bf16pool_window_across_splits", HEADS, HEADS, 64, f32, edge_pos,
+         200, True, bf16),
+        ("bf16pool_gqa_window", HEADS, 2, 64, bf16, edge_pos, 40, True,
+         bf16),
+        ("bf16pool_D16", 4, 4, 16, f32, edge_pos, None, True, bf16)]
+    main_paged = {}
+    for name, H, Hk, Dh, qdt, pos, window, scratch, pdt in paged:
         args = _paged_inputs(torch, gen, SLOTS, H, Hk, Dh, PAGE,
-                             L_MAX // PAGE, qdt, pos, scratch)
+                             L_MAX // PAGE, qdt, pos, scratch, pdt)
+        variant = "bf16_pool" if pdt == bf16 else "f32_pool"
+        before = pa.launches.by_variant().get(variant, 0)
         out = pa.paged_attention_decode(*args, page_size=PAGE,
                                         n_kv_heads=Hk, window=window)
         ref = pa.paged_attention_decode_plain(*args, page_size=PAGE,
                                               n_kv_heads=Hk, window=window)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        ok = bool(torch.isfinite(out).all()) and err <= PAGED_TOL
-        checks.append({"kernel": pa.NAME, "case": name, "max_abs_err": err,
-                       "tol": PAGED_TOL, "ok": ok})
+        launched = pa.launches.by_variant().get(variant, 0) - before
+        ok = (bool(torch.isfinite(out).all()) and err <= PAGED_TOL
+              and launched == 1)
+        checks.append({"kernel": pa.NAME, "case": name, "variant": variant,
+                       "max_abs_err": err, "tol": PAGED_TOL, "ok": ok})
         say(checks[-1])
         if name.startswith("main"):
-            main_paged = (args, err, pos, H, Hk)
+            main_paged[variant] = (args, err, pos, H, Hk)
     checks.append(_corrupt_ptab_check(torch, gen, edge_pos))
     say(checks[-1])
     # fixed splits merged in rank order: two runs give the same bits
-    args = main_paged[0]
-    twice = [pa.paged_attention_decode(*args, page_size=PAGE,
-                                       n_kv_heads=main_paged[4])
-             for _ in range(2)]
-    same = bool(torch.equal(*twice))
-    checks.append({"kernel": pa.NAME, "case": "main_two_runs_bitwise",
-                   "equal": same, "ok": same})
-    say(checks[-1])
+    for variant, (args, *_rest, Hk_) in main_paged.items():
+        twice = [pa.paged_attention_decode(*args, page_size=PAGE,
+                                           n_kv_heads=Hk_)
+                 for _ in range(2)]
+        same = bool(torch.equal(*twice))
+        checks.append({"kernel": pa.NAME, "variant": variant,
+                       "case": "main_two_runs_bitwise", "equal": same,
+                       "ok": same})
+        say(checks[-1])
     bad = [c for c in checks if not c["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -538,7 +583,28 @@ def phase_kernels(torch):
     f_bytes = 4 * q.numel() * q.element_size() + B * H * T * 4
     f_bound, f_by = bound(f_flops, H100_BF16_FLOPS, f_bytes)
 
-    args, perr, pos, Hp, Hkp = main_paged
+    paged_timing = {variant: _paged_timing(torch, pa, *main)
+                    for variant, main in main_paged.items()}
+    timing = {
+        fa.NAME: {"max_abs_err": ferr, "ms": f_ms, "plain_ms": f_plain,
+                  "library_ms": f_lib, "bound_ms": f_bound,
+                  "bound_by": f_by, "variant": "tc",
+                  "source": fa.SOURCES["tc"],
+                  "tflops": f_flops / f_ms / 1e9,
+                  "bound_share": f_bound / f_ms,
+                  "ptxas": _instance_usage("flash_fwd_tc", "flash_fwd"),
+                  "shape": {"B": B, "T": T, "H": H, "D": D,
+                            "dtype": "bfloat16", "causal": causal}},
+        pa.NAME: paged_timing["f32_pool"],
+        pa.NAME + "/bf16_pool": paged_timing["bf16_pool"],
+    }
+    say({"phase": "kernel_timing", **timing})
+    return timing
+
+
+def _paged_timing(torch, pa, args, perr, pos, Hp, Hkp):
+    """Hot and cold-L2 times of the paged kernel at the main shape, its
+    plain version's, and the byte bound of this pool's dtype."""
     pq, pk_, pv_, ptab, ppos = args
     p_ms = cuda_ms(torch, lambda: pa.paged_attention_decode(
         *args, page_size=PAGE, n_kv_heads=Hkp), iters=50)
@@ -553,29 +619,19 @@ def phase_kernels(torch):
                + live_pages * 4 + SLOTS * 4)
     p_flops = 4 * Hp * 64 * live
     p_bound, p_by = bound(p_flops, H100_F32_FLOPS, p_bytes)
-    timing = {
-        fa.NAME: {"max_abs_err": ferr, "ms": f_ms, "plain_ms": f_plain,
-                  "library_ms": f_lib, "bound_ms": f_bound,
-                  "bound_by": f_by, "variant": "tc",
-                  "source": fa.SOURCES["tc"],
-                  "tflops": f_flops / f_ms / 1e9,
-                  "bound_share": f_bound / f_ms,
-                  "ptxas": _instance_usage("flash_fwd_tc", "flash_fwd"),
-                  "shape": {"B": B, "T": T, "H": H, "D": D,
-                            "dtype": "bfloat16", "causal": causal}},
-        pa.NAME: {"max_abs_err": perr, "ms": p_ms, "plain_ms": p_plain,
-                  "library_ms": None, "bound_ms": p_bound,
-                  "bound_by": p_by, "cold_l2_ms": p_cold,
-                  "bound_share": p_bound / p_cold,
-                  "gb_per_s_cold": p_bytes / p_cold / 1e6,
-                  "ptxas": _instance_usage("paged_attention"),
-                  "shape": {"S": SLOTS, "H": Hp, "Hk": Hkp, "Dh": 64,
-                            "page_size": PAGE, "n_ptab": L_MAX // PAGE,
-                            "q": "bfloat16", "pool": "float32",
-                            "mean_pos": float(np.mean(pos))}},
-    }
-    say({"phase": "kernel_timing", **timing})
-    return timing
+    pool = str(pk_.dtype).split(".")[-1]
+    return {"max_abs_err": perr, "ms": p_ms, "plain_ms": p_plain,
+            "library_ms": None, "bound_ms": p_bound, "bound_by": p_by,
+            "cold_l2_ms": p_cold, "bound_share": p_bound / p_cold,
+            "gb_per_s_cold": p_bytes / p_cold / 1e6, "bytes": p_bytes,
+            "variant": "bf16_pool" if pool == "bfloat16" else "f32_pool",
+            "ptxas": {k: v for k, v in _instance_usage(
+                "paged_attention").items()
+                if ("bf16pool" in k) == (pool == "bfloat16")},
+            "shape": {"S": SLOTS, "H": Hp, "Hk": Hkp, "Dh": 64,
+                      "page_size": PAGE, "n_ptab": L_MAX // PAGE,
+                      "q": "bfloat16", "pool": pool,
+                      "mean_pos": float(np.mean(pos))}}
 
 
 def _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dtype, causal, window):
@@ -1395,7 +1451,7 @@ def phase_main_path(torch):
              f"{comp}")
     trace = profile["launch_trace"]
     if not (trace["ok"] and trace["captured"]
-            and trace["per_replay"].get(paged_attention.NAME) == LAYERS):
+            and trace["per_replay"].get(PAGED_F32) == LAYERS):
         fail(f"the serving graphs' counted launches are not the kernels "
              f"the trace shows: {trace}")
     # the greedy request (SLOTS prompts of PROMPT, NEW new tokens) on the
@@ -1551,7 +1607,6 @@ def _megastep_phase(torch, wf, wstate, flat, prompts, greedy):
     fresh N=1 engine built the same way; the same request in float32 on
     an N=1 and an N=MEGASTEP_N engine, tokens bitwise.  Returns the
     record and the engines' last stats."""
-    from veles_tpu_torch.ops.kernels import paged_attention
     from veles_tpu_torch.runtime.engine import DecodeEngine
     from veles_tpu_torch.runtime.snapshotter import params_from_jax
     from veles_tpu_torch.units.workflow import new_state
@@ -1595,7 +1650,7 @@ def _megastep_phase(torch, wf, wstate, flat, prompts, greedy):
         finally:
             e.stop()
     trace = profile["launch_trace"]
-    paged = paged_attention.NAME
+    paged = PAGED_F32
     rec = {"n": MEGASTEP_N, "prompt": PROMPT, "new": NEW,
            "bf16": metrics, "bf16_n1": n1_metrics, "mega_dispatches":
                st["megastep"]["mega_dispatches"],
@@ -1676,7 +1731,6 @@ def _spec_phase(torch, wf, wstate, engine):
     run's tokens must be bitwise the non-spec ``engine``'s on the same
     requests.  Then a profiled window driven on this thread with one
     verify dispatch, its paged launches held against the trace."""
-    from veles_tpu_torch.ops.kernels import paged_attention
     from veles_tpu_torch.runtime.engine import DecodeEngine
     rng = np.random.default_rng(21)
     phrases = rng.integers(0, VOCAB, (SLOTS, SPEC_PHRASE))
@@ -1734,7 +1788,7 @@ def _spec_phase(torch, wf, wstate, engine):
     decode_s = d1["decode_seconds"] - d0["decode_seconds"]
     pol0, pol1 = s0["spec"], s1["spec"]
     trace = profile["launch_trace"]
-    paged = paged_attention.NAME
+    paged = PAGED_F32
     rec = {"k": SPEC_K, "prompt": SPEC_PROMPT, "phrase": SPEC_PHRASE,
            "new": SPEC_NEW, "sampled_rows": 1,
            "policy": {
@@ -2540,8 +2594,11 @@ KERNEL_SYMBOLS = {
                     "rows": "gather_rows_kernel"},
     "fused_dropout": {None: "dropout_kernel"},
     "mean_disp_normalize": {None: "mean_disp_kernel"},
-    "paged_attention_decode": {None: "paged_decode_kernel"},
+    "paged_attention_decode": {"f32_pool": "paged_decode_kernel",
+                               "bf16_pool": "paged_decode_bf16pool_kernel"},
 }
+#: the f32-pool paged kernel's label in a launch trace check
+PAGED_F32 = "paged_attention_decode/f32_pool"
 
 
 def _launch_trace_check(prof, counted0, replays):
@@ -2799,6 +2856,475 @@ def phase_profile(torch, engine):
     return rec
 
 
+
+# -- the bf16 KV cache and the serving lifecycle ---------------------------
+
+def _bench_state(torch, compute_dtype, seed):
+    """The bench LM's workflow and a state of numpy-seed weights in the
+    JAX package's layout (``jax_layout_weights``) on the card."""
+    from veles_tpu_torch.runtime.snapshotter import params_from_jax
+    from veles_tpu_torch.units.workflow import new_state
+    wf = _workflow(torch, compute_dtype)
+    return wf, new_state(params_from_jax(jax_layout_weights(wf, seed), wf,
+                                         device=DEVICE), {}, {}, 0, None)
+
+
+def _serve_engine(wf, wstate, **kw):
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    kw = {"slots": SLOTS, "l_max": L_MAX, "page_size": PAGE, "paged": True,
+          "paged_kernel": True, "window_ms": 2.0, "device": DEVICE, **kw}
+    return DecodeEngine(wf, wstate, **kw)
+
+
+def _reset_counts():
+    from veles_tpu_torch.ops.kernels import KERNELS
+    for kern in KERNELS:
+        kern.launches.reset()
+
+
+def _paged_variants():
+    from veles_tpu_torch.ops.kernels import paged_attention
+    return paged_attention.launches.by_variant()
+
+
+def phase_bf16_cache(torch):
+    """``cache_dtype=torch.bfloat16`` at full width: the greedy SLOTS x
+    (PROMPT + NEW) request on a captured bf16-cache engine (bf16
+    compute) and on an f32-pool engine built the same way, timed in this
+    run; WITNESS_ITERS scheduler iterations on a captured and an eager
+    bf16-cache engine, tokens and pools bitwise; in float32 compute, the
+    greedy agreement of a bf16-cache engine with the port's
+    ``generate(cache_dtype=bfloat16)`` must be 1.0.  The paged kernel's
+    bf16-pool launches of the phase must be one a layer a micro-step of
+    its bf16-cache engines (capture warm-ups included), counted from 0
+    at the phase's start."""
+    from veles_tpu_torch.runtime.generate import generate
+    bf16 = torch.bfloat16
+    wf, wstate = _bench_state(torch, "bfloat16", 0)
+    prompts = np.random.default_rng(1).integers(
+        0, VOCAB, (SLOTS, PROMPT)).astype(np.int32)
+    _reset_counts()
+    bf16_engines, f32_engines = [], []
+    runs = {"bf16_pool": [], "f32_pool": []}
+    # the two pools in turns (A B B A): a later engine of a run has read
+    # slower for the same graph (PERF.md section 7)
+    for name, cdt in (("bf16_pool", bf16), ("f32_pool", torch.float32),
+                      ("f32_pool", torch.float32), ("bf16_pool", bf16)):
+        eng = _serve_engine(wf, wstate, cache_dtype=cdt).start()
+        try:
+            toks, metrics = _timed_generate(eng, prompts, NEW)
+            st = eng.stats()
+        finally:
+            eng.stop()
+        metrics["device_ms"] = _replay_ms(torch, eng)
+        runs[name].append((toks, metrics, st))
+        (bf16_engines if cdt == bf16 else f32_engines).append(st)
+        del eng
+    # captured against eager, bit for bit, on a bf16 pool
+    rng = np.random.default_rng(5)
+    sysp = rng.integers(0, VOCAB, 64)
+    script = {0: [(rng.integers(0, VOCAB, 40), 24, {}),
+                  (np.concatenate([sysp, rng.integers(0, VOCAB, 9)]), 40,
+                   {})],
+              3: [(rng.integers(0, VOCAB, 20), 8,
+                   dict(temperature=0.8, top_k=50, seed=3))],
+              9: [(np.concatenate([sysp, rng.integers(0, VOCAB, 5)]), 16,
+                   {})],
+              12: [(rng.integers(0, VOCAB, 300), 12, {})]}
+    witness = {}
+    for capture in (True, False):
+        eng = _serve_engine(wf, wstate, cache_dtype=bf16, window_ms=0.0,
+                            capture=capture)
+        reqs = _drive(torch, eng, script, WITNESS_ITERS)
+        witness[capture] = (eng, reqs)
+        bf16_engines.append(eng.stats())
+    (cap, creqs), (eag, ereqs) = witness[True], witness[False]
+    done = [a.done.is_set() and b.done.is_set() for a, b in zip(creqs,
+                                                                ereqs)]
+    wit = {"requests": len(creqs), "retired": sum(done),
+           "tokens_equal": all(np.array_equal(a.result, b.result)
+                               for a, b, d in zip(creqs, ereqs, done) if d),
+           "token_rows_equal": bool(np.array_equal(cap._toks, eag._toks)),
+           "pools_equal": all(torch.equal(cap._caches[n][k],
+                                          eag._caches[n][k])
+                              for n in cap._caches for k in ("k", "v")),
+           "pool_dtype": str(cap._caches["attn0"]["k"].dtype),
+           "captured": cap.stats()["capture"]["decode"]["captured"]}
+    del witness, cap, eag
+    # float32 compute: greedy agreement with generate() on a bf16 cache
+    wf32, ws32 = _bench_state(torch, None, 0)
+    f32_prompts = prompts[:, :F32_PROMPT]
+    eng = _serve_engine(wf32, ws32, cache_dtype=bf16).start()
+    try:
+        f32_toks = eng.generate(f32_prompts, F32_NEW, timeout=900)
+        bf16_engines.append(eng.stats())
+    finally:
+        eng.stop()
+    ref = generate(wf32, ws32, f32_prompts, F32_NEW,
+                   cache_dtype=bf16).cpu().numpy()
+    gen = slice(F32_PROMPT, None)
+    agreement = float(np.mean(f32_toks[:, gen] == ref[:, gen]))
+    variants = _paged_variants()
+    want_bf16 = LAYERS * sum(_micro_steps(st, True) for st in bf16_engines)
+    want_f32 = LAYERS * sum(_micro_steps(st, True) for st in f32_engines)
+    st = runs["bf16_pool"][0][2]
+    b_toks = [r[0] for r in runs["bf16_pool"]]
+    f_toks = [r[0] for r in runs["f32_pool"]]
+    rec = {"prompt": PROMPT, "new": NEW, "order": "bf16 f32 f32 bf16",
+           "bf16_pool": [r[1] for r in runs["bf16_pool"]],
+           "f32_pool": [r[1] for r in runs["f32_pool"]],
+           "greedy_sha256": hashlib.sha256(b_toks[0].astype(
+               np.int32).tobytes()).hexdigest(),
+           "tokens_repeat": bool(np.array_equal(*b_toks)
+                                 and np.array_equal(*f_toks)),
+           "bf16_vs_f32_pool_token_agreement": float(np.mean(
+               b_toks[0][:, PROMPT:] == f_toks[0][:, PROMPT:])),
+           "witness": wit, "f32_agreement_generate": agreement,
+           "f32_prompt": F32_PROMPT, "f32_new": F32_NEW,
+           "launches": variants, "launches_expected":
+               {"bf16_pool": want_bf16, "f32_pool": want_f32},
+           "compile": st["compile"], "capture": st["capture"]}
+    say({"phase": "serving_bf16_cache", **rec})
+    rec["ok"] = (rec["tokens_repeat"] and wit["tokens_equal"]
+                 and wit["token_rows_equal"]
+                 and wit["pools_equal"] and wit["captured"]
+                 and wit["retired"] >= 2
+                 and wit["pool_dtype"] == "torch.bfloat16"
+                 and agreement == 1.0
+                 and variants.get("bf16_pool", 0) == want_bf16 > 0
+                 and variants.get("f32_pool", 0) == want_f32
+                 and st["capture"]["decode_greedy"]["captured"]
+                 and st["compile"]["recompiles"] == 0)
+    if not rec["ok"]:
+        fail(f"the bf16 KV cache checks failed: {rec}")
+    return variants
+
+
+def _hammer(port, prompts, new, stop, codes, lock):
+    """POST /generate of each prompt in turn until ``stop``; each answer's
+    status into ``codes``."""
+    i = 0
+    while not stop.is_set():
+        code, _ = _http_json(port, "/generate", {
+            "prompt": [prompts[i % len(prompts)].tolist()], "steps": new})
+        with lock:
+            codes.append(code)
+        i += 1
+
+
+def _http_json(port, path, body=None, method=None):
+    data = None if body is None else json.dumps(body).encode()
+    code, raw = _http_bytes(port, path, data, method)
+    try:
+        return code, json.loads(raw)
+    except ValueError:
+        return code, raw
+
+
+def _wait(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def phase_lifecycle(torch, snap_dir):
+    """The serving lifecycle at full width in float32, through
+    ``RestfulServer`` with a ``DeployController``: a hot swap under load
+    of LIFE_THREADS concurrent greedy (LIFE_PROMPT + LIFE_NEW) requests to
+    a second weight set (numpy seed 1, written as a port snapshot) by
+    ``POST /admin/reload`` (at least LIFE_IN_FLIGHT requests in the
+    engine at the flip, by its own count; no request fails; the
+    allocation peak of the swap one staged copy of the weights over the
+    served ones; captures flat, the tokens
+    after it a fresh engine's on those weights bit for bit, prefix hits
+    restart, a VTKV1 blob from before it refused); stage then abort; the
+    memory ledger against the allocator; the request spans; a 1 s
+    ``POST /debug/profile`` during traffic (a second one 409) whose
+    trace holds the paged kernel; beam search on ``/generate``; a drain
+    with requests in flight."""
+    import threading
+    from veles_tpu_torch.runtime.deploy import DeployController
+    from veles_tpu_torch.runtime.engine import prefix_page_hashes
+    from veles_tpu_torch.runtime.generate import generate, generate_beam
+    from veles_tpu_torch.runtime.restful import RestfulServer
+    from veles_tpu_torch.runtime.snapshotter import (Snapshotter,
+                                                     params_to_numpy)
+    from veles_tpu_torch.config import root
+    wf, ws0 = _bench_state(torch, None, 0)
+    _, ws1 = _bench_state(torch, None, 1)
+    rng = np.random.default_rng(41)
+    load = rng.integers(0, VOCAB, (LIFE_THREADS, LIFE_PROMPT)).astype(
+        np.int32)
+    probe = rng.integers(0, VOCAB, (SLOTS, LIFE_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    snap = Snapshotter("bench_lm", snap_dir, compression=False).save(
+        "seed1", {"wstate": {"params": params_to_numpy(ws1["params"])},
+                  "workflow_checksum": wf.checksum()})
+    snap_s = time.perf_counter() - t0
+    _reset_counts()
+    # the reference: a fresh engine on the seed-1 weights, built and run
+    # before the served one exists
+    fresh = _serve_engine(wf, ws1).start()
+    try:
+        ref1 = fresh.generate(probe, LIFE_NEW, timeout=900)
+        fresh_stats = fresh.stats()
+    finally:
+        fresh.stop()
+    del fresh
+    del ws1
+    eng = _serve_engine(wf, ws0)
+    srv = RestfulServer(wf.make_predict_step(), ws0, PREDICT_B,
+                        (PREDICT_T,), port=0, workflow=wf, engine=eng,
+                        device=DEVICE)
+    eng.start()
+    srv.start()
+    dep = DeployController(server=srv, model_dir=snap_dir)
+    port = srv.port
+    rec = {"threads": LIFE_THREADS, "prompt": LIFE_PROMPT, "new": LIFE_NEW}
+    try:
+        ref0 = eng.generate(probe, LIFE_NEW, timeout=900)
+        hashes = prefix_page_hashes(probe[0], PAGE)
+        code, blob = _http_bytes(port, "/kv/pages?hashes="
+                                 + ",".join(h.hex() for h in hashes))
+        if code != 200:
+            fail(f"GET /kv/pages answered {code}")
+        comp0 = eng.stats()["compile"]
+        # swap under load
+        codes, stop, lock = [], threading.Event(), threading.Lock()
+        threads = [threading.Thread(target=_hammer, args=(
+            port, load[i:i + 1], LIFE_NEW, stop, codes, lock))
+            for i in range(LIFE_THREADS)]
+        for t in threads:
+            t.start()
+        _wait(lambda: len(codes) >= LIFE_THREADS, 300, "load to flow")
+        in_engine_before = eng.stats()["in_flight"]
+        hits0 = eng.stats()["pages"]["prefix_hit_pages"]
+        # the swap's allocation peak over what was allocated before it:
+        # the staged tree is its one device copy of the weights
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        code, swap = _http_json(port, "/admin/reload", {"path": snap})
+        reload_wall = time.perf_counter() - t0
+        swap_peak = torch.cuda.max_memory_allocated() - alloc0
+        if code != 200:
+            stop.set()
+            fail(f"POST /admin/reload answered {code}: {swap}")
+        n_at_swap = len(codes)
+        _wait(lambda: len(codes) >= n_at_swap + 2 * LIFE_THREADS, 300,
+              "load after the swap")
+        stop.set()
+        for t in threads:
+            t.join(900)
+        st = eng.stats()
+        # after the load: the probe misses the prefix cache once (its
+        # pages were dropped with the old weights), then hits again
+        h0 = st["pages"]["prefix_hit_pages"]
+        got1 = eng.generate(probe[:1], LIFE_NEW, timeout=900)
+        h1 = eng.stats()["pages"]["prefix_hit_pages"]
+        got_all = eng.generate(probe, LIFE_NEW, timeout=900)
+        h2 = eng.stats()["pages"]["prefix_hit_pages"]
+        old_blob_code, old_blob = _http_bytes(port, "/kv/pages", blob,
+                                              "PUT")
+        rec["swap"] = {
+            "requests": len(codes),
+            "failed": sum(c != 200 for c in codes),
+            "requests_before_swap": n_at_swap,
+            "in_engine_before_swap": in_engine_before,
+            "in_engine_at_flip": swap.get("in_flight_at_flip"),
+            "peak_over_allocated_bytes": swap_peak,
+            "serving_params_bytes": eng.stats()["memory"][
+                "serving_params"],
+            "stage_ms": swap["stage_ms"], "flip_ms": swap["flip_ms"],
+            "swap_ms": swap["swap_ms"], "reload_request_ms":
+                reload_wall * 1e3, "snapshot_write_s": snap_s,
+            "compiles_during_swap": swap["compiles_during_swap"],
+            "captures": [comp0["captures"], st["compile"]["captures"]],
+            "recompiles": st["compile"]["recompiles"],
+            "tokens_equal_fresh_seed1": bool(np.array_equal(got_all, ref1)
+                                             and np.array_equal(
+                                                 got1, ref1[:1])),
+            "tokens_differ_from_seed0": not np.array_equal(got_all, ref0),
+            "prefix_hits_probe_first": h1 - h0,
+            "prefix_hits_probe_again": h2 - h1,
+            "hits_during_load": h0 - hits0,
+            "kv_wver": st["kv_transfer"]["wver"],
+            "pre_swap_blob_status": old_blob_code,
+            "pre_swap_blob_error": old_blob[:160].decode(errors="replace")}
+        # stage then abort: the seed-1 weights stay served
+        code, staged = _http_json(port, "/admin/stage", {"path": snap})
+        abort_code, aborted = _http_json(port, "/admin/abort",
+                                         {"token": staged.get("staged")})
+        after_abort = eng.generate(probe[:1], LIFE_NEW, timeout=900)
+        rec["stage_abort"] = {
+            "stage_status": code, "abort_status": abort_code,
+            "aborted": aborted.get("aborted"), "swaps": eng.swaps,
+            "tokens_unchanged": bool(np.array_equal(after_abort,
+                                                    ref1[:1]))}
+        # the memory ledger against the allocator
+        code, mem = _http_json(port, "/memory.json")
+        rec["memory"] = {k: mem.get(k) for k in (
+            "components", "component_total_bytes", "device",
+            "unattributed_bytes", "reserved_unallocated_bytes")}
+        rec["memory"]["status"] = code
+        # the request spans: the ring keeps the newest spans, each
+        # request's four adjacent, so the newest TRACE_CHECKED requests
+        # keep their children
+        code, trace = _http_json(port, "/trace.json")
+        events = trace["traceEvents"]
+        spans = [e for e in events if e.get("name") == "request"]
+        newest = sorted(spans, key=lambda e: e["ts"] + e["dur"])[
+            -TRACE_CHECKED:]
+        kids = {}
+        for e in events:
+            if e.get("name") in ("queue_wait", "prefill", "decode"):
+                kids.setdefault(e["tid"], set()).add(e["name"])
+        rec["trace"] = {"status": code, "request_spans": len(spans),
+                        "events": len(events),
+                        "newest_checked": len(newest),
+                        "newest_with_all_children": sum(
+                            kids.get(e["tid"]) == {"queue_wait", "prefill",
+                                                   "decode"}
+                            for e in newest),
+                        "newest_outcomes": sorted(
+                            {e["args"]["outcome"] for e in newest})}
+        # the on-demand profiler during one short request
+        root.common.observe.profile_dir = os.path.join(snap_dir,
+                                                       "profiles")
+        prof = {}
+        pt = threading.Thread(target=lambda: prof.update(zip(
+            ("status", "doc"), _http_json(port, "/debug/profile",
+                                          {"duration_s": 1.0}))))
+        pt.start()
+        from veles_tpu_torch.runtime.profiler import profiler
+        _wait(lambda: profiler().active, 60, "the profiler capture")
+        busy_code, busy = _http_json(port, "/debug/profile",
+                                     {"duration_s": 0.1})
+        eng.generate(probe[:1, :PROFILE_PROMPT], PROFILE_NEW, timeout=900)
+        pt.join(900)
+        with open(os.path.join(prof["doc"]["path"], "kernels.json")) as f:
+            kernels = json.load(f)
+        paged = [k for k in kernels if "paged_decode_kernel" in k["name"]]
+        rec["profile"] = {"status": prof["status"],
+                          "second_status": busy_code,
+                          "second_active": busy.get("active"),
+                          "files": prof["doc"]["files"],
+                          "duration_s": prof["doc"]["duration_s"],
+                          "paged_kernel_calls": sum(k["calls"]
+                                                    for k in paged),
+                          "top": prof["doc"]["kernels"][:3]}
+        # beam search on /generate
+        beam_prompts = probe[:2]
+        t0 = time.perf_counter()
+        code, beam = _http_json(port, "/generate", {
+            "prompt": beam_prompts.tolist(), "steps": LIFE_NEW, "beams": 4})
+        beam_s = time.perf_counter() - t0
+        lib_toks, lib_scores = generate_beam(wf, eng.wstate, beam_prompts,
+                                             LIFE_NEW, beams=4)
+        code1, beam1 = _http_json(port, "/generate", {
+            "prompt": beam_prompts.tolist(), "steps": LIFE_NEW, "beams": 1})
+        greedy = generate(wf, eng.wstate, beam_prompts, LIFE_NEW)
+        rec["beam"] = {"status": code, "beams": 4, "rows": 2,
+                       "wall_s": beam_s,
+                       "ms_per_token": beam_s / LIFE_NEW * 1e3,
+                       "scores": beam.get("scores"),
+                       "equal_generate_beam": bool(np.array_equal(
+                           np.asarray(beam.get("tokens")),
+                           lib_toks.cpu().numpy())),
+                       "beams1_status": code1,
+                       "beams1_equal_greedy": bool(np.array_equal(
+                           np.asarray(beam1.get("tokens")),
+                           greedy.cpu().numpy()))}
+        # drain last, with requests in flight
+        out, errs = {}, []
+
+        def long_req(i):
+            c, b = _http_json(port, "/generate", {
+                "prompt": [load[i].tolist()], "steps": DRAIN_NEW})
+            out[i] = (c, b)
+
+        drainers = [threading.Thread(target=long_req, args=(i,))
+                    for i in range(4)]
+        for t in drainers:
+            t.start()
+        _wait(lambda: eng.stats()["occupancy"] >= 4, 300,
+              "the drain's requests to decode")
+        drain_code, drain = _http_json(port, "/admin/drain", {})
+        ready_code, ready = _http_json(port, "/ready")
+        new_code, _ = _http_json(port, "/generate", {
+            "prompt": [load[0].tolist()], "steps": 2})
+        clean = dep.wait(timeout=300)
+        for t in drainers:
+            t.join(300)
+        rec["drain"] = {
+            "status": drain_code, "ready_status": ready_code,
+            "ready_reason": ready.get("reason"),
+            "new_request_status": new_code, "clean": clean,
+            "in_flight": len(drainers),
+            "in_flight_ok": sum(c == 200 and len(b["tokens"][0])
+                                == LIFE_PROMPT + DRAIN_NEW
+                                for c, b in out.values()),
+            "engine_running": eng.started}
+        final = eng.stats()
+    finally:
+        srv.stop()
+        eng.stop()
+    variants = _paged_variants()
+    want = LAYERS * (_micro_steps(fresh_stats, True)
+                     + _micro_steps(final, True))
+    rec["launches"] = variants
+    rec["launches_expected"] = {"f32_pool": want}
+    rec["compile"] = final["compile"]
+    say({"phase": "serving_lifecycle", **rec})
+    sw, sa, pr = rec["swap"], rec["stage_abort"], rec["profile"]
+    mem = rec["memory"]
+    problems = [name for name, ok in (
+        ("swap_failed_requests", sw["failed"] == 0),
+        ("swap_in_flight", (sw["in_engine_at_flip"] or 0)
+         >= LIFE_IN_FLIGHT),
+        # one staged copy, not two: a second device tree would double it
+        ("swap_one_staged_copy", 0 < sw["peak_over_allocated_bytes"]
+         < 1.5 * sw["serving_params_bytes"]),
+        ("swap_captures_flat", sw["captures"][0] == sw["captures"][1]
+         and sw["recompiles"] == 0 and sw["compiles_during_swap"] == 0),
+        ("swap_tokens", sw["tokens_equal_fresh_seed1"]
+         and sw["tokens_differ_from_seed0"]),
+        ("swap_prefix_restart", sw["prefix_hits_probe_first"] == 0
+         and sw["prefix_hits_probe_again"] > 0),
+        ("swap_old_blob_refused", sw["pre_swap_blob_status"] == 400
+         and "weights-version" in sw["pre_swap_blob_error"]),
+        ("stage_abort", sa["stage_status"] == 200
+         and sa["abort_status"] == 200 and sa["aborted"]
+         and sa["swaps"] == 1 and sa["tokens_unchanged"]),
+        ("memory", mem["status"] == 200 and mem["device"]
+         and mem["components"].get("engine.kv_cache", 0) > 0
+         and mem["unattributed_bytes"] is not None),
+        ("trace", rec["trace"]["status"] == 200
+         and rec["trace"]["newest_checked"] == TRACE_CHECKED
+         and rec["trace"]["newest_with_all_children"] == TRACE_CHECKED
+         and rec["trace"]["newest_outcomes"] == ["ok"]),
+        ("profile", pr["status"] == 200 and pr["second_status"] == 409
+         and pr["paged_kernel_calls"] > 0),
+        ("beam", rec["beam"]["status"] == 200
+         and rec["beam"]["equal_generate_beam"]
+         and rec["beam"]["beams1_equal_greedy"]),
+        ("drain", rec["drain"]["status"] == 202
+         and rec["drain"]["ready_status"] == 503
+         and rec["drain"]["new_request_status"] == 503
+         and rec["drain"]["clean"]
+         and rec["drain"]["in_flight_ok"] == rec["drain"]["in_flight"]
+         and not rec["drain"]["engine_running"]),
+        ("launches", variants.get("f32_pool", 0) == want > 0
+         and not variants.get("bf16_pool")))
+        if not ok]
+    if problems:
+        fail(f"the serving lifecycle failed {problems}: {rec}")
+    return variants
+
+
 def main():
     try:
         import torch
@@ -2827,6 +3353,10 @@ def main():
     timing.update(timed("train_kernels", phase_train_kernels, torch))
     timing.update(timed("image_kernels", phase_image_kernels, torch))
     serve_launches = timed("serving", phase_main_path, torch)
+    bf16_launches = timed("serving_bf16_cache", phase_bf16_cache, torch)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="vt_lifecycle_") as snap_dir:
+        timed("serving_lifecycle", phase_lifecycle, torch, snap_dir)
     train_launches = timed("train", phase_train, torch)
     image_launches = timed("image", phase_image, torch)
     timed("quality", phase_quality, torch)
@@ -2839,18 +3369,26 @@ def main():
         "paged_attention_decode"]
     for kname in IMG_MIN_LAUNCHES:
         launches[kname] = image_launches[kname]
+    # the paged kernel's bf16-pool variant: its launches on the bf16
+    # cache phase's engines
+    launches["paged_attention_decode/bf16_pool"] = bf16_launches[
+        "bf16_pool"]
     line = []
     for kern in KERNELS:
-        t = timing[kern.NAME]
-        extra = {"variant": t["variant"]} if "variant" in t else {}
-        line.append({"name": kern.NAME, "route": "cuda",
-                     "source": t.get("source", kern.SOURCE),
-                     "replaces": kern.REPLACES, **extra,
-                     "launches": launches[kern.NAME],
-                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
+        names = [kern.NAME] + [k for k in timing
+                               if k.startswith(kern.NAME + "/")]
+        for tname in names:
+            t = timing[tname]
+            extra = {"variant": t["variant"]} if "variant" in t else {}
+            line.append({"name": kern.NAME, "route": "cuda",
+                         "source": t.get("source", kern.SOURCE),
+                         "replaces": kern.REPLACES, **extra,
+                         "launches": launches[tname],
+                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                         "plain_ms": t["plain_ms"],
+                         "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"],
+                         "library_ms": t["library_ms"]})
     say({"phase": "done", "seconds": time.perf_counter() - t_start,
          "by_phase": seconds})
     say({"kernels": line})

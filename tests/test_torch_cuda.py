@@ -22,7 +22,10 @@ bitwise; the one-launch batch gather bitwise; a captured train step
 (``runtime/step_cache.py``) bitwise equal to the eager one over 8 steps;
 the serving engine's captured decode, prefill, megastep and verify steps
 bitwise equal to its eager ones (tokens, token rows and KV pool), their
-replays' paged launches, and the sampler's noise bits equal to the CPU's.
+replays' paged launches, and the sampler's noise bits equal to the CPU's;
+the paged kernel on a bf16 pool within 1e-4 of its plain version, an
+engine with a bf16 KV cache captured bitwise equal to eager, and a hot
+swap into the captured graphs bitwise a fresh engine on the new weights.
 """
 
 import contextlib
@@ -111,11 +114,12 @@ def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Hk, D, dtype, causal,
     assert float((lse - ref_lse).abs().max()) <= LSE_TOL
 
 
-def _paged(card, H, Hk, Dh, q_dtype, pos, S=4, psz=16, n_ptab=16):
+def _paged(card, H, Hk, Dh, q_dtype, pos, S=4, psz=16, n_ptab=16,
+           pool_dtype=torch.float32):
     gen = torch.Generator().manual_seed(1)
     rows = S * n_ptab + 1
-    pk = torch.randn((rows, psz, Hk, Dh), generator=gen)
-    pv = torch.randn((rows, psz, Hk, Dh), generator=gen)
+    pk = torch.randn((rows, psz, Hk, Dh), generator=gen).to(pool_dtype)
+    pv = torch.randn((rows, psz, Hk, Dh), generator=gen).to(pool_dtype)
     ptab = torch.randperm(rows - 1, generator=gen)[:S * n_ptab].reshape(
         S, n_ptab).to(torch.int32)
     for b, p in enumerate(pos):          # entries past each span: scratch
@@ -223,12 +227,79 @@ def test_paged_kernel_is_deterministic(card):
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):
     q, pk, pv, ptab, pos = _paged(card, 8, 8, 64, torch.float32, [5, 6, 7, 8])
-    with pytest.raises(TypeError, match="float32 pools"):
-        pa.paged_attention_decode(q, pk.bfloat16(), pv.bfloat16(), ptab, pos,
+    with pytest.raises(TypeError, match="float32/bfloat16 pools"):
+        pa.paged_attention_decode(q, pk.half(), pv.half(), ptab, pos,
                                   page_size=16, n_kv_heads=8)
     x = torch.zeros((1, 8, 2, 32), device=card)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(x, x, x, True)
+
+
+# the bf16 KV pool (an engine with cache_dtype=torch.bfloat16): K and V
+# widened to f32 in registers, 8 elements a 16-byte piece
+PAGED_BF16_POOL_CASES = {
+    "D64_bf16q": (8, 8, 64, torch.bfloat16, [0, 255, 17, 100], None, 16),
+    "D64_f32q_gqa_window": (8, 2, 64, torch.float32, [0, 255, 17, 100], 40,
+                            16),
+    "D16_f32q": (4, 4, 16, torch.float32, [0, 255, 17, 100], None, 16),
+    "D16_bf16q_window": (4, 4, 16, torch.bfloat16, [0, 255, 17, 100], 20,
+                         16),
+    "split_edges": (8, 8, 64, torch.bfloat16,
+                    [15, 16, 127, 128, 255, 256, 511, 1023], None, 64),
+    "window_across_splits": (8, 8, 64, torch.float32,
+                             [1023, 700, 130, 300], 200, 64),
+    "chunked_splits_gqa": (8, 4, 64, torch.bfloat16,
+                           [4095, 2100, 1100, 129], None, 256),
+}
+
+
+@pytest.mark.parametrize("H,Hk,Dh,q_dtype,pos,window,n_ptab",
+                         list(PAGED_BF16_POOL_CASES.values()),
+                         ids=list(PAGED_BF16_POOL_CASES))
+def test_paged_kernel_bf16_pool_matches_plain(card, H, Hk, Dh, q_dtype, pos,
+                                              window, n_ptab):
+    args = _paged(card, H, Hk, Dh, q_dtype, pos, S=len(pos), n_ptab=n_ptab,
+                  pool_dtype=torch.bfloat16)
+    before = pa.launches.by_variant().get("bf16_pool", 0)
+    out = pa.paged_attention_decode(*args, page_size=16, n_kv_heads=Hk,
+                                    window=window)
+    assert pa.launches.by_variant()["bf16_pool"] == before + 1
+    ref = pa.paged_attention_decode_plain(*args, page_size=16,
+                                          n_kv_heads=Hk, window=window)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= PAGED_TOL
+
+
+def test_paged_kernel_bf16_pool_corrupt_entry_and_repeat(card):
+    """A corrupt live entry NaNs its row with a bf16 pool too, and two
+    runs give the same bits."""
+    q, pk, pv, ptab, pos = _paged(card, 8, 8, 64, torch.bfloat16,
+                                  [1023, 1023, 544, 100], n_ptab=64,
+                                  pool_dtype=torch.bfloat16)
+    ptab[0, 60] = pk.shape[0] + 3
+    first = pa.paged_attention_decode(q, pk, pv, ptab, pos, page_size=16,
+                                      n_kv_heads=8)
+    second = pa.paged_attention_decode(q, pk, pv, ptab, pos, page_size=16,
+                                       n_kv_heads=8)
+    assert torch.equal(first.nan_to_num(7.0), second.nan_to_num(7.0))
+    assert bool(torch.isnan(first[0]).all())
+    assert bool(torch.isfinite(first[1:]).all())
+
+
+def test_paged_kernel_refuses_a_misaligned_bf16_pool_view(card):
+    """The kernel reads pool rows in 16-byte pieces: a bf16 pool view
+    one element off 16-byte alignment is refused, not misread."""
+    q, pk, pv, ptab, pos = _paged(card, 8, 8, 64, torch.float32, [5, 6, 7, 8],
+                                  pool_dtype=torch.bfloat16)
+    flat_k = torch.empty(pk.numel() + 1, dtype=torch.bfloat16, device=card)
+    flat_v = torch.empty_like(flat_k)
+    bad_k = flat_k[1:].view(pk.shape)
+    bad_v = flat_v[1:].view(pv.shape)
+    bad_k.copy_(pk)
+    bad_v.copy_(pv)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attention_decode(q, bad_k, bad_v, ptab, pos, page_size=16,
+                                  n_kv_heads=8)
 
 
 def test_flash_kernels_refuse_a_misaligned_bf16_view(card):
@@ -976,3 +1047,70 @@ def test_sampler_noise_bits_match_the_cpu(card):
     torch.testing.assert_close(gumbel_noise(keys.to(card), 1024).cpu(),
                                gumbel_noise(keys, 1024), rtol=1e-6,
                                atol=1e-6)
+
+
+# -- a bf16 KV pool, and a hot swap into the captured graphs ----------------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", None], ids=["bf16", "f32"])
+def test_bf16_cache_engine_captured_equals_eager_bitwise(card, dtype):
+    """``cache_dtype=torch.bfloat16``: the engine builds and captures its
+    paged steps (the paged kernel's bf16-pool variant), and 32 scheduler
+    iterations give the eager engine's tokens and pool bit for bit."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _serve_lm(card, dtype)
+    engines = {}
+    for capture in (True, False):
+        eng = DecodeEngine(wf, ws, slots=4, l_max=128, page_size=16,
+                           paged_kernel=True, prefill_chunk=32,
+                           window_ms=0.0, capture=capture,
+                           cache_dtype=torch.bfloat16, device=card)
+        before = pa.launches.by_variant().get("bf16_pool", 0)
+        engines[capture] = (eng, _drive(eng, _serve_script(), 32))
+        assert pa.launches.by_variant()["bf16_pool"] > before
+    (cap, creqs), (eag, ereqs) = engines[True], engines[False]
+    assert cap.stats()["capture"]["decode"]["captured"]
+    assert cap._caches["attn0"]["k"].dtype == torch.bfloat16
+    assert sum(r.done.is_set() for r in creqs) >= 3
+    for a, b in zip(creqs, ereqs):
+        assert a.done.is_set() == b.done.is_set()
+        if a.done.is_set():
+            np.testing.assert_array_equal(a.result, b.result)
+    for name in cap._caches:
+        for k in ("k", "v"):
+            assert torch.equal(cap._caches[name][k], eag._caches[name][k])
+
+
+def test_swapped_captured_engine_equals_a_fresh_one(card):
+    """A captured float32 engine swapped to a second weight set keeps
+    every served tensor's storage and captures nothing new, and its
+    greedy tokens equal a fresh engine's on those weights, bit for bit."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws_a = _serve_lm(card, None)
+    ws_b = wf.init_state(1, device=card)
+    kw = dict(slots=4, l_max=128, page_size=16, paged_kernel=True,
+              window_ms=0.0, device=card)
+    prompts = np.random.default_rng(4).integers(0, 64, (4, 24)).astype(
+        np.int32)
+    fresh = DecodeEngine(wf, ws_b, **kw).start()
+    try:
+        ref = fresh.generate(prompts, 16, timeout=300)
+    finally:
+        fresh.stop()
+    eng = DecodeEngine(wf, ws_a, **kw).start()
+    try:
+        old = eng.generate(prompts, 16, timeout=300)
+        ptrs = [t.data_ptr() for p in eng.params.values()
+                for t in p.values()]
+        comp = eng.stats()["compile"]
+        eng.swap_params(ws_b["params"])
+        got = eng.generate(prompts, 16, timeout=300)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    assert ptrs == [t.data_ptr() for p in eng.params.values()
+                    for t in p.values()]
+    assert st["swaps"] == 1
+    assert st["compile"]["captures"] == comp["captures"]
+    assert st["compile"]["recompiles"] == 0
+    np.testing.assert_array_equal(got, ref)
+    assert not np.array_equal(old, got)

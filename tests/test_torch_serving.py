@@ -109,7 +109,9 @@ def test_bad_requests_are_400(served):
     *_, srv = served
     for body in ({"prompt": [[1, 2]], "steps": 0},
                  {"prompt": [[1, 999]], "steps": 2},
-                 {"prompt": [[1, 2]], "steps": 2, "beams": 3},
+                 # beam search is deterministic: no temperature
+                 {"prompt": [[1, 2]], "steps": 2, "beams": 3,
+                  "temperature": 0.5},
                  {"prompt": [[1, 2]], "steps": 2, "top_k": 3}):
         with pytest.raises(urllib.error.HTTPError) as ei:
             _post(srv.port, "/generate", body)

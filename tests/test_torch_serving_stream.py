@@ -262,13 +262,20 @@ def test_rest_priority_header_and_shed_body(lm, rng, served):
 
 
 @pytest.mark.parametrize("body,name", [
-    ({"beams": 2}, "beams"), ({"batch": True}, "batch"),
+    ({"beams": 2, "priority": 1}, "beams"), ({"batch": True}, "batch"),
     ({"beams": 2, "stream": True}, "beams"),
     ({"batch": True, "stream": True}, "batch")])
 def test_rest_refuses_what_the_port_does_not_serve(served, body, name):
+    """400 for the batch lane, which the port does not serve yet (the
+    error names ROADMAP.md), and for beam search where the JAX package
+    refuses it too: with a priority class (it runs outside the engine's
+    queue) and streamed."""
     _, srv = served
     with pytest.raises(urllib.error.HTTPError) as ei:
         _post(srv, {"prompt": [PROMPT.tolist()], "steps": 4, **body})
     assert ei.value.code == 400
     err = json.loads(ei.value.read())["error"]
-    assert err.startswith(name) and "ROADMAP.md" in err
+    if name == "batch":
+        assert err.startswith(name) and "ROADMAP.md" in err
+    else:
+        assert "beam" in err

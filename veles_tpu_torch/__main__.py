@@ -6,6 +6,7 @@ and ``--serve``).
         [--random-seed S] [--max-epochs N] [--snapshot-dir D] \\
         [--snapshot PATH] [--device cpu]
     python -m veles_tpu_torch CONFIG --snapshot SNAP --serve PORT \\
+        [--model-dir DIR [--watch]] [--status-port P] [--trace-out F] \\
         [--device cpu] [root.common.serve.slots=4 ...]
 
 ``CONFIG`` is a ``configs/*.json`` file: its ``workflow`` section builds
@@ -14,17 +15,24 @@ arguments.  Without ``--serve`` the run trains (``--snapshot`` resumes
 from a snapshot of either package) and prints the results dict as one
 JSON line.  With ``--serve`` it answers ``POST /predict`` and ``POST
 /generate`` (through the continuous-batching engine) from the snapshot's
-weights until SIGINT or SIGTERM.  Everything runs on the CUDA card unless
-``--device cpu`` is given.
+weights, with the deploy control plane attached (``runtime/deploy.py``:
+``GET /models``, ``POST /admin/reload`` hot-swaps a snapshot,
+``/admin/stage`` / ``/admin/commit`` / ``/admin/abort``, ``POST
+/admin/drain``), until a drain (SIGTERM or ``/admin/drain``) or SIGINT.
+``--model-dir`` names the snapshot directory the registry and the
+watcher read, ``--watch`` swaps in each newer snapshot there.
+``--status-port`` serves the live status page (training or serving),
+``--trace-out`` writes the span ring's timelines as a Chrome trace on
+exit.  Everything runs on the CUDA card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import signal
+import os
 import sys
-import threading
 
 import numpy as np
 import torch
@@ -35,9 +43,12 @@ from .logger import Logger, setup_logging
 from .models.standard import StandardWorkflow
 from .ops import resolve_device
 from .runtime.decision import Decision
+from .runtime.deploy import DeployController
 from .runtime.engine import DecodeEngine
+from .runtime.metrics import write_chrome_trace
 from .runtime.restful import RestfulServer
 from .runtime.snapshotter import Snapshotter, wstate_from_snapshot
+from .runtime.status import StatusReporter, StatusServer
 from .units.base import Spec
 from .units.workflow import WorkflowError
 
@@ -85,6 +96,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a snapshot after each epoch here")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--model-dir", default=None,
+                   help="with --serve: the snapshot directory of the model "
+                        "lifecycle control plane (POST /admin/reload "
+                        "hot-swaps a snapshot, GET /models lists the "
+                        "versioned registry)")
+    p.add_argument("--watch", action="store_true",
+                   help="with --serve --model-dir: poll the directory for "
+                        "newer snapshots and hot-swap them (exponential "
+                        "back-off on failures)")
+    p.add_argument("--drain-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="graceful-drain deadline for SIGTERM / POST "
+                        "/admin/drain (default "
+                        "root.common.serve.drain_timeout_s)")
+    p.add_argument("--status-port", type=int, default=None,
+                   help="serve a live status page (JSON + HTML, "
+                        "/metrics, /memory.json, /trace.json, POST "
+                        "/debug/profile) on this port; 0 picks a free "
+                        "port")
+    p.add_argument("--trace-out", metavar="FILE", default=None,
+                   help="on exit, write the host-side span timeline "
+                        "(each request's queue-wait, prefill and decode "
+                        "spans; status events) as Chrome-trace JSON")
     return p
 
 
@@ -98,15 +132,35 @@ def main(argv=None) -> int:
     if args.random_seed is not None:
         root.common.random_seed = args.random_seed
         prng.streams.reset()
+    if args.watch and not (args.model_dir
+                           or root.common.serve.get("model_dir")):
+        raise SystemExit("--watch needs --model-dir (the snapshot "
+                         "directory to poll)")
+    if args.serve is None and (args.model_dir or args.watch):
+        raise SystemExit("--model-dir and --watch drive the serving "
+                         "control plane; they need --serve")
     device = resolve_device(args.device)
-    if args.serve is not None:
-        if not args.snapshot:
-            raise SystemExit("--serve needs --snapshot (the weights)")
-        return _serve(args, device)
-    return _train(args, device)
+    status = status_server = None
+    if args.status_port is not None:
+        os.makedirs(str(root.common.cache_dir), exist_ok=True)
+        status = StatusReporter(
+            os.path.join(str(root.common.cache_dir), "status.json"),
+            name=root.workflow.get("name", "workflow"))
+        status_server = StatusServer(status, port=args.status_port).start()
+    try:
+        if args.serve is not None:
+            if not args.snapshot:
+                raise SystemExit("--serve needs --snapshot (the weights)")
+            return _serve(args, device, status, status_server)
+        return _train(args, device, status)
+    finally:
+        if status_server is not None:
+            status_server.stop()
+        if args.trace_out:
+            write_chrome_trace(args.trace_out)
 
 
-def _train(args, device) -> int:
+def _train(args, device, status=None) -> int:
     wf_cfg = root.workflow.to_dict()
     sw = StandardWorkflow(wf_cfg)
     loader_cfg = root.loader.to_dict() if "loader" in root else {}
@@ -118,7 +172,8 @@ def _train(args, device) -> int:
     snap = None
     if args.snapshot_dir:
         snap = Snapshotter(wf_cfg.get("name", "workflow"), args.snapshot_dir)
-    trainer = sw.make_trainer(loader, decision, snap, device=device)
+    trainer = sw.make_trainer(loader, decision, snap, device=device,
+                              status=status)
     trainer.initialize()
     if args.snapshot:
         trainer.restore(args.snapshot)
@@ -127,7 +182,7 @@ def _train(args, device) -> int:
     return 0
 
 
-def _serve(args, device) -> int:
+def _serve(args, device, status=None, status_server=None) -> int:
     log = Logger()
     sw = StandardWorkflow(root.workflow.to_dict())
     wf = sw.workflow
@@ -139,21 +194,38 @@ def _serve(args, device) -> int:
     wstate = wstate_from_snapshot(args.snapshot, wf, device=device)
     engine = None
     try:
-        engine = DecodeEngine(wf, wstate, device=device).start()
+        engine = DecodeEngine(wf, wstate, status=status,
+                              device=device).start()
     except WorkflowError as e:
         log.warning("serving /predict only (no decode engine: %s)", e)
     head = wf.default_output()
-    srv = RestfulServer(wf.make_predict_step(head), wstate, B, (T,),
+    # /predict serves the engine's tensors: one device copy of the weights
+    srv = RestfulServer(wf.make_predict_step(head),
+                        engine.wstate if engine is not None else wstate,
+                        B, (T,),
                         port=args.serve, workflow=wf, engine=engine,
-                        input_dtype=np.int32, device=device).start()
+                        input_dtype=np.int32, device=device)
+    deploy = DeployController(server=srv, model_dir=args.model_dir,
+                              drain_timeout_s=args.drain_timeout,
+                              status=status, boot_source=args.snapshot)
+    deploy.install_signal_handlers()     # SIGTERM drains
+    srv.start()
+    if args.watch:
+        deploy.start_watcher()
     print(json.dumps({"serving": srv.port, "predict_head": head,
                       "engine": engine is not None,
-                      "device": str(device)}), flush=True)
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
+                      "device": str(device), "model_dir": deploy.model_dir,
+                      "watching": deploy.watching,
+                      "status_port": (status_server.port
+                                      if status_server is not None
+                                      else None),
+                      "observe": ["/metrics", "/trace.json", "/slo.json",
+                                  "/memory.json", "/models",
+                                  "/debug/profile"]}), flush=True)
     try:
-        stop.wait()
+        deploy.wait()       # released by SIGTERM or POST /admin/drain
+    except KeyboardInterrupt:
+        deploy.drain(timeout=0)     # interactive: no grace hold
     finally:
         srv.stop()
         if engine is not None:

@@ -462,7 +462,6 @@ def _defaults():
     #                                               bounds a failover
     #                                               storm's dispatch rate
     root.common.serve.deadline_s = 120.0     # default per-request deadline
-    root.common.serve.runner_cache = 32      # generate() compiled-runner LRU
     root.common.serve.max_body_mb = 64       # POST body cap -> 413
     # Model lifecycle control plane (runtime/deploy.py, docs/serving.md).
     root.common.serve.model_dir = ""         # registry/watcher snapshot dir

@@ -136,7 +136,7 @@ class StandardWorkflow:
             **dict(self.config.get("optimizer_args", {})))
 
     def make_trainer(self, loader, decision=None, snapshotter=None, *,
-                     device=None, step_cache=None):
+                     device=None, step_cache=None, status=None):
         """A :class:`~veles_tpu_torch.runtime.trainer.Trainer` over this
         workflow and optimizer (default decision: the config's
         ``max_epochs`` and ``fail_iterations``; default ``step_cache``: a
@@ -147,4 +147,5 @@ class StandardWorkflow:
             max_epochs=self.config.get("max_epochs"),
             fail_iterations=self.config.get("fail_iterations", 50))
         return Trainer(self.workflow, loader, self.optimizer, decision,
-                       snapshotter, device=device, step_cache=step_cache)
+                       snapshotter, device=device, step_cache=step_cache,
+                       status=status)

@@ -26,10 +26,15 @@ NAME = "paged_attention_decode"
 SOURCE = "veles_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "veles_tpu/ops/pallas_kernels.py:612"
 
-#: launches of the CUDA kernel (never of the plain version)
+#: launches of the CUDA kernel (never of the plain version), by the
+#: pool's type: ``"f32_pool"`` (``paged_decode_kernel``) or
+#: ``"bf16_pool"`` (``paged_decode_bf16pool_kernel``)
 launches = build.LaunchCounter()
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the pool dtypes the kernel reads, and the variant each launch counts
+_POOL_DTYPES = {torch.float32: (0, "f32_pool"),
+                torch.bfloat16: (1, "bf16_pool")}
 _HEAD_DIMS = (16, 64)      # configs/induction_lm*.json, bench_lm.py width
 _MAX_GROUP = 8
 
@@ -47,6 +52,9 @@ def _validate(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads):
                          f"{n_kv_heads}")
     if Dh_k != Dh:
         raise ValueError(f"pool head dim {Dh_k} != query head dim {Dh}")
+    if k_pool.dtype != v_pool.dtype:
+        raise ValueError(f"K pool {k_pool.dtype} and V pool {v_pool.dtype} "
+                         "differ")
     if ptab.dim() != 2 or ptab.shape[0] != B or pos.shape != (B,):
         raise ValueError(f"ptab must be (B, n_ptab) and pos (B,) for "
                          f"B={B}, got {tuple(ptab.shape)} / "
@@ -62,7 +70,8 @@ def paged_attention_decode(q, k_pool, v_pool, ptab, pos, *, page_size: int,
     addressed through the row's page table.
 
     q: (B, H, Dh) at each row's own position (RoPE applied); pools:
-    (rows, page_size, Hk, Dh); ptab: (B, n_ptab) int32 physical page per
+    (rows, page_size, Hk, Dh) of one dtype (the engine's cache type: the
+    kernel reads float32 and bfloat16); ptab: (B, n_ptab) int32 physical page per
     logical page (entries past a slot's span point at the scratch row and
     are never read); pos: (B,) int32.  Returns the (B, H, Dh) float32
     context before the output projection.  A row whose live pages include
@@ -84,9 +93,9 @@ def paged_attention_decode_plain(q, k_pool, v_pool, ptab, pos, *,
                                  scale: Optional[float] = None,
                                  window: Optional[int] = None):
     """The plain version — the gather path: flatten each row's pages to
-    the (B, L, Hk, Dh) logical view, mask with -inf, one-shot softmax.
-    Rows with a live page-table entry outside the pool are NaN, as the
-    kernel's."""
+    the (B, L, Hk, Dh) logical view (a pool of any dtype widened to
+    float32), mask with -inf, one-shot softmax.  Rows with a live
+    page-table entry outside the pool are NaN, as the kernel's."""
     G = _validate(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads)
     window = check_attention_window(window, True)
     B, H, Dh = q.shape
@@ -124,17 +133,16 @@ def _fn():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, p]
+                       i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
 def _launch(q, k_pool, v_pool, ptab, pos, G, page_size, scale, window):
-    if q.dtype not in _Q_DTYPES or k_pool.dtype != torch.float32 \
-            or v_pool.dtype != torch.float32:
+    if q.dtype not in _Q_DTYPES or k_pool.dtype not in _POOL_DTYPES:
         raise TypeError(f"{NAME}: kernel takes float32/bfloat16 q and "
-                        f"float32 pools (the engine's cache type), got "
-                        f"{q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
+                        f"float32/bfloat16 pools, got {q.dtype} / "
+                        f"{k_pool.dtype}")
     if ptab.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"{NAME}: ptab and pos must be int32")
     tensors = (q, k_pool, v_pool, ptab, pos)
@@ -153,13 +161,14 @@ def _launch(q, k_pool, v_pool, ptab, pos, G, page_size, scale, window):
     if G > _MAX_GROUP:
         raise ValueError(f"{NAME}: kernel takes at most {_MAX_GROUP} query "
                          f"heads per kv head, got {G}")
+    kv_code, variant = _POOL_DTYPES[k_pool.dtype]
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
     lib, fn = _fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             ptab.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, Hk, Dh,
-            psz, ptab.shape[1], rows, _Q_DTYPES[q.dtype], scale,
+            psz, ptab.shape[1], rows, _Q_DTYPES[q.dtype], kv_code, scale,
             int(window or 0), stream)
     build.check(lib, rc, NAME)
-    launches.inc()
+    launches.inc(variant)
     return out

@@ -79,6 +79,26 @@ back positions, active flags, finished flags, counts and the fresh
 tokens in one copy after every dispatch.  Stream flushes, stop
 matching, the drafter and retirement read the mirror after that copy.
 
+**Hot swap and drain** (engine.py:1879-2010): :meth:`DecodeEngine.
+swap_params` replaces the served weights with a tree of the same
+signature.  The captured steps read fixed addresses, so the swap checks
+the signature first (a mismatch raises ValueError, the old weights still
+serving), stages the new tree on the device (from pinned host memory:
+the one extra device copy a swap makes) while the old one serves, and
+at a dispatch boundary the scheduler thread copies the staged tensors
+into the served ones in place, on its own stream, after the last replay of the old version and before the
+next: captures stay flat.  The prefix index and imported pages are
+dropped and the weights version bumps, so a VTKV1 blob from before the
+swap is refused; in-flight slots finish on KV of mixed versions, the
+reference's documented trade.  :meth:`DecodeEngine.drain` refuses new
+work (:class:`EngineDraining`, HTTP 503), lets queued and in-flight
+requests retire and stops the scheduler.  Every finished request leaves
+a span (queue wait, prefill, decode) in the process span ring
+(``GET /trace.json``), recorded on the host where its outcome counts;
+the engine's buffers are in the memory ledger (``GET /memory.json``);
+the serving fault knobs (scheduler crash, decode stall, admission burst)
+have their injection points here.
+
 On the card the paged layout's steps are captured as CUDA graphs
 through :class:`~.step_cache.StepCache` when the engine is built — the
 counterpart of the JAX package's "compiled once, flat after warmup":
@@ -93,8 +113,8 @@ the graph advances itself, and is replayed once per prompt position.  The dense 
 (its masked write has a data-dependent shape) with the same step body,
 and ``stats()["capture"]`` says so, as it says ``"cpu"`` on the host.
 
-Left out, for later slices (ROADMAP.md queue 1 item 3): hot swap, beam
-search, the batch lane, and the serving half of ``runtime/faults.py``.
+Left out, for later slices: the batch lane (with the job manager) and
+the fleet's fault knobs.
 """
 
 from __future__ import annotations
@@ -105,6 +125,7 @@ import hashlib
 import json
 import threading
 import time
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -115,11 +136,13 @@ from ..logger import Logger
 from ..ops import resolve_device
 from ..units.base import Context
 from ..units.nn import input_vocab
+from . import faults
 from .admission import AdmissionController
 from .generate import (DecodePlan, fold_keys, fold_seed_array,
                        gumbel_noise, row_seeds, sample_slots,
                        sampling_tensors)
-from .metrics import registry
+from .memory import drop_stamped_components, memory_monitor, tree_bytes
+from .metrics import next_trace_id, registry, span_ring
 from .slo import slo_tracker
 from .step_cache import StepCache, tree_signature
 
@@ -148,8 +171,36 @@ class EngineStopped(RuntimeError):
     """The engine is not running (never started, or stopped)."""
 
 
+class EngineDraining(EngineStopped):
+    """The engine is draining: in-flight work retires, new work is
+    refused (the REST layer's 503 on ``/ready`` and ``/generate``)."""
+
+
 class SchedulerCrashed(RuntimeError):
     """The scheduler loop died; every pending request failed with this."""
+
+
+def signature_mismatch(expected, got, limit: int = 6) -> str:
+    """Readable diff of two :func:`~.step_cache.tree_signature` results:
+    which leaves are missing, unexpected or of another shape or dtype."""
+    exp = {p: (s, d) for p, s, d in expected}
+    new = {p: (s, d) for p, s, d in got}
+
+    def fmt(sd):  # dtype may be blank (shape-only signatures)
+        return f"{sd[0]}/{sd[1]}" if sd[1] else f"{sd[0]}"
+
+    msgs = []
+    for p in sorted(set(exp) - set(new)):
+        msgs.append(f"{p}: missing (expected {fmt(exp[p])})")
+    for p in sorted(set(new) - set(exp)):
+        msgs.append(f"{p}: unexpected leaf {fmt(new[p])}")
+    for p in sorted(set(exp) & set(new)):
+        if exp[p] != new[p]:
+            msgs.append(f"{p}: {fmt(new[p])} != expected {fmt(exp[p])}")
+    extra = len(msgs) - limit
+    if extra > 0:
+        msgs = msgs[:limit] + [f"... and {extra} more"]
+    return "; ".join(msgs) or "identical signatures"
 
 
 def prefix_page_hashes(prompt, page_size: int) -> list:
@@ -258,8 +309,10 @@ def ngram_draft(hist, k: int, *, n_max: int = 3, n_min: int = 1):
 
 def serving_params(plan: DecodePlan, params, device) -> dict:
     """The decode plan's parameters on ``device``, each weight matrix of
-    a unit with a compute dtype stored in that dtype once.  A step then
-    casts nothing: the attention's ``w.to(dt)`` returns the stored copy,
+    a unit with a compute dtype stored in that dtype once.  A tensor that
+    already lies on ``device`` in its served dtype is served as it is,
+    not copied (so a hot swap, which writes into the served tensors,
+    writes into it).  A step then casts nothing: the attention's ``w.to(dt)`` returns the stored copy,
     ``ops.dense``'s ``w.to(dt).float()`` widens it, and both give the
     bits the per-step cast of the float32 weight gives (the decode path's
     activations are float32, so ``dense``'s result type is unchanged).
@@ -272,6 +325,14 @@ def serving_params(plan: DecodePlan, params, device) -> dict:
                     else t.to(device))
                 for k, t in p.items()}
             for u, p in params.items()}
+
+
+class StagedParams(NamedTuple):
+    """A weight tree checked and placed on an engine's device
+    (:meth:`DecodeEngine.stage_params`), ready for
+    :meth:`DecodeEngine.swap_params`."""
+    engine: object
+    tree: dict      # the served layout and dtypes, on the device
 
 
 class _StreamHandle:
@@ -367,7 +428,7 @@ class _Request:
                  "finished_at", "run_started_at", "slot", "page_row",
                  "prefix_start", "page_hashes", "priority", "gen",
                  "preemptions", "chunk_next", "_eff", "stream", "stop_seqs",
-                 "stop_hit")
+                 "stop_hit", "trace_id")
 
     def __init__(self, prompt, n_steps, temperature, top_k, top_p, eos_id,
                  seed, deadline, priority: int = 0):
@@ -401,6 +462,7 @@ class _Request:
         self.stream: Optional[_StreamHandle] = None
         self.stop_seqs = ()
         self.stop_hit = False
+        self.trace_id = next_trace_id()  # the request's /trace.json track
 
     @property
     def end_index(self) -> int:
@@ -670,8 +732,13 @@ class DecodeEngine(Logger):
     ``drafter`` must be ``"ngram"``); ``admission`` injects an
     :class:`AdmissionController` (tests).  ``device`` defaults to the
     CUDA card (``ops.resolve_device``); the workflow state's parameters
-    are moved there.  ``capture=False`` keeps the paged steps eager on
-    the card (the eager-versus-captured witness)."""
+    are moved there, and those already there in their served dtype are
+    served as they are: a hot swap writes into them, so a caller that
+    goes on using the old weights gives the engine a copy.
+    ``wstate["params"]`` is then the served tree.  ``capture=False`` keeps the paged steps eager on
+    the card (the eager-versus-captured witness).  ``status`` is a
+    :class:`~.status.StatusReporter` the scheduler publishes its stats
+    to every 0.5 s (and a scheduler crash as an event)."""
 
     def __init__(self, workflow, wstate, *, slots: Optional[int] = None,
                  l_max: Optional[int] = None,
@@ -692,8 +759,10 @@ class DecodeEngine(Logger):
                  spec_k: Optional[int] = None,
                  admission: Optional[AdmissionController] = None,
                  capture: bool = True,
+                 status=None,
                  device=None):
         self.device = resolve_device(device)
+        self.status = status
         serve = root.common.serve
         geo = resolve_serve_geometry(slots, l_max, paged=paged,
                                      page_size=page_size, pages=pages,
@@ -738,8 +807,15 @@ class DecodeEngine(Logger):
         self.stream_buffer_tokens = int(
             serve.stream.get("buffer_tokens", 4096))
         self.plan = DecodePlan(workflow, output_unit)
+        # the served tensors, which the steps read (the caller's where
+        # they already lie on the device in the served dtypes), and the
+        # signatures a swap's tree is held to: the caller's layout or
+        # the served one
         self.params = serving_params(self.plan, wstate["params"],
                                      self.device)
+        self.wstate = dict(wstate, params=self.params)
+        self._swap_sigs = (tree_signature(wstate["params"]),
+                           tree_signature(self.params))
         # recurrent carried state is position-recurrent from token 0 and
         # is not paged: such a chain takes no prefix shortcut
         # (engine.py:1118; the port's DecodePlan has no recurrent units
@@ -751,6 +827,7 @@ class DecodeEngine(Logger):
         self._input_vocab = input_vocab(workflow, self.params)
 
         S = self.slots
+        self._cache_dtype = cache_dtype
         if self.paged:
             self._caches = self.plan.init_caches(
                 self.params, S, self.l_max, cache_dtype, self.device,
@@ -828,8 +905,15 @@ class DecodeEngine(Logger):
         # the blob's weights version: the parameter tree's signature,
         # framework named (a JAX engine's pages never serve here: the
         # two frameworks' KV rows differ in their last bits), and the
-        # hot-swap count (no hot swap in this slice of the port)
+        # hot-swap count
         self._swaps = 0
+        self.last_swap_in_flight: Optional[int] = None
+        self._draining = False
+        # a staged hot swap: (staged tree, done event, new params), set
+        # by swap_params, applied by the scheduler at a step boundary
+        self._staged = None              # guarded-by: self._swap_lock
+        self._swap_lock = threading.Lock()
+        self._status_mark = 0.0
         self._kv_sig = hashlib.sha256(repr(
             ("veles_tpu_torch", tree_signature(self.params))).encode()
         ).hexdigest()[:12]
@@ -913,6 +997,33 @@ class DecodeEngine(Logger):
         # waits for on an intermediate chunk: this event fences it
         self._prefill_staged = torch.cuda.Event() \
             if on_card and self.paged else None
+        self._register_memory()
+
+    def _register_memory(self):
+        """Publish the engine's byte ledger (``GET /memory.json``): the
+        served parameters (shared with the caller's tree where they lay
+        on the device in the served dtypes), the KV pool, the slot-state
+        buffer, the token matrix and the fold-key table, from shapes.  ``stats()
+        ["memory"]`` reads this engine's own copy; the finalizer drops
+        its entries when the engine is freed."""
+        self._mem_bytes = {
+            "serving_params": tree_bytes(self.params),
+            "kv_cache": tree_bytes(self._caches),
+            "slot_state": tree_bytes(self._dstate["st"]),
+            "token_matrix": tree_bytes(self._dstate["toks"]),
+            "fold_keys": tree_bytes(self._dstate["keys"]),
+        }
+        mem = memory_monitor()
+        stamps = {f"engine.{k}": mem.set_component(f"engine.{k}", v)
+                  for k, v in self._mem_bytes.items()}
+        extra = mem.set_extra("engine", {
+            "slots": self.slots, "l_max": self.l_max, "paged": self.paged,
+            "cache_dtype": str(self._cache_dtype).replace("torch.", ""),
+            **({"pages": self.pages, "page_size": self.page_size}
+               if self.paged else {})})
+        self._mem_finalizer = weakref.finalize(
+            self, drop_stamped_components, stamps, {"engine": extra})
+        mem.ensure_poller()
 
     def _init_metrics(self):
         reg = registry()
@@ -975,6 +1086,9 @@ class DecodeEngine(Logger):
             "wall time of one export_pages / import_pages call "
             "(serialize, or validate and apply), by direction",
             labels=("direction",))
+        self._m_swaps = reg.counter(
+            "vt_engine_swaps_total",
+            "hot weight swaps applied at a decode-step boundary")
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -999,6 +1113,178 @@ class DecodeEngine(Logger):
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
+
+    # -- lifecycle: hot swap and drain (runtime/deploy.py drives these) ----
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def swaps(self) -> int:
+        return self._swaps
+
+    def stage_params(self, params) -> "StagedParams":
+        """The first half of :meth:`swap_params`: check ``params`` (a tree
+        of tensors or numpy arrays in the workflow state's layout, or in
+        the served one) leaf for leaf in path, shape and dtype (a
+        mismatch raises ValueError, the old weights still serving), and
+        place it on the device in the served tensors' dtypes, fully
+        transferred (host data through pinned memory on a side stream,
+        which is waited for), while the old weights serve.  The staged
+        tree is the only device copy a swap makes: give it host data."""
+        params = {u: {k: torch.as_tensor(t) for k, t in p.items()}
+                  for u, p in params.items()}
+        new_sig = tree_signature(params)
+        if new_sig not in self._swap_sigs:
+            raise ValueError(
+                "hot swap rejected: the parameter tree does not match the "
+                "captured programs (same-architecture weights only; a "
+                "different architecture needs a fresh engine): "
+                + signature_mismatch(self._swap_sigs[0], new_sig))
+        return StagedParams(self, self._stage_params(params))
+
+    def swap_params(self, params, *, timeout: Optional[float] = None):
+        """Hot weight swap: serve ``params`` (a tree of the workflow
+        state's layout, or what :meth:`stage_params` returned) from the
+        next dispatch on.
+
+        The captured steps are reused as they are (the StepCache
+        counters stay flat): at the next dispatch boundary the scheduler
+        thread copies the staged tensors into the served ones in place,
+        on the engine's stream, after the last replay of the old weights
+        and before the first of the new.  In-flight slots finish on KV
+        of mixed versions; cached and imported prefix pages are dropped
+        and the weights version (``kv_wver``) bumps.  Blocks until the
+        copy is issued or ``timeout`` (default
+        ``root.common.serve.swap_timeout_s``) expires, in which case the
+        staged tree is withdrawn and the old weights keep serving."""
+        if timeout is None:
+            timeout = float(root.common.serve.get("swap_timeout_s", 60.0))
+        staged = params if isinstance(params, StagedParams) \
+            else self.stage_params(params)
+        if staged.engine is not self:
+            raise ValueError("the staged tree belongs to another engine")
+        if not self.started:
+            self._flip(staged.tree)
+            return
+        done = threading.Event()
+        with self._swap_lock:
+            if self._staged is not None:
+                raise RuntimeError(
+                    "another swap is already staged and not yet applied")
+            self._staged = (staged.tree, done)
+        self._wake.set()
+        if not done.wait(timeout):
+            with self._swap_lock:
+                if self._staged is not None and self._staged[1] is done:
+                    self._staged = None
+                    raise TimeoutError(
+                        f"swap not applied within {timeout}s (scheduler "
+                        "wedged?); the old version keeps serving")
+            # the flip landed between the wait's timeout and the lock
+
+    def _stage_params(self, params) -> dict:
+        """``params`` in the served tensors' dtypes on the device, fully
+        transferred before this returns: host tensors go through pinned
+        memory on a side stream, which is then waited for."""
+        on_card = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if on_card else None
+        staged = {}
+        with torch.no_grad(), (torch.cuda.stream(side) if on_card
+                               else contextlib.nullcontext()):
+            for u, served in self.params.items():
+                staged[u] = {}
+                for k, dst in served.items():
+                    src = params[u][k]
+                    if on_card and src.device.type == "cpu":
+                        src = src.to(dst.dtype).pin_memory()
+                    out = torch.empty_like(dst)
+                    out.copy_(src, non_blocking=on_card)
+                    staged[u][k] = out
+        if side is not None:
+            side.synchronize()
+        return staged
+
+    def _flip(self, staged: dict):
+        """Copy the staged tree into the served tensors in place (the
+        captured steps keep their addresses), then drop the prefix
+        cache and bump the weights version.  On the scheduler thread
+        the copies run on its stream, after every replay it issued;
+        they are waited for before the staged tensors are freed."""
+        with torch.no_grad():
+            for u, served in self.params.items():
+                for k, dst in served.items():
+                    dst.copy_(staged[u][k])
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        # these finish on KV of mixed versions
+        self.last_swap_in_flight = self._in_flight()
+        self._swaps += 1
+        self._m_swaps.inc()
+        # cached prefix pages hold KV of the old weights: a stale cached
+        # prefix would serve every new request that hits it
+        self._invalidate_prefix_cache()
+
+    def _apply_swap(self):
+        """Scheduler thread, between dispatches: flip to the staged
+        tree, if one waits."""
+        with self._swap_lock:
+            staged, self._staged = self._staged, None
+        if staged is None:
+            return
+        tree, done = staged
+        try:
+            self._flip(tree)
+        finally:
+            done.set()
+
+    def _invalidate_prefix_cache(self):
+        """Unregister every cached prefix page (after a swap their KV
+        belongs to the previous weights).  Refcount-0 pages return to
+        the free list; pages still referenced by in-flight slots keep
+        serving those slots and free on release (which checks the
+        registration then); imported pages go the same way."""
+        if not self.paged:
+            return
+        with self._page_lock:
+            for pid in list(self._page_key):
+                del self._prefix_index[self._page_key.pop(pid)]
+                if self._page_ref[pid] == 0:
+                    self._page_free.append(pid)
+            self._imported_pages.clear()
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful drain: refuse new work (``submit`` raises
+        :class:`EngineDraining`, the REST layer's 503), let queued and
+        in-flight requests retire, then stop the scheduler.  True when
+        everything retired before ``timeout`` (default
+        ``root.common.serve.drain_timeout_s``); on a timeout the engine
+        stops anyway and the leftovers fail with :class:`EngineStopped`."""
+        if timeout is None:
+            timeout = float(root.common.serve.get("drain_timeout_s", 30.0))
+        self._draining = True
+        deadline = time.monotonic() + max(0.0, float(timeout))
+        while self.started and time.monotonic() < deadline:
+            if self._idle():
+                break
+            time.sleep(0.01)
+        # a crashed scheduler leaves the slots empty too, but it failed
+        # the work: never a clean drain
+        clean = not self._died and self._idle()
+        self.stop()
+        return clean
+
+    def _in_flight(self) -> int:
+        """Requests the engine holds: queued, or admitted to a slot
+        (decoding or mid-prefill)."""
+        with self._qlock:
+            queued = len(self._queue)
+        return queued + sum(r is not None for r in self._slot_req)
+
+    def _idle(self) -> bool:
+        """No queued, admitted or decoding work (a request mid-prefill is
+        out of the queue but not yet active: ``_slot_req`` holds it)."""
+        return not self._active.any() and self._in_flight() == 0
 
     # -- requests ----------------------------------------------------------
     def _check_ids(self, ids, what: str):
@@ -1080,6 +1366,9 @@ class DecodeEngine(Logger):
             raise ValueError(
                 f"prompt {prompt.size} + n_steps {n_steps} exceeds the "
                 f"engine's l_max {self.l_max}")
+        if self._draining:
+            raise EngineDraining(
+                "engine is draining; not accepting new requests")
         if self._died:
             raise SchedulerCrashed("engine scheduler crashed earlier; "
                                    "restart the engine")
@@ -1237,9 +1526,42 @@ class DecodeEngine(Logger):
             self._streams.discard(h)
 
     def _observe_finish(self, req: _Request, outcome: str):
-        """Every terminal edge: the stream closes, the outcome counts."""
+        """Every terminal edge: the stream closes, the outcome counts,
+        and the request's timeline enters the span ring (engine.py:
+        1612-1658): one ``request`` span on the request's own track with
+        its queue-wait, prefill and decode children."""
         self._release_stream(req, outcome)
         self._m_requests.labels(outcome=outcome).inc()
+        sub = req.submitted_at
+        fin = req.finished_at if req.finished_at is not None \
+            else time.monotonic()
+        ring = span_ring()
+        args = {"id": req.trace_id, "outcome": outcome,
+                "prompt_tokens": int(req.prompt.size),
+                "n_steps": int(req.n_steps)}
+        if req.priority:
+            args["priority"] = int(req.priority)
+        if req.preemptions:
+            args["preemptions"] = int(req.preemptions)
+        if req.slot is not None:
+            args["slot"] = int(req.slot)
+        if self.paged and req.admitted_at is not None:
+            args["prefix_start"] = int(req.prefix_start)
+        ring.add("request", sub, fin - sub, cat="request",
+                 tid=req.trace_id, args=args)
+        if req.admitted_at is None:
+            ring.add("queue_wait", sub, fin - sub, cat="serve",
+                     tid=req.trace_id)
+            return
+        ring.add("queue_wait", sub, req.admitted_at - sub, cat="serve",
+                 tid=req.trace_id)
+        if req.first_token_at is not None:
+            ring.add("prefill", req.admitted_at,
+                     req.first_token_at - req.admitted_at, cat="serve",
+                     tid=req.trace_id)
+            ring.add("decode", req.first_token_at,
+                     fin - req.first_token_at, cat="serve",
+                     tid=req.trace_id)
 
     # -- stats -------------------------------------------------------------
     def _count(self, key: str, n: int = 1):
@@ -1309,6 +1631,7 @@ class DecodeEngine(Logger):
             "slots": self.slots, "l_max": self.l_max,
             "occupancy": int(self._active.sum()),
             "queue_depth": qlen, "queue_limit": self.queue_depth,
+            "in_flight": self._in_flight(),
             "admitted": n.get("admitted", 0),
             "retired": n.get("retired", 0),
             "rejected": n.get("rejected", 0),
@@ -1331,7 +1654,12 @@ class DecodeEngine(Logger):
                                   else None),
             "decode_step_s_max": float(np.max(steps)) if steps else None,
             "paged": self.paged, "paged_kernel": self.paged_kernel,
+            "cache_dtype": str(self._cache_dtype).replace("torch.", ""),
             "streams": streams,
+            "swaps": self._swaps, "draining": self._draining,
+            "swap_in_flight": self.last_swap_in_flight,
+            "scheduler_crashed": self._died,
+            "memory": dict(self._mem_bytes),
             "admission": {**self._admission.state(),
                           "priorities": self.priorities,
                           "preempt": self.preempt,
@@ -1372,8 +1700,13 @@ class DecodeEngine(Logger):
                     self._slo.tick()
                     self._admission.tick()
                     self._publish_gauges()
-                    # a step boundary: staged KV-page imports land here
-                    # (the scheduler thread writes every cache)
+                    self._maybe_report()
+                    if faults.enabled():
+                        self._inject_faults()
+                    # a step boundary: a staged weight swap flips here,
+                    # and staged KV-page imports land (the scheduler
+                    # thread writes every served tensor and cache)
+                    self._apply_swap()
                     self._apply_kv_imports()
                     with self._qlock:
                         pending = bool(self._queue)
@@ -1398,13 +1731,57 @@ class DecodeEngine(Logger):
             # fail pending work loudly, not hang every client
             self._died = True
             self.exception("decode engine scheduler died")
+            if self.status is not None:
+                try:
+                    self.status.record_event(
+                        "scheduler_crash",
+                        error=f"{type(e).__name__}: {e}")
+                except Exception:  # noqa: BLE001 — status must never
+                    pass           # mask the crash
             self._fail_all(SchedulerCrashed(
                 f"engine scheduler crashed: {type(e).__name__}: {e}"))
         finally:
-            # staged imports drain so their callers do not wait out their
-            # timeout
+            # a swap staged during shutdown still flips, and staged
+            # imports drain, so their callers do not wait out a timeout
+            self._apply_swap()
             self._apply_kv_imports()
             self._fail_all(EngineStopped("engine stopped"))
+
+    def _inject_faults(self):
+        """The serving fault knobs' scheduler-side injection points
+        (``runtime/faults.py``): a synthetic lowest-class burst straight
+        into the queue, and a crash at an iteration with work pending;
+        each once per arming."""
+        plan = faults.get_plan()
+        if plan.admission_burst and faults.fire_once("admission_burst"):
+            self._inject_burst(plan.admission_burst)
+        with self._qlock:
+            pending = bool(self._queue)
+        if (pending or self._active.any()) and plan.scheduler_crash \
+                and faults.fire_once("scheduler_crash"):
+            raise faults.FaultInjected("injected decode-scheduler crash")
+
+    def _inject_burst(self, n: int):
+        """``n`` minimal lowest-class requests appended to the queue,
+        bypassing ``submit``'s shed gate (engine.py:2845-2859): nobody
+        waits on them; they decode and retire like any request."""
+        for _ in range(int(n)):
+            r = _Request(np.asarray([0], np.int32), 2, 0.0, None, None,
+                         None, 0, time.monotonic() + self.deadline_s,
+                         priority=self.priorities - 1)
+            with self._qlock:
+                self._queue.append(r)
+
+    def _maybe_report(self):
+        """Every 0.5 s: the engine's stats into the status reporter."""
+        now = time.monotonic()
+        if self.status is None or now - self._status_mark < 0.5:
+            return
+        self._status_mark = now
+        try:
+            self.status.update(engine=self.stats())
+        except Exception:  # noqa: BLE001 — status must never take the
+            pass           # engine down
 
     def _fail_all(self, err: Exception):
         outcome = "crash" if isinstance(err, SchedulerCrashed) \
@@ -2261,6 +2638,12 @@ class DecodeEngine(Logger):
         """One decode step over every slot (inactive slots ride along:
         their KV writes go to the scratch row / nowhere)."""
         t0 = time.monotonic()
+        if faults.enabled():
+            stall = faults.get_plan().decode_stall_ms
+            if stall and faults.fire_once("decode_stall"):
+                # one slow step, inside the timed window, so it lands in
+                # the step histogram and the wall EWMAs as a real stall
+                time.sleep(stall / 1e3)
         n_active = int(self._active.sum())
         finished, _, _ = self._dispatch("decode")
         wall = time.monotonic() - t0

@@ -1,6 +1,6 @@
-"""Deterministic, config-driven fault injection for the training
-lifecycle (a copy of veles_tpu/runtime/faults.py, which holds no JAX,
-cut to its training half and rewired to the port).
+"""Deterministic, config-driven fault injection for the training and
+serving lifecycle (a copy of veles_tpu/runtime/faults.py, which holds no
+JAX, cut to the knobs whose injection points the port has).
 
 Production code consults this switchboard at well-defined injection
 points; tests arm it through ``root.common.faults.*`` (or the
@@ -28,10 +28,31 @@ node in production, so the :func:`enabled` fast path is one falsy check):
     only at restore time (exercises checksum verify + walk-back).
 ``slow_batch_ms``
     float.  Sleep this many milliseconds inside every batch fetch.
+``scheduler_crash``
+    truthy.  The decode-engine scheduler loop raises
+    :class:`FaultInjected` (once) at its next iteration with pending
+    work: every queued and in-flight request fails with
+    ``SchedulerCrashed`` (HTTP 500) and a ``scheduler_crash`` status
+    event records the cause.
+``decode_stall_ms``
+    float.  The next decode step sleeps this long before dispatching
+    (once per arming), inside the step's timed window, so it lands in
+    the decode-step histogram and the wall EWMAs as a real stall would.
+``admission_burst``
+    int.  The scheduler appends this many synthetic minimal
+    lowest-class requests straight to its own queue (once per arming),
+    bypassing ``submit``'s shed gate: the backlog already exists.
+``kv_transfer_drop``
+    int.  The drain's KV-page handoff to a successor (``runtime/
+    deploy.py``) fails as a transport error before any bytes move
+    (once per arming); the drain goes on.
+``kv_transfer_slow_ms``
+    float.  The drain's KV-page handoff sleeps this many milliseconds
+    first (a slow link).
 
-The serving knobs of the reference (scheduler crash, decode stall,
-admission burst, the fleet's and streaming relay's) come with the
-serving slices that have those injection points.
+The fleet's knobs (``replica_*``), the streaming relay's and the
+experiment manager's come with the slices that have those injection
+points.
 """
 
 from __future__ import annotations
@@ -68,7 +89,9 @@ class FaultPlan:
     """Immutable snapshot of the armed injection points."""
 
     __slots__ = ("nan_grad_at_step", "loader_ioerror_at_batch",
-                 "truncate_snapshot", "slow_batch_ms")
+                 "truncate_snapshot", "slow_batch_ms", "scheduler_crash",
+                 "decode_stall_ms", "admission_burst", "kv_transfer_drop",
+                 "kv_transfer_slow_ms")
 
     def __init__(self, cfg):
         get = cfg.get
@@ -77,10 +100,15 @@ class FaultPlan:
             get("loader_ioerror_at_batch"))
         self.truncate_snapshot = bool(get("truncate_snapshot", False))
         self.slow_batch_ms = float(get("slow_batch_ms", 0.0) or 0.0)
+        self.scheduler_crash = bool(get("scheduler_crash", False))
+        self.decode_stall_ms = float(get("decode_stall_ms", 0.0) or 0.0)
+        self.admission_burst = int(get("admission_burst", 0) or 0)
+        self.kv_transfer_drop = int(get("kv_transfer_drop", 0) or 0)
+        self.kv_transfer_slow_ms = float(
+            get("kv_transfer_slow_ms", 0.0) or 0.0)
 
     def __bool__(self) -> bool:
-        return bool(self.nan_grad_at_step or self.loader_ioerror_at_batch
-                    or self.truncate_snapshot or self.slow_batch_ms)
+        return any(getattr(self, k) for k in self.__slots__)
 
     def __repr__(self) -> str:
         armed = {k: getattr(self, k) for k in self.__slots__

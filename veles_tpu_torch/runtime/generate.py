@@ -7,7 +7,10 @@ dense ``(B, L, Hk, Dh)`` cache or on the engine's paged pool.  The caches
 are updated IN PLACE (the JAX package returns new arrays; PyTorch saves
 the copy).  ``generate`` prefills the prompt through the same step
 (teacher-forced) and decodes greedily or by temperature sampling with
-optional top-k / top-p.
+optional top-k / top-p; ``generate_beam`` runs beam search over B·W
+dense cache rows.  Both build their :class:`DecodePlan` per call: the
+JAX package keeps compiled per-shape runners in an LRU, and the port
+compiles nothing per shape, so it has no such cache.
 
 Sampling (:func:`sample_slots`) is a function of tensors only, so the
 engine runs it inside its captured decode graphs: the Gumbel noise of
@@ -387,7 +390,8 @@ def generate(wf, wstate, prompt, n_steps: int, *, temperature: float = 0.0,
     """Decode ``n_steps`` tokens after ``prompt`` (B, P) ints.  Returns a
     (B, P + n_steps) int32 tensor: prompt then continuation.  With
     ``eos_id`` a row that emits it is padded with ``eos_id`` afterwards,
-    and the loop stops once every row has finished."""
+    and the loop stops once every row has finished.  ``cache_dtype`` is
+    the KV cache's type (float32 or bfloat16, as the engine's)."""
     params = wstate["params"]
     dev = params_device(params)
     prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
@@ -429,3 +433,96 @@ def generate(wf, wstate, prompt, n_steps: int, *, temperature: float = 0.0,
                 toks[:, pos + 2:] = eos_id
                 break
     return toks.to(torch.int32)
+
+
+#: the score of a beam that must not be chosen (only beam 0 starts live;
+#: a finished beam extends only with eos)
+_BEAM_NEG = -1e30
+
+
+def generate_beam(wf, wstate, prompt, n_steps: int, *, beams: int = 4,
+                  eos_id: Optional[int] = None,
+                  length_penalty: float = 0.0,
+                  output_unit: Optional[str] = None,
+                  cache_dtype=torch.float32):
+    """Beam-search decode (generate.py:745-872 of the JAX package): (B, P)
+    ints -> (tokens (B, P + n_steps) int32, scores (B,) float32), the
+    highest-scoring of ``beams`` hypotheses a row.
+
+    A score is the generated continuation's summed token log-probs (the
+    prompt's own is a per-row constant and left out), over ``len **
+    length_penalty`` of the generated length (0: the raw sum; > 0
+    favours longer continuations).  With ``eos_id`` a beam that emits it
+    is finished: its score freezes and it pads with ``eos_id``, its
+    length normalised at its first eos.  ``beams=1`` is greedy
+    :func:`generate`.
+
+    The batch axis carries B·W rows of dense caches through the decode
+    step; each expansion takes the top W of the W·V candidates a row
+    (ties to the lower index, as ``lax.top_k``) and reorders every cache
+    by the survivors' parents.  Beam search reaches no kernel in the JAX
+    package either (its dense ``plan.step``)."""
+    params = wstate["params"]
+    dev = params_device(params)
+    prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
+    if prompt.dim() != 2 or prompt.shape[1] < 1:
+        raise ValueError("prompt must be (B, P) with at least one token")
+    W = int(beams)
+    if W < 1:
+        raise ValueError(f"beams must be >= 1, got {W}")
+    B, P = prompt.shape
+    L = P + int(n_steps)
+    BW = B * W
+    plan = DecodePlan(wf, output_unit)
+    ctx = Context(train=False)
+    with torch.inference_mode():
+        # every beam starts as a copy of its row, but only beam 0 scores
+        # 0: the first expansion would otherwise pick W copies of one
+        # hypothesis
+        caches = plan.init_caches(params, BW, L, cache_dtype, dev)
+        toks = torch.zeros((BW, L), dtype=torch.long, device=dev)
+        toks[:, :P] = prompt.repeat_interleave(W, 0)
+        scores = torch.where(torch.arange(W, device=dev) == 0, 0.0,
+                             _BEAM_NEG).float().repeat(B)
+        alive = torch.ones(BW, dtype=torch.bool, device=dev)
+        rows = torch.arange(B, device=dev)[:, None] * W
+        for pos in range(L - 1):
+            logits, caches = plan.step(params, caches, toks[:, pos], pos,
+                                       ctx)
+            if pos + 1 < P:       # prefill accumulates nothing
+                continue
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            V = logp.shape[-1]
+            if eos_id is not None:
+                # a finished beam extends only with eos, at no cost
+                frozen = torch.full((V,), _BEAM_NEG, device=dev)
+                frozen[eos_id] = 0.0
+                logp = torch.where(alive[:, None], logp, frozen[None])
+            flat = (scores[:, None] + logp).reshape(B, W * V)
+            top_s, top_i = torch.sort(flat, dim=-1, descending=True,
+                                      stable=True)
+            top_s, top_i = top_s[:, :W], top_i[:, :W]
+            idx = (top_i // V + rows).reshape(-1)
+            nxt = (top_i % V).reshape(-1)
+            for c in caches.values():
+                for part in c:
+                    c[part] = c[part].index_select(0, idx)
+            toks = toks.index_select(0, idx)
+            alive = alive.index_select(0, idx)
+            scores = top_s.reshape(-1)
+            if eos_id is not None:
+                alive = alive & (nxt != eos_id)
+            toks[:, pos + 1] = nxt
+        toks_bw = toks.reshape(B, W, L)
+        scores_bw = scores.reshape(B, W)
+        if length_penalty:
+            if eos_id is not None:
+                ended = toks_bw[:, :, P:] == eos_id
+                first = torch.where(ended.any(-1),
+                                    ended.int().argmax(-1) + 1, L - P)
+            else:
+                first = torch.full((B, W), L - P, device=dev)
+            scores_bw = scores_bw / (first.float() ** length_penalty)
+        best = scores_bw.argmax(-1)
+        b = torch.arange(B, device=dev)
+        return toks_bw[b, best].to(torch.int32), scores_bw[b, best]

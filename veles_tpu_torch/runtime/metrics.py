@@ -1,25 +1,30 @@
 """Metrics core: Counter, Gauge and fixed-bucket Histogram in a
-process-global registry, their Prometheus text exposition, and the
-time-windowed view of a histogram the rolling SLO windows read (the
-metric half of veles_tpu/runtime/metrics.py, which holds no JAX, cut to
-what the port sets: the StepCache's capture counters, the trainer's
-anomaly and walk-back counters, and the serving engine's request,
-shed and preemption counters, its latency histograms and the SLO burn
-gauge).
+process-global registry, their Prometheus text exposition, the
+time-windowed view of a histogram the rolling SLO windows read, and the
+span ring of host-side request timelines with its Chrome-trace export
+(``GET /trace.json``, ``--trace-out``) — veles_tpu/runtime/metrics.py,
+which holds no JAX, cut to what the port sets: the StepCache's capture
+counters, the trainer's anomaly and walk-back counters, the serving
+engine's request, shed, preemption and swap counters, its latency
+histograms, the SLO burn gauge, the memory ledger's gauges and the
+deploy control plane's.
 
 Host-side only: nothing here runs inside a captured step.  Left out
 until a slice reads them: the label cardinality cap (every label here
 takes a handful of values: program kind, request outcome, priority
-class, slo name), the span ring and its Chrome-trace export, and the
-scrape-side parsers.
+class, slo name, memory component) and the scrape-side parsers.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
+import json
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
+
+from ..config import root
 
 #: default latency buckets (seconds), the JAX package's
 DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
@@ -367,3 +372,90 @@ _REGISTRY = MetricsRegistry()
 def registry() -> MetricsRegistry:
     """The process registry."""
     return _REGISTRY
+
+
+# -- request timelines (veles_tpu/runtime/metrics.py:565-654) ----------------
+
+_T0 = time.monotonic()
+_TRACE_IDS = itertools.count(1)
+
+
+def next_trace_id() -> int:
+    """Process-unique track id for a request timeline (``next`` on an
+    itertools.count is atomic under the GIL)."""
+    return next(_TRACE_IDS)
+
+
+def _us(t: float) -> float:
+    return round((t - _T0) * 1e6, 1)
+
+
+class SpanRing:
+    """Bounded ring of completed host-side spans in Chrome trace event
+    format: a serving day keeps only the most recent ``capacity`` spans,
+    the window an operator pulls when something is slow now."""
+
+    def __init__(self, capacity: int = 512):
+        self._lock = threading.Lock()
+        self._events: collections.deque = collections.deque(
+            maxlen=max(1, int(capacity)))  # guarded-by: self._lock
+
+    def add(self, name: str, start_s: float, dur_s: float, *,
+            cat: str = "host", tid: int = 0, args: Optional[dict] = None):
+        """One complete ("X") span: ``start_s``/``dur_s`` in
+        ``time.monotonic()`` seconds."""
+        ev = {"name": str(name), "cat": cat, "ph": "X",
+              "ts": _us(start_s), "dur": round(max(dur_s, 0.0) * 1e6, 1),
+              "pid": 0, "tid": int(tid)}
+        if args:
+            ev["args"] = args
+        with self._lock:
+            self._events.append(ev)
+
+    def add_instant(self, name: str, at_s: float, *, cat: str = "event",
+                    tid: int = 0, args: Optional[dict] = None):
+        ev = {"name": str(name), "cat": cat, "ph": "i", "s": "g",
+              "ts": _us(at_s), "pid": 0, "tid": int(tid)}
+        if args:
+            ev["args"] = args
+        with self._lock:
+            self._events.append(ev)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    def snapshot(self) -> List[dict]:
+        with self._lock:
+            return sorted(self._events, key=lambda e: e["ts"])
+
+    def chrome_trace(self) -> dict:
+        """The ``chrome://tracing`` / Perfetto document (the ``GET
+        /trace.json`` body)."""
+        meta = [{"name": "process_name", "ph": "M", "pid": 0, "tid": 0,
+                 "args": {"name": "veles_tpu_torch"}}]
+        return {"traceEvents": meta + self.snapshot(),
+                "displayTimeUnit": "ms"}
+
+
+_SPANS_LOCK = threading.Lock()
+_SPANS: Optional[SpanRing] = None  # guarded-by: _SPANS_LOCK
+
+
+def span_ring() -> SpanRing:
+    """The process span ring, sized by ``root.common.observe.span_ring``
+    at first use."""
+    global _SPANS
+    with _SPANS_LOCK:
+        if _SPANS is None:
+            _SPANS = SpanRing(
+                int(root.common.observe.get("span_ring", 512)))
+        return _SPANS
+
+
+def write_chrome_trace(path: str) -> str:
+    """``--trace-out FILE``: the span ring as Chrome-trace JSON (open it
+    in Perfetto)."""
+    with open(path, "w") as f:
+        json.dump(span_ring().chrome_trace(), f, default=repr)
+    return path

@@ -16,10 +16,26 @@
   "token": t}`` numbered by global generated index, then one terminal
   ``{"done": true, "finish_reason", "usage"}`` line (+ ``"error"``),
   restful.py:766-920 of the JAX package;
-* ``GET /healthz`` (liveness), ``GET /ready`` (200 once the engine runs),
-  ``GET /engine`` (engine stats), ``GET /metrics`` (the registry's
-  Prometheus text), ``GET /slo.json`` (the rolling SLO windows),
-  restful.py:176-188 of the JAX package;
+* ``POST /generate`` with ``"beams": W > 1`` (``"eos_id"``,
+  ``"length_penalty"``): deterministic beam search
+  (:func:`~.generate.generate_beam`, outside the engine's queue) ->
+  ``{"tokens", "scores"}``, the JAX package's size guard and refusals
+  (restful.py:612-720);
+* ``GET /healthz`` (liveness), ``GET /ready`` (200 once the engine runs
+  and nobody drains, else 503), ``GET /engine`` (engine stats), ``GET
+  /metrics`` (the registry's Prometheus text), ``GET /slo.json`` (the
+  rolling SLO windows), ``GET /memory.json`` (the device's allocator
+  counters and the component ledger), ``GET /trace.json`` (the span
+  ring's request timelines, Chrome-trace JSON), ``POST /debug/profile``
+  (a duration-bounded ``torch.profiler`` capture, 409 while one runs),
+  restful.py:176-216 of the JAX package;
+* with a :class:`~.deploy.DeployController` attached (it sets
+  ``server.deploy``): ``GET /models`` (the versioned registry) and
+  ``POST /admin/reload`` (hot swap; 409 with the old version still
+  serving on a load or signature failure), ``/admin/stage``,
+  ``/admin/commit``, ``/admin/abort`` (the two halves of a swap) and
+  ``/admin/drain`` (202; ``/ready`` and new ``/generate`` requests
+  then answer 503), restful.py:351-456;
 * ``GET /kv/pages?hashes=hex,hex`` or ``?top=K`` (the K hottest cached
   pages) answers the engine's serialized prefix pages (VTKV1,
   ``application/octet-stream``), and ``PUT /kv/pages`` imports such a
@@ -27,9 +43,8 @@
   a dense engine, 504 when the import is not applied in time),
   restful.py:224-248 and :270-316.
 
-Beam search (``beams``; ROADMAP.md queue 1 item 2), the batch lane
-(``batch``; with the job manager, queue 1 item 7) and the deploy / jobs
-/ experiments control planes come with later slices.
+The batch lane (``batch``; with the job manager), the fleet, jobs and
+experiments endpoints come with later slices.
 """
 
 from __future__ import annotations
@@ -47,9 +62,15 @@ from ..config import root
 from ..logger import Logger
 from ..ops import resolve_device
 from .engine import EngineOverloaded, EngineStopped, SchedulerCrashed
-from .generate import generate
-from .metrics import registry
+from .generate import generate, generate_beam
+from .memory import memory_monitor
+from .metrics import registry, span_ring
+from .profiler import serve_profile_post
 from .slo import slo_tracker
+from .snapshotter import SnapshotCorruptError
+
+_ADMIN = ("/admin/reload", "/admin/drain", "/admin/stage", "/admin/commit",
+          "/admin/abort")
 
 
 def reply_json(handler, obj, code=200, headers=()):
@@ -127,6 +148,7 @@ class RestfulServer(Logger):
         self.input_dtype = np.dtype(input_dtype)
         self.workflow = workflow
         self.engine = engine
+        self.deploy = None          # a DeployController sets itself here
         outer = self
 
         class Handler(http.server.BaseHTTPRequestHandler):
@@ -140,6 +162,14 @@ class RestfulServer(Logger):
                                 "text/plain; version=0.0.4; charset=utf-8")
                 elif path == "/slo.json":
                     self._reply(slo_tracker().doc())
+                elif path == "/memory.json":
+                    self._reply(memory_monitor().doc())
+                elif path == "/trace.json":
+                    body = json.dumps(span_ring().chrome_trace(),
+                                      default=repr).encode()
+                    reply_bytes(self, body, "application/json")
+                elif path == "/models" and outer.deploy is not None:
+                    self._reply(outer.deploy.models_doc())
                 elif path == "/kv/pages" and outer.engine is not None:
                     try:
                         blob = outer.export_kv_pages(
@@ -180,12 +210,29 @@ class RestfulServer(Logger):
 
             def do_POST(self):
                 path = self.path.split("?", 1)[0].rstrip("/")
-                if path not in ("/predict", "/generate"):
+                if path == "/debug/profile":
+                    # blocks this handler thread for the capture; other
+                    # requests keep flowing
+                    code, obj = serve_profile_post(self.headers,
+                                                   self.rfile)
+                    self._reply(obj, code=code)
+                    return
+                if path in _ADMIN and outer.deploy is None:
+                    self._reply({"error": "no deploy control plane "
+                                          "attached (serve with "
+                                          "DeployController / "
+                                          "--model-dir)"}, code=404)
+                    return
+                if path not in ("/predict", "/generate") + _ADMIN:
                     self.send_error(404)
                     return
                 try:
                     req = read_json_body(self)
                     if req is None:
+                        return
+                    if path in _ADMIN:
+                        code, obj = outer.admin(path, req)
+                        self._reply(obj, code=code)
                         return
                     if path == "/generate":
                         # the X-Priority header is the proxy-friendly
@@ -245,9 +292,47 @@ class RestfulServer(Logger):
         return self.engine.export_pages(hashes)
 
     def readiness(self):
-        if self.engine is not None and not self.engine.started:
-            return False, "engine not started"
+        """(ready, reason) for ``GET /ready``: nobody drains and the
+        engine (if any) runs."""
+        if self.deploy is not None and self.deploy.draining:
+            return False, "draining"
+        if self.engine is not None:
+            if self.engine.draining:
+                return False, "draining"
+            if not self.engine.started:
+                return False, "engine not started"
         return True, "ok"
+
+    def admin(self, path: str, req: dict):
+        """``POST /admin/*`` -> (status, body).  A load, signature or
+        flip-timeout failure is 409 with the old version still serving;
+        a malformed request 400; an unknown registry version 404; a
+        draining engine raises :class:`EngineDraining` (the caller's
+        503)."""
+        dep = self.deploy
+        if path == "/admin/drain":
+            return 202, dep.begin_drain(handoff=req.get("handoff"))
+        if path == "/admin/abort":
+            return 200, dep.abort_staged(req.get("token"))
+        if path == "/admin/commit" and not req.get("token"):
+            return 400, {"error": 'commit needs the {"token": ...} stage '
+                                  'returned'}
+        source = req.get("source") or req.get("path")
+        if path != "/admin/commit" and source is None \
+                and req.get("version") is None:
+            return 400, {"error": f'{path.rsplit("/", 1)[1]} needs '
+                                  '{"path": ...} (or "source"/"version")'}
+        try:
+            if path == "/admin/commit":
+                return 200, dep.commit_staged(req["token"])
+            fn = dep.reload if path == "/admin/reload" else dep.stage
+            return 200, fn(source=source, version=req.get("version"))
+        except KeyError as e:
+            return 404, {"error": str(e)}
+        except (ValueError, OSError, TimeoutError,
+                SnapshotCorruptError) as e:
+            return 409, {"error": f"{type(e).__name__}: {e}",
+                         "active": dep.registry.active_version}
 
     def _vocab_size(self) -> Optional[int]:
         if self.workflow is None:
@@ -286,10 +371,6 @@ class RestfulServer(Logger):
         return np.concatenate(outs)
 
     def _refuse_unported(self, req: dict):
-        if _req_int(req.get("beams", 1), "beams") != 1:
-            raise ValueError("beams: beam search is not served by the port "
-                             "yet (generate_beam, ROADMAP.md queue 1 "
-                             "item 2)")
         if req.get("batch"):
             raise ValueError("batch: the batch lane is not served by the "
                              "port yet (it comes with the job manager, "
@@ -329,6 +410,9 @@ class RestfulServer(Logger):
             raise ValueError("this server has no workflow or engine; "
                              "/generate is off")
         self._refuse_unported(req)
+        beams = _req_int(req.get("beams", 1), "beams")
+        if beams < 1:
+            raise ValueError(f"beams must be >= 1, got {beams}")
         if req.get("stop") is not None \
                 or req.get("emitted_prefix") is not None:
             # ignoring either would answer a wrong unary 200
@@ -341,7 +425,12 @@ class RestfulServer(Logger):
                 "priority classes need engine= serving (per-request "
                 "generate() has no queue to prioritize)")
         prompt = np.asarray(req["prompt"])
-        if not np.issubdtype(prompt.dtype, np.integer):
+        # whole-valued floats (2.0) are ids, as the JAX package's unary
+        # path takes them; a fraction is refused, never truncated
+        if not np.issubdtype(prompt.dtype, np.integer) and not (
+                np.issubdtype(prompt.dtype, np.floating)
+                and np.all(np.isfinite(prompt))
+                and np.all(prompt == np.floor(prompt))):
             raise ValueError("prompt token ids must be integers "
                              f"(got dtype {prompt.dtype})")
         prompt = prompt.astype(np.int64)
@@ -354,6 +443,17 @@ class RestfulServer(Logger):
                 f"prompt token ids must be in [0, {hi}) "
                 f"(got min {prompt.min()}, max {prompt.max()})")
         steps, kw = self._sampling(req, hi)
+        B, P = prompt.shape
+        if B * beams * (P + steps) > 1_048_576:
+            # beam search multiplies every cache by its width
+            raise ValueError(
+                f"request too large: batch {B} x beams {beams} x total "
+                f"length {P + steps} exceeds the 2^20 token-cell cap")
+        if beams > 1:
+            return self._beam(req, prompt, steps, beams, priority, kw)
+        if req.get("length_penalty"):
+            raise ValueError(
+                "length_penalty shapes beam scores and needs beams > 1")
         if self.engine is not None:
             toks = self.engine.generate(prompt.astype(np.int32), steps,
                                         priority=priority, **kw)
@@ -362,6 +462,33 @@ class RestfulServer(Logger):
                             prompt.astype(np.int32), steps,
                             **kw).cpu().numpy()
         return {"tokens": np.asarray(toks).tolist()}
+
+    def _beam(self, req, prompt, steps, beams, priority, kw) -> dict:
+        """``beams > 1``: beam search over the live workflow and the
+        served weights, outside the engine's queue."""
+        if self.workflow is None:
+            raise ValueError("beam search needs the live workflow "
+                             "(RestfulServer(..., workflow=wf))")
+        if kw["temperature"] > 0 or req.get("seed") is not None:
+            raise ValueError(
+                "beams is deterministic search; drop temperature/top_k/"
+                "top_p/seed or use beams=1")
+        if priority:
+            raise ValueError(
+                "beam search runs outside the engine queue; priority "
+                "classes apply to beams=1 requests")
+        length_penalty = float(req.get("length_penalty", 0.0))
+        if length_penalty < 0:
+            raise ValueError(
+                f"length_penalty must be >= 0, got {length_penalty}")
+        wstate = (self.engine.wstate if self.engine is not None
+                  else self.wstate)
+        toks, scores = generate_beam(
+            self.workflow, wstate, prompt.astype(np.int32), steps,
+            beams=beams, eos_id=kw["eos_id"],
+            length_penalty=length_penalty)
+        return {"tokens": toks.cpu().numpy().tolist(),
+                "scores": scores.cpu().numpy().tolist()}
 
     def _stream_submit(self, req: dict):
         """Validate a ``{"stream": true}`` body and submit it to the
@@ -373,6 +500,8 @@ class RestfulServer(Logger):
                 "streaming needs engine= serving (per-request "
                 "generate() has no incremental token feed)")
         self._refuse_unported(req)
+        if _req_int(req.get("beams", 1), "beams") != 1:
+            raise ValueError("streaming supports beams=1 only")
         prompt = np.asarray(req["prompt"])
         if not np.issubdtype(prompt.dtype, np.integer):
             raise ValueError("prompt token ids must be integers "

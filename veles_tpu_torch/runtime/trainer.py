@@ -20,8 +20,10 @@ trainer rolls back too, to the best state or the last snapshot (walking
 back past corrupt ones).  Snapshots carry the JAX ``Trainer``'s payload,
 so a run resumes in either package.
 
-Left out here (ROADMAP.md, slice 3): the goodput/MFU gauges, the memory
-ledger, and the mesh, multi-host and pipeline schedules.
+The trainer's parameters and optimizer state enter the memory ledger
+(``runtime/memory.py``) at ``initialize``; a ``status`` reporter gets
+the epoch's results.  Left out here (ROADMAP.md, slice 3): the
+goodput/MFU gauges, and the mesh, multi-host and pipeline schedules.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -44,6 +47,7 @@ from ..ops.optimizers import (ANOM_CONSEC_KEY, LR_MULT_KEY, Optimizer,
 from ..units.base import Spec
 from ..units.workflow import Workflow
 from .decision import Decision
+from .memory import drop_stamped_components, memory_monitor, tree_bytes
 from .metrics import registry
 from .snapshotter import (Snapshotter, restore_with_walkback,
                           wstate_to_numpy)
@@ -83,8 +87,9 @@ class Trainer(Logger):
                  optimizer: Optimizer, decision: Optional[Decision] = None,
                  snapshotter: Optional[Snapshotter] = None, *,
                  prefetch: int = 2, device=None,
-                 step_cache: Optional[StepCache] = None):
+                 step_cache: Optional[StepCache] = None, status=None):
         self.workflow = workflow
+        self.status = status      # runtime.status.StatusReporter (optional)
         self.loader = loader
         self.optimizer = optimizer
         self.decision = decision or Decision(max_epochs=10)
@@ -135,6 +140,16 @@ class Trainer(Logger):
                                                    self.device)
         self._batch_spec = specs
         self._compile_steps()
+        # the ledger of GET /memory.json, from shapes; a freed trainer's
+        # entries leave it unless a newer one took the names over
+        mem = memory_monitor()
+        stamps = {name: mem.set_component(name, tree_bytes(
+            self.wstate.get(part, {})))
+            for name, part in (("train.params", "params"),
+                               ("train.opt_state", "opt_state"))}
+        self._mem_finalizer = weakref.finalize(
+            self, drop_stamped_components, stamps)
+        mem.ensure_poller()
         self.info("workflow %s: %d params", self.workflow.name,
                   self.workflow.n_params(self.wstate))
 
@@ -279,6 +294,14 @@ class Trainer(Logger):
                           / max(t_train - t_ep, 1e-9),
                           time.time() - t_train)
             stop = self.decision.on_epoch(epoch, train_mets, valid_mets)
+            if self.status is not None:
+                self.status.update(
+                    epoch=epoch, best_value=self.decision.best_value,
+                    best_epoch=self.decision.best_epoch,
+                    anomaly_steps_skipped=self.anomaly_steps_skipped,
+                    anomaly_rollbacks=self.anomaly_rollbacks,
+                    snapshot_walkbacks=self.snapshot_walkbacks,
+                    **{f"valid_{k}": v for k, v in valid_mets.items()})
             if self.decision.improved \
                     and (self.decision.rollback_after is not None
                          or self._anomaly_patience() > 0):
