@@ -14,7 +14,8 @@ Phases, each of which fails the run with a non-zero exit:
    at its path's shapes and at edge cases (for the flash kernels, the
    variant launched: tensor cores for bf16, SIMT for float32; for paged
    decode, the edges of its per-row split across a cluster of blocks, a
-   corrupt page-table entry, and two runs bitwise equal),
+   corrupt page-table entry, and two runs bitwise equal, on float32,
+   bfloat16 and float16 pools),
    each error beside its tolerance (the flash backward element by
    element, see BWD_UNITS; the row gather in both its entries, one array
    with its host check and the loaders' batch of every array of a class
@@ -79,7 +80,11 @@ Phases, each of which fails the run with a non-zero exit:
    before it refused; stage then abort; ``/memory.json`` against the
    allocator; ``/trace.json``'s request spans; a 1 s ``/debug/profile``
    whose trace holds the paged kernel, a second one 409; beams 4 and 1
-   on ``/generate``; a drain with requests in flight);
+   on ``/generate``; a drain with requests in flight); then the float16
+   KV cache (the greedy request on a captured f16-cache engine, timed;
+   in float32 compute its greedy tokens equal to an f32-pool engine's
+   and to ``generate(cache_dtype=float16)``'s, the f16-pool launches one
+   a layer a micro-step);
 5. training path, full width: the same LM (bf16) trained through
    ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (32
    steps of 16 x 2048 tokens, Adam lr 1e-3) and its eval, fed by an
@@ -109,27 +114,50 @@ Phases, each of which fails the run with a non-zero exit:
    repeats epoch 0), which must halve the lr multiplier in the captured
    state and recapture nothing;
 6. image kernels: fused dropout (AlexNet's drop6/drop7 shape, 512 x
-   4096 float32, and the edges; forward and gradient) and mean/disp
-   normalize (norm0's shape, 512 x 227 x 227 x 3, uint8 and float32)
-   against their plain versions, bitwise, then their times and bounds;
+   4096 float32, synthdigits_conv's drop3, 100 x 256, and the edges;
+   forward and gradient; the seed in a one-element int32 tensor on the
+   card, and two seeds written into one slot giving their two masks) and
+   mean/disp normalize (norm0's shape, 512 x 227 x 227 x 3, uint8 and
+   float32) against their plain versions, bitwise, then their times and
+   bounds;
 7. image path, full width: ``alexnet_e2e_device_workflow`` (bf16
    compute, momentum SGD with l2) trained through
    ``StandardWorkflow.make_trainer`` -> ``Trainer`` for one epoch (8
    steps of 512) and its eval, from a 4096 + 512 image uint8 store held
-   on the card (random crop 227 and mirror there); the train step runs
-   eagerly (dropout takes its seed by value each step, which the
-   ``StepCache`` states as its reason) and the eval step is captured;
-   mean/disp must launch at least 9 times and dropout 32 (2 forward + 2
-   backward per step), every loss must be finite; step times, samples/s and a torch.profiler
-   window of 3 steps; one float32 step through the kernels and one
-   through the plain versions from the same weights, batch and key
-   (cuDNN deterministic, TF32 off), loss, gradient norms and the drop6/
-   drop7 masks compared; one ``make_predict_step("fc8")`` batch;
-8. quality: ``python -m veles_tpu_torch configs/induction_lm.json
+   on the card (random crop 227 and mirror there); the train and eval
+   steps are captured (each dropout reads its seed from a slot the
+   step's host part fills); mean/disp must launch at least 9 times and
+   dropout 4 a step plus the capture's warm-ups (2 forward + 2
+   backward), every loss must be finite; step times, samples/s and a
+   torch.profiler window of 3 steps; 4 captured steps and an eval
+   bitwise 4 eager ones from one init (cuDNN deterministic), each side's
+   step time; one float32 step through the kernels and one through the
+   plain versions from the same weights, batch and key (cuDNN
+   deterministic, TF32 off), loss, gradient norms and the drop6/drop7
+   masks compared; one ``make_predict_step("fc8")`` batch;
+8. the image/conv family: ``configs/synthdigits_conv.json`` at its
+   published widths and minibatch (100) through the ``Trainer`` for one
+   epoch (600 steps) and its eval over the mnist loader's 60k + 10k
+   SynthDigits held on the card (the synthesis or cache read and the
+   upload timed apart); train and eval steps captured, dropout launches
+   2 a step plus the warm-ups and one batch gather a batch, held against
+   a profiled window's trace (idle share); step times and samples/s; 8
+   captured steps bitwise 8 eager ones, a new dropout seed each step;
+   one float32 step through the kernels and one through the plain
+   versions (loss, gradient norms, the drop3 mask); then the config
+   through ``python -m veles_tpu_torch`` (its 20 epochs) to <= 0.73 %
+   validation error; then ``configs/synthdigits_ae.json`` for one epoch
+   and the conv autoencoder (reshape, conv, pool, depool, deconv,
+   flatten) for 5 steps, each rmse finite and falling;
+9. quality: ``python -m veles_tpu_torch configs/induction_lm.json
    --random-seed 1`` as a subprocess on the card (25 epochs) must reach
    <= 5 % validation error;
-9. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+10. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
+
+Datasets the image family renders are cached under
+``$VELES_TORCH_CACHE`` (default here: ``.veles_tpu/cache`` beside this
+file), so the CLI runs find them warm.
 
 TF32 is off for every comparison (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 products run in full float32.  Without a CUDA card,
@@ -137,6 +165,7 @@ or without the ``veles_tpu_torch`` package beside this file, the script
 exits non-zero and prints no result.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -188,6 +217,16 @@ QUALITY_BAR = 5.0               # % validation error, configs/induction_lm
 IMG_B, IMG_TRAIN, IMG_VALID = 512, 4096, 512
 DROP_ROWS, DROP_COLS, DROP_RATE = 512, 4096, 0.5    # drop6/drop7
 IMG_MIN_LAUNCHES = {"mean_disp_normalize": 9, "fused_dropout": 32}
+IMG_WITNESS_STEPS = 4           # AlexNet eager vs captured steps, bitwise
+# the image/conv family: configs/synthdigits_conv.json at its published
+# widths and minibatch over the mnist loader's 60k + 10k SynthDigits held
+# on the card (drop3 is 100 x 256 float32); its bar (BASELINE.md:138)
+FAMILY_CONFIG = os.path.join("configs", "synthdigits_conv.json")
+AE_CONFIG = os.path.join("configs", "synthdigits_ae.json")
+DROP3 = (100, 256)
+FAMILY_WITNESS_STEPS = 8        # eager vs captured steps, bitwise
+FAMILY_BAR = 0.73               # % validation error
+AE_CONV_TRAIN, AE_CONV_VALID = 500, 100   # the conv autoencoder's steps
 
 VOCAB, E, LAYERS, HEADS, FFN = 1024, 512, 4, 8, 2048
 PREDICT_B, PREDICT_T = 16, 2048
@@ -532,11 +571,16 @@ def phase_kernels(torch):
         ("bf16pool_gqa_window", HEADS, 2, 64, bf16, edge_pos, 40, True,
          bf16),
         ("bf16pool_D16", 4, 4, 16, f32, edge_pos, None, True, bf16)]
+    # the f16 pool of an engine with cache_dtype=torch.float16: the bf16
+    # pool's cases
+    f16 = torch.float16
+    paged += [(c[0].replace("bf16pool", "f16pool"),) + c[1:-1] + (f16,)
+              for c in paged if c[-1] == bf16]
     main_paged = {}
     for name, H, Hk, Dh, qdt, pos, window, scratch, pdt in paged:
         args = _paged_inputs(torch, gen, SLOTS, H, Hk, Dh, PAGE,
                              L_MAX // PAGE, qdt, pos, scratch, pdt)
-        variant = "bf16_pool" if pdt == bf16 else "f32_pool"
+        variant = POOL_VARIANTS[str(pdt).split(".")[-1]]
         before = pa.launches.by_variant().get(variant, 0)
         out = pa.paged_attention_decode(*args, page_size=PAGE,
                                         n_kv_heads=Hk, window=window)
@@ -597,6 +641,7 @@ def phase_kernels(torch):
                             "dtype": "bfloat16", "causal": causal}},
         pa.NAME: paged_timing["f32_pool"],
         pa.NAME + "/bf16_pool": paged_timing["bf16_pool"],
+        pa.NAME + "/f16_pool": paged_timing["f16_pool"],
     }
     say({"phase": "kernel_timing", **timing})
     return timing
@@ -620,14 +665,16 @@ def _paged_timing(torch, pa, args, perr, pos, Hp, Hkp):
     p_flops = 4 * Hp * 64 * live
     p_bound, p_by = bound(p_flops, H100_F32_FLOPS, p_bytes)
     pool = str(pk_.dtype).split(".")[-1]
+    variant = POOL_VARIANTS[pool]
+    symbol = KERNEL_SYMBOLS["paged_attention_decode"][variant]
     return {"max_abs_err": perr, "ms": p_ms, "plain_ms": p_plain,
             "library_ms": None, "bound_ms": p_bound, "bound_by": p_by,
             "cold_l2_ms": p_cold, "bound_share": p_bound / p_cold,
             "gb_per_s_cold": p_bytes / p_cold / 1e6, "bytes": p_bytes,
-            "variant": "bf16_pool" if pool == "bfloat16" else "f32_pool",
+            "variant": variant,
             "ptxas": {k: v for k, v in _instance_usage(
                 "paged_attention").items()
-                if ("bf16pool" in k) == (pool == "bfloat16")},
+                if re.search(rf"(?<!\w){symbol}(?!\w)", k)},
             "shape": {"S": SLOTS, "H": Hp, "Hk": Hkp, "Dh": 64,
                       "page_size": PAGE, "n_ptab": L_MAX // PAGE,
                       "q": "bfloat16", "pool": pool,
@@ -932,9 +979,12 @@ def phase_train_kernels(torch):
 
 
 def phase_image_kernels(torch):
-    """The image path's kernels (fused dropout, mean/disp normalize)
-    against their plain versions, bitwise, at the path's shapes and the
-    edges; then their times and bounds at the path's shapes."""
+    """The image paths' kernels (fused dropout, mean/disp normalize)
+    against their plain versions, bitwise, at the paths' shapes and the
+    edges, the dropout seed in a one-element int32 tensor on the card (a
+    seed slot: two seeds written into one slot give their two masks);
+    then their times and bounds at the paths' shapes (dropout at
+    AlexNet's drop6/drop7 and at synthdigits_conv's drop3)."""
     import torch.nn.functional as F
     from veles_tpu_torch.ops.kernels import fused_dropout as fd
     from veles_tpu_torch.ops.kernels import mean_disp as md
@@ -942,16 +992,19 @@ def phase_image_kernels(torch):
     checks = []
     drop = [("main_f32_512x4096", (DROP_ROWS, DROP_COLS), torch.float32,
              DROP_RATE, 2769742244),
+            ("drop3_f32_100x256", DROP3, torch.float32, DROP_RATE,
+             0xDEADBEEF),
             ("r0.1_1d", (100003,), torch.float32, 0.1, 3),
             ("r0.9_cols_300", (5, 7, 300), torch.float32, 0.9, 99),
             ("cols_8320", (3, 8320), torch.float32, 0.5, 0xC0FFEE),
             ("bf16_odd", (16, 203), torch.bfloat16, 0.3, 11),
             ("nhwc_f32", (64, 13, 13, 256), torch.float32, 0.5, 5)]
-    main_drop = None
+    main_drop = {}
     for name, shape, dt, rate, seed in drop:
         x = torch.randn(shape, generator=gen).to("cuda", dt)
         g = torch.randn(shape, generator=gen).to("cuda", dt)
         xr = x.detach().requires_grad_(True)
+        seed = fd.seed_tensor(seed, "cuda")
         y = fd.fused_dropout(xr, seed, rate)
         (gx,) = torch.autograd.grad(y, xr, g)
         y = y.detach()
@@ -967,8 +1020,24 @@ def phase_image_kernels(torch):
                        "max_abs_err": err, "tol": 0.0, "kept_share": kept,
                        "ok": bitwise and err == 0.0})
         say(checks[-1])
-        if name.startswith("main"):
-            main_drop = (x, seed, rate, err)
+        if name.startswith(("main", "drop3")):
+            main_drop[name.split("_")[0]] = (x, seed, rate, err)
+    # one seed slot, two seeds written into it by the host: the two masks
+    x = main_drop["drop3"][0]
+    slot = torch.zeros(1, dtype=torch.int32, device="cuda")
+    outs = []
+    for seed in (7, 2 ** 32 - 7):
+        slot.fill_(fd.seed_bits(seed))
+        outs.append((fd.fused_dropout(x, slot, DROP_RATE),
+                     fd.fused_dropout_plain(x, seed, DROP_RATE)))
+    torch.cuda.synchronize()
+    same = all(torch.equal(y, ref) for y, ref in outs)
+    differ = not torch.equal(outs[0][0] == 0, outs[1][0] == 0)
+    checks.append({"kernel": fd.NAME, "case": "one_slot_two_seeds",
+                   "each_bitwise_its_seed": same, "masks_differ": differ,
+                   "max_abs_err": 0.0 if same else None, "tol": 0.0,
+                   "ok": same and differ})
+    say(checks[-1])
     md_cases = [("main_uint8_512x227x227x3", (IMG_B, 227, 227, 3),
                  torch.uint8),
                 ("main_f32_512x227x227x3", (IMG_B, 227, 227, 3),
@@ -998,12 +1067,24 @@ def phase_image_kernels(torch):
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
-    x, seed, rate, d_err = main_drop
-    d_ms = cuda_ms(torch, lambda: fd._launch(x, seed, rate), iters=100)
-    d_plain = cuda_ms(torch, lambda: fd.fused_dropout_plain(x, seed, rate))
-    d_lib = cuda_ms(torch, lambda: F.dropout(x, rate, training=True),
-                    iters=100)
-    d_bound = bound(0, H100_F32_FLOPS, 2 * x.numel() * x.element_size())
+    drop_t = {}
+    for path, (x, seed, rate, d_err) in main_drop.items():
+        d_bound = bound(0, H100_F32_FLOPS,
+                        2 * x.numel() * x.element_size() + 4)
+        drop_t[path] = {
+            "max_abs_err": d_err,
+            "ms": cuda_ms(torch, lambda: fd._launch(x, seed, rate),
+                          iters=100),
+            "plain_ms": cuda_ms(torch, lambda: fd.fused_dropout_plain(
+                x, seed, rate)),
+            "library_ms": cuda_ms(torch, lambda: F.dropout(
+                x, rate, training=True), iters=100),
+            "bound_ms": d_bound[0], "bound_by": d_bound[1],
+            "seed": "int32 slot on the card",
+            "library_note": "F.dropout at the same shape and rate: "
+                            "another mask stream",
+            "shape": {"rows": x.shape[0], "cols": x.shape[1],
+                      "dtype": "float32", "rate": rate}}
     xm, mean, rdisp, m_err = main_md
     m_ms = cuda_ms(torch, lambda: md._launch(xm, mean, rdisp), iters=50)
     m_plain = cuda_ms(torch, lambda: md.mean_disp_normalize_plain(
@@ -1012,13 +1093,9 @@ def phase_image_kernels(torch):
         + 2 * mean.numel() * 4
     m_bound = bound(2 * xm.numel(), H100_F32_FLOPS, m_bytes)
     timing = {
-        fd.NAME: {"max_abs_err": d_err, "ms": d_ms, "plain_ms": d_plain,
-                  "library_ms": d_lib, "bound_ms": d_bound[0],
-                  "bound_by": d_bound[1],
-                  "library_note": "F.dropout at the same shape and rate: "
-                                  "another mask stream",
-                  "shape": {"rows": DROP_ROWS, "cols": DROP_COLS,
-                            "dtype": "float32", "rate": rate}},
+        fd.NAME: {**drop_t["main"], "path": "alexnet"},
+        fd.NAME + "/synthdigits_conv": {**drop_t["drop3"],
+                                        "path": "synthdigits_conv"},
         md.NAME: {"max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain,
                   "library_ms": None, "bound_ms": m_bound[0],
                   "bound_by": m_bound[1], "bytes": m_bytes,
@@ -1056,6 +1133,7 @@ def phase_image(torch):
     from veles_tpu_torch.loader.base import TRAIN
     from veles_tpu_torch.ops.kernels import (fused_dropout, gather_rows,
                                              mean_disp)
+    from veles_tpu_torch.runtime.step_cache import WARMUP_STEPS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     run = _image_epoch(torch)
@@ -1087,12 +1165,20 @@ def phase_image(torch):
     if steps != IMG_TRAIN // IMG_B or not all(np.isfinite(losses)):
         fail(f"the image epoch ran {steps} steps or a loss is not finite: "
              f"{losses}")
-    # dropout takes its seed by value each step: the train step runs
-    # eagerly and says why; the eval step is captured
+    # the dropout seeds reach the kernel through their slots on the card:
+    # train and eval steps captured, each replay counting its launches
     st = run["step_cache"]
-    if st["train"] != {"captured": False, "reason": "dropout seed"} \
+    if st["train"] != {"captured": True, "reason": None} \
             or not st["eval"]["captured"]:
         fail(f"AlexNet's steps: {st}")
+    if launches[fused_dropout.NAME] != 4 * (steps + WARMUP_STEPS):
+        fail(f"AlexNet's epoch counted {launches[fused_dropout.NAME]} "
+             f"dropout launches, not 4 for each of {steps} steps and "
+             f"{WARMUP_STEPS} capture warm-ups")
+    witness = _image_capture_witness(torch)
+    say({"phase": "image_capture_witness", **witness})
+    if not witness["ok"]:
+        fail(f"AlexNet: captured and eager steps differ: {witness}")
     profile = _train_profile(torch, trainer,
                              f"3 AlexNet train steps, {IMG_B} images each")
     say({"phase": "image_profile", **profile})
@@ -1173,6 +1259,425 @@ def _image_predict(torch, trainer, dropout, mean_disp):
             "ok": (tuple(y.shape) == (IMG_B, 1000)
                    and bool(torch.isfinite(y).all())
                    and after[0] == before[0] and after[1] == before[1] + 1)}
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(torch):
+    """cuDNN restricted to its deterministic algorithms (the eager and
+    captured witnesses compare bits, and cuDNN may otherwise pick
+    algorithms that reduce with atomics)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _image_capture_witness(torch):
+    """IMG_WITNESS_STEPS AlexNet steps of IMG_B and an eval from one init
+    and one card-resident store, through the eager step
+    (``StepCache(capture=False)``) and the captured one, cuDNN
+    deterministic: parameters, momentum and unit state, and the epoch
+    sums, bit for bit; each side's median step."""
+    from veles_tpu_torch.models.alexnet import (_e2e_config,
+                                                alexnet_e2e_device_workflow)
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.snapshotter import wstate_to_numpy
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    loader = alexnet_e2e_device_workflow(
+        minibatch_size=IMG_B, n_train=IMG_WITNESS_STEPS * IMG_B,
+        n_valid=IMG_B, device=DEVICE).loader
+    runs, states = {}, {}
+    with _cudnn_deterministic(torch):
+        for capture in (False, True):
+            loader.epoch_number = 0
+            sw = StandardWorkflow(_e2e_config())
+            run = _counted_run(torch, sw.make_trainer(
+                loader, Decision(max_epochs=1), device=DEVICE,
+                step_cache=StepCache(capture=capture)), 0.0)
+            states[capture] = wstate_to_numpy(run["trainer"].wstate)
+            runs[capture] = {
+                "step_ms_median": float(np.median(run["step_s"])) * 1e3,
+                "step_ms": [x * 1e3 for x in run["step_s"]],
+                "epoch": run["trainer"].decision.history[0],
+                "dropout_launches": run["launches"]["fused_dropout"],
+                "step_cache": run["step_cache"]}
+            del run, sw
+            torch.cuda.empty_cache()
+    diff = _state_diff(torch, states[False], states[True])
+    sums_equal = runs[False]["epoch"] == runs[True]["epoch"]
+    captured = runs[True]["step_cache"]["train"]["captured"]
+    return {"steps": IMG_WITNESS_STEPS, "cudnn_deterministic": True,
+            "eager_step_ms_median": runs[False]["step_ms_median"],
+            "captured_step_ms_median": runs[True]["step_ms_median"],
+            "eager": runs[False], "captured": runs[True],
+            "state_leaves_differing": diff, "epoch_sums_equal": sums_equal,
+            "ok": captured and not diff and sums_equal}
+
+
+# -- the image/conv family: configs/synthdigits_conv.json ------------------------
+
+def _config(rel):
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, rel)) as f:
+        return json.load(f)
+
+
+def _digits_cache_warm():
+    """Whether the port's npz of the mnist loader's 60k + 10k SynthDigits
+    is already on disk."""
+    from veles_tpu_torch.models import synth_data
+    return os.path.exists(os.path.join(
+        synth_data.cache_dir(), f"synthdigits_v{synth_data._DIGITS_VERSION}"
+        "_60000_10000_20260729.npz"))
+
+
+def _mnist_loader(torch, minibatch):
+    """The mnist loader on the card: the synthesis (or the cache read)
+    and the upload timed apart."""
+    from veles_tpu_torch.models.mnist import MnistLoader
+    warm = _digits_cache_warm()
+    t0 = time.perf_counter()
+    loader = MnistLoader(minibatch_size=minibatch, device=DEVICE)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader.initialize()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if not loader.on_device or loader.synthetic is not True:
+        fail("the mnist loader is not on the card or not SynthDigits")
+    return loader, {"cache_warm": warm, "synthesis_or_cache_read_s": synth_s,
+                    "upload_s": upload_s}
+
+
+def _seeded_run(torch, trainer):
+    """``initialize(seed=0)`` and one epoch, each train step's staged
+    drop3 seed read back after it (so each side's steps draw their
+    seeds)."""
+    trainer.initialize(seed=0)
+    step = trainer._train_step
+    inner = getattr(step, "step", step)
+    seeds, step_s = [], []
+
+    def run(wstate, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(wstate, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        seeds.append(int(inner.seeds["drop3"].item()) & 0xFFFFFFFF)
+        return out
+
+    run.captured = getattr(step, "captured", False)
+    trainer._train_step = run
+    try:
+        trainer.run()
+    finally:
+        trainer._train_step = step
+    return seeds, step_s
+
+
+def _family_witness(torch, cfg, loader):
+    """FAMILY_WITNESS_STEPS steps and an eval of the family's config from
+    one init over the first batches of the loader's arrays, through the
+    eager and the captured step, cuDNN deterministic: state and epoch
+    sums bit for bit, the same seed each step on both sides, a new seed
+    every step."""
+    from veles_tpu_torch.loader.base import TRAIN, VALID
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.snapshotter import wstate_to_numpy
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    b = loader.minibatch_size
+    n = FAMILY_WITNESS_STEPS * b
+    runs, states = {}, {}
+    with _cudnn_deterministic(torch):
+        for capture in (False, True):
+            small = FullBatchLoader(
+                {TRAIN: loader._data[TRAIN][:n], VALID: loader._data[VALID][:b]},
+                {TRAIN: loader._labels[TRAIN][:n],
+                 VALID: loader._labels[VALID][:b]},
+                minibatch_size=b, device=DEVICE)
+            tr = StandardWorkflow(cfg["workflow"]).make_trainer(
+                small, Decision(max_epochs=1), device=DEVICE,
+                step_cache=StepCache(capture=capture))
+            seeds, step_s = _seeded_run(torch, tr)
+            states[capture] = wstate_to_numpy(tr.wstate)
+            runs[capture] = {"seeds": seeds,
+                             "step_ms_median": float(np.median(step_s)) * 1e3,
+                             "epoch": tr.decision.history[0],
+                             "step_cache": tr.step_cache.stats()}
+            del tr, small
+    diff = _state_diff(torch, states[False], states[True])
+    seeds = runs[True]["seeds"]
+    rec = {"steps": FAMILY_WITNESS_STEPS, "cudnn_deterministic": True,
+           "eager": runs[False], "captured": runs[True],
+           "state_leaves_differing": diff,
+           "epoch_sums_equal": runs[False]["epoch"] == runs[True]["epoch"],
+           "same_seeds": seeds == runs[False]["seeds"],
+           "distinct_seeds": len(set(seeds))}
+    rec["ok"] = (runs[True]["step_cache"]["train"] == {"captured": True,
+                                                       "reason": None}
+                 and not diff and rec["epoch_sums_equal"]
+                 and rec["same_seeds"]
+                 and rec["distinct_seeds"] == FAMILY_WITNESS_STEPS)
+    return rec
+
+
+def _family_step_f32_check(torch, trainer):
+    """One float32 forward/backward of the family's workflow through the
+    kernels and one through the plain versions (the dropout wrapper's
+    route patched), from the trainer's weights, its first train batch
+    and one key: loss and gradient norms within STEP_LOSS_RTOL /
+    STEP_GRAD_RTOL, the drop3 masks identical; cuDNN deterministic."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.ops.kernels import fused_dropout
+    from veles_tpu_torch.units.workflow import seed_key, split_state_key
+    wf, ws = trainer.workflow, trainer.wstate
+    batch = next(trainer.loader.iter_epoch(TRAIN, 0)).gather()
+    _, sub = split_state_key(seed_key(0))
+    with _cudnn_deterministic(torch):
+        before = fused_dropout.launches.count
+        k_loss, k_norms, k_zero = _loss_and_grad_norms(
+            torch, wf, ws["params"], batch, ws["state"], sub, ("drop3",))
+        mid = fused_dropout.launches.count
+        with plain_routes((fused_dropout,)):
+            p_loss, p_norms, p_zero = _loss_and_grad_norms(
+                torch, wf, ws["params"], batch, ws["state"], sub,
+                ("drop3",))
+        after = fused_dropout.launches.count
+    loss_rel = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
+    grad_rel = {n: abs(k_norms[n] - p_norms[n]) / max(p_norms[n], 1e-12)
+                for n in p_norms}
+    worst = max(grad_rel, key=grad_rel.get)
+    mask_same = bool(torch.equal(k_zero["drop3"], p_zero["drop3"]))
+    return {"loss_kernels": k_loss, "loss_plain": p_loss,
+            "loss_rel_diff": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+            "grad_norm_max_rel_diff": grad_rel[worst], "worst": worst,
+            "grad_rtol": STEP_GRAD_RTOL, "drop3_masks_identical": mask_same,
+            "drop3_zero_share": float(p_zero["drop3"].float().mean()),
+            "kernel_launches": mid - before, "plain_launches": after - mid,
+            "ok": (mid - before == 2 and after == mid and mask_same
+                   and np.isfinite(k_loss) and loss_rel <= STEP_LOSS_RTOL
+                   and grad_rel[worst] <= STEP_GRAD_RTOL)}
+
+
+def _family_gather_timing(torch, loader):
+    """The batch gather at the family's shape: 100 rows of the 784-float
+    images, their int32 labels and the @mask from the 60k train class,
+    on the epoch's order as the loader launches it; its plain version;
+    no single PyTorch call gathers several arrays."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.ops.kernels import gather_rows as gr
+    arrays = list(loader._dev_data[TRAIN].values())
+    n, m = arrays[0].shape[0], loader.minibatch_size
+    perm = gr.index_tensor(np.random.default_rng(0).permutation(n), n, n,
+                           "cuda")
+    outs = [torch.empty((m,) + a.shape[1:], dtype=a.dtype, device="cuda")
+            for a in arrays]
+    refs = [torch.empty_like(o) for o in outs]
+    mask, ref_mask = (torch.empty(m, device="cuda") for _ in range(2))
+    gr.gather_batch(arrays, outs, perm, 0, m, mask)
+    gr.gather_batch_plain(arrays, refs, perm, 0, m, ref_mask)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(o, r) for o, r in zip(outs, refs))
+            and bool(torch.equal(mask, ref_mask)))
+    if not same:
+        fail("the batch gather disagrees with its plain version at the "
+             "family's shape")
+    row_bytes = [int(np.prod(a.shape[1:])) * a.element_size()
+                 for a in arrays]
+    g_bound = bound(0, H100_F32_FLOPS, 2 * m * sum(row_bytes) + m * 4
+                    + m * 4)
+    return {"max_abs_err": 0.0, "variant": "batch", "path": "synthdigits_conv",
+            "ms": cuda_ms(torch, lambda: gr.gather_batch(
+                arrays, outs, perm, 0, m, mask), iters=50),
+            "plain_ms": cuda_ms(torch, lambda: gr.gather_batch_plain(
+                arrays, outs, perm, 0, m, mask), iters=50),
+            "library_ms": None, "bound_ms": g_bound[0],
+            "bound_by": g_bound[1],
+            "shape": {"rows": n, "m": m, "arrays": [
+                str(a.dtype).split(".")[-1] for a in arrays],
+                "row_bytes": row_bytes}}
+
+
+def phase_image_family(torch):
+    """configs/synthdigits_conv.json at its published widths and
+    minibatch through ``StandardWorkflow.make_trainer`` -> ``Trainer``
+    for one epoch (600 steps of 100) and its eval over the mnist loader's
+    SynthDigits held on the card; the train and eval steps captured (no
+    reason given), the dropout and gather launches exact (2 dropout
+    launches a step and the capture's warm-ups; one gather a batch) and
+    held against a profiled window's trace; the step times, samples/s
+    and idle share; 8 captured steps bitwise 8 eager ones; the float32
+    step through the kernels against the plain versions; the gather's
+    time at this shape."""
+    from veles_tpu_torch.loader.base import TRAIN, VALID
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.ops.kernels import fused_dropout, gather_rows
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import WARMUP_STEPS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _config(FAMILY_CONFIG)
+    loader, data = _mnist_loader(torch, cfg["loader"]["minibatch_size"])
+    sw = StandardWorkflow(cfg["workflow"])
+    run = _counted_run(torch, sw.make_trainer(
+        loader, Decision(max_epochs=1), device=DEVICE), 0.0)
+    trainer, step_s, losses = run["trainer"], run["step_s"], run["losses"]
+    steps, b = len(step_s), loader.minibatch_size
+    valid_batches = loader.n_minibatches(VALID)
+    med = float(np.median(step_s))
+    launches = run["launches"]
+    want = {fused_dropout.NAME: 2 * (steps + WARMUP_STEPS),
+            gather_rows.NAME: steps + valid_batches}
+    hist = trainer.decision.history[0]
+    rec = {"phase": "image_family", "config": FAMILY_CONFIG, **data,
+           "train_rows": loader.class_lengths[TRAIN],
+           "valid_rows": loader.class_lengths[VALID], "minibatch": b,
+           "steps": steps, "run_s": run["wall"],
+           "step_ms_median": med * 1e3, "step_ms_max": max(step_s) * 1e3,
+           "train_samples_per_s": b / med,
+           "epoch_samples_per_s": steps * b / run["wall"],
+           "first_losses": losses[:4], "last_loss": losses[-1],
+           "train": hist["train"], "valid": hist["valid"],
+           "launches": launches, "launches_expected": want,
+           "step_cache": run["step_cache"]}
+    say(rec)
+    st = run["step_cache"]
+    if st["train"] != {"captured": True, "reason": None} \
+            or not st["eval"]["captured"]:
+        fail(f"synthdigits_conv's steps are not captured: {st}")
+    if any(launches[k] != n for k, n in want.items()) \
+            or run["variants"].get(gather_rows.NAME) != {
+                "batch": want[gather_rows.NAME]}:
+        fail(f"synthdigits_conv's epoch launched {launches}, expected "
+             f"{want}")
+    if steps != loader.n_minibatches(TRAIN) \
+            or not all(np.isfinite(losses)):
+        fail(f"synthdigits_conv ran {steps} steps or a loss is not finite")
+    profile = _train_profile(torch, trainer,
+                             f"3 synthdigits_conv train steps of {b}")
+    say({"phase": "image_family_profile", **profile})
+    if not profile["launch_trace"]["ok"]:
+        fail(f"synthdigits_conv: counted launches and the trace differ: "
+             f"{profile['launch_trace']}")
+    witness = _family_witness(torch, cfg, loader)
+    say({"phase": "image_family_capture_witness", **witness})
+    if not witness["ok"]:
+        fail(f"synthdigits_conv: captured and eager steps differ: "
+             f"{witness}")
+    agreement = _family_step_f32_check(torch, trainer)
+    say({"phase": "image_family_f32_kernel_vs_plain", **agreement})
+    if not agreement["ok"]:
+        fail(f"synthdigits_conv float32 step: kernels and plain versions "
+             f"disagree: {agreement}")
+    gather = _family_gather_timing(torch, loader)
+    say({"phase": "image_family_gather_timing", **gather})
+    return {"launches": launches, "timing": {
+        gather_rows.NAME + "/synthdigits_conv": gather}}
+
+
+def phase_image_quality(torch):
+    """configs/synthdigits_conv.json through the CLI on the card, its
+    published 20 epochs, to the bar (BASELINE.md:138)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    warm = _digits_cache_warm()
+    cmd = [sys.executable, "-m", "veles_tpu_torch",
+           os.path.join(here, FAMILY_CONFIG), "--random-seed", "1"]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                           timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the synthdigits_conv CLI run exceeded 600 s")
+    took = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the synthdigits_conv CLI run exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    epochs = [ln.split("Decision: ")[-1] for ln in r.stderr.splitlines()
+              if "error_pct=" in ln]
+    rec = {"phase": "image_quality", "config": FAMILY_CONFIG,
+           "cache_warm": warm, "best_error_pct": res["best_value"],
+           "best_epoch": res["best_epoch"], "epochs": res["epochs"],
+           "seconds": took, "train_s": res["elapsed_s"],
+           "train_samples_per_s": res["train_samples_per_s"],
+           "bar": FAMILY_BAR, "per_epoch": epochs}
+    say(rec)
+    if not res["best_value"] <= FAMILY_BAR:
+        fail(f"synthdigits_conv reached {res['best_value']} % validation "
+             f"error, above the {FAMILY_BAR} % bar")
+    return rec
+
+
+def _ae_run(torch, layers_cfg, loader):
+    """A trainer of ``layers_cfg`` (an MSE-against-input workflow) over
+    ``loader`` for one epoch: the validation rmse before and after, the
+    epoch's train rmse, its steps captured."""
+    from veles_tpu_torch.loader.base import VALID
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    tr = StandardWorkflow(layers_cfg).make_trainer(
+        loader, Decision(max_epochs=1), device=DEVICE)
+    tr.initialize(seed=0)
+    before = tr._run_epoch_eval(VALID, 0)["rmse"]
+    t0 = time.perf_counter()
+    tr.run()
+    wall = time.perf_counter() - t0
+    (ep,) = tr.decision.history
+    st = tr.step_cache.stats()
+    rec = {"metric": ep["metric"], "valid_rmse_before": before,
+           "valid_rmse_after": ep["valid"]["rmse"],
+           "train_rmse": ep["train"]["rmse"],
+           "train_batches": ep["train"]["n_batches"], "run_s": wall,
+           "captured": st["train"]["captured"] and st["eval"]["captured"]}
+    rec["ok"] = (rec["metric"] == "rmse" and rec["captured"]
+                 and all(np.isfinite([before, rec["valid_rmse_after"],
+                                      rec["train_rmse"]]))
+                 and rec["valid_rmse_after"] < before)
+    return rec
+
+
+def phase_image_ae(torch):
+    """configs/synthdigits_ae.json for one epoch on the card over the
+    mnist loader (600 steps of 100): the rmse gauge finite and falling
+    (validation rmse after the epoch below the initial weights'); then
+    the conv autoencoder (reshape -> conv -> pool -> depool -> deconv ->
+    flatten, ``mse_input``) over AE_CONV_TRAIN SynthDigits, a few steps,
+    the same."""
+    from veles_tpu_torch.loader.base import TRAIN, VALID
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+    cfg = _config(AE_CONFIG)
+    loader, data = _mnist_loader(torch, cfg["loader"]["minibatch_size"])
+    fc = _ae_run(torch, cfg["workflow"], loader)
+    conv_cfg = {"name": "ConvAE", "loss": "mse_input",
+                "optimizer": "adadelta", "optimizer_args": {"lr": 1.0},
+                "layers": [
+                    {"type": "reshape", "shape": [28, 28, 1],
+                     "name": "img"},
+                    {"type": "conv_relu", "n_kernels": 8, "kx": 3,
+                     "padding": 1, "name": "enc_conv"},
+                    {"type": "max_pooling", "window": 2, "stride": 2,
+                     "name": "enc_pool"},
+                    {"type": "depool", "window": 2, "name": "dec_depool"},
+                    {"type": "deconv", "n_kernels": 1, "kx": 3,
+                     "padding": "SAME", "name": "dec_deconv"},
+                    {"type": "flatten", "name": "flat"}]}
+    small = FullBatchLoader(
+        {TRAIN: loader._data[TRAIN][:AE_CONV_TRAIN],
+         VALID: loader._data[VALID][:AE_CONV_VALID]}, {},
+        minibatch_size=loader.minibatch_size, device=DEVICE)
+    conv = _ae_run(torch, conv_cfg, small)
+    rec = {"phase": "image_ae", "config": AE_CONFIG, **data,
+           "synthdigits_ae": fc, "conv_autoencoder": conv}
+    say(rec)
+    if not (fc["ok"] and conv["ok"]):
+        fail(f"the autoencoders' rmse is not finite and falling: {rec}")
+    return rec
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -2595,8 +3100,12 @@ KERNEL_SYMBOLS = {
     "fused_dropout": {None: "dropout_kernel"},
     "mean_disp_normalize": {None: "mean_disp_kernel"},
     "paged_attention_decode": {"f32_pool": "paged_decode_kernel",
-                               "bf16_pool": "paged_decode_bf16pool_kernel"},
+                               "bf16_pool": "paged_decode_bf16pool_kernel",
+                               "f16_pool": "paged_decode_f16pool_kernel"},
 }
+#: the paged kernel's variant (its launch counter's name) of a pool dtype
+POOL_VARIANTS = {"float32": "f32_pool", "bfloat16": "bf16_pool",
+                 "float16": "f16_pool"}
 #: the f32-pool paged kernel's label in a launch trace check
 PAGED_F32 = "paged_attention_decode/f32_pool"
 
@@ -3000,6 +3509,77 @@ def phase_bf16_cache(torch):
     return variants
 
 
+def phase_f16_cache(torch):
+    """``cache_dtype=torch.float16`` at full width: the greedy SLOTS x
+    (PROMPT + NEW) request on a captured f16-cache engine (bf16
+    compute), timed, with its graphs' device times; in float32 compute
+    the greedy tokens of an f16-cache engine must equal an f32-pool
+    engine's and the port's ``generate(cache_dtype=float16)``'s.  The
+    paged kernel's f16-pool launches of the phase must be one a layer a
+    micro-step of its f16-cache engines (capture warm-ups included),
+    counted from 0 at the phase's start."""
+    from veles_tpu_torch.runtime.generate import generate
+    f16 = torch.float16
+    wf, wstate = _bench_state(torch, "bfloat16", 0)
+    prompts = np.random.default_rng(1).integers(
+        0, VOCAB, (SLOTS, PROMPT)).astype(np.int32)
+    _reset_counts()
+    f16_engines, f32_engines = [], []
+    eng = _serve_engine(wf, wstate, cache_dtype=f16).start()
+    try:
+        toks, metrics = _timed_generate(eng, prompts, NEW)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    metrics["device_ms"] = _replay_ms(torch, eng)
+    f16_engines.append(st)
+    del eng
+    # float32 compute: the f16 pool's greedy tokens against the f32
+    # pool's and generate()'s on an f16 cache
+    wf32, ws32 = _bench_state(torch, None, 0)
+    f32_prompts = prompts[:, :F32_PROMPT]
+    f32_toks = {}
+    for name, cdt in (("f16_pool", f16), ("f32_pool", torch.float32)):
+        eng = _serve_engine(wf32, ws32, cache_dtype=cdt).start()
+        try:
+            f32_toks[name] = eng.generate(f32_prompts, F32_NEW, timeout=900)
+            (f16_engines if cdt == f16 else f32_engines).append(
+                eng.stats())
+        finally:
+            eng.stop()
+    ref = generate(wf32, ws32, f32_prompts, F32_NEW,
+                   cache_dtype=f16).cpu().numpy()
+    gen = slice(F32_PROMPT, None)
+    vs_pool = float(np.mean(f32_toks["f16_pool"][:, gen]
+                            == f32_toks["f32_pool"][:, gen]))
+    vs_generate = float(np.mean(f32_toks["f16_pool"][:, gen]
+                                == ref[:, gen]))
+    variants = _paged_variants()
+    want = {"f16_pool": LAYERS * sum(_micro_steps(e, True)
+                                     for e in f16_engines),
+            "f32_pool": LAYERS * sum(_micro_steps(e, True)
+                                     for e in f32_engines)}
+    rec = {"prompt": PROMPT, "new": NEW, "f16_pool": metrics,
+           "greedy_sha256": hashlib.sha256(toks.astype(
+               np.int32).tobytes()).hexdigest(),
+           "pool_dtype": "float16",
+           "f32_agreement_f32_pool": vs_pool,
+           "f32_agreement_generate": vs_generate,
+           "f32_prompt": F32_PROMPT, "f32_new": F32_NEW,
+           "launches": variants, "launches_expected": want,
+           "compile": st["compile"], "capture": st["capture"]}
+    say({"phase": "serving_f16_cache", **rec})
+    rec["ok"] = (vs_pool == 1.0 and vs_generate == 1.0
+                 and variants.get("f16_pool", 0) == want["f16_pool"] > 0
+                 and variants.get("f32_pool", 0) == want["f32_pool"]
+                 and not variants.get("bf16_pool")
+                 and st["capture"]["decode_greedy"]["captured"]
+                 and st["compile"]["recompiles"] == 0)
+    if not rec["ok"]:
+        fail(f"the float16 KV cache checks failed: {rec}")
+    return variants
+
+
 def _hammer(port, prompts, new, stop, codes, lock):
     """POST /generate of each prompt in turn until ``stop``; each answer's
     status into ``codes``."""
@@ -3203,7 +3783,14 @@ def phase_lifecycle(torch, snap_dir):
         _wait(lambda: profiler().active, 60, "the profiler capture")
         busy_code, busy = _http_json(port, "/debug/profile",
                                      {"duration_s": 0.1})
-        eng.generate(probe[:1, :PROFILE_PROMPT], PROFILE_NEW, timeout=900)
+        # the capture reports itself active before torch's profiler
+        # records (one short request once finished in between), so short
+        # requests follow one another until it returns, spaced so that
+        # the window holds a few (each adds to the trace's processing)
+        while pt.is_alive():
+            eng.generate(probe[:1, :PROFILE_PROMPT], PROFILE_NEW,
+                         timeout=900)
+            time.sleep(0.25)
         pt.join(900)
         with open(os.path.join(prof["doc"]["path"], "kernels.json")) as f:
             kernels = json.load(f)
@@ -3340,6 +3927,8 @@ def main():
              f"({e})")
     t_start = time.perf_counter()
     seconds = {}
+    os.environ.setdefault("VELES_TORCH_CACHE", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), ".veles_tpu", "cache"))
 
     def timed(phase, fn, *args):
         t0 = time.perf_counter()
@@ -3354,11 +3943,16 @@ def main():
     timing.update(timed("image_kernels", phase_image_kernels, torch))
     serve_launches = timed("serving", phase_main_path, torch)
     bf16_launches = timed("serving_bf16_cache", phase_bf16_cache, torch)
+    f16_launches = timed("serving_f16_cache", phase_f16_cache, torch)
     import tempfile
     with tempfile.TemporaryDirectory(prefix="vt_lifecycle_") as snap_dir:
         timed("serving_lifecycle", phase_lifecycle, torch, snap_dir)
     train_launches = timed("train", phase_train, torch)
     image_launches = timed("image", phase_image, torch)
+    family = timed("image_family", phase_image_family, torch)
+    timing.update(family["timing"])
+    timed("image_quality", phase_image_quality, torch)
+    timed("image_ae", phase_image_ae, torch)
     timed("quality", phase_quality, torch)
     # each kernel's launches on its own path: paged decode on the serving
     # path, dropout and mean/disp on the image path, the rest on the LM
@@ -3369,17 +3963,22 @@ def main():
         "paged_attention_decode"]
     for kname in IMG_MIN_LAUNCHES:
         launches[kname] = image_launches[kname]
-    # the paged kernel's bf16-pool variant: its launches on the bf16
-    # cache phase's engines
+    # the paged kernel's bf16- and f16-pool variants: their launches on
+    # their cache phases' engines
     launches["paged_attention_decode/bf16_pool"] = bf16_launches[
         "bf16_pool"]
+    launches["paged_attention_decode/f16_pool"] = f16_launches["f16_pool"]
+    # this slice's path, the image/conv family: the dropout (seed on the
+    # card) and the batch gather over its epoch and eval
+    for kname in ("fused_dropout", "gather_rows"):
+        launches[kname + "/synthdigits_conv"] = family["launches"][kname]
     line = []
     for kern in KERNELS:
         names = [kern.NAME] + [k for k in timing
                                if k.startswith(kern.NAME + "/")]
         for tname in names:
             t = timing[tname]
-            extra = {"variant": t["variant"]} if "variant" in t else {}
+            extra = {k: t[k] for k in ("variant", "path") if k in t}
             line.append({"name": kern.NAME, "route": "cuda",
                          "source": t.get("source", kern.SOURCE),
                          "replaces": kern.REPLACES, **extra,

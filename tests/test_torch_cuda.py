@@ -227,8 +227,8 @@ def test_paged_kernel_is_deterministic(card):
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):
     q, pk, pv, ptab, pos = _paged(card, 8, 8, 64, torch.float32, [5, 6, 7, 8])
-    with pytest.raises(TypeError, match="float32/bfloat16 pools"):
-        pa.paged_attention_decode(q, pk.half(), pv.half(), ptab, pos,
+    with pytest.raises(TypeError, match="float32/bfloat16/float16 pools"):
+        pa.paged_attention_decode(q, pk.double(), pv.double(), ptab, pos,
                                   page_size=16, n_kv_heads=8)
     x = torch.zeros((1, 8, 2, 32), device=card)
     with pytest.raises(ValueError, match="head dim"):
@@ -264,6 +264,26 @@ def test_paged_kernel_bf16_pool_matches_plain(card, H, Hk, Dh, q_dtype, pos,
     out = pa.paged_attention_decode(*args, page_size=16, n_kv_heads=Hk,
                                     window=window)
     assert pa.launches.by_variant()["bf16_pool"] == before + 1
+    ref = pa.paged_attention_decode_plain(*args, page_size=16,
+                                          n_kv_heads=Hk, window=window)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= PAGED_TOL
+
+
+@pytest.mark.parametrize("H,Hk,Dh,q_dtype,pos,window,n_ptab",
+                         list(PAGED_BF16_POOL_CASES.values()),
+                         ids=list(PAGED_BF16_POOL_CASES))
+def test_paged_kernel_f16_pool_matches_plain(card, H, Hk, Dh, q_dtype, pos,
+                                             window, n_ptab):
+    """The float16 pool (``cache_dtype=torch.float16``): K and V widened
+    to f32 in registers, 8 halves a 16-byte piece, its own
+    ``paged_decode_f16pool_kernel``; the bf16 pool's seven shapes."""
+    args = _paged(card, H, Hk, Dh, q_dtype, pos, S=len(pos), n_ptab=n_ptab,
+                  pool_dtype=torch.float16)
+    before = pa.launches.by_variant().get("f16_pool", 0)
+    out = pa.paged_attention_decode(*args, page_size=16, n_kv_heads=Hk,
+                                    window=window)
+    assert pa.launches.by_variant()["f16_pool"] == before + 1
     ref = pa.paged_attention_decode_plain(*args, page_size=16,
                                           n_kv_heads=Hk, window=window)
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
@@ -515,6 +535,28 @@ def test_fused_dropout_kernel_matches_plain_bitwise(card, shape, dtype, rate,
     assert y.dtype == dtype and torch.equal(y, ref)
     assert torch.equal(gx, ref_g)
     assert torch.equal(y == 0, gx == 0)          # one mask for both passes
+
+
+def test_fused_dropout_reads_its_seed_from_the_card(card):
+    """The seed lives in a one-element int32 tensor on the card: two
+    seeds written into one slot give two masks, each bitwise the plain
+    version's (and the host-int entry's) at that seed; the slot's bits
+    are the uint32's (a seed above 2^31 included)."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn((100, 256), generator=gen).to(card)
+    slot = torch.zeros(1, dtype=torch.int32, device=card)
+    outs = []
+    for seed in (0xDEADBEEF, 12345):
+        slot.fill_(fd.seed_bits(seed))
+        before = fd.launches.count
+        y = fd.fused_dropout(x, slot, 0.5)
+        assert fd.launches.count == before + 1
+        assert torch.equal(y, fd.fused_dropout_plain(x, slot, 0.5))
+        assert torch.equal(y, fd.fused_dropout(x, seed, 0.5))
+        outs.append(y)
+    assert not torch.equal(outs[0] == 0, outs[1] == 0)
+    with pytest.raises(ValueError, match="one int32 element"):
+        fd.fused_dropout(x, slot.cpu(), 0.5)
 
 
 def test_fused_dropout_kernel_reads_a_misaligned_view(card):
@@ -1114,3 +1156,165 @@ def test_swapped_captured_engine_equals_a_fresh_one(card):
     assert st["compile"]["recompiles"] == 0
     np.testing.assert_array_equal(got, ref)
     assert not np.array_equal(old, got)
+
+
+# -- a float16 KV pool ----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", None], ids=["bf16", "f32"])
+def test_f16_cache_engine_captured_equals_eager_bitwise(card, dtype):
+    """``cache_dtype=torch.float16``: the engine builds and captures its
+    paged steps (the kernel's f16-pool variant), and 32 scheduler
+    iterations give the eager engine's tokens and pool bit for bit."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _serve_lm(card, dtype)
+    engines = {}
+    for capture in (True, False):
+        eng = DecodeEngine(wf, ws, slots=4, l_max=128, page_size=16,
+                           paged_kernel=True, prefill_chunk=32,
+                           window_ms=0.0, capture=capture,
+                           cache_dtype=torch.float16, device=card)
+        before = pa.launches.by_variant().get("f16_pool", 0)
+        engines[capture] = (eng, _drive(eng, _serve_script(), 32))
+        assert pa.launches.by_variant()["f16_pool"] > before
+    (cap, creqs), (eag, ereqs) = engines[True], engines[False]
+    assert cap.stats()["capture"]["decode"]["captured"]
+    assert cap._caches["attn0"]["k"].dtype == torch.float16
+    assert sum(r.done.is_set() for r in creqs) >= 3
+    for a, b in zip(creqs, ereqs):
+        assert a.done.is_set() == b.done.is_set()
+        if a.done.is_set():
+            np.testing.assert_array_equal(a.result, b.result)
+    for name in cap._caches:
+        for k in ("k", "v"):
+            assert torch.equal(cap._caches[name][k], eag._caches[name][k])
+
+
+def test_f16_cache_engine_greedy_equals_the_f32_pool_engine(card):
+    """Float32 compute: a captured engine on a float16 pool gives the
+    float32-pool engine's greedy tokens, as the bf16 pool's engine does."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _serve_lm(card, None)
+    prompts = np.random.default_rng(8).integers(0, 64, (4, 24)).astype(
+        np.int32)
+    toks = {}
+    for cdt in (torch.float32, torch.float16, torch.bfloat16):
+        eng = DecodeEngine(wf, ws, slots=4, l_max=128, page_size=16,
+                           paged_kernel=True, window_ms=0.0,
+                           cache_dtype=cdt, device=card).start()
+        try:
+            toks[cdt] = eng.generate(prompts, 16, timeout=300)
+            assert eng.stats()["capture"]["decode"]["captured"]
+        finally:
+            eng.stop()
+    np.testing.assert_array_equal(toks[torch.float16], toks[torch.float32])
+    np.testing.assert_array_equal(toks[torch.bfloat16], toks[torch.float32])
+
+
+# -- the dropout seed on the card: captured train steps with dropout ----------
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms (it may otherwise
+    pick algorithms that reduce with atomics)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _synthdigits_trainer(card, capture, tmp_path, n_train=400):
+    """configs/synthdigits_conv.json at its published widths over a
+    card-resident mnist loader of ``n_train`` SynthDigits (4 train
+    batches of 100), capture on or off."""
+    import json
+    import os
+    from veles_tpu_torch.models.mnist import MnistLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, os.pardir, "configs",
+                           "synthdigits_conv.json")) as f:
+        sw = StandardWorkflow(json.load(f)["workflow"])
+    with mock.patch.dict(os.environ, {"VELES_TORCH_CACHE": str(tmp_path)}):
+        loader = MnistLoader(minibatch_size=100, n_train=n_train,
+                             n_valid=100, device=card)
+    tr = sw.make_trainer(loader, Decision(max_epochs=1), device=card,
+                         step_cache=StepCache(capture=capture))
+    tr.initialize(seed=0)
+    return tr
+
+
+def _staged_seeds(trainer):
+    """Run the trainer's epoch, recording each train step's staged
+    dropout seed (read back after the step)."""
+    step = trainer._train_step
+    inner = getattr(step, "step", step)       # the TrainStep
+    seeds = []
+
+    def run(wstate, batch):
+        out = step(wstate, batch)
+        seeds.append(int(inner.seeds["drop3"].item()))
+        return out
+
+    run.captured = getattr(step, "captured", False)
+    trainer._train_step = run
+    try:
+        trainer.run()
+    finally:
+        trainer._train_step = step
+    return seeds
+
+
+def test_synthdigits_conv_captured_step_equals_eager_bitwise(card, tmp_path):
+    """The train step with dropout is captured (no reason given), and 4
+    captured steps from one init leave the eager steps' state and epoch
+    sums bit for bit, each step with its own dropout seed."""
+    runs = {}
+    with _deterministic_cudnn():
+        for capture in (False, True):
+            tr = _synthdigits_trainer(card, capture, tmp_path)
+            runs[capture] = (tr, _staged_seeds(tr))
+    (eager, e_seeds), (cap, c_seeds) = runs[False], runs[True]
+    assert cap.step_cache.stats()["train"] == {"captured": True,
+                                               "reason": None}
+    assert cap.step_cache.stats()["eval"]["captured"]
+    assert eager.wstate["step"] == cap.wstate["step"] == 4
+    assert e_seeds == c_seeds and len(set(c_seeds)) == 4
+    assert _state_equal(cap.wstate, eager.wstate)
+    assert cap.decision.history == eager.decision.history
+
+
+def test_alexnet_shaped_dropout_step_captured_equals_eager(card,
+                                                          monkeypatch):
+    """AlexNet's layers at their widths (drop6 / drop7 over 4096
+    features) on 67-pixel crops of a card-resident store: the train step
+    is captured, and 4 captured steps equal 4 eager ones bit for bit,
+    the dropout launches of the captured epoch its replays' plus the
+    warm-up steps'."""
+    from veles_tpu_torch.models import alexnet
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import StepCache, WARMUP_STEPS
+    monkeypatch.setattr(alexnet, "INPUT_HW", 67)
+    monkeypatch.setattr(alexnet, "STORE_HW", 72)
+    runs = {}
+    with _deterministic_cudnn():
+        for capture in (False, True):
+            sw = alexnet.alexnet_e2e_device_workflow(
+                minibatch_size=8, n_train=32, n_valid=8, device=card)
+            tr = sw.make_trainer(sw.loader, Decision(max_epochs=1),
+                                 device=card,
+                                 step_cache=StepCache(capture=capture))
+            fd.launches.reset()
+            tr.initialize(seed=0)
+            tr.run()
+            runs[capture] = (tr, fd.launches.count)
+    (eager, e_n), (cap, c_n) = runs[False], runs[True]
+    assert cap.step_cache.stats()["train"] == {"captured": True,
+                                               "reason": None}
+    assert e_n == 4 * 4                   # 2 units x (fwd, bwd) a step
+    assert c_n == e_n + 4 * WARMUP_STEPS
+    assert _state_equal(cap.wstate, eager.wstate)
+    assert cap.decision.history == eager.decision.history

@@ -2,9 +2,10 @@
 (tests/test_step_cache.py:51-259): the counters and a key miss, hits
 across a re-initialize, zero recompiles across a Decision rollback and a
 ``Trainer.restore``, and the lr multiplier in opt_state bitwise where the
-JAX Trainer has it; then what the cache decides before any capture (the
-units' capture blockers), the in-place state writes a captured step
-relies on, and the launch counters' capture bookkeeping.
+JAX Trainer has it; then what the cache decides before any capture (no
+unit blocks one: the dropout units draw their seeds from device slots),
+the in-place state writes a captured step relies on, and the launch
+counters' capture bookkeeping.
 
 On the CPU the cache returns the eager step and counts one build per
 program, as it counts one capture on the card (tests/test_torch_cuda.py
@@ -33,7 +34,6 @@ from veles_tpu_torch.runtime.metrics import registry  # noqa: E402
 from veles_tpu_torch.runtime.snapshotter import (Snapshotter,  # noqa: E402
                                                  params_from_jax)
 from veles_tpu_torch.runtime.step_cache import (StepCache,  # noqa: E402
-                                                capture_blocker,
                                                 tree_signature)
 from veles_tpu_torch.runtime.trainer import Trainer  # noqa: E402
 from veles_tpu_torch.units import nn  # noqa: E402
@@ -92,13 +92,13 @@ def test_step_cache_counters_and_key_miss():
         return wf.make_eval_step()
 
     args = ({"params": {}}, {"@input": torch.zeros(4, 8)})
-    fn1 = cache.get_step("eval", ("k", 1), build, args, workflow=wf)
-    fn2 = cache.get_step("eval", ("k", 1), build, args, workflow=wf)
+    fn1 = cache.get_step("eval", ("k", 1), build, args)
+    fn2 = cache.get_step("eval", ("k", 1), build, args)
     assert fn1 is fn2 and len(calls) == 1
     assert cache.compiles == 1 and cache.hits == 1
     assert cache.recompiles == 0
     assert cache.stats()["eval"] == {"captured": False, "reason": "cpu"}
-    cache.get_step("eval", ("k", 2), build, args, workflow=wf)
+    cache.get_step("eval", ("k", 2), build, args)
     assert cache.compiles == 2 and len(calls) == 2
     assert cache.recompiles == 1
     st = cache.stats()
@@ -234,17 +234,22 @@ def test_lr_multiplier_bitwise_against_the_jax_trainer():
 
 
 def test_capture_blockers_come_from_the_units():
-    """AlexNet's train step is declared eager (its dropout's seed is a
-    per-step host value); its eval step and the LM's steps are not."""
+    """No unit blocks a capture any more: AlexNet's dropout units draw
+    their seeds from device slots the train step fills (``draws_seed``),
+    so its train step is captured like the LM's; no unit names a
+    blocker, the LM's units draw no seed, a dropout at ratio 0 none."""
     alex = build_workflow("alexnet", ALEXNET_CONFIG["layers"])
-    assert capture_blocker(alex, "train") == "dropout seed"
-    assert capture_blocker(alex, "eval") is None
+    assert [u.name for u in alex.topo_order() if u.draws_seed] == [
+        "drop6", "drop7"]
+    assert alex.make_train_step(popt.SGD(lr=0.1)).seeded == [
+        "drop6", "drop7"]
+    assert not any(hasattr(u, "capture_blocker") for u in alex.topo_order())
     lm = _fc_wf(nn)
-    assert capture_blocker(lm, "train") is None
+    assert not any(u.draws_seed for u in lm.topo_order())
     off = build_workflow("nodrop", [{"type": "dropout",
                                      "dropout_ratio": 0.0},
                                     {"type": "softmax", "output_size": 3}])
-    assert capture_blocker(off, "train") is None
+    assert not any(u.draws_seed for u in off.topo_order())
 
 
 def test_train_step_writes_the_state_in_place():

@@ -4,7 +4,8 @@ The JAX package ``veles_tpu`` stays the reference; this package grows
 beside it slice by slice and is tested against it on the same inputs and
 weights (tests/test_torch_*.py).  It imports ``torch`` and numpy and never
 ``jax`` or anything of ``veles_tpu``: modules it needs from there that are
-free of JAX (``config.py``, ``logger.py``) are kept here as copies.
+free of JAX (``config.py``, ``logger.py``, ``normalization.py``, the
+loaders and model factories) are kept here as copies.
 
 Module paths and names mirror the JAX package so a reader finds each
 counterpart (``veles_tpu_torch/runtime/engine.py`` ports
@@ -32,6 +33,7 @@ import importlib as _importlib
 _LAZY = {
     "config": ("config", None),
     "logger": ("logger", None),
+    "normalization": ("normalization", None),
     "ops": ("ops", None),
     "units": ("units", None),
     "parallel": ("parallel", None),

@@ -52,14 +52,16 @@ from .runtime.status import StatusReporter, StatusServer
 from .units.base import Spec
 from .units.workflow import WorkflowError
 
-#: loader names of the JAX CLI (veles_tpu/__main__.py:38-45) the port
-#: has; the others name the slice that brings them
-LOADERS = {"induction": ("veles_tpu_torch.models.lm", "InductionLoader"),
+#: the loader names of the JAX CLI (veles_tpu/__main__.py:38-45)
+LOADERS = {"mnist": ("veles_tpu_torch.models.mnist", "MnistLoader"),
+           "cifar": ("veles_tpu_torch.models.cifar", "CifarLoader"),
+           "stl": ("veles_tpu_torch.models.stl", "StlLoader"),
+           "induction": ("veles_tpu_torch.models.lm", "InductionLoader"),
            "imagenet_synthetic": ("veles_tpu_torch.models.alexnet",
                                   "ImagenetSyntheticLoader")}
-PENDING_LOADERS = {"mnist": "slice 6 (image/conv family)",
-                   "cifar": "slice 6 (image/conv family)",
-                   "stl": "slice 6 (image/conv family)"}
+#: loader names of the JAX CLI not ported yet -> the ROADMAP.md slice
+#: that brings them (none left)
+PENDING_LOADERS: dict = {}
 
 
 def make_loader(name: str, **args):

@@ -16,11 +16,16 @@
 // equals the TPU kernel's bit for bit.  The backward pass is this same
 // kernel run on the cotangent with the same seed: the mask is never stored.
 //
+// The seed is read from device memory, as the TPU kernel reads it from
+// `seed_ref`: a 4-byte slot the train step's host part fills before each
+// step (units/workflow.py `TrainStep.begin`), so a captured step (a CUDA
+// graph) replays a new mask every step.  Every thread reads the slot
+// (one cached 4-byte load) and whitens it with one splitmix32; forward
+// and backward of one step read the same slot.
+//
 // The TPU kernel tiles (rows, cols) into VMEM blocks and pads to the
 // (8, 128) tiling; here the tensor is one flat contiguous array, since the
-// mask depends on the flat index only.  The seed is whitened on the host
-// (one splitmix32) and passed by value with rate and scale, so nothing is
-// read from the card but x.
+// mask depends on the flat index only.
 //
 // What bounds it on this card: it moves bytes only (x read once, out
 // written once; the hash is ~15 integer operations per element), so the
@@ -79,7 +84,8 @@ struct alignas(sizeof(T) * VEC) Pack {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
-               uint32_t wseed, float rate, float scale) {
+               const uint32_t* __restrict__ seed, float rate, float scale) {
+    const uint32_t wseed = splitmix32(__ldg(seed));
     const long long stride = (long long)gridDim.x * THREADS * VEC;
     for (long long base =
              ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
@@ -103,7 +109,7 @@ dropout_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
 }
 
 template <typename T>
-int launch(const void* x, void* out, long long n, uint32_t wseed,
+int launch(const void* x, void* out, long long n, const uint32_t* seed,
            float rate, float scale, int sms, cudaStream_t stream) {
     constexpr int VEC = 16 / sizeof(T);
     const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
@@ -116,10 +122,10 @@ int launch(const void* x, void* out, long long n, uint32_t wseed,
     T* op = static_cast<T*>(out);
     if (aligned)
         dropout_kernel<T, VEC><<<blocks, THREADS, 0, stream>>>(
-            xp, op, n, wseed, rate, scale);
+            xp, op, n, seed, rate, scale);
     else
         dropout_kernel<T, 1><<<blocks, THREADS, 0, stream>>>(
-            xp, op, n, wseed, rate, scale);
+            xp, op, n, seed, rate, scale);
     return (int)cudaGetLastError();
 }
 
@@ -128,20 +134,23 @@ int launch(const void* x, void* out, long long n, uint32_t wseed,
 extern "C" {
 
 // n contiguous elements of x -> out (same type; they may not overlap).
-// dtype: 0 float32, 1 bfloat16, 2 float16.  wseed = splitmix32(seed),
-// rate the float32 drop rate, scale = 1.0f / (float)(1 - rate); sms the
-// card's SM count (grid size).  Returns the CUDA error code of the launch
-// (0 on success); no synchronisation.
+// dtype: 0 float32, 1 bfloat16, 2 float16.  seed: a device pointer to the
+// uint32 seed (read by the kernel, not whitened: the kernel takes its
+// splitmix32); rate the float32 drop rate, scale = 1.0f / (float)(1 -
+// rate); sms the card's SM count (grid size).  Returns the CUDA error code
+// of the launch (0 on success); no synchronisation.
 int vt_fused_dropout(const void* x, void* out, long long n, int dtype,
-                     unsigned int wseed, float rate, float scale, int sms,
+                     const void* seed, float rate, float scale, int sms,
                      void* stream) {
-    if (n < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+    if (n < 1 || sms < 1 || seed == nullptr)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const uint32_t* sp = static_cast<const uint32_t*>(seed);
     switch (dtype) {
-        case 0: return launch<float>(x, out, n, wseed, rate, scale, sms, st);
-        case 1: return launch<__nv_bfloat16>(x, out, n, wseed, rate, scale,
+        case 0: return launch<float>(x, out, n, sp, rate, scale, sms, st);
+        case 1: return launch<__nv_bfloat16>(x, out, n, sp, rate, scale,
                                              sms, st);
-        case 2: return launch<__half>(x, out, n, wseed, rate, scale, sms,
+        case 2: return launch<__half>(x, out, n, sp, rate, scale, sms,
                                       st);
         default: return (int)cudaErrorInvalidValue;
     }

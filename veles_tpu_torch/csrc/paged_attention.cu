@@ -10,19 +10,20 @@
 // window W), which live in a flat page pool (rows, psz, Hk, Dh): logical
 // page j of row b is pool row ptab[b, j].  Output: the (B, H, Dh) f32
 // context before the output projection, as the TPU kernel's.  q is f32
-// or bf16 (the model's compute type); the pool is f32 or bf16 (the
+// or bf16 (the model's compute type); the pool is f32, bf16 or f16 (the
 // engine's cache type, ``cache_dtype``), its K and V rows widened to f32
 // in registers; scores, the softmax and the accumulators are f32.  Dh is
 // 16 or 64: the head widths of the repo's configurations
 // (configs/induction_lm*.json and the bench_lm.py-width model).  Each
 // (q, pool, Dh) combination is its own instance; the f32-pool instances
 // are ``paged_decode_kernel``, the bf16-pool ones
-// ``paged_decode_bf16pool_kernel``.
+// ``paged_decode_bf16pool_kernel``, the f16-pool ones
+// ``paged_decode_f16pool_kernel``.
 //
 // What bounds it on this card: it reads every live K/V byte once and does
-// ~1 flop per byte (2 with a bf16 pool), so the bound is memory bandwidth
-// (3.35 TB/s): ~17.5 MB of an f32 pool for 8 slots at mean position ~533,
-// ~5.2 us; half of that with a bf16 pool.  One query
+// ~1 flop per byte (2 with a 16-bit pool), so the bound is memory
+// bandwidth (3.35 TB/s): ~17.5 MB of an f32 pool for 8 slots at mean
+// position ~533, ~5.2 us; half of that with a bf16 or f16 pool.  One query
 // against ~533 keys per (b, kh) is little work per group, so the risk is
 // latency (too few loads in flight, too few blocks), not arithmetic.
 //
@@ -40,11 +41,11 @@
 //     shared memory; a live entry outside [0, rows) is never read and
 //     flags the group;
 //   * starts the V rows of its keys into shared memory by 16-byte
-//     cp.async, then loads the K rows in 16-byte pieces, 4 f32 or 8 bf16
-//     elements a lane (an f32 Dh=64 row is 16 lanes, two keys a warp a
-//     load; bf16 Dh=64 8 lanes, four keys; f32 Dh=16 4 lanes; bf16 Dh=16
-//     2 lanes), KROUND keys a thread in flight, and takes each score with
-//     log2(lanes) shuffles within the row's lanes;
+//     cp.async, then loads the K rows in 16-byte pieces, 4 f32 or 8
+//     bf16/f16 elements a lane (an f32 Dh=64 row is 16 lanes, two keys a
+//     warp a load; 16-bit Dh=64 8 lanes, four keys; f32 Dh=16 4 lanes;
+//     16-bit Dh=16 2 lanes), KROUND keys a thread in flight, and takes
+//     each score with log2(lanes) shuffles within the row's lanes;
 //   * writes the scores to shared memory, takes one max over them, then
 //     exponentiates and takes P.V from the staged V rows: no per-key
 //     rescale (a split longer than CHUNK keys goes in chunks, one rescale
@@ -62,6 +63,7 @@
 // never dereferenced.
 
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
@@ -130,11 +132,26 @@ template <> struct Piece<__nv_bfloat16> {
         }
     }
 };
+// f16: 8 halves a piece, element 2i in the low half of word i, each
+// widened by the exact half -> float conversion
+template <> struct Piece<__half> {
+    static constexpr int VEC = 8;
+    static __device__ __forceinline__ void widen(const uint4& u, float* f) {
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            f[2 * i] = __half2float(
+                __ushort_as_half((unsigned short)(w[i] & 0xffffu)));
+            f[2 * i + 1] = __half2float(
+                __ushort_as_half((unsigned short)(w[i] >> 16)));
+        }
+    }
+};
 
 // The kernel body, one block of one (b, kh) group's cluster; TK is the
 // pool's element type.  A key row of DH elements is LPK lanes of one
-// 16-byte piece each (f32 Dh=64: 16 lanes, bf16 Dh=64: 8, f32 Dh=16: 4,
-// bf16 Dh=16: 2); every lane keeps VEC accumulators a query head.
+// 16-byte piece each (f32 Dh=64: 16 lanes, bf16/f16 Dh=64: 8, f32 Dh=16:
+// 4, bf16/f16 Dh=16: 2); every lane keeps VEC accumulators a query head.
 template <typename TQ, typename TK, int DH>
 __device__ __forceinline__ void paged_decode_body(
         const TQ* __restrict__ q, const TK* __restrict__ kpool,
@@ -396,6 +413,13 @@ paged_decode_bf16pool_kernel(VT_PAGED_ARGS(__nv_bfloat16)) {
                                              out, H, Hk, psz, n_ptab, rows,
                                              scale, window);
 }
+
+template <typename TQ, int DH>
+__global__ void __cluster_dims__(1, 1, SPLITS) __launch_bounds__(THREADS, 4)
+paged_decode_f16pool_kernel(VT_PAGED_ARGS(__half)) {
+    paged_decode_body<TQ, __half, DH>(q, kpool, vpool, ptab, pos, out, H,
+                                      Hk, psz, n_ptab, rows, scale, window);
+}
 #undef VT_PAGED_ARGS
 
 template <typename TQ, typename TK, int DH>
@@ -411,6 +435,10 @@ void launch(const void* q, const void* kp, const void* vp, const int* ptab,
         paged_decode_kernel<TQ, DH><<<grid, THREADS, 0, stream>>>(
             qq, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows, scale,
             window);
+    else if constexpr (std::is_same<TK, __half>::value)
+        paged_decode_f16pool_kernel<TQ, DH><<<grid, THREADS, 0, stream>>>(
+            qq, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows, scale,
+            window);
     else
         paged_decode_bf16pool_kernel<TQ, DH><<<grid, THREADS, 0, stream>>>(
             qq, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows, scale,
@@ -421,8 +449,9 @@ void launch(const void* q, const void* kp, const void* vp, const int* ptab,
 
 extern "C" {
 
-// q_dtype and kv_dtype: 0 = float32, 1 = bfloat16; the pools have 16-byte
-// aligned bases and Dh is 16 or 64.  window: 0 = none.  Returns the CUDA
+// q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32, 1 =
+// bfloat16, 2 = float16; the pools have 16-byte aligned bases and Dh is
+// 16 or 64.  window: 0 = none.  Returns the CUDA
 // error code of the launch (0 on success).
 int vt_paged_attention_decode(const void* q, const void* kpool,
                               const void* vpool, const void* ptab,
@@ -432,7 +461,7 @@ int vt_paged_attention_decode(const void* q, const void* kpool,
                               int window, void* stream) {
     if (B < 1 || Hk < 1 || H % Hk != 0 || H / Hk > MAX_G || psz < 1 ||
         n_ptab < 1 || rows < 1 || Hk > 65535 ||
-        (q_dtype != 0 && q_dtype != 1) || (kv_dtype != 0 && kv_dtype != 1) ||
+        (q_dtype != 0 && q_dtype != 1) || kv_dtype < 0 || kv_dtype > 2 ||
         (((uintptr_t)kpool | (uintptr_t)vpool) & 15u) != 0)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -444,6 +473,7 @@ int vt_paged_attention_decode(const void* q, const void* kpool,
                         rows, scale, window, st)
 #define VT_POOL(TQ, DHV)                                                    \
     if (kv_dtype == 0) VT_LAUNCH(TQ, float, DHV);                           \
+    else if (kv_dtype == 2) VT_LAUNCH(TQ, __half, DHV);                     \
     else VT_LAUNCH(TQ, __nv_bfloat16, DHV)
     if (Dh == 16 && q_dtype == 0) { VT_POOL(float, 16); }
     else if (Dh == 16) { VT_POOL(__nv_bfloat16, 16); }

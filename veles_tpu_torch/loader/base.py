@@ -8,9 +8,12 @@ veles_tpu/loader/base.py, which holds no JAX, rewired to the port).
   (stream seed, epoch, class) with numpy PCG64 — the JAX package's
   streams, so both packages serve the same minibatch order.
 * **Checkpointable.** ``state()``/``set_state()`` capture epoch and
-  position in the JAX package's layout.
-
-Left out here: the normalizers (image slice).
+  position, and a normalizer's statistics, in the JAX package's layout.
+* **Normalized on the host.** ``ArrayLoader(normalizer=...)`` analyzes
+  the train arrays and normalizes every class with the numpy normalizer
+  (``normalization.py``) before anything is uploaded, as the JAX
+  package does (veles_tpu/loader/base.py:298-316), so the arrays a
+  loader holds are bitwise the JAX package's.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ class Loader(Logger):
         # train_ratio < 1 trains on a fixed random subset (ensemble bagging)
         self.train_ratio = float(train_ratio)
         self.subset_seed = int(subset_seed)
+        self.normalizer = None
         self._loaded = False
 
     # -- subclass contract -------------------------------------------------
@@ -207,43 +211,66 @@ class Loader(Logger):
 
     # -- checkpointable state ----------------------------------------------
     def state(self) -> dict:
-        return {"epoch_number": self.epoch_number,
-                "minibatch_size": self.minibatch_size,
-                "shard_index": self.shard_index,
-                "shard_count": self.shard_count,
-                "train_ratio": self.train_ratio,
-                "subset_seed": self.subset_seed}
+        st = {"epoch_number": self.epoch_number,
+              "minibatch_size": self.minibatch_size,
+              "shard_index": self.shard_index,
+              "shard_count": self.shard_count,
+              "train_ratio": self.train_ratio,
+              "subset_seed": self.subset_seed}
+        if self.normalizer is not None:
+            st["normalizer"] = {
+                "mapping": type(self.normalizer).MAPPING,
+                "state": {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                          for k, v in self.normalizer.state().items()},
+            }
+        return st
 
     def set_state(self, st: dict) -> None:
-        if st.get("normalizer"):
-            raise NotImplementedError(
-                "loader state carries a normalizer; normalizers come with "
-                "the image slice of the port (ROADMAP.md, slice 6)")
         self.epoch_number = int(st["epoch_number"])
         self.minibatch_size = int(st["minibatch_size"])
         # shard_index/shard_count are topology, not training state: they
         # stay in state() for inspection only
         self.train_ratio = float(st.get("train_ratio", 1.0))
         self.subset_seed = int(st.get("subset_seed", 0))
+        norm = st.get("normalizer")
+        if norm:
+            from ..normalization import NormalizerRegistry
+            if (self.normalizer is None
+                    or type(self.normalizer).MAPPING != norm["mapping"]):
+                self.normalizer = NormalizerRegistry.create(norm["mapping"])
+            self.normalizer.set_state({
+                k: (np.asarray(v, np.float32) if isinstance(v, list) else v)
+                for k, v in norm["state"].items()})
 
 
 class ArrayLoader(Loader):
     """Loader over in-memory numpy arrays: ``data[klass]`` -> (N, ...)
     inputs; ``labels[klass]`` -> (N,) int labels or None;
-    ``targets[klass]`` -> regression targets or None."""
+    ``targets[klass]`` -> regression targets or None; ``normalizer`` (a
+    ``normalization`` normalizer or None) analyzes the train inputs and
+    normalizes every class's in ``load_data``."""
 
     def __init__(self, data: Dict[int, np.ndarray],
                  labels: Optional[Dict[int, np.ndarray]] = None,
-                 targets: Optional[Dict[int, np.ndarray]] = None, **kw):
+                 targets: Optional[Dict[int, np.ndarray]] = None,
+                 normalizer=None, **kw):
         super().__init__(**kw)
         self._data = data
         self._labels = labels or {}
         self._targets = targets or {}
+        self.normalizer = normalizer
 
     def load_data(self):
         for klass in (TEST, VALID, TRAIN):
             arr = self._data.get(klass)
             self.class_lengths[klass] = 0 if arr is None else len(arr)
+        if self.normalizer is not None:
+            if self._data.get(TRAIN) is not None:  # stats from train only
+                self.normalizer.analyze(self._data[TRAIN])
+            for klass in (TEST, VALID, TRAIN):
+                if self._data.get(klass) is not None:
+                    self._data[klass] = self.normalizer.normalize(
+                        self._data[klass])
 
     def fill_minibatch(self, indices, klass):
         batch = {"@input": self._data[klass][indices]}

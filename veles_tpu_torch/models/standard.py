@@ -29,11 +29,16 @@ LAYER_TYPES = {
     "conv": nn.Conv,
     "conv_relu": nn.ConvRELU,
     "conv_tanh": nn.ConvTanh,
+    "deconv": nn.Deconv,
     "max_pooling": nn.MaxPooling,
     "avg_pooling": nn.AvgPooling,
+    "stochastic_abs_pooling": nn.StochasticAbsPooling,
+    "depool": nn.Depool,
     "dropout": nn.Dropout,
     "lrn": nn.LRN,
     "norm": nn.MeanDispNormalizer,
+    "flatten": nn.Flatten,
+    "reshape": nn.Reshape,
 }
 
 #: layer types of the JAX package not ported yet -> the ROADMAP.md slice
@@ -44,11 +49,6 @@ PENDING_TYPES = {
     "rnn": "slice 7 (recurrent units)",
     "gru": "slice 7 (recurrent units)",
     "lstm": "slice 7 (recurrent units)",
-    "deconv": "slice 6 (image/conv family)",
-    "stochastic_abs_pooling": "slice 6 (image/conv family)",
-    "depool": "slice 6 (image/conv family)",
-    "flatten": "slice 6 (image/conv family)",
-    "reshape": "slice 6 (image/conv family)",
 }
 
 #: layer-type prefixes that take a compute_dtype kwarg
@@ -60,7 +60,10 @@ def build_workflow(name: str, layers: Sequence[dict], *,
                    loss: str = "softmax",
                    compute_dtype: Optional[str] = None) -> Workflow:
     """Construct a Workflow from a layer-config list (same names, same
-    wiring and same unit names as the JAX package)."""
+    wiring and same unit names as the JAX package).  ``loss``:
+    "softmax" (EvaluatorSoftmax on ``@labels``, ``@mask``), "mse"
+    (EvaluatorMSE on ``@targets``, ``@mask``), "mse_input" (EvaluatorMSE
+    against ``@input``: the autoencoders) or "none"."""
     wf = Workflow(name)
     prev = "@input"
     for i, spec in enumerate(layers):
@@ -84,10 +87,12 @@ def build_workflow(name: str, layers: Sequence[dict], *,
     if loss == "softmax":
         wf.add(nn.EvaluatorSoftmax(name="evaluator",
                                    inputs=(prev, "@labels", "@mask")))
-    elif loss in ("mse", "mse_input"):
-        raise NotImplementedError(
-            f"loss {loss!r} comes with the image/autoencoder slice of the "
-            "port (ROADMAP.md, slice 6)")
+    elif loss == "mse":
+        wf.add(nn.EvaluatorMSE(name="evaluator",
+                               inputs=(prev, "@targets", "@mask")))
+    elif loss == "mse_input":
+        wf.add(nn.EvaluatorMSE(name="evaluator",
+                               inputs=(prev, "@input", "@mask")))
     elif loss != "none":
         raise ValueError(f"unknown loss {loss!r}")
     return wf

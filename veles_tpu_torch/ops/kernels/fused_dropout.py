@@ -11,6 +11,14 @@ and the gradient equal the JAX kernel's bit for bit.  The backward pass
 runs the same kernel on the cotangent with the same seed; only the seed
 and the rate are saved.
 
+The seed is a one-element int32 tensor holding the uint32's bits (torch
+has few uint32 ops), on ``x``'s device: the kernel reads it through a
+pointer, as the TPU kernel reads ``seed_ref``, and the plain version with
+tensor ops, so neither takes a host value and a step captured as a CUDA
+graph replays the mask of whatever seed the host wrote into the slot
+(``units/workflow.py`` ``TrainStep``).  A host int is taken too (tests):
+it becomes such a tensor first (:func:`seed_tensor`).
+
 :func:`fused_dropout` routes on its input's device: a CPU tensor takes
 :func:`fused_dropout_plain`, a tensor on a Hopper card launches the
 kernel, and anything else raises.
@@ -74,23 +82,40 @@ def splitmix32_tensor(z: torch.Tensor) -> torch.Tensor:
     return z ^ (z >> 16)
 
 
-def keep_mask(n: int, seed: int, rate: float, device) -> torch.Tensor:
+def seed_bits(seed: int) -> int:
+    """The uint32 ``seed``'s bits as the int32 a seed tensor stores."""
+    return int(np.uint32(int(seed) & _M32).view(np.int32))
+
+
+def seed_tensor(seed, device) -> torch.Tensor:
+    """A host seed as the one-element int32 seed tensor on ``device``; a
+    tensor passes as it is."""
+    if torch.is_tensor(seed):
+        return seed
+    return torch.tensor([seed_bits(seed)], dtype=torch.int32, device=device)
+
+
+def keep_mask(n: int, seed, rate: float, device) -> torch.Tensor:
     """The plain version's float32 keep factors (0 or 1/(1 - rate)) of
-    ``n`` elements, flat."""
+    ``n`` elements, flat, for the int32 seed tensor (or host int)
+    ``seed``."""
     rate32, scale = rate_and_scale(rate)
     lin = torch.arange(n, dtype=torch.int64, device=device) & _M32
-    bits = splitmix32_tensor(lin ^ splitmix32(seed))
+    wseed = splitmix32_tensor(
+        seed_tensor(seed, device).reshape(-1).long() & _M32)
+    bits = splitmix32_tensor(lin ^ wseed)
     u = (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
     thr = torch.tensor(rate32, device=device)
     return torch.where(u >= thr, torch.tensor(scale, device=device),
                        torch.zeros((), dtype=torch.float32, device=device))
 
 
-def fused_dropout_plain(x: torch.Tensor, seed: int,
+def fused_dropout_plain(x: torch.Tensor, seed,
                         rate: float) -> torch.Tensor:
     """The plain version: the same hash over the flat index in PyTorch
-    integer ops, ``x`` times the keep factor in float32, rounded to
-    ``x``'s dtype."""
+    integer ops (the seed tensor's whitening too), ``x`` times the keep
+    factor in float32, rounded to ``x``'s dtype.  ``seed`` as
+    :func:`fused_dropout`'s."""
     keep = keep_mask(x.numel(), seed, rate, x.device).reshape(x.shape)
     return (x.float() * keep).to(x.dtype)
 
@@ -100,16 +125,22 @@ def _fn():
     fn = lib.vt_fused_dropout
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+        fn.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, p,
                        ctypes.c_float, ctypes.c_float, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _launch(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, seed: torch.Tensor,
+            rate: float) -> torch.Tensor:
     if x.dtype not in _DTYPES:
         raise TypeError(f"{NAME}: the kernel takes float32, bfloat16 or "
                         f"float16, got {x.dtype}")
+    if seed.dtype != torch.int32 or seed.device != x.device \
+            or seed.numel() != 1:
+        raise ValueError(f"{NAME}: the seed must be one int32 element on "
+                         f"{x.device}, got {seed.dtype} {tuple(seed.shape)}"
+                         f" on {seed.device}")
     rate32, scale = rate_and_scale(rate)
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -119,13 +150,14 @@ def _launch(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), _DTYPES[x.dtype],
-            splitmix32(seed), float(rate32), float(scale), sms, stream)
+            seed.data_ptr(), float(rate32), float(scale), sms, stream)
     build.check(lib, rc, NAME)
     launches.inc()
     return out
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _apply(x: torch.Tensor, seed: torch.Tensor,
+           rate: float) -> torch.Tensor:
     if kernel_route(x, NAME):
         return _launch(x, seed, rate)
     return fused_dropout_plain(x, seed, rate)
@@ -133,20 +165,26 @@ def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
 
 class _FusedDropout(torch.autograd.Function):
     """custom_vjp of pallas_kernels.py:718-727: the backward re-runs the
-    forward's kernel (or plain version) on the cotangent, same seed."""
+    forward's kernel (or plain version) on the cotangent, reading the
+    same seed tensor (saved for backward: a write into it between the
+    forward and the backward makes autograd raise)."""
 
     @staticmethod
     def forward(ctx, x, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
+        ctx.save_for_backward(seed)
+        ctx.rate = rate
         return _apply(x, seed, rate)
 
     @staticmethod
     def backward(ctx, g):
-        return _apply(g, ctx.seed, ctx.rate), None, None
+        seed, = ctx.saved_tensors
+        return _apply(g, seed, ctx.rate), None, None
 
 
-def fused_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Dropout of ``x`` with the uint32 ``seed`` (a host int) at drop
-    probability ``rate`` in [0, 1): kept elements scale by 1/(1 - rate).
-    Differentiable; the gradient regenerates the mask."""
-    return _FusedDropout.apply(x, int(seed) & _M32, float(rate))
+def fused_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+    """Dropout of ``x`` at drop probability ``rate`` in [0, 1): kept
+    elements scale by 1/(1 - rate).  ``seed``: the one-element int32 seed
+    tensor on ``x``'s device (the train step's slot), or a host int
+    (tests), made into one.  Differentiable; the gradient regenerates the
+    mask from the same seed."""
+    return _FusedDropout.apply(x, seed_tensor(seed, x.device), float(rate))

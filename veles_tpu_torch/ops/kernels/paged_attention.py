@@ -27,14 +27,16 @@ SOURCE = "veles_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "veles_tpu/ops/pallas_kernels.py:612"
 
 #: launches of the CUDA kernel (never of the plain version), by the
-#: pool's type: ``"f32_pool"`` (``paged_decode_kernel``) or
-#: ``"bf16_pool"`` (``paged_decode_bf16pool_kernel``)
+#: pool's type: ``"f32_pool"`` (``paged_decode_kernel``), ``"bf16_pool"``
+#: (``paged_decode_bf16pool_kernel``) or ``"f16_pool"``
+#: (``paged_decode_f16pool_kernel``)
 launches = build.LaunchCounter()
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the pool dtypes the kernel reads, and the variant each launch counts
 _POOL_DTYPES = {torch.float32: (0, "f32_pool"),
-                torch.bfloat16: (1, "bf16_pool")}
+                torch.bfloat16: (1, "bf16_pool"),
+                torch.float16: (2, "f16_pool")}
 _HEAD_DIMS = (16, 64)      # configs/induction_lm*.json, bench_lm.py width
 _MAX_GROUP = 8
 
@@ -71,7 +73,7 @@ def paged_attention_decode(q, k_pool, v_pool, ptab, pos, *, page_size: int,
 
     q: (B, H, Dh) at each row's own position (RoPE applied); pools:
     (rows, page_size, Hk, Dh) of one dtype (the engine's cache type: the
-    kernel reads float32 and bfloat16); ptab: (B, n_ptab) int32 physical page per
+    kernel reads float32, bfloat16 and float16); ptab: (B, n_ptab) int32 physical page per
     logical page (entries past a slot's span point at the scratch row and
     are never read); pos: (B,) int32.  Returns the (B, H, Dh) float32
     context before the output projection.  A row whose live pages include
@@ -141,7 +143,7 @@ def _fn():
 def _launch(q, k_pool, v_pool, ptab, pos, G, page_size, scale, window):
     if q.dtype not in _Q_DTYPES or k_pool.dtype not in _POOL_DTYPES:
         raise TypeError(f"{NAME}: kernel takes float32/bfloat16 q and "
-                        f"float32/bfloat16 pools, got {q.dtype} / "
+                        f"float32/bfloat16/float16 pools, got {q.dtype} / "
                         f"{k_pool.dtype}")
     if ptab.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"{NAME}: ptab and pos must be int32")

@@ -22,11 +22,9 @@ enqueues them all at once.  :meth:`StepCache.get_step` therefore
   step without saying so (the JAX package falls back to the jit after a
   failed AOT compile, :218);
 * runs the eager step where it cannot capture, and says why in
-  :meth:`~StepCache.stats`: on the CPU (``"cpu"``), with
+  :meth:`~StepCache.stats`: on the CPU (``"cpu"``), or with
   ``StepCache(capture=False)`` (the counterpart of ``aot=False``, kept
-  for the eager-versus-captured comparison), or where a unit's train
-  forward takes a per-step host value (``Unit.capture_blocker``; the
-  dropout seed);
+  for the eager-versus-captured comparison);
 * counts one compile (here: one capture, or one eager build) per
   program, as the JAX package's counters do: ``compiles``, ``hits`` and
   ``recompiles`` (a second program of one kind for one workflow).
@@ -34,9 +32,10 @@ enqueues them all at once.  :meth:`StepCache.get_step` therefore
 What keeps a capture valid: the train step writes every updated tensor
 into the tensor it read (``ops.optimizers.tree_assign``), and rollback,
 restore and the lr multiplier write into those same tensors; the
-learning rate and the fault harness's NaN flag reach the step through a
-device staging tensor the host fills before each replay
-(``units.workflow.TrainStep``).  A state passed in that is not the
+learning rate, the fault harness's NaN flag and each dropout unit's seed
+reach the step through a device staging tensor the host fills before
+each replay (``units.workflow.TrainStep``), so a captured step with
+dropout draws a new mask every replay.  A state passed in that is not the
 captured one is copied into it first, so a re-initialized trainer hits
 the cache.  Launch counters count host calls, and a replay makes none:
 the cache records each kernel counter's change during capture (by
@@ -86,18 +85,6 @@ def _optimizer_signature(optimizer) -> Tuple:
     return (type(optimizer).__name__, scalars,
             id(getattr(optimizer, "schedule", None)),
             repr(sorted(per_unit.items())) if per_unit else None)
-
-
-def capture_blocker(workflow, kind: str) -> Optional[str]:
-    """Why ``kind``'s step of ``workflow`` cannot be captured, or None:
-    the first unit that names a per-step host value its train forward
-    takes (an eval forward takes none)."""
-    if kind != "train" or workflow is None:
-        return None
-    for unit in workflow.topo_order():
-        if unit.capture_blocker:
-            return unit.capture_blocker
-    return None
 
 
 def _clone(tree):
@@ -200,7 +187,7 @@ class StepCache(Logger):
 
     # -- the cache ----------------------------------------------------------
     def get_step(self, kind: str, key: Tuple, builder: Callable[[], Any],
-                 args: Tuple, *, pin: Tuple = (), workflow=None):
+                 args: Tuple, *, pin: Tuple = ()):
         """Fetch or build (and on the card capture) the ``kind`` step."""
         full_key = (kind,) + tuple(key)
         ent = self._entries.get(full_key)
@@ -218,7 +205,7 @@ class StepCache(Logger):
         elif not self.capture:
             reason = "capture=False"
         else:
-            reason = capture_blocker(workflow, kind)
+            reason = None
         fn = step if reason else self._capture(step, wstate, inputs)
         wall = time.perf_counter() - t0
         if any(k[0] == kind and k[1:2] == full_key[1:2]

@@ -55,12 +55,15 @@ from .step_cache import StepCache
 
 
 def aggregate_epoch_metrics(sums: Dict[str, float]) -> Dict[str, float]:
-    """Epoch sums -> error % / loss / grad norm per trained batch
-    (trainer.py:38-54; the rmse of the MSE evaluators comes with them)."""
+    """Epoch sums -> error % (softmax evaluators), rmse (MSE evaluators:
+    the root of the mean per-sample MSE), loss and grad norm per trained
+    batch (veles_tpu/runtime/trainer.py:38-54)."""
     n = max(sums.get("n_samples", 0.0), 1.0)
     out = dict(sums)
     if "n_err" in sums:
         out["error_pct"] = 100.0 * sums["n_err"] / n
+    if "mse_sum" in sums:
+        out["rmse"] = float(np.sqrt(sums["mse_sum"] / n))
     trained = max(sums.get("n_batches", 0.0)
                   - sums.get("anomaly_steps", 0.0), 1.0)
     if "loss" in sums and "n_batches" in sums:
@@ -168,7 +171,7 @@ class Trainer(Logger):
         self._train_step = self.step_cache.get_step(
             "train", key,
             lambda: self.workflow.make_train_step(self.optimizer), args,
-            pin=pin, workflow=self.workflow)
+            pin=pin)
         self._eval_step = None
         self._eval_entry = (key, args, pin)
 
@@ -177,7 +180,7 @@ class Trainer(Logger):
             key, (_, inputs), pin = self._eval_entry
             self._eval_step = self.step_cache.get_step(
                 "eval", key, self.workflow.make_eval_step,
-                (self.wstate, inputs), pin=pin, workflow=self.workflow)
+                (self.wstate, inputs), pin=pin)
         return self._eval_step
 
     # -- epoch passes -------------------------------------------------------

@@ -11,7 +11,7 @@ between the two packages by key.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,14 +37,19 @@ class Context:
     and, in a train step, the step's PRNG key: the raw uint32 pair the
     JAX step passes as ``sub`` (veles_tpu/units/base.py:47-97).  Units
     draw from ``unit_key(name)``, the JAX package's per-name fold, so a
-    dropout mask equals the JAX package's.  ``generator`` is a
-    ``torch.Generator`` made by ``make_generator`` on first use, for
-    draws that have no JAX counterpart to match; a step that draws
-    nothing makes none."""
+    dropout mask equals the JAX package's.  ``seeds`` maps a unit that
+    draws a seed (``Unit.draws_seed``) to its seed slot on the device: a
+    one-element int32 tensor the train step's host part fills with
+    ``bits32(unit_key(name))`` before each step, so the device part
+    (eager or captured) reads the seed there and takes no host value.
+    ``generator`` is a ``torch.Generator`` made by ``make_generator`` on
+    first use, for draws that have no JAX counterpart to match; a step
+    that draws nothing makes none."""
     train: bool = False
     mesh: Optional[Any] = None
     make_generator: Optional[Callable[[], torch.Generator]] = None
     key: Optional[Tuple[int, int]] = None
+    seeds: Optional[Dict[str, torch.Tensor]] = None
     _generator: Optional[torch.Generator] = dataclasses.field(
         default=None, init=False, repr=False)
 
@@ -60,6 +65,15 @@ class Context:
         if self.key is None:
             return None
         return prng.fold_in(self.key, prng.name_hash(name))
+
+    def unit_seed(self, name: str):
+        """The seed unit ``name`` draws: its slot in ``seeds`` (a device
+        tensor), else ``bits32(unit_key(name))`` as a host int, else None
+        (no key)."""
+        if self.seeds is not None and name in self.seeds:
+            return self.seeds[name]
+        key = self.unit_key(name)
+        return None if key is None else prng.bits32(key)
 
 
 def dtype_of(name) -> Optional[torch.dtype]:
@@ -79,10 +93,10 @@ class Unit(Logger):
     """Base of every dataflow node: ``inputs`` names the upstream units
     (or ``@batch`` keys) whose outputs it consumes."""
 
-    #: why a train step holding this unit cannot be captured as a CUDA
-    #: graph (``runtime/step_cache.py``), or None: a unit whose train-mode
-    #: forward takes a per-step host value names it here
-    capture_blocker: Optional[str] = None
+    #: True for a unit whose train forward draws a 32-bit seed from the
+    #: step key: the train step gives it a device seed slot
+    #: (``Context.seeds``) and fills it every step
+    draws_seed: bool = False
 
     def __init__(self, name: Optional[str] = None,
                  inputs: Sequence[str] = ("@input",)):

@@ -1,13 +1,15 @@
 """Forward units (counterpart of veles_tpu/units/nn.py): the LM family
-(:31-111, :509-625), the image family's Conv/ConvRELU/ConvTanh,
-MaxPooling/AvgPooling, Dropout, LRN and MeanDispNormalizer (:114-167,
-:209-235, :264-497), and the softmax evaluator (:659-694).
+(:31-111, :509-625), the image family's Conv/ConvRELU/ConvTanh, Deconv,
+MaxPooling/AvgPooling, StochasticAbsPooling, Depool, Dropout, LRN,
+MeanDispNormalizer, Flatten and Reshape (:114-500, :627-645), and the
+evaluators: the softmax and the MSE one (:648-719).
 
 Image activations are NHWC and conv weights HWIO, the JAX package's
 layouts, so weights move across unchanged and the dropout mask (a hash of
 each element's row-major index) is the JAX package's.  Deconv, Depool,
-StochasticAbsPooling, Flatten and Reshape come with the rest of the image
-slice; ``models/standard.py`` names it when a config asks for one.
+StochasticAbsPooling, Flatten, Reshape and the MSE evaluator are plain
+tensor code (cuDNN for the deconvolution), as the JAX package leaves them
+to XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -17,15 +19,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import ops, prng
+from .. import ops
 from ..ops import losses
 from ..ops.activations import ACTIVATIONS
-from ..ops.convolution import conv2d, conv_padding, pair
+from ..ops.convolution import conv2d, conv_padding, deconv2d, \
+    deconv_padding, pair
 from ..ops.kernels.fused_dropout import fused_dropout
 from ..ops.lrn import METHODS as LRN_METHODS
 from ..ops.lrn import local_response_norm
 from ..ops.normalize import mean_disp_normalize
-from ..ops.pooling import avg_pool, max_pool
+from ..ops.pooling import avg_pool, avg_unpool, max_pool
 from .base import Forward, Spec, Unit, dtype_of
 
 
@@ -163,6 +166,48 @@ class ConvTanh(Conv):
         super().__init__(n_kernels, kx, ky, **kw)
 
 
+class Deconv(Forward):
+    """Transposed convolution (``ops.convolution.deconv2d``: the JAX
+    package's ``conv_transpose`` without a kernel flip), HWIO weights of
+    (ky, kx, Cin, n_kernels), a bias, an optional activation."""
+
+    def __init__(self, n_kernels: int, kx: int = 3, ky: Optional[int] = None,
+                 *, stride=1, padding="SAME", activation="linear",
+                 weights_scale=1.0, compute_dtype=None, name=None,
+                 inputs=("@input",)):
+        super().__init__(name, inputs)
+        self.n_kernels = int(n_kernels)
+        self.kx = int(kx)
+        self.ky = int(ky if ky is not None else kx)
+        self.stride = stride
+        self.padding = padding
+        self.activation = activation
+        self.weights_scale = weights_scale
+        self.compute_dtype = dtype_of(compute_dtype)
+
+    def output_spec(self, in_specs):
+        n, h, w, _ = in_specs[0].shape
+        stride = pair(self.stride)
+        pads = deconv_padding(self.padding, (self.ky, self.kx), stride)
+        hw = [(size - 1) * s + 1 + lo + hi - k + 1 for size, (lo, hi), k, s
+              in zip((h, w), pads, (self.ky, self.kx), stride)]
+        return Spec((n, *hw, self.n_kernels), in_specs[0].dtype)
+
+    def init(self, generator, in_specs, device):
+        cin = in_specs[0].shape[-1]
+        fan_in = self.kx * self.ky * cin
+        return {"w": ops.smart_uniform_init(
+            generator, (self.ky, self.kx, cin, self.n_kernels), fan_in,
+            scale=self.weights_scale, device=device),
+            "b": torch.zeros((self.n_kernels,), dtype=torch.float32,
+                             device=device)}, {}
+
+    def apply(self, params, state, xs, ctx):
+        y = deconv2d(xs[0], params["w"], params["b"], stride=self.stride,
+                     padding=self.padding, compute_dtype=self.compute_dtype)
+        return ACTIVATIONS[self.activation](y), state
+
+
 class _Pooling(Unit):
     """VALID pooling over NHWC windows (stride defaults to the window)."""
 
@@ -192,15 +237,50 @@ class AvgPooling(_Pooling):
     pool = staticmethod(avg_pool)
 
 
+class StochasticAbsPooling(MaxPooling):
+    """Pool by the largest magnitude, keeping its sign (the deterministic
+    form of Znicz's stochastic abs-pooling; veles_tpu/units/nn.py:237):
+    the window's max where it is at least the largest |x|, else its
+    min."""
+
+    def apply(self, params, state, xs, ctx):
+        x = xs[0]
+        mag = max_pool(x.abs(), self.window, self.stride)
+        pos = max_pool(x, self.window, self.stride)
+        neg = -max_pool(-x, self.window, self.stride)
+        return torch.where(pos >= mag, pos, neg), state
+
+
+class Depool(Unit):
+    """Unpooling by uniform spread (``ops.pooling.avg_unpool``; pairs with
+    Deconv in the autoencoders)."""
+
+    def __init__(self, window=2, name=None, inputs=("@input",)):
+        super().__init__(name, inputs)
+        self.window = window
+
+    def output_spec(self, in_specs):
+        n, h, w, c = in_specs[0].shape
+        win = pair(self.window)
+        return Spec((n, h * win[0], w * win[1], c), in_specs[0].dtype)
+
+    def apply(self, params, state, xs, ctx):
+        return avg_unpool(xs[0], self.window), state
+
+
 class Dropout(Unit):
     """Inverted dropout; the identity at eval or at ratio <= 0.
 
     The JAX package's kernel formulation on every device: the seed is
     ``bits32(fold_in(step key, hash(name)))`` (units/nn.py:338-345) and
     the mask the ``fused_dropout`` kernel's hash, so the mask equals the
-    JAX package's with ``use_pallas=True`` bit for bit.  The JAX
-    package's other formulation, a threefry Bernoulli mask
-    (units/nn.py:346-348), is not ported: ``use_pallas=False`` raises."""
+    JAX package's with ``use_pallas=True`` bit for bit.  In a train step
+    the seed reaches the kernel through the unit's device slot
+    (``Context.seeds``, filled by the step's host part), so the step can
+    be captured; a direct train-mode call with a ``Context.key`` takes
+    the host seed.  The JAX package's other formulation, a threefry
+    Bernoulli mask (units/nn.py:346-348), is not ported:
+    ``use_pallas=False`` raises."""
 
     stochastic = True
 
@@ -217,21 +297,19 @@ class Dropout(Unit):
         self.use_pallas = use_pallas
 
     @property
-    def capture_blocker(self):
-        # the mask's seed comes from the step key on the host and reaches
-        # the kernel by value (ops/kernels/fused_dropout.py), so a captured
-        # step would replay one mask
-        return "dropout seed" if self.ratio > 0.0 else None
+    def draws_seed(self):
+        return self.ratio > 0.0
 
     def apply(self, params, state, xs, ctx):
         x = xs[0]
         if not ctx.train or self.ratio <= 0.0:
             return x, state
-        key = ctx.unit_key(self.name)
-        if key is None:
+        seed = ctx.unit_seed(self.name)
+        if seed is None:
             raise ValueError(f"Dropout {self.name!r}: a train-mode call "
-                             "needs the step key (Context.key)")
-        return fused_dropout(x, prng.bits32(key), self.ratio), state
+                             "needs the step key (Context.key) or its "
+                             "seed slot (Context.seeds)")
+        return fused_dropout(x, seed, self.ratio), state
 
 
 class LRN(Unit):
@@ -287,6 +365,17 @@ class MeanDispNormalizer(Unit):
     def apply(self, params, state, xs, ctx):
         return mean_disp_normalize(xs[0], state["mean"],
                                    state["rdisp"]), state
+
+
+class Flatten(Unit):
+    """(N, ...) -> (N, prod(...))."""
+
+    def output_spec(self, in_specs):
+        s = in_specs[0]
+        return Spec((s.shape[0], int(np.prod(s.shape[1:]))), s.dtype)
+
+    def apply(self, params, state, xs, ctx):
+        return xs[0].reshape(xs[0].shape[0], -1), state
 
 
 class LayerNorm(Unit):
@@ -390,14 +479,42 @@ class SeqLast(Unit):
         return xs[0][:, -1], state
 
 
-class EvaluatorSoftmax(Unit):
+class Reshape(Unit):
+    """Reshape the per-sample trailing dims (e.g. a flat 784 into 28 x 28
+    x 1 for a conv trunk fed by a vector loader)."""
+
+    def __init__(self, shape, name=None, inputs=("@input",)):
+        super().__init__(name, inputs)
+        self.shape = tuple(int(s) for s in shape)
+
+    def output_spec(self, in_specs):
+        s = in_specs[0]
+        if int(np.prod(s.shape[1:])) != int(np.prod(self.shape)):
+            raise ValueError(
+                f"cannot reshape {s.shape[1:]} to {self.shape}")
+        return Spec((s.shape[0],) + self.shape, s.dtype)
+
+    def apply(self, params, state, xs, ctx):
+        return xs[0].reshape((xs[0].shape[0],) + self.shape), state
+
+
+class Evaluator(Unit):
+    """Base loss unit: its output is the scalar loss, and
+    :meth:`metrics` gives the per-batch sums the trainer adds up
+    (veles_tpu/units/nn.py:648-656)."""
+
+    is_evaluator = True
+
+    def metrics(self, params, state, xs, ctx) -> dict:
+        raise NotImplementedError
+
+
+class EvaluatorSoftmax(Evaluator):
     """Softmax cross-entropy over logits + integer labels, with the
     loader's ``@mask`` keeping metrics exact on padded batches
     (veles_tpu/units/nn.py:659-694).  Sequence form: logits (B, T, V) with
     labels (B, T) give the per-position loss; a per-sample mask broadcasts
     across positions and the metrics count positions."""
-
-    is_evaluator = True
 
     def __init__(self, name=None, inputs=("@input", "@labels", "@mask")):
         super().__init__(name, inputs)
@@ -425,3 +542,31 @@ class EvaluatorSoftmax(Unit):
         n = mask.sum() if mask is not None else torch.tensor(
             float(np.prod(xs[1].shape)), device=xs[0].device)
         return {"loss": loss, "n_err": n_err, "n_samples": n}
+
+
+class EvaluatorMSE(Evaluator):
+    """Mean squared error against targets (the autoencoders compare with
+    ``@input``); the metrics' ``mse_sum`` (the masked sum of per-sample
+    mean squared errors) gives the epoch's ``rmse``
+    (veles_tpu/units/nn.py:697-719)."""
+
+    def __init__(self, name=None, inputs=("@input", "@targets", "@mask")):
+        super().__init__(name, inputs)
+
+    def output_spec(self, in_specs):
+        return Spec((), torch.float32)
+
+    @staticmethod
+    def _mask(xs):
+        return xs[2] if len(xs) > 2 else None
+
+    def apply(self, params, state, xs, ctx):
+        loss, _ = losses.mse_loss(xs[0], xs[1], mask=self._mask(xs))
+        return loss, state
+
+    def metrics(self, params, state, xs, ctx):
+        mask = self._mask(xs)
+        loss, agg = losses.mse_loss(xs[0], xs[1], mask=mask)
+        n = mask.sum() if mask is not None else torch.tensor(
+            float(xs[0].shape[0]), device=xs[0].device)
+        return {"loss": loss, "mse_sum": agg, "n_samples": n}

@@ -258,21 +258,28 @@ class TrainStep:
     """The train step in its two parts, so that ``runtime/step_cache.py``
     can capture the device part as a CUDA graph and replay it:
 
-    * :meth:`begin` (host): the learning rate ``schedule(step)`` (numpy,
-      as the JAX package's host schedule) and the fault harness's NaN flag
-      for this step go into a 2-entry float32 staging tensor on the
-      device, by one non-blocking copy from pinned memory on the card;
-      the key is split (``split_state_key``) and the step advanced;
+    * :meth:`begin` (host): the key is split (``split_state_key``) and the
+      step advanced; the learning rate ``schedule(step)`` (numpy, as the
+      JAX package's host schedule), the fault harness's NaN flag for this
+      step and the seed of every unit that draws one (``Unit.draws_seed``:
+      ``bits32(fold_in(sub, hash(name)))``, the JAX package's chain) go
+      into one int32 staging tensor on the device (the two float32
+      scalars as their bits), by one non-blocking copy from pinned memory
+      on the card;
     * :meth:`run` (device): forward, gradients, the guarded update reading
-      the learning rate and the flag from the staging tensor, and every
-      updated tensor written back into the tensor of ``wstate`` it came
-      from (``tree_assign``): parameters, optimizer slots and scalars,
-      unit state.  Metrics stay on the device.
+      the learning rate and the flag from the staging tensor, each
+      dropout reading its seed from its slot of it (``Context.seeds``),
+      and every updated tensor written back into the tensor of ``wstate``
+      it came from (``tree_assign``): parameters, optimizer slots and
+      scalars, unit state.  Metrics stay on the device.
 
     Calling the step runs both, so the eager and the captured step run the
-    same code.  ``root.common.train`` (sentinel, clip_norm) and the fault
-    plan's ``nan_grad_at_step`` are read once, here, as the JAX package
-    reads them at trace time."""
+    same code, and a captured step draws a new mask every step.  The next
+    step's host part writes the staging tensor after this step's device
+    part on the same stream, so a backward reads the seeds of the forward
+    it differentiates.  ``root.common.train`` (sentinel, clip_norm) and
+    the fault plan's ``nan_grad_at_step`` are read once, here, as the JAX
+    package reads them at trace time."""
 
     kind = "train"
 
@@ -284,7 +291,12 @@ class TrainStep:
         self.sentinel = bool(root.common.train.get("sentinel", True))
         self.clip = float(root.common.train.get("clip_norm", 0.0) or 0.0)
         self.inject = frozenset(get_plan().nan_grad_at_step)
-        self.scalars: Optional[torch.Tensor] = None  # (lr, NaN flag)
+        #: units that draw a seed, in slot order after (lr, NaN flag)
+        self.seeded = [u.name for u in workflow.topo_order()
+                       if u.draws_seed]
+        self.staging: Optional[torch.Tensor] = None   # int32 (2 + seeds)
+        self.scalars: Optional[torch.Tensor] = None   # float32 view of 0:2
+        self.seeds: Dict[str, torch.Tensor] = {}      # name -> slot view
 
     def __call__(self, wstate, batch):
         sub = self.begin(wstate)
@@ -293,17 +305,31 @@ class TrainStep:
     def begin(self, wstate):
         """The host part; returns the step's ``sub`` key."""
         step = int(wstate["step"])
-        vals = torch.from_numpy(np.asarray(
-            [self.optimizer.schedule(step), step in self.inject],
-            np.float32))
-        if self.scalars is None:
-            dev = tree_leaves(wstate["params"])[0].device
-            self.scalars = torch.zeros(2, dtype=torch.float32, device=dev)
-        if self.scalars.is_cuda:
-            self.scalars.copy_(vals.pin_memory(), non_blocking=True)
-        else:
-            self.scalars.copy_(vals)
         key, sub = split_state_key(wstate.get("key"))
+        if self.seeded and sub is None:
+            raise ValueError(
+                f"unit {self.seeded[0]!r} draws its seed from the step key "
+                "and the state has no key (wstate['key'])")
+        vals = np.empty(2 + len(self.seeded), np.int32)
+        vals[:2] = np.asarray([self.optimizer.schedule(step),
+                               step in self.inject],
+                              np.float32).view(np.int32)
+        keyed = Context(key=sub)            # the units' own key chain
+        vals[2:] = np.asarray([prng.bits32(keyed.unit_key(name))
+                               for name in self.seeded],
+                              np.uint32).view(np.int32)
+        host = torch.from_numpy(vals)
+        if self.staging is None:
+            dev = tree_leaves(wstate["params"])[0].device
+            self.staging = torch.zeros(len(vals), dtype=torch.int32,
+                                       device=dev)
+            self.scalars = self.staging[:2].view(torch.float32)
+            self.seeds = {name: self.staging[2 + i:3 + i]
+                          for i, name in enumerate(self.seeded)}
+        if self.staging.is_cuda:
+            self.staging.copy_(host.pin_memory(), non_blocking=True)
+        else:
+            self.staging.copy_(host)
         wstate["step"] = step + 1
         wstate["key"] = key
         return sub
@@ -313,7 +339,7 @@ class TrainStep:
         returns the step's metrics (device tensors)."""
         wf, ev = self.workflow, self.workflow.evaluator
         params = wstate["params"]
-        ctx = Context(train=True, key=sub,
+        ctx = Context(train=True, key=sub, seeds=self.seeds,
                       make_generator=functools.partial(
                           _step_generator, sub, params))
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)
