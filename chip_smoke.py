@@ -135,7 +135,21 @@ Phases, each of which fails the run with a non-zero exit:
    plain versions from the same weights, batch and key (cuDNN
    deterministic, TF32 off), loss, gradient norms and the drop6/drop7
    masks compared; one ``make_predict_step("fc8")`` batch;
-8. the image/conv family: ``configs/synthdigits_conv.json`` at its
+8. the curriculum path: one captured epoch of configs/induction_lm64.json
+   (float32, B=100, T=64, 4 heads of 16) with the launch counts set to 0
+   before it, the f32 SIMT flash forward, dQ and dK/dV at that shape
+   against their plain versions and timed beside them, SDPA and the bound
+   of their ``cost()``, and the batch gather at that shape; then
+   ``python -m veles_tpu_torch configs/induction_lm64.json --curriculum
+   configs/induction_lm64_curriculum.json`` as published (each phase's
+   best value, epochs, wall and median step; every phase must run to its
+   budget and the summary be whole; the bar is reported, see
+   ``phase_curriculum``), while the image family's SynthDigits render on
+   the host in the background; then ``--generate 64`` over 8 prompts of
+   64 through the CLI from the curriculum's best snapshot, greedy and
+   ``--beams 4``, token for token an in-process ``generate()`` /
+   ``generate_beam()``;
+9. the image/conv family: ``configs/synthdigits_conv.json`` at its
    published widths and minibatch (100) through the ``Trainer`` for one
    epoch (600 steps) and its eval over the mnist loader's 60k + 10k
    SynthDigits held on the card (the synthesis or cache read and the
@@ -149,11 +163,22 @@ Phases, each of which fails the run with a non-zero exit:
    validation error; then ``configs/synthdigits_ae.json`` for one epoch
    and the conv autoencoder (reshape, conv, pool, depool, deconv,
    flatten) for 5 steps, each rmse finite and falling;
-9. quality: ``python -m veles_tpu_torch configs/induction_lm.json
+10. quality: ``python -m veles_tpu_torch configs/induction_lm.json
    --random-seed 1`` as a subprocess on the card (25 epochs) must reach
    <= 5 % validation error;
-10. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+11. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
+
+Goodput: ``runtime.benchmark.benchmark_device()`` runs once after the
+kernel checks (its DB under ``.veles_tpu`` beside this file, where the
+CLI runs read it too); the LM train phase's counted ``train_step_flops``
+must equal the analytic count of its step within 5 %, with its
+``train_mfu`` against the measured peak; the serving phase samples the
+decode bandwidth, MBU (against 3350 GB/s) and headroom gauges under the
+greedy request, and the bandwidth must fall to 0 within 10 s of idling;
+the lifecycle also hot-swaps from a ``sqlite://...#best`` row and an
+``http://127.0.0.1`` manifest under load (no request failed, captures
+flat, tokens those of an engine booted from the same file snapshot).
 
 Datasets the image family renders are cached under
 ``$VELES_TORCH_CACHE`` (default here: ``.veles_tpu/cache`` beside this
@@ -261,6 +286,24 @@ LIFE_THREADS, LIFE_IN_FLIGHT, LIFE_PROMPT, LIFE_NEW = 32, 16, 64, 32
 DRAIN_NEW = 128
 TRACE_CHECKED = 64             # the newest request spans held to nesting
 DEVICE = "cuda"                # the main path's device
+# the curriculum path: configs/induction_lm64.json (2 blocks, dim 64, 4
+# heads of 16, T 64, minibatch 100, float32) through the published
+# configs/induction_lm64_curriculum.json (n_train 2000, n_valid 1000) to
+# its bar (BASELINE.md:145-147); the JAX package's trajectory from the
+# spec's __doc__
+CURRICULUM_CONFIG = os.path.join("configs", "induction_lm64.json")
+CURRICULUM_SPEC = os.path.join("configs", "induction_lm64_curriculum.json")
+CURRICULUM_BAR = 5.0
+CURRICULUM_TIMEOUT = 900
+JAX_TRAJECTORY = [96.7, 36.7, 10.6, 7.1, 5.6, 4.3]
+CUR_B, CUR_T, CUR_H, CUR_D = 100, 64, 4, 16
+CUR_TRAIN, CUR_VALID = 2000, 1000
+# decode from the CLI at BASELINE.md:113's shape: 8 prompts of 64, 64 new
+GEN_ROWS, GEN_PROMPT, GEN_NEW, GEN_BEAMS = 8, 64, 64, 4
+# the serving phase's MBU denominator: H100 SXM HBM3, as H100_BYTES_S
+PEAK_HBM_GBPS = 3350.0
+# the analytic train step: within this share of the counted one
+FLOPS_RTOL = 0.05
 
 
 def fail(msg):
@@ -324,6 +367,12 @@ def bound(flops, peak, nbytes):
     bytes_ms = nbytes / H100_BYTES_S * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def cost_bound(cost, peak):
+    """:func:`bound` of a kernel module's ``cost()`` (the count the
+    gauges use too)."""
+    return bound(cost["flops"], peak, cost["bytes"])
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -622,10 +671,9 @@ def phase_kernels(torch):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     f_lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal))
-    pairs = T * (T + 1) // 2 if causal else T * T
-    f_flops = 4 * B * H * D * pairs
-    f_bytes = 4 * q.numel() * q.element_size() + B * H * T * 4
-    f_bound, f_by = bound(f_flops, H100_BF16_FLOPS, f_bytes)
+    f_cost = fa.cost(q, k, v, causal)
+    f_flops = f_cost["flops"]
+    f_bound, f_by = cost_bound(f_cost, H100_BF16_FLOPS)
 
     paged_timing = {variant: _paged_timing(torch, pa, *main)
                     for variant, main in main_paged.items()}
@@ -657,13 +705,9 @@ def _paged_timing(torch, pa, args, perr, pos, Hp, Hkp):
         *args, page_size=PAGE, n_kv_heads=Hkp))
     p_plain = cuda_ms(torch, lambda: pa.paged_attention_decode_plain(
         *args, page_size=PAGE, n_kv_heads=Hkp), iters=20)
-    live = sum(p + 1 for p in pos)
-    live_pages = sum(p // PAGE + 1 for p in pos)
-    p_bytes = (2 * live * Hkp * 64 * pk_.element_size()
-               + pq.numel() * pq.element_size() + SLOTS * Hp * 64 * 4
-               + live_pages * 4 + SLOTS * 4)
-    p_flops = 4 * Hp * 64 * live
-    p_bound, p_by = bound(p_flops, H100_F32_FLOPS, p_bytes)
+    p_cost = pa.cost(pq, pk_, pos, page_size=PAGE)
+    p_bytes = p_cost["bytes"]
+    p_bound, p_by = cost_bound(p_cost, H100_F32_FLOPS)
     pool = str(pk_.dtype).split(".")[-1]
     variant = POOL_VARIANTS[pool]
     symbol = KERNEL_SYMBOLS["paged_attention_decode"][variant]
@@ -901,15 +945,10 @@ def phase_train_kernels(torch):
     do_t = do.transpose(1, 2)
     lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do_t, retain_graph=True))
-    pairs = T * (T + 1) // 2
-    elt = q.element_size()
-    rows = B * H * T * 4                       # one float32 per row
-    dq_flops = 3 * 2 * B * H * D * pairs
-    dkv_flops = 4 * 2 * B * H * D * pairs
-    dq_bound = bound(dq_flops, H100_BF16_FLOPS,
-                     5 * q.numel() * elt + 2 * rows)
-    dkv_bound = bound(dkv_flops, H100_BF16_FLOPS,
-                      6 * q.numel() * elt + 2 * rows)
+    dq_flops = dq.cost(q, k, v, True)["flops"]
+    dkv_flops = dkv.cost(q, k, v, True)["flops"]
+    dq_bound = cost_bound(dq.cost(q, k, v, True), H100_BF16_FLOPS)
+    dkv_bound = cost_bound(dkv.cost(q, k, v, True), H100_BF16_FLOPS)
     # the batch gather at the LM train class's shape (tokens, labels and
     # per-position masks, 16 rows of 2048 each, from a card-resident set):
     # the kernel on the epoch's order as the loader launches it; the plain
@@ -929,10 +968,8 @@ def phase_train_kernels(torch):
         lm_arrays, outs, perm, 0, TRAIN_B, mask), iters=50)
     g_plain = cuda_ms(torch, lambda: gr.gather_batch_plain(
         lm_arrays, outs, perm, 0, TRAIN_B, mask), iters=50)
-    row_bytes = TRAIN_T * 4
-    g_bound = bound(0, H100_BF16_FLOPS,
-                    2 * len(lm_arrays) * TRAIN_B * row_bytes
-                    + 2 * TRAIN_B * 4)
+    g_bound = cost_bound(gr.cost(lm_arrays, TRAIN_B, mask=True),
+                         H100_BF16_FLOPS)
     idx_t = torch.from_numpy(idx.astype(np.int32)).cuda()
     rows_ms = cuda_ms(torch, lambda: gr._launch(tokens, idx_t), iters=50)
     rows_wrapper = cuda_ms(torch, lambda: gr.gather_rows(tokens, idx),
@@ -968,7 +1005,7 @@ def phase_train_kernels(torch):
                   "rows_index_select_ms": rows_lib,
                   "shape": {"rows": GATHER_ROWS, "m": TRAIN_B,
                             "arrays": ["int32", "int32", "float32"],
-                            "row_bytes": row_bytes}},
+                            "row_bytes": TRAIN_T * 4}},
     }
     say({"phase": "train_kernel_timing",
          "library_note": "library_ms of both flash backward kernels is one "
@@ -1069,8 +1106,7 @@ def phase_image_kernels(torch):
 
     drop_t = {}
     for path, (x, seed, rate, d_err) in main_drop.items():
-        d_bound = bound(0, H100_F32_FLOPS,
-                        2 * x.numel() * x.element_size() + 4)
+        d_bound = cost_bound(fd.cost(x), H100_F32_FLOPS)
         drop_t[path] = {
             "max_abs_err": d_err,
             "ms": cuda_ms(torch, lambda: fd._launch(x, seed, rate),
@@ -1089,16 +1125,15 @@ def phase_image_kernels(torch):
     m_ms = cuda_ms(torch, lambda: md._launch(xm, mean, rdisp), iters=50)
     m_plain = cuda_ms(torch, lambda: md.mean_disp_normalize_plain(
         xm, mean, rdisp))
-    m_bytes = xm.numel() * xm.element_size() + xm.numel() * 4 \
-        + 2 * mean.numel() * 4
-    m_bound = bound(2 * xm.numel(), H100_F32_FLOPS, m_bytes)
+    m_bound = cost_bound(md.cost(xm, mean), H100_F32_FLOPS)
     timing = {
         fd.NAME: {**drop_t["main"], "path": "alexnet"},
         fd.NAME + "/synthdigits_conv": {**drop_t["drop3"],
                                         "path": "synthdigits_conv"},
         md.NAME: {"max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain,
                   "library_ms": None, "bound_ms": m_bound[0],
-                  "bound_by": m_bound[1], "bytes": m_bytes,
+                  "bound_by": m_bound[1],
+                  "bytes": md.cost(xm, mean)["bytes"],
                   "shape": {"N": IMG_B, "features": [227, 227, 3],
                             "dtype": "uint8"}},
     }
@@ -1465,11 +1500,12 @@ def _family_step_f32_check(torch, trainer):
                    and grad_rel[worst] <= STEP_GRAD_RTOL)}
 
 
-def _family_gather_timing(torch, loader):
-    """The batch gather at the family's shape: 100 rows of the 784-float
-    images, their int32 labels and the @mask from the 60k train class,
-    on the epoch's order as the loader launches it; its plain version;
-    no single PyTorch call gathers several arrays."""
+def _family_gather_timing(torch, loader, path="synthdigits_conv"):
+    """The batch gather at a card-resident loader's shape (the family's:
+    100 rows of the 784-float images, their int32 labels and the @mask
+    from the 60k train class), on the epoch's order as the loader
+    launches it; its plain version; no single PyTorch call gathers
+    several arrays."""
     from veles_tpu_torch.loader.base import TRAIN
     from veles_tpu_torch.ops.kernels import gather_rows as gr
     arrays = list(loader._dev_data[TRAIN].values())
@@ -1490,9 +1526,8 @@ def _family_gather_timing(torch, loader):
              "family's shape")
     row_bytes = [int(np.prod(a.shape[1:])) * a.element_size()
                  for a in arrays]
-    g_bound = bound(0, H100_F32_FLOPS, 2 * m * sum(row_bytes) + m * 4
-                    + m * 4)
-    return {"max_abs_err": 0.0, "variant": "batch", "path": "synthdigits_conv",
+    g_bound = cost_bound(gr.cost(arrays, m, mask=True), H100_F32_FLOPS)
+    return {"max_abs_err": 0.0, "variant": "batch", "path": path,
             "ms": cuda_ms(torch, lambda: gr.gather_batch(
                 arrays, outs, perm, 0, m, mask), iters=50),
             "plain_ms": cuda_ms(torch, lambda: gr.gather_batch_plain(
@@ -1860,10 +1895,12 @@ def phase_main_path(torch):
     from veles_tpu_torch.runtime.snapshotter import params_from_jax
     from veles_tpu_torch.units.workflow import new_state
 
+    from veles_tpu_torch.config import root
     wf = _workflow(torch, "bfloat16")
     flat = jax_layout_weights(wf, seed=0)
     wstate = new_state(params_from_jax(flat, wf, device=DEVICE), {}, {}, 0,
                        None)
+    root.common.observe.peak_hbm_gbps = PEAK_HBM_GBPS
     # the decode and prefill steps are captured when the engine is built
     engine = DecodeEngine(wf, wstate, slots=SLOTS, l_max=L_MAX,
                           page_size=PAGE, paged=True, paged_kernel=True,
@@ -1876,11 +1913,13 @@ def phase_main_path(torch):
     try:
         for kern in KERNELS:
             kern.launches.reset()
+        gauges = _GaugeSampler()
         t0 = time.perf_counter()
         greedy = np.asarray(_post(srv.port, "/generate", {
             "prompt": prompts.tolist(), "steps": NEW})["tokens"])
         t_greedy = time.perf_counter() - t0
         stats_greedy = engine.stats()
+        goodput = gauges.stop(stats_greedy)
         sampled = np.asarray(_post(srv.port, "/generate", {
             "prompt": prompts[:1].tolist(), "steps": NEW,
             "temperature": 0.8, "top_k": 50, "top_p": 0.95,
@@ -1969,10 +2008,64 @@ def phase_main_path(torch):
                     "captured": {**window_metrics,
                                  "idle_share": profile["device_idle_share"]},
                     "eager": _eager_serving(torch, wf, wstate, window)}})
+    say({"phase": "serving_goodput", **goodput})
+    if not (goodput["decode_bandwidth_bytes_per_sec"] > 0
+            and goodput["decode_mbu"] > 0
+            and goodput["headroom_slots_under_load"] == 0
+            and goodput["idle_to_zero_s"] is not None):
+        fail(f"the goodput gauges did not read the greedy request or did "
+             f"not fall to 0 at idle: {goodput}")
     say({"phase": "serving_capture_witness",
          **_serving_witness(torch, wf, wstate)})
     _serving_agreement(torch, wf, wstate, flat, prompts, greedy)
     return launches
+
+
+class _GaugeSampler:
+    """Samples the engine's goodput gauges from ``/metrics``'s registry
+    every 20 ms while a request runs; :meth:`stop` returns the last
+    nonzero bandwidth and MBU the gauges published under load, the least
+    headroom, and how long the bandwidth gauge took to fall to 0 once the
+    engine idled (None past 10 s)."""
+
+    def __init__(self):
+        import threading
+        from veles_tpu_torch.runtime.metrics import registry
+        reg = registry()
+        self.names = ("vt_decode_bandwidth_bytes_per_sec", "vt_decode_mbu",
+                      "vt_memory_headroom_slots",
+                      "vt_tokens_per_sec_per_chip")
+        self.gauges = [reg.get(n) for n in self.names]
+        self.samples = []
+        self.halt = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.halt.wait(0.02):
+            self.samples.append([g.value if g is not None else None
+                                 for g in self.gauges])
+
+    def stop(self, stats):
+        self.halt.set()
+        self.thread.join(10)
+        busy = [s for s in self.samples if s[0]]
+        last = busy[-1] if busy else [0.0, 0.0, None, 0.0]
+        t0 = time.perf_counter()
+        bw = self.gauges[0]
+        while bw.value != 0 and time.perf_counter() - t0 < 10:
+            time.sleep(0.05)
+        return {"decode_bandwidth_bytes_per_sec": last[0],
+                "decode_mbu": last[1],
+                "tokens_per_sec_per_chip": last[3],
+                "headroom_slots_under_load": min(
+                    (s[2] for s in self.samples if s[2] is not None),
+                    default=None),
+                "samples": len(self.samples), "busy_samples": len(busy),
+                "peak_hbm_gbps": PEAK_HBM_GBPS,
+                "idle_to_zero_s": time.perf_counter() - t0
+                if bw.value == 0 else None,
+                "stats_goodput": stats["goodput"]}
 
 
 def _micro_steps(st, warmups):
@@ -2765,7 +2858,21 @@ def phase_train(torch):
            "train_loss": train_loss, "valid": valid,
            "results": run["results"], "launches": launches,
            "variants": run["variants"], "step_cache": run["step_cache"]}
+    # goodput: the counted step against the analytic one
+    res = run["results"]
+    analytic = analytic_train_flops()
+    rec.update(train_step_flops=res["train_step_flops"],
+               train_mfu=res["train_mfu"], peak_tflops=res["peak_tflops"],
+               analytic_step_flops=analytic,
+               step_flops_rel_diff=res["train_step_flops"] / analytic - 1,
+               achieved_tflops_median_step=res["train_step_flops"] / med
+               / 1e12)
     say(rec)
+    if not abs(rec["step_flops_rel_diff"]) <= FLOPS_RTOL:
+        fail(f"train_step_flops {res['train_step_flops']:.6g} is more than "
+             f"{FLOPS_RTOL:.0%} off the analytic {analytic:.6g}")
+    if not (res["peak_tflops"] > 0 and res["train_mfu"] > 0):
+        fail(f"the LM epoch reported no MFU: {res}")
     path_kernels = (flash_attention, flash_bwd_dq, flash_bwd_dkv,
                     gather_rows)
     missing = [k.NAME for k in path_kernels if launches[k.NAME] < 1]
@@ -2829,6 +2936,19 @@ def phase_train(torch):
         fail(f"a Decision rollback recaptured or did not roll back: "
              f"{rollback}")
     return launches
+
+
+def analytic_train_flops():
+    """The full-width LM's train step by hand: every matrix product of
+    the forward (q, k, v, o projections and the FFN's two a block, the
+    head) at 2·M·N·K, times 3 with the backward's two products each,
+    plus the flash kernels' 4 + 6 + 8 = 18·B·H·D a scored causal pair a
+    layer."""
+    m = TRAIN_B * TRAIN_T
+    fwd = LAYERS * (4 * 2 * m * E * E + 2 * 2 * m * E * FFN) \
+        + 2 * m * E * VOCAB
+    pairs = TRAIN_T * (TRAIN_T + 1) // 2
+    return 3 * fwd + LAYERS * 18 * TRAIN_B * HEADS * (E // HEADS) * pairs
 
 
 def _witness_trainer(torch, dtype, capture, n_steps, lr=1e-3,
@@ -3580,6 +3700,85 @@ def phase_f16_cache(torch):
     return variants
 
 
+def _remote_sources(torch, wf, ws0, snap_dir):
+    """The lifecycle's remote weight sources: the seed-2 weights as a file
+    snapshot and as the best row of ``remote.sqlite``, and the seed-0
+    ones as a file snapshot served by a ``ThreadingHTTPServer`` on
+    127.0.0.1 (``out["server"]``, the caller shuts it down); the http
+    manifest's tensors checked bitwise against the served seed-0 ones."""
+    import functools
+    import http.server
+    import threading
+    from veles_tpu_torch.runtime.snapshotter import (Snapshotter,
+                                                     SnapshotterToDB,
+                                                     params_to_numpy)
+    _, ws2 = _bench_state(torch, None, 2)
+    payload = {"wstate": {"params": params_to_numpy(ws2["params"])},
+               "workflow_checksum": wf.checksum()}
+    del ws2
+    out = {"seed2_file": Snapshotter("remote", os.path.join(
+        snap_dir, "seed2"), compression=False).save("seed2", payload)}
+    db = os.path.join(snap_dir, "remote.sqlite")
+    SnapshotterToDB("remote", db, compression=False).save("seed2", payload,
+                                                          best=True)
+    out["sqlite"] = f"sqlite://{db}#best"
+    http_dir = os.path.join(snap_dir, "http")
+    man = Snapshotter("remote", http_dir, compression=False).save(
+        "seed0", {"wstate": {"params": params_to_numpy(ws0["params"])},
+                  "workflow_checksum": wf.checksum()})
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    handler = functools.partial(Quiet, directory=http_dir)
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    out["server"] = srv
+    out["http"] = (f"http://127.0.0.1:{srv.server_address[1]}/"
+                   f"{os.path.basename(man)}")
+    got = Snapshotter.load(out["http"])["wstate"]["params"]
+    want = params_to_numpy(ws0["params"])
+    if not all(np.array_equal(got[u][k], want[u][k]) for u in want
+               for k in want[u]):
+        fail("the http snapshot's tensors differ from the file's")
+    return out
+
+
+def _swap_under_load(eng, port, load, probe, source, ref):
+    """``POST /admin/reload`` of ``source`` while LIFE_THREADS clients
+    loop greedy requests: their failures, the captures around it, and the
+    probe's tokens after it against ``ref`` (a fresh engine's on the same
+    weights)."""
+    import threading
+    comp0 = eng.stats()["compile"]
+    codes, stop, lock = [], threading.Event(), threading.Lock()
+    threads = [threading.Thread(target=_hammer, args=(
+        port, load[i:i + 1], LIFE_NEW, stop, codes, lock))
+        for i in range(LIFE_THREADS)]
+    for t in threads:
+        t.start()
+    _wait(lambda: len(codes) >= LIFE_THREADS, 300, "load to flow")
+    code, swap = _http_json(port, "/admin/reload", {"path": source})
+    n_at_swap = len(codes)
+    if code == 200:
+        _wait(lambda: len(codes) >= n_at_swap + LIFE_THREADS, 300,
+              "load after the swap")
+    stop.set()
+    for t in threads:
+        t.join(900)
+    st = eng.stats()
+    got = eng.generate(probe, LIFE_NEW, timeout=900)
+    return {"source": source.split("://")[0], "status": code,
+            "requests": len(codes), "failed": sum(c != 200 for c in codes),
+            "in_engine_at_flip": swap.get("in_flight_at_flip"),
+            "stage_ms": swap.get("stage_ms"),
+            "flip_ms": swap.get("flip_ms"),
+            "compiles_during_swap": swap.get("compiles_during_swap"),
+            "captures": [comp0["captures"], st["compile"]["captures"]],
+            "recompiles": st["compile"]["recompiles"],
+            "tokens_equal_file_boot": bool(np.array_equal(got, ref))}
+
+
 def _hammer(port, prompts, new, stop, codes, lock):
     """POST /generate of each prompt in turn until ``stop``; each answer's
     status into ``codes``."""
@@ -3643,17 +3842,30 @@ def phase_lifecycle(torch, snap_dir):
         "seed1", {"wstate": {"params": params_to_numpy(ws1["params"])},
                   "workflow_checksum": wf.checksum()})
     snap_s = time.perf_counter() - t0
+    # the remote sources: the seed-2 weights as a file snapshot and as the
+    # best row of a sqlite database, the seed-0 ones as a file snapshot a
+    # local http server serves
+    remote = _remote_sources(torch, wf, ws0, snap_dir)
     _reset_counts()
-    # the reference: a fresh engine on the seed-1 weights, built and run
-    # before the served one exists
+    # the references: fresh engines on the seed-1 weights and booted from
+    # the seed-2 file snapshot, built and run before the served one exists
     fresh = _serve_engine(wf, ws1).start()
     try:
         ref1 = fresh.generate(probe, LIFE_NEW, timeout=900)
-        fresh_stats = fresh.stats()
+        fresh_stats = [fresh.stats()]
     finally:
         fresh.stop()
     del fresh
     del ws1
+    from veles_tpu_torch.runtime.snapshotter import wstate_from_snapshot
+    fresh = _serve_engine(wf, wstate_from_snapshot(remote["seed2_file"], wf,
+                                                   device=DEVICE)).start()
+    try:
+        ref2 = fresh.generate(probe, LIFE_NEW, timeout=900)
+        fresh_stats.append(fresh.stats())
+    finally:
+        fresh.stop()
+    del fresh
     eng = _serve_engine(wf, ws0)
     srv = RestfulServer(wf.make_predict_step(), ws0, PREDICT_B,
                         (PREDICT_T,), port=0, workflow=wf, engine=eng,
@@ -3744,6 +3956,12 @@ def phase_lifecycle(torch, snap_dir):
             "aborted": aborted.get("aborted"), "swaps": eng.swaps,
             "tokens_unchanged": bool(np.array_equal(after_abort,
                                                     ref1[:1]))}
+        # hot swaps from the remote sources under the same load: the
+        # seed-2 sqlite row, then the seed-0 manifest over http
+        rec["remote_swaps"] = [
+            _swap_under_load(eng, port, load, probe, source, ref)
+            for source, ref in ((remote["sqlite"], ref2),
+                                (remote["http"], ref0))]
         # the memory ledger against the allocator
         code, mem = _http_json(port, "/memory.json")
         rec["memory"] = {k: mem.get(k) for k in (
@@ -3859,8 +4077,10 @@ def phase_lifecycle(torch, snap_dir):
     finally:
         srv.stop()
         eng.stop()
+        remote["server"].shutdown()
+        remote["server"].server_close()
     variants = _paged_variants()
-    want = LAYERS * (_micro_steps(fresh_stats, True)
+    want = LAYERS * (sum(_micro_steps(st, True) for st in fresh_stats)
                      + _micro_steps(final, True))
     rec["launches"] = variants
     rec["launches_expected"] = {"f32_pool": want}
@@ -3886,6 +4106,12 @@ def phase_lifecycle(torch, snap_dir):
         ("stage_abort", sa["stage_status"] == 200
          and sa["abort_status"] == 200 and sa["aborted"]
          and sa["swaps"] == 1 and sa["tokens_unchanged"]),
+        ("remote_swaps", all(
+            r["status"] == 200 and r["failed"] == 0 and r["requests"] > 0
+            and r["captures"][0] == r["captures"][1]
+            and r["recompiles"] == 0 and r["compiles_during_swap"] == 0
+            and r["tokens_equal_file_boot"]
+            for r in rec["remote_swaps"])),
         ("memory", mem["status"] == 200 and mem["device"]
          and mem["components"].get("engine.kv_cache", 0) > 0
          and mem["unattributed_bytes"] is not None),
@@ -3912,7 +4138,315 @@ def phase_lifecycle(torch, snap_dir):
     return variants
 
 
+# -- the goodput gauges' denominator -------------------------------------------
+
+def phase_device_benchmark(torch):
+    """``runtime.benchmark.benchmark_device()`` once on the card (GEMM
+    chains of 1024-4096 in float32 and bfloat16, CUDA events), its DB
+    persisted under ``root.common.cache_dir`` so every trainer of the run
+    (the CLI subprocesses too) reads the peak its MFU divides by."""
+    from veles_tpu_torch.runtime.benchmark import (benchmark_device,
+                                                   resolve_peak_tflops)
+    info = benchmark_device(refresh=True)
+    peak = resolve_peak_tflops()
+    say({"phase": "device_benchmark", **info, "peak_tflops": peak})
+    if not peak > 0:
+        fail(f"the GEMM calibration measured no rate: {info}")
+    return peak
+
+
+# -- the curriculum path -------------------------------------------------------
+
+def _lm64_trainer(torch, n_train=CUR_TRAIN, n_valid=CUR_VALID, epochs=1):
+    """configs/induction_lm64.json's workflow and loader at the
+    curriculum's sizes, through ``StandardWorkflow.make_trainer``."""
+    from veles_tpu_torch.__main__ import make_loader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    cfg = _config(CURRICULUM_CONFIG)
+    loader_cfg = dict(cfg["loader"])
+    name = loader_cfg.pop("name")
+    loader_cfg.update(n_train=n_train, n_valid=n_valid)
+    loader = make_loader(name, device=DEVICE, **loader_cfg)
+    sw = StandardWorkflow(cfg["workflow"])
+    return sw.make_trainer(loader, Decision(max_epochs=epochs),
+                           device=DEVICE)
+
+
+def phase_curriculum_kernels(torch):
+    """The curriculum's kernels: one epoch of its LM64 trainer (captured)
+    with the counts set to 0 before it, each f32 SIMT flash kernel at its
+    shape (B=100, T=64, H=4, D=16, causal) against its plain version
+    (forward 1e-4, backward BWD_UNITS) and timed beside the plain version,
+    SDPA in float32 and the bound of its ``cost()``; the batch gather at
+    the path's shape."""
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops.kernels import KERNELS
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    from veles_tpu_torch.ops.kernels import gather_rows as gr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = _lm64_trainer(torch)
+    for kern in KERNELS:
+        kern.launches.reset()
+    trainer.initialize(seed=0)
+    results = trainer.run()
+    launches = {k.NAME: k.launches.count for k in KERNELS}
+    variants = {k.NAME: k.launches.by_variant() for k in KERNELS
+                if k.launches.by_variant()}
+    st = trainer.step_cache.stats()
+    batches = CUR_TRAIN // CUR_B + CUR_VALID // CUR_B
+    run = {"phase": "curriculum_path_epoch", "results": results,
+           "launches": launches, "variants": variants, "step_cache": st}
+    say(run)
+    flash = (fa, dq, dkv)
+    problems = [k.NAME for k in flash
+                if not launches[k.NAME]
+                or variants.get(k.NAME) != {"simt": launches[k.NAME]}]
+    if problems or variants.get(gr.NAME) != {"batch": batches} \
+            or not (st["train"]["captured"] and st["eval"]["captured"]):
+        fail(f"the curriculum's epoch did not run its f32 kernels, one "
+             f"batch gather a batch and captured steps: {run}")
+    gen = torch.Generator().manual_seed(11)
+    f32 = torch.float32
+    (q, k, v), ferr, lerr, finite, ran = _flash_case(
+        torch, gen, CUR_B, CUR_T, CUR_T, CUR_H, CUR_H, CUR_D, f32, True,
+        None)
+    args, kw, res = _bwd_case(torch, gen, CUR_B, CUR_T, CUR_T, CUR_H,
+                              CUR_H, CUR_D, f32, True, None)
+    ok = (ferr <= FLASH_TOL["float32"] and lerr <= LSE_TOL and finite
+          and ran == {"simt": 1}
+          and all(res[g]["units"] <= BWD_UNITS["float32"]
+                  and res[g]["finite"] for g in ("dq", "dk", "dv")))
+    check = {"phase": "curriculum_kernels_check", "max_abs_err": ferr,
+             "tol": FLASH_TOL["float32"], "lse_err": lerr,
+             "backward": res, "ok": ok}
+    say(check)
+    if not ok:
+        fail(f"f32 flash kernels disagree with their plain versions at the "
+             f"curriculum's shape: {check}")
+    qa, ka, va, do, lse, delta = args
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (qa, ka, va))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bwd_lib = cuda_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    shape = {"B": CUR_B, "T": CUR_T, "H": CUR_H, "D": CUR_D,
+             "dtype": "float32", "causal": True}
+    timing = {}
+    for mod, fn, plain, lib, err in (
+            (fa, lambda: fa.flash_attention(q, k, v, True),
+             lambda: fa.flash_attention_plain(q, k, v, causal=True),
+             lambda: F.scaled_dot_product_attention(
+                 *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True),
+             ferr),
+            (dq, lambda: dq.flash_bwd_dq(*args, **kw),
+             lambda: dq.flash_bwd_dq_plain(*args, **kw), None,
+             res["dq"]["max_abs_err"]),
+            (dkv, lambda: dkv.flash_bwd_dkv(*args, **kw),
+             lambda: dkv.flash_bwd_dkv_plain(*args, **kw), None,
+             max(res["dk"]["max_abs_err"], res["dv"]["max_abs_err"]))):
+        ms = cuda_ms(torch, fn, iters=100)
+        c = mod.cost(q, k, v, True)
+        b_ms, b_by = cost_bound(c, H100_F32_FLOPS)
+        timing[mod.NAME + "/induction_lm64"] = {
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": cuda_ms(torch, plain, iters=20),
+            "library_ms": cuda_ms(torch, lib, iters=100) if lib
+            else bwd_lib,
+            "bound_ms": b_ms, "bound_by": b_by, "variant": "simt",
+            "source": mod.SOURCES["simt"], "path": "induction_lm64",
+            "tflops": c["flops"] / ms / 1e9, "bound_share": b_ms / ms,
+            "shape": shape}
+    timing[gr.NAME + "/induction_lm64"] = _family_gather_timing(
+        torch, trainer.loader, "induction_lm64")
+    say({"phase": "curriculum_kernel_timing",
+         "library_note": "library_ms of both flash backward kernels is one "
+                         "SDPA backward (dQ, dK and dV together), float32",
+         **timing})
+    counts = {name + "/induction_lm64": launches[name]
+              for name in (fa.NAME, dq.NAME, dkv.NAME, gr.NAME)}
+    del trainer
+    torch.cuda.empty_cache()
+    return {"timing": timing, "launches": counts}
+
+
+def phase_curriculum(torch, out_dir):
+    """``python -m veles_tpu_torch configs/induction_lm64.json
+    --curriculum configs/induction_lm64_curriculum.json`` on the card, the
+    spec as published: each phase's best value, best epoch, epochs, wall
+    and median train-phase step.  Fails when a phase fails (the CLI exits
+    non-zero), when the summary is not whole (a finite best value, every
+    phase run to its budget, the best snapshot on disk) or when a phase's
+    median step is not finite.  The bar is reported (``bar_met``), not
+    required: the JAX package's own CLI stalls near chance on this spec
+    and seed too (PERF.md §6; ROADMAP.md's reference caveat), so the bar
+    measures the recipe, not the port."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    res_path = os.path.join(out_dir, "summary.json")
+    # a storage setting, not the spec: each phase snapshots every epoch
+    # (~3,200 in all), and the newest 2 are kept
+    cmd = [sys.executable, "-m", "veles_tpu_torch", CURRICULUM_CONFIG,
+           "root.common.snapshot_keep=2",
+           "--curriculum", CURRICULUM_SPEC, "--curriculum-out", out_dir,
+           "--result-file", res_path, "--device", DEVICE]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                           timeout=CURRICULUM_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"the curriculum exceeded {CURRICULUM_TIMEOUT} s")
+    took = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the curriculum exited {r.returncode}: {r.stderr[-3000:]}")
+    with open(res_path) as f:
+        summary = json.load(f)
+    for ph in summary["phases"]:
+        say({"phase": "curriculum_phase", **ph,
+             "step_ms_median": (ph.get("train_step_s_median") or 0) * 1e3})
+    rec = {"phase": "curriculum", "config": CURRICULUM_CONFIG,
+           "spec": CURRICULUM_SPEC, "best_value": summary["value"],
+           "best_phase": summary["best_phase"],
+           "phases_run": summary["phases_run"], "wall_s": took,
+           "bar": CURRICULUM_BAR,
+           "trajectory": [ph.get("best_value") for ph in summary["phases"]],
+           "jax_trajectory": JAX_TRAJECTORY,
+           "phase_wall_s": [ph["wall_s"] for ph in summary["phases"]],
+           "phase_train_s": [ph.get("elapsed_s")
+                             for ph in summary["phases"]]}
+    best = summary["value"]
+    rec["bar_met"] = best is not None and best <= CURRICULUM_BAR
+    say(rec)
+    budgets = [int(o.split("=")[1]) for o in _curriculum_budgets()]
+    whole = (best is not None and np.isfinite(best)
+             and summary["phases_run"] >= 1
+             and [ph["epochs"] for ph in summary["phases"]]
+             == budgets[:summary["phases_run"]]
+             and (rec["bar_met"] or summary["phases_run"] == len(budgets))
+             and summary["best_snapshot"]
+             and os.path.exists(summary["best_snapshot"])
+             and all(np.isfinite(ph.get("train_step_s_median") or np.nan)
+                     for ph in summary["phases"]))
+    if not whole:
+        fail(f"the curriculum's summary is not whole: {summary}")
+    return summary["best_snapshot"]
+
+
+def _curriculum_budgets():
+    """Each phase's ``workflow.max_epochs=`` override in the published
+    spec."""
+    from veles_tpu_torch.runtime.curriculum import expand_phases
+    return [o for ph in expand_phases(_config(CURRICULUM_SPEC))
+            for o in ph["overrides"] if o.startswith("workflow.max_epochs=")]
+
+
+def _seeded_lm64_snapshot(torch, out_dir):
+    """A snapshot of the LM64 trainer at its seed-0 initial weights (the
+    trainer's payload, which the CLI's restore reads)."""
+    from veles_tpu_torch.runtime.snapshotter import Snapshotter
+    trainer = _lm64_trainer(torch, n_train=CUR_B, n_valid=CUR_B)
+    trainer.initialize(seed=0)
+    return Snapshotter("InductionLM64", out_dir).save(
+        "seed0", trainer._payload(), best=True)
+
+
+def phase_generate_cli(torch, snapshot, out_dir):
+    """``--generate 64`` over 8 prompts of 64 ids through the CLI on the
+    card, greedy and ``--beams 4``, token for token an in-process
+    ``generate()`` / ``generate_beam()`` on the same snapshot; the CLI's
+    wall and the in-process decode's tokens/s."""
+    from veles_tpu_torch.runtime.generate import generate, generate_beam
+    here = os.path.dirname(os.path.abspath(__file__))
+    seeded = snapshot is None
+    if seeded:
+        snapshot = _seeded_lm64_snapshot(torch, out_dir)
+    vocab = _config(CURRICULUM_CONFIG)["loader"]["vocab"]
+    prompt = np.random.default_rng(13).integers(
+        0, vocab, (GEN_ROWS, GEN_PROMPT)).astype(np.int32)
+    prompt_file = os.path.join(out_dir, "prompt.npy")
+    np.save(prompt_file, prompt)
+    cli = {}
+    for mode, extra in (("greedy", []), ("beams", ["--beams",
+                                                  str(GEN_BEAMS)])):
+        res_path = os.path.join(out_dir, f"generate_{mode}.json")
+        cmd = [sys.executable, "-m", "veles_tpu_torch", CURRICULUM_CONFIG,
+               "--snapshot", snapshot, "--generate", str(GEN_NEW),
+               "--prompt", "@" + prompt_file, "--result-file", res_path,
+               "--device", DEVICE, *extra]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"the {mode} --generate CLI exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        with open(res_path) as f:
+            cli[mode] = {"out": json.load(f), "wall_s": wall}
+    trainer = _lm64_trainer(torch, n_train=CUR_B, n_valid=CUR_B)
+    trainer.initialize(seed=0)
+    trainer.restore(snapshot)
+    wf, ws = trainer.workflow, trainer.wstate
+    generate(wf, ws, prompt, 2)                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(wf, ws, prompt, GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    btoks, bscores = generate_beam(wf, ws, prompt, GEN_NEW, beams=GEN_BEAMS)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    greedy_eq = cli["greedy"]["out"]["tokens"] == toks.cpu().tolist()
+    beam_eq = cli["beams"]["out"]["tokens"] == btoks.cpu().tolist()
+    score_err = float(np.abs(np.asarray(cli["beams"]["out"]["scores"])
+                             - bscores.cpu().numpy()).max())
+    rec = {"phase": "generate_cli", "snapshot": "curriculum best"
+           if not seeded else "seed-0 init", "rows": GEN_ROWS,
+           "prompt": GEN_PROMPT, "new": GEN_NEW, "beams": GEN_BEAMS,
+           "cli_wall_s": {m: c["wall_s"] for m, c in cli.items()},
+           "generate_s": gen_s,
+           "generate_tokens_per_s": GEN_ROWS * GEN_NEW / gen_s,
+           "beam_s": beam_s, "beam_ms_per_token": beam_s / GEN_NEW * 1e3,
+           "greedy_equal": greedy_eq, "beams_equal": beam_eq,
+           "beam_score_max_abs_diff": score_err,
+           "ok": greedy_eq and beam_eq}
+    say(rec)
+    if not rec["ok"]:
+        fail(f"the CLI's --generate tokens differ from the in-process "
+             f"decode: {rec}")
+    return rec
+
+
+class _DigitsSynthesis:
+    """The mnist loader's 60k + 10k SynthDigits rendered into
+    ``$VELES_TORCH_CACHE`` by a background process on the host (no card);
+    :meth:`wait` joins it and reports its wall, or that the cache was
+    already warm."""
+
+    def __init__(self):
+        self.warm = _digits_cache_warm()
+        self.proc = None if self.warm else subprocess.Popen(
+            [sys.executable, "-c",
+             "import time; t = time.perf_counter(); "
+             "from veles_tpu_torch.models.mnist import synthesize_mnist; "
+             "synthesize_mnist(); print(time.perf_counter() - t)"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def wait(self):
+        if self.proc is None:
+            return {"cache_warm": True}
+        out, err = self.proc.communicate(timeout=600)
+        if self.proc.returncode != 0:
+            fail(f"the SynthDigits synthesis exited "
+                 f"{self.proc.returncode}: {err[-2000:]}")
+        return {"cache_warm": False, "synthesis_s": float(out.split()[-1]),
+                "cache_warm_after": _digits_cache_warm()}
+
+
 def main():
+    here = os.path.dirname(os.path.abspath(__file__))
     try:
         import torch
     except ImportError:
@@ -3928,7 +4462,11 @@ def main():
     t_start = time.perf_counter()
     seconds = {}
     os.environ.setdefault("VELES_TORCH_CACHE", os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), ".veles_tpu", "cache"))
+        here, ".veles_tpu", "cache"))
+    # the GEMM calibration DB the MFU reads, where the CLI runs (cwd here)
+    # find it too
+    from veles_tpu_torch.config import root
+    root.common.cache_dir = os.path.join(here, ".veles_tpu")
 
     def timed(phase, fn, *args):
         t0 = time.perf_counter()
@@ -3941,6 +4479,7 @@ def main():
     timing = timed("kernels", phase_kernels, torch)
     timing.update(timed("train_kernels", phase_train_kernels, torch))
     timing.update(timed("image_kernels", phase_image_kernels, torch))
+    timed("device_benchmark", phase_device_benchmark, torch)
     serve_launches = timed("serving", phase_main_path, torch)
     bf16_launches = timed("serving_bf16_cache", phase_bf16_cache, torch)
     f16_launches = timed("serving_f16_cache", phase_f16_cache, torch)
@@ -3949,6 +4488,18 @@ def main():
         timed("serving_lifecycle", phase_lifecycle, torch, snap_dir)
     train_launches = timed("train", phase_train, torch)
     image_launches = timed("image", phase_image, torch)
+    cur = timed("curriculum_kernels", phase_curriculum_kernels, torch)
+    timing.update(cur["timing"])
+    # the image family's 70k SynthDigits render on the host (numpy, one
+    # core) while the curriculum's phases run, into the cache the family
+    # phase and its CLI run then read
+    synth = _DigitsSynthesis()
+    try:
+        with tempfile.TemporaryDirectory(prefix="vt_curriculum_") as cur_dir:
+            best = timed("curriculum", phase_curriculum, torch, cur_dir)
+            timed("generate_cli", phase_generate_cli, torch, best, cur_dir)
+    finally:
+        say({"phase": "digits_synthesis", **synth.wait()})
     family = timed("image_family", phase_image_family, torch)
     timing.update(family["timing"])
     timed("image_quality", phase_image_quality, torch)
@@ -3972,6 +4523,9 @@ def main():
     # card) and the batch gather over its epoch and eval
     for kname in ("fused_dropout", "gather_rows"):
         launches[kname + "/synthdigits_conv"] = family["launches"][kname]
+    # this slice's path, the curriculum: the f32 flash kernels and the
+    # batch gather over one captured epoch of its LM64 trainer
+    launches.update(cur["launches"])
     line = []
     for kern in KERNELS:
         names = [kern.NAME] + [k for k in timing
@@ -3988,8 +4542,10 @@ def main():
                          "bound_ms": t["bound_ms"],
                          "bound_by": t["bound_by"],
                          "library_ms": t["library_ms"]})
+    import threading
     say({"phase": "done", "seconds": time.perf_counter() - t_start,
-         "by_phase": seconds})
+         "by_phase": seconds,
+         "threads_left": sorted(t.name for t in threading.enumerate())})
     say({"kernels": line})
     say(smi)
     say({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3998,4 +4554,10 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # out without the interpreter's teardown: a daemon thread still inside
+    # a torch call at finalization aborted a run on the H100 ("terminate
+    # called without an active exception") after every check had passed
+    os._exit(code)

@@ -84,6 +84,9 @@ FLASH_CASES = {
     "bf16_window_below_tile": (2, 400, 400, 8, 8, 64, bf16, True, 50),
     "bf16_rows_without_keys": (2, 300, 100, 8, 8, 64, bf16, True, 64),
     "bf16_D16_T2048": (2, 2048, 2048, 4, 4, 16, bf16, True, None),
+    # configs/induction_lm64.json's attention as the curriculum trains it
+    "D16_f32_curriculum": (100, 64, 64, 4, 4, 16, torch.float32, True,
+                           None),
 }
 
 
@@ -363,7 +366,7 @@ BWD_CASES = {
         "bf16_T1", "bf16_T63", "bf16_T65", "bf16_T129",
         "bf16_cross_Tk_below_tile", "bf16_gqa2", "bf16_gqa4",
         "bf16_window_below_tile", "bf16_rows_without_keys",
-        "bf16_D16_T2048")},
+        "bf16_D16_T2048", "D16_f32_curriculum")},
 }
 
 
@@ -684,6 +687,24 @@ def test_captured_train_step_equals_eager_bitwise(card, dtype, force_host):
     assert (captured.wstate["key"] == eager.wstate["key"]).all()
     assert _state_equal(captured.wstate, eager.wstate)
     assert captured.decision.history == eager.decision.history
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", None], ids=["bf16", "f32"])
+def test_train_step_flops_the_same_on_the_card_as_on_the_cpu(card, dtype):
+    """The counted cost of one LM train step (``StepCache.entry_cost``:
+    products by their formulas, the kernels by their ``cost()``) is the
+    same whether the step runs the kernels on the card (counted in the
+    capture's first warm-up) or their plain versions on the CPU (counted
+    at the eager step's first execution)."""
+    runs = (_lm_trainer(card, True, dtype),
+            _lm_trainer(torch.device("cpu"), True, dtype))
+    for tr in runs:
+        tr.run()
+    a, b = [tr.step_cache.entry_cost("train", tr._train_key) for tr in runs]
+    assert a["flops"] > 0 and a["flops"] == b["flops"]
+    assert a["bytes_accessed"] == b["bytes_accessed"]
+    assert a["kernels"] == b["kernels"]
+    assert set(a["kernels"]) == {fa.NAME, dq.NAME, dkv.NAME}
 
 
 def test_replays_count_their_launches(card):

@@ -1,30 +1,45 @@
-"""Command line of the port: train a config's workflow, or serve it from a
-snapshot (counterpart of veles_tpu/__main__.py's training path :262-303
-and ``--serve``).
+"""Command line of the port: train a config's workflow, decode with it,
+serve it from a snapshot, or run a snapshot-phased curriculum
+(counterpart of veles_tpu/__main__.py's training path :262-303,
+``--generate`` :1232-1303, ``--serve`` and ``--curriculum`` :943-970).
 
     python -m veles_tpu_torch CONFIG [root.path=value ...] \\
         [--random-seed S] [--max-epochs N] [--snapshot-dir D] \\
-        [--snapshot PATH] [--device cpu]
-    python -m veles_tpu_torch CONFIG --snapshot SNAP --serve PORT \\
+        [--snapshot SRC] [--result-file F] [--device cpu]
+    python -m veles_tpu_torch CONFIG --snapshot SRC --generate N \\
+        --prompt "1,2,3;4,5,6" [--temperature T [--top-k K] [--top-p P]] \\
+        [--beams W [--length-penalty A]] [--eos-id E] [--result-file F]
+    python -m veles_tpu_torch CONFIG --curriculum SPEC.json \\
+        [--curriculum-out DIR] [--snapshot SRC] [--random-seed S] \\
+        [--result-file F] [--device cpu]
+    python -m veles_tpu_torch CONFIG --snapshot SRC --serve PORT \\
         [--model-dir DIR [--watch]] [--status-port P] [--trace-out F] \\
         [--device cpu] [root.common.serve.slots=4 ...]
 
 ``CONFIG`` is a ``configs/*.json`` file: its ``workflow`` section builds
 the model and optimizer, its ``loader`` section names the loader and its
-arguments.  Without ``--serve`` the run trains (``--snapshot`` resumes
-from a snapshot of either package) and prints the results dict as one
-JSON line.  With ``--serve`` it answers ``POST /predict`` and ``POST
-/generate`` (through the continuous-batching engine) from the snapshot's
-weights, with the deploy control plane attached (``runtime/deploy.py``:
-``GET /models``, ``POST /admin/reload`` hot-swaps a snapshot,
-``/admin/stage`` / ``/admin/commit`` / ``/admin/abort``, ``POST
-/admin/drain``), until a drain (SIGTERM or ``/admin/drain``) or SIGINT.
-``--model-dir`` names the snapshot directory the registry and the
-watcher read, ``--watch`` swaps in each newer snapshot there.
-``--status-port`` serves the live status page (training or serving),
-``--trace-out`` writes the span ring's timelines as a Chrome trace on
-exit.  Everything runs on the CUDA card unless ``--device cpu`` is
-given.
+arguments.  A snapshot source ``SRC`` is a manifest file of either
+package, ``sqlite://DB[#id|#best|#current]`` or an ``http(s)://``
+manifest URL.  Without a mode flag the run trains (``--snapshot``
+resumes) and prints the results dict as one JSON line (and writes it to
+``--result-file``).  ``--generate N`` decodes N tokens after each prompt
+row with the (restored) model instead: greedy, sampled from
+``root.common.random_seed``, or a beam search, printing
+``{"prompt_len", "tokens"[, "scores"]}``.  ``--curriculum`` runs the
+config as chained training phases, each a subprocess of this CLI that
+restores the best snapshot so far (``runtime/curriculum.py``), and
+prints the summary.  With ``--serve`` it answers ``POST /predict`` and
+``POST /generate`` (through the continuous-batching engine) from the
+snapshot's weights, with the deploy control plane attached
+(``runtime/deploy.py``: ``GET /models``, ``POST /admin/reload``
+hot-swaps a snapshot, ``/admin/stage`` / ``/admin/commit`` /
+``/admin/abort``, ``POST /admin/drain``), until a drain (SIGTERM or
+``/admin/drain``) or SIGINT.  ``--model-dir`` names the snapshot
+directory the registry and the watcher read, ``--watch`` swaps in each
+newer snapshot there.  ``--status-port`` serves the live status page
+(training or serving), ``--trace-out`` writes the span ring's timelines
+as a Chrome trace on exit.  Everything runs on the CUDA card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -85,8 +100,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("overrides", nargs="*",
                    help="root.path=value config overrides")
     p.add_argument("--snapshot",
-                   help="snapshot manifest (.json): weights to serve with "
-                        "--serve, else the training run to resume")
+                   help="snapshot source (a manifest .json file, "
+                        "sqlite://db#id, or an http(s):// manifest URL): "
+                        "weights to serve with --serve or to decode with "
+                        "--generate, else the training run to resume")
+    p.add_argument("--result-file", help="write the results JSON here")
+    p.add_argument("--curriculum", metavar="SPEC.json",
+                   help="snapshot-phased curriculum: run the config as "
+                        "chained training phases per the spec (each "
+                        "phase restores the best snapshot so far; see "
+                        "runtime/curriculum.py)")
+    p.add_argument("--curriculum-out", default="curriculum_out",
+                   help="directory for per-phase snapshots/results")
+    p.add_argument("--generate", type=int, metavar="N", default=None,
+                   help="decode N tokens after --prompt with the "
+                        "(restored) sequence model instead of training; "
+                        "prints the token rows as JSON")
+    p.add_argument("--prompt", default=None,
+                   help="comma-separated token ids for --generate "
+                        "(';' separates batch rows), or @file.npy")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="sampling temperature for --generate "
+                        "(0 = greedy)")
+    p.add_argument("--top-k", type=int, default=None,
+                   help="restrict --generate sampling to the k highest "
+                        "logits (needs --temperature > 0)")
+    p.add_argument("--top-p", type=float, default=None,
+                   help="nucleus sampling for --generate: smallest "
+                        "token set with cumulative probability >= p "
+                        "(needs --temperature > 0)")
+    p.add_argument("--beams", type=int, default=1,
+                   help="beam-search width for --generate (>1 returns "
+                        "the highest-total-log-prob continuation; "
+                        "exclusive with sampling flags)")
+    p.add_argument("--eos-id", type=int, default=None,
+                   help="end-of-sequence token: greedy/sampling decode "
+                        "stops a row that emits it (padding the rest); "
+                        "with --beams, finished beams freeze and pad")
+    p.add_argument("--length-penalty", type=float, default=0.0,
+                   help="beam score normalization exponent over the "
+                        "generated length (GNMT convention; 0 = raw "
+                        "log-prob sum)")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve over HTTP instead of training (0 = any "
                         "free port); needs --snapshot")
@@ -127,6 +181,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     setup_logging()
+    if args.curriculum and (args.generate is not None
+                            or args.serve is not None):
+        raise SystemExit("--curriculum is a training meta-mode; "
+                         "--generate/--serve apply to single runs (run "
+                         "them on the final best snapshot)")
+    if args.curriculum:
+        # dispatched before the config is read: each phase subprocess
+        # loads it itself
+        return _curriculum(args)
     with open(args.config) as f:
         root.update(json.load(f))
     apply_overrides(root, [o[len("root."):] if o.startswith("root.") else o
@@ -154,6 +217,8 @@ def main(argv=None) -> int:
             if not args.snapshot:
                 raise SystemExit("--serve needs --snapshot (the weights)")
             return _serve(args, device, status, status_server)
+        if args.generate is not None:
+            _check_generate_args(args)
         return _train(args, device, status)
     finally:
         if status_server is not None:
@@ -173,14 +238,117 @@ def _train(args, device, status=None) -> int:
         fail_iterations=wf_cfg.get("fail_iterations", 50))
     snap = None
     if args.snapshot_dir:
-        snap = Snapshotter(wf_cfg.get("name", "workflow"), args.snapshot_dir)
+        # stored, not deflated: float weights barely deflate, and a run
+        # that snapshots every epoch pays the deflate each time (both
+        # packages read either)
+        snap = Snapshotter(wf_cfg.get("name", "workflow"), args.snapshot_dir,
+                           compression=False)
     trainer = sw.make_trainer(loader, decision, snap, device=device,
                               status=status)
     trainer.initialize()
     if args.snapshot:
         trainer.restore(args.snapshot)
+    if args.generate is not None:
+        return _generate(args, trainer)
     results = trainer.run()
     print(json.dumps(results), flush=True)
+    _write_result(args, results)
+    return 0
+
+
+def _write_result(args, out) -> None:
+    if args.result_file:
+        with open(args.result_file, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+def _curriculum(args) -> int:
+    """``--curriculum``: the phases as subprocesses of this CLI, the
+    device and the seed forwarded (veles_tpu/__main__.py:943-970)."""
+    from .runtime.curriculum import CurriculumRunner
+    with open(args.curriculum) as f:
+        spec = json.load(f)
+    extra = list(args.overrides)
+    if args.device:
+        extra += ["--device", args.device]
+    summary = CurriculumRunner(args.config, spec, args.curriculum_out,
+                               extra_argv=extra,
+                               initial_snapshot=args.snapshot,
+                               default_seed=args.random_seed).run()
+    print(json.dumps({k: v for k, v in summary.items() if k != "phases"}),
+          flush=True)
+    _write_result(args, summary)
+    return 0
+
+
+def _check_generate_args(args) -> None:
+    """The JAX CLI's checks and messages (veles_tpu/__main__.py:
+    1238-1276)."""
+    if not args.prompt:
+        raise SystemExit("--generate needs --prompt "
+                         "(token ids, or @file.npy)")
+    if (args.top_k is not None or args.top_p is not None) \
+            and args.temperature <= 0:
+        raise SystemExit(
+            "--top-k/--top-p filter SAMPLING and need "
+            "--temperature > 0 (temperature 0 is greedy decoding, "
+            "which would silently ignore them)")
+    if args.top_k is not None and args.top_k < 1:
+        raise SystemExit(f"--top-k must be >= 1, got {args.top_k}")
+    if args.top_p is not None and not 0.0 < args.top_p <= 1.0:
+        raise SystemExit(f"--top-p must be in (0, 1], got "
+                         f"{args.top_p}")
+    if args.beams < 1:
+        raise SystemExit(f"--beams must be >= 1, got {args.beams} "
+                         "(a value < 1 would silently fall back to "
+                         "greedy/sampling decode)")
+    if args.beams <= 1 and args.length_penalty:
+        raise SystemExit(
+            "--length-penalty shapes BEAM scores and needs "
+            "--beams > 1 (greedy/sampling decode would silently "
+            "ignore it)")
+    if args.beams > 1 and args.temperature > 0:
+        raise SystemExit(
+            "--beams is deterministic search; drop "
+            "--temperature/--top-k/--top-p or use beams=1")
+
+
+def _parse_prompt(text: str) -> np.ndarray:
+    if text.startswith("@"):
+        return np.atleast_2d(np.load(text[1:])).astype(np.int32)
+    rows = [[int(t) for t in row.split(",") if t.strip()]
+            for row in text.split(";") if row.strip()]
+    if not rows or len({len(r) for r in rows}) != 1:
+        raise SystemExit(
+            "--prompt rows must be non-empty and equal length "
+            f"(got lengths {[len(r) for r in rows]})")
+    return np.asarray(rows, np.int32)
+
+
+def _generate(args, trainer) -> int:
+    """``--generate``: decode with the trainer's (restored) weights; the
+    output JSON of veles_tpu/__main__.py:1278-1303.  Sampling seeds from
+    ``root.common.random_seed``."""
+    from .runtime.generate import generate, generate_beam
+    prompt = _parse_prompt(args.prompt)
+    if args.beams > 1:
+        toks, scores = generate_beam(
+            trainer.workflow, trainer.wstate, prompt, args.generate,
+            beams=args.beams, eos_id=args.eos_id,
+            length_penalty=args.length_penalty)
+        out = {"prompt_len": int(prompt.shape[1]),
+               "tokens": np.asarray(toks.cpu()).tolist(),
+               "scores": np.asarray(scores.cpu()).tolist()}
+    else:
+        toks = generate(trainer.workflow, trainer.wstate, prompt,
+                        args.generate, temperature=args.temperature,
+                        seed=int(root.common.get("random_seed", 0)),
+                        top_k=args.top_k, top_p=args.top_p,
+                        eos_id=args.eos_id)
+        out = {"prompt_len": int(prompt.shape[1]),
+               "tokens": np.asarray(toks.cpu()).tolist()}
+    print(json.dumps(out), flush=True)
+    _write_result(args, out)
     return 0
 
 

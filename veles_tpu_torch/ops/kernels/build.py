@@ -12,6 +12,7 @@ import time: :func:`load` builds on first use, and :func:`build` starts one
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +22,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -193,3 +194,31 @@ class LaunchCounter:
         """Launches per variant since the last reset."""
         with self._lock:
             return dict(self._variants)
+
+
+def active_cost_counter():
+    """The innermost cost counter (``runtime.step_cache.CostCounter``, a
+    ``TorchDispatchMode``) on this thread's dispatch-mode stack, or None.
+    The stack is what autograd hands its worker threads, so a backward
+    wrapper finds the counter its forward ran under."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "add_kernel_cost"):
+            return mode
+    return None
+
+
+@contextlib.contextmanager
+def reporting(name: str, cost: Callable[[], Dict[str, float]]):
+    """Around one wrapper call, on either route: under an active cost
+    counter, add ``cost()`` (the module's ``cost``: ``{"flops",
+    "bytes"}`` of this launch) under ``name`` and keep the counter from
+    counting the plain version's own ops, so a step counts the same on
+    the CPU and on the card.  Without a counter nothing is computed."""
+    counter = active_cost_counter()
+    if counter is None:
+        yield
+        return
+    with counter.quiet():
+        counter.add_kernel_cost(name, cost())
+        yield

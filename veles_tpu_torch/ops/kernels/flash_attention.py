@@ -25,7 +25,8 @@ import torch
 
 from .. import check_attention_window, check_gqa_heads, kernel_route
 from . import build
-from .flash_bwd_common import check_kernel_inputs, kernel_variant
+from .flash_bwd_common import (_attention_cost, check_kernel_inputs,
+                               kernel_variant)
 from .flash_bwd_dkv import flash_bwd_dkv
 from .flash_bwd_dq import flash_bwd_dq
 
@@ -69,11 +70,19 @@ def flash_attention(q, k, v, causal: bool = False,
     return _forward(q, k, v, causal, scale, window, block_k)
 
 
+def cost(q, k, v, causal: bool = False, window: Optional[int] = None):
+    """``{"flops", "bytes"}`` of one forward launch: 4·B·H·D a scored
+    (query, key) pair (the QK^T and PV products); q, k, v read and out
+    written once, the float32 lse written once."""
+    return _attention_cost(q, k, causal, window, 4, 2, 2, 1)
+
+
 def _forward(q, k, v, causal, scale, window, block_k):
-    if kernel_route(q, NAME):
-        return _launch(q, k, v, causal, scale, window)
-    return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                 window=window, block_k=block_k)
+    with build.reporting(NAME, lambda: cost(q, k, v, causal, window)):
+        if kernel_route(q, NAME):
+            return _launch(q, k, v, causal, scale, window)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window, block_k=block_k)
 
 
 class _FlashAttention(torch.autograd.Function):

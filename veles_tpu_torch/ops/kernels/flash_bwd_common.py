@@ -9,6 +9,7 @@ others.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import check_gqa_heads
@@ -17,6 +18,32 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64)       # configs/induction_lm*.json, bench_lm.py width
 #: base alignment the tensor-core kernels' 16-byte row copies need
 TC_ALIGN = 16
+
+
+def attention_pairs(Tq: int, Tk: int, causal: bool, window=None) -> int:
+    """The (query, key) pairs the kernels score: every pair without a
+    mask; with ``causal`` row i sees keys j <= i (the kernels align
+    positions at 0) and with a ``window`` W only j > i - W."""
+    if not causal:
+        return Tq * Tk
+    i = np.arange(Tq)
+    hi = np.minimum(i, Tk - 1)
+    lo = np.maximum(i - int(window) + 1, 0) if window else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attention_cost(q, k, causal, window, flops_per_pair, q_like,
+                    k_like, rows):
+    """``{"flops", "bytes"}`` of one flash launch: ``flops_per_pair``
+    times B·H·D per scored pair; ``q_like`` tensors of q's shape and
+    ``k_like`` of k's read or written once, ``rows`` float32 (B, H, Tq)
+    rows (lse, delta)."""
+    B, Tq, H, D = q.shape
+    pairs = attention_pairs(Tq, k.shape[1], causal, window)
+    elt = q.element_size()
+    return {"flops": float(flops_per_pair * B * H * D * pairs),
+            "bytes": float((q_like * q.numel() + k_like * k.numel()) * elt
+                           + rows * B * H * Tq * 4)}
 
 
 def check_bwd_shapes(name, q, k, v, dout, lse, delta):

@@ -23,8 +23,9 @@ import torch
 
 from .. import check_attention_window, check_gqa_heads, kernel_route
 from . import build
-from .flash_bwd_common import (check_bwd_shapes, check_kernel_args,
-                               kernel_variant, key_blocks)
+from .flash_bwd_common import (_attention_cost, check_bwd_shapes,
+                               check_kernel_args, kernel_variant,
+                               key_blocks)
 
 NAME = "flash_bwd_dkv"
 #: the source of each variant; SOURCE is the bf16 main path's
@@ -44,12 +45,21 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool, scale: float,
     v.  ``block_k`` is the key block of the plain version's loop."""
     window = check_attention_window(window, causal)
     check_bwd_shapes(NAME, q, k, v, dout, lse, delta)
-    if kernel_route(q, NAME):
-        check_kernel_args(NAME, q, k, v, dout, lse, delta)
-        return _launch(q, k, v, dout, lse, delta, causal, float(scale),
-                       window)
-    return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal=causal,
-                               scale=scale, window=window, block_k=block_k)
+    with build.reporting(NAME, lambda: cost(q, k, v, causal, window)):
+        if kernel_route(q, NAME):
+            check_kernel_args(NAME, q, k, v, dout, lse, delta)
+            return _launch(q, k, v, dout, lse, delta, causal, float(scale),
+                           window)
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta,
+                                   causal=causal, scale=scale,
+                                   window=window, block_k=block_k)
+
+
+def cost(q, k, v, causal: bool, window=None):
+    """``{"flops", "bytes"}`` of one dK/dV launch: 8·B·H·D a scored pair
+    (the QK^T and dO·V^T recomputes, P^T·dO and dS^T·Q); q, dout, k, v
+    read and dk, dv written once, lse and delta read once."""
+    return _attention_cost(q, k, causal, window, 8, 2, 4, 2)
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, *, causal: bool,

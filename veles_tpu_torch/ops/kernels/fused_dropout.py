@@ -156,11 +156,20 @@ def _launch(x: torch.Tensor, seed: torch.Tensor,
     return out
 
 
+def cost(x: torch.Tensor) -> dict:
+    """``{"flops", "bytes"}`` of one launch: x read and the output written
+    once, the 4-byte seed read; the mask's integer hash is not counted
+    as floating-point work."""
+    return {"flops": 0.0, "bytes": float(2 * x.numel() * x.element_size()
+                                         + 4)}
+
+
 def _apply(x: torch.Tensor, seed: torch.Tensor,
            rate: float) -> torch.Tensor:
-    if kernel_route(x, NAME):
-        return _launch(x, seed, rate)
-    return fused_dropout_plain(x, seed, rate)
+    with build.reporting(NAME, lambda: cost(x)):
+        if kernel_route(x, NAME):
+            return _launch(x, seed, rate)
+        return fused_dropout_plain(x, seed, rate)
 
 
 class _FusedDropout(torch.autograd.Function):

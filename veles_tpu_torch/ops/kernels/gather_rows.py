@@ -58,9 +58,21 @@ def gather_rows(data: torch.Tensor, idx) -> torch.Tensor:
         raise IndexError(f"{NAME}: index out of range [0, {n}): "
                          f"min {int(idx.min())}, max {int(idx.max())}")
     idx_t = torch.from_numpy(idx.astype(np.int32)).to(data.device)
-    if kernel_route(data, NAME):
-        return _launch(data, idx_t)
-    return gather_rows_plain(data, idx_t)
+    with build.reporting(NAME, lambda: cost([data], len(idx))):
+        if kernel_route(data, NAME):
+            return _launch(data, idx_t)
+        return gather_rows_plain(data, idx_t)
+
+
+def cost(arrays, m: int, mask: bool = False) -> dict:
+    """``{"flops", "bytes"}`` of one launch gathering ``m`` rows of each
+    of ``arrays``: each row read and written once, the m int32 indices
+    read, and with ``mask`` the m float32 mask entries written."""
+    row_bytes = sum(int(np.prod(a.shape[1:])) * a.element_size()
+                    for a in arrays)
+    return {"flops": 0.0,
+            "bytes": float(2 * m * row_bytes + m * 4 + (m * 4 if mask
+                                                         else 0))}
 
 
 def gather_rows_plain(data: torch.Tensor, idx: torch.Tensor):
@@ -118,10 +130,11 @@ def gather_batch(arrays, outs, perm: torch.Tensor, offset: int, count: int,
     if mask is not None and (mask.shape != (m,)
                              or mask.dtype != torch.float32):
         raise ValueError(f"{NAME}: mask must be float32 ({m},)")
-    if kernel_route(perm, NAME):
-        _launch_batch(arrays, outs, perm, offset, m, count, mask)
-        return
-    gather_batch_plain(arrays, outs, perm, offset, count, mask)
+    with build.reporting(NAME, lambda: cost(arrays, m, mask is not None)):
+        if kernel_route(perm, NAME):
+            _launch_batch(arrays, outs, perm, offset, m, count, mask)
+            return
+        gather_batch_plain(arrays, outs, perm, offset, count, mask)
 
 
 def gather_batch_plain(arrays, outs, perm, offset, count, mask=None):

@@ -56,9 +56,19 @@ def mean_disp_normalize(x: torch.Tensor, mean: torch.Tensor,
                         rdisp: torch.Tensor) -> torch.Tensor:
     """``(float32(x) - mean) * rdisp`` for x (N, *features), uint8 or
     float32; float32 result of x's shape."""
-    if kernel_route(x, NAME):
-        return _launch(x, mean, rdisp)
-    return mean_disp_normalize_plain(x, mean, rdisp)
+    with build.reporting(NAME, lambda: cost(x, mean)):
+        if kernel_route(x, NAME):
+            return _launch(x, mean, rdisp)
+        return mean_disp_normalize_plain(x, mean, rdisp)
+
+
+def cost(x: torch.Tensor, mean: torch.Tensor) -> dict:
+    """``{"flops", "bytes"}`` of one launch: x read and the float32
+    output written once, mean and rdisp (float32) read once; a subtract
+    and a multiply an element."""
+    return {"flops": float(2 * x.numel()),
+            "bytes": float(x.numel() * x.element_size() + x.numel() * 4
+                           + 2 * mean.numel() * 4)}
 
 
 def _fn():

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import check_attention_window, check_gqa_heads, kernel_route
@@ -82,12 +83,34 @@ def paged_attention_decode(q, k_pool, v_pool, ptab, pos, *, page_size: int,
     G = _validate(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads)
     window = check_attention_window(window, True)
     scale = q.shape[2] ** -0.5 if scale is None else float(scale)
-    if kernel_route(q, NAME):
-        return _launch(q, k_pool, v_pool, ptab, pos, G, page_size, scale,
-                       window)
-    return paged_attention_decode_plain(
-        q, k_pool, v_pool, ptab, pos, page_size=page_size,
-        n_kv_heads=n_kv_heads, scale=scale, window=window)
+    with build.reporting(NAME, lambda: cost(
+            q, k_pool, pos.cpu().numpy(), page_size=page_size,
+            window=window)):
+        if kernel_route(q, NAME):
+            return _launch(q, k_pool, v_pool, ptab, pos, G, page_size,
+                           scale, window)
+        return paged_attention_decode_plain(
+            q, k_pool, v_pool, ptab, pos, page_size=page_size,
+            n_kv_heads=n_kv_heads, scale=scale, window=window)
+
+
+def cost(q, k_pool, pos, *, page_size: int, window: Optional[int] = None):
+    """``{"flops", "bytes"}`` of one launch at the row positions ``pos``
+    (host ints; the work depends on them): each row reads the K and V of
+    its live positions (t <= pos, within the window) from the pool, its
+    live page-table entries and its position, reads q and writes the
+    float32 context once; 4·H·Dh flops a live position (q·K and p·V)."""
+    pos = np.asarray(pos, np.int64).reshape(-1)
+    H, Dh = q.shape[1], q.shape[2]
+    Hk = k_pool.shape[2]
+    lo = np.maximum(pos - int(window) + 1, 0) if window else 0
+    live = int((pos - lo + 1).sum())
+    live_pages = int((pos // page_size - lo // page_size + 1).sum())
+    return {"flops": float(4 * H * Dh * live),
+            "bytes": float(2 * live * Hk * Dh * k_pool.element_size()
+                           + q.numel() * q.element_size()
+                           + len(pos) * H * Dh * 4
+                           + live_pages * 4 + len(pos) * 4)}
 
 
 def paged_attention_decode_plain(q, k_pool, v_pool, ptab, pos, *,

@@ -1,3 +1,4 @@
 """Parallel layers of the port (counterpart of veles_tpu/parallel).
 
-This slice ports the local ``blockwise_attention`` only."""
+The local ``blockwise_attention``, and the ``CliRunner`` / ``ParallelMap``
+pools of ``pool.py``."""

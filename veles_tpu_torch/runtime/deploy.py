@@ -6,9 +6,10 @@ veles_tpu/runtime/deploy.py).
   served gets an entry (monotonic version id, source path, sha256 of the
   tensors blob, load time); ``GET /models`` renders it with the active
   version marked;
-* **hot swaps**: new weights load from a snapshot manifest of either
-  package (``runtime/snapshotter.py``; a file, the ``_current`` /
-  ``_best`` symlinks, or a directory whose newest manifest is taken),
+* **hot swaps**: new weights load from a snapshot of either package
+  (``runtime/snapshotter.py``; a manifest file, the ``_current`` /
+  ``_best`` symlinks, a directory whose newest manifest is taken, a
+  ``sqlite://`` URI or an ``http(s)://`` manifest URL),
   are checked against the served tree and cast to its dtypes, placed on
   the device through pinned memory while the old version keeps serving
   (:meth:`DecodeEngine.stage_params`), then copied into the served
@@ -29,9 +30,9 @@ veles_tpu/runtime/deploy.py).
   --watch``).
 
 Export packages, compiled artifacts and forge stores as weight sources
-come with the export slice; the sqlite and http snapshot sources with
-the snapshotter's.  Each is refused with ValueError (409, the old
-version still serving).
+come with the export slice; each is refused with ValueError (409, the
+old version still serving).  :func:`http_retry` is the retry shape every
+HTTP fetch of a snapshot shares.
 """
 
 from __future__ import annotations
@@ -56,8 +57,46 @@ from .metrics import registry as metrics_registry
 from .snapshotter import Snapshotter, list_snapshots, snapshot_checksum
 from .step_cache import tree_signature
 
-#: the watcher's retry back-off grows by this factor a failure
+#: Shared retry back-off (veles_tpu/runtime/deploy.py:55-66): the
+#: watcher and the snapshot http loads grow their delay by
+#: BACKOFF_FACTOR a consecutive failure and add up to BACKOFF_JITTER of
+#: uniform spread; HTTP_RETRY_* bound a request-scale retry's delay.
 BACKOFF_FACTOR = 2.0
+BACKOFF_JITTER = 0.25
+HTTP_RETRY_BASE_S = 0.25
+HTTP_RETRY_MAX_S = 4.0
+
+
+def http_retry(fn, *, what: str = "http request",
+               retries: Optional[int] = None, log=None,
+               base_s: float = HTTP_RETRY_BASE_S):
+    """Call ``fn()``, retrying TRANSIENT failures (connection errors and
+    HTTP 5xx) up to ``retries`` times (default
+    ``root.common.net.http_retries``) with exponential back-off and
+    jitter.  A 4xx re-raises at once: the client is wrong, not unlucky."""
+    import random
+    if retries is None:
+        retries = int(root.common.net.get("http_retries", 3))
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except urllib.error.HTTPError as e:
+            if e.code < 500 or attempt >= retries:
+                raise
+            reason = f"HTTP {e.code}"
+        except (urllib.error.URLError, ConnectionError, TimeoutError,
+                OSError) as e:
+            if attempt >= retries:
+                raise
+            reason = f"{type(e).__name__}: {e}"
+        delay = min(base_s * BACKOFF_FACTOR ** attempt, HTTP_RETRY_MAX_S)
+        delay *= 1.0 + random.random() * BACKOFF_JITTER
+        if log is not None:
+            log.warning("%s failed (%s); retry %d/%d in %.2fs", what,
+                        reason, attempt + 1, retries, delay)
+        time.sleep(delay)
+        attempt += 1
 
 
 def _shape_signature(tree) -> Tuple:
@@ -282,7 +321,8 @@ class DeployController(Logger):
         ``(parts, meta)``, ``parts`` holding numpy ``params`` (and
         ``state`` where saved), ``meta`` label, kind, checksum and
         source.  A snapshot manifest path (or its ``_current`` /
-        ``_best`` symlink), or a directory whose newest manifest is
+        ``_best`` symlink), a ``sqlite://`` or ``http(s)://`` snapshot URI
+        (checksum unknown: ''), or a directory whose newest manifest is
         taken."""
         if not source:
             raise ValueError(
@@ -300,10 +340,7 @@ class DeployController(Logger):
                 "(they come with export, ROADMAP.md slice 9); reload "
                 "from a snapshot manifest")
         if source.startswith(("sqlite://", "http://", "https://")):
-            raise ValueError(
-                f"{source!r}: the sqlite and http snapshot sources are "
-                "not ported (ROADMAP.md queue 1 item 1); reload from a "
-                "snapshot manifest file")
+            return self._from_snapshot(Snapshotter.load(source), source, "")
         if os.path.isdir(source):
             snaps = list_snapshots(source)
             if not snaps:

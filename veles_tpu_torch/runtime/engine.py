@@ -113,6 +113,22 @@ the graph advances itself, and is replayed once per prompt position.  The dense 
 (its masked write has a data-dependent shape) with the same step body,
 and ``stats()["capture"]`` says so, as it says ``"cpu"`` on the host.
 
+Goodput (engine.py:1383-1390, :2330-2371): a token dispatch records
+its program, its starting positions and its wall; the gauges' read
+(every 0.25 s on the scheduler tick, and ``stats()``) prices the
+dispatches since the last read at their programs' counted bytes
+(``StepCache.program_cost``, counted once: before the capture, or at
+an eager program's first execution), the paged kernel's part
+re-evaluated at the recorded positions (:meth:`DecodeEngine.
+_dispatch_bytes`: the kernel reads the K/V of every live position, so
+its bytes grow with the context), over their summed wall:
+``vt_decode_bandwidth_bytes_per_sec`` (the latest read's; 0 after 2 s
+without a token step), ``vt_decode_mbu`` against
+``root.common.observe.peak_hbm_gbps``, ``vt_tokens_per_sec_per_chip``
+and ``vt_memory_headroom_slots``, published on the scheduler tick and in
+``stats()["goodput"]`` / ``stats()["headroom_slots"]``.  The dense
+layout builds no program through the cache and reports 0 bytes.
+
 Left out, for later slices: the batch lane (with the job manager) and
 the fleet's fault knobs.
 """
@@ -134,6 +150,7 @@ import torch
 from ..config import root
 from ..logger import Logger
 from ..ops import resolve_device
+from ..ops.kernels import paged_attention as _paged
 from ..units.base import Context
 from ..units.nn import input_vocab
 from . import faults
@@ -943,6 +960,16 @@ class DecodeEngine(Logger):
         self._step_wall_ewma = 0.0
         self._verify_wall_ewma = 0.0
         self._accept_ewma = 1.0
+        # goodput: the token dispatches since the gauges' last read
+        # ([(program, positions, active)] and their summed wall, guarded-by:
+        # self._stats_lock), the achieved bytes/s the latest read
+        # priced, and when the last dispatch ran
+        self._bw_pending: list = []
+        self._bw_wall = 0.0
+        self._last_dispatch = None        # scheduler thread
+        self._bw_rate = 0.0
+        self._last_step_at = 0.0
+        self._goodput_mark = 0.0
         self._ticks_since_attempt = _SPEC_PROBE_TICKS
         self._spec_attempts = 0
         self._spec_rate_mark = (float("-inf"), 0, 0)
@@ -993,6 +1020,7 @@ class DecodeEngine(Logger):
                 if iname not in self._stage:     # one per input name
                     self._stage[iname] = torch.zeros(
                         t.shape, dtype=t.dtype, pin_memory=on_card)
+        self._micro_steps = dict(kinds)    # paged launches a layer
         # the prefill's staging buffer is read by a copy no sampling
         # waits for on an intermediate chunk: this event fences it
         self._prefill_staged = torch.cuda.Event() \
@@ -1089,6 +1117,22 @@ class DecodeEngine(Logger):
         self._m_swaps = reg.counter(
             "vt_engine_swaps_total",
             "hot weight swaps applied at a decode-step boundary")
+        self._g_decode_bw = reg.gauge(
+            "vt_decode_bandwidth_bytes_per_sec",
+            "achieved decode memory traffic: counted bytes over wall "
+            "(EWMA), fed by decode, megastep and speculative verify "
+            "dispatches")
+        self._g_decode_mbu = reg.gauge(
+            "vt_decode_mbu",
+            "decode model-bandwidth-utilization: achieved bytes/s over "
+            "root.common.observe.peak_hbm_gbps (0 = peak unknown)")
+        self._g_tps_chip = reg.gauge(
+            "vt_tokens_per_sec_per_chip",
+            "recent decode throughput per local device")
+        self._g_headroom = reg.gauge(
+            "vt_memory_headroom_slots",
+            "max-length requests the engine can still admit (free "
+            "slots, bounded by free+evictable pages when paged)")
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -1683,10 +1727,94 @@ class DecodeEngine(Logger):
             out["megastep"] = {"n": self.megastep,
                                "mega_dispatches": n.get("mega_dispatches", 0)}
         pages = self._pages_summary()
+        out["goodput"] = self._goodput_summary()
+        out["headroom_slots"] = self._headroom_slots(pages)
         if pages is not None:
             out["pages"] = pages
             out["kv_transfer"] = self._kv_transfer_summary()
         return out
+
+    # -- goodput -------------------------------------------------------------
+    def _dispatch_bytes(self, pending) -> float:
+        """Counted bytes of the token dispatches ``[(program, pos,
+        active)]``: each program's count, its paged-kernel part (counted
+        at the positions of the run that counted it) replaced by the
+        kernel's ``cost`` at the dispatch's positions, each micro-step a
+        position further for every slot ``active`` at the start (a slot
+        that retires inside the block is counted on).  One ``cost`` a
+        layer prices every row of the dispatches at once."""
+        total, rows, costs = 0.0, [], {}
+        for name, pos, active in pending:
+            c = costs.get(name)
+            if c is None:
+                c = costs[name] = self.step_cache.program_cost(name)
+            pk = c["kernels"].get(_paged.NAME)
+            total += c["bytes_accessed"] - (pk["bytes"] if pk else 0.0)
+            if pk:
+                n = self._micro_steps[name.removesuffix("_greedy")]
+                rows.append(np.minimum(
+                    pos[None, :] + np.arange(n)[:, None]
+                    * active.astype(np.int64), self.l_max - 1).reshape(-1))
+        if rows:
+            rows = np.concatenate(rows)
+            for u in self.plan._attn_units:
+                ck = self._caches[u.name]["k"]
+                q = torch.empty((rows.size, u.n_heads, ck.shape[3]),
+                                device="meta")
+                total += _paged.cost(q, ck, rows, page_size=self.page_size,
+                                     window=u.window)["bytes"]
+        return total
+
+    def _fold_bandwidth(self) -> None:
+        """Price the token dispatches since the last read: their bytes
+        over their summed wall become the achieved bytes/s.  (The
+        reference's per-dispatch EWMA would need each dispatch priced
+        alone; an EWMA across reads, 0.25 s apart, would lag a load by
+        seconds.)"""
+        with self._stats_lock:
+            pending, self._bw_pending = self._bw_pending, []
+            wall, self._bw_wall = self._bw_wall, 0.0
+        if not pending:
+            return
+        self._bw_rate = self._dispatch_bytes(pending) / max(wall, 1e-9)
+
+    def _goodput_summary(self) -> dict:
+        """Decode goodput: achieved memory traffic per second against the
+        configured HBM peak (model-bandwidth-utilization) and tokens/s
+        per device; the bandwidth reads 0 once no token step ran for 2 s
+        instead of freezing at the last load's value."""
+        self._fold_bandwidth()
+        idle = (self._last_step_at <= 0
+                or time.monotonic() - self._last_step_at > 2.0)
+        bw = 0.0 if idle else self._bw_rate
+        peak_gbps = float(
+            root.common.observe.get("peak_hbm_gbps", 0.0) or 0.0)
+        # the sampling program's count, else the greedy-only one's: they
+        # differ by elementwise ops, which count nothing
+        c = self.step_cache.program_cost("decode")
+        if not c["flops"]:
+            c = self.step_cache.program_cost("decode_greedy")
+        return {
+            "decode_step_flops": c["flops"],
+            "decode_step_bytes": c["bytes_accessed"],
+            "decode_step_wall_ewma_s": round(self._step_wall_ewma, 6),
+            "decode_bandwidth_bytes_per_sec": round(bw, 1),
+            "decode_mbu": round(bw / (peak_gbps * 1e9), 5)
+            if peak_gbps > 0 else 0.0,
+            # one engine drives one card
+            "tokens_per_sec_per_chip": round(
+                self._tokens_per_s if not idle else 0.0, 2),
+        }
+
+    def _headroom_slots(self, pages: Optional[dict]) -> int:
+        """Max-length requests admissible now: free slots, bounded (paged)
+        by how many max-length page spans the pool still holds (cached
+        refcount-0 pages count: the allocator evicts them on demand)."""
+        free_slots = self.slots - int(self._active.sum())
+        if pages is None:
+            return max(free_slots, 0)
+        avail = pages["free"] + pages["cached"]
+        return max(min(free_slots, avail // max(self.n_ptab, 1)), 0)
 
     # -- scheduler ---------------------------------------------------------
     def _loop(self):
@@ -2508,6 +2636,8 @@ class DecodeEngine(Logger):
             self._dstate["keys"].copy_(self._keys_stage, non_blocking=True)
         name = kind if (self._temp[self._active] > 0).any() \
             else kind + "_greedy"
+        # what the goodput read prices: the program and where it started
+        self._last_dispatch = (name, self._pos.copy(), self._active.copy())
         rb = self._fns[name](self._dstate, batch)["rb"].cpu().numpy()
         with self._stats_lock:
             self._replays[name] += 1
@@ -2622,7 +2752,10 @@ class DecodeEngine(Logger):
         """A dispatch's counts: ``steps`` decode micro-steps (0 for a
         verify), ``tokens`` emitted over ``wall`` seconds."""
         self._tokens_per_s = tokens / max(wall, 1e-9)
+        self._last_step_at = time.monotonic()
         with self._stats_lock:
+            self._bw_pending.append(self._last_dispatch)
+            self._bw_wall += wall
             if key is not None:
                 self._n[key] += 1
             self._n["dispatches"] += 1
@@ -2698,9 +2831,19 @@ class DecodeEngine(Logger):
         self._post_step(finished)
 
     def _publish_gauges(self):
-        """The windowed accept rate (0.5 s, engine.py:2431-2449), first
-        published on the scheduler's first tick."""
+        """The goodput and headroom gauges every 0.25 s and the windowed
+        accept rate every 0.5 s (engine.py:2431-2452), first published on
+        the scheduler's first tick: a ``/metrics`` scrape sees them
+        without a ``stats()`` call."""
         now = time.monotonic()
+        if now - self._goodput_mark >= 0.25:
+            self._goodput_mark = now
+            good = self._goodput_summary()
+            self._g_headroom.set(self._headroom_slots(
+                self._pages_summary()))
+            self._g_decode_bw.set(good["decode_bandwidth_bytes_per_sec"])
+            self._g_decode_mbu.set(good["decode_mbu"])
+            self._g_tps_chip.set(good["tokens_per_sec_per_chip"])
         t, prop0, acc0 = self._spec_rate_mark
         if not self.spec or now - t < 0.5:
             return

@@ -12,8 +12,11 @@ is the JAX ``Trainer``'s, so a training run resumes in either package.
 The epoch throttle (``tick``), the ``_current``/``_best`` symlinks and
 keep-last-K retention follow snapshotter.py:141-272, the walk-back past
 corrupt snapshots (:func:`restore_with_walkback`), ``snapshot_checksum``
-and ``compare_snapshots`` :568-672; the sqlite and http sources are not
-ported.
+and ``compare_snapshots`` :568-672.  :meth:`Snapshotter.load` also reads
+a ``sqlite://`` URI (:class:`SnapshotterToDB`, :426-515: the same table,
+so either package reads the other's database) and an ``http(s)://``
+manifest URL (:330-393: both downloads size-capped, transient failures
+retried by ``deploy.http_retry``).
 
 :func:`params_from_jax` carries weights across: a nested numpy tree, a
 full workflow state, or a flat ``"emb/table"``-keyed dict in the JAX
@@ -24,6 +27,7 @@ layout becomes the port's parameter dictionary.  Weights keep the
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import threading
@@ -231,9 +235,15 @@ class Snapshotter(Logger):
 
     @staticmethod
     def load(path: str, *, verify: bool = True) -> Dict[str, Any]:
-        """Read a manifest (or its ``_current`` symlink); returns the
-        payload with ``wstate`` as a numpy tree.  Integrity failures raise
-        :class:`SnapshotCorruptError`."""
+        """Read a manifest (or its ``_current`` symlink), a
+        ``sqlite://db[#id|#best|#current]`` URI written by
+        :class:`SnapshotterToDB`, or an ``http(s)://`` manifest URL;
+        returns the payload with ``wstate`` as a numpy tree.  Integrity
+        failures of a manifest file raise :class:`SnapshotCorruptError`."""
+        if path.startswith("sqlite://"):
+            return SnapshotterToDB.load_uri(path)
+        if path.startswith(("http://", "https://")):
+            return Snapshotter._load_http(path)
         try:
             with open(path) as f:
                 manifest = json.load(f)
@@ -262,6 +272,66 @@ class Snapshotter(Logger):
                 f"{path}: tensors blob unreadable ({e})") from e
         payload = dict(manifest)
         payload["wstate"] = _unflatten(flat)
+        return payload
+
+    #: manifest JSON cap (MiB): structure only, tensors live in the npz
+    _HTTP_MANIFEST_MAX_MB = 64
+
+    @staticmethod
+    def _read_capped(resp, limit: int, what: str, knob: str) -> bytes:
+        """Chunked read that refuses more than ``limit`` bytes (a remote
+        snapshot URI may name a server the caller does not control): a
+        declared Content-Length over the cap fails at once, a lying or
+        chunked response on the running total.  ``knob`` names the
+        setting to raise."""
+        try:
+            declared = int(resp.headers.get("Content-Length", ""))
+        except ValueError:
+            declared = None
+        if declared is not None and declared > limit:
+            raise ValueError(
+                f"{what} declares {declared} bytes, over the "
+                f"{limit}-byte cap ({knob})")
+        chunks, total = [], 0
+        while True:
+            chunk = resp.read(1 << 20)
+            if not chunk:
+                return b"".join(chunks)
+            total += len(chunk)
+            if total > limit:
+                raise ValueError(
+                    f"{what} exceeded the {limit}-byte cap ({knob})")
+            chunks.append(chunk)
+
+    @staticmethod
+    def _load_http(url: str) -> Dict[str, Any]:
+        """The manifest and its tensors npz over HTTP, the npz resolved
+        relative to the manifest URL; both downloads capped (the npz by
+        ``root.common.snapshot_http_max_mb``), connection errors and 5xx
+        retried with back-off, 4xx raised at once."""
+        import urllib.parse
+        import urllib.request
+        from ..config import root
+        from .deploy import http_retry   # deploy imports this module
+        max_bytes = int(float(root.common.get(
+            "snapshot_http_max_mb", 2048)) * 2**20)
+
+        def fetch(u, limit, what, knob):
+            def once():
+                with urllib.request.urlopen(u, timeout=30.0) as r:
+                    return Snapshotter._read_capped(r, limit, what, knob)
+            return http_retry(once, what=what)
+
+        manifest = json.loads(fetch(
+            url, Snapshotter._HTTP_MANIFEST_MAX_MB << 20,
+            f"snapshot manifest {url}",
+            "Snapshotter._HTTP_MANIFEST_MAX_MB"))
+        tensors_url = urllib.parse.urljoin(url, manifest["tensors"])
+        blob = fetch(tensors_url, max_bytes,
+                     f"snapshot tensors {tensors_url}",
+                     "root.common.snapshot_http_max_mb")
+        payload = dict(manifest)
+        payload["wstate"] = _unflatten_npz(blob)
         return payload
 
     @staticmethod
@@ -308,6 +378,103 @@ class Snapshotter(Logger):
             return saved
 
         return cast(payload["wstate"], like, "")
+
+
+def _unflatten_npz(blob: bytes):
+    with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+        return _unflatten({k: z[k] for k in z.files})
+
+
+class SnapshotterToDB(Snapshotter):
+    """Snapshots into a sqlite database instead of the filesystem (the
+    JAX package's table: a row carries the manifest JSON and the npz
+    bytes, so either package reads the other's rows).  ``last_path`` is a
+    ``sqlite://db#id`` URI :meth:`Snapshotter.load` (and therefore
+    ``Trainer.restore`` and the deploy control plane) accepts."""
+
+    _SCHEMA = ("CREATE TABLE IF NOT EXISTS snapshots ("
+               "id INTEGER PRIMARY KEY AUTOINCREMENT, prefix TEXT, "
+               "tag TEXT, saved_at REAL, best INTEGER, manifest TEXT, "
+               "tensors BLOB)")
+
+    def __init__(self, prefix: str, db_path: str = "snapshots.sqlite", *,
+                 compression: bool = True, interval: int = 1,
+                 time_interval: float = 0.0):
+        super().__init__(prefix, os.path.dirname(db_path) or ".",
+                         compression=compression, interval=interval,
+                         time_interval=time_interval)
+        self.db_path = db_path
+
+    def _connect(self):
+        import sqlite3
+        conn = sqlite3.connect(self.db_path)
+        conn.execute(self._SCHEMA)
+        return conn
+
+    def save(self, tag: str, payload: Dict[str, Any], *,
+             best: bool = False) -> str:
+        buf = io.BytesIO()
+        tensors = _flatten(payload.get("wstate", {}))
+        saver = np.savez_compressed if self.compression else np.savez
+        saver(buf, **tensors)
+        manifest = {k: v for k, v in payload.items() if k != "wstate"}
+        manifest["saved_at"] = time.time()
+        blob = buf.getvalue()
+        conn = self._connect()
+        try:
+            with conn:
+                cur = conn.execute(
+                    "INSERT INTO snapshots (prefix, tag, saved_at, best, "
+                    "manifest, tensors) VALUES (?, ?, ?, ?, ?, ?)",
+                    (self.prefix, tag, manifest["saved_at"], int(best),
+                     json.dumps(manifest, default=repr), blob))
+                rowid = cur.lastrowid
+        finally:
+            conn.close()
+        self.last_path = f"sqlite://{self.db_path}#{rowid}"
+        self.info("snapshot %s (%.1f MiB)%s", self.last_path,
+                  len(blob) / 2**20, " [best]" if best else "")
+        return self.last_path
+
+    @staticmethod
+    def load_uri(uri: str) -> Dict[str, Any]:
+        """``sqlite://db`` (the latest row), ``sqlite://db#<id>`` (that
+        row), ``#best`` (the latest best row) or ``#current`` (the
+        latest); the fragment splits at the LAST '#', so a db path may
+        hold one.  A missing row raises ``FileNotFoundError``."""
+        import sqlite3
+        if not uri.startswith("sqlite://"):
+            raise ValueError(f"not a sqlite:// snapshot URI: {uri!r}")
+        rest = uri[len("sqlite://"):]
+        head, sep, frag = rest.rpartition("#")
+        db_path = head if sep else rest
+        if not sep:
+            frag = ""
+        if not os.path.exists(db_path):
+            # sqlite3.connect would create an empty database
+            raise FileNotFoundError(uri)
+        conn = sqlite3.connect(db_path)
+        try:
+            if frag == "best":
+                row = conn.execute(
+                    "SELECT manifest, tensors FROM snapshots WHERE best=1 "
+                    "ORDER BY id DESC LIMIT 1").fetchone()
+            elif frag and frag != "current":
+                row = conn.execute(
+                    "SELECT manifest, tensors FROM snapshots WHERE id=?",
+                    (int(frag),)).fetchone()
+            else:
+                row = conn.execute(
+                    "SELECT manifest, tensors FROM snapshots "
+                    "ORDER BY id DESC LIMIT 1").fetchone()
+        finally:
+            conn.close()
+        if row is None:
+            raise FileNotFoundError(uri)
+        manifest, blob = row
+        payload = json.loads(manifest)
+        payload["wstate"] = _unflatten_npz(blob)
+        return payload
 
 
 def list_snapshots(directory: str, prefix: Optional[str] = None) -> list:
@@ -357,7 +524,11 @@ def restore_with_walkback(path: str) -> Tuple[Dict[str, Any], str,
     ``skipped`` listing ``{"path", "reason"}`` of every snapshot rejected
     on the way.  Raises :class:`SnapshotCorruptError` when nothing in the
     directory loads; a missing ``path`` raises as it is (most likely a
-    typo: restoring a sibling the caller never named would be worse)."""
+    typo: restoring a sibling the caller never named would be worse).
+    Remote URIs (``sqlite://``, ``http(s)://``) have no directory to walk
+    and load directly."""
+    if path.startswith(("sqlite://", "http://", "https://")):
+        return Snapshotter.load(path), path, []
     skipped: List[dict] = []
     target = os.path.realpath(path)
     try:
@@ -383,7 +554,8 @@ def restore_with_walkback(path: str) -> Tuple[Dict[str, Any], str,
 
 
 def compare_snapshots(path_a: str, path_b: str) -> Dict[str, Any]:
-    """Per-tensor diff of two snapshots (manifests or their symlinks):
+    """Per-tensor diff of two snapshots (manifests, their symlinks, or
+    ``sqlite://`` / ``http(s)://`` URIs):
     ``{"rows", "only_a", "only_b", "meta"}``, each row with key, shape,
     dtype and max |d| / mean |d| / max relative d (0-denominators
     excluded), or ``mismatch`` where shape or dtype differ; ``meta`` maps

@@ -29,6 +29,14 @@ enqueues them all at once.  :meth:`StepCache.get_step` therefore
   program, as the JAX package's counters do: ``compiles``, ``hits`` and
   ``recompiles`` (a second program of one kind for one workflow).
 
+Each program's cost — ``{"flops", "bytes_accessed"}`` per execution,
+the counterpart of XLA's cost analysis (:260-290) — is counted once, by
+a :class:`CostCounter` around one eager run of the step: the first
+warm-up before a capture, or the first execution of a step that stays
+eager (:class:`EagerStep`); no replay pays for it.  :meth:`StepCache.entry_cost`
+and :meth:`StepCache.program_cost` read it, and ``vt_program_flops`` /
+``vt_program_bytes`` publish it by program.
+
 What keeps a capture valid: the train step writes every updated tensor
 into the tensor it read (``ops.optimizers.tree_assign``), and rollback,
 restore and the lr multiplier write into those same tensors; the
@@ -45,11 +53,15 @@ replay.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import flop_registry
 
 from ..logger import Logger
 from ..ops.optimizers import tree_assign, tree_leaves, tree_map
@@ -100,6 +112,85 @@ def _pointers(tree):
 def _counters():
     from ..ops.kernels import KERNELS
     return [k.launches for k in KERNELS]
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor))
+
+
+class CostCounter(TorchDispatchMode):
+    """The operations and bytes of what runs under it: every matrix
+    product and convolution (and their backwards) by the formulas of
+    ``torch.utils.flop_counter``, its bytes those of its inputs and
+    outputs; other ops (elementwise, reductions, copies) count nothing.
+    The port's kernel wrappers report their own module's ``cost()``
+    through :meth:`add_kernel_cost` (``ops.kernels.build.reporting``) on
+    either route, and the ops of a plain version inside a wrapper are
+    not counted again (:meth:`quiet`), so one step counts the same on
+    the CPU and on the card.  ``kernels`` holds each kernel's sums and
+    calls."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.kernels: Dict[str, Dict[str, float]] = {}
+        self._quiet = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        formula = flop_registry.get(func.overloadpacket)
+        if formula is not None and not self._quiet:
+            self.flops += float(formula(*args, **kwargs, out_val=out))
+            self.bytes += float(_nbytes((args, kwargs, out)))
+        return out
+
+    @contextlib.contextmanager
+    def quiet(self):
+        self._quiet += 1
+        try:
+            yield
+        finally:
+            self._quiet -= 1
+
+    def add_kernel_cost(self, name: str, cost: Dict[str, float]) -> None:
+        self.flops += cost["flops"]
+        self.bytes += cost["bytes"]
+        k = self.kernels.setdefault(name, {"flops": 0.0, "bytes": 0.0,
+                                           "calls": 0})
+        k["flops"] += cost["flops"]
+        k["bytes"] += cost["bytes"]
+        k["calls"] += 1
+
+    def result(self) -> Dict[str, Any]:
+        return {"flops": self.flops, "bytes_accessed": self.bytes,
+                "kernels": {k: dict(v) for k, v in self.kernels.items()}}
+
+
+_NO_COST = {"flops": 0.0, "bytes_accessed": 0.0, "kernels": {}}
+
+
+class EagerStep:
+    """A step that runs eagerly, called as the step is; its first
+    execution runs under a :class:`CostCounter` and records the entry's
+    cost (until then the cache reports zeros for it)."""
+
+    captured = False
+
+    def __init__(self, step, cache, full_key):
+        self.step, self._cache, self._key = step, cache, full_key
+
+    def __call__(self, *args):
+        ent = self._cache._entries.get(self._key)
+        if ent is None or ent["cost"] is not None:
+            return self.step(*args)
+        with CostCounter() as cc:
+            out = self.step(*args)
+        ent["cost"] = cc.result()
+        self._cache._publish_cost(self._key[0])
+        return out
 
 
 class CapturedStep:
@@ -174,6 +265,15 @@ class StepCache(Logger):
             "vt_recompile_total",
             "step programs built again for a workflow that already had "
             "one of that kind", labels=("program",))
+        self._g_flops = reg.gauge(
+            "vt_program_flops",
+            "counted flops of one execution of the step programs of a "
+            "kind (matrix products, convolutions and the kernels' own "
+            "counts)", labels=("program",))
+        self._g_bytes = reg.gauge(
+            "vt_program_bytes",
+            "counted bytes of one execution of the step programs of a "
+            "kind", labels=("program",))
 
     # -- keys ---------------------------------------------------------------
     def trainer_key(self, workflow, optimizer, wstate, batch_spec,
@@ -206,7 +306,10 @@ class StepCache(Logger):
             reason = "capture=False"
         else:
             reason = None
-        fn = step if reason else self._capture(step, wstate, inputs)
+        if reason:
+            fn, cost = EagerStep(step, self, full_key), None
+        else:
+            fn, cost = self._capture(step, wstate, inputs)
         wall = time.perf_counter() - t0
         if any(k[0] == kind and k[1:2] == full_key[1:2]
                for k in self._entries):
@@ -217,15 +320,53 @@ class StepCache(Logger):
         self._m_compiles.labels(program=kind).inc()
         self._entries[full_key] = {"fn": fn, "captured": reason is None,
                                    "reason": reason, "wall_s": wall,
-                                   "pin": pin}
+                                   "cost": cost, "pin": pin}
         if reason is None:
-            self.info("captured the %s step in %.2fs", kind, wall)
+            self._publish_cost(kind)
+            self.info("captured the %s step in %.2fs (%.3g GFLOP, %.3g MB "
+                      "a step)", kind, wall, cost["flops"] / 1e9,
+                      cost["bytes_accessed"] / 1e6)
         elif on_card:
             self.warning("the %s step runs eagerly on the card: %s", kind,
                          reason)
         return fn
 
-    def _capture(self, step, wstate, inputs) -> CapturedStep:
+    def _publish_cost(self, kind: str) -> None:
+        kc = self.program_cost(kind)
+        self._g_flops.labels(program=kind).set(kc["flops"])
+        self._g_bytes.labels(program=kind).set(kc["bytes_accessed"])
+
+    def entry_cost(self, kind: str, key: Tuple) -> Dict[str, Any]:
+        """The counted cost of ONE cached program, the entry the caller
+        executes: ``{"flops", "bytes_accessed", "kernels"}`` per
+        execution (zeros until counted: an eager step counts at its first
+        execution).  Use it, not :meth:`program_cost`,
+        where superseded programs of a kind stay cached (a rebuilt
+        optimizer's old train entry), which the kind's sum would count
+        twice."""
+        ent = self._entries.get((kind,) + tuple(key))
+        return dict(_NO_COST) if ent is None or ent["cost"] is None \
+            else ent["cost"]
+
+    def program_cost(self, kind: str) -> Dict[str, Any]:
+        """Summed counted cost of this cache's ``kind`` programs per
+        execution, every kernel's sums and calls merged; correct where
+        every entry of the kind is live (an engine's one program of each
+        kind)."""
+        out = {"flops": 0.0, "bytes_accessed": 0.0, "kernels": {}}
+        for full_key, ent in self._entries.items():
+            if full_key[0] != kind or ent["cost"] is None:
+                continue
+            out["flops"] += ent["cost"]["flops"]
+            out["bytes_accessed"] += ent["cost"]["bytes_accessed"]
+            for name, k in ent["cost"]["kernels"].items():
+                acc = out["kernels"].setdefault(
+                    name, {"flops": 0.0, "bytes": 0.0, "calls": 0})
+                for f in acc:
+                    acc[f] += k[f]
+        return out
+
+    def _capture(self, step, wstate, inputs) -> Tuple[CapturedStep, dict]:
         dev = next(t.device for t in tree_leaves((wstate, inputs))
                    if torch.is_tensor(t))
         main = torch.cuda.current_stream(dev)
@@ -234,7 +375,10 @@ class StepCache(Logger):
         with torch.cuda.stream(side):
             scratch = _clone(wstate)
             ptrs = _pointers(scratch)
-            for _ in range(WARMUP_STEPS):
+            # the first warm-up counts the program's cost
+            with CostCounter() as cc:
+                step.run(scratch, inputs, step.begin(scratch))
+            for _ in range(WARMUP_STEPS - 1):
                 step.run(scratch, inputs, step.begin(scratch))
             if _pointers(scratch) != ptrs:
                 raise RuntimeError(
@@ -257,7 +401,8 @@ class StepCache(Logger):
                     v: k - v0.get(v, 0) for v, k in v1.items()
                     if k != v0.get(v, 0)})))
             c.set_state((n0, v0))
-        return CapturedStep(step, graph, wstate, inputs, outputs, launches)
+        return (CapturedStep(step, graph, wstate, inputs, outputs,
+                             launches), cc.result())
 
     def stats(self) -> Dict[str, Any]:
         """JSON-able summary: the counters (``captures``: the programs

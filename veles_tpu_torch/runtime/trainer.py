@@ -22,8 +22,14 @@ so a run resumes in either package.
 
 The trainer's parameters and optimizer state enter the memory ledger
 (``runtime/memory.py``) at ``initialize``; a ``status`` reporter gets
-the epoch's results.  Left out here (ROADMAP.md, slice 3): the
-goodput/MFU gauges, and the mesh, multi-host and pipeline schedules.
+the epoch's results.  Goodput (trainer.py:123-133, :426-457): the train
+step's counted flops (``StepCache.entry_cost``, counted once: before
+the capture, or at an eager step's first execution) times the steps of an epoch over its train-phase wall feed
+``vt_train_flops_per_sec`` and ``vt_train_mfu`` (against
+``runtime.benchmark.resolve_peak_tflops``), and the results carry
+``train_step_flops``, ``train_mfu`` and ``peak_tflops`` unrounded.
+Left out here (ROADMAP.md, slice 8): the mesh, multi-host and pipeline
+schedules.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..ops.optimizers import (ANOM_CONSEC_KEY, LR_MULT_KEY, Optimizer,
                               reserved_opt_neutral, tree_assign)
 from ..units.base import Spec
 from ..units.workflow import Workflow
+from .benchmark import epoch_goodput, resolve_peak_tflops
 from .decision import Decision
 from .memory import drop_stamped_components, memory_monitor, tree_bytes
 from .metrics import registry
@@ -120,6 +127,16 @@ class Trainer(Logger):
         self._m_walkbacks = reg.counter(
             "vt_snapshot_walkbacks_total",
             "corrupt snapshots skipped on the way to a valid one")
+        self._g_flops_sec = reg.gauge(
+            "vt_train_flops_per_sec",
+            "achieved training flops/s over the last train-epoch wall "
+            "(loader waits included; eval and snapshots outside it)")
+        self._g_mfu = reg.gauge(
+            "vt_train_mfu",
+            "model FLOPs utilization of the last train epoch against "
+            "the measured peak (0 = peak unknown)")
+        self._train_key = None
+        self._last_mfu = 0.0
 
     # -- setup -------------------------------------------------------------
     def initialize(self, seed: Optional[int] = None,
@@ -172,6 +189,9 @@ class Trainer(Logger):
             "train", key,
             lambda: self.workflow.make_train_step(self.optimizer), args,
             pin=pin)
+        # the cost of THIS trainer's program, never the kind's sum (a
+        # rebuilt optimizer's superseded entry stays cached)
+        self._train_key = key
         self._eval_step = None
         self._eval_entry = (key, args, pin)
 
@@ -276,18 +296,31 @@ class Trainer(Logger):
             n += 1
         return aggregate_epoch_metrics(_read_sums(sums, n))
 
+    def _train_step_flops(self) -> float:
+        return self.step_cache.entry_cost("train", self._train_key)["flops"]
+
     # -- main loop ----------------------------------------------------------
     def run(self) -> Dict[str, Any]:
         if self.wstate is None:
             self.initialize()
         t0 = time.time()
         samples_done = 0
+        step_s = []
         epoch = self.loader.epoch_number
         while not self.decision.complete:
             t_ep = time.time()
             train_mets = self._run_epoch_train(epoch)
             t_train = time.time()
             samples_done += int(train_mets.get("n_samples", 0))
+            steps = train_mets.get("n_batches", 0.0)
+            if steps:
+                step_s.append((t_train - t_ep) / steps)
+            goodput = epoch_goodput(self._train_step_flops(), steps,
+                                    max(t_train - t_ep, 1e-9),
+                                    resolve_peak_tflops(self.device))
+            self._g_flops_sec.set(goodput["flops_per_sec"])
+            self._g_mfu.set(goodput["mfu"])
+            self._last_mfu = goodput["mfu"]
             self._check_anomalies(epoch, train_mets)
             valid_mets = self._run_epoch_eval(VALID, epoch)
             if root.common.timings:
@@ -301,6 +334,8 @@ class Trainer(Logger):
                 self.status.update(
                     epoch=epoch, best_value=self.decision.best_value,
                     best_epoch=self.decision.best_epoch,
+                    train_mfu=round(goodput["mfu"], 4),
+                    train_flops_per_sec=round(goodput["flops_per_sec"], 1),
                     anomaly_steps_skipped=self.anomaly_steps_skipped,
                     anomaly_rollbacks=self.anomaly_rollbacks,
                     snapshot_walkbacks=self.snapshot_walkbacks,
@@ -333,6 +368,14 @@ class Trainer(Logger):
             "epochs": epoch,
             "elapsed_s": elapsed,
             "train_samples_per_s": samples_done / max(elapsed, 1e-9),
+            # the median over epochs of the train-phase wall a step (the
+            # batch assembly the step waits for included)
+            "train_step_s_median": (float(np.median(step_s)) if step_s
+                                    else None),
+            "train_step_flops": self._train_step_flops(),
+            # unrounded: a CPU run's MFU is tiny and must not round to 0
+            "train_mfu": self._last_mfu,
+            "peak_tflops": resolve_peak_tflops(self.device),
             "anomaly_steps_skipped": self.anomaly_steps_skipped,
             "anomaly_rollbacks": self.anomaly_rollbacks,
             "snapshot_walkbacks": self.snapshot_walkbacks,
