@@ -140,10 +140,13 @@ Phases, each of which fails the run with a non-zero exit:
    before it, the f32 SIMT flash forward, dQ and dK/dV at that shape
    against their plain versions and timed beside them, SDPA and the bound
    of their ``cost()``, and the batch gather at that shape; then
-   ``python -m veles_tpu_torch configs/induction_lm64.json --curriculum
-   configs/induction_lm64_curriculum.json`` as published (each phase's
-   best value, epochs, wall and median step; every phase must run to its
-   budget and the summary be whole; the bar is reported, see
+   ``python -m veles_tpu_torch configs/induction_lm64.json --curriculum``
+   over configs/induction_lm64_curriculum.json cut to its first two
+   phases (budgets 170 and 320 epochs; the whole chain of ~3,190 epochs
+   would not fit the script's time limit, see ``curriculum_two_phases``;
+   each phase's best value, epochs, wall and median step; every phase
+   must run to its budget, phase 2 start from phase 1's best snapshot
+   and the summary be whole; the bar is reported, see
    ``phase_curriculum``), while the image family's SynthDigits render on
    the host in the background; then ``--generate 64`` over 8 prompts of
    64 through the CLI from the curriculum's best snapshot, greedy and
@@ -166,7 +169,35 @@ Phases, each of which fails the run with a non-zero exit:
 10. quality: ``python -m veles_tpu_torch configs/induction_lm.json
    --random-seed 1`` as a subprocess on the card (25 epochs) must reach
    <= 5 % validation error;
-11. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+11. the recurrent family and the host image path, each with the launch
+   counts set to 0 at its start: ``recurrent_serving`` (after the
+   lifecycle) serves the mixed chain of tests/test_generate.py:149-156 at
+   bench_lm.py's width (the 4 attention blocks of phase 4, then gru 512,
+   seq_last and a softmax head; bf16; numpy-seed weights) on captured
+   paged engines: the greedy 8 x (512 + 64) request on an engine with
+   whole prefills, bitwise on an eager engine, a megastep (N=8) one, a
+   speculative (k=4) one driven with a verify dispatch every iteration
+   and a chunked-prefill (128) one; a shared-prefix pair takes no prefix
+   hit and ``GET /kv/pages`` answers 400; profiled decode, megastep and
+   verify windows hold the paged launches of each replay against the
+   trace (4, 32, 20); in float32 the engine's tokens equal
+   ``generate()``'s and a preempted request (re-prefilled from token 0)
+   equals its uninterrupted run; decode tokens/s, step p50 and TTFT;
+   ``recurrent_train`` (after the LM training path) trains the GRU+LSTM
+   LM of BASELINE.md:115 (embedding 64, gru 64, lstm 64, seq_last,
+   softmax; float32) 5 captured epochs over the LM64 loader's data
+   (vocab 32, T 64, minibatch 100, n_train 2000): losses finite and
+   falling, one batch gather a batch, 8 captured steps bitwise 8 eager
+   ones, then ``generate`` 8 x (64 + 64) greedy, its tokens the argmax
+   of the full forward at every position and a captured engine's tokens
+   equal to it; ``image_host`` (after the image path) trains
+   ``alexnet_e2e_workflow`` (host crop and mirror by
+   ``ImagenetHostLoader``, the uint8 batch normalized on the card by the
+   mean/disp kernel, prefetch 2) one captured epoch and its eval, 4
+   captured steps bitwise 4 eager ones (cuDNN deterministic), samples/s
+   and idle share beside the card-resident variant's, the host crop's ms
+   a batch;
+12. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Goodput: ``runtime.benchmark.benchmark_device()`` runs once after the
@@ -301,6 +332,16 @@ CUR_TRAIN, CUR_VALID = 2000, 1000
 # decode from the CLI at BASELINE.md:113's shape: 8 prompts of 64, 64 new
 GEN_ROWS, GEN_PROMPT, GEN_NEW, GEN_BEAMS = 8, 64, 64, 4
 # the serving phase's MBU denominator: H100 SXM HBM3, as H100_BYTES_S
+# the recurrent family: the GRU+LSTM LM (BASELINE.md:115, d=64) at the
+# LM64 loader's data, float32, REC_EPOCHS captured epochs; its greedy
+# decode of REC_GEN_ROWS x (REC_GEN_PROMPT + REC_GEN_NEW)
+REC_V, REC_DIM, REC_T, REC_B = 32, 64, 64, 100
+REC_TRAIN, REC_VALID, REC_EPOCHS = 2000, 1000, 5
+REC_WITNESS_STEPS = 8           # eager vs captured steps, bitwise
+REC_GEN_ROWS, REC_GEN_PROMPT, REC_GEN_NEW, REC_L_MAX = 8, 64, 64, 256
+# the mixed attention + GRU chain served: the chunked engine's slice and
+# the decode steps before the class-0 arrival that preempts
+REC_SERVE_CHUNK, REC_PREEMPT_AFTER = 128, 16
 PEAK_HBM_GBPS = 3350.0
 # the analytic train step: within this share of the counted one
 FLOPS_RTOL = 0.05
@@ -1164,7 +1205,7 @@ def phase_image(torch):
     """The image path at full width: AlexNet e2e through the Trainer for
     one epoch over the card-resident store, launches counted over it;
     then a profiled window, the float32 kernels-vs-plain step and one
-    predict batch."""
+    predict batch.  Returns the launches and the epoch's record."""
     from veles_tpu_torch.loader.base import TRAIN
     from veles_tpu_torch.ops.kernels import (fused_dropout, gather_rows,
                                              mean_disp)
@@ -1227,7 +1268,7 @@ def phase_image(torch):
     say({"phase": "image_predict", **pred})
     if not pred["ok"]:
         fail(f"AlexNet predict: {pred}")
-    return launches
+    return launches, rec
 
 
 def _image_step_f32_check(torch, trainer, kernels):
@@ -1309,21 +1350,23 @@ def _cudnn_deterministic(torch):
         torch.backends.cudnn.deterministic = prev
 
 
-def _image_capture_witness(torch):
+def _image_capture_witness(torch, host=False):
     """IMG_WITNESS_STEPS AlexNet steps of IMG_B and an eval from one init
-    and one card-resident store, through the eager step
-    (``StepCache(capture=False)``) and the captured one, cuDNN
-    deterministic: parameters, momentum and unit state, and the epoch
-    sums, bit for bit; each side's median step."""
+    and one store (card-resident, or with ``host`` the host loader's),
+    through the eager step (``StepCache(capture=False)``) and the
+    captured one, cuDNN deterministic: parameters, momentum and unit
+    state, and the epoch sums, bit for bit; each side's median step."""
     from veles_tpu_torch.models.alexnet import (_e2e_config,
-                                                alexnet_e2e_device_workflow)
+                                                alexnet_e2e_device_workflow,
+                                                alexnet_e2e_workflow)
     from veles_tpu_torch.models.standard import StandardWorkflow
     from veles_tpu_torch.runtime.decision import Decision
     from veles_tpu_torch.runtime.snapshotter import wstate_to_numpy
     from veles_tpu_torch.runtime.step_cache import StepCache
-    loader = alexnet_e2e_device_workflow(
-        minibatch_size=IMG_B, n_train=IMG_WITNESS_STEPS * IMG_B,
-        n_valid=IMG_B, device=DEVICE).loader
+    kw = dict(minibatch_size=IMG_B, n_train=IMG_WITNESS_STEPS * IMG_B,
+              n_valid=IMG_B)
+    loader = (alexnet_e2e_workflow(**kw) if host else
+              alexnet_e2e_device_workflow(device=DEVICE, **kw)).loader
     runs, states = {}, {}
     with _cudnn_deterministic(torch):
         for capture in (False, True):
@@ -1345,6 +1388,7 @@ def _image_capture_witness(torch):
     sums_equal = runs[False]["epoch"] == runs[True]["epoch"]
     captured = runs[True]["step_cache"]["train"]["captured"]
     return {"steps": IMG_WITNESS_STEPS, "cudnn_deterministic": True,
+            "loader": "host" if host else "card",
             "eager_step_ms_median": runs[False]["step_ms_median"],
             "captured_step_ms_median": runs[True]["step_ms_median"],
             "eager": runs[False], "captured": runs[True],
@@ -4140,6 +4184,488 @@ def phase_lifecycle(torch, snap_dir):
 
 # -- the goodput gauges' denominator -------------------------------------------
 
+# -- the recurrent family ------------------------------------------------------
+
+def rec_lm_layers():
+    """The GRU+LSTM LM of BASELINE.md:115 (d=64) over the LM64 loader's
+    vocabulary: embedding -> gru -> lstm -> seq_last -> softmax."""
+    return [{"type": "embedding", "vocab": REC_V, "dim": REC_DIM,
+             "name": "emb"},
+            {"type": "gru", "hidden": REC_DIM, "name": "gru1"},
+            {"type": "lstm", "hidden": REC_DIM, "name": "lstm1"},
+            {"type": "seq_last", "name": "last"},
+            {"type": "softmax", "output_size": REC_V, "name": "out"}]
+
+
+def _rec_trainer(torch, capture=True, n_train=REC_TRAIN, n_valid=REC_VALID,
+                 epochs=REC_EPOCHS):
+    """The GRU+LSTM LM (float32, Adam lr 1e-3) through
+    ``StandardWorkflow.make_trainer`` over a card-resident
+    ``InductionLoader`` (vocab 32, T 64, minibatch 100; the last position
+    supervised), capture on or off."""
+    from veles_tpu_torch.models.lm import InductionLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    loader = InductionLoader(minibatch_size=REC_B, n_train=n_train,
+                             n_valid=n_valid, seq_len=REC_T, vocab=REC_V,
+                             device=DEVICE)
+    sw = StandardWorkflow({"name": "GRULSTM_LM", "layers": rec_lm_layers(),
+                           "optimizer": "adam",
+                           "optimizer_args": {"lr": 1e-3}})
+    return sw.make_trainer(loader, Decision(max_epochs=epochs),
+                           device=DEVICE,
+                           step_cache=StepCache(capture=capture))
+
+
+def _rec_witness(torch):
+    """REC_WITNESS_STEPS steps and an eval of the GRU+LSTM LM from one
+    init and one batch order through the eager step and the captured
+    one: parameters, Adam state and the epoch sums, bit for bit."""
+    from veles_tpu_torch.runtime.snapshotter import wstate_to_numpy
+    runs, states = {}, {}
+    for capture in (False, True):
+        run = _counted_run(torch, _rec_trainer(
+            torch, capture, REC_WITNESS_STEPS * REC_B, REC_B, 1), 0.0)
+        states[capture] = wstate_to_numpy(run["trainer"].wstate)
+        runs[capture] = {
+            "step_ms_median": float(np.median(run["step_s"])) * 1e3,
+            "epoch": run["trainer"].decision.history[0],
+            "step_cache": run["step_cache"]}
+        del run
+    diff = _state_diff(torch, states[False], states[True])
+    sums_equal = runs[False]["epoch"] == runs[True]["epoch"]
+    captured = runs[True]["step_cache"]["train"]["captured"]
+    return {"steps": REC_WITNESS_STEPS,
+            "eager_step_ms_median": runs[False]["step_ms_median"],
+            "captured_step_ms_median": runs[True]["step_ms_median"],
+            "state_leaves_differing": diff, "epoch_sums_equal": sums_equal,
+            "captured": captured,
+            "ok": captured and not diff and sums_equal}
+
+
+def _rec_decode(torch, trainer):
+    """``generate`` of REC_GEN_ROWS x (REC_GEN_PROMPT + REC_GEN_NEW),
+    greedy, from the trained weights: its tokens against the argmax of
+    the full forward at every generated position (the recurrence is
+    causal, so the lstm's output at position t is the full forward of the
+    prefix up to t), and a captured paged engine's tokens against it."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    from veles_tpu_torch.runtime.generate import generate
+    from veles_tpu_torch.units.base import Context
+    wf, ws = trainer.workflow, trainer.wstate
+    prompt = np.random.default_rng(13).integers(
+        0, REC_V, (REC_GEN_ROWS, REC_GEN_PROMPT)).astype(np.int32)
+    generate(wf, ws, prompt, 2)                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(wf, ws, prompt, REC_GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    P = REC_GEN_PROMPT
+    with torch.inference_mode():
+        outs, _ = wf.forward(ws["params"], ws["state"],
+                             {"@input": toks[:, :-1]}, Context(),
+                             only=wf.ancestors("lstm1"))
+        h = outs["lstm1"]
+        head = next(u for u in wf.units if u.name == "out")
+        logits, _ = head.apply(ws["params"]["out"], {},
+                               [h.reshape(-1, h.shape[-1])], Context())
+        pred = logits.float().argmax(-1).view(h.shape[0], h.shape[1])
+    forward_mismatch = int((pred[:, P - 1:] != toks[:, P:].long()).sum())
+    eng = DecodeEngine(wf, ws, slots=REC_GEN_ROWS, l_max=REC_L_MAX,
+                       page_size=PAGE, paged=True, window_ms=2.0,
+                       device=DEVICE).start()
+    try:
+        etoks, metrics = _timed_generate(eng, prompt, REC_GEN_NEW)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    return {"rows": REC_GEN_ROWS, "prompt": P, "new": REC_GEN_NEW,
+            "generate_s": gen_s,
+            "generate_tokens_per_s": REC_GEN_ROWS * REC_GEN_NEW / gen_s,
+            "full_forward_mismatches": forward_mismatch,
+            "engine_tokens_equal": bool(np.array_equal(
+                etoks, toks.cpu().numpy())),
+            "engine": metrics,
+            "engine_captured": {k: st["capture"][k]["captured"]
+                                for k in ("decode_greedy", "prefill")},
+            "ok": (forward_mismatch == 0
+                   and np.array_equal(etoks, toks.cpu().numpy())
+                   and st["capture"]["decode_greedy"]["captured"]
+                   and st["capture"]["prefill"]["captured"])}
+
+
+def phase_recurrent_train(torch):
+    """The GRU+LSTM LM trained REC_EPOCHS captured epochs (and their
+    evals) with the launch counts set to 0 before: every loss finite,
+    the epoch train loss falling, train and eval captured, one batch
+    gather a batch; then 8 captured steps bitwise 8 eager ones, and
+    greedy decode (``generate`` and the engine) from the trained
+    weights.  Returns the gather's launches and its timing at the
+    loader's shape."""
+    from veles_tpu_torch.ops.kernels import gather_rows as gr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = _counted_run(torch, _rec_trainer(torch), 0.0)
+    trainer = run["trainer"]
+    hist = trainer.decision.history
+    epoch_loss = [h["train"]["loss"] for h in hist]
+    step_s = run["step_s"]
+    med = float(np.median(step_s))
+    batches = REC_EPOCHS * (REC_TRAIN // REC_B + REC_VALID // REC_B)
+    st = run["step_cache"]
+    rec = {"phase": "recurrent_train",
+           "layers": [layer["type"] for layer in rec_lm_layers()],
+           "dim": REC_DIM, "vocab": REC_V, "seq_len": REC_T,
+           "minibatch": REC_B, "n_train": REC_TRAIN, "dtype": "float32",
+           "epochs": len(hist), "steps": len(step_s),
+           "step_ms_median": med * 1e3, "step_ms_max": max(step_s) * 1e3,
+           "train_tokens_per_s": REC_B * REC_T / med,
+           "epoch_train_loss": epoch_loss,
+           "valid_error_pct": [h["valid"]["error_pct"] for h in hist],
+           "run_s": run["wall"], "launches": run["launches"],
+           "variants": run["variants"], "step_cache": st}
+    rec["ok"] = (len(step_s) == REC_EPOCHS * (REC_TRAIN // REC_B)
+                 and all(np.isfinite(run["losses"]))
+                 and epoch_loss[-1] < epoch_loss[0]
+                 and st["train"]["captured"] and st["eval"]["captured"]
+                 and run["variants"].get(gr.NAME) == {"batch": batches})
+    say(rec)
+    if not rec["ok"]:
+        fail(f"the GRU+LSTM LM's epochs: {rec}")
+    timing = _family_gather_timing(torch, trainer.loader, "recurrent_train")
+    witness = _rec_witness(torch)
+    say({"phase": "recurrent_capture_witness", **witness})
+    if not witness["ok"]:
+        fail(f"GRU+LSTM LM: captured and eager steps differ: {witness}")
+    dec = _rec_decode(torch, trainer)
+    say({"phase": "recurrent_decode", **dec})
+    if not dec["ok"]:
+        fail(f"GRU+LSTM LM decode: {dec}")
+    launches = run["launches"][gr.NAME]
+    del trainer, run
+    torch.cuda.empty_cache()
+    return {"launches": launches, "timing": timing}
+
+
+def rec_serve_layers():
+    """tests/test_generate.py:149-156's mixed chain at bench_lm.py's
+    width: the bench LM's 4 attention blocks, then gru 512, seq_last and
+    a softmax head."""
+    return bench_layers()[:-1] + [
+        {"type": "gru", "hidden": E, "name": "gru"},
+        {"type": "seq_last", "name": "last"},
+        {"type": "softmax", "output_size": VOCAB, "name": "out"}]
+
+
+def _rec_serve_state(torch, compute_dtype, flat=None):
+    """The mixed chain's workflow and a state of numpy-seed weights in
+    the JAX layout (seed 31, or ``flat``) on the card."""
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.snapshotter import params_from_jax
+    from veles_tpu_torch.units.base import Spec
+    from veles_tpu_torch.units.workflow import new_state
+    wf = StandardWorkflow({"name": "mixed_rnn_attention",
+                           "layers": rec_serve_layers(),
+                           "compute_dtype": compute_dtype,
+                           "optimizer": "adam",
+                           "optimizer_args": {"lr": 1e-3}}).workflow
+    wf.build({"@input": Spec((2, 16), torch.int32),
+              "@labels": Spec((2,), torch.int32),
+              "@mask": Spec((2,), torch.float32)})
+    flat = jax_layout_weights(wf, seed=31) if flat is None else flat
+    return wf, new_state(params_from_jax(flat, wf, device=DEVICE), {}, {}, 0,
+                         None), flat
+
+
+def _rec_serve(torch, eng, prompts, new):
+    """``prompts`` submitted together to a started engine: the tokens,
+    decode tokens/s, step p50 and TTFT mean and max."""
+    s0 = eng.stats()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, new) for p in prompts]
+    for r in reqs:
+        if not r.done.wait(900) or r.error is not None:
+            fail(f"a mixed-chain request failed: {r.error}")
+    wall = time.perf_counter() - t0
+    m = _engine_metrics(eng, s0, eng.stats(), wall)
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    m.update(ttft_s_mean=float(np.mean(ttft)), ttft_s_max=float(max(ttft)))
+    return np.stack([r.result for r in reqs]), m
+
+
+def _rec_preempt(torch, wf, ws, prompts, ref):
+    """A float32 engine of one class-1 request and SLOTS - 1 class-0
+    ones, driven on this thread: after REC_PREEMPT_AFTER decode steps a
+    class-0 arrival finds no free slot and preempts the class-1 request,
+    which resumes by re-prefilling from token 0.  Its tokens against
+    ``ref`` (its run without the arrival)."""
+    import threading
+    eng = _serve_engine(wf, ws, prefill_chunk=0, priorities=2, preempt=True)
+    eng._thread = threading.current_thread()    # submit() wants one
+    try:
+        victim = eng.submit(prompts[0], NEW, priority=1)
+        others = [eng.submit(p, NEW, priority=0) for p in prompts[1:]]
+        eng._admit()
+        for _ in range(REC_PREEMPT_AFTER):
+            eng._step_once()
+        high = eng.submit(prompts[1][:PROFILE_PROMPT], PROFILE_NEW,
+                          priority=0)
+        eng._admit()
+        reqs = [victim, high] + others
+        for _ in range(4 * (PROMPT + NEW)):
+            if all(r.done.is_set() for r in reqs):
+                break
+            eng._admit()
+            eng._advance_prefills()
+            if eng._active.any():
+                eng._step_once()
+    finally:
+        eng._thread = None
+    if not all(r.done.is_set() and r.error is None for r in reqs):
+        fail("a request of the mixed chain's preemption run did not finish")
+    return {"preemptions": victim.preemptions,
+            "tokens_equal_uninterrupted": bool(np.array_equal(
+                victim.result, ref)),
+            "ok": victim.preemptions >= 1 and bool(np.array_equal(
+                victim.result, ref))}
+
+
+def phase_recurrent_serving(torch):
+    """The mixed attention + GRU chain at bench_lm.py's width, bf16
+    compute, served by captured paged engines (SLOTS slots, l_max L_MAX,
+    page PAGE, paged kernel on) with the launch counts set to 0 at the
+    start: the greedy SLOTS x (PROMPT + NEW) request (whole prefill) on
+    a captured engine, an eager one, a megastep (N=MEGASTEP_N) one, a
+    speculative (k=SPEC_K) one driven with a verify dispatch every
+    iteration, and a chunked-prefill (REC_SERVE_CHUNK) one, all bitwise
+    the first; a shared-prefix pair takes no prefix hit and ``GET
+    /kv/pages`` answers 400; profiled decode, megastep and verify windows
+    hold the paged launches of each replay against the trace (LAYERS a
+    decode micro-step); in float32 the engine's tokens equal
+    ``generate()``'s and a preempted request equals its uninterrupted
+    run; in bf16 the share of tokens equal to ``generate()``'s is
+    reported.  Returns the paged kernel's launches over the phase."""
+    from veles_tpu_torch.ops.kernels import paged_attention as pa
+    from veles_tpu_torch.runtime.generate import generate
+    from veles_tpu_torch.runtime.restful import RestfulServer
+    _reset_counts()
+    wf, ws, flat = _rec_serve_state(torch, "bfloat16")
+    rng = np.random.default_rng(41)
+    prompts = rng.integers(0, VOCAB, (SLOTS, PROMPT)).astype(np.int32)
+    window = np.random.default_rng(12).integers(
+        0, VOCAB, (SLOTS, PROFILE_PROMPT)).astype(np.int32)
+    eng = _serve_engine(wf, ws, prefill_chunk=0)
+    prof_decode = _decode_window(torch, eng, window,
+                                 lambda e, i: e._step_once())
+    eng.start()
+    srv = RestfulServer(wf.make_predict_step(), ws, 2, (16,), port=0,
+                        workflow=wf, engine=eng, device=DEVICE).start()
+    try:
+        toks, metrics = _rec_serve(torch, eng, prompts, NEW)
+        sysp = rng.integers(0, VOCAB, SHARED_PREFIX)
+        for _ in range(2):
+            eng.generate(np.concatenate([sysp, rng.integers(
+                0, VOCAB, 16)]).astype(np.int32)[None], 8, timeout=900)
+        kv_code, kv_body = _http_bytes(srv.port, "/kv/pages?top=4")
+        st = eng.stats()
+    finally:
+        srv.stop()
+        eng.stop()
+    runs = {}
+    for name, kw in (("eager", {"capture": False}),
+                     ("chunked", {"prefill_chunk": REC_SERVE_CHUNK})):
+        e = _serve_engine(wf, ws, **({"prefill_chunk": 0} | kw)).start()
+        try:
+            runs[name] = _rec_serve(torch, e, prompts, NEW)
+            runs[name] += (e.stats(),)
+        finally:
+            e.stop()
+    mega = _serve_engine(wf, ws, prefill_chunk=0, megastep=MEGASTEP_N)
+    prof_mega = _decode_window(torch, mega, window,
+                               lambda e, i: e._advance_once())
+    mega.start()
+    try:
+        runs["megastep"] = _rec_serve(torch, mega, prompts, NEW) + (
+            mega.stats(),)
+    finally:
+        mega.stop()
+
+    def verify_first(e, i):
+        if i == 0:
+            _verify_always(e, i)
+        else:
+            e._step_once()
+
+    spec = _serve_engine(wf, ws, prefill_chunk=0, spec=True, spec_k=SPEC_K)
+    prof_verify = _decode_window(torch, spec, window, verify_first)
+    stoks, s0, s1, swall = _driven_run(torch, spec, prompts, NEW,
+                                       [{}] * SLOTS, _verify_always)
+    verify_steps = s1["spec"]["verify_steps"] - s0["spec"]["verify_steps"]
+    gen_bf16 = generate(wf, ws, prompts, NEW).cpu().numpy()
+    # float32: the engine against generate(), and the preemption
+    wf32, ws32, _ = _rec_serve_state(torch, None, flat)
+    e32 = _serve_engine(wf32, ws32, prefill_chunk=0).start()
+    try:
+        toks32, _ = _rec_serve(torch, e32, prompts, NEW)
+    finally:
+        e32.stop()
+    gen32 = generate(wf32, ws32, prompts, NEW).cpu().numpy()
+    preempt = _rec_preempt(torch, wf32, ws32, prompts, toks32[0])
+    torch.cuda.synchronize()
+    paged_launches = pa.launches.count
+    traces = {"decode": (prof_decode, LAYERS),
+              "megastep": (prof_mega, LAYERS * MEGASTEP_N),
+              "verify": (prof_verify, LAYERS * (SPEC_K + 1))}
+    per_replay = {k: p["launch_trace"]["per_replay_by_kind"].get(k, {})
+                  .get(PAGED_F32) for k, (p, _) in traces.items()}
+    traces_ok = all(p["launch_trace"]["ok"] and p["launch_trace"]["captured"]
+                    and per_replay[k] == n for k, (p, n) in traces.items())
+    rec = {"phase": "recurrent_serving", "layers": len(rec_serve_layers()),
+           "vocab": VOCAB, "dim": E, "attention_blocks": LAYERS,
+           "heads": HEADS, "gru": E, "compute": "bfloat16",
+           "slots": SLOTS, "l_max": L_MAX, "page": PAGE, "prompt": PROMPT,
+           "new": NEW, **metrics,
+           "eager": runs["eager"][1], "chunked": runs["chunked"][1],
+           "megastep": runs["megastep"][1],
+           "tokens_equal": {
+               "eager": bool(np.array_equal(runs["eager"][0], toks)),
+               "megastep": bool(np.array_equal(runs["megastep"][0], toks)),
+               "spec": bool(np.array_equal(stoks, toks)),
+               "chunked": bool(np.array_equal(runs["chunked"][0], toks))},
+           "mega_dispatches":
+               runs["megastep"][2]["megastep"]["mega_dispatches"],
+           "verify_steps": verify_steps, "spec_wall_s": swall,
+           "chunked_prefill_calls": runs["chunked"][2]["prefill_calls"],
+           "prefix_hit_pages": st["pages"]["prefix_hit_pages"],
+           "kv_pages_status": kv_code,
+           "kv_pages_body": kv_body[:200].decode(errors="replace"),
+           "generate_equal_share_bf16": float((toks == gen_bf16).mean()),
+           "first_diff_row0_bf16": _first_diff(toks[0], gen_bf16[0]),
+           "generate_equal_f32": bool(np.array_equal(toks32, gen32)),
+           "preempt_f32": preempt,
+           "paged_per_replay": per_replay,
+           "idle_share": {k: p["device_idle_share"]
+                          for k, (p, _) in traces.items()},
+           "paged_launches": paged_launches,
+           "captures": {k: v["captured"] for k, v in st["capture"].items()}}
+    rec["ok"] = (all(rec["tokens_equal"].values())
+                 and rec["mega_dispatches"] > 0 and verify_steps > 0
+                 and rec["chunked_prefill_calls"] >= SLOTS * PROMPT
+                 // REC_SERVE_CHUNK
+                 and rec["prefix_hit_pages"] == 0 and kv_code == 400
+                 and rec["generate_equal_f32"] and preempt["ok"]
+                 and traces_ok and all(rec["captures"].values())
+                 and st["compile"]["recompiles"] == 0
+                 and paged_launches > 0)
+    say(rec)
+    if not rec["ok"]:
+        fail(f"the mixed attention + GRU chain's serving checks failed: "
+             f"{rec}")
+    del wf, ws, wf32, ws32
+    torch.cuda.empty_cache()
+    return {"paged_attention_decode": paged_launches}
+
+
+# -- the host image path -------------------------------------------------------
+
+def _host_profile(torch, trainer):
+    """Device busy time over 3 captured AlexNet steps fed as the epoch
+    feeds them: the host crop and the pinning on the trainer's prefetch
+    thread (``Trainer._batches``), so the idle share counts the card's
+    waits on the host; a fourth step first as the profiler's warm-up;
+    the launch counters held against the trace."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.ops.kernels import KERNELS
+    step = trainer._train_step
+    it = trainer._batches(TRAIN, 0, step)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            trainer.wstate, _ = step(trainer.wstate, next(it))
+            torch.cuda.synchronize()
+            prof.step()
+            _settle(torch)
+            counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+            t0 = time.perf_counter()
+            for _, b in zip(range(3), it):
+                trainer.wstate, _ = step(trainer.wstate, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        it.close()
+    rec = _busy(prof, wall, f"3 AlexNet host-path steps, {IMG_B} images "
+                            "each, fed through the prefetch", steps=3)
+    rec["launch_trace"] = _launch_trace_check(prof, counted0, [(step, 3)])
+    return rec
+
+
+def phase_image_host(torch, device_rec):
+    """``alexnet_e2e_workflow``: AlexNet (bf16) fed uint8 batches that
+    ``ImagenetHostLoader`` crops and mirrors on the host (4096 + 512
+    images, minibatch 512), normalized on the card by the ``norm0``
+    unit's mean/disp kernel, one captured epoch and its eval with the
+    trainer's prefetch (2) overlapping the host crop with the step, the
+    launch counts set to 0 before; the host crop's ms a batch; a
+    profiled window (idle share); IMG_WITNESS_STEPS captured steps
+    bitwise eager ones (cuDNN deterministic); samples/s beside the
+    card-resident variant's (``device_rec``, the image phase's)."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.models.alexnet import alexnet_e2e_workflow
+    from veles_tpu_torch.ops.kernels import mean_disp
+    from veles_tpu_torch.runtime.decision import Decision
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_data = time.perf_counter()
+    sw = alexnet_e2e_workflow(minibatch_size=IMG_B, n_train=IMG_TRAIN,
+                              n_valid=IMG_VALID)
+    sw.loader.initialize()
+    t_data = time.perf_counter() - t_data
+    crop_s, it = [], sw.loader.iter_epoch(TRAIN, 0)
+    for _ in range(4):
+        t0 = time.perf_counter()
+        next(it)
+        crop_s.append(time.perf_counter() - t0)
+    it.close()
+    trainer = sw.make_trainer(sw.loader, Decision(max_epochs=1),
+                              device=DEVICE)
+    run = _counted_run(torch, trainer, t_data)
+    step_s, losses, launches = run["step_s"], run["losses"], run["launches"]
+    med = float(np.median(step_s))
+    st = run["step_cache"]
+    steps = len(step_s)
+    profile = _host_profile(torch, trainer)
+    rec = {"phase": "image_host", "steps": steps, "prefetch":
+           trainer.prefetch, "store_s": t_data,
+           "host_crop_ms_per_batch": float(np.median(crop_s)) * 1e3,
+           "step_ms_median": med * 1e3, "run_s": run["wall"],
+           "train_samples_per_s": IMG_B / med,
+           "epoch_samples_per_s": steps * IMG_B / run["wall"],
+           "device_variant_samples_per_s": device_rec["train_samples_per_s"],
+           "device_variant_epoch_samples_per_s":
+               device_rec["epoch_samples_per_s"],
+           "idle_share": profile["device_idle_share"],
+           "losses": losses, "launches": launches, "step_cache": st,
+           "profile": profile}
+    say(rec)
+    if (steps != IMG_TRAIN // IMG_B or not all(np.isfinite(losses))
+            or not (st["train"]["captured"] and st["eval"]["captured"])
+            or launches[mean_disp.NAME] < IMG_MIN_LAUNCHES[mean_disp.NAME]
+            or not profile["launch_trace"]["ok"]):
+        fail(f"the host image path: {rec}")
+    del trainer, run, sw
+    torch.cuda.empty_cache()
+    witness = _image_capture_witness(torch, host=True)
+    say({"phase": "image_host_capture_witness", **witness})
+    if not witness["ok"]:
+        fail(f"AlexNet host path: captured and eager steps differ: "
+             f"{witness}")
+    return {"launches": launches[mean_disp.NAME]}
+
+
 def phase_device_benchmark(torch):
     """``runtime.benchmark.benchmark_device()`` once on the card (GEMM
     chains of 1024-4096 in float32 and bfloat16, CUDA events), its DB
@@ -4272,24 +4798,42 @@ def phase_curriculum_kernels(torch):
     return {"timing": timing, "launches": counts}
 
 
+def curriculum_two_phases():
+    """The published spec cut to its first two phases: the same
+    ``common``, ``bar`` and phase 1, and phase 2 once (``"repeat": 1``),
+    budgets 170 and 320 epochs.  Two phases still exercise the chain (the
+    second CLI process restores the first one's best snapshot); the whole
+    chain (~3,190 epochs) would push the script past its time limit."""
+    spec = _config(CURRICULUM_SPEC)
+    first, second = spec["phases"][:2]
+    return dict(spec, phases=[first, dict(second, repeat=1)])
+
+
 def phase_curriculum(torch, out_dir):
     """``python -m veles_tpu_torch configs/induction_lm64.json
-    --curriculum configs/induction_lm64_curriculum.json`` on the card, the
-    spec as published: each phase's best value, best epoch, epochs, wall
-    and median train-phase step.  Fails when a phase fails (the CLI exits
-    non-zero), when the summary is not whole (a finite best value, every
-    phase run to its budget, the best snapshot on disk) or when a phase's
-    median step is not finite.  The bar is reported (``bar_met``), not
-    required: the JAX package's own CLI stalls near chance on this spec
-    and seed too (PERF.md §6; ROADMAP.md's reference caveat), so the bar
-    measures the recipe, not the port."""
+    --curriculum SPEC`` on the card, SPEC the published
+    configs/induction_lm64_curriculum.json cut to two phases
+    (:func:`curriculum_two_phases`, written into ``out_dir``): each
+    phase's best value, best epoch, epochs, wall and median train-phase
+    step.  Fails when a phase fails (the CLI exits non-zero), when the
+    summary is not whole (a finite best value, every phase run to its
+    budget, the best snapshot on disk, phase 2 started from phase 1's
+    best snapshot) or when a phase's median step is not finite.  The bar
+    is reported (``bar_met``), not required: the JAX package's own CLI
+    stalls near chance on the published spec and seed too (PERF.md §6;
+    ROADMAP.md's reference caveat), so the bar measures the recipe, not
+    the port."""
     here = os.path.dirname(os.path.abspath(__file__))
     res_path = os.path.join(out_dir, "summary.json")
-    # a storage setting, not the spec: each phase snapshots every epoch
-    # (~3,200 in all), and the newest 2 are kept
+    spec = curriculum_two_phases()
+    spec_path = os.path.join(out_dir, "curriculum_two_phases.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f, indent=1)
+    # a storage setting, not the spec: each phase snapshots every epoch,
+    # and the newest 2 are kept
     cmd = [sys.executable, "-m", "veles_tpu_torch", CURRICULUM_CONFIG,
            "root.common.snapshot_keep=2",
-           "--curriculum", CURRICULUM_SPEC, "--curriculum-out", out_dir,
+           "--curriculum", spec_path, "--curriculum-out", out_dir,
            "--result-file", res_path, "--device", DEVICE]
     t0 = time.perf_counter()
     try:
@@ -4306,7 +4850,8 @@ def phase_curriculum(torch, out_dir):
         say({"phase": "curriculum_phase", **ph,
              "step_ms_median": (ph.get("train_step_s_median") or 0) * 1e3})
     rec = {"phase": "curriculum", "config": CURRICULUM_CONFIG,
-           "spec": CURRICULUM_SPEC, "best_value": summary["value"],
+           "spec": CURRICULUM_SPEC, "phases": "the first two, phase 2 once",
+           "best_value": summary["value"],
            "best_phase": summary["best_phase"],
            "phases_run": summary["phases_run"], "wall_s": took,
            "bar": CURRICULUM_BAR,
@@ -4318,8 +4863,17 @@ def phase_curriculum(torch, out_dir):
     best = summary["value"]
     rec["bar_met"] = best is not None and best <= CURRICULUM_BAR
     say(rec)
-    budgets = [int(o.split("=")[1]) for o in _curriculum_budgets()]
-    whole = (best is not None and np.isfinite(best)
+    budgets = [int(o.split("=")[1]) for o in _curriculum_budgets(spec)]
+    phases = summary["phases"]
+    p1_dir = os.path.join(out_dir, "p1")
+    # phase 2 ran from phase 1's best snapshot (when the bar did not stop
+    # the chain after phase 1)
+    chained = len(phases) < 2 or (
+        (phases[1].get("restored_from") or "").startswith(p1_dir)
+        and phases[1]["restored_from"].endswith("_best.json"))
+    rec["phase2_restored_from"] = (phases[1].get("restored_from")
+                                   if len(phases) > 1 else None)
+    whole = (best is not None and np.isfinite(best) and chained
              and summary["phases_run"] >= 1
              and [ph["epochs"] for ph in summary["phases"]]
              == budgets[:summary["phases_run"]]
@@ -4333,11 +4887,10 @@ def phase_curriculum(torch, out_dir):
     return summary["best_snapshot"]
 
 
-def _curriculum_budgets():
-    """Each phase's ``workflow.max_epochs=`` override in the published
-    spec."""
+def _curriculum_budgets(spec):
+    """Each phase's ``workflow.max_epochs=`` override in ``spec``."""
     from veles_tpu_torch.runtime.curriculum import expand_phases
-    return [o for ph in expand_phases(_config(CURRICULUM_SPEC))
+    return [o for ph in expand_phases(spec)
             for o in ph["overrides"] if o.startswith("workflow.max_epochs=")]
 
 
@@ -4486,8 +5039,11 @@ def main():
     import tempfile
     with tempfile.TemporaryDirectory(prefix="vt_lifecycle_") as snap_dir:
         timed("serving_lifecycle", phase_lifecycle, torch, snap_dir)
+    rec_serve = timed("recurrent_serving", phase_recurrent_serving, torch)
     train_launches = timed("train", phase_train, torch)
-    image_launches = timed("image", phase_image, torch)
+    rec_train = timed("recurrent_train", phase_recurrent_train, torch)
+    image_launches, image_rec = timed("image", phase_image, torch)
+    host = timed("image_host", phase_image_host, torch, image_rec)
     cur = timed("curriculum_kernels", phase_curriculum_kernels, torch)
     timing.update(cur["timing"])
     # the image family's 70k SynthDigits render on the host (numpy, one
@@ -4523,9 +5079,22 @@ def main():
     # card) and the batch gather over its epoch and eval
     for kname in ("fused_dropout", "gather_rows"):
         launches[kname + "/synthdigits_conv"] = family["launches"][kname]
-    # this slice's path, the curriculum: the f32 flash kernels and the
-    # batch gather over one captured epoch of its LM64 trainer
+    # the curriculum: the f32 flash kernels and the batch gather over one
+    # captured epoch of its LM64 trainer
     launches.update(cur["launches"])
+    # this slice's paths: paged decode on the mixed attention + GRU
+    # chain's engines (the serving shape the kernel was timed at), the
+    # batch gather over the GRU+LSTM LM's epochs (timed at its loader's
+    # shape), mean/disp on the host image path (AlexNet's norm0 shape)
+    launches["paged_attention_decode/recurrent_serving"] = rec_serve[
+        "paged_attention_decode"]
+    timing["paged_attention_decode/recurrent_serving"] = {
+        **timing["paged_attention_decode"], "path": "recurrent_serving"}
+    launches["gather_rows/recurrent_train"] = rec_train["launches"]
+    timing["gather_rows/recurrent_train"] = rec_train["timing"]
+    launches["mean_disp_normalize/image_host"] = host["launches"]
+    timing["mean_disp_normalize/image_host"] = {
+        **timing["mean_disp_normalize"], "path": "image_host"}
     line = []
     for kern in KERNELS:
         names = [kern.NAME] + [k for k in timing

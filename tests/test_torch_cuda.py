@@ -1339,3 +1339,128 @@ def test_alexnet_shaped_dropout_step_captured_equals_eager(card,
     assert c_n == e_n + 4 * WARMUP_STEPS
     assert _state_equal(cap.wstate, eager.wstate)
     assert cap.decision.history == eager.decision.history
+
+
+# -- the recurrent family -----------------------------------------------------
+
+def _rec_lm_trainer(card, capture):
+    """The GRU+LSTM LM's layer types at a narrow width (dim 32, vocab 32)
+    over a card-resident InductionLoader (8 x 16 tokens a batch, the last
+    position supervised), Adam; capture on or off."""
+    from veles_tpu_torch.models.lm import InductionLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    layers = [{"type": "embedding", "vocab": 32, "dim": 32, "name": "emb"},
+              {"type": "gru", "hidden": 32, "name": "gru1"},
+              {"type": "lstm", "hidden": 32, "name": "lstm1"},
+              {"type": "seq_last", "name": "last"},
+              {"type": "softmax", "output_size": 32, "name": "out"}]
+    sw = StandardWorkflow({"name": "rec_lm", "layers": layers,
+                           "optimizer": "adam",
+                           "optimizer_args": {"lr": 1e-3}})
+    loader = InductionLoader(minibatch_size=8, n_train=64, n_valid=16,
+                             seq_len=16, vocab=32, device=card)
+    tr = sw.make_trainer(loader, Decision(max_epochs=1), device=card,
+                         step_cache=StepCache(capture=capture))
+    tr.initialize(seed=0)
+    return tr
+
+
+def test_recurrent_train_step_captured_equals_eager_bitwise(card):
+    """8 GRU+LSTM steps and an eval from one init: the captured steps
+    (the scan's Python loop recorded whole) leave the eager steps'
+    parameters, Adam state and epoch sums, bit for bit."""
+    eager = _rec_lm_trainer(card, False)
+    captured = _rec_lm_trainer(card, True)
+    assert captured.step_cache.stats()["train"] == {"captured": True,
+                                                    "reason": None}
+    eager.run()
+    captured.run()
+    assert captured.step_cache.stats()["eval"]["captured"]
+    assert captured.wstate["step"] == eager.wstate["step"] == 8
+    assert _state_equal(captured.wstate, eager.wstate)
+    assert captured.decision.history == eager.decision.history
+
+
+def _mixed_chain(device, dtype):
+    """tests/test_generate.py:149-156's mixed chain at a narrow width:
+    two attention blocks of the bench LM's types, then gru, seq_last and
+    a softmax head (vocab 64, dim 64), random weights from seed 0."""
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.units.base import Spec
+    layers = [{"type": "embedding", "vocab": 64, "dim": 64, "name": "emb"}]
+    for i in range(2):
+        layers += [{"type": "attention", "n_heads": 4, "rope": True,
+                    "residual": True, "name": f"attn{i}"},
+                   {"type": "layer_norm", "name": f"ln{i}a"},
+                   {"type": "ffn", "d_hidden": 128, "name": f"ffn{i}"},
+                   {"type": "layer_norm", "name": f"ln{i}b"}]
+    layers += [{"type": "gru", "hidden": 64, "name": "gru"},
+               {"type": "seq_last", "name": "last"},
+               {"type": "softmax", "output_size": 64, "name": "out"}]
+    wf = StandardWorkflow({"name": "mixed", "layers": layers,
+                           "compute_dtype": dtype}).workflow
+    wf.build({"@input": Spec((2, 16), torch.int32),
+              "@labels": Spec((2,), torch.int32),
+              "@mask": Spec((2,), torch.float32)})
+    return wf, wf.init_state(0, device=device)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", None], ids=["bf16", "f32"])
+def test_mixed_chain_engine_captured_equals_eager_bitwise(card, dtype):
+    """40 scheduler iterations of the mixed attention + GRU chain under
+    the fixed megastep (N=4) / verify (K=3) / decode policy, with a
+    chunked prompt and a sampled row, through the captured graphs and
+    the eager steps: tokens, token rows, KV pool and the GRU carries bit
+    for bit, no prefix hit; each program's graph records one paged
+    launch a layer a micro-step, and a replay adds exactly that."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _mixed_chain(card, dtype)
+    runs = {}
+    for capture in (True, False):
+        eng = DecodeEngine(wf, ws, slots=4, l_max=128, page_size=16,
+                           paged_kernel=True, prefill_chunk=32,
+                           window_ms=0.0, megastep=4, spec=True, spec_k=3,
+                           capture=capture, device=card)
+        runs[capture] = (eng, _drive(eng, _mega_spec_script(), 40,
+                                     _fixed_policy))
+    (cap, creqs), (eag, ereqs) = runs[True], runs[False]
+    for kind in ("decode", "prefill", "megastep", "verify",
+                 "decode_greedy", "megastep_greedy", "verify_greedy"):
+        assert cap.stats()["capture"][kind] == {"captured": True,
+                                                "reason": None}
+    st = cap.stats()
+    assert st["megastep"]["mega_dispatches"] > 0, st
+    assert st["spec"]["verify_steps"] > 0, st
+    assert st["pages"]["prefix_hit_pages"] == 0, st
+    assert [r.done.is_set() for r in creqs] == \
+        [r.done.is_set() for r in ereqs]
+    assert sum(r.done.is_set() for r in creqs) >= 3
+    for a, b in zip(creqs, ereqs):
+        if a.done.is_set():
+            np.testing.assert_array_equal(a.result, b.result)
+    np.testing.assert_array_equal(cap._toks, eag._toks)
+    for name in cap._caches:
+        for part in cap._caches[name]:
+            assert torch.equal(cap._caches[name][part],
+                               eag._caches[name][part]), (name, part)
+    layers = 2
+    per = {"decode": layers, "megastep": 4 * layers, "verify": 4 * layers}
+    for kind, n in per.items():
+        for name in (kind, kind + "_greedy"):
+            assert [m for c, (m, _) in cap._fns[name].launches
+                    if c is pa.launches] == [n], name
+    fresh = DecodeEngine(wf, ws, slots=2, l_max=128, page_size=16,
+                         paged_kernel=True, window_ms=0.0, megastep=4,
+                         spec=True, spec_k=3, device=card)
+    _drive(fresh, {0: [(np.arange(20) % 7, 30, {}),
+                       (np.arange(9) % 5, 30, {})]}, 1, lambda e, i: None)
+    draft = np.full((2, 3), -1, np.int32)
+    for kind, call in (("decode", fresh._step_once),
+                       ("megastep", fresh._megastep_once),
+                       ("verify", lambda: fresh._verify_once(draft))):
+        n0 = pa.launches.count
+        call()
+        torch.cuda.synchronize()
+        assert pa.launches.count - n0 == per[kind], kind

@@ -389,10 +389,13 @@ def test_deferred_layer_types_name_their_slice():
         wf = build_workflow("x", [{"type": ltype, **kw}])
         assert type(wf.units[0]).__name__.lower().replace("_", "") == \
             ltype.replace("_", "")
-    for ltype, slice_ in (("moe", "slice 8"), ("pipeline_stack", "slice 8"),
-                          ("rnn", "slice 7")):
+    for ltype, slice_ in (("moe", "slice 8"), ("pipeline_stack", "slice 8")):
         with pytest.raises(NotImplementedError, match=slice_):
             build_workflow("x", [{"type": ltype}])
+    # the recurrent family (ROADMAP slice 7) builds now
+    for ltype in ("rnn", "gru", "lstm"):
+        wf = build_workflow("x", [{"type": ltype, "hidden": 4}])
+        assert type(wf.units[0]).__name__.lower() == ltype
 
 
 # -- trainer over the augmented loader ----------------------------------------

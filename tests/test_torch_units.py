@@ -92,9 +92,13 @@ def test_predict_step_matches_jax(rng, layers):
 
 def test_unported_layer_type_names_its_slice():
     from veles_tpu_torch.models.standard import build_workflow
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    # a gru layer builds now (ROADMAP slice 7); moe still names its slice
+    wf = build_workflow("x", [{"type": "embedding", "vocab": 4, "dim": 4},
+                              {"type": "gru", "hidden": 4}])
+    assert type(wf.units[1]).__name__ == "GRU"
+    with pytest.raises(NotImplementedError, match="slice 8"):
         build_workflow("x", [{"type": "embedding", "vocab": 4, "dim": 4},
-                             {"type": "gru", "hidden": 4}])
+                             {"type": "moe", "n_experts": 2}])
 
 
 def test_evaluator_builds_but_names_training_slice():

@@ -19,7 +19,7 @@ veles_tpu/loader/base.py, which holds no JAX, rewired to the port).
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -85,6 +85,11 @@ class Loader(Logger):
     @property
     def total_samples(self) -> int:
         return sum(self.class_lengths)
+
+    def class_offset(self, klass: int) -> int:
+        """Index of the class's first sample in the loader's global
+        order test | validation | train (veles_tpu/loader/base.py:96)."""
+        return sum(self.class_lengths[:klass])
 
     # -- epoch iteration ---------------------------------------------------
     def _train_indices(self, klass: int) -> np.ndarray:
@@ -208,6 +213,28 @@ class Loader(Logger):
 
     def next_epoch(self) -> None:
         self.epoch_number += 1
+
+    # -- label statistics (veles_tpu/loader/base.py:226-250) ----------------
+    def analyze_label_distribution(self, labels_by_class: Dict[int, Sequence]
+                                   ) -> Dict[str, dict]:
+        """Per-class label histogram and a chi-square-style balance
+        figure between the train and validation label distributions."""
+        report, hists = {}, {}
+        for klass, labels in labels_by_class.items():
+            vals, counts = np.unique(np.asarray(labels), return_counts=True)
+            hists[klass] = dict(zip(vals.tolist(), counts.tolist()))
+            report[CLASS_NAMES[klass]] = hists[klass]
+        if TRAIN in hists and VALID in hists and hists[VALID]:
+            keys = sorted(set(hists[TRAIN]) | set(hists[VALID]))
+            tr = np.array([hists[TRAIN].get(k, 0) for k in keys], np.float64)
+            va = np.array([hists[VALID].get(k, 0) for k in keys], np.float64)
+            expected = tr / max(tr.sum(), 1) * va.sum()
+            with np.errstate(divide="ignore", invalid="ignore"):
+                chi2 = float(np.nansum(
+                    np.where(expected > 0,
+                             np.square(va - expected) / expected, 0.0)))
+            report["train_valid_chi2"] = chi2
+        return report
 
     # -- checkpointable state ----------------------------------------------
     def state(self) -> dict:

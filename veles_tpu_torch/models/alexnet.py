@@ -5,14 +5,17 @@ NHWC activations, bf16 compute with float32 master weights, 227 x 227
 inputs, LRN after conv1/conv2.  ImageNet itself is not here; the loaders
 are deterministic synthetic ImageNet-shaped streams.  Copied: the config,
 ``ImagenetSyntheticLoader`` (float32 batches made on the host),
-``_synth_store`` and ``_e2e_config``, ``alexnet_workflow`` and
+``_synth_store`` and ``_e2e_config``, ``alexnet_workflow``,
 ``alexnet_e2e_device_workflow`` (the uint8 store held on the card,
-cropped, mirrored and normalized there).  ``ImagenetHostLoader`` and
-``alexnet_e2e_workflow`` (the host crop path) come with the rest of the
-image slice.
+cropped, mirrored and normalized there), and ``ImagenetHostLoader`` with
+``alexnet_e2e_workflow`` (the host crop path: uint8 batches cropped and
+mirrored on the host, normalized on the card by the prepended ``norm``
+unit's mean/disp kernel).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -79,6 +82,76 @@ class ImagenetSyntheticLoader(Loader):
         return {"@input": x, "@labels": labels}
 
 
+class ImagenetHostLoader(Loader):
+    """The end-to-end input pipeline on the host
+    (veles_tpu/models/alexnet.py:86-159): a host-resident uint8 store,
+    each sample randomly cropped to 227 and mirrored on the host (the
+    validation class centre-cropped), uint8 batches out; the uint8 ->
+    float mean/disp normalization is left to the card (the workflow's
+    first unit).  The crop offsets and flips come from
+    ``default_rng([seed, klass, first index])``, the JAX package's
+    stream, so the batches are bitwise its batches.  Batches of 128 or
+    more are cut on one long-lived thread pool (the slice copies release
+    the GIL); the trainer's prefetch thread overlaps them with the
+    step."""
+
+    def __init__(self, minibatch_size=128, n_train=4096, n_valid=512,
+                 n_classes=1000, seed=13, **kw):
+        super().__init__(minibatch_size=minibatch_size, **kw)
+        self.n_train = n_train
+        self.n_valid = n_valid
+        self.n_classes = n_classes
+        self.seed = seed
+        self._store = None
+        self._pool = None
+
+    def _executor(self, workers: int):
+        # one pool for the loader's life: a pool a batch would be created
+        # and joined every minibatch
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(workers)
+        return self._pool
+
+    def load_data(self):
+        self._store, _ = _synth_store(self.n_train + self.n_valid,
+                                      self.seed)
+        self.class_lengths = [0, self.n_valid, self.n_train]
+
+    def fill_minibatch(self, indices, klass):
+        hw, out = STORE_HW, INPUT_HW
+        base = self.n_valid if klass == TRAIN else 0
+        rng = np.random.default_rng(
+            [self.seed, klass, int(indices[0]) if len(indices) else 0])
+        n = len(indices)
+        if klass == TRAIN:
+            offs = rng.integers(0, hw - out + 1, (n, 2))
+            flip = rng.random(n) < 0.5
+        else:
+            c = (hw - out) // 2
+            offs = np.full((n, 2), c)
+            flip = np.zeros(n, bool)
+        idx = np.asarray(indices) + base
+        xs = np.empty((n, out, out, 3), np.uint8)
+
+        def fill(lo, hi):
+            for i in range(lo, hi):
+                oy, ox = offs[i]
+                img = self._store[idx[i], oy:oy + out, ox:ox + out]
+                xs[i] = img[:, ::-1] if flip[i] else img
+
+        workers = min(8, os.cpu_count() or 1)
+        if n >= 128 and workers > 1:
+            chunk = -(-n // workers)
+            list(self._executor(workers).map(
+                lambda lo: fill(lo, min(lo + chunk, n)),
+                range(0, n, chunk)))
+        else:
+            fill(0, n)
+        labels = (indices % self.n_classes).astype(np.int32)
+        return {"@input": xs, "@labels": labels}
+
+
 def alexnet_workflow(minibatch_size=128, loader=None,
                      **overrides) -> StandardWorkflow:
     cfg = dict(ALEXNET_CONFIG)
@@ -109,6 +182,19 @@ def _synth_store(n: int, seed: int = 13):
     store = rng.integers(0, 256, (n, STORE_HW, STORE_HW, 3), np.uint8)
     labels = np.arange(n, dtype=np.int32) % 1000
     return store, labels
+
+
+def alexnet_e2e_workflow(minibatch_size=128, n_train=4096, n_valid=512,
+                         seed=13, **overrides) -> StandardWorkflow:
+    """AlexNet fed through the host image path
+    (veles_tpu/models/alexnet.py:196-204): uint8 batches from
+    :class:`ImagenetHostLoader`, normalized on the card by the prepended
+    mean/disp unit."""
+    sw = StandardWorkflow(_e2e_config(**overrides))
+    sw.loader = ImagenetHostLoader(minibatch_size=minibatch_size,
+                                   n_train=n_train, n_valid=n_valid,
+                                   seed=seed)
+    return sw
 
 
 def alexnet_e2e_device_workflow(minibatch_size=128, n_train=4096,

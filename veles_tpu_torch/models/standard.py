@@ -12,7 +12,7 @@ import inspect
 from typing import Dict, Optional, Sequence
 
 from ..ops.optimizers import HyperParams, LR_POLICIES, OPTIMIZERS, Optimizer
-from ..units import nn, parallel_nn
+from ..units import nn, parallel_nn, recurrent
 from ..units.workflow import Workflow
 
 LAYER_TYPES = {
@@ -39,6 +39,9 @@ LAYER_TYPES = {
     "norm": nn.MeanDispNormalizer,
     "flatten": nn.Flatten,
     "reshape": nn.Reshape,
+    "rnn": recurrent.RNN,
+    "gru": recurrent.GRU,
+    "lstm": recurrent.LSTM,
 }
 
 #: layer types of the JAX package not ported yet -> the ROADMAP.md slice
@@ -46,9 +49,6 @@ LAYER_TYPES = {
 PENDING_TYPES = {
     "moe": "slice 8 (parallelism)",
     "pipeline_stack": "slice 8 (parallelism)",
-    "rnn": "slice 7 (recurrent units)",
-    "gru": "slice 7 (recurrent units)",
-    "lstm": "slice 7 (recurrent units)",
 }
 
 #: layer-type prefixes that take a compute_dtype kwarg

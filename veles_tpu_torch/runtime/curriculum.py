@@ -157,13 +157,14 @@ class CurriculumRunner(Logger):
                 raise CurriculumError(
                     f"phase {i} failed: {res['error']}")
             # the phase's wall (its process start-up included), its
-            # training wall and median train step beside the reference's
-            # keys
+            # training wall, median train step and the snapshot it
+            # started from beside the reference's keys
             results.append({"phase": i, **{k: res[k] for k in
                             ("best_value", "best_epoch", "epochs",
                              "elapsed_s", "train_step_s_median")
                             if k in res},
-                            "wall_s": time.monotonic() - t0})
+                            "wall_s": time.monotonic() - t0,
+                            "restored_from": best_snapshot})
             val = res.get("best_value")
             snap = self._best_snapshot(pdir)
             if val is not None and (best is None or val < best[0]):

@@ -711,18 +711,20 @@ class _TokenStep(_ServeStep):
 
 class _PrefillStep(_ServeStep):
     """One prompt position of one slot: ``buf`` = effective prompt
-    (l_max) | the slot's page-table row (n_ptab) | position index (1).
-    The step reads its token and position at the index and advances the
-    index by one on the card, so a chunk of n positions is one load and
-    n calls.  KV goes through the page table, reads through the gather
-    path.  Its state is the KV caches; outputs the (1, V) logits of the
-    position."""
+    (l_max) | the slot's page-table row (n_ptab) | position index (1) |
+    slot (1).  The step reads its token and position at the index and
+    advances the index by one on the card, so a chunk of n positions is
+    one load and n calls.  KV goes through the page table, reads through
+    the gather path; a recurrent carry is the slot's row of the engine's
+    carries, reset at position 0 and carried across chunk slices
+    (engine.py:581-648).  Its state is the caches; outputs the (1, V)
+    logits of the position."""
 
     kind = "prefill"
 
     def __init__(self, engine):
         super().__init__(engine, {"buf": torch.zeros(
-            engine.l_max + engine.n_ptab + 1, dtype=torch.int32,
+            engine.l_max + engine.n_ptab + 2, dtype=torch.int32,
             device=engine.device)})
 
     def run(self, caches, inputs, host):
@@ -734,7 +736,8 @@ class _PrefillStep(_ServeStep):
             logits, _ = self.plan.step(
                 self.params, caches, b.index_select(0, idx.long()), idx,
                 self.ctx, pages=(b[L:L + n].view(1, n), self.page_size,
-                                 None))
+                                 None),
+                carry_rows=b[L + n + 1:L + n + 2].long())
             idx.add_(1)
         return {"logits": logits}
 
@@ -834,10 +837,9 @@ class DecodeEngine(Logger):
         self._swap_sigs = (tree_signature(wstate["params"]),
                            tree_signature(self.params))
         # recurrent carried state is position-recurrent from token 0 and
-        # is not paged: such a chain takes no prefix shortcut
-        # (engine.py:1118; the port's DecodePlan has no recurrent units
-        # yet, so every chain it accepts qualifies)
-        self._prefix_ok = not getattr(self.plan, "_rec_units", ())
+        # is not paged: such a chain takes no prefix shortcut, and its
+        # preempted requests re-prefill from token 0 (engine.py:1118)
+        self._prefix_ok = not self.plan._rec_units
         self._ctx = Context(train=False)
         # the embedding table's rows: the bound on prompt token ids (the
         # REST guard's), checked in submit before anything is enqueued
@@ -1030,14 +1032,18 @@ class DecodeEngine(Logger):
     def _register_memory(self):
         """Publish the engine's byte ledger (``GET /memory.json``): the
         served parameters (shared with the caller's tree where they lay
-        on the device in the served dtypes), the KV pool, the slot-state
-        buffer, the token matrix and the fold-key table, from shapes.  ``stats()
-        ["memory"]`` reads this engine's own copy; the finalizer drops
-        its entries when the engine is freed."""
+        on the device in the served dtypes), the KV pool, the slot state
+        (the slot-state buffer and the recurrent carries, engine.py:1573
+        and :1613), the token matrix and the fold-key table, from
+        shapes.  ``stats()["memory"]`` reads this engine's own copy; the
+        finalizer drops its entries when the engine is freed."""
+        attn = self.plan.attn_keys()
         self._mem_bytes = {
             "serving_params": tree_bytes(self.params),
-            "kv_cache": tree_bytes(self._caches),
-            "slot_state": tree_bytes(self._dstate["st"]),
+            "kv_cache": tree_bytes({k: v for k, v in self._caches.items()
+                                    if k in attn}),
+            "slot_state": tree_bytes(self._dstate["st"]) + tree_bytes(
+                {k: v for k, v in self._caches.items() if k not in attn}),
             "token_matrix": tree_bytes(self._dstate["toks"]),
             "fold_keys": tree_bytes(self._dstate["keys"]),
         }
@@ -2523,6 +2529,7 @@ class DecodeEngine(Logger):
             buf[:eff.size] = eff
             buf[L:L + m] = req.page_row
             buf[L + m] = start
+            buf[L + m + 1] = slot
             fn = self._fns["prefill"]
             out = fn(self._caches, {"buf": self._stage["buf"]})
             if self._prefill_staged is not None:
@@ -2536,8 +2543,8 @@ class DecodeEngine(Logger):
                 eff[start:start + n].astype(np.int64)).to(dev)
             positions = torch.arange(start, start + n, dtype=torch.int32,
                                      device=dev)
-            caches = {name: {"k": c["k"][slot:slot + 1],
-                             "v": c["v"][slot:slot + 1]}
+            caches = {name: {part: t[slot:slot + 1]
+                             for part, t in c.items()}
                       for name, c in self._caches.items()}
             for i in range(n):
                 logits, _ = self.plan.step(self.params, caches,

@@ -21,8 +21,13 @@ same sampled tokens for the same seed.  The numbers cannot match the JAX
 package's threefry streams; greedy tokens are what the two packages
 share.
 
-Recurrent, mixture-of-experts and pipeline-stack units come with later
-slices of the port (ROADMAP.md); a chain holding one raises.
+Recurrent units decode with O(1) carried state (generate.py:72-110 of
+the JAX package): each step runs the unit's own training cell
+(``ops/recurrent.py``), so decode cannot drift from the forward pass, and
+updates the carry in place.  A ``return_sequences=False`` recurrent ends
+the sequence segment as ``seq_last`` does.  Mixture-of-experts and
+pipeline-stack units come with a later slice of the port (ROADMAP.md);
+a chain holding one raises.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..ops.kernels.paged_attention import paged_attention_decode
 from ..units import nn
 from ..units.base import Context
 from ..units.parallel_nn import MultiHeadAttention
+from ..units.recurrent import _RecurrentBase
 from ..units.workflow import WorkflowError
 
 _MASK64 = (1 << 64) - 1
@@ -79,6 +85,37 @@ def _attn_cache_init(u, params, B: int, L: int, dtype, device, *,
              else (B, L, u.n_kv_heads, Dh))
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _rec_decode_step(u, params, st, x_t, write_ok=None, rows=None,
+                     reset=None):
+    """One recurrent step through the unit's training cell, the carry
+    ``st`` updated in place.
+
+    ``rows`` (B,) int64 maps the batch rows to carry rows (the engine's
+    prefill: one slot of the engine's carries); None is the identity.
+    ``reset`` (B,) bool starts a row from the zero carry (a prompt at
+    position 0).  ``write_ok`` (B,) bool freezes the carry of the rows
+    that are off: a cell step is not idempotent (unlike a KV rewrite),
+    so without the gate a decode step would advance the carry of a slot
+    mid-chunked-prefill, whose next slice continues from it.  Returns
+    the (B, H) output, the gated hidden state."""
+    old = {k: (v if rows is None else v.index_select(0, rows))
+           for k, v in st.items()}
+    start = old if reset is None else {
+        k: torch.where(reset[:, None], torch.zeros_like(v), v)
+        for k, v in old.items()}
+    new = u.cell(params, x_t, start)
+    if write_ok is not None:
+        # a row that is off keeps its carry as it was, reset or not
+        new = {k: torch.where(write_ok[:, None], v, old[k])
+               for k, v in new.items()}
+    for k, v in new.items():
+        if rows is None:
+            st[k].copy_(v)
+        else:
+            st[k].index_copy_(0, rows, v)
+    return new["h"]
 
 
 def _rope_rows(x, pos):
@@ -240,6 +277,11 @@ class DecodePlan:
                         f"attention unit {u.name!r} is non-causal; "
                         "autoregressive decoding requires causal attention")
                 self.seq_handlers.append(("attn", u))
+            elif isinstance(u, _RecurrentBase):
+                self.seq_handlers.append(("recurrent", u))
+                # the current hidden IS the last hidden: the unit plays
+                # seq_last's role and the rest works on (B, H) tensors
+                seen_last = not u.return_sequences
             elif isinstance(u, (nn.LayerNorm, nn.FFN)) or (
                     isinstance(u, nn.All2All) and u.per_position):
                 self.seq_handlers.append(("pointwise", u))
@@ -247,11 +289,13 @@ class DecodePlan:
                 raise WorkflowError(
                     f"unit {u.name!r} ({type(u).__name__}) cannot decode "
                     "in this slice of the port: it supports attention, "
-                    "layer_norm, ffn, per-position all2all and seq_last "
-                    "before the head (recurrent, MoE and pipeline stacks "
-                    "come with ROADMAP.md slices 7-8)")
+                    "rnn/gru/lstm, layer_norm, ffn, per-position all2all "
+                    "and seq_last before the head (MoE and pipeline "
+                    "stacks come with ROADMAP.md slice 8)")
         self._attn_units = [u for kind, u in self.seq_handlers
                             if kind == "attn"]
+        self._rec_units = [u for kind, u in self.seq_handlers
+                           if kind == "recurrent"]
 
     def attn_keys(self):
         return {u.name for u in self._attn_units}
@@ -261,23 +305,35 @@ class DecodePlan:
                     page_size: Optional[int] = None) -> dict:
         """Zeroed caches: dense (B, L, Hk, Dh) rows, or the flat page pool
         (kv_rows, page_size, Hk, Dh) when ``kv_rows``/``page_size`` are
-        given."""
-        return {u.name: _attn_cache_init(u, params[u.name], B, L, dtype,
-                                         device, kv_rows=kv_rows,
-                                         page_size=page_size)
-                for u in self._attn_units}
+        given; a recurrent unit's carry is (B, H) float32 either way."""
+        caches = {u.name: _attn_cache_init(u, params[u.name], B, L, dtype,
+                                           device, kv_rows=kv_rows,
+                                           page_size=page_size)
+                  for u in self._attn_units}
+        for u in self._rec_units:
+            caches[u.name] = u.carry_init(B, device)
+        return caches
 
     def step(self, params, caches, tok, pos, ctx: Context, pages=None,
-             write_ok=None, *, paged_kernel=False):
+             write_ok=None, *, paged_kernel=False, carry_rows=None):
         """One decode position: token ids (B,) -> (logits (B, V), caches).
         ``pos`` is an int or a (B,) int32 tensor; see
-        :func:`_attn_decode_step` for ``pages``/``write_ok``."""
+        :func:`_attn_decode_step` for ``pages``/``write_ok``.  The
+        recurrent carries are gated by the same mask (the paged tuple's,
+        else ``write_ok``), read and written at ``carry_rows`` (B,)
+        int64 when given, and a row at position 0 starts from the zero
+        carry."""
         x = params[self.embedding.name]["table"][tok.long()]     # (B, E)
+        carry_ok = pages[2] if pages is not None else write_ok
+        reset = (pos == 0) if isinstance(pos, torch.Tensor) else None
         for kind, u in self.seq_handlers:
             if kind == "attn":
                 x, caches[u.name] = _attn_decode_step(
                     u, params[u.name], caches[u.name], x, pos, pages,
                     write_ok, paged_kernel=paged_kernel)
+            elif kind == "recurrent":
+                x = _rec_decode_step(u, params[u.name], caches[u.name], x,
+                                     carry_ok, carry_rows, reset)
             else:
                 y, _ = u.apply(params.get(u.name, {}), {}, [x[:, None]],
                                ctx)

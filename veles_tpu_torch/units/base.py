@@ -1,4 +1,6 @@
-"""Unit core (counterpart of veles_tpu/units/base.py).
+"""Unit core (counterpart of veles_tpu/units/base.py), with the utility
+units of veles_tpu/units/base.py:100-233: ``UnitRegistry``,
+``TrivialUnit``, ``LambdaUnit``, ``InputJoiner`` and ``Avatar``.
 
 A unit is a small descriptor plus plain functions over tensors, as in the
 JAX package: ``init(generator, in_specs, device)`` builds its
@@ -89,7 +91,43 @@ def dtype_of(name) -> Optional[torch.dtype]:
     return dt
 
 
-class Unit(Logger):
+class UnitRegistry:
+    """Name -> class registry of every unit class (the JAX package's
+    ``UnitRegistry``: veles/unit_registry.py's metaclass in the
+    reference)."""
+
+    _units: Dict[str, type] = {}
+
+    @classmethod
+    def register(cls, klass):
+        cls._units[klass.__name__] = klass
+        return klass
+
+    @classmethod
+    def get(cls, name: str) -> type:
+        return cls._units[name]
+
+    @classmethod
+    def names(cls):
+        return sorted(cls._units)
+
+
+class UnitMeta(type):
+    def __init__(cls, name, bases, ns):
+        super().__init__(name, bases, ns)
+        if name != "Unit":
+            UnitRegistry.register(cls)
+
+
+def _meta_specs(fn, in_specs) -> Spec:
+    """The output spec of ``fn`` over tensors of ``in_specs``, run on
+    the meta device (the port's ``jax.eval_shape``)."""
+    y = fn(*[torch.empty(s.shape, dtype=s.dtype, device="meta")
+             for s in in_specs])
+    return Spec(tuple(y.shape), y.dtype)
+
+
+class Unit(Logger, metaclass=UnitMeta):
     """Base of every dataflow node: ``inputs`` names the upstream units
     (or ``@batch`` keys) whose outputs it consumes."""
 
@@ -119,5 +157,53 @@ class Unit(Logger):
         return f"{type(self).__name__}({self.name!r} <- {list(self.inputs)})"
 
 
+class TrivialUnit(Unit):
+    """Identity passthrough (reference: veles/units.py:916)."""
+
+    def apply(self, params, state, xs, ctx):
+        return xs[0], state
+
+
 class Forward(Unit):
     """Marker base for trainable forward layers."""
+
+
+class LambdaUnit(Unit):
+    """Wrap a pure tensor function as a unit; its output spec comes from
+    ``out_spec(in_specs)`` or from running ``fn`` on meta tensors."""
+
+    def __init__(self, fn: Callable, name=None, inputs=("@input",),
+                 out_spec: Optional[Callable] = None):
+        super().__init__(name or getattr(fn, "__name__", "LambdaUnit"),
+                         inputs)
+        self._fn = fn
+        self._out_spec = out_spec
+
+    def output_spec(self, in_specs):
+        if self._out_spec is not None:
+            return self._out_spec(in_specs)
+        return _meta_specs(self._fn, in_specs)
+
+    def apply(self, params, state, xs, ctx):
+        return self._fn(*xs), state
+
+
+class InputJoiner(Unit):
+    """Concatenate the inputs along ``axis`` (reference:
+    veles/input_joiner.py:49)."""
+
+    def __init__(self, name=None, inputs=(), axis: int = -1):
+        super().__init__(name, inputs)
+        self.axis = axis
+
+    def output_spec(self, in_specs):
+        return _meta_specs(lambda *xs: torch.cat(xs, dim=self.axis),
+                           in_specs)
+
+    def apply(self, params, state, xs, ctx):
+        return torch.cat(list(xs), dim=self.axis), state
+
+
+class Avatar(TrivialUnit):
+    """An identity kept for graph readability: in a dataflow graph an
+    output may be consumed twice (reference: veles/avatar.py:22)."""

@@ -198,8 +198,10 @@ class Workflow(Logger):
         ``root.common.train``), the skip metrics, step + 1 and the key
         split — the contract of veles_tpu/units/workflow.py:214-310; see
         :class:`TrainStep`."""
-        if self.evaluator is None:
-            raise WorkflowError("a train step needs an evaluator unit")
+        if self.evaluator is None and not any(
+                getattr(u, "self_updating", False) for u in self.units):
+            raise WorkflowError("a train step needs an evaluator unit "
+                                "(or a self-updating unit)")
         return TrainStep(self, optimizer)
 
     def make_eval_step(self) -> "EvalStep":
@@ -320,7 +322,8 @@ class TrainStep:
                               np.uint32).view(np.int32)
         host = torch.from_numpy(vals)
         if self.staging is None:
-            dev = tree_leaves(wstate["params"])[0].device
+            dev = (tree_leaves(wstate["params"])
+                   or tree_leaves(wstate["state"]))[0].device
             self.staging = torch.zeros(len(vals), dtype=torch.int32,
                                        device=dev)
             self.scalars = self.staging[:2].view(torch.float32)
@@ -342,6 +345,8 @@ class TrainStep:
         ctx = Context(train=True, key=sub, seeds=self.seeds,
                       make_generator=functools.partial(
                           _step_generator, sub, params))
+        if ev is None:
+            return self._self_organizing(wstate, batch, ctx)
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
             outputs, nstate = wf.forward(live, wstate["state"], batch, ctx)
@@ -369,7 +374,8 @@ class TrainStep:
                 mets["grad_norm"] = gnorm if ok is None else \
                     torch.where(ok, gnorm, torch.zeros_like(gnorm))
             tree_assign(params, new_params)
-            state = {**wstate["state"], **nstate}
+            state = self._self_update(params, {**wstate["state"], **nstate},
+                                      outs, ctx)
             if ok is not None:
                 state = {k: (tree_select(ok, v, wstate["state"][k])
                              if k in wstate["state"] else v)
@@ -377,6 +383,27 @@ class TrainStep:
             tree_assign(wstate["state"], state)
             tree_assign(wstate["opt_state"], opt_state)
         return mets
+
+    def _self_update(self, params, state, outputs, ctx):
+        """Each self-updating unit's ``update_state`` on its inputs
+        (veles_tpu/units/workflow.py:283-287)."""
+        for u in self.workflow.units:
+            if getattr(u, "self_updating", False):
+                state[u.name] = u.update_state(
+                    params.get(u.name, {}), state.get(u.name, {}),
+                    [outputs[s] for s in u.inputs], ctx)
+        return state
+
+    def _self_organizing(self, wstate, batch, ctx):
+        """A workflow with no evaluator (a SOM, an RBM): the forward and
+        the self-updating units' state updates, no gradient."""
+        with torch.no_grad():
+            outputs, nstate = self.workflow.forward(
+                wstate["params"], wstate["state"], batch, ctx)
+            tree_assign(wstate["state"], self._self_update(
+                wstate["params"], {**wstate["state"], **nstate}, outputs,
+                ctx))
+        return {}
 
 
 class EvalStep:
