@@ -175,7 +175,8 @@ Phases, each of which fails the run with a non-zero exit:
    bench_lm.py's width (the 4 attention blocks of phase 4, then gru 512,
    seq_last and a softmax head; bf16; numpy-seed weights) on captured
    paged engines: the greedy 8 x (512 + 64) request on an engine with
-   whole prefills, bitwise on an eager engine, a megastep (N=8) one, a
+   whole prefills, bitwise on an eager engine (prompts cut to 128), a
+   megastep (N=8) one, a
    speculative (k=4) one driven with a verify dispatch every iteration
    and a chunked-prefill (128) one; a shared-prefix pair takes no prefix
    hit and ``GET /kv/pages`` answers 400; profiled decode, megastep and
@@ -197,7 +198,29 @@ Phases, each of which fails the run with a non-zero exit:
    captured steps bitwise 4 eager ones (cuDNN deterministic), samples/s
    and idle share beside the card-resident variant's, the host crop's ms
    a batch;
-12. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+12. the pipeline stack and the MoE layer, each phase with the launch
+   counts set to 0 where it drives its path: ``pipeline_train`` trains
+   the four ``configs/induction_lm_pp*.json`` through ``python -m
+   veles_tpu_torch`` for their 25 published epochs (no mesh: the stack
+   runs its stages one after the other; captured), ``induction_lm_pp``
+   and ``induction_lm_pp_moe`` to <= 5 % (the ``_sp`` configs report
+   theirs), then each config in-process for PP_BATCHES captured steps
+   and an eval (f32 SIMT flash launches, two dropout launches a stage
+   dropout a replay: forward and backward, one gather a batch), held
+   against a profiled window's trace (idle share), the pp_moe step
+   through the kernels against the plain versions in float32, and the
+   path's kernels timed at its shape (flash at B=80 T=32 H=4 D=16,
+   dropout 80 x 32 x 64);
+   ``distributed_one_rank`` starts a one-rank NCCL process group
+   (``initialize_distributed``, the mesh's groups) and holds DIST_STEPS
+   data-parallel pp_moe steps through it bit for bit against the
+   no-mesh step; ``moe_serving`` serves pp_moe's stack (three attention
+   stages without dropout, the MoE stage decoded dropless inside the
+   graphs) with an LM head on captured paged engines, greedy 8 x (64 +
+   64): tokens equal ``generate()``'s, bitwise on an eager, a megastep
+   and a speculative engine, paged launches 3 a decode micro-step held
+   against a profiled window's trace;
+13. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Goodput: ``runtime.benchmark.benchmark_device()`` runs once after the
@@ -342,6 +365,9 @@ REC_GEN_ROWS, REC_GEN_PROMPT, REC_GEN_NEW, REC_L_MAX = 8, 64, 64, 256
 # the mixed attention + GRU chain served: the chunked engine's slice and
 # the decode steps before the class-0 arrival that preempts
 REC_SERVE_CHUNK, REC_PREEMPT_AFTER = 128, 16
+# the eager mixed-chain engine's prompt (a 512-token prefill, one
+# position at a time, took 42 s of the script)
+REC_EAGER_PROMPT = 128
 PEAK_HBM_GBPS = 3350.0
 # the analytic train step: within this share of the counted one
 FLOPS_RTOL = 0.05
@@ -2812,11 +2838,22 @@ def _loss_and_grad_norms(torch, wf, params, batch, state=None, key=None,
     outputs, _ = wf.forward(live, state or {}, batch,
                             Context(train=True, key=key))
     loss = outputs[wf.evaluator.name]
-    names = [f"{u}/{k}" for u in sorted(live) for k in sorted(live[u])]
+    names = _leaf_names(live)
     grads = torch.autograd.grad(loss, tree_leaves(live))
     zeros = {n: (outputs[n] == 0).detach() for n in zeros_of}
     return float(loss.detach()), {n: float(g.float().norm())
                                   for n, g in zip(names, grads)}, zeros
+
+
+def _leaf_names(tree, prefix=""):
+    """``unit/param`` names of a param tree's leaves in ``tree_leaves``
+    order (a pipeline stack's nest as ``stack/s0/<unit>/<param>``)."""
+    out = []
+    for k in sorted(tree):
+        p = f"{prefix}/{k}" if prefix else k
+        out += _leaf_names(tree[k], p) if isinstance(tree[k], dict) \
+            else [p]
+    return out
 
 
 def _train_epoch(torch):
@@ -4436,10 +4473,11 @@ def phase_recurrent_serving(torch):
     compute, served by captured paged engines (SLOTS slots, l_max L_MAX,
     page PAGE, paged kernel on) with the launch counts set to 0 at the
     start: the greedy SLOTS x (PROMPT + NEW) request (whole prefill) on
-    a captured engine, an eager one, a megastep (N=MEGASTEP_N) one, a
-    speculative (k=SPEC_K) one driven with a verify dispatch every
-    iteration, and a chunked-prefill (REC_SERVE_CHUNK) one, all bitwise
-    the first; a shared-prefix pair takes no prefix hit and ``GET
+    a captured engine, an eager one (on the prompts cut to
+    REC_EAGER_PROMPT, against the captured engine's tokens on them), a
+    megastep (N=MEGASTEP_N) one, a speculative (k=SPEC_K) one driven
+    with a verify dispatch every iteration, and a chunked-prefill
+    (REC_SERVE_CHUNK) one, all bitwise the first; a shared-prefix pair takes no prefix hit and ``GET
     /kv/pages`` answers 400; profiled decode, megastep and verify windows
     hold the paged launches of each replay against the trace (LAYERS a
     decode micro-step); in float32 the engine's tokens equal
@@ -4463,6 +4501,8 @@ def phase_recurrent_serving(torch):
                         workflow=wf, engine=eng, device=DEVICE).start()
     try:
         toks, metrics = _rec_serve(torch, eng, prompts, NEW)
+        short = prompts[:, :REC_EAGER_PROMPT]
+        toks_short, _ = _rec_serve(torch, eng, short, NEW)
         sysp = rng.integers(0, VOCAB, SHARED_PREFIX)
         for _ in range(2):
             eng.generate(np.concatenate([sysp, rng.integers(
@@ -4477,7 +4517,8 @@ def phase_recurrent_serving(torch):
                      ("chunked", {"prefill_chunk": REC_SERVE_CHUNK})):
         e = _serve_engine(wf, ws, **({"prefill_chunk": 0} | kw)).start()
         try:
-            runs[name] = _rec_serve(torch, e, prompts, NEW)
+            runs[name] = _rec_serve(torch, e, short if name == "eager"
+                                    else prompts, NEW)
             runs[name] += (e.stats(),)
         finally:
             e.stop()
@@ -4529,7 +4570,8 @@ def phase_recurrent_serving(torch):
            "eager": runs["eager"][1], "chunked": runs["chunked"][1],
            "megastep": runs["megastep"][1],
            "tokens_equal": {
-               "eager": bool(np.array_equal(runs["eager"][0], toks)),
+               "eager": bool(np.array_equal(runs["eager"][0],
+                                            toks_short)),
                "megastep": bool(np.array_equal(runs["megastep"][0], toks)),
                "spec": bool(np.array_equal(stoks, toks)),
                "chunked": bool(np.array_equal(runs["chunked"][0], toks))},
@@ -4699,6 +4741,68 @@ def _lm64_trainer(torch, n_train=CUR_TRAIN, n_valid=CUR_VALID, epochs=1):
                            device=DEVICE)
 
 
+def _f32_flash_timing(torch, B, T, H, D, path, what):
+    """The f32 SIMT flash kernels at a path's shape (B, T, H, D, causal)
+    against their plain versions (forward FLASH_TOL, backward BWD_UNITS;
+    fails the run otherwise), each timed beside its plain version, SDPA
+    in float32 and the bound of its ``cost()``: the ``kernels`` line's
+    entries ``<name>/<path>``."""
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    gen = torch.Generator().manual_seed(11)
+    f32 = torch.float32
+    (q, k, v), ferr, lerr, finite, ran = _flash_case(
+        torch, gen, B, T, T, H, H, D, f32, True, None)
+    args, kw, res = _bwd_case(torch, gen, B, T, T, H, H, D, f32, True, None)
+    ok = (ferr <= FLASH_TOL["float32"] and lerr <= LSE_TOL and finite
+          and ran == {"simt": 1}
+          and all(res[g]["units"] <= BWD_UNITS["float32"]
+                  and res[g]["finite"] for g in ("dq", "dk", "dv")))
+    check = {"phase": path + "_kernels_check", "max_abs_err": ferr,
+             "tol": FLASH_TOL["float32"], "lse_err": lerr,
+             "backward": res, "ok": ok}
+    say(check)
+    if not ok:
+        fail(f"f32 flash kernels disagree with their plain versions at "
+             f"{what} shape: {check}")
+    qa, ka, va, do, lse, delta = args
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (qa, ka, va))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bwd_lib = cuda_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    shape = {"B": B, "T": T, "H": H, "D": D, "dtype": "float32",
+             "causal": True}
+    timing = {}
+    for mod, fn, plain, lib, err in (
+            (fa, lambda: fa.flash_attention(q, k, v, True),
+             lambda: fa.flash_attention_plain(q, k, v, causal=True),
+             lambda: F.scaled_dot_product_attention(
+                 *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True),
+             ferr),
+            (dq, lambda: dq.flash_bwd_dq(*args, **kw),
+             lambda: dq.flash_bwd_dq_plain(*args, **kw), None,
+             res["dq"]["max_abs_err"]),
+            (dkv, lambda: dkv.flash_bwd_dkv(*args, **kw),
+             lambda: dkv.flash_bwd_dkv_plain(*args, **kw), None,
+             max(res["dk"]["max_abs_err"], res["dv"]["max_abs_err"]))):
+        ms = cuda_ms(torch, fn, iters=100)
+        c = mod.cost(q, k, v, True)
+        b_ms, b_by = cost_bound(c, H100_F32_FLOPS)
+        timing[f"{mod.NAME}/{path}"] = {
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": cuda_ms(torch, plain, iters=20),
+            "library_ms": cuda_ms(torch, lib, iters=100) if lib
+            else bwd_lib,
+            "bound_ms": b_ms, "bound_by": b_by, "variant": "simt",
+            "source": mod.SOURCES["simt"], "path": path,
+            "tflops": c["flops"] / ms / 1e9, "bound_share": b_ms / ms,
+            "shape": shape}
+    return timing
+
+
 def phase_curriculum_kernels(torch):
     """The curriculum's kernels: one epoch of its LM64 trainer (captured)
     with the counts set to 0 before it, each f32 SIMT flash kernel at its
@@ -4706,7 +4810,6 @@ def phase_curriculum_kernels(torch):
     (forward 1e-4, backward BWD_UNITS) and timed beside the plain version,
     SDPA in float32 and the bound of its ``cost()``; the batch gather at
     the path's shape."""
-    import torch.nn.functional as F
     from veles_tpu_torch.ops.kernels import KERNELS
     from veles_tpu_torch.ops.kernels import flash_attention as fa
     from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
@@ -4734,57 +4837,8 @@ def phase_curriculum_kernels(torch):
             or not (st["train"]["captured"] and st["eval"]["captured"]):
         fail(f"the curriculum's epoch did not run its f32 kernels, one "
              f"batch gather a batch and captured steps: {run}")
-    gen = torch.Generator().manual_seed(11)
-    f32 = torch.float32
-    (q, k, v), ferr, lerr, finite, ran = _flash_case(
-        torch, gen, CUR_B, CUR_T, CUR_T, CUR_H, CUR_H, CUR_D, f32, True,
-        None)
-    args, kw, res = _bwd_case(torch, gen, CUR_B, CUR_T, CUR_T, CUR_H,
-                              CUR_H, CUR_D, f32, True, None)
-    ok = (ferr <= FLASH_TOL["float32"] and lerr <= LSE_TOL and finite
-          and ran == {"simt": 1}
-          and all(res[g]["units"] <= BWD_UNITS["float32"]
-                  and res[g]["finite"] for g in ("dq", "dk", "dv")))
-    check = {"phase": "curriculum_kernels_check", "max_abs_err": ferr,
-             "tol": FLASH_TOL["float32"], "lse_err": lerr,
-             "backward": res, "ok": ok}
-    say(check)
-    if not ok:
-        fail(f"f32 flash kernels disagree with their plain versions at the "
-             f"curriculum's shape: {check}")
-    qa, ka, va, do, lse, delta = args
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (qa, ka, va))
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    bwd_lib = cuda_ms(torch, lambda: torch.autograd.grad(
-        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
-    shape = {"B": CUR_B, "T": CUR_T, "H": CUR_H, "D": CUR_D,
-             "dtype": "float32", "causal": True}
-    timing = {}
-    for mod, fn, plain, lib, err in (
-            (fa, lambda: fa.flash_attention(q, k, v, True),
-             lambda: fa.flash_attention_plain(q, k, v, causal=True),
-             lambda: F.scaled_dot_product_attention(
-                 *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True),
-             ferr),
-            (dq, lambda: dq.flash_bwd_dq(*args, **kw),
-             lambda: dq.flash_bwd_dq_plain(*args, **kw), None,
-             res["dq"]["max_abs_err"]),
-            (dkv, lambda: dkv.flash_bwd_dkv(*args, **kw),
-             lambda: dkv.flash_bwd_dkv_plain(*args, **kw), None,
-             max(res["dk"]["max_abs_err"], res["dv"]["max_abs_err"]))):
-        ms = cuda_ms(torch, fn, iters=100)
-        c = mod.cost(q, k, v, True)
-        b_ms, b_by = cost_bound(c, H100_F32_FLOPS)
-        timing[mod.NAME + "/induction_lm64"] = {
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": cuda_ms(torch, plain, iters=20),
-            "library_ms": cuda_ms(torch, lib, iters=100) if lib
-            else bwd_lib,
-            "bound_ms": b_ms, "bound_by": b_by, "variant": "simt",
-            "source": mod.SOURCES["simt"], "path": "induction_lm64",
-            "tflops": c["flops"] / ms / 1e9, "bound_share": b_ms / ms,
-            "shape": shape}
+    timing = _f32_flash_timing(torch, CUR_B, CUR_T, CUR_H, CUR_D,
+                               "induction_lm64", "the curriculum's")
     timing[gr.NAME + "/induction_lm64"] = _family_gather_timing(
         torch, trainer.loader, "induction_lm64")
     say({"phase": "curriculum_kernel_timing",
@@ -4971,6 +5025,455 @@ def phase_generate_cli(torch, snapshot, out_dir):
     return rec
 
 
+# -- the pipeline stack, its process group and the MoE chain --------------------
+
+#: the four pipelined configs, trained with no mesh (the stack runs its
+#: stages sequentially: on one card the run has one rank)
+PP_CONFIGS = ("induction_lm_pp", "induction_lm_pp_moe", "induction_lm_pp_sp",
+              "induction_lm_pp_sp_interleaved")
+#: the sequence family's bar (BASELINE.md:139, :141 for the MoE config);
+#: the _sp configs' published bars were measured on a seq=2 mesh
+PP_BARS = {"induction_lm_pp": 5.0, "induction_lm_pp_moe": 5.0}
+PP_TIMEOUT = 600
+PP_PATH = "induction_lm_pp_moe"  # the kernels line's entries of this path
+PP_BATCHES = 8                  # batches of the in-process counted epoch
+DIST_STEPS = 4                  # one-rank NCCL steps held bitwise
+MOE_ROWS, MOE_PROMPT, MOE_NEW, MOE_LMAX = 8, 64, 64, 256
+
+
+def _pp_trainer(torch, name, n_batches, capture=True):
+    """A config's workflow over a card-resident induction loader of
+    ``n_batches`` train batches and one to evaluate, through
+    ``StandardWorkflow.make_trainer`` (no mesh)."""
+    from veles_tpu_torch.__main__ import make_loader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    cfg = _config(os.path.join("configs", name + ".json"))
+    ld = dict(cfg["loader"])
+    ld.pop("name")
+    b = ld["minibatch_size"]
+    loader = make_loader("induction", device=DEVICE, n_train=n_batches * b,
+                         n_valid=b, **ld)
+    return StandardWorkflow(cfg["workflow"]).make_trainer(
+        loader, Decision(max_epochs=1), device=DEVICE,
+        step_cache=StepCache(capture=capture))
+
+
+def _pp_cli(name):
+    """The config through ``python -m veles_tpu_torch`` (its published 25
+    epochs, captured steps, no mesh)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "veles_tpu_torch",
+           os.path.join("configs", name + ".json"), "--random-seed", "1"]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                           timeout=PP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"the {name} CLI run exceeded {PP_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the {name} CLI run exited {r.returncode}: {r.stderr[-2000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    b = _config(os.path.join("configs", name + ".json"))["loader"][
+        "minibatch_size"]
+    rec = {"phase": "pipeline_train_cli", "config": f"configs/{name}.json",
+           "best_error_pct": res["best_value"],
+           "best_epoch": res["best_epoch"], "epochs": res["epochs"],
+           "bar": PP_BARS.get(name), "wall_s": wall,
+           "epoch_wall_s": res["elapsed_s"] / max(res["epochs"], 1),
+           "train_step_s_median": res["train_step_s_median"],
+           "samples_per_s_median_step": b / res["train_step_s_median"],
+           "train_samples_per_s": res["train_samples_per_s"],
+           "train_mfu": res["train_mfu"],
+           "per_epoch": [ln.split("Decision: ")[-1]
+                         for ln in r.stderr.splitlines()
+                         if "error_pct=" in ln]}
+    say(rec)
+    if rec["bar"] is not None and not res["best_value"] <= rec["bar"]:
+        fail(f"{name} reached {res['best_value']} % validation error, "
+             f"above the {rec['bar']} % bar")
+    return rec
+
+
+def _pp_counted(torch, name):
+    """The config's captured epoch of PP_BATCHES batches and its eval,
+    every kernel count set to 0 before and read after; then a profiled
+    window of 3 captured steps (idle share) holding the counted launches
+    against the trace."""
+    from veles_tpu_torch.ops.kernels import KERNELS
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    from veles_tpu_torch.ops.kernels import fused_dropout as fd
+    from veles_tpu_torch.ops.kernels import gather_rows as gr
+    trainer = _pp_trainer(torch, name, PP_BATCHES)
+    _reset_counts()
+    trainer.initialize(seed=0)
+    trainer.run()
+    torch.cuda.synchronize()
+    launches = {k.NAME: k.launches.count for k in KERNELS}
+    variants = {k.NAME: k.launches.by_variant() for k in KERNELS
+                if k.launches.by_variant()}
+    st = trainer.step_cache.stats()
+    step = trainer._train_step
+    per_replay = {k.NAME: n for c, (n, _) in getattr(step, "launches", ())
+                  for k in KERNELS if k.launches is c}
+    prof = _train_profile(torch, trainer,
+                          window=f"3 captured train steps of {name}")
+    seeded = step.step.seeded
+    rec = {"phase": "pipeline_train_epoch", "config": name,
+           "batches": PP_BATCHES, "launches": launches,
+           "variants": variants, "per_replay": per_replay,
+           "seed_slots": seeded, "step_cache": st,
+           "idle_share": prof["device_idle_share"],
+           "top_kernels_s": prof["top_kernels_s"],
+           "launch_trace": prof["launch_trace"]}
+    rec["ok"] = (st["train"]["captured"] and st["eval"]["captured"]
+                 and all(variants.get(k.NAME, {}).get("simt")
+                         and not variants[k.NAME].get("tc")
+                         for k in (fa, dq, dkv))
+                 and variants.get(gr.NAME) == {"batch": PP_BATCHES + 1}
+                 # a dropout launches forward and backward (its mask again)
+                 and per_replay.get(fd.NAME, 0) == 2 * len(seeded)
+                 and launches[fd.NAME] >= 2 * len(seeded) * PP_BATCHES
+                 and prof["launch_trace"]["ok"]
+                 and prof["launch_trace"]["captured"])
+    say(rec)
+    if not rec["ok"]:
+        fail(f"{name}'s captured epoch did not run its kernels as "
+             f"counted: {rec}")
+    return trainer, rec
+
+
+def _pp_f32_check(torch, trainer):
+    """One float32 forward/backward of the pp_moe workflow through the
+    kernels (f32 flash, dropout) and one through their plain versions,
+    same weights, batch and key: loss and every gradient norm within
+    STEP_LOSS_RTOL / STEP_GRAD_RTOL."""
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    from veles_tpu_torch.ops.kernels import fused_dropout as fd
+    from veles_tpu_torch.units.workflow import seed_key, split_state_key
+    wf, ws = trainer.workflow, trainer.wstate
+    batch = next(trainer.loader.iter_epoch(TRAIN, 0)).gather()
+    _, sub = split_state_key(seed_key(0))
+    mods = (fa, dq, dkv, fd)
+    before = [m.launches.count for m in mods]
+    k_loss, k_norms, _ = _loss_and_grad_norms(torch, wf, ws["params"],
+                                              batch, ws["state"], sub)
+    mid = [m.launches.count for m in mods]
+    with plain_routes(mods):
+        p_loss, p_norms, _ = _loss_and_grad_norms(
+            torch, wf, ws["params"], batch, ws["state"], sub)
+    after = [m.launches.count for m in mods]
+    launched = all(m > b for m, b in zip(mid, before)) and after == mid
+    loss_rel = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
+    grad_rel = {n: abs(k_norms[n] - p_norms[n]) / max(p_norms[n], 1e-12)
+                for n in p_norms}
+    worst = max(grad_rel, key=grad_rel.get)
+    return {"loss_kernels": k_loss, "loss_plain": p_loss,
+            "loss_rel_diff": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+            "grad_norm_max_rel_diff": grad_rel[worst], "worst": worst,
+            "grad_rtol": STEP_GRAD_RTOL, "kernels_launched": launched,
+            "ok": (launched and np.isfinite(k_loss)
+                   and loss_rel <= STEP_LOSS_RTOL
+                   and grad_rel[worst] <= STEP_GRAD_RTOL)}
+
+
+def _pp_dropout_timing(torch, B, T, E_, rate):
+    """The dropout kernel at the pp_moe stages' shape (B x T x E float32,
+    the seed in a slot on the card) against its plain version, bitwise;
+    its time, the plain version's, F.dropout's and the byte bound."""
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops.kernels import fused_dropout as fd
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn((B, T, E_), generator=gen).cuda()
+    seed = fd.seed_tensor(0x51ED, "cuda")
+    y, ref = fd.fused_dropout(x, seed, rate), fd.fused_dropout_plain(
+        x, seed, rate)
+    torch.cuda.synchronize()
+    if not torch.equal(y, ref):
+        fail("the dropout kernel disagrees with its plain version at the "
+             "pp_moe stages' shape")
+    b_ms, b_by = cost_bound(fd.cost(x), H100_F32_FLOPS)
+    return {"max_abs_err": 0.0, "path": PP_PATH,
+            "ms": cuda_ms(torch, lambda: fd._launch(x, seed, rate),
+                          iters=100),
+            "plain_ms": cuda_ms(torch, lambda: fd.fused_dropout_plain(
+                x, seed, rate)),
+            "library_ms": cuda_ms(torch, lambda: F.dropout(
+                x, rate, training=True), iters=100),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "seed": "int32 slot on the card",
+            "library_note": "F.dropout at the same shape and rate: "
+                            "another mask stream",
+            "shape": {"B": B, "T": T, "E": E_, "dtype": "float32",
+                      "rate": rate}}
+
+
+def phase_pipeline_train(torch):
+    """The four pipelined configs: each through the CLI for its 25
+    epochs (no mesh, captured; induction_lm_pp and induction_lm_pp_moe
+    to the 5 % bar), then in-process a captured epoch of PP_BATCHES
+    batches of each with the counts set to 0 before (f32 SIMT flash
+    kernels, two dropout launches a stage dropout a replay, one batch
+    gather a batch) and a profiled window holding them against the
+    trace; the pp_moe step through the kernels against the plain
+    versions in float32; the path's kernels timed at its shape.  Returns
+    the pp_moe path's timing and launches for the kernels line."""
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    from veles_tpu_torch.ops.kernels import fused_dropout as fd
+    from veles_tpu_torch.ops.kernels import gather_rows as gr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cli = {name: _pp_cli(name) for name in PP_CONFIGS}
+    counted = {}
+    for name in PP_CONFIGS:
+        trainer, counted[name] = _pp_counted(torch, name)
+        if name != PP_PATH:
+            del trainer
+            torch.cuda.empty_cache()
+            continue
+        moe_trainer = trainer
+    check = _pp_f32_check(torch, moe_trainer)
+    say({"phase": "pipeline_train_f32_step", **check})
+    if not check["ok"]:
+        fail(f"the pp_moe step through the kernels differs from the plain "
+             f"versions': {check}")
+    cfg = _config(os.path.join("configs", PP_PATH + ".json"))
+    ld = cfg["loader"]
+    dim = cfg["workflow"]["layers"][0]["dim"]
+    heads = cfg["workflow"]["layers"][1]["stages"][0][0]["n_heads"]
+    timing = _f32_flash_timing(torch, ld["minibatch_size"], ld["seq_len"],
+                               heads, dim // heads, PP_PATH,
+                               "the pp_moe stages'")
+    timing[f"{fd.NAME}/{PP_PATH}"] = _pp_dropout_timing(
+        torch, ld["minibatch_size"], ld["seq_len"], dim,
+        cfg["workflow"]["layers"][1]["stages"][0][1]["dropout_ratio"])
+    timing[f"{gr.NAME}/{PP_PATH}"] = _family_gather_timing(
+        torch, moe_trainer.loader, PP_PATH)
+    say({"phase": "pipeline_train_kernel_timing", **timing})
+    launches = counted[PP_PATH]["launches"]
+    counts = {f"{name}/{PP_PATH}": launches[name]
+              for name in (fa.NAME, dq.NAME, dkv.NAME, fd.NAME, gr.NAME)}
+    say({"phase": "pipeline_train",
+         "configs": {n: {k: c[k] for k in ("best_error_pct", "epochs",
+                                           "epoch_wall_s",
+                                           "samples_per_s_median_step")}
+                     for n, c in cli.items()},
+         "idle_share": {n: c["idle_share"] for n, c in counted.items()},
+         "per_replay": {n: c["per_replay"] for n, c in counted.items()}})
+    del moe_trainer
+    torch.cuda.empty_cache()
+    return {"timing": timing, "launches": counts}
+
+
+def phase_distributed_one_rank(torch):
+    """``initialize_distributed`` with NCCL on the card at world size 1,
+    the mesh's groups over it, and DIST_STEPS data-parallel train steps
+    of induction_lm_pp_moe (dropout and MoE in the stack) through the
+    group: parameters, optimizer state, unit state and metrics bit for
+    bit those of the no-mesh step from the same init and batches (both
+    eager).  A failure of NCCL to start fails the phase."""
+    import socket
+
+    import torch.distributed as dist
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.parallel.distributed import (initialize_distributed,
+                                                      shutdown_distributed)
+    from veles_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from veles_tpu_torch.runtime.snapshotter import wstate_to_numpy
+    from veles_tpu_torch.units.workflow import ShardedTrainStep
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    try:
+        initialize_distributed(f"127.0.0.1:{port}", 1, 0, device=DEVICE,
+                               timeout_s=120)
+        mesh = make_mesh(MeshSpec(data=1), timeout_s=120)
+        backend = dist.get_backend()
+    except Exception as e:       # NCCL did not start: the phase fails
+        fail(f"the one-rank NCCL group did not start: {e!r}")
+    init_s = time.perf_counter() - t0
+    try:
+        runs = {}
+        for kind in ("plain", "sharded"):
+            tr = _pp_trainer(torch, PP_PATH, DIST_STEPS, capture=False)
+            tr.initialize(seed=0)
+            wf, opt = tr.workflow, tr.optimizer
+            step = (wf.make_sharded_train_step(opt, mesh)
+                    if kind == "sharded" else wf.make_train_step(opt))
+            ws, mets = tr.wstate, []
+            t1 = time.perf_counter()
+            for batch in tr.loader.iter_epoch(TRAIN, 0):
+                ws, m = step(ws, batch.gather())
+                mets.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            runs[kind] = {"state": wstate_to_numpy(ws), "metrics": mets,
+                          "wall_s": time.perf_counter() - t1,
+                          "is_sharded": isinstance(step, ShardedTrainStep)}
+            del tr, ws
+        diff = _state_diff(torch, runs["plain"]["state"],
+                           runs["sharded"]["state"])
+        rec = {"phase": "distributed_one_rank", "backend": backend,
+               "world_size": dist.get_world_size(), "init_s": init_s,
+               "mesh": mesh.shape, "data_group": mesh.group("data")
+               is not None, "steps": DIST_STEPS, "config": PP_PATH,
+               "state_leaves_differing": diff,
+               "metrics_equal": runs["plain"]["metrics"]
+               == runs["sharded"]["metrics"],
+               "step_ms": {k: r["wall_s"] / DIST_STEPS * 1e3
+                           for k, r in runs.items()},
+               "loss": [m["loss"] for m in runs["sharded"]["metrics"]]}
+        rec["ok"] = (backend == "nccl" and rec["world_size"] == 1
+                     and rec["data_group"] and runs["sharded"]["is_sharded"]
+                     and not diff and rec["metrics_equal"]
+                     and all(np.isfinite(rec["loss"])))
+    finally:
+        shutdown_distributed()
+    say(rec)
+    if not rec["ok"]:
+        fail(f"the one-rank data-parallel step differs from the no-mesh "
+             f"step: {rec}")
+    return rec
+
+
+def _moe_chain(torch, seed=0):
+    """induction_lm_pp_moe.json's chain at its width (dim 64, vocab 16):
+    the three attention stages with their dropouts taken out, the MoE
+    stage, seq_last and the softmax head; float32, random weights from
+    ``seed``."""
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.units.base import Spec
+    wcfg = _config(os.path.join("configs", PP_PATH + ".json"))["workflow"]
+    for layer in wcfg["layers"]:
+        if layer["type"] == "pipeline_stack":
+            layer["stages"] = [[s for s in st if s["type"] != "dropout"]
+                               for st in layer["stages"]]
+    wf = StandardWorkflow(wcfg).workflow
+    wf.build({"@input": Spec((2, MOE_PROMPT), torch.int32),
+              "@labels": Spec((2,), torch.int32),
+              "@mask": Spec((2,), torch.float32)})
+    return wf, wf.init_state(seed, device=DEVICE)
+
+
+def _moe_paged_timing(torch, wf, pos):
+    """The paged kernel at the chain's shape (MOE_ROWS rows, 4 heads of
+    16, a float32 pool) against its plain version, timed."""
+    from veles_tpu_torch.ops.kernels import paged_attention as pa
+    from veles_tpu_torch.runtime.generate import DecodePlan
+    u = DecodePlan(wf)._attn_units[0]
+    H, Dh = u.n_heads, wf.specs["emb"].shape[-1] // u.n_heads
+    gen = torch.Generator().manual_seed(23)
+    args = _paged_inputs(torch, gen, MOE_ROWS, H, u.n_kv_heads, Dh, PAGE,
+                         MOE_LMAX // PAGE, torch.float32, pos, True)
+    out = pa.paged_attention_decode(*args, page_size=PAGE,
+                                    n_kv_heads=u.n_kv_heads)
+    ref = pa.paged_attention_decode_plain(*args, page_size=PAGE,
+                                          n_kv_heads=u.n_kv_heads)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not err <= PAGED_TOL:
+        fail(f"the paged kernel disagrees with its plain version at the "
+             f"MoE chain's shape: {err}")
+    t = _paged_timing(torch, pa, args, err, pos, H, u.n_kv_heads)
+    t["shape"] = {"S": MOE_ROWS, "H": H, "Hk": u.n_kv_heads, "Dh": Dh,
+                  "page_size": PAGE, "n_ptab": MOE_LMAX // PAGE,
+                  "q": "float32", "pool": "float32",
+                  "mean_pos": float(np.mean(pos))}
+    t["path"] = "moe_serving"
+    return t
+
+
+def phase_moe_serving(torch):
+    """The MoE chain served by captured paged engines (MOE_ROWS slots,
+    l_max MOE_LMAX, page PAGE, paged kernel on) with the launch counts
+    set to 0 at the start: the greedy MOE_ROWS x (MOE_PROMPT + MOE_NEW)
+    request's tokens equal ``generate()``'s (MoE decoded dropless inside
+    the graphs), bitwise on an eager engine, a megastep (N=MEGASTEP_N)
+    one and a speculative (k=SPEC_K) one driven with a verify dispatch
+    every iteration; a profiled decode window holds each replay's paged
+    launches (3, one an attention stage) against the trace; every
+    engine's paged launches are 3 x its micro-steps.  Returns the paged
+    kernel's launches and its timing at the chain's shape."""
+    from veles_tpu_torch.ops.kernels import paged_attention as pa
+    from veles_tpu_torch.runtime.generate import DecodePlan, generate
+    wf, ws = _moe_chain(torch)
+    layers = len(DecodePlan(wf)._attn_units)
+    rng = np.random.default_rng(43)
+    prompts = rng.integers(0, 16, (MOE_ROWS, MOE_PROMPT)).astype(np.int32)
+    ref = generate(wf, ws, prompts, MOE_NEW).cpu().numpy()
+    _reset_counts()
+    kw = dict(slots=MOE_ROWS, l_max=MOE_LMAX, prefill_chunk=0)
+    eng = _serve_engine(wf, ws, **kw)
+    window = np.random.default_rng(12).integers(
+        0, 16, (MOE_ROWS, PROFILE_PROMPT)).astype(np.int32)
+    prof = _decode_window(torch, eng, window, lambda e, i: e._step_once())
+    eng.start()
+    try:
+        toks, metrics = _rec_serve(torch, eng, prompts, MOE_NEW)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    runs, stats = {}, [st]
+    for name, extra in (("eager", {"capture": False}),
+                        ("megastep", {"megastep": MEGASTEP_N})):
+        e = _serve_engine(wf, ws, **kw, **extra).start()
+        try:
+            runs[name] = _rec_serve(torch, e, prompts, MOE_NEW)[0]
+            stats.append(e.stats())
+        finally:
+            e.stop()
+    spec = _serve_engine(wf, ws, **kw, spec=True, spec_k=SPEC_K)
+    runs["spec"], s0, s1, _ = _driven_run(torch, spec, prompts, MOE_NEW,
+                                          [{}] * MOE_ROWS, _verify_always)
+    stats.append(s1)
+    torch.cuda.synchronize()
+    paged = pa.launches.count
+    want = layers * sum(_micro_steps(s, s.get("capture", {}).get(
+        "decode", {}).get("captured", False)) for s in stats)
+    per = prof["launch_trace"]["per_replay_by_kind"].get("decode", {}).get(
+        PAGED_F32)
+    rec = {"phase": "moe_serving", "chain": "induction_lm_pp_moe stack "
+           "(3 attention stages, dropout out, MoE 4 experts top-2) + head",
+           "attention_layers": layers, "slots": MOE_ROWS, "l_max": MOE_LMAX,
+           "prompt": MOE_PROMPT, "new": MOE_NEW, "dtype": "float32",
+           **metrics,
+           "tokens_per_s": MOE_ROWS * MOE_NEW / metrics["wall_s"],
+           "generate_equal": bool(np.array_equal(toks, ref)),
+           "tokens_equal": {k: bool(np.array_equal(v, toks))
+                            for k, v in runs.items()},
+           "mega_dispatches": stats[2]["megastep"]["mega_dispatches"],
+           "verify_steps": s1["spec"]["verify_steps"]
+           - s0["spec"]["verify_steps"],
+           "paged_per_decode_replay": per, "paged_launches": paged,
+           "paged_launches_expected": want,
+           "idle_share": prof["device_idle_share"],
+           "launch_trace_ok": prof["launch_trace"]["ok"],
+           "captures": {k: v["captured"] for k, v in st["capture"].items()},
+           "recompiles": st["compile"]["recompiles"]}
+    rec["ok"] = (rec["generate_equal"] and all(rec["tokens_equal"].values())
+                 and rec["mega_dispatches"] > 0 and rec["verify_steps"] > 0
+                 and per == layers and rec["launch_trace_ok"]
+                 and prof["launch_trace"]["captured"]
+                 and paged == want and all(rec["captures"].values())
+                 and rec["recompiles"] == 0)
+    say(rec)
+    if not rec["ok"]:
+        fail(f"the MoE chain's serving checks failed: {rec}")
+    pos = np.full(MOE_ROWS, MOE_PROMPT + MOE_NEW // 2, np.int64)
+    timing = _moe_paged_timing(torch, wf, pos)
+    del wf, ws
+    torch.cuda.empty_cache()
+    return {"paged_attention_decode": paged, "timing": timing}
+
+
 class _DigitsSynthesis:
     """The mnist loader's 60k + 10k SynthDigits rendered into
     ``$VELES_TORCH_CACHE`` by a background process on the host (no card);
@@ -5061,6 +5564,11 @@ def main():
     timed("image_quality", phase_image_quality, torch)
     timed("image_ae", phase_image_ae, torch)
     timed("quality", phase_quality, torch)
+    pp = timed("pipeline_train", phase_pipeline_train, torch)
+    timing.update(pp["timing"])
+    timed("distributed_one_rank", phase_distributed_one_rank, torch)
+    moe = timed("moe_serving", phase_moe_serving, torch)
+    timing["paged_attention_decode/moe_serving"] = moe["timing"]
     # each kernel's launches on its own path: paged decode on the serving
     # path, dropout and mean/disp on the image path, the rest on the LM
     # training path (flash forward runs on both LM paths, the gather on
@@ -5093,6 +5601,12 @@ def main():
     launches["gather_rows/recurrent_train"] = rec_train["launches"]
     timing["gather_rows/recurrent_train"] = rec_train["timing"]
     launches["mean_disp_normalize/image_host"] = host["launches"]
+    # this slice's paths: the f32 flash kernels, the stage dropouts and
+    # the batch gather over induction_lm_pp_moe's counted epoch, paged
+    # decode on the MoE chain's engines
+    launches.update(pp["launches"])
+    launches["paged_attention_decode/moe_serving"] = moe[
+        "paged_attention_decode"]
     timing["mean_disp_normalize/image_host"] = {
         **timing["mean_disp_normalize"], "path": "image_host"}
     line = []

@@ -1,0 +1,403 @@
+"""One rank of the port's gloo process groups in the tests
+(tests/test_torch_pipeline_schedule.py, tests/test_torch_distributed.py):
+``python _torch_dist_worker.py OUT RANK WORLD PORT SUITE`` joins the
+group over ``127.0.0.1:PORT``, runs the named suite and saves what it
+computed to ``OUT/<SUITE>_rank<RANK>.pt``.  Inputs come from numpy seeds,
+so the test process rebuilds them for its references.  Imports no JAX.
+
+``spawn(...)`` starts a whole group and waits for it; every group is
+created with its own timeout, so a rank that hangs fails the test within
+it."""
+
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+
+#: seconds a collective of a test group may wait
+GROUP_TIMEOUT_S = 60.0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(suite: str, world: int, out_dir, timeout: float = 240.0,
+          wait_ranks=None):
+    """Run ``suite`` on ``world`` ranks; returns the saved dicts of the
+    ``wait_ranks`` (default all; asserting each exited 0) and kills the
+    others once those are done."""
+    wait_ranks = list(range(world)) if wait_ranks is None else wait_ranks
+    port = free_port()
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    env.pop("VELES_PROCESS_ID", None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(out_dir), str(r),
+         str(world), str(port), suite],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
+        for r in range(world)]
+    outs = {}
+    deadline = time.monotonic() + timeout
+    try:
+        for r in wait_ranks:
+            left = max(deadline - time.monotonic(), 1.0)
+            outs[r] = procs[r].communicate(timeout=left)[0].decode()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r in wait_ranks:
+        assert procs[r].returncode == 0, f"rank {r}:\n{outs[r][-4000:]}"
+    return [torch.load(os.path.join(str(out_dir), f"{suite}_rank{r}.pt"))
+            for r in wait_ranks]
+
+
+# -- shared inputs ----------------------------------------------------------------
+
+def tanh_stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def res_stage(p, x):
+    return x + torch.relu(x @ p["w1"]) @ p["w2"]
+
+
+def mse(y, t):
+    return torch.mean((y - t) ** 2)
+
+
+def uniform_data(seed, L, M, mb, D):
+    """Stage-stacked tanh params (L, ...), x and targets (M, mb, D)."""
+    rng = np.random.default_rng(seed)
+    p = {"w": rng.standard_normal((L, D, D)).astype(np.float32) * 0.4,
+         "b": rng.standard_normal((L, D)).astype(np.float32) * 0.1}
+    x = rng.standard_normal((M, mb, D)).astype(np.float32)
+    y = rng.standard_normal((M, mb, D)).astype(np.float32)
+    return p, x, y
+
+
+def hetero_data(seed, M, mb, D, H=12):
+    rng = np.random.default_rng(seed)
+    p0 = {"w": rng.standard_normal((D, D)).astype(np.float32) * 0.4,
+          "b": np.zeros(D, np.float32)}
+    p1 = {"w1": rng.standard_normal((D, H)).astype(np.float32) * 0.3,
+          "w2": rng.standard_normal((H, D)).astype(np.float32) * 0.3}
+    x = rng.standard_normal((M, mb, D)).astype(np.float32)
+    y = rng.standard_normal((M, mb, D)).astype(np.float32)
+    return [p0, p1], x, y
+
+
+def keyed_stage(p, x, key):
+    """A stochastic stage with an aux loss: tanh, a dropout drawn from
+    the microbatch key, aux = 0.1 * mean(h^2)."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.ops.kernels.fused_dropout import fused_dropout
+    h = torch.tanh(x @ p["w"] + p["b"])
+    h = fused_dropout(h, prng.bits32(prng.fold_in(key, 7)), 0.25)
+    return h, 0.1 * torch.mean(h ** 2)
+
+
+def t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def tree_t(tree):
+    if isinstance(tree, dict):
+        return {k: tree_t(v) for k, v in tree.items()}
+    return t(tree)
+
+
+V, E = 12, 16
+
+
+def pp_layers(n_stages=2, moe=True, dropout=True):
+    """A small pipelined LM: embedding -> stack -> seq_last -> head; the
+    stages attention (+ dropout) + layer_norm, the last an MoE stage."""
+    stages = []
+    for i in range(n_stages):
+        st = [{"type": "attention", "n_heads": 2, "rope": True,
+               "residual": True}]
+        if dropout:
+            st.append({"type": "dropout", "dropout_ratio": 0.2})
+        st.append({"type": "layer_norm"})
+        stages.append(st)
+    if moe:
+        stages[-1] = [{"type": "moe", "n_experts": 4, "d_hidden": 24,
+                       "top_k": 2, "aux_weight": 0.1},
+                      {"type": "layer_norm"}]
+    return [{"type": "embedding", "vocab": V, "dim": E, "name": "emb"},
+            {"type": "pipeline_stack", "name": "stack", "stages": stages,
+             "n_microbatches": n_stages},
+            {"type": "seq_last", "name": "last"},
+            {"type": "softmax", "output_size": V, "name": "out"}]
+
+
+def pp_batch(seed, B, T):
+    rng = np.random.default_rng(seed)
+    mask = np.ones(B, np.float32)
+    mask[-3:] = 0.0                      # a ragged tail: padded rows
+    return {"@input": rng.integers(0, V, (B, T)).astype(np.int32),
+            "@labels": rng.integers(0, V, B).astype(np.int32),
+            "@mask": mask}
+
+
+def pp_workflow(layers, B, T, seed=3):
+    """(workflow, wstate) with SGD(lr=1): new params = old - grads."""
+    from veles_tpu_torch.models.standard import build_workflow
+    from veles_tpu_torch.ops.optimizers import SGD
+    from veles_tpu_torch.units.base import Spec
+    wf = build_workflow("pp", layers)
+    wf.build({"@input": Spec((B, T), torch.int32),
+              "@labels": Spec((B,), torch.int32),
+              "@mask": Spec((B,), torch.float32)})
+    opt = SGD(1.0)
+    ws = wf.init_state(seed, opt, "cpu")
+    return wf, ws, opt
+
+
+def fused_step(mesh, layers, B, T, n_mb, interleave=1, seed=3):
+    """One fused step; returns the grads (old - new params) and metrics."""
+    from veles_tpu_torch.ops.optimizers import tree_map
+    wf, ws, opt = pp_workflow(layers, B, T, seed)
+    before = tree_map(lambda x: x.clone(), ws["params"])
+    step = wf.make_pipeline_train_step(opt, mesh, n_microbatches=n_mb,
+                                       interleave=interleave)
+    ws, mets = step(ws, tree_t(pp_batch(seed, B, T)))
+    grads = tree_map(lambda a, b: a - b, before, ws["params"])
+    return {"grads": grads, "metrics": {k: float(v)
+                                        for k, v in mets.items()}}
+
+
+def norm_layers(D=16, S=2):
+    """tests/test_pipeline_product.py:720's chain: a MeanDispNormalizer
+    with read-only dataset statistics before a homogeneous stack."""
+    return [{"type": "norm", "name": "norm",
+             "mean": np.linspace(-1.0, 1.0, D).tolist(),
+             "rdisp": np.linspace(0.5, 2.0, D).tolist()},
+            {"type": "pipeline_stack", "n_stages": S, "d_hidden": 32,
+             "n_microbatches": S, "name": "stack"},
+            {"type": "softmax", "output_size": 5, "name": "out"}]
+
+
+def norm_step(mesh=None, B=16, D=16):
+    """One SGD(1) step of the normalizer chain: fused on ``mesh``, else
+    the plain step; returns the grads (old - new params), the metrics
+    and the normalizer's state after it."""
+    from veles_tpu_torch.models.standard import build_workflow
+    from veles_tpu_torch.ops.optimizers import SGD, tree_map
+    from veles_tpu_torch.units.base import Spec
+    wf = build_workflow("pp_statenorm", norm_layers(D))
+    wf.build({"@input": Spec((B, D), torch.float32),
+              "@labels": Spec((B,), torch.int32),
+              "@mask": Spec((B,), torch.float32)})
+    opt = SGD(1.0)
+    ws = wf.init_state(1, opt, "cpu")
+    rng = np.random.default_rng(8)
+    batch = tree_t({"@input": (rng.standard_normal((B, D)) * 2 + 1)
+                    .astype(np.float32),
+                    "@labels": rng.integers(0, 5, B).astype(np.int32),
+                    "@mask": np.ones(B, np.float32)})
+    before = tree_map(lambda x: x.clone(), ws["params"])
+    step = (wf.make_train_step(opt) if mesh is None else
+            wf.make_pipeline_train_step(opt, mesh, n_microbatches=2))
+    ws, mets = step(ws, batch)
+    return {"grads": tree_map(lambda a, b: a - b, before, ws["params"]),
+            "metrics": {k: float(v) for k, v in mets.items()},
+            "state": tree_map(lambda x: x.clone(), ws["state"])}
+
+
+def dp_layers():
+    """tests/test_parallel.py's fc workflow (fc1 tanh 32, softmax 4)."""
+    return [{"type": "all2all_tanh", "output_size": 32, "name": "fc1"},
+            {"type": "softmax", "output_size": 4, "name": "out"}]
+
+
+def dp_workflow(B=16):
+    from veles_tpu_torch.models.standard import build_workflow
+    from veles_tpu_torch.ops.optimizers import SGD
+    from veles_tpu_torch.units.base import Spec
+    wf = build_workflow("fc", dp_layers())
+    wf.build({"@input": Spec((B, 16), torch.float32),
+              "@labels": Spec((B,), torch.int32),
+              "@mask": Spec((B,), torch.float32)})
+    opt = SGD(0.05, momentum=0.9)
+    return wf, wf.init_state(0, opt, "cpu"), opt
+
+
+def dp_batches(B=16, n=3):
+    rng = np.random.default_rng(21)
+    out = []
+    for i in range(n):
+        mask = np.ones(B, np.float32)
+        if i == n - 1:
+            mask[-5:] = 0.0              # a ragged tail batch
+        out.append({"@input": rng.standard_normal((B, 16)).astype(
+                        np.float32),
+                    "@labels": rng.integers(0, 4, B).astype(np.int32),
+                    "@mask": mask})
+    return out
+
+
+def dp_loader(n=224, mb=32):
+    """Four Gaussian blobs (tests/test_parallel.py:30-35); the validation
+    labels are shuffled, so the validation error stalls and the Decision
+    rolls back."""
+    from veles_tpu_torch.loader.base import TRAIN, VALID, ArrayLoader
+    rng = np.random.default_rng(3)
+    centers = np.random.default_rng(7).standard_normal((4, 16)) * 3
+    lab = rng.integers(0, 4, n).astype(np.int32)
+    d = (centers[lab] + rng.standard_normal((n, 16))).astype(np.float32)
+    return ArrayLoader({TRAIN: d, VALID: d[:96]},
+                       {TRAIN: lab, VALID: rng.permutation(lab[:96])},
+                       minibatch_size=mb)
+
+
+# -- suites -------------------------------------------------------------------------
+
+def suite_schedules2(mesh):
+    from veles_tpu_torch.parallel.pipeline import (interleaved_train_step,
+                                                   pipeline_apply,
+                                                   pipeline_train_step)
+    out = {}
+    ps, x, _ = hetero_data(1, 4, 3, 8)
+    fns = [lambda p, h: (tanh_stage(p, h), torch.zeros(())),
+           lambda p, h: (res_stage(p, h), torch.zeros(()))]
+    out["apply"] = pipeline_apply(fns, [tree_t(p) for p in ps], t(x),
+                                  mesh)[0]
+    for M in (2, 4, 6):
+        p, x, y = uniform_data(M, 2, M, 3, 8)
+        out[f"uniform_M{M}"] = pipeline_train_step(
+            tanh_stage, mse, tree_t(p), t(x), t(y), mesh)
+    ps, x, y = hetero_data(2, 4, 3, 8)
+    out["hetero"] = pipeline_train_step(
+        [tanh_stage, res_stage], mse, [tree_t(p) for p in ps], t(x), t(y),
+        mesh)
+    p, x, y = uniform_data(3, 4, 4, 3, 8)
+    out["interleaved"] = interleaved_train_step(
+        tanh_stage, mse, tree_t(p), t(x), t(y), mesh, interleave=2)
+    p, x, y = uniform_data(4, 2, 4, 3, 8)
+    out["keyed"] = pipeline_train_step(
+        keyed_stage, mse, tree_t(p), t(x), t(y), mesh, rng=(3, 9),
+        with_aux=True)
+    out["workflow"] = fused_step(mesh, pp_layers(), 16, 6, 4)
+    out["workflow_plain"] = fused_step(
+        mesh, pp_layers(moe=False, dropout=False), 16, 6, 2)
+    out["workflow_interleaved"] = fused_step(
+        mesh, pp_layers(4, moe=False, dropout=False), 16, 6, 4,
+        interleave=2)
+    out["stateful_normalizer"] = norm_step(mesh)
+    return out
+
+
+def suite_schedules4(mesh):
+    from veles_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from veles_tpu_torch.parallel.pipeline import pipeline_train_step
+    out = {"coords": dict(mesh.coords)}
+    p, x, y = uniform_data(5, 2, 4, 4, 8)
+    out["uniform_dp"] = pipeline_train_step(
+        tanh_stage, mse, tree_t(p), t(x), t(y), mesh, batch_axes=("data",))
+    out["workflow_dp"] = fused_step(mesh, pp_layers(), 16, 6, 2)
+    # microbatches of 3 rows: the data axis does not divide them, so
+    # every data rank computes them whole
+    out["workflow_dp_replicated"] = fused_step(mesh, pp_layers(), 6, 6, 2)
+    deep = make_mesh(MeshSpec(data=1, pipe=4), timeout_s=GROUP_TIMEOUT_S)
+    for M in (4, 8):
+        p, x, y = uniform_data(10 + M, 4, M, 2, 8)
+        out[f"deep_M{M}"] = pipeline_train_step(
+            tanh_stage, mse, tree_t(p), t(x), t(y), deep)
+    return out
+
+
+def suite_dp(mesh, out_dir, rank):
+    """Data parallelism over 2 ranks: three sharded steps, then a
+    trainer with a rollback and a snapshotter (rank 0 writes)."""
+    from veles_tpu_torch.ops.optimizers import SGD
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.snapshotter import Snapshotter
+    from veles_tpu_torch.runtime.trainer import Trainer
+    from veles_tpu_torch.units.workflow import ShardedTrainStep
+    out = {}
+    wf, ws, opt = dp_workflow()
+    step = wf.make_sharded_train_step(opt, mesh)
+    out["steps"] = []
+    for b in dp_batches():
+        ws, mets = step(ws, tree_t(b))
+        out["steps"].append({k: float(v) for k, v in mets.items()})
+    out["params"] = ws["params"]
+    wf2, _, _ = dp_workflow()
+    snap_dir = os.path.join(str(out_dir), f"snaps{rank}")
+    tr = Trainer(wf2, dp_loader(), SGD(0.05, momentum=0.9),
+                 Decision(max_epochs=3, fail_iterations=10,
+                          rollback_after=1),
+                 Snapshotter("dp", snap_dir), device="cpu", mesh=mesh)
+    tr.initialize(seed=0)
+    group = mesh.group("data")
+    rollbacks = []
+    write = tr._write_state
+    tr._write_state = lambda payload: (rollbacks.append(1), write(payload))
+    res = tr.run()
+    out["trainer"] = {"best_value": res["best_value"],
+                      "sharded": isinstance(tr._train_step.step,
+                                            ShardedTrainStep),
+                      "same_group": tr.mesh.group("data") is group,
+                      "compiles": tr.step_cache.compiles,
+                      "rollbacks": len(rollbacks),
+                      "params": tr.wstate["params"]}
+    return out
+
+
+def suite_hang(mesh, out_dir, rank):
+    """Rank 1 never joins: rank 0's all-reduce must fail within the
+    group's timeout (the group here is made with 5 s)."""
+    import torch.distributed as dist
+    if rank == 1:
+        time.sleep(120)          # the test kills it once rank 0 is done
+        return {}
+    t0 = time.monotonic()
+    try:
+        dist.all_reduce(torch.ones(3))
+        err = None
+    except Exception as e:                    # the timeout surfaces here
+        err = repr(e)
+    return {"error": err, "waited_s": time.monotonic() - t0}
+
+
+SUITES = {"schedules2": ("pipe=2", suite_schedules2),
+          "schedules4": ("data=2,pipe=2", suite_schedules4),
+          "dp": ("data=2", suite_dp), "hang": ("data=2", suite_hang)}
+
+
+def main():
+    out_dir, rank, world, port, suite = sys.argv[1:6]
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    sys.path.insert(0, HERE)
+    from veles_tpu_torch.parallel.distributed import (initialize_distributed,
+                                                      shutdown_distributed)
+    from veles_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    timeout = 5.0 if suite == "hang" else GROUP_TIMEOUT_S
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cpu",
+                           timeout_s=timeout)
+    spec, fn = SUITES[suite]
+    if suite == "hang":
+        res = fn(None, out_dir, rank)
+        torch.save(res, os.path.join(out_dir, f"{suite}_rank{rank}.pt"))
+        os._exit(0)
+    mesh = make_mesh(MeshSpec.parse(spec), timeout_s=timeout)
+    res = fn(mesh, out_dir, rank) if suite == "dp" else fn(mesh)
+    torch.save(res, os.path.join(out_dir, f"{suite}_rank{rank}.pt"))
+    shutdown_distributed()
+
+
+if __name__ == "__main__":
+    main()

@@ -1464,3 +1464,112 @@ def test_mixed_chain_engine_captured_equals_eager_bitwise(card, dtype):
         call()
         torch.cuda.synchronize()
         assert pa.launches.count - n0 == per[kind], kind
+
+
+def _pp_moe_trainer(card, capture):
+    """configs/induction_lm_pp_moe.json at its published width (dim 64,
+    the pipeline stack run sequentially: no mesh) over a small
+    card-resident InductionLoader (4 batches of 80 and one to
+    evaluate); capture on or off."""
+    import json
+    import os
+    from veles_tpu_torch.models.lm import InductionLoader
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "configs", "induction_lm_pp_moe.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    ld = {k: v for k, v in cfg["loader"].items() if k != "name"}
+    loader = InductionLoader(**ld, n_train=4 * ld["minibatch_size"],
+                             n_valid=ld["minibatch_size"], device=card)
+    tr = StandardWorkflow(cfg["workflow"]).make_trainer(
+        loader, Decision(max_epochs=1), device=card,
+        step_cache=StepCache(capture=capture))
+    tr.initialize(seed=0)
+    return tr
+
+
+def test_pp_moe_train_step_captured_equals_eager_bitwise(card):
+    """The pipeline stack with dropout and an MoE stage: 4 captured steps
+    and an eval leave the eager steps' parameters, Adam state, MoE aux
+    state and epoch sums, bit for bit; each step launches the dropout
+    kernel forward and backward for both stage dropouts (their seed
+    slots) and the f32 flash kernels."""
+    eager = _pp_moe_trainer(card, False)
+    captured = _pp_moe_trainer(card, True)
+    assert captured.step_cache.stats()["train"] == {"captured": True,
+                                                    "reason": None}
+    assert captured._train_step.step.seeded == ["s0u1_dropout",
+                                                "s1u1_dropout"]
+    per = {k.NAME: m for c, (m, _) in captured._train_step.launches
+           for k in (fa, dq, dkv, fd) if k.launches is c}
+    # each stage dropout launches forward and backward
+    assert per[fd.NAME] == 4 and per[fa.NAME] >= 3 and per[dq.NAME] == 3
+    eager.run()
+    captured.run()
+    assert captured.wstate["step"] == eager.wstate["step"] == 4
+    assert _state_equal(captured.wstate, eager.wstate)
+    assert captured.decision.history == eager.decision.history
+
+
+def _moe_chain(device):
+    """induction_lm_pp_moe.json's chain (dim 64, vocab 16): the three
+    attention stages without their dropouts, the MoE stage, seq_last and
+    the softmax head; random weights from seed 0."""
+    import json
+    import os
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.units.base import Spec
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "configs", "induction_lm_pp_moe.json")
+    with open(path) as f:
+        wcfg = json.load(f)["workflow"]
+    for layer in wcfg["layers"]:
+        if layer["type"] == "pipeline_stack":
+            layer["stages"] = [[s for s in st if s["type"] != "dropout"]
+                               for st in layer["stages"]]
+    wf = StandardWorkflow(wcfg).workflow
+    wf.build({"@input": Spec((2, 16), torch.int32),
+              "@labels": Spec((2,), torch.int32),
+              "@mask": Spec((2,), torch.float32)})
+    return wf, wf.init_state(0, device=device)
+
+
+def test_moe_chain_engine_captured_equals_eager_bitwise(card):
+    """40 scheduler iterations of the MoE chain (decoded dropless inside
+    the graphs) under the fixed megastep / verify / decode policy,
+    captured and eager: tokens, token rows and the KV pool bit for bit;
+    a replay launches the paged kernel once an attention stage a
+    micro-step."""
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _moe_chain(card)
+    runs = {}
+    for capture in (True, False):
+        eng = DecodeEngine(wf, ws, slots=4, l_max=128, page_size=16,
+                           paged_kernel=True, prefill_chunk=32,
+                           window_ms=0.0, megastep=4, spec=True, spec_k=3,
+                           capture=capture, device=card)
+        script = {i: [(np.asarray(p) % 16, n, kw) for p, n, kw in reqs]
+                  for i, reqs in _mega_spec_script().items()}
+        runs[capture] = (eng, _drive(eng, script, 40, _fixed_policy))
+    (cap, creqs), (eag, ereqs) = runs[True], runs[False]
+    for kind in ("decode", "prefill", "megastep", "verify"):
+        assert cap.stats()["capture"][kind] == {"captured": True,
+                                                "reason": None}
+    assert sum(r.done.is_set() for r in creqs) >= 3
+    for a, b in zip(creqs, ereqs):
+        assert a.done.is_set() == b.done.is_set()
+        if a.done.is_set():
+            np.testing.assert_array_equal(a.result, b.result)
+    np.testing.assert_array_equal(cap._toks, eag._toks)
+    for name in cap._caches:
+        for part in cap._caches[name]:
+            assert torch.equal(cap._caches[name][part],
+                               eag._caches[name][part]), (name, part)
+    layers = 3
+    for kind, n in {"decode": layers, "megastep": 4 * layers,
+                    "verify": 4 * layers}.items():
+        assert [m for c, (m, _) in cap._fns[kind].launches
+                if c is pa.launches] == [n], kind

@@ -92,13 +92,24 @@ def test_predict_step_matches_jax(rng, layers):
 
 def test_unported_layer_type_names_its_slice():
     from veles_tpu_torch.models.standard import build_workflow
-    # a gru layer builds now (ROADMAP slice 7); moe still names its slice
+    # gru (ROADMAP slice 7) and moe (slice 8) layers build now; a type
+    # still pending names its slice, in a pipeline stage too
+    from veles_tpu_torch.models import standard
     wf = build_workflow("x", [{"type": "embedding", "vocab": 4, "dim": 4},
-                              {"type": "gru", "hidden": 4}])
-    assert type(wf.units[1]).__name__ == "GRU"
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        build_workflow("x", [{"type": "embedding", "vocab": 4, "dim": 4},
-                             {"type": "moe", "n_experts": 2}])
+                              {"type": "gru", "hidden": 4},
+                              {"type": "moe", "n_experts": 2,
+                               "d_hidden": 4}])
+    assert [type(u).__name__ for u in wf.units[1:3]] == ["GRU", "MoEFFN"]
+    standard.PENDING_TYPES["later"] = "item 99"
+    try:
+        for layer in ({"type": "later"},
+                      {"type": "pipeline_stack",
+                       "stages": [[{"type": "later"}]]}):
+            with pytest.raises(NotImplementedError, match="item 99"):
+                build_workflow("x", [{"type": "embedding", "vocab": 4,
+                                      "dim": 4}, layer])
+    finally:
+        del standard.PENDING_TYPES["later"]
 
 
 def test_evaluator_builds_but_names_training_slice():

@@ -5,7 +5,8 @@ serve it from a snapshot, or run a snapshot-phased curriculum
 
     python -m veles_tpu_torch CONFIG [root.path=value ...] \\
         [--random-seed S] [--max-epochs N] [--snapshot-dir D] \\
-        [--snapshot SRC] [--result-file F] [--device cpu]
+        [--snapshot SRC] [--result-file F] [--device cpu] \\
+        [--mesh data=2,pipe=2] [--hosts localhost,localhost]
     python -m veles_tpu_torch CONFIG --snapshot SRC --generate N \\
         --prompt "1,2,3;4,5,6" [--temperature T [--top-k K] [--top-p P]] \\
         [--beams W [--length-penalty A]] [--eos-id E] [--result-file F]
@@ -40,11 +41,23 @@ newer snapshot there.  ``--status-port`` serves the live status page
 (training or serving), ``--trace-out`` writes the span ring's timelines
 as a Chrome trace on exit.  Everything runs on the CUDA card unless
 ``--device cpu`` is given.
+
+``--mesh data=D,pipe=P`` trains over a mesh of D*P ranks, one process
+each (``parallel/mesh.py``): the batch splits over ``data``, and a
+``pipe`` axis above 1 trains the config's pipeline stack on the fused
+1F1B schedule (interleaved with the config's ``pipeline_interleave``).
+Without ``--hosts`` the ranks start here as gloo processes on the CPU
+(``--device cpu``); a run on the card has one rank (one GPU), so a
+larger mesh there stops with an error.  ``--hosts h0,h1,...`` starts
+one rank per entry (``parallel/launcher.py``: a subprocess for
+localhost, ssh otherwise).  Rank 0 alone prints the results and writes
+snapshots and ``--result-file``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -171,6 +184,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "/metrics, /memory.json, /trace.json, POST "
                         "/debug/profile) on this port; 0 picks a free "
                         "port")
+    p.add_argument("--mesh", default=None,
+                   help="mesh spec, e.g. data=2,pipe=2 (one rank process "
+                        "each; the seq/expert/fsdp/model axes come with "
+                        "ROADMAP.md item 6b)")
+    p.add_argument("--hosts", default=None,
+                   help="comma-separated hosts: respawn this command on "
+                        "each (localhost entries spawn locally) as one "
+                        "gang of ranks")
     p.add_argument("--trace-out", metavar="FILE", default=None,
                    help="on exit, write the host-side span timeline "
                         "(each request's queue-wait, prefill and decode "
@@ -179,8 +200,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     setup_logging()
+    launched = _launch_ranks(args, argv)
+    if launched is not None:
+        return launched
     if args.curriculum and (args.generate is not None
                             or args.serve is not None):
         raise SystemExit("--curriculum is a training meta-mode; "
@@ -205,6 +230,13 @@ def main(argv=None) -> int:
         raise SystemExit("--model-dir and --watch drive the serving "
                          "control plane; they need --serve")
     device = resolve_device(args.device)
+    from .parallel.distributed import (initialize_distributed,
+                                       shutdown_distributed)
+    initialize_distributed(device=device)
+    if (args.mesh or args.hosts) and (args.serve is not None
+                                      or args.generate is not None):
+        raise SystemExit("--mesh/--hosts train over a gang of ranks; "
+                         "--serve and --generate run on one")
     status = status_server = None
     if args.status_port is not None:
         os.makedirs(str(root.common.cache_dir), exist_ok=True)
@@ -225,6 +257,7 @@ def main(argv=None) -> int:
             status_server.stop()
         if args.trace_out:
             write_chrome_trace(args.trace_out)
+        shutdown_distributed()
 
 
 def _train(args, device, status=None) -> int:
@@ -244,16 +277,80 @@ def _train(args, device, status=None) -> int:
         snap = Snapshotter(wf_cfg.get("name", "workflow"), args.snapshot_dir,
                            compression=False)
     trainer = sw.make_trainer(loader, decision, snap, device=device,
-                              status=status)
+                              status=status, mesh=_make_mesh(args, sw))
     trainer.initialize()
     if args.snapshot:
         trainer.restore(args.snapshot)
     if args.generate is not None:
         return _generate(args, trainer)
     results = trainer.run()
-    print(json.dumps(results), flush=True)
-    _write_result(args, results)
+    if trainer.writes:
+        print(json.dumps(results), flush=True)
+        _write_result(args, results)
     return 0
+
+
+def _mesh_ranks(spec) -> int:
+    """Ranks a ``--mesh`` spec asks for (a -1 axis counts 1)."""
+    from .parallel.mesh import AXES
+    return int(np.prod([max(getattr(spec, a), 1) for a in AXES]))
+
+
+def _launch_ranks(args, argv):
+    """The launcher role (veles_tpu/__main__.py:842-848): with
+    ``--hosts``, or a ``--mesh`` of more ranks than this process on the
+    CPU, start the gang and wait for it; a rank itself (its
+    ``VELES_PROCESS_ID`` set) returns None and runs.  On the card a
+    mesh of more than one rank is refused: one GPU, one rank."""
+    if "VELES_PROCESS_ID" in os.environ:
+        return None
+    from .parallel.launcher import launch_hosts
+    from .parallel.mesh import MeshSpec, check_axes
+    if args.hosts:
+        return launch_hosts(args.hosts.split(","), argv,
+                            coordinator_port=_free_port())
+    if not args.mesh:
+        return None
+    spec = MeshSpec.parse(args.mesh)
+    check_axes(dataclasses.asdict(spec))
+    n = _mesh_ranks(spec)
+    if n <= 1:
+        return None
+    if resolve_device(args.device).type == "cuda":
+        raise SystemExit(
+            f"--mesh {args.mesh} asks for {n} ranks; a run on the card has "
+            "one rank (one GPU on this host): run the ranks on the CPU "
+            "with --device cpu, or one rank per GPU host with --hosts")
+    # the ranks share this host's cores
+    os.environ.setdefault("OMP_NUM_THREADS",
+                          str(max(1, (os.cpu_count() or 1) // n)))
+    return launch_hosts(["localhost"] * n, argv,
+                        coordinator_port=_free_port())
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _make_mesh(args, sw):
+    """The run's mesh: ``--mesh`` (or pure data parallelism over a
+    ``--hosts`` gang), None for a lone process
+    (veles_tpu/__main__.py:280-314).  The placement rules of its units
+    (``pipeline_rules`` on a pipe axis) describe the JAX layout; every
+    rank holds the whole state."""
+    from .parallel.distributed import host_count
+    from .parallel.mesh import MeshSpec, make_mesh
+    if host_count() == 1:
+        # one process and no group: the plain (captured) steps are the
+        # mesh's steps
+        if args.mesh:
+            MeshSpec.parse(args.mesh).axis_sizes(1)     # must tile one
+        return None
+    return make_mesh(MeshSpec.parse(args.mesh) if args.mesh
+                     else MeshSpec())
 
 
 def _write_result(args, out) -> None:

@@ -1,8 +1,9 @@
 """StandardWorkflow: build a workflow and its optimizer from a config
 (counterpart of veles_tpu/models/standard.py).
 
-``LAYER_TYPES`` holds the types the port has; a config that names a type
-of a later slice fails with an error that names the slice.  A layer's
+``LAYER_TYPES`` holds every layer type of the JAX package's registry; a
+type of a later slice would stand in ``PENDING_TYPES`` and fail with an
+error that names it.  A layer's
 ``hyperparams`` key lands in the optimizer's per-unit table.
 """
 
@@ -42,14 +43,13 @@ LAYER_TYPES = {
     "rnn": recurrent.RNN,
     "gru": recurrent.GRU,
     "lstm": recurrent.LSTM,
+    "moe": parallel_nn.MoEFFN,
+    "pipeline_stack": parallel_nn.PipelineStack,
 }
 
 #: layer types of the JAX package not ported yet -> the ROADMAP.md slice
-#: that brings them
-PENDING_TYPES = {
-    "moe": "slice 8 (parallelism)",
-    "pipeline_stack": "slice 8 (parallelism)",
-}
+#: that brings them (none left)
+PENDING_TYPES: Dict[str, str] = {}
 
 #: layer-type prefixes that take a compute_dtype kwarg
 COMPUTE_DTYPE_TYPES = ("all2all", "softmax", "conv", "deconv", "rnn",
@@ -79,7 +79,8 @@ def build_workflow(name: str, layers: Sequence[dict], *,
                     f"it comes with ROADMAP.md {PENDING_TYPES[ltype]}")
             raise KeyError(f"unknown layer type {ltype!r}")
         if compute_dtype is not None and ltype.startswith(
-                COMPUTE_DTYPE_TYPES):
+                COMPUTE_DTYPE_TYPES + ("pipeline_stack",)):
+            # a stack forwards it into its stage sublists
             spec.setdefault("compute_dtype", compute_dtype)
         wf.add(LAYER_TYPES[ltype](name=lname, inputs=(prev,), **spec))
         prev = lname
@@ -141,11 +142,13 @@ class StandardWorkflow:
             **dict(self.config.get("optimizer_args", {})))
 
     def make_trainer(self, loader, decision=None, snapshotter=None, *,
-                     device=None, step_cache=None, status=None):
+                     device=None, step_cache=None, status=None, mesh=None):
         """A :class:`~veles_tpu_torch.runtime.trainer.Trainer` over this
         workflow and optimizer (default decision: the config's
         ``max_epochs`` and ``fail_iterations``; default ``step_cache``: a
-        fresh one that captures on the card)."""
+        fresh one that captures on the card), with the config's
+        ``pipeline_microbatches`` and ``pipeline_interleave`` for a
+        ``mesh`` with a pipe axis."""
         from ..runtime.decision import Decision
         from ..runtime.trainer import Trainer
         decision = decision or Decision(
@@ -153,4 +156,8 @@ class StandardWorkflow:
             fail_iterations=self.config.get("fail_iterations", 50))
         return Trainer(self.workflow, loader, self.optimizer, decision,
                        snapshotter, device=device, step_cache=step_cache,
-                       status=status)
+                       status=status, mesh=mesh,
+                       pipeline_microbatches=self.config.get(
+                           "pipeline_microbatches"),
+                       pipeline_interleave=self.config.get(
+                           "pipeline_interleave", 1))

@@ -1,4 +1,7 @@
 """Parallel layers of the port (counterpart of veles_tpu/parallel).
 
-The local ``blockwise_attention``, and the ``CliRunner`` / ``ParallelMap``
-pools of ``pool.py``."""
+The local ``blockwise_attention``; the ``CliRunner`` / ``ParallelMap``
+pools of ``pool.py``; the mixture-of-experts layer (``moe.py``); the
+mesh over ``torch.distributed`` process groups (``mesh.py``,
+``distributed.py``, ``launcher.py``) and the pipeline schedules over its
+``pipe`` axis (``pipeline.py``, ``pipeline_compile.py``)."""

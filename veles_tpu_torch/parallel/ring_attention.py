@@ -4,7 +4,7 @@ veles_tpu/parallel/ring_attention.py).
 Only ``blockwise_attention`` is ported: on a CPU tensor it runs the
 online-softmax scan (ring_attention.py:88-135), on the card the
 flash-forward CUDA kernel.  Ring (sequence-parallel) attention comes with
-the parallelism slice.
+ROADMAP.md item 6b.
 """
 
 from __future__ import annotations

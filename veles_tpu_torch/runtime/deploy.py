@@ -51,6 +51,7 @@ import torch
 
 from ..config import root
 from ..logger import Logger
+from ..ops.optimizers import tree_map
 from . import faults
 from .engine import EngineDraining, signature_mismatch
 from .metrics import registry as metrics_registry
@@ -108,9 +109,8 @@ def _shape_signature(tree) -> Tuple:
 def _host_like(saved, template) -> dict:
     """The numpy tree ``saved`` as host tensors of ``template``'s
     dtypes."""
-    return {u: {k: torch.from_numpy(np.array(saved[u][k], copy=True))
-                .to(t.dtype) for k, t in sub.items()}
-            for u, sub in template.items()}
+    return tree_map(lambda t, x: torch.from_numpy(np.array(x, copy=True))
+                    .to(t.dtype), template, saved)
 
 
 def _place_like(saved, template):
@@ -119,19 +119,17 @@ def _place_like(saved, template):
     stream that is waited for): the staging of a server without an
     engine (an engine stages its own, into its served layout)."""
     side = None
-    out = {}
 
-    for u, sub in _host_like(saved, template).items():
-        out[u] = {}
-        for k, x in sub.items():
-            dev = template[u][k].device
-            if dev.type != "cuda":
-                out[u][k] = x.to(dev)
-                continue
-            if side is None:
-                side = torch.cuda.Stream(dev)
-            with torch.cuda.stream(side):
-                out[u][k] = x.pin_memory().to(dev, non_blocking=True)
+    def place(x, t):
+        nonlocal side
+        if t.device.type != "cuda":
+            return x.to(t.device)
+        if side is None:
+            side = torch.cuda.Stream(t.device)
+        with torch.cuda.stream(side):
+            return x.pin_memory().to(t.device, non_blocking=True)
+
+    out = tree_map(place, _host_like(saved, template), template)
     if side is not None:
         side.synchronize()
     return out

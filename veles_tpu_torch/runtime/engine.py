@@ -151,6 +151,7 @@ from ..config import root
 from ..logger import Logger
 from ..ops import resolve_device
 from ..ops.kernels import paged_attention as _paged
+from ..ops.optimizers import tree_map
 from ..units.base import Context
 from ..units.nn import input_vocab
 from . import faults
@@ -338,10 +339,16 @@ def serving_params(plan: DecodePlan, params, device) -> dict:
     units = [u for _, u in plan.seq_handlers] + list(plan.flat_units)
     low = {u.name: u.compute_dtype for u in units
            if getattr(u, "compute_dtype", None) is not None}
-    return {u: {k: (t.to(device, low[u]) if u in low and t.dim() >= 2
-                    else t.to(device))
-                for k, t in p.items()}
-            for u, p in params.items()}
+
+    def place(tree, dt=None):
+        # a unit's params may nest (a pipeline stack's s<i>/<unit>/...):
+        # the innermost unit name on the path picks the dtype
+        if isinstance(tree, dict):
+            return {k: place(v, low.get(k, dt)) for k, v in tree.items()}
+        return tree.to(device, dt) if dt is not None and tree.dim() >= 2 \
+            else tree.to(device)
+
+    return {u: place(p, low.get(u)) for u, p in params.items()}
 
 
 class StagedParams(NamedTuple):
@@ -1182,8 +1189,7 @@ class DecodeEngine(Logger):
         transferred (host data through pinned memory on a side stream,
         which is waited for), while the old weights serve.  The staged
         tree is the only device copy a swap makes: give it host data."""
-        params = {u: {k: torch.as_tensor(t) for k, t in p.items()}
-                  for u, p in params.items()}
+        params = tree_map(torch.as_tensor, params)
         new_sig = tree_signature(params)
         if new_sig not in self._swap_sigs:
             raise ValueError(
@@ -1239,18 +1245,16 @@ class DecodeEngine(Logger):
         memory on a side stream, which is then waited for."""
         on_card = self.device.type == "cuda"
         side = torch.cuda.Stream(self.device) if on_card else None
-        staged = {}
+        def stage(dst, src):
+            if on_card and src.device.type == "cpu":
+                src = src.to(dst.dtype).pin_memory()
+            out = torch.empty_like(dst)
+            out.copy_(src, non_blocking=on_card)
+            return out
+
         with torch.no_grad(), (torch.cuda.stream(side) if on_card
                                else contextlib.nullcontext()):
-            for u, served in self.params.items():
-                staged[u] = {}
-                for k, dst in served.items():
-                    src = params[u][k]
-                    if on_card and src.device.type == "cpu":
-                        src = src.to(dst.dtype).pin_memory()
-                    out = torch.empty_like(dst)
-                    out.copy_(src, non_blocking=on_card)
-                    staged[u][k] = out
+            staged = tree_map(stage, self.params, params)
         if side is not None:
             side.synchronize()
         return staged
@@ -1262,9 +1266,7 @@ class DecodeEngine(Logger):
         the copies run on its stream, after every replay it issued;
         they are waited for before the staged tensors are freed."""
         with torch.no_grad():
-            for u, served in self.params.items():
-                for k, dst in served.items():
-                    dst.copy_(staged[u][k])
+            tree_map(lambda dst, src: dst.copy_(src), self.params, staged)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         # these finish on KV of mixed versions
@@ -1805,7 +1807,9 @@ class DecodeEngine(Logger):
             "decode_step_bytes": c["bytes_accessed"],
             "decode_step_wall_ewma_s": round(self._step_wall_ewma, 6),
             "decode_bandwidth_bytes_per_sec": round(bw, 1),
-            "decode_mbu": round(bw / (peak_gbps * 1e9), 5)
+            # six significant digits: a fixed 5 decimals lost up to
+            # 1.5e-3 of a small MBU (the gauge must read bw / peak)
+            "decode_mbu": float(f"{bw / (peak_gbps * 1e9):.6g}")
             if peak_gbps > 0 else 0.0,
             # one engine drives one card
             "tokens_per_sec_per_chip": round(

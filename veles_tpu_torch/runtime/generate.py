@@ -25,14 +25,17 @@ Recurrent units decode with O(1) carried state (generate.py:72-110 of
 the JAX package): each step runs the unit's own training cell
 (``ops/recurrent.py``), so decode cannot drift from the forward pass, and
 updates the carry in place.  A ``return_sequences=False`` recurrent ends
-the sequence segment as ``seq_last`` does.  Mixture-of-experts and
-pipeline-stack units come with a later slice of the port (ROADMAP.md);
-a chain holding one raises.
+the sequence segment as ``seq_last`` does.  A pipeline stack's stages
+are flattened into the handlers (its attention and recurrent sub-units
+keep caches of their own, generate.py:361-366 of the JAX package), and a
+mixture-of-experts unit decodes as a pointwise stage run dropless
+(``capacity_factor = n_experts``, :494-506), so a step's routing never
+drops a token and keeps fixed shapes.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +45,7 @@ from ..ops.kernels.fused_dropout import splitmix32_tensor
 from ..ops.kernels.paged_attention import paged_attention_decode
 from ..units import nn
 from ..units.base import Context
-from ..units.parallel_nn import MultiHeadAttention
+from ..units.parallel_nn import MoEFFN, MultiHeadAttention, PipelineStack
 from ..units.recurrent import _RecurrentBase
 from ..units.workflow import WorkflowError
 
@@ -265,37 +268,78 @@ class DecodePlan:
         self.output = order[-1].name
         self.seq_handlers: List[Tuple[str, object]] = []
         self.flat_units: List[object] = []
+        #: unit name -> its params' path in the workflow's params (a
+        #: pipeline stack's sub-units sit under ``stack/s<i>``)
+        self.param_paths: Dict[str, Tuple[str, ...]] = {}
         seen_last = False
         for u in order[1:]:
             if isinstance(u, nn.SeqLast):
                 seen_last = True
             elif seen_last:
                 self.flat_units.append(u)
-            elif isinstance(u, MultiHeadAttention):
-                if not u.causal:
-                    raise WorkflowError(
-                        f"attention unit {u.name!r} is non-causal; "
-                        "autoregressive decoding requires causal attention")
-                self.seq_handlers.append(("attn", u))
-            elif isinstance(u, _RecurrentBase):
-                self.seq_handlers.append(("recurrent", u))
-                # the current hidden IS the last hidden: the unit plays
-                # seq_last's role and the rest works on (B, H) tensors
-                seen_last = not u.return_sequences
-            elif isinstance(u, (nn.LayerNorm, nn.FFN)) or (
-                    isinstance(u, nn.All2All) and u.per_position):
-                self.seq_handlers.append(("pointwise", u))
+            elif isinstance(u, PipelineStack):
+                self._add_stack(u)
             else:
-                raise WorkflowError(
-                    f"unit {u.name!r} ({type(u).__name__}) cannot decode "
-                    "in this slice of the port: it supports attention, "
-                    "rnn/gru/lstm, layer_norm, ffn, per-position all2all "
-                    "and seq_last before the head (MoE and pipeline "
-                    "stacks come with ROADMAP.md slice 8)")
+                seen_last = self._add_seq(u, (u.name,))
         self._attn_units = [u for kind, u in self.seq_handlers
                             if kind == "attn"]
         self._rec_units = [u for kind, u in self.seq_handlers
                            if kind == "recurrent"]
+
+    def _add_seq(self, u, path, *, in_stage: bool = False) -> bool:
+        """Classify one unit before ``seq_last``; returns True when it
+        plays ``seq_last``'s role (a recurrent unit that returns its last
+        hidden only)."""
+        self.param_paths[u.name] = tuple(path)
+        if isinstance(u, MultiHeadAttention):
+            if not u.causal:
+                raise WorkflowError(
+                    f"attention unit {u.name!r} is non-causal; "
+                    "autoregressive decoding requires causal attention")
+            self.seq_handlers.append(("attn", u))
+        elif isinstance(u, _RecurrentBase):
+            if in_stage and not u.return_sequences:
+                raise WorkflowError(
+                    f"recurrent unit {u.name!r} inside a pipeline stage "
+                    "must return sequences (stages preserve the "
+                    "activation spec)")
+            self.seq_handlers.append(("recurrent", u))
+            # the current hidden IS the last hidden: the unit plays
+            # seq_last's role and the rest works on (B, H) tensors
+            return not u.return_sequences
+        elif isinstance(u, MoEFFN):
+            self.seq_handlers.append(("moe", u))
+        elif isinstance(u, (nn.LayerNorm, nn.FFN, nn.Dropout)) or (
+                isinstance(u, nn.All2All) and u.per_position):
+            self.seq_handlers.append(("pointwise", u))
+        else:
+            raise WorkflowError(
+                f"unit {u.name!r} ({type(u).__name__}) mixes sequence "
+                "positions (or is not per-position); generate() supports "
+                "attention, rnn/gru/lstm, moe, layer_norm, ffn, dropout, "
+                "per-position all2all, pipeline_stack and seq_last before "
+                "the head")
+        return False
+
+    def _add_stack(self, stack) -> None:
+        """A pipeline stack's stages flattened into the handlers, in
+        stage order (veles_tpu/runtime/generate.py:361-366); the
+        homogeneous form is one pointwise handler."""
+        if stack.stages_cfg is None:
+            self.param_paths[stack.name] = (stack.name,)
+            self.seq_handlers.append(("pointwise", stack))
+            return
+        for i, units in enumerate(stack._stage_units):
+            for su in units:
+                self._add_seq(su, (stack.name, f"s{i}", su.name),
+                              in_stage=True)
+
+    def unit_params(self, params, u) -> dict:
+        """Unit ``u``'s params in the workflow's params tree."""
+        p = params
+        for k in self.param_paths.get(u.name, (u.name,)):
+            p = p.get(k, {})
+        return p
 
     def attn_keys(self):
         return {u.name for u in self._attn_units}
@@ -306,7 +350,8 @@ class DecodePlan:
         """Zeroed caches: dense (B, L, Hk, Dh) rows, or the flat page pool
         (kv_rows, page_size, Hk, Dh) when ``kv_rows``/``page_size`` are
         given; a recurrent unit's carry is (B, H) float32 either way."""
-        caches = {u.name: _attn_cache_init(u, params[u.name], B, L, dtype,
+        caches = {u.name: _attn_cache_init(u, self.unit_params(params, u),
+                                           B, L, dtype,
                                            device, kv_rows=kv_rows,
                                            page_size=page_size)
                   for u in self._attn_units}
@@ -327,16 +372,22 @@ class DecodePlan:
         carry_ok = pages[2] if pages is not None else write_ok
         reset = (pos == 0) if isinstance(pos, torch.Tensor) else None
         for kind, u in self.seq_handlers:
+            p = self.unit_params(params, u)
             if kind == "attn":
                 x, caches[u.name] = _attn_decode_step(
-                    u, params[u.name], caches[u.name], x, pos, pages,
+                    u, p, caches[u.name], x, pos, pages,
                     write_ok, paged_kernel=paged_kernel)
             elif kind == "recurrent":
-                x = _rec_decode_step(u, params[u.name], caches[u.name], x,
+                x = _rec_decode_step(u, p, caches[u.name], x,
                                      carry_ok, carry_rows, reset)
+            elif kind == "moe":
+                # dropless: capacity_factor = n_experts gives C = T*K,
+                # so no route of the step's B tokens is dropped
+                # (veles_tpu/runtime/generate.py:494-506)
+                x, _ = u.apply(p, {}, [x], ctx,
+                               capacity_factor=float(u.n_experts))
             else:
-                y, _ = u.apply(params.get(u.name, {}), {}, [x[:, None]],
-                               ctx)
+                y, _ = u.apply(p, {}, [x[:, None]], ctx)
                 x = y[:, 0]
         for u in self.flat_units:
             x, _ = u.apply(params.get(u.name, {}), {}, [x], ctx)

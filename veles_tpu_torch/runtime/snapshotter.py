@@ -40,6 +40,7 @@ import torch
 
 from ..logger import Logger
 from ..ops import resolve_device
+from ..ops.optimizers import tree_map
 
 
 class SnapshotCorruptError(RuntimeError):
@@ -611,30 +612,44 @@ def wstate_to_numpy(wstate: dict) -> dict:
 
 
 def _tensors(tree, slot: str, dev, want=None) -> dict:
-    """``{unit: {name: tensor}}`` on ``dev`` from the nested numpy tree;
+    """``{unit: {name: tensor}}`` on ``dev`` from the nested numpy tree (a
+    unit's entry may nest further: a pipeline stack's ``s<i>/<unit>/...``);
     values keep their dtype and bytes.  With ``want`` (unit -> name ->
-    shape) a name or shape that differs raises ``ValueError``."""
+    shape, nested alike) a name or shape that differs raises
+    ``ValueError``."""
+    def place(sub, path):
+        if isinstance(sub, dict):
+            return {k: place(v, f"{path}/{k}") for k, v in sub.items()}
+        return torch.from_numpy(np.array(_to_numpy(sub), copy=True)).to(dev)
+
     out = {}
     for unit, sub in tree.items():
         if not isinstance(sub, dict):
             raise ValueError(f"{slot}/{unit}: expected a dict of tensors")
-        out[unit] = {
-            name: torch.from_numpy(np.array(_to_numpy(v), copy=True)).to(dev)
-            for name, v in sub.items()}
+        out[unit] = place(sub, f"{slot}/{unit}")
     if want is not None:
-        got = {u: {k: tuple(t.shape) for k, t in p.items()}
-               for u, p in out.items()}
-        if want != got:
-            diffs = []
-            for u in sorted(set(want) | set(got)):
-                w, g = want.get(u, {}), got.get(u, {})
-                for k in sorted(set(w) | set(g)):
-                    if w.get(k) != g.get(k):
-                        diffs.append(f"{slot}/{u}/{k}: expected "
-                                     f"{w.get(k)}, got {g.get(k)}")
+        w = _shape_paths(want)
+        g = _shape_paths(tree_map(lambda t: tuple(t.shape), out))
+        if w != g:
+            diffs = [f"{slot}/{k}: expected {w.get(k)}, got {g.get(k)}"
+                     for k in sorted(set(w) | set(g))
+                     if w.get(k) != g.get(k)]
             what = "weights" if slot == "params" else "unit state"
             raise ValueError(f"{what} do not fit the workflow: "
                              + "; ".join(diffs[:8]))
+    return out
+
+
+def _shape_paths(tree, prefix="", out=None) -> Dict[str, tuple]:
+    """``"unit/param" -> shape`` of a nested dict whose leaves are
+    shapes (tuples)."""
+    out = {} if out is None else out
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            _shape_paths(v, path, out)
+        else:
+            out[path] = tuple(v)
     return out
 
 
@@ -680,9 +695,13 @@ def wstate_from_jax(tree, workflow=None, *, optimizer=None,
 
 
 def params_to_numpy(params) -> dict:
-    """``{unit: {param: ndarray}}`` (host copies) of the port's params."""
-    return {u: {k: _to_numpy(t) for k, t in p.items()}
-            for u, p in params.items()}
+    """``{unit: {param: ndarray}}`` (host copies) of the port's params
+    (nested alike where a unit's params nest)."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _to_numpy(t)
+    return conv(params)
 
 
 def wstate_from_snapshot(path: str, workflow, *, device=None) -> dict:

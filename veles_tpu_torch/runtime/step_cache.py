@@ -304,6 +304,8 @@ class StepCache(Logger):
             reason = "cpu"
         elif not self.capture:
             reason = "capture=False"
+        elif getattr(step, "capture_reason", None):
+            reason = step.capture_reason
         else:
             reason = None
         if reason:

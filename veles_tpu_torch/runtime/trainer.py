@@ -28,8 +28,13 @@ the capture, or at an eager step's first execution) times the steps of an epoch 
 ``vt_train_flops_per_sec`` and ``vt_train_mfu`` (against
 ``runtime.benchmark.resolve_peak_tflops``), and the results carry
 ``train_step_flops``, ``train_mfu`` and ``peak_tflops`` unrounded.
-Left out here (ROADMAP.md, slice 8): the mesh, multi-host and pipeline
-schedules.
+With a ``mesh`` (``parallel.mesh.Mesh``; one process a rank, every
+rank's loader yielding the same global batches from the same seed) the
+train step is the data-parallel one, or with a ``pipe`` axis above 1 the
+fused 1F1B schedule (interleaved with ``pipeline_interleave`` > 1), and
+the eval step evaluates each data rank's rows (trainer.py:63-83,
+:203-210); those steps talk to other ranks and stay eager.  Every rank
+holds the same state; rank 0 alone writes snapshots.
 """
 
 from __future__ import annotations
@@ -97,8 +102,13 @@ class Trainer(Logger):
                  optimizer: Optimizer, decision: Optional[Decision] = None,
                  snapshotter: Optional[Snapshotter] = None, *,
                  prefetch: int = 2, device=None,
-                 step_cache: Optional[StepCache] = None, status=None):
+                 step_cache: Optional[StepCache] = None, status=None,
+                 mesh=None, pipeline_microbatches: Optional[int] = None,
+                 pipeline_interleave: int = 1):
         self.workflow = workflow
+        self.mesh = mesh
+        self.pipeline_microbatches = pipeline_microbatches
+        self.pipeline_interleave = int(pipeline_interleave or 1)
         self.status = status      # runtime.status.StatusReporter (optional)
         self.loader = loader
         self.optimizer = optimizer
@@ -181,26 +191,64 @@ class Trainer(Logger):
         key = self.step_cache.trainer_key(
             self.workflow, self.optimizer, self.wstate, self._batch_spec,
             self.device)
+        build_train, build_eval = self._step_factories()
+        if self.mesh is not None:
+            key += (("mesh", tuple(sorted(self.mesh.shape.items())),
+                     id(self.mesh), self.pipeline_microbatches,
+                     self.pipeline_interleave),)
         inputs = {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
                   for k, s in self._batch_spec.items()}
         args = (self.wstate, inputs)
-        pin = (self.workflow, self.optimizer)
+        pin = (self.workflow, self.optimizer, self.mesh)
         self._train_step = self.step_cache.get_step(
-            "train", key,
-            lambda: self.workflow.make_train_step(self.optimizer), args,
-            pin=pin)
+            "train", key, build_train, args, pin=pin)
         # the cost of THIS trainer's program, never the kind's sum (a
         # rebuilt optimizer's superseded entry stays cached)
         self._train_key = key
         self._eval_step = None
-        self._eval_entry = (key, args, pin)
+        self._eval_entry = (key, args, pin, build_eval)
+
+    def _step_factories(self):
+        """The (train, eval) step factories: the plain steps without a mesh;
+        with one the data-parallel step, or the fused 1F1B schedule when
+        the pipe axis is above 1 (trainer.py:203-210)."""
+        wf, opt, mesh = self.workflow, self.optimizer, self.mesh
+        if mesh is None:
+            # no mesh: a stack runs sequentially, its configs' own
+            # "same math, portable config"
+            return (lambda: wf.make_train_step(opt)), wf.make_eval_step
+        pipe = mesh.shape.get("pipe", 1)
+        if pipe > 1:
+            n_mb = self.pipeline_microbatches
+            if n_mb is None:
+                from ..units.parallel_nn import PipelineStack
+                stacks = [u for u in wf.units
+                          if isinstance(u, PipelineStack)]
+                n_mb = (stacks[0].n_microbatches if stacks else None) \
+                    or pipe
+                self.info("no pipeline_microbatches: the stack trains on "
+                          "the fused 1F1B schedule with %d microbatches "
+                          "(the GPipe schedule's gradients)", n_mb)
+
+            def build_train():
+                return wf.make_pipeline_train_step(
+                    opt, mesh, n_microbatches=n_mb,
+                    interleave=self.pipeline_interleave)
+        else:
+            if self.pipeline_interleave > 1:
+                raise ValueError(
+                    "pipeline_interleave needs the fused 1F1B schedule: "
+                    "give the mesh a 'pipe' axis > 1")
+
+            def build_train():
+                return wf.make_sharded_train_step(opt, mesh)
+        return build_train, (lambda: wf.make_sharded_eval_step(mesh))
 
     def _ensure_eval_step(self):
         if self._eval_step is None:
-            key, (_, inputs), pin = self._eval_entry
+            key, (_, inputs), pin, build_eval = self._eval_entry
             self._eval_step = self.step_cache.get_step(
-                "eval", key, self.workflow.make_eval_step,
-                (self.wstate, inputs), pin=pin)
+                "eval", key, build_eval, (self.wstate, inputs), pin=pin)
         return self._eval_step
 
     # -- epoch passes -------------------------------------------------------
@@ -353,7 +401,8 @@ class Trainer(Logger):
             # advance first so a restored snapshot resumes at the NEXT epoch
             self.loader.next_epoch()
             if (self.snapshotter is not None
-                    and self.snapshotter.tick(best=self.decision.improved)):
+                    and self.snapshotter.tick(best=self.decision.improved)
+                    and self.writes):
                 self.snapshotter.save(f"ep{epoch}", self._payload(),
                                       best=self.decision.improved)
             epoch = self.loader.epoch_number
@@ -382,6 +431,13 @@ class Trainer(Logger):
             **{f"test_{k}": v for k, v in test_mets.items()},
         })
         return self.results
+
+    @property
+    def writes(self) -> bool:
+        """True on the rank that writes snapshots and results: rank 0 of
+        the process group (every rank without one)."""
+        from ..parallel.distributed import host_index
+        return host_index() == 0
 
     # -- anomaly sentinel escalation ------------------------------------------
     def _anomaly_patience(self) -> int:

@@ -35,8 +35,8 @@ class Spec:
 @dataclasses.dataclass
 class Context:
     """Per-call context threaded through apply(): the train/eval flag, the
-    device mesh (None: single device — the only layout the port runs yet)
-    and, in a train step, the step's PRNG key: the raw uint32 pair the
+    mesh (``parallel.mesh.Mesh``: the process groups of its axes; None:
+    one process) and, in a train step, the step's PRNG key: the raw uint32 pair the
     JAX step passes as ``sub`` (veles_tpu/units/base.py:47-97).  Units
     draw from ``unit_key(name)``, the JAX package's per-name fold, so a
     dropout mask equals the JAX package's.  ``seeds`` maps a unit that
@@ -60,6 +60,12 @@ class Context:
         if self._generator is None and self.make_generator is not None:
             self._generator = self.make_generator()
         return self._generator
+
+    def axis_size(self, name: str) -> int:
+        """Size of mesh axis ``name`` (1 without a mesh or axis)."""
+        if self.mesh is None:
+            return 1
+        return int(self.mesh.shape.get(name, 1))
 
     def unit_key(self, name: str) -> Optional[Tuple[int, int]]:
         """``fold_in(key, hash(name))`` as ``Context.unit_key`` of the

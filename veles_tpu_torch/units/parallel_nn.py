@@ -1,19 +1,31 @@
-"""Multi-head attention unit (counterpart of veles_tpu/units/parallel_nn.py
-``MultiHeadAttention``, local path :178-222).
+"""Parallelism-aware units (counterpart of veles_tpu/units/parallel_nn.py):
+``MultiHeadAttention`` (local path :178-222), ``MoEFFN`` (:225-282, the
+local path) and ``PipelineStack`` (:284-578), with ``pipeline_rules``
+(:596).
 
-Covers RoPE, the residual stream, grouped-query attention and the
-sliding window.  The sequence-parallel modes (``manual`` / ``wrapper``,
-ring attention over a mesh) come with the parallelism slice, and the
-JAX package's build-time autotune (``prepare``) is not ported: on the
-card the flash-forward kernel is the attention.
+Attention covers RoPE, the residual stream, grouped-query attention and
+the sliding window.  Its sequence-parallel modes (ring attention over a
+``seq`` axis), MoE's expert-parallel mode and ``expert_rules`` come with
+ROADMAP.md item 6b, and the JAX package's build-time attention autotune
+(``prepare``) is not ported: on the card the flash kernels are the
+attention.  A stack runs its stages sequentially with no ``pipe`` axis
+(or one of size 1): the same math, so the configs are portable; on a
+``pipe`` axis its eval forward runs the GPipe schedule
+(``parallel/pipeline.py``) and training the fused 1F1B schedule
+(``parallel/pipeline_compile.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
+
+import torch
 
 from ..ops import check_gqa_heads, rotary_embedding, smart_uniform_init
 from .base import Context, Forward, Spec, dtype_of
+
+#: the mesh axes of ROADMAP.md item 6b (not in the port yet)
+AXES_6B = ("seq", "expert", "fsdp", "model")
 
 
 class MultiHeadAttention(Forward):
@@ -61,11 +73,11 @@ class MultiHeadAttention(Forward):
 
     def apply(self, params, state, xs, ctx: Context):
         from ..parallel.ring_attention import blockwise_attention
-        if ctx.mesh is not None:
+        if ctx.axis_size(self.seq_axis) > 1:
             raise NotImplementedError(
-                f"attention {self.name!r}: sequence-parallel attention over "
-                "a device mesh comes with the parallelism slice of the port "
-                "(ROADMAP.md, slice 8)")
+                f"attention {self.name!r}: sequence-parallel (ring) "
+                f"attention over the {self.seq_axis!r} mesh axis comes with "
+                "ROADMAP.md item 6b")
         x = xs[0]
         B, T, E = x.shape
         H = self.n_heads
@@ -88,3 +100,294 @@ class MultiHeadAttention(Forward):
         if self.residual:
             y = y + xq
         return y.to(x.dtype), state
+
+
+class MoEFFN(Forward):
+    """Mixture-of-experts FFN over (B, T, E) or (N, E) activations, the
+    local path of veles_tpu/units/parallel_nn.py:225-282.  The
+    Switch/GShard load-balance loss rides the unit-state channel
+    (``aux_loss``); the train step adds ``aux_weight * aux_loss`` to the
+    training loss and reports it as ``aux_<name>``."""
+
+    has_aux_loss = True
+
+    def __init__(self, n_experts: int, d_hidden: int, name=None,
+                 inputs=("@input",), *, top_k: int = 2,
+                 capacity_factor: float = 1.25, aux_weight: float = 0.01,
+                 dispatch_mode: str = "sort", expert_axis: str = "expert"):
+        from ..parallel.moe import DISPATCH_MODES
+        super().__init__(name, inputs)
+        self.n_experts = int(n_experts)
+        self.d_hidden = int(d_hidden)
+        self.top_k = int(top_k)
+        self.capacity_factor = float(capacity_factor)
+        self.aux_weight = float(aux_weight)
+        if dispatch_mode not in DISPATCH_MODES:
+            raise ValueError(f"MoEFFN {self.name!r}: unknown dispatch_mode "
+                             f"{dispatch_mode!r}")
+        self.dispatch_mode = dispatch_mode
+        self.expert_axis = expert_axis
+
+    def output_spec(self, in_specs):
+        return in_specs[0]
+
+    def init(self, generator, in_specs, device):
+        from ..parallel.moe import init_moe_params
+        E = in_specs[0].shape[-1]
+        params = init_moe_params(generator, self.n_experts, E,
+                                 self.d_hidden, device=device)
+        return params, {"aux_loss": torch.zeros((), dtype=torch.float32,
+                                                device=device)}
+
+    def apply(self, params, state, xs, ctx: Context, *,
+              capacity_factor=None):
+        """``capacity_factor`` overrides the unit's (decode runs dropless
+        at ``n_experts``, veles_tpu/runtime/generate.py:494-506)."""
+        from ..parallel.moe import moe_apply
+        if ctx.axis_size(self.expert_axis) > 1:
+            raise NotImplementedError(
+                f"MoEFFN {self.name!r}: expert parallelism over the "
+                f"{self.expert_axis!r} mesh axis (the all-to-all dispatch) "
+                "comes with ROADMAP.md item 6b")
+        x = xs[0]
+        flat = x.reshape(-1, x.shape[-1])
+        cf = self.capacity_factor if capacity_factor is None \
+            else float(capacity_factor)
+        y, aux = moe_apply(params, flat, top_k=self.top_k,
+                           capacity_factor=cf,
+                           dispatch_mode=self.dispatch_mode)
+        return y.reshape(x.shape), {"aux_loss": aux.float()}
+
+
+class PipelineStack(Forward):
+    """A stack of S stages pipelined over the ``pipe`` mesh axis
+    (veles_tpu/units/parallel_nn.py:284-578).
+
+    * **Homogeneous**: ``PipelineStack(n_stages, d_hidden)`` — S residual
+      MLP blocks ``x + relu(x @ w1) @ w2``, params stage-stacked
+      ``stage_w1 (S, E, H)``, ``stage_w2 (S, H, E)``.
+    * **Config stages**: ``PipelineStack(stages=[[cfg, ...], ...])`` — each
+      stage a layer-config sublist built through
+      ``models.standard.LAYER_TYPES``; params ``{"s<i>": {unit: {...}}}``.
+      Stages may differ, and each must preserve the activation's shape
+      and dtype (that is what crosses the pipe ranks).
+
+    Without a ``pipe`` axis > 1 the stages run one after the other.  Unit
+    aux losses (MoE) sum into the stack's own ``aux_loss`` (weights
+    applied per sub-unit, so the stack's weight is 1)."""
+
+    def __init__(self, n_stages: Optional[int] = None,
+                 d_hidden: Optional[int] = None, name=None,
+                 inputs=("@input",), *, pipe_axis: str = "pipe",
+                 n_microbatches: Optional[int] = None,
+                 stages: Optional[Sequence[Sequence[dict]]] = None,
+                 compute_dtype=None):
+        super().__init__(name, inputs)
+        self.pipe_axis = pipe_axis
+        self.n_microbatches = n_microbatches
+        self.stages_cfg = stages
+        self.aux_weight = 1.0
+        if stages is not None:
+            self.n_stages = len(stages)
+            self.d_hidden = None
+            self._stage_units = [
+                self._build_stage_units(i, cfg, compute_dtype)
+                for i, cfg in enumerate(stages)]
+            subs = self.sub_units()
+            self.has_aux_loss = any(
+                getattr(u, "has_aux_loss", False) for u in subs)
+            self.stochastic = any(
+                getattr(u, "stochastic", False) for u in subs)
+        else:
+            if n_stages is None or d_hidden is None:
+                raise ValueError(
+                    "PipelineStack needs (n_stages, d_hidden) or stages=")
+            self.n_stages = int(n_stages)
+            self.d_hidden = int(d_hidden)
+            self._stage_units = None
+            self.has_aux_loss = False
+            self.stochastic = False
+
+    def sub_units(self) -> List:
+        """The stage sub-units in stage order (empty for the homogeneous
+        form)."""
+        return [u for us in (self._stage_units or []) for u in us]
+
+    @staticmethod
+    def _build_stage_units(i: int, cfg: Sequence[dict], compute_dtype):
+        from ..models.standard import (COMPUTE_DTYPE_TYPES, LAYER_TYPES,
+                                       PENDING_TYPES)
+        units = []
+        for j, spec in enumerate(cfg):
+            spec = dict(spec)
+            ltype = spec.pop("type")
+            lname = spec.pop("name", f"s{i}u{j}_{ltype}")
+            # both schedules rematerialize stage bodies already: a
+            # per-sub-unit remat flag is accepted and dropped
+            spec.pop("remat", None)
+            if "hyperparams" in spec:
+                raise ValueError(
+                    f"per-layer 'hyperparams' on {lname!r} are not "
+                    "supported inside pipeline stages (the stack is one "
+                    "optimizer unit); set them on the stack's unit name")
+            if ltype not in LAYER_TYPES:
+                if ltype in PENDING_TYPES:
+                    raise NotImplementedError(
+                        f"layer {lname!r}: type {ltype!r} is not ported "
+                        f"yet; it comes with ROADMAP.md "
+                        f"{PENDING_TYPES[ltype]}")
+                raise KeyError(f"unknown layer type {ltype!r}")
+            if compute_dtype is not None and ltype.startswith(
+                    COMPUTE_DTYPE_TYPES):
+                spec.setdefault("compute_dtype", compute_dtype)
+            units.append(LAYER_TYPES[ltype](name=lname, inputs=("@x",),
+                                            **spec))
+        return units
+
+    def _thread_stage_specs(self, spec, visit=None):
+        outs = []
+        for units in self._stage_units:
+            s = spec
+            for u in units:
+                if visit is not None:
+                    visit(u, s)
+                s = u.output_spec([s])
+            outs.append(s)
+        return outs
+
+    def output_spec(self, in_specs):
+        if self._stage_units is not None:
+            spec = in_specs[0]
+            for i, s in enumerate(self._thread_stage_specs(spec)):
+                if (tuple(s.shape), s.dtype) != (tuple(spec.shape),
+                                                 spec.dtype):
+                    raise ValueError(
+                        f"pipeline stage {i} must preserve the activation "
+                        f"spec {tuple(spec.shape)}/{spec.dtype} (it rides "
+                        f"the ring), got {tuple(s.shape)}/{s.dtype}")
+        return in_specs[0]
+
+    def init(self, generator, in_specs, device):
+        if self._stage_units is not None:
+            params = {}
+            for i, units in enumerate(self._stage_units):
+                spec, sp = in_specs[0], {}
+                for u in units:
+                    p, s = u.init(generator, [spec], device)
+                    # an aux channel is a per-step output riding the
+                    # stack's own aux; any other stage state is refused
+                    if s and set(s) - {"aux_loss"}:
+                        raise ValueError(
+                            f"stateful unit {u.name!r} inside a pipeline "
+                            "stage is unsupported (stage state does not "
+                            "ride the ring)")
+                    if p:
+                        sp[u.name] = p
+                    spec = u.output_spec([spec])
+                params[f"s{i}"] = sp
+            state = ({"aux_loss": torch.zeros((), dtype=torch.float32,
+                                              device=device)}
+                     if self.has_aux_loss else {})
+            return params, state
+        E, H = in_specs[0].shape[-1], self.d_hidden
+        w1 = [smart_uniform_init(generator, (E, H), E, device=device)
+              for _ in range(self.n_stages)]
+        w2 = [smart_uniform_init(generator, (H, E), H, device=device)
+              for _ in range(self.n_stages)]
+        return {"stage_w1": torch.stack(w1), "stage_w2": torch.stack(w2)}, {}
+
+    @staticmethod
+    def _stage_fn(p, x):
+        return x + torch.relu(x @ p["w1"]) @ p["w2"]
+
+    # -- per-stage access (the fused schedule's contract) -----------------
+    def stage_param_slice(self, params, i: int):
+        """Stage i's params, as ``stage_apply(i, ...)`` takes them."""
+        if self._stage_units is not None:
+            return params[f"s{i}"]
+        return {"w1": params["stage_w1"][i], "w2": params["stage_w2"][i]}
+
+    def restack_stage_grads(self, glist):
+        """Inverse of :meth:`stage_param_slice` over per-stage grads."""
+        if self._stage_units is not None:
+            return {f"s{i}": g for i, g in enumerate(glist)}
+        return {"stage_w1": torch.stack([g["w1"] for g in glist]),
+                "stage_w2": torch.stack([g["w2"] for g in glist])}
+
+    def stage_apply(self, i: int, p, x, ctx: Context):
+        return self.stage_apply_aux(i, p, x, ctx)[0]
+
+    def stage_apply_aux(self, i: int, p, x, ctx: Context):
+        """Stage i on one activation block -> ``(y, aux)``, ``aux`` the
+        weighted sum of the stage's unit aux losses."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self._stage_units is not None:
+            for u in self._stage_units[i]:
+                x, st = u.apply(p.get(u.name, {}), {}, [x], ctx)
+                if getattr(u, "has_aux_loss", False):
+                    aux = aux + u.aux_weight * st["aux_loss"]
+            return x, aux
+        return self._stage_fn(p, x), aux
+
+    def apply(self, params, state, xs, ctx: Context):
+        x = xs[0]
+        S = ctx.axis_size(self.pipe_axis)
+        n_mb = self.n_microbatches or S
+        if S > 1 and S != self.n_stages:
+            if self.n_stages % S == 0 and not ctx.train:
+                # an interleaved stack (v*S stages) evaluates in the
+                # numerically identical sequential form, as the
+                # reference does (:500-509)
+                S = 1
+            else:
+                raise ValueError(
+                    f"PipelineStack has {self.n_stages} stages but the "
+                    f"{self.pipe_axis!r} mesh axis is {S}"
+                    + (" (interleaved stacks train via "
+                       "pipeline_microbatches + pipeline_interleave)"
+                       if self.n_stages % S == 0 else ""))
+        if S > 1 and ctx.train:
+            raise ValueError(
+                f"PipelineStack {self.name!r}: on a {self.pipe_axis!r} axis "
+                f"of {S} a stack trains on the fused 1F1B schedule "
+                "(Workflow.make_pipeline_train_step), not through this "
+                "forward")
+        if S > 1 and x.shape[0] % n_mb == 0:
+            # the GPipe forward; an indivisible eval batch runs the same
+            # math sequentially below (:507-531)
+            from ..parallel.pipeline import pipeline_apply
+            B = x.shape[0]
+            xm = x.reshape((n_mb, B // n_mb) + tuple(x.shape[1:]))
+            ictx = Context(train=False)
+            fns = [(lambda p, h, _i=i: self.stage_apply_aux(_i, p, h, ictx))
+                   for i in range(self.n_stages)]
+            plist = [self.stage_param_slice(params, i)
+                     for i in range(self.n_stages)]
+            y, aux = pipeline_apply(fns, plist, xm, ctx.mesh,
+                                    axis_name=self.pipe_axis)
+            return y.reshape(x.shape), (
+                {"aux_loss": aux} if self.has_aux_loss else state)
+        if self._stage_units is not None:
+            aux_t = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i in range(self.n_stages):
+                x, a = self.stage_apply_aux(i, params[f"s{i}"], x, ctx)
+                aux_t = aux_t + a
+            return x, ({"aux_loss": aux_t} if self.has_aux_loss else state)
+        for i in range(self.n_stages):
+            x = self._stage_fn(self.stage_param_slice(params, i), x)
+        return x, state
+
+
+def pipeline_rules(axis: str = "pipe"):
+    """Placement rule for PipelineStack params
+    (veles_tpu/units/parallel_nn.py:596-605): a ``stage_*`` leaf splits
+    its leading stage axis over ``axis``, everything else is replicated.
+    A rule maps ``(path, shape)`` to a partition tuple (``()``:
+    replicated); ``parallel.mesh.state_placement`` applies it."""
+
+    def rule(path, shape):
+        if path and path[-1].startswith("stage_"):
+            return (axis,) + (None,) * (len(shape) - 1)
+        return ()
+
+    return rule

@@ -149,12 +149,16 @@ class Workflow(Logger):
             raise WorkflowError("call build() before param_shapes()")
         gen = torch.Generator().manual_seed(0)
         params, state = {}, {}
+
+        def shapes(tree):
+            return tree_map(lambda t: tuple(t.shape), tree)
+
         for u in self.topo_order():
             p, s = u.init(gen, [self._specs[i] for i in u.inputs], "meta")
             if p:
-                params[u.name] = {k: tuple(v.shape) for k, v in p.items()}
+                params[u.name] = shapes(p)
             if s:
-                state[u.name] = {k: tuple(v.shape) for k, v in s.items()}
+                state[u.name] = shapes(s)
         return params, state
 
     def forward(self, params, state, batch, ctx: Context, *,
@@ -172,6 +176,15 @@ class Workflow(Logger):
             if ns:
                 nstate[u.name] = ns
         return outputs, nstate
+
+    def all_units(self) -> List[Unit]:
+        """Every unit in topological order, a composite unit (a pipeline
+        stack) followed by its sub-units."""
+        out = []
+        for u in self.topo_order():
+            out.append(u)
+            out.extend(getattr(u, "sub_units", lambda: [])())
+        return out
 
     def ancestors(self, name: str) -> set:
         """Unit names needed to compute ``name`` (inclusive)."""
@@ -203,6 +216,29 @@ class Workflow(Logger):
             raise WorkflowError("a train step needs an evaluator unit "
                                 "(or a self-updating unit)")
         return TrainStep(self, optimizer)
+
+    def make_sharded_train_step(self, optimizer: Optimizer,
+                                mesh) -> "ShardedTrainStep":
+        """The train step over the mesh's ``data`` axis
+        (veles_tpu/units/workflow.py:312-336): see
+        :class:`ShardedTrainStep`."""
+        return ShardedTrainStep(self, optimizer, mesh)
+
+    def make_pipeline_train_step(self, optimizer: Optimizer, mesh, *,
+                                 n_microbatches: int, interleave: int = 1):
+        """The fused 1F1B train step over the mesh's ``pipe`` axis (and
+        ``data``), interleaved with ``interleave`` > 1
+        (veles_tpu/units/workflow.py:338-364; ``parallel/
+        pipeline_compile.py``)."""
+        from ..parallel.pipeline_compile import build_pipeline_step
+        return build_pipeline_step(self, optimizer, mesh,
+                                   n_microbatches=n_microbatches,
+                                   interleave=interleave)
+
+    def make_sharded_eval_step(self, mesh) -> "ShardedEvalStep":
+        """The eval step over the mesh (veles_tpu/units/workflow.py:
+        366-380): see :class:`ShardedEvalStep`."""
+        return ShardedEvalStep(self, mesh)
 
     def make_eval_step(self) -> "EvalStep":
         """(wstate, batch) -> the evaluator's metrics, under
@@ -294,8 +330,12 @@ class TrainStep:
         self.clip = float(root.common.train.get("clip_norm", 0.0) or 0.0)
         self.inject = frozenset(get_plan().nan_grad_at_step)
         #: units that draw a seed, in slot order after (lr, NaN flag)
-        self.seeded = [u.name for u in workflow.topo_order()
+        self.seeded = [u.name for u in workflow.all_units()
                        if u.draws_seed]
+        #: units whose ``aux_loss`` state joins the training loss
+        #: (veles_tpu/units/workflow.py:227-258)
+        self.aux_units = [u for u in workflow.units
+                          if getattr(u, "has_aux_loss", False)]
         self.staging: Optional[torch.Tensor] = None   # int32 (2 + seeds)
         self.scalars: Optional[torch.Tensor] = None   # float32 view of 0:2
         self.seeds: Dict[str, torch.Tensor] = {}      # name -> slot view
@@ -351,8 +391,10 @@ class TrainStep:
         with torch.enable_grad():
             outputs, nstate = wf.forward(live, wstate["state"], batch, ctx)
             loss = outputs[ev.name]
+            objective, auxes = with_aux_losses(loss, nstate,
+                                               self.aux_units)
             leaves = tree_leaves(live)
-            flat = iter(torch.autograd.grad(loss, leaves,
+            flat = iter(torch.autograd.grad(objective, leaves,
                                             allow_unused=True))
         # same leaf order as tree_leaves; an unused param gets zeros
         grads = tree_map(lambda p: _grad_or_zeros(next(flat), p), params)
@@ -360,20 +402,8 @@ class TrainStep:
             outs = {k: (v.detach() if torch.is_tensor(v) else v)
                     for k, v in outputs.items()}
             mets = wf._metrics(params, wstate["state"], outs, ctx)
-            new_params, opt_state, ok, gnorm = guarded_update(
-                self.optimizer, grads, wstate["opt_state"], params, None,
-                loss.detach(), clip_norm=self.clip, sentinel=self.sentinel,
-                lr=self.scalars[0],
-                inject_nan=(self.scalars[1] != 0) if self.inject else None)
-            if ok is not None:
-                # a skipped step adds nothing to the epoch sums
-                mets = {k: torch.where(ok, v, torch.zeros_like(v))
-                        for k, v in mets.items()}
-                mets["anomaly_steps"] = (~ok).float()
-            if gnorm is not None:
-                mets["grad_norm"] = gnorm if ok is None else \
-                    torch.where(ok, gnorm, torch.zeros_like(gnorm))
-            tree_assign(params, new_params)
+            mets.update(auxes)
+            mets, ok = self.update(wstate, grads, loss.detach(), mets)
             state = self._self_update(params, {**wstate["state"], **nstate},
                                       outs, ctx)
             if ok is not None:
@@ -381,8 +411,30 @@ class TrainStep:
                              if k in wstate["state"] else v)
                          for k, v in state.items()}
             tree_assign(wstate["state"], state)
-            tree_assign(wstate["opt_state"], opt_state)
         return mets
+
+    def update(self, wstate, grads, loss, mets):
+        """``guarded_update`` (the anomaly skip, ``clip_norm``) from this
+        step's staged lr and NaN flag, written into ``wstate``'s params
+        and optimizer state; returns the metrics (zeroed on a skipped
+        step, with ``anomaly_steps`` and ``grad_norm``) and the ok flag
+        (None without the sentinel)."""
+        new_params, opt_state, ok, gnorm = guarded_update(
+            self.optimizer, grads, wstate["opt_state"], wstate["params"],
+            None, loss, clip_norm=self.clip, sentinel=self.sentinel,
+            lr=self.scalars[0],
+            inject_nan=(self.scalars[1] != 0) if self.inject else None)
+        if ok is not None:
+            # a skipped step adds nothing to the epoch sums
+            mets = {k: torch.where(ok, v, torch.zeros_like(v))
+                    for k, v in mets.items()}
+            mets["anomaly_steps"] = (~ok).float()
+        if gnorm is not None:
+            mets["grad_norm"] = gnorm if ok is None else \
+                torch.where(ok, gnorm, torch.zeros_like(gnorm))
+        tree_assign(wstate["params"], new_params)
+        tree_assign(wstate["opt_state"], opt_state)
+        return mets, ok
 
     def _self_update(self, params, state, outputs, ctx):
         """Each self-updating unit's ``update_state`` on its inputs
@@ -429,6 +481,173 @@ class EvalStep:
                                     batch, ctx)
             return wf._metrics(wstate["params"], wstate["state"], outputs,
                                ctx)
+
+
+def sample_count(ev, side) -> torch.Tensor:
+    """What the evaluator's masked mean divides by, before its clamp:
+    the (broadcast) mask's sum, or the element count without a mask."""
+    xs = [None] + list(side)
+    m = ev._mask(xs) if hasattr(ev, "_mask") else None
+    if m is not None:
+        return m.float().sum()
+    n = side[0].shape[0] if type(ev).__name__ == "EvaluatorMSE" \
+        else side[0].numel()
+    return torch.tensor(float(n), device=side[0].device)
+
+
+def _data_split(mesh, batch) -> bool:
+    """True when the step splits the batch over the mesh's data group:
+    there is one and the batch's rows divide over it (the JAX package
+    replicates a batch they do not divide,
+    veles_tpu/parallel/mesh.py:213-231; every rank then computes the
+    whole batch alike)."""
+    n = mesh.shape.get("data", 1)
+    return mesh.group("data") is not None and all(
+        int(v.shape[0]) % n == 0 for v in batch.values())
+
+
+def _local_batch(mesh, batch):
+    from ..parallel.distributed import place_batch
+    return place_batch(batch, mesh, {k: ("data",) for k in batch})
+
+
+def _reduce_metrics(mets, weight, group, extra=()):
+    """All-reduce a rank's metrics over ``group``: ``loss`` weighted by
+    ``weight`` (its share of the global masked mean), ``aux_*`` averaged,
+    the rest (counts, error sums) summed; ``extra`` tensors (gradients)
+    ride the same buffer.  Returns (metrics, extra)."""
+    from ..parallel.pipeline import all_reduce_grads
+    n = torch.distributed.get_world_size(group)
+    keys = sorted(mets)
+    vals = []
+    for k in keys:
+        v = mets[k].float()
+        if k == "loss":
+            v = v * weight
+        elif k.startswith("aux_"):
+            v = v / n
+        vals.append(v)
+    extra, vals = all_reduce_grads(list(extra), vals, group)
+    return dict(zip(keys, vals)), extra
+
+
+class ShardedTrainStep(TrainStep):
+    """The train step over the mesh's ``data`` axis (one process a rank;
+    every rank's loader yields the same global batch): each data rank
+    runs forward and backward on its rows, its loss weighted by its
+    share of the global mask count (the sum over ranks is the global
+    masked mean the JAX package's GSPMD step computes), its aux losses by
+    1/n; the gradients and metrics are summed over the data group in one
+    all-reduce and every rank applies the same guarded update.  A batch
+    whose rows do not divide runs whole on every rank, with no
+    exchange.  MoE routing and
+    capacity are per rank (the reference's expert-parallel semantics).
+    Self-updating units do not train under a mesh."""
+
+    capture_reason = "the data-parallel step all-reduces over the mesh"
+
+    def __init__(self, workflow, optimizer, mesh):
+        super().__init__(workflow, optimizer)
+        self.mesh = mesh
+        self.group = mesh.group("data")
+        for u in workflow.units:
+            if getattr(u, "self_updating", False):
+                raise WorkflowError(
+                    f"self-updating unit {u.name!r} does not train under a "
+                    "mesh in the port (its state update would differ per "
+                    "data rank)")
+
+    def run(self, wstate, batch, sub):
+        wf, ev = self.workflow, self.workflow.evaluator
+        if ev is None:
+            raise WorkflowError("a sharded train step needs an evaluator")
+        if not _data_split(self.mesh, batch):
+            return super().run(wstate, batch, sub)
+        side = [batch[k] for k in ev.inputs[1:]]
+        local = _local_batch(self.mesh, batch)
+        n = self.mesh.shape["data"]
+        w = sample_count(ev, [local[k] for k in ev.inputs[1:]]) \
+            / torch.clamp_min(sample_count(ev, side), 1.0)
+        params = wstate["params"]
+        ctx = Context(train=True, key=sub, seeds=self.seeds, mesh=self.mesh,
+                      make_generator=functools.partial(
+                          _step_generator, sub, params))
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            outputs, nstate = wf.forward(live, wstate["state"], local, ctx)
+            loss = outputs[ev.name]
+            objective = loss * w
+            for u in self.aux_units:
+                objective = objective + (u.aux_weight / n) * \
+                    nstate[u.name]["aux_loss"]
+            leaves = tree_leaves(live)
+            flat = iter(torch.autograd.grad(objective, leaves,
+                                            allow_unused=True))
+        grads = [_grad_or_zeros(next(flat), p) for p in tree_leaves(params)]
+        with torch.no_grad():
+            outs = {k: (v.detach() if torch.is_tensor(v) else v)
+                    for k, v in outputs.items()}
+            mets = wf._metrics(params, wstate["state"], outs, ctx)
+            for u in self.aux_units:
+                mets[f"aux_{u.name}"] = nstate[u.name]["aux_loss"].detach()
+            mets, grads = _reduce_metrics(mets, w, self.group, grads)
+            it = iter(grads)
+            grads = tree_map(lambda _: next(it), params)
+            mets, ok = self.update(wstate, grads, mets["loss"], mets)
+            # the aux channel's state: the data group's mean
+            state = {**wstate["state"], **{
+                u.name: {"aux_loss": mets[f"aux_{u.name}"]}
+                for u in self.aux_units}}
+            if ok is not None:
+                state = {k: (tree_select(ok, v, wstate["state"][k])
+                             if k in wstate["state"] else v)
+                         for k, v in state.items()}
+            tree_assign(wstate["state"], state)
+        return mets
+
+
+class ShardedEvalStep(EvalStep):
+    """The eval step over the mesh: each data rank evaluates its rows of
+    the global batch (a pipeline stack runs the GPipe forward over the
+    pipe group), and the metrics are all-reduced over the data group
+    (``loss`` weighted into the global masked mean, counts summed)."""
+
+    capture_reason = "the sharded eval step all-reduces over the mesh"
+
+    def __init__(self, workflow, mesh):
+        super().__init__(workflow)
+        self.mesh = mesh
+        self.group = mesh.group("data")
+
+    def run(self, wstate, batch, sub):
+        wf, ev = self.workflow, self.workflow.evaluator
+        split = ev is not None and _data_split(self.mesh, batch)
+        local = _local_batch(self.mesh, batch) if split else batch
+        ctx = Context(train=False, mesh=self.mesh)
+        with torch.inference_mode():
+            outputs, _ = wf.forward(wstate["params"], wstate["state"],
+                                    local, ctx)
+            mets = wf._metrics(wstate["params"], wstate["state"], outputs,
+                               ctx)
+            if not split:
+                return mets
+            w = sample_count(ev, [local[k] for k in ev.inputs[1:]]) \
+                / torch.clamp_min(sample_count(
+                    ev, [batch[k] for k in ev.inputs[1:]]), 1.0)
+            return _reduce_metrics(mets, w, self.group)[0]
+
+
+def with_aux_losses(loss, nstate, aux_units):
+    """The training objective ``loss + sum(aux_weight * aux_loss)``
+    over the units with an aux loss, and their ``aux_<name>`` metrics
+    (detached); the loss metric itself excludes them, as in the JAX
+    step."""
+    auxes = {}
+    for u in aux_units:
+        aux = nstate[u.name]["aux_loss"]
+        loss = loss + u.aux_weight * aux
+        auxes[f"aux_{u.name}"] = aux.detach()
+    return loss, auxes
 
 
 def split_state_key(key):
