@@ -1870,15 +1870,23 @@ def _novel_pair(gen):
 
 
 def _stream(port, body, timeout=900):
-    """POST /generate with ``"stream": true``: the NDJSON frames."""
+    """POST /generate with ``"stream": true``: (the NDJSON frames, the
+    seconds to the first one)."""
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate",
         data=json.dumps({**body, "stream": True}).encode(),
         headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    frames, first = [], None
     with urllib.request.urlopen(req, timeout=timeout) as r:
         if r.headers["Content-Type"] != "application/x-ndjson":
             fail(f"a streamed /generate answered {r.headers['Content-Type']}")
-        return [json.loads(line) for line in r if line.strip()]
+        for line in r:
+            if line.strip():
+                frames.append(json.loads(line))
+                if first is None:
+                    first = time.perf_counter() - t0
+    return frames, first
 
 
 def _scheduler_traffic(torch, engine, port, rng, greedy):
@@ -1921,8 +1929,9 @@ def _scheduler_traffic(torch, engine, port, rng, greedy):
     s1 = engine.stats()
     g0 = greedy[0, PROMPT:]
     k = _novel_pair(g0)
-    frames = _stream(port, {"prompt": greedy[:1, :PROMPT].tolist(),
-                            "steps": NEW, "stop": [g0[k:k + 2].tolist()]})
+    frames, _ = _stream(port, {"prompt": greedy[:1, :PROMPT].tolist(),
+                               "steps": NEW,
+                               "stop": [g0[k:k + 2].tolist()]})
     pages0, pages1 = s0["pages"], s1["pages"]
     rec = {"shared_requests": SHARED_N, "shared_prefix": SHARED_PREFIX,
            "shared_tail": SHARED_TAIL, "new": NEW, "wall_s": wall,
@@ -3449,12 +3458,14 @@ def _train_step_f32_check(torch, trainer, params_from_jax, new_state):
                    and all(v > 0 for v in p_norms.values()))}
 
 
-def phase_quality(torch):
-    """The family's quality bar through the CLI, on the card."""
+def phase_quality(torch, snap_dir):
+    """The family's quality bar through the CLI, on the card; its
+    snapshots go to ``snap_dir`` and the best one's manifest path is
+    returned (the fleet phase's CLI serves it)."""
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "veles_tpu_torch",
            os.path.join(here, "configs", "induction_lm.json"),
-           "--random-seed", "1"]
+           "--random-seed", "1", "--snapshot-dir", snap_dir]
     t0 = time.perf_counter()
     try:
         r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
@@ -3477,7 +3488,11 @@ def phase_quality(torch):
     if not res["best_value"] <= QUALITY_BAR:
         fail(f"induction_lm reached {res['best_value']} % validation "
              f"error, above the {QUALITY_BAR} % bar")
-    return rec
+    best = os.path.join(snap_dir, "InductionLM_best.json")
+    if not os.path.exists(best):
+        fail(f"the induction_lm CLI run wrote no best snapshot in "
+             f"{snap_dir}: {sorted(os.listdir(snap_dir))}")
+    return best
 
 
 def _dispatch_counts(st):
@@ -5501,6 +5516,658 @@ class _DigitsSynthesis:
                 "cache_warm_after": _digits_cache_warm()}
 
 
+# -- the fleet (PR 14) -----------------------------------------------------------
+
+# the fleet phase: FLEET_PROMPT + FLEET_NEW greedy requests through the
+# router held to generate(); FLEET_SESSIONS sessions of a FLEET_SYSTEM-
+# token system prompt, FLEET_TURNS streamed requests each (a
+# FLEET_TAIL-token tail); FLEET_THREADS clients across the swap, the
+# drain and the kill; 2 x SLOTS requests of FLEET_SHORT + FLEET_TPS_NEW
+# for the decode rate; a FLEET_JOB-prompt batch job of FLEET_SHORT +
+# FLEET_JOB_NEW sampled requests with bursts of FLEET_INTERACTIVE (every
+# serving slot's worth) interactive requests of FLEET_SHORT + FLEET_NEW
+# arriving mid-job.  FLEET_SHORT is
+# one page: shorter than the two pages a disaggregated leg needs, so
+# those requests go straight to the serving replicas (a cold prompt of
+# two pages or more takes the prefill replica's leg first, and that
+# replica's one-position prefill, ~0.9 ms a token, then paces the
+# traffic)
+FLEET_PROMPT, FLEET_NEW = 64, 16
+FLEET_SESSIONS, FLEET_SYSTEM, FLEET_TAIL, FLEET_TURNS = 4, 256, 32, 4
+FLEET_THREADS = 16
+FLEET_SHORT = 24
+FLEET_TPS_NEW = 128
+FLEET_JOB, FLEET_JOB_NEW = 32, 256
+FLEET_INTERACTIVE = 2 * SLOTS
+FLEET_CLI_CONFIG = os.path.join("configs", "induction_lm.json")
+
+
+class _Fleet:
+    """Two ``mixed`` replicas and one ``prefill`` replica of the bench LM
+    (float32, paged, captured, SLOTS slots each, booted from the seed-0
+    snapshot ``snap0``) behind a ``FleetServer`` with a job store; every
+    engine the factory builds (restarts included) is kept in
+    ``engines`` for the phase's launch count."""
+
+    def __init__(self, torch, wf, ws0, snap0, jobs_dir):
+        from veles_tpu_torch.runtime.deploy import DeployController
+        from veles_tpu_torch.runtime.fleet import (FleetRouter, FleetServer,
+                                                   InProcessReplica)
+        from veles_tpu_torch.runtime.restful import RestfulServer
+        self.engines, self.replicas, self.fsrv = [], [], None
+
+        def factory():
+            own = dict(ws0, params={u: {k: t.clone() for k, t in p.items()}
+                                    for u, p in ws0["params"].items()})
+            eng = _serve_engine(wf, own).start()
+            self.engines.append(eng)
+            srv = RestfulServer(wf.make_predict_step(), eng.wstate,
+                                PREDICT_B, (PREDICT_T,), port=0, workflow=wf,
+                                engine=eng, device=DEVICE)
+            DeployController(server=srv, boot_source=snap0)
+            return srv.start()
+
+        try:
+            for role in ("mixed", "mixed", "prefill"):
+                self.replicas.append((InProcessReplica(factory), role))
+            self.router = FleetRouter(scrape_interval_s=0.1)
+            for rep, role in self.replicas:
+                self.router.add_replica(url=rep.url,
+                                        registry_key="in-process",
+                                        restart=rep.restart, kill=rep.kill,
+                                        role=role)
+            self.fsrv = FleetServer(self.router, port=0,
+                                    jobs_dir=jobs_dir).start()
+        except BaseException:
+            self.stop()
+            raise
+        self.port = self.fsrv.port
+
+    def live(self):
+        return [rep for rep, _ in self.replicas]
+
+    def stop(self):
+        if self.fsrv is not None:
+            self.fsrv.stop()
+        for rep, _ in self.replicas:
+            rep.stop()
+
+
+def _stream_tokens(frames, n):
+    """The tokens of a gapless, duplicate-free stream of ``n`` frames
+    that ends on ``length``, else None."""
+    body = [f for f in frames if not f.get("done")]
+    if [f["i"] for f in body] != list(range(n)) or not frames \
+            or frames[-1].get("finish_reason") != "length":
+        return None
+    return [f["token"] for f in body]
+
+
+def _concurrent(fn, items):
+    """``fn(item)`` on a thread each; the results in ``items``' order."""
+    import threading
+    out = [None] * len(items)
+
+    def run(i):
+        try:
+            out[i] = fn(items[i])
+        except Exception as e:  # noqa: BLE001 — the check names it
+            out[i] = repr(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if any(t.is_alive() for t in threads):
+        fail("a fleet client thread did not return")
+    return out
+
+
+def _under_load(port, prompts, new, action):
+    """``action()`` while FLEET_THREADS clients loop greedy requests
+    through the router (``_hammer``): (its result, the clients' status
+    codes, the seconds it took)."""
+    import threading
+    codes, stop, lock = [], threading.Event(), threading.Lock()
+    threads = [threading.Thread(target=_hammer, args=(
+        port, prompts[i % len(prompts)][None], new, stop, codes, lock))
+        for i in range(FLEET_THREADS)]
+    for t in threads:
+        t.start()
+    try:
+        _wait(lambda: len(codes) >= FLEET_THREADS, 300, "load to flow")
+        t0 = time.perf_counter()
+        out = action()
+        took = time.perf_counter() - t0
+        n = len(codes)
+        _wait(lambda: len(codes) >= n + FLEET_THREADS, 300,
+              "load after the action")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(900)
+    return out, codes, took
+
+
+def _job(port, spec):
+    """POST /jobs and wait for the job: (status doc, results by index,
+    seconds)."""
+    t0 = time.perf_counter()
+    code, doc = _http_json(port, "/jobs", spec)
+    if code != 200:
+        fail(f"POST /jobs answered {code}: {doc}")
+    jid = doc["id"]
+    _wait(lambda: _http_json(port, f"/jobs/{jid}")[1]["state"] == "done",
+          600, "the batch job")
+    took = time.perf_counter() - t0
+    st = _http_json(port, f"/jobs/{jid}")[1]
+    res = _http_json(port, f"/jobs/{jid}/results?limit={FLEET_JOB}")[1]
+    return st, {r["index"]: r for r in res["results"]}, took
+
+
+def _fleet_trace_window(torch, fleet, prompts):
+    """A profiled window of one burst of greedy requests through the
+    router, every replica's engine replaying: the counted launches held
+    against the trace, each graph's replays counted (``_launch_trace_
+    check``), and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from veles_tpu_torch.ops.kernels import KERNELS
+    engines = [rep.srv.engine for rep in fleet.live()]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.ones(1, device=DEVICE).sum()
+        torch.cuda.synchronize()
+        prof.step()
+        _settle(torch)
+        counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+        s0 = [e.stats() for e in engines]
+        t0 = time.perf_counter()
+        out = _concurrent(lambda row: _http_json(fleet.port, "/generate", {
+            "prompt": [row.tolist()], "steps": FLEET_NEW}), list(prompts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s1 = [e.stats() for e in engines]
+    if any(not isinstance(o, tuple) or o[0] != 200 for o in out):
+        fail(f"a profiled fleet request failed: {out}")
+    replays = []
+    for e, a, b in zip(engines, s0, s1):
+        c0, c1 = _dispatch_counts(a), _dispatch_counts(b)
+        replays += [(e._fns[k], c1[k] - c0[k]) for k in c1]
+    rec = _busy(prof, wall, f"{len(prompts)} x ({FLEET_PROMPT} + "
+                            f"{FLEET_NEW}) through the router")
+    rec["launch_trace"] = _launch_trace_check(prof, counted0, replays)
+    return rec
+
+
+def phase_fleet(torch, snapshot, work_dir):
+    """The fleet router at bench width, float32, on one H100: two
+    ``mixed`` replicas and a ``prefill`` one behind a ``FleetServer``.
+    Greedy requests through the router equal ``generate()``'s and a
+    replica's local prefill; shared-prefix sessions take affinity hits
+    and pages the prefill leg or a remote fetch placed give the local
+    prefill's tokens; a stream cut by ``stream_cut_at_token`` is spliced
+    gapless and bitwise; a coordinated swap under load fails no request
+    and leaves every replica on the new weights; an injected flip
+    failure rolls every replica back; a killed replica loses no request
+    (ejected, one resubmission at least); a rolling drain under load
+    drops none (each restart captures while the others serve); a
+    profiled burst holds the launches to the trace (4 paged a decode
+    replay); a 32-prompt batch job with interactive requests mid-job is
+    preempted first, stays out of the SLO histograms and gives the bytes
+    of an uninterrupted run and of a run with a replica killed mid-job;
+    no replica recaptures.  Then ``python -m veles_tpu_torch
+    configs/induction_lm.json --snapshot SNAP --serve 0 --fleet 2`` as a
+    child process, driven through /generate and /fleet.json and drained
+    to exit 0."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.runtime import faults
+    from veles_tpu_torch.runtime.fleet import ACTIVE, EJECTED
+    from veles_tpu_torch.runtime.generate import generate
+    from veles_tpu_torch.runtime.metrics import registry
+    from veles_tpu_torch.runtime.snapshotter import (Snapshotter,
+                                                     params_to_numpy)
+    wf, ws0 = _bench_state(torch, None, 0)
+    _, ws1 = _bench_state(torch, None, 1)
+    snaps = {}
+    for tag, ws in (("seed0", ws0), ("seed1", ws1)):
+        snaps[tag] = Snapshotter("bench_lm", os.path.join(
+            work_dir, tag), compression=False).save(
+            tag, {"wstate": {"params": params_to_numpy(ws["params"])},
+                  "workflow_checksum": wf.checksum()})
+    rng = np.random.default_rng(14)
+    prompts = rng.integers(0, VOCAB, (SLOTS, FLEET_PROMPT)).astype(np.int32)
+    ref0 = generate(wf, ws0, prompts, FLEET_NEW).cpu().numpy()
+    ref1 = generate(wf, ws1, prompts, FLEET_NEW).cpu().numpy()
+    del ws1
+    jobs_cfg = root.common.serve.jobs
+    prev_workers = jobs_cfg.get("workers", 2)
+    # more dispatch workers than the two serving replicas have slots: a
+    # slot that frees is refilled with batch work at once
+    jobs_cfg.workers = 3 * SLOTS
+    _reset_counts()
+    t_build = time.perf_counter()
+    fleet = _Fleet(torch, wf, ws0, snaps["seed0"],
+                   os.path.join(work_dir, "jobs"))
+    build_s = time.perf_counter() - t_build
+    router, port = fleet.router, fleet.port
+    rec = {"replicas": ["mixed", "mixed", "prefill"], "slots": SLOTS,
+           "build_s": build_s, "seconds": {}}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        rec["seconds"][name] = now - mark[0]
+        mark[0] = now
+
+    def every_replica_answers(ref):
+        """Each replica, asked directly, answers ``prompts`` with
+        ``ref``'s tokens."""
+        for rep in fleet.live():
+            code, doc = _http_json(rep.srv.port, "/generate", {
+                "prompt": prompts.tolist(), "steps": FLEET_NEW})
+            if code != 200 or not np.array_equal(np.asarray(doc["tokens"]),
+                                                 ref):
+                return False
+        return True
+
+    try:
+        pre_eng = fleet.live()[2].srv.engine
+        # the local prefill's tokens: the prefill replica's own engine
+        # decodes every reference prompt first (its cached pages are what
+        # its prefill legs later ship)
+        local = pre_eng.generate(prompts, FLEET_NEW, timeout=900)
+        # greedy through the router (cold: each takes the prefill leg)
+        out = _concurrent(lambda row: _http_json(port, "/generate", {
+            "prompt": [row.tolist()], "steps": FLEET_NEW}), list(prompts))
+        got = np.asarray([o[1]["tokens"][0] if isinstance(o, tuple)
+                          and o[0] == 200 else [-1] * (FLEET_PROMPT
+                                                        + FLEET_NEW)
+                          for o in out])
+        rec["greedy"] = {"rows": SLOTS, "prompt": FLEET_PROMPT,
+                         "new": FLEET_NEW,
+                         "equal_generate": bool(np.array_equal(got, ref0)),
+                         "equal_local_prefill": bool(np.array_equal(
+                             got, local)),
+                         "local_equal_generate": bool(np.array_equal(
+                             local, ref0))}
+        lap("greedy")
+        # shared-prefix sessions: one warm request a session, then its
+        # turns, streamed; references from the prefill replica's engine
+        systems = rng.integers(0, VOCAB, (FLEET_SESSIONS, FLEET_SYSTEM))
+        turns = [[np.concatenate([systems[s], rng.integers(
+            0, VOCAB, FLEET_TAIL)]).astype(np.int32)
+            for _ in range(FLEET_TURNS)] for s in range(FLEET_SESSIONS)]
+        refs = [[pre_eng.generate(p[None], FLEET_NEW, timeout=900)[0]
+                 [FLEET_SYSTEM + FLEET_TAIL:].tolist() for p in ts]
+                for ts in turns]
+        aff0 = router.fleet_doc()["affinity"]
+        kv0 = [rep.srv.engine.stats()["kv_transfer"]
+               for rep in fleet.live()]
+
+        def session(s):
+            out = []
+            for t, p in enumerate(turns[s]):
+                frames, ttft = _stream(port, {
+                    "prompt": p.tolist(), "steps": FLEET_NEW})
+                out.append((_stream_tokens(frames, FLEET_NEW) == refs[s][t],
+                            ttft))
+            return out
+
+        sess = _concurrent(session, list(range(FLEET_SESSIONS)))
+        if any(not isinstance(s, list) for s in sess):
+            fail(f"a fleet session failed: {sess}")
+        aff1 = router.fleet_doc()["affinity"]
+        kv1 = [rep.srv.engine.stats()["kv_transfer"]
+               for rep in fleet.live()]
+        cold = [s[0][1] for s in sess]
+        warm = [x[1] for s in sess for x in s[1:]]
+        rec["affinity"] = {
+            "sessions": FLEET_SESSIONS, "system": FLEET_SYSTEM,
+            "tail": FLEET_TAIL, "turns": FLEET_TURNS,
+            "tokens_equal_local_prefill": all(x[0] for s in sess
+                                              for x in s),
+            "hits": aff1["hits"] - aff0["hits"],
+            "requests": aff1["requests"] - aff0["requests"],
+            "imported_pages": sum(b["imported_pages"] - a["imported_pages"]
+                                  for a, b in zip(kv0, kv1)),
+            "remote_hit_pages": sum(b["remote_hit_pages"]
+                                    - a["remote_hit_pages"]
+                                    for a, b in zip(kv0, kv1)),
+            "ttft_cold_s": {"mean": float(np.mean(cold)),
+                            "max": float(np.max(cold))},
+            "ttft_warm_affinity_s": {"mean": float(np.mean(warm)),
+                                     "max": float(np.max(warm))},
+            "kv_transfer": router.fleet_doc()["kv_transfer"]}
+        lap("affinity")
+        # decode tokens/s through the router, SLOTS x 2 slots busy: the
+        # generated tokens over the burst's wall, and the serving
+        # engines' own decode rates (tokens over their decode seconds)
+        tps_prompts = rng.integers(0, VOCAB, (2 * SLOTS, FLEET_SHORT))
+        serving = [rep.srv.engine for rep, role in fleet.replicas
+                   if role == "mixed"]
+        e0 = [e.stats() for e in serving]
+        t0 = time.perf_counter()
+        out = _concurrent(lambda row: _http_json(port, "/generate", {
+            "prompt": [row.tolist()], "steps": FLEET_TPS_NEW}),
+            list(tps_prompts))
+        wall = time.perf_counter() - t0
+        e1 = [e.stats() for e in serving]
+        rec["router_tokens_per_s"] = {
+            "requests": 2 * SLOTS, "prompt": FLEET_SHORT,
+            "new": FLEET_TPS_NEW, "wall_s": wall,
+            "ok": sum(isinstance(o, tuple) and o[0] == 200 for o in out),
+            "tokens_per_s": 2 * SLOTS * FLEET_TPS_NEW / wall,
+            "engines_decode_tokens_per_s": [
+                (b["decode_tokens"] - a["decode_tokens"])
+                / max(b["decode_seconds"] - a["decode_seconds"], 1e-9)
+                for a, b in zip(e0, e1)]}
+        lap("tokens_per_s")
+        # a stream cut after its 4th frame, spliced on a survivor
+        body = {"prompt": prompts[0].tolist(), "steps": FLEET_NEW,
+                "temperature": 0.8, "top_k": 40, "seed": 7}
+        clean = _stream_tokens(_stream(port, body)[0], FLEET_NEW)
+        resumes0 = router._m_stream_resumes.value
+        faults.configure(stream_cut_at_token=4)
+        try:
+            cut = _stream_tokens(_stream(port, body)[0], FLEET_NEW)
+        finally:
+            faults.reset()
+        rec["stream_cut"] = {
+            "at_token": 4, "gapless_bitwise": cut is not None
+            and cut == clean,
+            "resumes": router._m_stream_resumes.value - resumes0}
+        lap("stream_cut")
+        # the coordinated swap to the seed-1 snapshot under load
+        swap, codes, swap_s = _under_load(
+            port, prompts, FLEET_NEW,
+            lambda: _http_json(port, "/admin/reload",
+                               {"path": snaps["seed1"]}))
+        models = [_http_json(rep.srv.port, "/models")[1]
+                  for rep in fleet.live()]
+        deps = [rep.srv.deploy for rep in fleet.live()]
+        rec["swap"] = {
+            "status": swap[0], "swapped": swap[1].get("swapped"),
+            "requests": len(codes), "failed": sum(c != 200 for c in codes),
+            "wall_s": swap_s,
+            "stage_ms": [d.last_stage_ms for d in deps],
+            "flip_ms": [d.last_flip_ms for d in deps],
+            "active_versions": [m["active"] for m in models],
+            "tokens_equal_generate_seed1": every_replica_answers(ref1)}
+        lap("swap")
+        # an injected flip failure on one replica rolls all back
+        victim = fleet.live()[1].srv.engine
+        real_swap = victim.swap_params
+
+        def boom(params, **kw):
+            raise RuntimeError("injected flip failure")
+
+        victim.swap_params = boom
+        try:
+            code, rb = _http_json(port, "/admin/reload",
+                                  {"path": snaps["seed0"]})
+        finally:
+            victim.swap_params = real_swap
+        rec["rollback"] = {
+            "status": code, "phase": rb.get("phase"),
+            "rolled_back": rb.get("rolled_back"),
+            "rollback_errors": rb.get("rollback_errors"),
+            "staged_left": [rep.srv.deploy.staged_token
+                            for rep in fleet.live()],
+            "tokens_still_seed1": every_replica_answers(ref1)}
+        lap("rollback")
+        # a replica killed mid-burst (the fault knob's kill handle)
+        resub0 = router._m_resubmissions.value
+        faults.configure(replica_crash_at_request=router._route_count + 6)
+        try:
+            out = _concurrent(lambda row: _http_json(port, "/generate", {
+                "prompt": [row.tolist()], "steps": FLEET_NEW}),
+                list(np.concatenate([prompts, prompts])))
+        finally:
+            faults.reset()
+        _wait(lambda: [r["state"] for r in router.fleet_doc()[
+            "replicas"]].count(EJECTED) == 1, 60, "the victim's ejection")
+        rec["kill"] = {"requests": len(out),
+                       "ok": sum(isinstance(o, tuple) and o[0] == 200
+                                 for o in out),
+                       "ejected": [r["id"] for r in router.fleet_doc()[
+                           "replicas"] if r["state"] == EJECTED],
+                       "resubmissions": router._m_resubmissions.value
+                       - resub0}
+        lap("kill")
+        # a rolling drain under load: every replica drained, rebuilt (its
+        # engine captured while the others serve) and readmitted; the
+        # killed one repaired
+        drain, codes, drain_s = _under_load(port, prompts, FLEET_NEW,
+                                            router.rolling_drain)
+        rec["rolling_drain"] = {
+            "completed": drain["completed"], "wall_s": drain_s,
+            "requests": len(codes), "failed": sum(c != 200 for c in codes),
+            "readmitted": [r.get("readmitted") for r in drain["replicas"]],
+            "prewarm": [r.get("prewarm") for r in drain["replicas"]],
+            "states": [r["state"] for r in router.fleet_doc()["replicas"]]}
+        lap("rolling_drain")
+        # the launches of a profiled burst held to the trace
+        _wait(lambda: all(r.ready for r in router.replicas()), 60,
+              "every replica ready")
+        rec["trace"] = _fleet_trace_window(torch, fleet, prompts)
+        lap("trace")
+        # the batch job: interactive requests mid-job, then the same job
+        # uninterrupted, then with a replica killed mid-job
+        spec = {"prompts": rng.integers(0, VOCAB, (
+            FLEET_JOB, FLEET_SHORT)).tolist(), "steps": FLEET_JOB_NEW,
+            "temperature": 1.0, "top_k": 50, "seed": 123}
+        inter = rng.integers(0, VOCAB, (FLEET_INTERACTIVE, FLEET_SHORT))
+        reg = registry()
+        h_ttft = reg.get("vt_request_ttft_seconds")
+        h_qw = reg.get("vt_request_queue_wait_seconds")
+
+        def batch_preemptions():
+            return sum(rep.srv.engine.stats()["batch"]["preemptions"]
+                       for rep in fleet.live())
+
+        p0, t0c, q0c = (batch_preemptions(), h_ttft.aggregate_snapshot()[2],
+                        h_qw.aggregate_snapshot()[2])
+        code, doc = _http_json(port, "/jobs", spec)
+        if code != 200:
+            fail(f"POST /jobs answered {code}: {doc}")
+        jid = doc["id"]
+        mixed = [rep.srv.engine for rep, role in fleet.replicas
+                 if role == "mixed"]      # the rolling drain rebuilt them
+
+        def job_done():
+            return _http_json(port, f"/jobs/{jid}")[1]["state"] == "done"
+
+        inter_codes = []
+        for _ in range(5):      # bursts mid-job, each once the batch work
+            #                     holds a replica's worth of slots, until
+            #                     one preempts it: a burst asks for every
+            #                     serving slot, so an arrival that finds
+            #                     none free takes a batch request's
+            _wait(lambda: job_done() or sum(
+                int(e._active.sum()) for e in mixed) >= SLOTS, 300,
+                "the job to fill the serving replicas")
+            if job_done():
+                break
+            inter_codes += [o[0] if isinstance(o, tuple) else o
+                            for o in _concurrent(
+                                lambda row: _http_json(port, "/generate", {
+                                    "prompt": [row.tolist()],
+                                    "steps": FLEET_NEW}), list(inter))]
+            if batch_preemptions() > p0:
+                break
+        _wait(lambda: _http_json(port, f"/jobs/{jid}")[1]["state"]
+              == "done", 600, "the batch job")
+        run1 = {r["index"]: r for r in _http_json(
+            port, f"/jobs/{jid}/results?limit={FLEET_JOB}")[1]["results"]}
+        n_inter = len(inter_codes)
+        rec["job_with_interactive"] = {
+            "prompts": FLEET_JOB, "interactive": n_inter,
+            "interactive_ok": sum(c == 200 for c in inter_codes),
+            "batch_preemptions": batch_preemptions() - p0,
+            "ttft_observations": h_ttft.aggregate_snapshot()[2] - t0c,
+            "queue_wait_observations": h_qw.aggregate_snapshot()[2] - q0c}
+        lap("job_with_interactive")
+        st2, run2, job_s = _job(port, spec)
+        resub0 = router._m_resubmissions.value
+        faults.configure(replica_crash_at_request=router._route_count + 8)
+        try:
+            st3, run3, _ = _job(port, spec)
+        finally:
+            faults.reset()
+        rec["job"] = {
+            "prompts": FLEET_JOB, "len": FLEET_SHORT, "new": FLEET_JOB_NEW,
+            "wall_s": job_s, "prompts_per_s": FLEET_JOB / job_s,
+            "done": [st2["done"], st3["done"]],
+            "failed": [st2["failed"], st3["failed"]],
+            "bytes_equal_interrupted": run1 == run2,
+            "bytes_equal_killed": run3 == run2,
+            "killed_resubmissions": router._m_resubmissions.value - resub0,
+            "ejected_after_kill": [r["id"] for r in router.fleet_doc()[
+                "replicas"] if r["state"] == EJECTED]}
+        lap("jobs")
+        slo = router.merged_slo_doc()["metrics"]["ttft"]
+        rec["merged_slo_ttft"] = {k: slo[k] for k in ("count", "p50_ms",
+                                                      "p99_ms")}
+    finally:
+        faults.reset()
+        jobs_cfg.workers = prev_workers
+        fleet.stop()
+    stats = [e.stats() for e in fleet.engines]
+    from veles_tpu_torch.ops.kernels import paged_attention as pa
+    want = LAYERS * sum(_micro_steps(st, True) for st in stats)
+    variants = _paged_variants()
+    rec["engines"] = len(stats)
+    rec["captures"] = [st["compile"]["captures"] for st in stats]
+    rec["recompiles"] = [st["compile"]["recompiles"] for st in stats]
+    rec["per_replay"] = sorted({m for e in fleet.engines
+                                for k in ("decode", "decode_greedy")
+                                for c, (m, _) in getattr(e._fns[k],
+                                                         "launches", ())
+                                if c is pa.launches})
+    rec["launches"] = variants
+    rec["launches_expected"] = {"f32_pool": want}
+    rec["cli"] = _fleet_cli(torch, snapshot)
+    lap("cli")
+    say({"phase": "fleet", **rec})
+    aff, sw, rb, lt = rec["affinity"], rec["swap"], rec["rollback"], \
+        rec["trace"]["launch_trace"]
+    jw, jb, dr = rec["job_with_interactive"], rec["job"], \
+        rec["rolling_drain"]
+    problems = [name for name, ok in (
+        ("greedy", all(rec["greedy"][k] for k in (
+            "equal_generate", "equal_local_prefill",
+            "local_equal_generate"))),
+        ("affinity", aff["tokens_equal_local_prefill"] and aff["hits"] > 0
+         and aff["imported_pages"] > 0 and aff["remote_hit_pages"] > 0),
+        ("router_tokens", rec["router_tokens_per_s"]["ok"] == 2 * SLOTS),
+        ("stream_cut", rec["stream_cut"]["gapless_bitwise"]
+         and rec["stream_cut"]["resumes"] == 1),
+        ("swap", sw["status"] == 200 and sw["swapped"] and sw["failed"] == 0
+         and sw["requests"] > 0 and sw["active_versions"] == [2, 2, 2]
+         and sw["tokens_equal_generate_seed1"]),
+        ("rollback", rb["status"] == 409 and rb["phase"] == "commit"
+         and rb["rolled_back"] and not rb["rollback_errors"]
+         and rb["tokens_still_seed1"]
+         and rb["staged_left"] == [None] * 3),
+        ("kill", rec["kill"]["ok"] == rec["kill"]["requests"]
+         and len(rec["kill"]["ejected"]) == 1
+         and rec["kill"]["resubmissions"] >= 1),
+        ("rolling_drain", dr["completed"] and dr["failed"] == 0
+         and dr["requests"] > 0 and all(dr["readmitted"])
+         and dr["states"] == [ACTIVE] * 3),
+        ("trace", lt["ok"] and lt["captured"]
+         and lt["per_replay_by_kind"].get("decode", {}).get(PAGED_F32)
+         == LAYERS),
+        ("job_interactive", jw["interactive"] > 0
+         and jw["interactive_ok"] == jw["interactive"]
+         and jw["batch_preemptions"] >= 1
+         and jw["ttft_observations"] == jw["interactive"]
+         and jw["queue_wait_observations"] == jw["interactive"]),
+        ("job", jb["done"] == [FLEET_JOB] * 2 and jb["failed"] == [0, 0]
+         and jb["bytes_equal_interrupted"] and jb["bytes_equal_killed"]
+         and len(jb["ejected_after_kill"]) == 1),
+        ("recaptures", all(c == 3 for c in rec["captures"])
+         and not any(rec["recompiles"])),
+        ("launches", variants.get("f32_pool", 0) == want > 0
+         and rec["per_replay"] == [LAYERS]),
+        ("cli", rec["cli"]["exit"] == 0 and rec["cli"]["replicas"] == 2
+         and rec["cli"]["tokens_equal_generate"]
+         and rec["cli"]["drain_status"] == 202))
+        if not ok]
+    if problems:
+        fail(f"the fleet phase failed {problems}: {rec}")
+    return variants
+
+
+def _fleet_cli(torch, snapshot):
+    """``python -m veles_tpu_torch configs/induction_lm.json --snapshot
+    SNAP --serve 0 --fleet 2`` on the card as a child process: its
+    banner, one greedy /generate (held to ``generate()`` on the
+    snapshot's weights in this process), /fleet.json, and POST
+    /admin/drain to exit 0."""
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.generate import generate
+    from veles_tpu_torch.runtime.snapshotter import wstate_from_snapshot
+    from veles_tpu_torch.units.base import Spec
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, FLEET_CLI_CONFIG)) as f:
+        cfg = json.load(f)
+    wf = StandardWorkflow(cfg["workflow"]).workflow
+    B, T = cfg["loader"].get("minibatch_size", 1), cfg["loader"]["seq_len"]
+    wf.build({"@input": Spec((B, T), torch.int32),
+              "@labels": Spec((B,), torch.int32),
+              "@mask": Spec((B,), torch.float32)})
+    prompt = np.asarray([[1, 2, 3, 4, 5, 6]], np.int32)
+    ref = generate(wf, wstate_from_snapshot(snapshot, wf, device=DEVICE),
+                   prompt, 8).cpu().numpy().tolist()
+    import tempfile
+    t0 = time.perf_counter()
+    # the child's log into a file: a pipe nobody reads until the end
+    # would stall the child once its buffer fills
+    err = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_tpu_torch", FLEET_CLI_CONFIG,
+         "--snapshot", snapshot, "--serve", "0", "--fleet", "2"],
+        cwd=here, stdout=subprocess.PIPE, stderr=err, text=True)
+    rec = {"config": FLEET_CLI_CONFIG}
+    try:
+        banner = None
+        deadline = time.monotonic() + 300
+        while banner is None and time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line and proc.poll() is not None:
+                break
+            if line.startswith("{"):
+                banner = json.loads(line)
+        if banner is None:
+            err.seek(0)
+            fail(f"the --fleet CLI printed no banner (exit {proc.poll()}): "
+                 f"{err.read()[-2000:]}")
+        rec["boot_s"] = time.perf_counter() - t0
+        port = banner["serving"]
+        code, doc = _http_json(port, "/generate",
+                               {"prompt": prompt.tolist(), "steps": 8})
+        rec["generate_status"] = code
+        rec["tokens_equal_generate"] = code == 200 and doc["tokens"] == ref
+        fd = _http_json(port, "/fleet.json")[1]
+        rec["replicas"] = len(fd["replicas"])
+        rec["dispatched"] = sum(r["dispatched"] for r in fd["replicas"])
+        rec["drain_status"] = _http_json(port, "/admin/drain", {})[0]
+        rec["exit"] = proc.wait(timeout=300)
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+        proc.stdout.close()
+        err.close()
+    return rec
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     try:
@@ -5563,7 +6230,10 @@ def main():
     timing.update(family["timing"])
     timed("image_quality", phase_image_quality, torch)
     timed("image_ae", phase_image_ae, torch)
-    timed("quality", phase_quality, torch)
+    with tempfile.TemporaryDirectory(prefix="vt_quality_") as q_dir:
+        best = timed("quality", phase_quality, torch, q_dir)
+        with tempfile.TemporaryDirectory(prefix="vt_fleet_") as f_dir:
+            fleet_launches = timed("fleet", phase_fleet, torch, best, f_dir)
     pp = timed("pipeline_train", phase_pipeline_train, torch)
     timing.update(pp["timing"])
     timed("distributed_one_rank", phase_distributed_one_rank, torch)
@@ -5607,6 +6277,11 @@ def main():
     launches.update(pp["launches"])
     launches["paged_attention_decode/moe_serving"] = moe[
         "paged_attention_decode"]
+    # this slice's path: paged decode on the fleet's replica engines (the
+    # serving shape the kernel was timed at)
+    launches["paged_attention_decode/fleet"] = fleet_launches["f32_pool"]
+    timing["paged_attention_decode/fleet"] = {
+        **timing["paged_attention_decode"], "path": "fleet"}
     timing["mean_disp_normalize/image_host"] = {
         **timing["mean_disp_normalize"], "path": "image_host"}
     line = []

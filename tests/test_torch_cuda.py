@@ -25,7 +25,11 @@ bitwise equal to its eager ones (tokens, token rows and KV pool), their
 replays' paged launches, and the sampler's noise bits equal to the CPU's;
 the paged kernel on a bf16 pool within 1e-4 of its plain version, an
 engine with a bf16 KV cache captured bitwise equal to eager, and a hot
-swap into the captured graphs bitwise a fresh engine on the new weights.
+swap into the captured graphs bitwise a fresh engine on the new weights;
+a two-replica fleet of captured engines bitwise one of eager engines,
+and a replica rebuilt (captured) while two others decode side by side,
+every answer the reference tokens; a process whose memory poller samples
+the card without pause exits cleanly.
 """
 
 import contextlib
@@ -1573,3 +1577,157 @@ def test_moe_chain_engine_captured_equals_eager_bitwise(card):
                     "verify": 4 * layers}.items():
         assert [m for c, (m, _) in cap._fns[kind].launches
                 if c is pa.launches] == [n], kind
+
+
+# -- the fleet: several captured engines in one process -----------------------
+
+def _fleet_of(wf, ws, n, capture, card):
+    """``n`` in-process replicas of the narrow LM behind a started
+    router; every engine on its own copy of ``ws`` (a swap writes into
+    the served tensors)."""
+    from veles_tpu_torch.runtime.deploy import DeployController
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    from veles_tpu_torch.runtime.fleet import FleetRouter, InProcessReplica
+    from veles_tpu_torch.runtime.restful import RestfulServer
+
+    def factory():
+        own = dict(ws, params={u: {k: t.clone() for k, t in p.items()}
+                               for u, p in ws["params"].items()})
+        eng = DecodeEngine(wf, own, slots=4, l_max=128, page_size=16,
+                           paged_kernel=True, window_ms=0.0,
+                           capture=capture, device=card).start()
+        srv = RestfulServer(wf.make_predict_step(), eng.wstate, 2, (16,),
+                            port=0, workflow=wf, engine=eng, device=card)
+        DeployController(server=srv)
+        return srv.start()
+
+    replicas = [InProcessReplica(factory) for _ in range(n)]
+    router = FleetRouter(scrape_interval_s=0.05)
+    for rep in replicas:
+        router.add_replica(url=rep.url, registry_key="in-process",
+                           restart=rep.restart, kill=rep.kill)
+    return router.start(), replicas
+
+
+def _fleet_requests(seed=8):
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, 64, 32).tolist()
+    out = [{"prompt": [rng.integers(0, 64, n).tolist()], "steps": s}
+           for n, s in ((5, 12), (20, 30), (70, 8))]
+    out += [{"prompt": [sysp + rng.integers(0, 64, 4).tolist()],
+             "steps": 10} for _ in range(3)]
+    out.append({"prompt": [rng.integers(0, 64, 9).tolist()], "steps": 16,
+                "temperature": 0.9, "top_k": 8, "seed": 5})
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", None], ids=["bf16", "f32"])
+def test_fleet_captured_equals_eager_bitwise(card, dtype):
+    """The same requests (greedy, shared-prefix with affinity and page
+    fetches, sampled) through a two-replica fleet of captured engines
+    and one of eager engines: the same tokens bit for bit, and every
+    captured replica's captures flat."""
+    wf, ws = _serve_lm(card, dtype)
+    toks = {}
+    for capture in (True, False):
+        router, replicas = _fleet_of(wf, ws, 2, capture, card)
+        try:
+            toks[capture] = []
+            for body in _fleet_requests():
+                st, doc, _h = router.handle_generate(dict(body))
+                assert st == 200, doc
+                toks[capture].append(doc["tokens"])
+            if capture:
+                for rep in replicas:
+                    c = rep.srv.engine.stats()["compile"]
+                    assert c["captures"] == 3 and c["recompiles"] == 0, c
+        finally:
+            router.stop()
+            for rep in replicas:
+                rep.stop()
+    assert toks[True] == toks[False]
+
+
+def test_replica_restart_while_two_others_decode(card):
+    """A captured replica rebuilt (a new engine capturing its graphs)
+    twice while two others decode greedy requests side by side without
+    pause: no request fails, every answer is the reference tokens (each
+    engine captured on a stream of its own, so no two share a cuBLAS
+    workspace), the rebuilt engine's captures are flat, and its decode
+    graph records exactly one paged launch a layer (the capture gate
+    keeps the other engines' replays out of its count)."""
+    import threading
+    import time
+    wf, ws = _serve_lm(card, "bfloat16")
+    router, replicas = _fleet_of(wf, ws, 3, True, card)
+    body = {"prompt": [list(range(3, 40))], "steps": 24}
+    stop, bad, done = threading.Event(), [], []
+    try:
+        ref = replicas[0].srv.engine.generate(
+            np.asarray(body["prompt"], np.int32), 24, timeout=300)
+
+        def hammer(rep):
+            from veles_tpu_torch.runtime.fleet_client import ReplicaClient
+            cli = ReplicaClient(rep.url, timeout_s=300)
+            while not stop.is_set():
+                st, doc, _r = cli.generate(dict(body))
+                if st != 200 or doc["tokens"] != ref.tolist():
+                    bad.append((st, doc))
+                done.append(1)
+
+        threads = [threading.Thread(target=hammer, args=(r,))
+                   for r in replicas[:2]]
+        for t in threads:
+            t.start()
+        for _ in range(2):
+            n0 = len(done)
+            replicas[2].restart()
+            eng = replicas[2].srv.engine
+            assert [m for c, (m, _) in eng._fns["decode_greedy"].launches
+                    if c is pa.launches] == [2]
+            got = eng.generate(np.asarray(body["prompt"], np.int32), 24,
+                               timeout=300)
+            np.testing.assert_array_equal(got, ref)
+            c = eng.stats()["compile"]
+            assert c["captures"] == 3 and c["recompiles"] == 0, c
+            assert len({r.srv.engine.step_cache._capture_stream.cuda_stream
+                        for r in replicas}) == 3
+            deadline = time.monotonic() + 120
+            while len(done) < n0 + 20:
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+        stop.set()
+        for t in threads:
+            t.join(300)
+        assert not bad, (len(bad), len(done), bad[:2])
+        assert len(done) >= 40
+    finally:
+        stop.set()
+        router.stop()
+        for rep in replicas:
+            rep.stop()
+
+
+def test_process_with_the_memory_poller_exits_cleanly(card):
+    """A process whose device poller samples the card without pause
+    exits with 0 and no C++ abort: the monitor's exit hook stops and
+    joins the poller before the interpreter ends daemon threads (one
+    ended inside a CUDA call aborts the process with "terminate called
+    without an active exception")."""
+    import os
+    import subprocess
+    import sys
+    child = (
+        "import torch\n"
+        "from veles_tpu_torch.runtime.memory import memory_monitor\n"
+        "x = torch.randn(2048, 2048, device='cuda')\n"
+        "assert memory_monitor().ensure_poller(interval_s=1e-5)\n"
+        "for _ in range(20):\n"
+        "    x = x @ x.T / 2048\n"
+        "torch.cuda.synchronize()\n")
+    root_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for _ in range(3):
+        r = subprocess.run([sys.executable, "-c", child], cwd=root_dir,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert "terminate called" not in r.stderr

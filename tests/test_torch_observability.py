@@ -218,6 +218,32 @@ def test_memory_gauges_and_a_freed_engine_leaves_the_ledger(lm):
     assert gauge.labels(component="engine.kv_cache").value == 0
 
 
+def test_memory_poller_stops_and_joins(monkeypatch):
+    """The device poller leaves its wait at once when stopped (what the
+    monitor's exit hook runs, so no poller is inside a CUDA call when
+    the interpreter finalizes), and a later ensure_poller starts a new
+    one.  The card is stood in for by a sampler that counts its calls."""
+    mon = memory_monitor()
+    calls = []
+    monkeypatch.setattr(mon, "sample_device",
+                        lambda: calls.append(1) or {})
+    mon.stop_poller()
+    for _ in range(2):
+        assert mon.ensure_poller(interval_s=0.001)
+        poller = mon._poller
+        deadline = time.monotonic() + 60
+        n0 = len(calls)
+        while len(calls) < n0 + 3:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        t0 = time.monotonic()
+        mon.stop_poller()
+        assert not poller.is_alive()
+        assert mon._poller is None
+        assert time.monotonic() - t0 < 5
+    mon.stop_poller()                 # stopping twice is harmless
+
+
 # -- the status page ------------------------------------------------------------
 
 def test_status_server(tmp_path):

@@ -262,20 +262,18 @@ def test_rest_priority_header_and_shed_body(lm, rng, served):
 
 
 @pytest.mark.parametrize("body,name", [
-    ({"beams": 2, "priority": 1}, "beams"), ({"batch": True}, "batch"),
+    ({"beams": 2, "priority": 1}, "beams"),
+    ({"batch": True, "priority": 1}, "batch"),
     ({"beams": 2, "stream": True}, "beams"),
     ({"batch": True, "stream": True}, "batch")])
 def test_rest_refuses_what_the_port_does_not_serve(served, body, name):
-    """400 for the batch lane, which the port does not serve yet (the
-    error names ROADMAP.md), and for beam search where the JAX package
-    refuses it too: with a priority class (it runs outside the engine's
-    queue) and streamed."""
+    """400 where the JAX package refuses too: the batch lane with a
+    priority class (batch is the class) or streamed (the lane is
+    unary), and beam search with a priority class (it runs outside the
+    engine's queue) or streamed."""
     _, srv = served
     with pytest.raises(urllib.error.HTTPError) as ei:
         _post(srv, {"prompt": [PROMPT.tolist()], "steps": 4, **body})
     assert ei.value.code == 400
     err = json.loads(ei.value.read())["error"]
-    if name == "batch":
-        assert err.startswith(name) and "ROADMAP.md" in err
-    else:
-        assert "beam" in err
+    assert ("batch" if name == "batch" else "beam") in err

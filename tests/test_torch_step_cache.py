@@ -340,3 +340,60 @@ def test_launch_counter_capture_bookkeeping():
     assert c.count == 1 and c.by_variant() == {"tc": 1}
     c.add(2, {"tc": 1, "simt": 1})
     assert c.count == 3 and c.by_variant() == {"tc": 2, "simt": 1}
+
+
+def test_capture_gate_keeps_replays_out_of_a_capture():
+    """The process-wide capture gate: replays run together, a capture
+    waits for the replays in flight and holds new ones until it ends, a
+    replay nested in its own thread's replay never waits, and a capture
+    inside a replay of the same thread raises instead of deadlocking."""
+    import threading
+    import time
+    from veles_tpu_torch.runtime.step_cache import _CaptureGate
+    gate = _CaptureGate()
+    log, lock = [], threading.Lock()
+    in_replay, release = threading.Event(), threading.Event()
+
+    def replayer(tag, hold):
+        with gate.replay():
+            with lock:
+                log.append(("in", tag))
+            if hold:
+                in_replay.set()
+                assert release.wait(60)
+            with gate.replay():             # nested: never waits
+                pass
+        with lock:
+            log.append(("out", tag))
+
+    def capturer():
+        with gate.capture():
+            with lock:
+                log.append(("capture", None))
+
+    first = threading.Thread(target=replayer, args=("a", True))
+    cap = threading.Thread(target=capturer)
+    second = threading.Thread(target=replayer, args=("b", False))
+    first.start()
+    try:
+        assert in_replay.wait(60)
+        cap.start()
+        # the capture waits for "a"; a new replay queues behind it
+        deadline = time.monotonic() + 60
+        while not gate._waiting:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        second.start()
+    finally:
+        release.set()
+    for t in (first, cap, second):
+        t.join(60)
+        assert not t.is_alive()
+    assert log.index(("out", "a")) < log.index(("capture", None)) \
+        < log.index(("in", "b")), log
+    with gate.replay():
+        with pytest.raises(RuntimeError, match="wait for itself"):
+            with gate.capture():
+                pass
+    with gate.capture():                    # free again
+        pass

@@ -180,6 +180,27 @@ def test_parallel_modules_are_scanned_and_load_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_fleet_modules_are_scanned_and_load_no_jax():
+    """The fleet router, its replica client and the job manager (copies
+    of JAX-free modules of the JAX package) are among the scanned
+    sources, and importing them loads neither jax nor the JAX
+    package."""
+    mods = ("fleet", "fleet_client", "jobs")
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for m in mods:
+        assert os.path.join("veles_tpu_torch", "runtime",
+                            f"{m}.py") in scanned
+    code = ("import sys\n"
+            + "".join(f"import veles_tpu_torch.runtime.{m}\n"
+                      for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'veles_tpu'))\n"
+              "print(bad)\nsys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_entry_points_refuse_cpu_by_default(monkeypatch):
     """With no CUDA card and no explicit device='cpu', every entry point
     raises instead of carrying on on the host."""

@@ -15,7 +15,8 @@ serve it from a snapshot, or run a snapshot-phased curriculum
         [--result-file F] [--device cpu]
     python -m veles_tpu_torch CONFIG --snapshot SRC --serve PORT \\
         [--model-dir DIR [--watch]] [--status-port P] [--trace-out F] \\
-        [--device cpu] [root.common.serve.slots=4 ...]
+        [--fleet N | --join ROUTER_URL] [--device cpu] \\
+        [root.common.serve.slots=4 ...]
 
 ``CONFIG`` is a ``configs/*.json`` file: its ``workflow`` section builds
 the model and optimizer, its ``loader`` section names the loader and its
@@ -37,7 +38,14 @@ hot-swaps a snapshot, ``/admin/stage`` / ``/admin/commit`` /
 ``/admin/abort``, ``POST /admin/drain``), until a drain (SIGTERM or
 ``/admin/drain``) or SIGINT.  ``--model-dir`` names the snapshot
 directory the registry and the watcher read, ``--watch`` swaps in each
-newer snapshot there.  ``--status-port`` serves the live status page
+newer snapshot there.  ``--fleet N`` serves N replicas of that stack in
+this process (each its own engine and its own copy of the weights) behind
+the fleet router (``runtime/fleet.py``) on PORT: ``POST /generate``,
+``GET /fleet.json``, the merged ``/slo.json``, ``POST /admin/reload``
+(the coordinated swap), ``/admin/rolling-drain``, ``/admin/join``,
+``/admin/drain`` and, with ``root.common.serve.jobs.dir``, ``/jobs``.
+``--join ROUTER_URL`` registers this single replica with a running
+router after it boots.  ``--status-port`` serves the live status page
 (training or serving), ``--trace-out`` writes the span ring's timelines
 as a Chrome trace on exit.  Everything runs on the CUDA card unless
 ``--device cpu`` is given.
@@ -157,6 +165,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve over HTTP instead of training (0 = any "
                         "free port); needs --snapshot")
+    p.add_argument("--fleet", type=int, metavar="N", default=None,
+                   help="with --serve: boot N replica serving stacks in "
+                        "this process behind the fleet router (load and "
+                        "prefix-affinity dispatch, coordinated hot swap, "
+                        "rolling drain); PORT serves the router, the "
+                        "replicas take ephemeral ports (default "
+                        "root.common.serve.fleet.replicas)")
+    p.add_argument("--join", metavar="ROUTER_URL", default=None,
+                   help="with --serve: register this replica with a "
+                        "running fleet router after boot (POST "
+                        "/admin/join) so it receives dispatched traffic")
     p.add_argument("--random-seed", type=int, default=None,
                    help="root.common.random_seed (loader shuffles and "
                         "initial weights)")
@@ -229,6 +248,7 @@ def main(argv=None) -> int:
     if args.serve is None and (args.model_dir or args.watch):
         raise SystemExit("--model-dir and --watch drive the serving "
                          "control plane; they need --serve")
+    _check_fleet_args(args)
     device = resolve_device(args.device)
     from .parallel.distributed import (initialize_distributed,
                                        shutdown_distributed)
@@ -378,6 +398,33 @@ def _curriculum(args) -> int:
     return 0
 
 
+def _check_fleet_args(args) -> None:
+    """The JAX CLI's fleet guards (veles_tpu/__main__.py:866-890), at
+    parse time: a pure argv conflict must not wait for a model load."""
+    if args.fleet is not None and args.serve is None:
+        raise SystemExit("--fleet fronts HTTP serving with the fleet "
+                         "router and needs --serve PORT")
+    if args.fleet is not None and args.watch:
+        raise SystemExit(
+            "--watch is per-replica and conflicts with --fleet: "
+            "fleet-wide version changes go through the router's "
+            "coordinated swap (POST /admin/reload on the router)")
+    if args.fleet is not None and args.join:
+        raise SystemExit("--fleet runs the router; --join makes this "
+                         "process a replica of ANOTHER router — "
+                         "pick one")
+    if args.join and args.serve is None:
+        raise SystemExit("--join registers a serving replica with a "
+                         "fleet router and needs --serve PORT")
+    if args.join and args.watch:
+        raise SystemExit("--watch is a per-replica auto-swap and would "
+                         "silently break the fleet's all-or-nothing "
+                         "version invariant on a --join'ed replica; "
+                         "fleet-wide version changes go through the "
+                         "router's coordinated swap (POST /admin/reload "
+                         "on the router)")
+
+
 def _check_generate_args(args) -> None:
     """The JAX CLI's checks and messages (veles_tpu/__main__.py:
     1238-1276)."""
@@ -449,6 +496,78 @@ def _generate(args, trainer) -> int:
     return 0
 
 
+def _fleet_n(args) -> int:
+    """Replica count for ``--serve --fleet``: the flag, else
+    ``root.common.serve.fleet.replicas`` (0 = one replica, no router),
+    veles_tpu/__main__.py:489-496."""
+    if args.fleet is not None:
+        return max(0, int(args.fleet))
+    return max(0, int(root.common.serve.fleet.get("replicas", 0) or 0))
+
+
+def _serve_fleet(args, factory, banner: dict) -> int:
+    """``--serve PORT --fleet N``: N in-process replica stacks (each
+    built by ``factory``, a zero-arg callable returning a started
+    ``RestfulServer`` whose engine runs, deploy control plane attached)
+    behind the fleet router on PORT; blocks until the fleet drains
+    (SIGTERM or ``POST /admin/drain`` on the router),
+    veles_tpu/__main__.py:498-545."""
+    from .runtime.fleet import FleetRouter, FleetServer, InProcessReplica
+    if args.watch:
+        raise SystemExit(
+            "--watch is per-replica and conflicts with --fleet: "
+            "fleet-wide version changes go through the router's "
+            "coordinated swap (POST /admin/reload on the router)")
+    if args.join:
+        raise SystemExit("--fleet runs the router; --join makes this "
+                         "process a replica of ANOTHER router — "
+                         "pick one")
+    n = _fleet_n(args)
+    replicas = [InProcessReplica(factory) for _ in range(n)]
+    router = FleetRouter()
+    for rep in replicas:
+        # one process, one metrics registry: the SLO merge counts the
+        # shared histograms once
+        router.add_replica(url=rep.url, registry_key="in-process",
+                           restart=rep.restart, kill=rep.kill)
+    fsrv = FleetServer(router, port=args.serve)
+    fsrv.install_signal_handlers()
+    fsrv.start()
+    print(json.dumps(dict(
+        banner, fleet=n, serving=fsrv.port,
+        replicas=[r.url for r in replicas],
+        observe=["/metrics", "/fleet.json", "/slo.json"])), flush=True)
+    try:
+        router.wait()       # released by SIGTERM or POST /admin/drain
+    except KeyboardInterrupt:
+        router.begin_drain()
+    fsrv.stop()
+    for rep in replicas:
+        rep.stop()
+    return 0
+
+
+def _join(args, srv) -> None:
+    """``--join ROUTER_URL``: register this replica with the router
+    (retried on transport errors: the router may still be booting),
+    veles_tpu/__main__.py:557-579."""
+    from .runtime.deploy import http_retry
+    from .runtime.fleet_client import ReplicaClient, ReplicaUnavailable
+
+    def post():
+        try:
+            return ReplicaClient(args.join).request(
+                "POST", "/admin/join",
+                {"url": f"http://127.0.0.1:{srv.port}"})
+        except ReplicaUnavailable as e:
+            raise ConnectionError(str(e)) from e
+
+    code, _h, doc = http_retry(post, what="fleet join")
+    if code != 200:
+        raise SystemExit(f"--join {args.join}: router refused the replica "
+                         f"(HTTP {code}: {doc})")
+
+
 def _serve(args, device, status=None, status_server=None) -> int:
     log = Logger()
     sw = StandardWorkflow(root.workflow.to_dict())
@@ -458,41 +577,60 @@ def _serve(args, device, status=None, status_server=None) -> int:
     wf.build({"@input": Spec((B, T), torch.int32),
               "@labels": Spec((B,), torch.int32),
               "@mask": Spec((B,), torch.float32)})
-    wstate = wstate_from_snapshot(args.snapshot, wf, device=device)
-    engine = None
-    try:
-        engine = DecodeEngine(wf, wstate, status=status,
-                              device=device).start()
-    except WorkflowError as e:
-        log.warning("serving /predict only (no decode engine: %s)", e)
     head = wf.default_output()
-    # /predict serves the engine's tensors: one device copy of the weights
-    srv = RestfulServer(wf.make_predict_step(head),
-                        engine.wstate if engine is not None else wstate,
-                        B, (T,),
-                        port=args.serve, workflow=wf, engine=engine,
-                        input_dtype=np.int32, device=device)
-    deploy = DeployController(server=srv, model_dir=args.model_dir,
-                              drain_timeout_s=args.drain_timeout,
-                              status=status, boot_source=args.snapshot)
+
+    def stack(port):
+        """One serving stack: its own copy of the snapshot's weights
+        (a hot swap writes into the served tensors), an engine where the
+        chain decodes, the REST server and the deploy control plane."""
+        wstate = wstate_from_snapshot(args.snapshot, wf, device=device)
+        engine = None
+        try:
+            engine = DecodeEngine(wf, wstate, status=status,
+                                  device=device).start()
+        except WorkflowError as e:
+            log.warning("serving /predict only (no decode engine: %s)", e)
+        # /predict serves the engine's tensors: one device copy
+        srv = RestfulServer(wf.make_predict_step(head),
+                            engine.wstate if engine is not None else wstate,
+                            B, (T,), port=port, workflow=wf, engine=engine,
+                            input_dtype=np.int32, device=device)
+        deploy = DeployController(server=srv, model_dir=args.model_dir,
+                                  drain_timeout_s=args.drain_timeout,
+                                  status=status, boot_source=args.snapshot)
+        return srv, deploy
+
+    if _fleet_n(args):
+        def factory():
+            return stack(0)[0].start()
+
+        return _serve_fleet(args, factory, {"predict_head": head,
+                                            "device": str(device)})
+    srv, deploy = stack(args.serve)
+    engine = srv.engine
     deploy.install_signal_handlers()     # SIGTERM drains
     srv.start()
-    if args.watch:
-        deploy.start_watcher()
-    print(json.dumps({"serving": srv.port, "predict_head": head,
-                      "engine": engine is not None,
-                      "device": str(device), "model_dir": deploy.model_dir,
-                      "watching": deploy.watching,
-                      "status_port": (status_server.port
-                                      if status_server is not None
-                                      else None),
-                      "observe": ["/metrics", "/trace.json", "/slo.json",
-                                  "/memory.json", "/models",
-                                  "/debug/profile"]}), flush=True)
     try:
-        deploy.wait()       # released by SIGTERM or POST /admin/drain
-    except KeyboardInterrupt:
-        deploy.drain(timeout=0)     # interactive: no grace hold
+        if args.join:
+            _join(args, srv)
+        if args.watch:
+            deploy.start_watcher()
+        print(json.dumps({"serving": srv.port, "predict_head": head,
+                          "engine": engine is not None,
+                          "device": str(device),
+                          "model_dir": deploy.model_dir,
+                          "watching": deploy.watching,
+                          "status_port": (status_server.port
+                                          if status_server is not None
+                                          else None),
+                          "observe": ["/metrics", "/trace.json",
+                                      "/slo.json", "/memory.json",
+                                      "/models", "/debug/profile"]}),
+              flush=True)
+        try:
+            deploy.wait()   # released by SIGTERM or POST /admin/drain
+        except KeyboardInterrupt:
+            deploy.drain(timeout=0)     # interactive: no grace hold
     finally:
         srv.stop()
         if engine is not None:

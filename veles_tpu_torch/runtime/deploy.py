@@ -335,7 +335,7 @@ class DeployController(Logger):
             raise ValueError(
                 f"{source!r}: export packages, compiled artifacts and "
                 "forge stores are not weight sources of this port yet "
-                "(they come with export, ROADMAP.md slice 9); reload "
+                "(they come with export, ROADMAP.md item 7b); reload "
                 "from a snapshot manifest")
         if source.startswith(("sqlite://", "http://", "https://")):
             return self._from_snapshot(Snapshotter.load(source), source, "")

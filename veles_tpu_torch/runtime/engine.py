@@ -129,8 +129,19 @@ and ``vt_memory_headroom_slots``, published on the scheduler tick and in
 ``stats()["goodput"]`` / ``stats()["headroom_slots"]``.  The dense
 layout builds no program through the cache and reports 0 bytes.
 
-Left out, for later slices: the batch lane (with the job manager) and
-the fleet's fault knobs.
+**The batch lane** (engine.py:2044-2140, :2373-2400, :2771-2801): a
+request submitted with ``batch=True`` rides the trough-filler class, one
+internal class below every interactive priority (queue index
+``priorities``).  It enters only while the trough is open (at least
+``serve.jobs.min_headroom_slots`` admissible slots and a windowed SLO
+burn at most ``serve.jobs.burn_ceiling``; else 429 with the short
+``serve.jobs.trough_retry_s`` hint), bypasses the admission window (the
+gate is its admission control, the hard queue depth still binds), is
+held in the queue while the gate is closed at admission, is the first
+victim of a preemption, and never reaches the queue-wait or TTFT
+histograms.  It rides the same captured programs as any request.
+``stats()["batch"]`` reports the gate, the batch tokens and their rate,
+and the batch preemptions.
 """
 
 from __future__ import annotations
@@ -176,9 +187,12 @@ _SPEC_PROBE_TICKS = 64
 
 
 class EngineOverloaded(RuntimeError):
-    """The queue, the admission window or the page pool is full; retry
-    after ``retry_after_s`` seconds (HTTP 429 + Retry-After in
-    restful.py)."""
+    """The queue, the admission window or the page pool is full, or the
+    batch trough is closed; retry after ``retry_after_s`` seconds (HTTP
+    429 + Retry-After in restful.py).  An interactive shed's hint comes
+    from :meth:`DecodeEngine._retry_after` (at least 1 s); a closed
+    trough's is sub-second, since the trough reopens as soon as a slot
+    frees."""
 
     def __init__(self, msg: str, retry_after_s: float = 1.0):
         super().__init__(msg)
@@ -452,10 +466,10 @@ class _Request:
                  "finished_at", "run_started_at", "slot", "page_row",
                  "prefix_start", "page_hashes", "priority", "gen",
                  "preemptions", "chunk_next", "_eff", "stream", "stop_seqs",
-                 "stop_hit", "trace_id")
+                 "stop_hit", "trace_id", "batch")
 
     def __init__(self, prompt, n_steps, temperature, top_k, top_p, eos_id,
-                 seed, deadline, priority: int = 0):
+                 seed, deadline, priority: int = 0, batch: bool = False):
         self.prompt = prompt            # (P,) np.int32
         self.n_steps = n_steps
         self.temperature = temperature
@@ -477,6 +491,9 @@ class _Request:
         self.prefix_start = 0           # paged: first un-shared position
         self.page_hashes = ()           # paged: chained full-page hashes
         self.priority = int(priority)   # request class, 0 = highest
+        # the batch lane's trough class (the internal lowest priority):
+        # kept out of the SLO histograms and the Retry-After EWMA
+        self.batch = bool(batch)
         # tokens generated before a preemption (or the resume form's
         # emitted prefix): an admission prefills prompt + gen
         self.gen = np.empty(0, np.int32)
@@ -944,7 +961,10 @@ class DecodeEngine(Logger):
             ("veles_tpu_torch", tree_signature(self.params))).encode()
         ).hexdigest()[:12]
 
-        self._queue = _PrioQueue(self.priorities)  # guarded-by: self._qlock
+        # one internal class past the submittable range holds the batch
+        # lane: victim selection preempts it first and a full queue
+        # displaces it first, with no path treating it otherwise
+        self._queue = _PrioQueue(self.priorities + 1)  # guarded-by: self._qlock
         self._qlock = threading.Lock()
         self._shed_by_class: dict = {}   # guarded-by: self._qlock
         self._streams: set = set()       # guarded-by: self._qlock
@@ -954,6 +974,13 @@ class DecodeEngine(Logger):
         self._died = False
         self._qwait_ewma = 0.0           # scheduler-thread-written
         self._tokens_per_s = 0.0         # scheduler-thread-written
+        # tokens a local prefill produces a second (EWMA): the fleet's
+        # fetch-versus-reprefill payoff reads it from stats()
+        self._prefill_tok_s = 0.0        # scheduler-thread-written
+        # the batch lane's token count and rate (0.5 s window)
+        self._batch_tok_n = 0            # scheduler-thread-written
+        self._batch_tok_s = 0.0          # scheduler-thread-written
+        self._batch_rate_mark = (time.monotonic(), 0)
 
         self._stats_lock = threading.Lock()
         self._n = collections.Counter()   # guarded-by: self._stats_lock
@@ -1079,6 +1106,14 @@ class DecodeEngine(Logger):
         self._m_preempt = reg.counter(
             "vt_preemptions_total",
             "running slots preempted for a higher-class request")
+        self._m_batch_preempt = reg.counter(
+            "vt_batch_preemptions_total",
+            "batch-lane slots preempted so interactive work could be "
+            "admitted (subset of vt_preemptions_total)")
+        self._g_batch_tps = reg.gauge(
+            "vt_batch_tokens_per_sec",
+            "recent batch-lane decode throughput (0.5 s window), which "
+            "the SLO histograms never see")
         self._m_queue_wait = reg.histogram(
             "vt_request_queue_wait_seconds",
             "time a request waited between submit() and its first "
@@ -1351,7 +1386,7 @@ class DecodeEngine(Logger):
                eos_id: Optional[int] = None, seed: int = 0,
                deadline_s: Optional[float] = None, priority: int = 0,
                stream: bool = False, emitted_prefix=None,
-               stop=None) -> _Request:
+               stop=None, batch: bool = False) -> _Request:
         """Enqueue one sequence; its ``done`` event fires with ``result``
         (np.int32, prompt + generated, trimmed at eos or a stop match) or
         ``error``.
@@ -1367,7 +1402,10 @@ class DecodeEngine(Logger):
         ``len(emitted_prefix)``.  Raises :class:`EngineOverloaded` when
         the request is shed (queue or admission window full, nothing
         lower to displace; or the page pool cannot host it while slots
-        are free)."""
+        are free).  ``batch=True`` rides the trough class below every
+        priority (``priority`` is then ignored): refused with 429 while
+        :meth:`trough_open` says no, outside the admission window,
+        preempted first, and kept out of the SLO histograms."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
@@ -1406,7 +1444,10 @@ class DecodeEngine(Logger):
                         "each stop sequence must hold 1..32 tokens, "
                         f"got {s.size}")
         priority = int(priority)
-        if not 0 <= priority < self.priorities:
+        if batch:
+            # the internal lowest class, one past the submittable range
+            priority = self.priorities
+        elif not 0 <= priority < self.priorities:
             raise ValueError(
                 f"priority must be in [0, {self.priorities}) "
                 f"(serve.priorities classes, 0 = highest), got {priority}")
@@ -1426,6 +1467,18 @@ class DecodeEngine(Logger):
                                    "restart the engine")
         if not self.started:
             raise EngineStopped("engine is not running (call start())")
+        if batch:
+            # the trough gate: batch waits out interactive pressure; the
+            # short hint, not _retry_after(): the trough reopens as soon
+            # as a slot frees
+            open_, why = self.trough_open()
+            if not open_:
+                self._count_shed(priority)
+                self._m_requests.labels(outcome="429").inc()
+                raise EngineOverloaded(
+                    f"batch trough closed: {why}",
+                    float(root.common.serve.jobs.get("trough_retry_s",
+                                                     0.05)))
         req = _Request(prompt, n_steps, float(temperature),
                        None if top_k is None else int(top_k),
                        None if top_p is None else float(top_p),
@@ -1433,7 +1486,7 @@ class DecodeEngine(Logger):
                        time.monotonic() + (self.deadline_s
                                            if deadline_s is None
                                            else float(deadline_s)),
-                       priority=priority)
+                       priority=priority, batch=batch)
         if pref is not None and pref.size:
             # the resume form IS the preemption resume state
             req.gen = pref
@@ -1474,8 +1527,11 @@ class DecodeEngine(Logger):
             # hard queue_depth bounds alone; a full queue lets the
             # arrival displace the youngest queued strictly-lower class
             qlen = len(self._queue)
-            limit = min(self.queue_depth,
-                        self._admission.allowance(priority))
+            # batch bypasses the window (the trough gate is its
+            # admission control) but not the hard queue depth
+            limit = (self.queue_depth if batch
+                     else min(self.queue_depth,
+                              self._admission.allowance(priority)))
             overloaded = qlen >= limit
             if overloaded:
                 evicted = self._queue.steal_lower(priority)
@@ -1503,11 +1559,13 @@ class DecodeEngine(Logger):
 
     def generate(self, prompt, n_steps: int, *, temperature: float = 0.0,
                  top_k=None, top_p=None, eos_id=None, seed: int = 0,
-                 timeout: Optional[float] = None, priority: int = 0):
+                 timeout: Optional[float] = None, priority: int = 0,
+                 batch: bool = False):
         """Blocking batch decode with the ``generate()`` contract:
         (B, P) -> (B, P + n_steps) np.int32, rows past their eos padded
         with ``eos_id``.  Row r samples with ``row_seeds(seed, B)[r]``,
-        as ``generate()`` does; every row rides class ``priority``."""
+        as ``generate()`` does; every row rides class ``priority`` (the
+        trough class with ``batch``)."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 2:
             raise ValueError("prompt must be (B, P)")
@@ -1519,7 +1577,7 @@ class DecodeEngine(Logger):
                 reqs.append(self.submit(
                     prompt[r], n_steps, temperature=temperature,
                     top_k=top_k, top_p=top_p, eos_id=eos_id,
-                    seed=seeds[r], priority=priority))
+                    seed=seeds[r], priority=priority, batch=batch))
             out = np.full((B, P + n_steps),
                           eos_id if eos_id is not None else 0, np.int32)
             for r, req in enumerate(reqs):
@@ -1591,7 +1649,9 @@ class DecodeEngine(Logger):
         args = {"id": req.trace_id, "outcome": outcome,
                 "prompt_tokens": int(req.prompt.size),
                 "n_steps": int(req.n_steps)}
-        if req.priority:
+        if req.batch:
+            args["batch"] = True
+        elif req.priority:
             args["priority"] = int(req.priority)
         if req.preemptions:
             args["preemptions"] = int(req.preemptions)
@@ -1740,6 +1800,13 @@ class DecodeEngine(Logger):
         if pages is not None:
             out["pages"] = pages
             out["kv_transfer"] = self._kv_transfer_summary()
+        # the batch lane: the gate now, and the throughput the SLO
+        # histograms never see
+        out["batch"] = {
+            "trough_open": self._trough_open_for(out["headroom_slots"])[0],
+            "tokens_generated": self._batch_tok_n,
+            "tokens_per_sec": round(self._batch_tok_s, 1),
+            "preemptions": n.get("batch_preemptions", 0)}
         return out
 
     # -- goodput -------------------------------------------------------------
@@ -1825,6 +1892,31 @@ class DecodeEngine(Logger):
             return max(free_slots, 0)
         avail = pages["free"] + pages["cached"]
         return max(min(free_slots, avail // max(self.n_ptab, 1)), 0)
+
+    def trough_open(self):
+        """The batch lane's gate -> ``(open, reason)``: open while at
+        least ``serve.jobs.min_headroom_slots`` max-length requests are
+        admissible (the headroom gauge) and the windowed SLO burn is at
+        most ``serve.jobs.burn_ceiling``, which sits below the
+        interactive shed threshold, so batch yields before any
+        interactive class pays (engine.py:2373-2389)."""
+        return self._trough_open_for(
+            self._headroom_slots(self._pages_summary()))
+
+    def _trough_open_for(self, headroom: int):
+        """The gate on an already-computed headroom (engine.py:
+        2391-2410)."""
+        jobs_cfg = root.common.serve.jobs
+        min_headroom = int(jobs_cfg.get("min_headroom_slots", 1))
+        burn_ceiling = float(jobs_cfg.get("burn_ceiling", 1.0))
+        if headroom < min_headroom:
+            return False, (f"headroom {headroom} slots < "
+                           f"serve.jobs.min_headroom_slots {min_headroom}")
+        burn = self._admission.last_burn()
+        if burn > burn_ceiling:
+            return False, (f"SLO burn {burn:.2f} > serve.jobs.burn_ceiling "
+                           f"{burn_ceiling}")
+        return True, "ok"
 
     # -- scheduler ---------------------------------------------------------
     def _loop(self):
@@ -1962,7 +2054,8 @@ class DecodeEngine(Logger):
     def _pick_victim(self, priority: int) -> Optional[int]:
         """The occupied slot of the lowest class strictly below
         ``priority``, the youngest run among ties; None when preemption
-        is off or nothing lower runs."""
+        is off or nothing lower runs.  A running batch request holds the
+        lowest class of all, so it is always the first victim."""
         if not self.preempt:
             return None
         best, best_key = None, None
@@ -2018,6 +2111,10 @@ class DecodeEngine(Logger):
         req.preemptions += 1
         self._count("preemptions")
         self._m_preempt.inc()
+        if req.batch:
+            # the batch lane yielding to interactive work
+            self._count("batch_preemptions")
+            self._m_batch_preempt.inc()
         with self._qlock:
             self._queue.appendleft(req)
 
@@ -2034,6 +2131,13 @@ class DecodeEngine(Logger):
             if time.monotonic() > req.deadline:
                 self._timeout(req, "while queued")
                 continue
+            if req.batch and not self.trough_open()[0]:
+                # batch that queued in a lull waits out the burst that
+                # came since; it is the lowest class, so nothing
+                # interactive is queued behind it
+                with self._qlock:
+                    self._queue.appendleft(req)
+                return n
             slot = self._free_slot()
             if slot is None:
                 victim = self._pick_victim(req.priority)
@@ -2376,11 +2480,15 @@ class DecodeEngine(Logger):
         prefix index at refcount 0, cached and evictable."""
         self._require_transfer()
         t0 = time.monotonic()
+        # the weights version the blob is validated against, read first:
+        # a swap that flips before the scheduler applies the pages makes
+        # them stale (one that flips during the check refuses them too)
+        wver = self.kv_wver
         pages = self._decode_pages_blob(blob)
         box = {"applied": None, "error": None}
         done = threading.Event()
         with self._kv_import_lock:
-            self._kv_imports.append((pages, box, done))
+            self._kv_imports.append((pages, box, done, wver))
         if self.started:
             self._wake.set()
         else:
@@ -2395,8 +2503,7 @@ class DecodeEngine(Logger):
                     f"KV-page import not applied within {timeout}s "
                     "(scheduler wedged?)")
         if box["error"]:
-            raise ValueError(f"KV-page import failed mid-apply: "
-                             f"{box['error']}")
+            raise ValueError(f"KV-page import failed: {box['error']}")
         imported, skipped, dropped, hashes = box["applied"]
         with self._page_lock:
             self._kv_imported_pages += imported
@@ -2413,14 +2520,23 @@ class DecodeEngine(Logger):
         a pool page, write its rows into the pool tensors in place
         (index copy: a captured graph keeps reading the same tensors),
         publish it in the prefix index.  A failed write returns the page
-        and fails that import's caller, never the scheduler."""
+        and fails that import's caller, never the scheduler.  An import
+        validated under weights a hot swap has since replaced is refused
+        whole: its pages hold the old weights' KV (the swap dropped the
+        prefix cache for that reason)."""
         while True:
             with self._kv_import_lock:
                 if not self._kv_imports:
                     return
-                pages, box, done = self._kv_imports.popleft()
+                pages, box, done, wver = self._kv_imports.popleft()
             imported = skipped = dropped = 0
             hashes = []
+            if wver != self.kv_wver:
+                box["error"] = (f"weights-version changed from {wver} to "
+                                f"{self.kv_wver} before the import applied")
+                box["applied"] = (0, 0, 0, [])
+                done.set()
+                continue
             entries = self._kv_xfer_entries()
             try:
                 for h, rows in pages:
@@ -2468,6 +2584,7 @@ class DecodeEngine(Logger):
                    "import_bytes": self._kv_import_bytes,
                    "remote_hit_pages": self._remote_hit_pages}
         out["page_bytes"] = self._kv_page_bytes() if self._prefix_ok else 0
+        out["prefill_tok_s"] = round(self._prefill_tok_s, 1)
         out["wver"] = self.kv_wver
         return out
 
@@ -2484,9 +2601,12 @@ class DecodeEngine(Logger):
             # first admission only: a resume's wait was observed once
             req.admitted_at = now
             wait = now - req.submitted_at
-            self._m_queue_wait.observe(wait)
-            self._qwait_ewma = wait if self._qwait_ewma <= 0 \
-                else 0.9 * self._qwait_ewma + 0.1 * wait
+            if not req.batch:
+                # a parked bulk prompt would poison the SLO windows and
+                # the Retry-After estimate alike
+                self._m_queue_wait.observe(wait)
+                self._qwait_ewma = wait if self._qwait_ewma <= 0 \
+                    else 0.9 * self._qwait_ewma + 0.1 * wait
             self._count("admitted")
         eff = req.effective_prompt()
         P = int(eff.size)
@@ -2580,12 +2700,22 @@ class DecodeEngine(Logger):
         if self.paged:
             self._register_prefix_pages(req)
         now = time.monotonic()
+        # the admission's prefill rate, which the fleet's fetch payoff
+        # reads (engine.py:3495-3500)
+        rate = max(1, P - (req.prefix_start if self.paged else 0)) \
+            / max(now - req.run_started_at, 1e-9)
+        self._prefill_tok_s = rate if self._prefill_tok_s <= 0 \
+            else 0.8 * self._prefill_tok_s + 0.2 * rate
         if req.first_token_at is None:
-            # TTFT once, at the actual first token (not a resume's)
+            # TTFT once, at the actual first token (not a resume's), and
+            # never for batch
             req.first_token_at = now
-            self._m_ttft.observe(now - req.submitted_at)
-            with self._stats_lock:
-                self._ttft.append(now - req.submitted_at)
+            if not req.batch:
+                self._m_ttft.observe(now - req.submitted_at)
+                with self._stats_lock:
+                    self._ttft.append(now - req.submitted_at)
+        if req.batch:
+            self._batch_tok_n += 1
         # the whole history: the drafter reads it, and the step its last
         self._toks[slot, :P] = eff
         self._toks[slot, P] = first
@@ -2659,6 +2789,9 @@ class DecodeEngine(Logger):
         for s in np.flatnonzero(emitted):
             p = int(self._pos[s])
             self._toks[s, p + 1:p + 1 + emitted[s]] = out[s, :emitted[s]]
+            req = self._slot_req[s]
+            if req is not None and req.batch:
+                self._batch_tok_n += int(emitted[s])
         self._pos[:] = new_pos
         self._active[:] = rb[S:2 * S] != 0
         self._stage_state()
@@ -2855,6 +2988,11 @@ class DecodeEngine(Logger):
             self._g_decode_bw.set(good["decode_bandwidth_bytes_per_sec"])
             self._g_decode_mbu.set(good["decode_mbu"])
             self._g_tps_chip.set(good["tokens_per_sec_per_chip"])
+        b_t, b_n = self._batch_rate_mark
+        if now - b_t >= 0.5:
+            self._batch_tok_s = (self._batch_tok_n - b_n) / (now - b_t)
+            self._batch_rate_mark = (now, self._batch_tok_n)
+            self._g_batch_tps.set(self._batch_tok_s)
         t, prop0, acc0 = self._spec_rate_mark
         if not self.spec or now - t < 0.5:
             return

@@ -49,10 +49,29 @@ node in production, so the :func:`enabled` fast path is one falsy check):
 ``kv_transfer_slow_ms``
     float.  The drain's KV-page handoff sleeps this many milliseconds
     first (a slow link).
+``replica_crash_at_request``
+    int.  The fleet router (``runtime/fleet.py``) kills the replica it
+    chose for its Nth routed request (once per arming; only replicas it
+    holds a kill handle for: in-process ones).  The dispatch then fails
+    over: ejection and resubmission of the request to a survivor.
+``replica_slow_ms``
+    float.  Every router dispatch to the lowest-id active replica is
+    held back this many milliseconds (a persistently slow replica as the
+    router sees it); fires per request while armed.
+``stream_cut_at_token``
+    int.  The router's streaming relay severs the replica leg, as a
+    transport failure, after relaying this many token frames (once per
+    arming); the relay resumes the suffix on a survivor from the frames
+    already delivered.
+``stream_stall_ms``
+    float.  The streaming relay sleeps this many milliseconds a relayed
+    frame (a slow consumer as the replica sees it).
 
-The fleet's knobs (``replica_*``), the streaming relay's and the
-experiment manager's come with the slices that have those injection
-points.
+The router's KV-page transfers (remote fetch, the prefill role's leg,
+the rolling drain's pre-warm) consult ``kv_transfer_drop`` (the first N
+transfers fail; a budget the router keeps) and ``kv_transfer_slow_ms``
+too.  The experiment manager's knob comes with the slice that has its
+injection point.
 """
 
 from __future__ import annotations
@@ -91,7 +110,9 @@ class FaultPlan:
     __slots__ = ("nan_grad_at_step", "loader_ioerror_at_batch",
                  "truncate_snapshot", "slow_batch_ms", "scheduler_crash",
                  "decode_stall_ms", "admission_burst", "kv_transfer_drop",
-                 "kv_transfer_slow_ms")
+                 "kv_transfer_slow_ms", "replica_crash_at_request",
+                 "replica_slow_ms", "stream_cut_at_token",
+                 "stream_stall_ms")
 
     def __init__(self, cfg):
         get = cfg.get
@@ -106,6 +127,11 @@ class FaultPlan:
         self.kv_transfer_drop = int(get("kv_transfer_drop", 0) or 0)
         self.kv_transfer_slow_ms = float(
             get("kv_transfer_slow_ms", 0.0) or 0.0)
+        self.replica_crash_at_request = int(
+            get("replica_crash_at_request", 0) or 0)
+        self.replica_slow_ms = float(get("replica_slow_ms", 0.0) or 0.0)
+        self.stream_cut_at_token = int(get("stream_cut_at_token", 0) or 0)
+        self.stream_stall_ms = float(get("stream_stall_ms", 0.0) or 0.0)
 
     def __bool__(self) -> bool:
         return any(getattr(self, k) for k in self.__slots__)

@@ -27,8 +27,8 @@ Host-side only: accounting never touches a captured step.
 
 from __future__ import annotations
 
+import atexit
 import threading
-import time
 from typing import Dict, Optional
 
 from ..config import root
@@ -66,6 +66,7 @@ class MemoryMonitor(Logger):
         self._next_stamp = 0                   # guarded-by: self._lock
         self._extras: Dict[str, object] = {}   # guarded-by: self._lock
         self._poller: Optional[threading.Thread] = None  # guarded-by: self._lock
+        self._poll_stop = threading.Event()
         self._last_device: Optional[dict] = None  # guarded-by: self._lock
         reg = registry()
         self._g_in_use = reg.gauge(
@@ -165,7 +166,11 @@ class MemoryMonitor(Logger):
     def ensure_poller(self, interval_s: Optional[float] = None) -> bool:
         """Start the device poller thread once (daemon; none when
         ``root.common.observe.memory_poll_s`` is 0 or there is no card).
-        Returns whether a poller runs."""
+        Returns whether a poller runs.  The poller is stopped and joined
+        at interpreter exit: a daemon thread still inside a CUDA call
+        when the interpreter finalizes is ended by ``pthread_exit``,
+        whose unwinding through PyTorch's C++ frames aborts the process
+        ("terminate called without an active exception")."""
         if interval_s is None:
             interval_s = float(root.common.observe.get("memory_poll_s", 2.0))
         if interval_s <= 0 or self.sample_device() is None:
@@ -173,10 +178,11 @@ class MemoryMonitor(Logger):
         with self._lock:
             if self._poller is not None and self._poller.is_alive():
                 return True
+            stop = self._poll_stop
+            stop.clear()
 
             def loop():
-                while True:
-                    time.sleep(interval_s)
+                while not stop.wait(interval_s):
                     try:
                         self.sample_device()
                     except Exception:  # noqa: BLE001 — the poller must
@@ -186,6 +192,14 @@ class MemoryMonitor(Logger):
                 target=loop, name="hbm-poll", daemon=True)
             self._poller.start()
         return True
+
+    def stop_poller(self, timeout: float = 10.0) -> None:
+        """Stop the device poller and wait for it to leave its sample."""
+        self._poll_stop.set()
+        with self._lock:
+            poller, self._poller = self._poller, None
+        if poller is not None and poller is not threading.current_thread():
+            poller.join(timeout)
 
     # -- the /memory.json document ------------------------------------------
     def doc(self) -> dict:
@@ -229,6 +243,9 @@ def memory_monitor() -> MemoryMonitor:
     with _MONITOR_LOCK:
         if _MONITOR is None:
             _MONITOR = MemoryMonitor()
+            # atexit callbacks run before the interpreter ends daemon
+            # threads (see MemoryMonitor.ensure_poller)
+            atexit.register(_MONITOR.stop_poller)
         return _MONITOR
 
 

@@ -7,12 +7,15 @@ which holds no JAX, cut to what the port sets: the StepCache's capture
 counters, the trainer's anomaly and walk-back counters, the serving
 engine's request, shed, preemption and swap counters, its latency
 histograms, the SLO burn gauge, the memory ledger's gauges and the
-deploy control plane's.
+deploy control plane's, the fleet router's and the job manager's —
+and the scrape-side parsers the fleet router reads its replicas'
+``/metrics`` text with (:func:`parse_samples`,
+:func:`cumulative_buckets`).
 
 Host-side only: nothing here runs inside a captured step.  Left out
-until a slice reads them: the label cardinality cap (every label here
+until a slice reads it: the label cardinality cap (every label here
 takes a handful of values: program kind, request outcome, priority
-class, slo name, memory component) and the scrape-side parsers.
+class, slo name, memory component, fleet replica).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import collections
 import itertools
 import json
+import re
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -364,6 +368,55 @@ def quantile_from_cumulative(pairs, q: float) -> float:
             prev_le = le
         prev_c = c
     return prev_le
+
+
+# -- scrape side (veles_tpu/runtime/metrics.py:645-697) -----------------------
+
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+_UNESCAPE_RE = re.compile(r"\\(.)")
+_UNESCAPES = {"n": "\n", '"': '"', "\\": "\\"}
+
+
+def _unescape_label(s: str) -> str:
+    """One pass over the escapes (sequential replaces would misread a
+    backslash before an ``n``)."""
+    return _UNESCAPE_RE.sub(
+        lambda m: _UNESCAPES.get(m.group(1), "\\" + m.group(1)), s)
+
+
+def parse_samples(text: str) -> List[Tuple[str, Dict[str, str], float]]:
+    """Prometheus exposition text -> ``(name, labels, value)`` samples;
+    comment, blank and malformed lines are skipped."""
+    out = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            continue
+        name, raw_labels, raw_v = m.groups()
+        labels = {k: _unescape_label(v)
+                  for k, v in _LABEL_RE.findall(raw_labels or "")}
+        try:
+            out.append((name, labels, float(raw_v)))
+        except ValueError:
+            continue
+    return out
+
+
+def cumulative_buckets(samples, name: str) -> List[Tuple[float, float]]:
+    """A histogram's ``_bucket`` samples, summed over every label but
+    ``le``, as sorted ``[(le, cumulative count)]``."""
+    agg: Dict[float, float] = {}
+    for n, labels, v in samples:
+        if n != name + "_bucket" or "le" not in labels:
+            continue
+        le = float(labels["le"])
+        agg[le] = agg.get(le, 0.0) + v
+    return sorted(agg.items())
 
 
 _REGISTRY = MetricsRegistry()

@@ -9,7 +9,10 @@
   one is attached, else the port's ``generate()``.  The request class
   comes from the body's ``priority`` or the ``X-Priority`` header (the
   body wins, restful.py:457-471 of the JAX package); a shed answers 429
-  with ``Retry-After`` and the un-rounded ``retry_after_s`` in the body;
+  with ``Retry-After`` and the un-rounded ``retry_after_s`` in the body.
+  ``"batch": true`` (engine only, unary, no priority) rides the engine's
+  trough class below every priority (restful.py:691-703); a closed
+  trough answers 429 with its short hint;
 * ``POST /generate`` with ``"stream": true`` (one prompt row, plus
   optional ``"stop"`` token-id sequences, the resume form's
   ``"emitted_prefix"`` and ``"deadline_s"``): NDJSON frames ``{"i": n,
@@ -41,10 +44,17 @@
   ``application/octet-stream``), and ``PUT /kv/pages`` imports such a
   blob (413 over ``serve.max_body_mb``, 400 on any validation defect or
   a dense engine, 504 when the import is not applied in time),
-  restful.py:224-248 and :270-316.
+  restful.py:224-248 and :270-316;
+* with ``jobs_dir`` (and an engine): the durable batch job API of
+  :mod:`.jobs` against this replica (``POST /jobs``, ``GET /jobs``,
+  ``GET /jobs/<id>``, ``GET /jobs/<id>/results``, ``DELETE
+  /jobs/<id>``), its dispatch in-process through :meth:`RestfulServer.
+  decode` with the handler's status mapping (restful.py:920-941).
 
-The batch lane (``batch``; with the job manager), the fleet, jobs and
-experiments endpoints come with later slices.
+:func:`reply_json`, :func:`reply_metrics_text` and
+:func:`read_json_body` are shared with the fleet router's front
+(``runtime/fleet.py``).  The experiments endpoints come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ from ..logger import Logger
 from ..ops import resolve_device
 from .engine import EngineOverloaded, EngineStopped, SchedulerCrashed
 from .generate import generate, generate_beam
+from .jobs import JobManager, handle_jobs_request
 from .memory import memory_monitor
 from .metrics import registry, span_ring
 from .profiler import serve_profile_post
@@ -82,6 +93,13 @@ def reply_json(handler, obj, code=200, headers=()):
         handler.send_header(k, v)
     handler.end_headers()
     handler.wfile.write(body)
+
+
+def reply_metrics_text(handler):
+    """``GET /metrics``: the registry's Prometheus text, as every server
+    of the serving stack (and the fleet router's front) answers it."""
+    reply_bytes(handler, registry().render().encode(),
+                "text/plain; version=0.0.4; charset=utf-8")
 
 
 def reply_bytes(handler, body: bytes, content_type: str):
@@ -134,12 +152,14 @@ def _req_int(v, name):
 class RestfulServer(Logger):
     """``predict_fn(wstate, batch) -> tensor`` serves /predict over
     (batch_size, *input_shape) inputs; ``workflow`` / ``engine`` enable
-    /generate.  ``device`` defaults to the CUDA card."""
+    /generate; ``jobs_dir`` (with an engine) the job API.  ``device``
+    defaults to the CUDA card.  The server does not own the engine:
+    whoever built it starts and stops it."""
 
     def __init__(self, predict_fn: Callable, wstate, batch_size: int,
                  input_shape, *, port: int = 0, host: str = "127.0.0.1",
                  workflow=None, engine=None, input_dtype=np.int32,
-                 device=None):
+                 device=None, jobs_dir: Optional[str] = None):
         self.device = resolve_device(device)
         self.predict_fn = predict_fn
         self.wstate = wstate
@@ -149,6 +169,10 @@ class RestfulServer(Logger):
         self.workflow = workflow
         self.engine = engine
         self.deploy = None          # a DeployController sets itself here
+        # the batch lane's job API against this replica's engine
+        self.jobs: Optional[JobManager] = None
+        if jobs_dir and engine is not None:
+            self.jobs = JobManager(jobs_dir, self._local_dispatch)
         outer = self
 
         class Handler(http.server.BaseHTTPRequestHandler):
@@ -158,8 +182,7 @@ class RestfulServer(Logger):
             def do_GET(self):
                 path = self.path.split("?", 1)[0].rstrip("/")
                 if path == "/metrics":
-                    reply_bytes(self, registry().render().encode(),
-                                "text/plain; version=0.0.4; charset=utf-8")
+                    reply_metrics_text(self)
                 elif path == "/slo.json":
                     self._reply(slo_tracker().doc())
                 elif path == "/memory.json":
@@ -187,7 +210,19 @@ class RestfulServer(Logger):
                 elif path == "/engine" and outer.engine is not None:
                     self._reply(outer.engine.stats())
                 else:
+                    self._jobs_or_404("GET", None)
+
+            def _jobs_or_404(self, method, body):
+                hit = handle_jobs_request(outer.jobs, method, self.path,
+                                          body)
+                if hit is None:
                     self.send_error(404)
+                else:
+                    self._reply(hit[1], code=hit[0])
+
+            def do_DELETE(self):
+                # DELETE /jobs/<id>: cancel a batch job
+                self._jobs_or_404("DELETE", None)
 
             def do_PUT(self):
                 path = self.path.split("?", 1)[0].rstrip("/")
@@ -216,6 +251,15 @@ class RestfulServer(Logger):
                     code, obj = serve_profile_post(self.headers,
                                                    self.rfile)
                     self._reply(obj, code=code)
+                    return
+                if path == "/jobs" or path.startswith("/jobs/"):
+                    try:
+                        body = read_json_body(self)
+                    except json.JSONDecodeError as e:
+                        self._reply({"error": str(e)}, code=400)
+                        return
+                    if body is not None:
+                        self._jobs_or_404("POST", body)
                     return
                 if path in _ADMIN and outer.deploy is None:
                     self._reply({"error": "no deploy control plane "
@@ -370,12 +414,6 @@ class RestfulServer(Logger):
             outs.append(y.float().cpu().numpy())
         return np.concatenate(outs)
 
-    def _refuse_unported(self, req: dict):
-        if req.get("batch"):
-            raise ValueError("batch: the batch lane is not served by the "
-                             "port yet (it comes with the job manager, "
-                             "ROADMAP.md queue 1 item 7)")
-
     def _sampling(self, req: dict, hi: int):
         """steps and the sampling fields of a /generate body, checked."""
         steps = _req_int(req.get("steps", 16), "steps")
@@ -409,7 +447,6 @@ class RestfulServer(Logger):
         if self.workflow is None and self.engine is None:
             raise ValueError("this server has no workflow or engine; "
                              "/generate is off")
-        self._refuse_unported(req)
         beams = _req_int(req.get("beams", 1), "beams")
         if beams < 1:
             raise ValueError(f"beams must be >= 1, got {beams}")
@@ -424,6 +461,16 @@ class RestfulServer(Logger):
             raise ValueError(
                 "priority classes need engine= serving (per-request "
                 "generate() has no queue to prioritize)")
+        # the batch lane: the engine's trough class, which IS the class
+        batch = bool(req.get("batch", False))
+        if batch and self.engine is None:
+            raise ValueError("batch-class requests need engine= serving "
+                             "(per-request generate() has no trough to "
+                             "fill)")
+        if batch and priority:
+            raise ValueError("batch rides the trough class below every "
+                             "priority; drop the priority key (or drop "
+                             "batch)")
         prompt = np.asarray(req["prompt"])
         # whole-valued floats (2.0) are ids, as the JAX package's unary
         # path takes them; a fraction is refused, never truncated
@@ -450,13 +497,18 @@ class RestfulServer(Logger):
                 f"request too large: batch {B} x beams {beams} x total "
                 f"length {P + steps} exceeds the 2^20 token-cell cap")
         if beams > 1:
+            if batch:
+                raise ValueError("beam search runs outside the engine "
+                                 "queue; the batch lane applies to beams=1 "
+                                 "requests")
             return self._beam(req, prompt, steps, beams, priority, kw)
         if req.get("length_penalty"):
             raise ValueError(
                 "length_penalty shapes beam scores and needs beams > 1")
         if self.engine is not None:
             toks = self.engine.generate(prompt.astype(np.int32), steps,
-                                        priority=priority, **kw)
+                                        priority=priority, batch=batch,
+                                        **kw)
         else:
             toks = generate(self.workflow, self.wstate,
                             prompt.astype(np.int32), steps,
@@ -499,7 +551,8 @@ class RestfulServer(Logger):
             raise ValueError(
                 "streaming needs engine= serving (per-request "
                 "generate() has no incremental token feed)")
-        self._refuse_unported(req)
+        if req.get("batch"):
+            raise ValueError("the batch lane is unary; drop stream or batch")
         if _req_int(req.get("beams", 1), "beams") != 1:
             raise ValueError("streaming supports beams=1 only")
         prompt = np.asarray(req["prompt"])
@@ -586,7 +639,27 @@ class RestfulServer(Logger):
             # the consumer went away; the request retires unary
             pass
 
+    def _local_dispatch(self, body: dict):
+        """The job manager's dispatch against this replica: :meth:`decode`
+        with the handler's status mapping, as the ``(status, doc,
+        headers)`` the fleet router's ``handle_generate`` returns too."""
+        try:
+            return 200, self.decode(body), ()
+        except EngineOverloaded as e:
+            return 429, {"error": str(e),
+                         "retry_after_s": round(e.retry_after_s, 3)}, ()
+        except SchedulerCrashed as e:
+            return 500, {"error": str(e), "kind": "scheduler_crash"}, ()
+        except EngineStopped as e:
+            return 503, {"error": str(e)}, ()
+        except TimeoutError as e:
+            return 504, {"error": str(e)}, ()
+        except (KeyError, TypeError, ValueError) as e:
+            return 400, {"error": str(e)}, ()
+
     def start(self):
+        if self.jobs is not None:
+            self.jobs.start()
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         name="restful", daemon=True)
         self._thread.start()
@@ -595,6 +668,10 @@ class RestfulServer(Logger):
         return self
 
     def stop(self):
+        if self.jobs is not None:
+            # stop scheduling batch dispatches first; committed results
+            # survive for the next manager
+            self.jobs.stop()
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:

@@ -115,6 +115,20 @@ def sha256_files(paths) -> str:
     return h.hexdigest()
 
 
+def _fsync_dir(path: str) -> None:
+    """Persist a directory's entries (the rename metadata); best effort
+    where a directory cannot be opened (veles_tpu/runtime/snapshotter.py:
+    49-58)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 def _commit_bytes(target: str, data: bytes) -> None:
     """fsynced ``*.tmp`` sibling renamed into place."""
     tmp = target + ".tmp"

@@ -49,12 +49,34 @@ the cache.  Launch counters count host calls, and a replay makes none:
 the cache records each kernel counter's change during capture (by
 variant), undoes it (a capture runs nothing) and adds it on every
 replay.
+
+Several captured programs may serve in one process at once (the
+fleet's in-process replicas: one engine each, each replaying on its own
+stream), and a new engine captures while the others replay.  Three
+things keep that sound.  Each cache captures on a stream of its own,
+which no other live cache captures on: PyTorch keys the cuBLAS
+workspace by (handle, stream), a captured product bakes that
+workspace's address into the graph, and two engines whose graphs share
+one would write it at once (two replicas decoding side by side once
+disagreed with their solo tokens that way); the pooled streams are
+reused round robin, so a cache claims one no live cache holds.  The
+capture runs in the ``"thread_local"`` capture mode, so the CUDA calls
+other threads make meanwhile (their read-backs, pinned copies,
+allocations on their own streams) neither fail nor break it; in the
+default ``"global"`` mode any such call fails.  And the process-wide
+:data:`CAPTURE_GATE` keeps replays and eager cached steps out of the
+capture window: the launch counters are process-wide, and a replay's
+launches counted meanwhile would be recorded as the new program's own.
+A replay waits for at most one capture; a capture waits for the replays
+in flight to return (their launches, not their device work).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -107,6 +129,89 @@ def _clone(tree):
 
 def _pointers(tree):
     return [t.data_ptr() for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
+class _CaptureGate:
+    """Reader-writer gate: any number of replays at once (readers), or
+    one capture (the writer) with none; a waiting capture goes before
+    new replays, so a busy fleet cannot starve it."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._readers = 0           # guarded-by: self._cv
+        self._writer = False        # guarded-by: self._cv
+        self._waiting = 0           # guarded-by: self._cv
+        self._held = threading.local()  # this thread's replay depth
+
+    @contextlib.contextmanager
+    def replay(self):
+        depth = getattr(self._held, "n", 0)
+        if depth:                   # nested in this thread's own replay
+            self._held.n = depth + 1
+            try:
+                yield
+            finally:
+                self._held.n = depth
+            return
+        with self._cv:
+            while self._writer or self._waiting:
+                self._cv.wait()
+            self._readers += 1
+        self._held.n = 1
+        try:
+            yield
+        finally:
+            self._held.n = 0
+            with self._cv:
+                self._readers -= 1
+                if not self._readers:
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def capture(self):
+        if getattr(self._held, "n", 0):
+            raise RuntimeError("a capture inside a replay of the same "
+                               "thread would wait for itself")
+        with self._cv:
+            self._waiting += 1
+            while self._writer or self._readers:
+                self._cv.wait()
+            self._waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._writer = False
+                self._cv.notify_all()
+
+
+#: the process's one capture gate (see the module docstring)
+CAPTURE_GATE = _CaptureGate()
+
+#: the capture stream of every live StepCache: raw stream handle -> a
+#: weak reference to the cache holding it
+_CAPTURE_STREAMS: Dict[int, Any] = {}  # guarded-by: _STREAMS_LOCK
+_STREAMS_LOCK = threading.Lock()
+
+
+def _claim_capture_stream(cache, device) -> "torch.cuda.Stream":
+    """A pooled stream on ``device`` that no other live cache captures
+    on (see the module docstring), claimed for ``cache``."""
+    import gc
+    for _ in range(2):
+        with _STREAMS_LOCK:
+            for _ in range(64):         # twice the pool's 32 streams
+                s = torch.cuda.Stream(device=device)
+                holder = _CAPTURE_STREAMS.get(s.cuda_stream)
+                if holder is None or holder() is None:
+                    _CAPTURE_STREAMS[s.cuda_stream] = weakref.ref(cache)
+                    return s
+        # engines and trainers are reference cycles: dead caches may
+        # still await the cycle collector
+        gc.collect()
+    raise RuntimeError("every pooled CUDA stream is the capture stream of "
+                       "a live step cache")
 
 
 def _counters():
@@ -185,8 +290,9 @@ class EagerStep:
     def __call__(self, *args):
         ent = self._cache._entries.get(self._key)
         if ent is None or ent["cost"] is not None:
-            return self.step(*args)
-        with CostCounter() as cc:
+            with CAPTURE_GATE.replay():
+                return self.step(*args)
+        with CAPTURE_GATE.replay(), CostCounter() as cc:
             out = self.step(*args)
         ent["cost"] = cc.result()
         self._cache._publish_cost(self._key[0])
@@ -217,9 +323,10 @@ class CapturedStep:
         self.step.begin(self.state)
         if batch is not None:           # None: replay on what they hold
             self.load(batch)
-        self.graph.replay()
-        for counter, (n, variants) in self.launches:
-            counter.add(n, variants)
+        with CAPTURE_GATE.replay():
+            self.graph.replay()
+            for counter, (n, variants) in self.launches:
+                counter.add(n, variants)
         if self.step.kind == "train":
             return self.state, self.outputs
         return self.outputs
@@ -247,6 +354,7 @@ class StepCache(Logger):
 
     def __init__(self, *, capture: bool = True):
         self.capture = capture
+        self._capture_stream = None     # claimed at the first capture
         self._entries: Dict[Any, dict] = {}
         self.compiles = 0
         self.hits = 0
@@ -372,7 +480,9 @@ class StepCache(Logger):
         dev = next(t.device for t in tree_leaves((wstate, inputs))
                    if torch.is_tensor(t))
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(device=dev)
+        if self._capture_stream is None:
+            self._capture_stream = _claim_capture_stream(self, dev)
+        side = self._capture_stream
         side.wait_stream(main)
         with torch.cuda.stream(side):
             scratch = _clone(wstate)
@@ -389,20 +499,22 @@ class StepCache(Logger):
         main.wait_stream(side)
         del scratch
         counters = _counters()
-        before = [c.state() for c in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            # the host part stays out of the graph; nothing the device
-            # part reads comes from it but the staging tensor
-            outputs = step.run(wstate, inputs, None)
-        launches = []
-        for c, (n0, v0) in zip(counters, before):
-            n1, v1 = c.state()
-            if n1 != n0:
-                launches.append((c, (n1 - n0, {
-                    v: k - v0.get(v, 0) for v, k in v1.items()
-                    if k != v0.get(v, 0)})))
-            c.set_state((n0, v0))
+        with CAPTURE_GATE.capture():
+            before = [c.state() for c in counters]
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                # the host part stays out of the graph; nothing the
+                # device part reads comes from it but the staging tensor
+                outputs = step.run(wstate, inputs, None)
+            launches = []
+            for c, (n0, v0) in zip(counters, before):
+                n1, v1 = c.state()
+                if n1 != n0:
+                    launches.append((c, (n1 - n0, {
+                        v: k - v0.get(v, 0) for v, k in v1.items()
+                        if k != v0.get(v, 0)})))
+                c.set_state((n0, v0))
         return (CapturedStep(step, graph, wstate, inputs, outputs,
                              launches), cc.result())
 
