@@ -201,8 +201,9 @@ Phases, each of which fails the run with a non-zero exit:
 12. the pipeline stack and the MoE layer, each phase with the launch
    counts set to 0 where it drives its path: ``pipeline_train`` trains
    the four ``configs/induction_lm_pp*.json`` through ``python -m
-   veles_tpu_torch`` for their 25 published epochs (no mesh: the stack
-   runs its stages one after the other; captured), ``induction_lm_pp``
+   veles_tpu_torch`` for their 25 published epochs, the four runs at
+   once (no mesh: the stack runs its stages one after the other;
+   captured), ``induction_lm_pp``
    and ``induction_lm_pp_moe`` to <= 5 % (the ``_sp`` configs report
    theirs), then each config in-process for PP_BATCHES captured steps
    and an eval (f32 SIMT flash launches, two dropout launches a stage
@@ -220,7 +221,31 @@ Phases, each of which fails the run with a non-zero exit:
    64): tokens equal ``generate()``'s, bitwise on an eager, a megastep
    and a speculative engine, paged launches 3 a decode micro-step held
    against a profiled window's trace;
-13. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+13. ``artifact`` (last, the launch counts set to 0 where it drives its
+   path): the serving phase's bf16 LM sealed by ``export_compiled``
+   (megastep 8, spec k 4, the paged kernel; in a child the script starts
+   after the build, beside the phases up to this one; the export's
+   seconds and every blob's size) and served by ``python -m
+   veles_tpu_torch --serve 0 --artifact DIR`` in a child with no config:
+   the greedy 8 x (512 + 64) request equal to the live engine's tokens,
+   nothing recaptured after load, ``POST /predict`` within the flash
+   forward's bf16 limit of the live predict, tokens/s and TTFT beside
+   the live engine's; in this process an ``ArtifactRunner`` whose
+   megastep and verify runs are bitwise its plain decode, profiled
+   windows holding the paged launches of each replay to the trace (4 a
+   decode, 32 a megastep, 20 a verify), the sealed forward launching the
+   flash kernel once a layer; a float32 artifact's runner hot-swapped
+   under the lifecycle's load from the bf16 artifact, an export package
+   and a ``forge://`` store (no request failed, captures flat, tokens a
+   live engine's on the swapped weights) and a preempted request equal
+   to its uninterrupted run; ``--serve --artifact DIR --fleet 2``
+   answering ``generate()``'s tokens and a rolling drain under load
+   rebooting both replicas with none dropped; AlexNet's two
+   ``LRN(method="auto")`` units measured on the card into a fresh DB
+   and read back by a second build that measures nothing, its forward
+   sealed as a forward-only artifact (one mean/disp launch) within the
+   bf16 limit of the live predict;
+14. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Goodput: ``runtime.benchmark.benchmark_device()`` runs once after the
@@ -252,6 +277,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 import urllib.error
 import urllib.request
 from unittest import mock
@@ -2097,7 +2123,11 @@ def phase_main_path(torch):
     say({"phase": "serving_capture_witness",
          **_serving_witness(torch, wf, wstate)})
     _serving_agreement(torch, wf, wstate, flat, prompts, greedy)
-    return launches
+    # what the artifact phase holds its sealed programs to
+    live = {"prompts": prompts, "greedy": greedy,
+            "metrics": {"prompt": PROMPT, "new": NEW,
+                        **_serve_metrics(stats_greedy, t_greedy)}}
+    return launches, live
 
 
 class _GaugeSampler:
@@ -2220,6 +2250,7 @@ def _decode_window(torch, engine, prompts, advance):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             s1 = engine.stats()
+            _settle(torch)
     finally:
         engine._thread = None
     if not all(r.done.is_set() and r.error is None for r in reqs):
@@ -3283,6 +3314,7 @@ def _train_profile(torch, trainer,
             trainer.wstate, _ = trainer._train_step(trainer.wstate, b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        _settle(torch)
     rec = _busy(prof, wall, window, steps=len(batches))
     rec["launch_trace"] = _launch_trace_check(
         prof, counted0, [(trainer._train_step, len(batches))])
@@ -3290,11 +3322,17 @@ def _train_profile(torch, trainer,
 
 
 def _settle(torch):
-    """A pause after the profiler's step into its active window: kernels
+    """A pause at each end of a profiled window, after the profiler's
+    step into its active window and before the window closes: kernels
     launched right after ``prof.step()`` have been missing from the
     trace (the window's first gather and flash forward, in one run of
-    each kind), so the window starts once the profiler has."""
-    time.sleep(0.1)
+    each kind; 7 of a fleet burst's first paged launches after a 0.1 s
+    pause), and so has one launched just before the window closed (1 of
+    a MoE decode window's 21 paged launches, late in a long run, the
+    start already padded), so each end has a margin.  Nothing launches
+    during the pauses, and each window's wall is taken before the
+    closing one."""
+    time.sleep(0.5)
     torch.cuda.synchronize()
 
 
@@ -3572,6 +3610,7 @@ def phase_profile(torch, engine):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         s1 = engine.stats()
+        _settle(torch)
     rec = _busy(prof, wall, f"{SLOTS} x (prefill {PROFILE_PROMPT} + "
                             f"decode {PROFILE_NEW})")
     c0, c1 = _dispatch_counts(s0), _dispatch_counts(s1)
@@ -4652,6 +4691,7 @@ def _host_profile(torch, trainer):
                 trainer.wstate, _ = step(trainer.wstate, b)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            _settle(torch)
     finally:
         it.close()
     rec = _busy(prof, wall, f"3 AlexNet host-path steps, {IMG_B} images "
@@ -5075,28 +5115,61 @@ def _pp_trainer(torch, name, n_batches, capture=True):
         step_cache=StepCache(capture=capture))
 
 
-def _pp_cli(name):
-    """The config through ``python -m veles_tpu_torch`` (its published 25
-    epochs, captured steps, no mesh)."""
+def _pp_clis(names):
+    """Each config through ``python -m veles_tpu_torch`` (its published 25
+    epochs, captured steps, no mesh), all of them at once on the card
+    (small LMs that leave it mostly idle: one after the other they took
+    ~155 s of the script); each run's record as :func:`_pp_cli_record`
+    makes it, its walls those of concurrent runs."""
+    import tempfile
     here = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "veles_tpu_torch",
-           os.path.join("configs", name + ".json"), "--random-seed", "1"]
-    t0 = time.perf_counter()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    runs = []
     try:
-        r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
-                           timeout=PP_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        fail(f"the {name} CLI run exceeded {PP_TIMEOUT} s")
-    wall = time.perf_counter() - t0
-    if r.returncode != 0:
-        fail(f"the {name} CLI run exited {r.returncode}: {r.stderr[-2000:]}")
-    res = json.loads(r.stdout.strip().splitlines()[-1])
+        for name in names:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
+                "w+")
+            cmd = [sys.executable, "-m", "veles_tpu_torch",
+                   os.path.join("configs", name + ".json"),
+                   "--random-seed", "1"]
+            runs.append((name, subprocess.Popen(
+                cmd, cwd=here, stdout=out, stderr=err, text=True, env=env),
+                out, err, time.perf_counter()))
+        recs = {}
+        for name, proc, out, err, t0 in runs:
+            try:
+                rc = proc.wait(timeout=max(1.0, t0 + PP_TIMEOUT
+                                           - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fail(f"the {name} CLI run exceeded {PP_TIMEOUT} s")
+            wall = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            recs[name] = _pp_cli_record(name, rc, out.read(), err.read(),
+                                        wall, len(runs))
+        return recs
+    finally:
+        for _, proc, out, err, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+            out.close()
+            err.close()
+
+
+def _pp_cli_record(name, rc, stdout, stderr, wall, concurrent):
+    """One config's CLI run: its results, per-epoch decisions and bar."""
+    if rc != 0:
+        fail(f"the {name} CLI run exited {rc}: {stderr[-2000:]}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    r = types.SimpleNamespace(stderr=stderr)
     b = _config(os.path.join("configs", name + ".json"))["loader"][
         "minibatch_size"]
     rec = {"phase": "pipeline_train_cli", "config": f"configs/{name}.json",
            "best_error_pct": res["best_value"],
            "best_epoch": res["best_epoch"], "epochs": res["epochs"],
            "bar": PP_BARS.get(name), "wall_s": wall,
+           "concurrent_runs": concurrent,
            "epoch_wall_s": res["elapsed_s"] / max(res["epochs"], 1),
            "train_step_s_median": res["train_step_s_median"],
            "samples_per_s_median_step": b / res["train_step_s_median"],
@@ -5232,12 +5305,12 @@ def _pp_dropout_timing(torch, B, T, E_, rate):
 
 def phase_pipeline_train(torch):
     """The four pipelined configs: each through the CLI for its 25
-    epochs (no mesh, captured; induction_lm_pp and induction_lm_pp_moe
-    to the 5 % bar), then in-process a captured epoch of PP_BATCHES
-    batches of each with the counts set to 0 before (f32 SIMT flash
-    kernels, two dropout launches a stage dropout a replay, one batch
-    gather a batch) and a profiled window holding them against the
-    trace; the pp_moe step through the kernels against the plain
+    epochs, the four runs at once (no mesh, captured; induction_lm_pp and
+    induction_lm_pp_moe to the 5 % bar), then in-process a captured epoch
+    of PP_BATCHES batches of each with the counts set to 0 before (f32
+    SIMT flash kernels, two dropout launches a stage dropout a replay,
+    one batch gather a batch) and a profiled window holding them against
+    the trace; the pp_moe step through the kernels against the plain
     versions in float32; the path's kernels timed at its shape.  Returns
     the pp_moe path's timing and launches for the kernels line."""
     from veles_tpu_torch.ops.kernels import flash_attention as fa
@@ -5246,7 +5319,7 @@ def phase_pipeline_train(torch):
     from veles_tpu_torch.ops.kernels import fused_dropout as fd
     from veles_tpu_torch.ops.kernels import gather_rows as gr
     torch.backends.cuda.matmul.allow_tf32 = False
-    cli = {name: _pp_cli(name) for name in PP_CONFIGS}
+    cli = _pp_clis(PP_CONFIGS)
     counted = {}
     for name in PP_CONFIGS:
         trainer, counted[name] = _pp_counted(torch, name)
@@ -5471,6 +5544,7 @@ def phase_moe_serving(torch):
            "paged_launches_expected": want,
            "idle_share": prof["device_idle_share"],
            "launch_trace_ok": prof["launch_trace"]["ok"],
+           "launch_trace_mismatch": prof["launch_trace"]["mismatch"],
            "captures": {k: v["captured"] for k, v in st["capture"].items()},
            "recompiles": st["compile"]["recompiles"]}
     rec["ok"] = (rec["generate_equal"] and all(rec["tokens_equal"].values())
@@ -5691,6 +5765,7 @@ def _fleet_trace_window(torch, fleet, prompts):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         s1 = [e.stats() for e in engines]
+        _settle(torch)
     if any(not isinstance(o, tuple) or o[0] != 200 for o in out):
         fail(f"a profiled fleet request failed: {out}")
     replays = []
@@ -6168,6 +6243,654 @@ def _fleet_cli(torch, snapshot):
     return rec
 
 
+# -- the compiled artifact (export, sealed programs, ArtifactRunner) ---------
+
+ART_FLEET_NEW = 8              # the --fleet CLI's greedy requests
+ART_PREEMPT_AT = 8             # decode steps before the forced preemption
+
+
+def _artifact_state(torch, compute_dtype, seed):
+    """The bench LM's workflow (``compute_dtype``) and numpy-seed weights
+    on the card, a fresh copy each call (a swap writes into them)."""
+    return _bench_state(torch, compute_dtype, seed)
+
+
+class _ArtifactChild:
+    """``python -m veles_tpu_torch --serve 0 --artifact ART [extra]`` as a
+    child with no config and no model code, started at once and read
+    later (its boot overlaps the parent's work): :meth:`banner` waits for
+    its banner, :meth:`end` drains it (``POST /admin/drain``) and waits
+    for its exit, :meth:`kill` stops it whatever its state."""
+
+    def __init__(self, art, *extra):
+        import tempfile
+        here = os.path.dirname(os.path.abspath(__file__))
+        # the child's log into a file: a pipe nobody reads until the end
+        # would stall the child once its buffer fills
+        self.err = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch", "--serve", "0",
+             "--artifact", art, "--device", DEVICE, *extra], cwd=here,
+            stdout=subprocess.PIPE, stderr=self.err, text=True)
+        self.doc = None
+        self.boot_s = None
+
+    def banner(self):
+        deadline = time.monotonic() + 300
+        while self.doc is None and time.monotonic() < deadline:
+            line = self.proc.stdout.readline()
+            if not line and self.proc.poll() is not None:
+                break
+            if line.startswith("{"):
+                self.doc = json.loads(line)
+        if self.doc is None:
+            self.err.seek(0)
+            fail(f"--serve --artifact printed no banner (exit "
+                 f"{self.proc.poll()}): {self.err.read()[-3000:]}")
+        if self.boot_s is None:
+            self.boot_s = time.perf_counter() - self.t0
+        return self.doc
+
+    def end(self):
+        """(the drain's status, the exit code)."""
+        try:
+            code = _http_json(self.doc["serving"], "/admin/drain", {})[0]
+            rc = self.proc.wait(timeout=300)
+        finally:
+            self.kill()
+        return code, rc
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+        self.proc.stdout.close()
+        self.err.close()
+
+
+def _artifact_child_serving(torch, child, live, predict_ref):
+    """The sealed bf16 artifact served by the CLI child: the greedy SLOTS
+    x (PROMPT + NEW) request through ``POST /generate`` (tokens equal to
+    the live engine's), its timing and the child's engine stats beside
+    the live engine's, and ``POST /predict`` against the live predict."""
+    banner = child.banner()
+    port = banner["serving"]
+    t0 = time.perf_counter()
+    code, doc = _http_json(port, "/generate", {
+        "prompt": live["prompts"].tolist(), "steps": NEW})
+    wall = time.perf_counter() - t0
+    if code != 200:
+        fail(f"the artifact child's /generate answered {code}: {doc}")
+    toks = np.asarray(doc["tokens"])
+    st = _http_json(port, "/engine")[1]
+    code, pdoc = _http_json(port, "/predict",
+                            {"input": predict_ref["row"].tolist()})
+    if code != 200:
+        fail(f"the artifact child's /predict answered {code}")
+    out = np.asarray(pdoc["output"], np.float32)
+    drain_code, rc = child.end()
+    err_p = float(np.abs(out - predict_ref["live"]).max())
+    return {"boot_s": child.boot_s, "programs": banner.get("programs"),
+            "tokens_equal_live": bool(np.array_equal(toks, live["greedy"])),
+            "greedy_request": {"prompt": PROMPT, "new": NEW,
+                               **_serve_metrics(st, wall)},
+            "live_greedy_request": live["metrics"],
+            "compile": st["compile"], "megastep": st.get("megastep"),
+            "spec": st.get("spec"),
+            "predict_max_abs_err": err_p,
+            "predict_bitwise": bool(np.array_equal(out,
+                                                   predict_ref["live"])),
+            "drain_status": drain_code, "exit": rc}
+
+
+def _logit_delta(torch, runner, eager):
+    """The largest |logit difference| of one prefill position, the same
+    token, page-table row and zeroed caches, through the runner's sealed
+    program and the live (eager) engine's step: what the export's
+    decompositions change."""
+    out = []
+    for eng in (runner, eager):
+        step = eng._fns["prefill"].step
+        caches = {u: {k: torch.zeros_like(t) for k, t in c.items()}
+                  for u, c in eng._caches.items()}
+        buf = torch.zeros_like(step.inputs["buf"])
+        buf[0] = 7
+        buf[L_MAX:L_MAX + eng.n_ptab] = torch.arange(eng.n_ptab)
+        out.append(step.run(caches, {"buf": buf}, None)["logits"].float())
+    return float((out[0] - out[1]).abs().max())
+
+
+def _artifact_runner_checks(torch, r, load_s, live):
+    """The bf16 artifact in this process: an ``ArtifactRunner`` captured
+    at load, driven on this thread.  Plain decode, megastep and verify
+    runs (one sampled row on the verify prompts) bitwise the runner's
+    own plain decode; profiled windows of each program with the paged
+    launches of each replay held to the trace; the forward program's
+    flash launches; counters flat after load."""
+    comp0 = dict(r.stats()["compile"])
+    prompts = live["prompts"]
+    kws = [{}] * SLOTS
+    plain, s0, s1, wall = _driven_run(torch, r, prompts, NEW, kws,
+                                      lambda e, i: e._step_once())
+    plain_metrics = _engine_metrics(r, s0, s1, wall)
+    mega, s0, s1, wall = _driven_run(torch, r, prompts, NEW, kws,
+                                     lambda e, i: e._megastep_once())
+    mega_metrics = _engine_metrics(r, s0, s1, wall)
+    rng = np.random.default_rng(21)
+    phrases = rng.integers(0, VOCAB, (SLOTS, SPEC_PHRASE))
+    sp = np.stack([np.resize(p, SPEC_PROMPT) for p in phrases]
+                  ).astype(np.int32)
+    skw = [{}] * (SLOTS - 1) + [dict(temperature=0.8, top_k=50, seed=7)]
+    sp_plain = _driven_run(torch, r, sp, SPEC_NEW, skw,
+                           lambda e, i: e._step_once())[0]
+    sp_ver, s0, s1, wall = _driven_run(torch, r, sp, SPEC_NEW, skw,
+                                       _verify_always)
+    window = np.random.default_rng(12).integers(
+        0, VOCAB, (SLOTS, PROFILE_PROMPT)).astype(np.int32)
+    windows = {
+        "decode": _decode_window(torch, r, window,
+                                 lambda e, i: e._step_once()),
+        "megastep": _decode_window(torch, r, window,
+                                   lambda e, i: e._megastep_once()),
+        "verify": _decode_window(torch, r, window, _verify_always)}
+    per_replay = {k: w["launch_trace"]["per_replay_by_kind"].get(k, {})
+                  .get(PAGED_F32) for k, w in windows.items()}
+    traces_ok = all(w["launch_trace"]["ok"] and w["launch_trace"]["captured"]
+                    for w in windows.values())
+    # the sealed forward in this process: the flash kernel's launches
+    from veles_tpu_torch.ops.kernels import flash_attention
+    f0 = flash_attention.launches.count
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        0, VOCAB, (PREDICT_B, PREDICT_T)).astype(np.int32)).to(DEVICE)
+    logits = r.predict(r.wstate, {"@input": x})
+    torch.cuda.synchronize()
+    flash_launches = flash_attention.launches.count - f0
+    eager = _serve_engine(live["wf"], live["ws"], capture=False)
+    delta = _logit_delta(torch, r, eager)
+    del eager
+    st = r.stats()
+    r.stop()
+    rec = {"load_s": load_s, "programs": st["artifact"]["programs"],
+           "compile_at_load": comp0, "compile_end": st["compile"],
+           "tokens_equal_live": bool(np.array_equal(plain, live["greedy"])),
+           "megastep_equal_plain": bool(np.array_equal(mega, plain)),
+           "verify_equal_plain": bool(np.array_equal(sp_ver, sp_plain)),
+           "decode": plain_metrics, "megastep": mega_metrics,
+           "verify": {"wall_s": wall, "tokens_per_s_all_slots":
+                      (s1["decode_tokens"] - s0["decode_tokens"]) / wall},
+           "accepted": s1["spec"]["accepted"] - s0["spec"]["accepted"],
+           "paged_per_replay": per_replay,
+           "windows": {k: {"idle_share": w["device_idle_share"],
+                           "replays": w["replays"]}
+                       for k, w in windows.items()},
+           "forward_flash_launches": flash_launches,
+           "prefill_logit_max_abs_delta_vs_live": delta,
+           "forward_finite": bool(torch.isfinite(logits.float()).all())}
+    rec["ok"] = (rec["tokens_equal_live"] and rec["megastep_equal_plain"]
+                 and rec["verify_equal_plain"] and traces_ok
+                 and per_replay == {"decode": LAYERS,
+                                    "megastep": LAYERS * MEGASTEP_N,
+                                    "verify": LAYERS * (SPEC_K + 1)}
+                 and comp0["captures"] == comp0["compiles"] == 7
+                 and st["compile"]["compiles"] == comp0["compiles"]
+                 and st["compile"]["recompiles"] == 0
+                 and flash_launches == LAYERS and rec["forward_finite"])
+    return rec
+
+
+def _artifact_preempt(torch, runner, prompts):
+    """A float32 runner's slot 0 preempted after ART_PREEMPT_AT decode
+    steps and resumed (re-prefilled from prompt + its tokens so far):
+    every row bitwise the same requests decoded without interruption."""
+    kws = [{}] * SLOTS
+    ref = _driven_run(torch, runner, prompts, NEW, kws,
+                      lambda e, i: e._step_once())[0]
+
+    def advance(e, i):
+        if i == ART_PREEMPT_AT:
+            e._preempt(0)
+            e._admit()
+            while e._chunking:
+                e._advance_prefills()
+        e._step_once()
+
+    pre0 = runner.stats()["admission"]["preemptions"]
+    got = _driven_run(torch, runner, prompts, NEW, kws, advance)[0]
+    return {"preemptions": runner.stats()["admission"]["preemptions"] - pre0,
+            "equal_uninterrupted": bool(np.array_equal(got, ref))}
+
+
+def _artifact_swaps(torch, art_f32, sources, refs):
+    """Hot swaps of a float32 ``ArtifactRunner`` (booted from
+    ``art_f32``) under the lifecycle's load, from each of ``sources``:
+    no request failed, nothing recaptured, the probe's tokens after each
+    swap those of a live engine on the swapped weights (``refs``)."""
+    from veles_tpu_torch.runtime.artifact import ArtifactRunner
+    from veles_tpu_torch.runtime.deploy import DeployController
+    from veles_tpu_torch.runtime.restful import RestfulServer
+    rng = np.random.default_rng(33)
+    load = rng.integers(0, VOCAB, (LIFE_THREADS, LIFE_PROMPT)).astype(
+        np.int32)
+    probe = rng.integers(0, VOCAB, (1, LIFE_PROMPT)).astype(np.int32)
+    r = ArtifactRunner(art_f32, window_ms=2.0, device=DEVICE)
+    srv = RestfulServer(r.predict, r.wstate, PREDICT_B, (PREDICT_T,),
+                        port=0, engine=r, device=DEVICE)
+    preempt = _artifact_preempt(torch, r, np.random.default_rng(34)
+                                .integers(0, VOCAB, (SLOTS, F32_PROMPT))
+                                .astype(np.int32))
+    r.start()
+    srv.start()
+    DeployController(server=srv, boot_source=art_f32)
+    swaps = []
+    try:
+        for name, source in sources:
+            ref = refs[name](probe)
+            s = _swap_under_load(r, srv.port, load, probe, source, ref)
+            s["name"] = name
+            swaps.append(s)
+        st = r.stats()
+    finally:
+        srv.stop()
+        r.stop()
+    ok = preempt["preemptions"] == 1 and preempt["equal_uninterrupted"] \
+        and st["compile"]["recompiles"] == 0 and all(
+            s["status"] == 200 and s["failed"] == 0
+            and s["captures"][0] == s["captures"][1]
+            and s["tokens_equal_file_boot"] for s in swaps)
+    return {"swaps": swaps, "preempt_f32": preempt,
+            "compile": st["compile"], "ok": ok}
+
+
+def _artifact_fleet(torch, child, ref_fn):
+    """``--serve 0 --artifact ART --fleet 2``: greedy requests through the
+    router equal ``generate()``'s, then a rolling drain under load
+    (``POST /admin/rolling-drain``) reboots both replicas from the
+    artifact with no request dropped."""
+    import threading
+    prompts = np.random.default_rng(35).integers(
+        0, VOCAB, (4, F32_PROMPT)).astype(np.int32)
+    banner = child.banner()
+    port = banner["serving"]
+    rec = {"boot_s": child.boot_s,
+           "replicas": len(banner.get("replicas", []))}
+    try:
+        outs = _concurrent(lambda p: _http_json(port, "/generate", {
+            "prompt": [p.tolist()], "steps": ART_FLEET_NEW}), list(prompts))
+        rec["tokens_equal_generate"] = all(
+            code == 200 and doc["tokens"] == ref_fn(p[None]).tolist()
+            for (code, doc), p in zip(outs, prompts))
+        codes, stop, lock = [], threading.Event(), threading.Lock()
+        threads = [threading.Thread(target=_hammer, args=(
+            port, prompts[i % len(prompts)][None], ART_FLEET_NEW, stop,
+            codes, lock)) for i in range(FLEET_THREADS)]
+        for t in threads:
+            t.start()
+        try:
+            _wait(lambda: len(codes) >= FLEET_THREADS, 300, "load to flow")
+            t0 = time.perf_counter()
+            code = _http_json(port, "/admin/rolling-drain", {})[0]
+            if code != 202:
+                fail(f"POST /admin/rolling-drain answered {code}")
+
+            def drained():
+                d = _http_json(port, "/fleet.json")[1].get(
+                    "last_rolling_drain") or {}
+                return d if d.get("completed") is not None else None
+
+            _wait(lambda: drained() is not None, 600, "the rolling drain")
+            drain = drained()
+            rec["drain_s"] = time.perf_counter() - t0
+            n = len(codes)
+            _wait(lambda: len(codes) >= n + FLEET_THREADS, 300,
+                  "load after the drain")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(900)
+        rec["rolling_drain"] = {
+            "completed": drain["completed"], "requests": len(codes),
+            "failed": sum(c != 200 for c in codes),
+            "readmitted": [x.get("readmitted")
+                           for x in drain.get("replicas", [])]}
+    finally:
+        rec["drain_status"], rec["exit"] = child.end()
+    rec["ok"] = (rec["replicas"] == 2 and rec["tokens_equal_generate"]
+                 and rec["rolling_drain"]["completed"]
+                 and rec["rolling_drain"]["failed"] == 0
+                 and rec["exit"] == 0)
+    return rec
+
+
+def _artifact_autotune(torch, work_dir):
+    """AlexNet's two ``LRN(method="auto")`` units at the image phase's
+    shape (IMG_B x 227 x 227 x 3): the first build measures the three
+    formulations forward plus backward on the card and writes the DB (a
+    fresh one under ``work_dir``), a second build reads it and measures
+    nothing; then the second build's forward sealed as a forward-only
+    artifact (mean/disp and the picked LRN inside), served by
+    ``load_forward`` against the live predict."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.export.compiled import export_compiled
+    from veles_tpu_torch.models import alexnet
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.ops.kernels import mean_disp
+    from veles_tpu_torch.runtime import autotune
+    from veles_tpu_torch.runtime.artifact import load_forward
+    from veles_tpu_torch.runtime.benchmark import (device_kind,
+                                                   load_device_infos)
+    from veles_tpu_torch.units.base import Spec
+    specs = {"@input": Spec((IMG_B, alexnet.INPUT_HW, alexnet.INPUT_HW, 3),
+                            torch.uint8),
+             "@labels": Spec((IMG_B,), torch.int32),
+             "@mask": Spec((IMG_B,), torch.float32)}
+    prev = (root.common.cache_dir, root.common.autotune)
+    root.common.cache_dir = os.path.join(work_dir, "autotune_db")
+    root.common.autotune = True
+    measured = []
+    real_measure = autotune.measure
+
+    def counting(fn, args, *a, **kw):
+        measured.append(1)
+        return real_measure(fn, args, *a, **kw)
+
+    try:
+        autotune._memo.clear()
+        builds = []
+        with mock.patch.object(autotune, "measure", counting):
+            for _ in range(2):
+                n0 = len(measured)
+                sw = StandardWorkflow(alexnet._e2e_config())
+                sw.workflow.build(specs)
+                t0 = time.perf_counter()
+                ws = sw.workflow.init_state(0, device=DEVICE)
+                torch.cuda.synchronize()
+                builds.append({
+                    "measured": len(measured) - n0,
+                    "init_s": time.perf_counter() - t0,
+                    "methods": [u.method for u in sw.workflow.units
+                                if u.name.startswith("lrn")]})
+                autotune._memo.clear()     # the second build: a new run
+        db = load_device_infos()[device_kind(DEVICE)]["autotune"]
+        art = os.path.join(work_dir, "alexnet_forward")
+        t0 = time.perf_counter()
+        man = export_compiled(sw.workflow, ws, art)
+        export_s = time.perf_counter() - t0
+    finally:
+        root.common.cache_dir, root.common.autotune = prev
+    predict, aws, _ = load_forward(art, device=DEVICE)
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, tuple(specs["@input"].shape)).astype(np.uint8)).to(DEVICE)
+    m0 = mean_disp.launches.count
+    got = predict(aws, {"@input": x})
+    torch.cuda.synchronize()
+    md = mean_disp.launches.count - m0
+    ref = sw.workflow.make_predict_step("fc8")(ws, {"@input": x})
+    err = float((got.float() - ref.float()).abs().max())
+    rec = {"shape": list(specs["@input"].shape), "builds": builds,
+           "db": db, "forward_export_s": export_s,
+           "decode_unsupported": man.get("decode_unsupported"),
+           "forward_mean_disp_launches": md, "forward_max_abs_err": err}
+    rec["ok"] = (builds[0]["measured"] > 0 and builds[1]["measured"] == 0
+                 and builds[0]["methods"] == builds[1]["methods"]
+                 and "auto" not in builds[0]["methods"] and len(db) >= 1
+                 and md == 1 and err <= FLASH_TOL["bfloat16"])
+    return rec
+
+
+def export_artifacts(work_dir):
+    """The artifact phase's two exports, run in a child process the
+    script starts after the build (:class:`_ArtifactExport`) so that the
+    host work of tracing and saving overlaps the earlier phases: the
+    serving phase's bf16 LM (seed 0; megastep MEGASTEP_N, spec k SPEC_K,
+    the paged kernel) and the float32 LM (seed 1; decode and prefill
+    alone) under ``work_dir``.  Prints one JSON line: each export's
+    seconds, programs and blob sizes."""
+    import torch
+    from veles_tpu_torch.export.compiled import export_compiled
+    out = {"torch": torch.__version__}
+    for tag, dtype, seed, kw in (
+            ("bf16", "bfloat16", 0, dict(megastep=MEGASTEP_N, spec=True,
+                                         spec_k=SPEC_K)),
+            ("f32", None, 1, dict(megastep=1, spec=False))):
+        wf, ws = _bench_state(torch, dtype, seed)
+        art = os.path.join(work_dir, f"bench_lm_{tag}")
+        t0 = time.perf_counter()
+        man = export_compiled(wf, ws, art, slots=SLOTS, l_max=L_MAX,
+                              page_size=PAGE, paged=True, paged_kernel=True,
+                              **kw)
+        out[tag] = {"dir": art, "seconds": time.perf_counter() - t0,
+                    "programs": sorted(man["programs"]),
+                    "decode_unsupported": man.get("decode_unsupported"),
+                    "blob_bytes": {
+                        os.path.relpath(os.path.join(dp, f), art):
+                        os.path.getsize(os.path.join(dp, f))
+                        for dp, _, fs in os.walk(art) for f in fs}}
+        del ws
+    print(json.dumps(out), flush=True)
+
+
+class _ArtifactExport:
+    """:func:`export_artifacts` in a child process, started at once and
+    waited for by the artifact phase; killed at exit if the script fails
+    before then."""
+
+    def __init__(self, work_dir):
+        import atexit
+        import tempfile
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.err = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.export_artifacts({work_dir!r})"],
+            cwd=here, stdout=subprocess.PIPE, stderr=self.err, text=True)
+        atexit.register(self.kill)
+
+    def wait(self):
+        """The child's record, and the seconds the parent waited for it."""
+        t0 = time.perf_counter()
+        try:
+            out, _ = self.proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail("the artifact export child ran past 900 s")
+        waited = time.perf_counter() - t0
+        if self.proc.returncode != 0:
+            self.err.seek(0)
+            fail(f"the artifact export child exited "
+                 f"{self.proc.returncode}: {self.err.read()[-3000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        rec["child_wall_s"] = time.perf_counter() - self.t0
+        rec["parent_waited_s"] = waited
+        self.err.close()
+        return rec
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+
+
+def _custom_op_host_cost(torch):
+    """Host microseconds of one call of each export-path kernel through
+    its wrapper and custom op against one direct launch of the kernel
+    (``_launch``), at shapes whose device work is below the host's (so
+    the loop measures the host), in turns op, direct, direct, op: the
+    dispatcher's cost per eager call, which a graph replay does not
+    pay."""
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import mean_disp as md
+    from veles_tpu_torch.ops.kernels import paged_attention as pa
+    dev, Dh = DEVICE, E // HEADS
+    n_ptab = 4
+    q = torch.randn(SLOTS, HEADS, Dh, device=dev)
+    kp = torch.randn(SLOTS * n_ptab + 1, PAGE, HEADS, Dh, device=dev)
+    vp = torch.randn_like(kp)
+    ptab = torch.arange(SLOTS * n_ptab, dtype=torch.int32,
+                        device=dev).view(SLOTS, n_ptab)
+    pos = torch.full((SLOTS,), 40, dtype=torch.int32, device=dev)
+    qf, kf, vf = (torch.randn(1, 128, HEADS, Dh, device=dev,
+                              dtype=torch.bfloat16) for _ in range(3))
+    x = torch.randint(0, 256, (4, 32, 32, 3), dtype=torch.uint8, device=dev)
+    mean = torch.rand(32, 32, 3, device=dev)
+    rdisp = torch.rand(32, 32, 3, device=dev)
+    cases = {
+        pa.NAME: (lambda: pa.paged_attention_decode(
+            q, kp, vp, ptab, pos, page_size=PAGE, n_kv_heads=HEADS),
+            lambda: pa._launch(q, kp, vp, ptab, pos, 1, PAGE, Dh ** -0.5,
+                               None)),
+        fa.NAME: (lambda: fa.flash_attention(qf, kf, vf, True),
+                  lambda: fa._launch(qf, kf, vf, True, Dh ** -0.5, None)),
+        md.NAME: (lambda: md.mean_disp_normalize(x, mean, rdisp),
+                  lambda: md._launch(x, mean, rdisp))}
+    out = {}
+    for name, (op, direct) in cases.items():
+        us = {"op": [], "direct": []}
+        for label, fn in (("op", op), ("direct", direct),
+                          ("direct", direct), ("op", op)):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            us[label].append((time.perf_counter() - t0) / 500 * 1e6)
+            torch.cuda.synchronize()
+        out[name] = {"op_us": us["op"], "direct_us": us["direct"],
+                     "op_cost_us": min(us["op"]) - min(us["direct"])}
+    return out
+
+
+def phase_artifact(torch, live, work_dir, exporter):
+    """The compiled artifact at the serving phase's full width (see the
+    module docstring, phase 13).  The two exports ran in ``exporter``'s
+    child beside the earlier phases; the CLI children boot while this
+    process loads (their loads are host work); the timed request runs
+    once both have booted."""
+    from veles_tpu_torch.export.package import export_package
+    from veles_tpu_torch.forge.store import ForgeStore
+    from veles_tpu_torch.ops.kernels import flash_attention, paged_attention
+    from veles_tpu_torch.runtime.artifact import ArtifactRunner, read_manifest
+    from veles_tpu_torch.runtime.generate import generate
+    laps = {}
+    t_lap = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_lap
+        now = time.perf_counter()
+        laps[name] = now - t_lap
+        t_lap = now
+
+    # 1. the exports (the child's): bf16 (megastep, spec, forward) and
+    # float32
+    exp = exporter.wait()
+    say({"phase": "artifact_export", **exp})
+    art, art32 = exp["bf16"]["dir"], exp["f32"]["dir"]
+    man = read_manifest(art)
+    if man.get("decode_unsupported") or len(man["programs"]) != 8 \
+            or len(exp["f32"]["programs"]) != 4:
+        fail(f"the exports sealed {sorted(man['programs'])} / "
+             f"{exp['f32']['programs']}: {man.get('decode_unsupported')}")
+    wf, ws = _artifact_state(torch, "bfloat16", 0)
+    children = [_ArtifactChild(art)]
+    try:
+        # the live predict the sealed forward is held to
+        row = np.random.default_rng(7).integers(
+            0, VOCAB, (1, PREDICT_T)).astype(np.int32)
+        batch = np.zeros((PREDICT_B, PREDICT_T), np.int32)
+        batch[:1] = row
+        live_pred = wf.make_predict_step()(ws, {"@input": torch.from_numpy(
+            batch).to(DEVICE)})[:1].float().cpu().numpy()
+        live = dict(live, wf=wf, ws=ws)
+        wf32, ws1 = _artifact_state(torch, None, 1)
+        children.append(_ArtifactChild(art32, "--fleet", "2"))
+        lap("export")
+        # 2. the bf16 runner in this process, loaded while the children
+        # boot
+        t0 = time.perf_counter()
+        runner = ArtifactRunner(art, window_ms=2.0, device=DEVICE)
+        load_s = time.perf_counter() - t0
+        for c in children:
+            c.banner()
+        lap("load")
+        # 3. the CLI child: greedy and /predict, both children idle
+        child = _artifact_child_serving(torch, children[0], live,
+                                        {"row": row, "live": live_pred})
+        say({"phase": "artifact_child", **child})
+        lap("child")
+        if not (child["tokens_equal_live"] and child["exit"] == 0
+                and child["compile"]["recompiles"] == 0
+                and child["compile"]["captures"]
+                == child["compile"]["compiles"]
+                and child["predict_max_abs_err"] <= FLASH_TOL["bfloat16"]):
+            fail(f"the artifact CLI child failed its checks: {child}")
+        # 4. the runner: megastep, verify, launches, forward
+        _reset_counts()
+        checks = _artifact_runner_checks(torch, runner, load_s, live)
+        launches = {k.NAME: k.launches.count
+                    for k in (flash_attention, paged_attention)}
+        del runner, live, ws
+        say({"phase": "artifact_runner", **checks, "launches": launches})
+        lap("runner")
+        if not checks["ok"]:
+            fail(f"the artifact runner failed its checks: {checks}")
+        # 5. float32 swaps from a second artifact, a package and a forge
+        # store
+        wf2, ws2 = _artifact_state(torch, None, 2)
+        pkg = os.path.join(work_dir, "bench_lm_pkg")
+        export_package(wf2, ws2, pkg)
+        wf3, ws3 = _artifact_state(torch, None, 3)
+        pkg3 = os.path.join(work_dir, "bench_lm_pkg3")
+        export_package(wf3, ws3, pkg3)
+        store = os.path.join(work_dir, "forge")
+        ForgeStore(store).add(ForgeStore.pack_dir(pkg3, {
+            "name": "bench_lm", "workflow": "contents.json",
+            "configuration": "contents.json", "author": "chip_smoke",
+            "short_description": "the bench LM, seed 3"}))
+        _, ws0 = _artifact_state(torch, None, 0)
+
+        def live_ref(w):
+            def ref(probe):
+                eng = _serve_engine(wf32, w, capture=False).start()
+                try:
+                    return eng.generate(probe, LIFE_NEW, timeout=900)
+                finally:
+                    eng.stop()
+            return ref
+
+        swaps = _artifact_swaps(torch, art32, [
+            ("artifact", "artifact://" + art), ("package", pkg),
+            ("forge", f"forge://{store}/bench_lm")],
+            {"artifact": live_ref(ws0), "package": live_ref(ws2),
+             "forge": live_ref(ws3)})
+        say({"phase": "artifact_swaps", **swaps})
+        lap("swaps")
+        if not swaps["ok"]:
+            fail(f"the artifact swaps failed their checks: {swaps}")
+        del ws0, ws2, ws3
+        # 6. the --fleet 2 CLI over the float32 artifact
+        fleet = _artifact_fleet(torch, children[1], lambda p: generate(
+            wf32, ws1, p, ART_FLEET_NEW).cpu().numpy())
+        say({"phase": "artifact_fleet", **fleet})
+        lap("fleet")
+        if not fleet["ok"]:
+            fail(f"the artifact fleet failed its checks: {fleet}")
+    finally:
+        for c in children:
+            c.kill()
+    say({"phase": "artifact_custom_op_host_cost",
+         **_custom_op_host_cost(torch)})
+    # 7. autotune: AlexNet's LRN units measured once, then read
+    tune = _artifact_autotune(torch, work_dir)
+    launches["mean_disp_normalize"] = tune["forward_mean_disp_launches"]
+    say({"phase": "artifact_autotune", **tune})
+    lap("autotune")
+    if not tune["ok"]:
+        fail(f"the LRN autotune failed its checks: {tune}")
+    say({"phase": "artifact_laps", **laps})
+    return launches
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     try:
@@ -6199,14 +6922,18 @@ def main():
 
     name, smi = timed("device", phase_device, torch)
     timed("build", phase_build)
+    import tempfile
+    # the artifact phase's exports: host work in a child, beside the
+    # phases up to it
+    a_tmp = tempfile.TemporaryDirectory(prefix="vt_artifact_")
+    exporter = _ArtifactExport(a_tmp.name)
     timing = timed("kernels", phase_kernels, torch)
     timing.update(timed("train_kernels", phase_train_kernels, torch))
     timing.update(timed("image_kernels", phase_image_kernels, torch))
     timed("device_benchmark", phase_device_benchmark, torch)
-    serve_launches = timed("serving", phase_main_path, torch)
+    serve_launches, live = timed("serving", phase_main_path, torch)
     bf16_launches = timed("serving_bf16_cache", phase_bf16_cache, torch)
     f16_launches = timed("serving_f16_cache", phase_f16_cache, torch)
-    import tempfile
     with tempfile.TemporaryDirectory(prefix="vt_lifecycle_") as snap_dir:
         timed("serving_lifecycle", phase_lifecycle, torch, snap_dir)
     rec_serve = timed("recurrent_serving", phase_recurrent_serving, torch)
@@ -6238,6 +6965,11 @@ def main():
     timing.update(pp["timing"])
     timed("distributed_one_rank", phase_distributed_one_rank, torch)
     moe = timed("moe_serving", phase_moe_serving, torch)
+    # last: the artifact phase's runners, children and loaded programs
+    # stay out of every earlier phase's profiled windows
+    with a_tmp as a_dir:
+        art_launches = timed("artifact", phase_artifact, torch, live, a_dir,
+                             exporter)
     timing["paged_attention_decode/moe_serving"] = moe["timing"]
     # each kernel's launches on its own path: paged decode on the serving
     # path, dropout and mean/disp on the image path, the rest on the LM
@@ -6284,6 +7016,12 @@ def main():
         **timing["paged_attention_decode"], "path": "fleet"}
     timing["mean_disp_normalize/image_host"] = {
         **timing["mean_disp_normalize"], "path": "image_host"}
+    # this slice's path: the sealed programs of the compiled artifact
+    # (paged decode in the runner's decode, megastep and verify replays,
+    # the flash forward in its forward program, mean/disp in AlexNet's)
+    for kname, n in art_launches.items():
+        launches[kname + "/artifact"] = n
+        timing[kname + "/artifact"] = {**timing[kname], "path": "artifact"}
     line = []
     for kern in KERNELS:
         names = [kern.NAME] + [k for k in timing

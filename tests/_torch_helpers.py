@@ -11,6 +11,7 @@ import time
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import veles_tpu as vt
@@ -20,6 +21,19 @@ from veles_tpu_torch.models.standard import build_workflow as port_build
 from veles_tpu_torch.runtime.snapshotter import params_from_jax
 from veles_tpu_torch.units.base import Spec
 from veles_tpu_torch.units.workflow import new_state
+
+@pytest.fixture(autouse=True)
+def port_autotune_off():
+    """The port's measured op picks off (``LRN(method="auto")`` is then
+    "cumsum"), as tests/conftest.py turns the JAX package's off: a
+    parity test must not depend on which formulation a timing picked.
+    Autouse in every module that imports it."""
+    from veles_tpu_torch.config import root as port_root
+    prev = port_root.common.autotune
+    port_root.common.autotune = False
+    yield
+    port_root.common.autotune = prev
+
 
 CONFIGS = os.path.join(os.path.dirname(__file__), os.pardir, "configs")
 

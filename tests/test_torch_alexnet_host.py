@@ -25,6 +25,7 @@ from veles_tpu_torch.loader.base import TRAIN, VALID  # noqa: E402
 from veles_tpu_torch.models import alexnet  # noqa: E402
 from veles_tpu_torch.runtime.decision import Decision  # noqa: E402
 from veles_tpu_torch.runtime.snapshotter import wstate_from_jax  # noqa: E402
+from _torch_helpers import port_autotune_off  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

@@ -2,7 +2,12 @@
 train mode's ``--result-file`` carries every key of the JAX result for
 the same config; ``--generate`` greedy and ``--beams 3`` give the JAX
 CLI's tokens (beam scores within rtol 1e-5) on the same JAX-written
-snapshot; the decode flags' checks refuse with the JAX CLI's messages.
+snapshot; the decode flags' checks refuse with the JAX CLI's messages;
+``--export DIR`` writes the JAX CLI's package, ``--export DIR
+--compiled`` a sealed artifact that ``--serve 0 --artifact DIR`` serves
+with no config (the tokens of the port's ``generate()`` on the same
+snapshot), and the export and artifact flags refuse what the JAX CLI
+refuses.
 Each CLI run is a subprocess on the CPU (a CLI sets its package's
 process-wide config and PRNG streams); the port's runs cannot import
 JAX."""
@@ -154,3 +159,99 @@ def test_prompt_parsing():
     assert _parse_prompt("1,2,3;4,5,6").tolist() == [[1, 2, 3], [4, 5, 6]]
     with pytest.raises(SystemExit, match="equal length"):
         _parse_prompt("1,2;3")
+
+
+def test_export_writes_the_jax_cli_package(trained):
+    """``CONFIG --snapshot SNAP --export DIR`` in both CLIs: the same
+    ``contents.json`` and the same npy bytes."""
+    cfg, _, snap, d = trained
+    (d / "port").mkdir(exist_ok=True)
+    _cli(d / "jax", "veles_tpu", cfg, "--snapshot", snap, "--export",
+         str(d / "pkg_jax"))
+    out = _cli(d / "port", "veles_tpu_torch", cfg, "--snapshot", snap,
+               "--export", str(d / "pkg_port"))
+    assert out["exported"] == str(d / "pkg_port")
+    want = json.loads((d / "pkg_jax" / "contents.json").read_text())
+    got = json.loads((d / "pkg_port" / "contents.json").read_text())
+    assert got == want
+    for u in got["units"]:
+        for fname in u["weights"].values():
+            assert (d / "pkg_port" / fname).read_bytes() == \
+                (d / "pkg_jax" / fname).read_bytes()
+
+
+def test_export_compiled_then_serve_the_artifact_with_no_config(trained):
+    """``--export DIR --compiled`` seals the restored model; ``--serve 0
+    --artifact DIR`` (no config, JAX unimportable) boots it and answers
+    ``POST /generate`` with the port's ``generate()`` tokens on the same
+    snapshot, then drains to exit 0 on ``POST /admin/drain``."""
+    import urllib.request
+    from veles_tpu_torch.models.standard import StandardWorkflow
+    from veles_tpu_torch.runtime.generate import generate
+    from veles_tpu_torch.runtime.snapshotter import wstate_from_snapshot
+    from veles_tpu_torch.units.base import Spec
+    cfg, _, snap, d = trained
+    (d / "port").mkdir(exist_ok=True)
+    art = str(d / "art")
+    out = _cli(d / "port", "veles_tpu_torch", cfg, "--snapshot", snap,
+               "--export", art, "--compiled")
+    assert out["compiled"] and "programs/decode.pt2" in \
+        out["manifest"]["programs"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(d / "port"),
+                                                       REPO]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_tpu_torch", "--serve", "0",
+         "--artifact", art, "--device", "cpu"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        banner = json.loads(proc.stdout.readline())
+        assert banner["artifact"] == art and banner["engine"]
+        rows = [[1, 2, 3, 4, 5, 6, 1, 2], [7, 8, 9, 10, 11, 12, 7, 8]]
+
+        def post(path, body):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{banner['serving']}{path}",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read() or b"{}")
+
+        got = post("/generate", {"prompt": rows, "steps": 6})["tokens"]
+        post("/admin/drain", {})
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+        proc.stdout.close()
+    sw = StandardWorkflow(json.loads(open(cfg).read())["workflow"])
+    wf = sw.workflow
+    wf.build({"@input": Spec((20, 16), torch.int32),
+              "@labels": Spec((20, 16), torch.int32),
+              "@mask": Spec((20, 16), torch.float32)})
+    ws = wstate_from_snapshot(snap, wf, device="cpu")
+    assert got == generate(wf, ws, np.asarray(rows, np.int32),
+                           6).tolist()
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["cfg.json", "--compiled"], "--compiled modifies --export DIR"),
+    (["cfg.json", "--export", "d", "--serve", "0"],
+     "--export writes the (restored) model and exits"),
+    (["--artifact", "d"], "--artifact serves a compiled artifact and "
+                          "needs --serve PORT"),
+    (["cfg.json", "--serve", "0", "--artifact", "d"],
+     "a workflow config cannot apply"),
+    (["--serve", "0", "--artifact", "d", "--export", "x"],
+     "--export needs the model config to package"),
+    (["--serve", "0", "--artifact", "d", "--snapshot", "s"],
+     "--snapshot cannot apply"),
+    (["--serve", "0", "--artifact", "d", "--generate", "2"],
+     "--generate is a one-shot decode"),
+], ids=["compiled_alone", "export_serve", "artifact_no_serve",
+        "artifact_config", "artifact_export", "artifact_snapshot",
+        "artifact_generate"])
+def test_export_and_artifact_flags_refused(argv, message):
+    with pytest.raises(SystemExit) as e:
+        port_main(argv)
+    assert message in str(e.value)

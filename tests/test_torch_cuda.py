@@ -29,7 +29,11 @@ swap into the captured graphs bitwise a fresh engine on the new weights;
 a two-replica fleet of captured engines bitwise one of eager engines,
 and a replica rebuilt (captured) while two others decode side by side,
 every answer the reference tokens; a process whose memory poller samples
-the card without pause exits cleanly.
+the card without pause exits cleanly; each export-path kernel's
+``torch.library`` custom op bitwise its direct launch on the card and its
+plain version on the CPU; a bf16 artifact exported on the card serving
+the live engine's greedy tokens from its captured programs (paged
+launches exact a replay, nothing built after load), refused on the CPU.
 """
 
 import contextlib
@@ -1731,3 +1735,138 @@ def test_process_with_the_memory_poller_exits_cleanly(card):
                            capture_output=True, text=True, timeout=300)
         assert r.returncode == 0, r.stderr[-2000:]
         assert "terminate called" not in r.stderr
+
+
+# -- the export path's custom ops and sealed artifacts -----------------------
+
+def _direct_and_op(card, mod):
+    """One call of ``mod``'s kernel through its custom op (CUDA and CPU
+    tensors) and through the direct launch, at a serving-sized shape:
+    (op on the card, direct launch, op on the CPU, plain on the CPU)."""
+    g = torch.Generator().manual_seed(3)
+    if mod is pa:
+        B, H, Hk, Dh, psz, n_ptab = 4, 8, 2, 64, 16, 8
+        rows = B * n_ptab + 1
+        q = torch.randn(B, H, Dh, generator=g)
+        kp = torch.randn(rows, psz, Hk, Dh, generator=g)
+        vp = torch.randn(rows, psz, Hk, Dh, generator=g)
+        ptab = torch.randperm(rows - 1, generator=g)[:B * n_ptab].view(
+            B, n_ptab).int()
+        pos = torch.tensor([0, 17, 63, 127], dtype=torch.int32)
+        kw = dict(page_size=psz, n_kv_heads=Hk, scale=Dh ** -0.5)
+        args = (q, kp, vp, ptab, pos)
+        dev = [t.to(card) for t in args]
+        return (pa.paged_attention_decode(*dev, **kw),
+                pa._launch(*dev, H // Hk, psz, Dh ** -0.5, None),
+                pa.paged_attention_decode(*args, **kw),
+                pa.paged_attention_decode_plain(*args, **kw))
+    if mod is fa:
+        q, k, v = (torch.randn(2, 256, 8, 64, generator=g).to(bf16)
+                   for _ in range(3))
+        dev = [t.to(card) for t in (q, k, v)]
+        return (fa.flash_attention(*dev, True),
+                fa._launch(*dev, True, 64 ** -0.5, None),
+                fa.flash_attention(q, k, v, True),
+                fa.flash_attention_plain(q, k, v, causal=True))
+    x = torch.randint(0, 256, (8, 227, 227, 3), generator=g,
+                      dtype=torch.uint8)
+    mean = torch.rand(227, 227, 3, generator=g) * 255
+    rdisp = torch.rand(227, 227, 3, generator=g)
+    dev = [t.to(card) for t in (x, mean, rdisp)]
+    return (md.mean_disp_normalize(*dev), md._launch(*dev),
+            md.mean_disp_normalize(x, mean, rdisp),
+            md.mean_disp_normalize_plain(x, mean, rdisp))
+
+
+@pytest.mark.parametrize("mod", [pa, fa, md],
+                         ids=["paged_attention", "flash_attention",
+                              "mean_disp"])
+def test_custom_op_is_the_kernel_on_the_card_and_plain_on_the_cpu(card,
+                                                                   mod):
+    """Each kernel of the export path through its ``torch.library``
+    custom op: on a CUDA tensor bitwise the direct kernel launch (one
+    counted launch a call), on a CPU tensor bitwise the plain version."""
+    n0 = mod.launches.count
+    op, direct, cpu_op, plain = _direct_and_op(card, mod)
+    torch.cuda.synchronize()
+    assert mod.launches.count - n0 == 2
+    for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                      for x in (op, direct))):
+        assert torch.equal(a, b)
+    for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                      for x in (cpu_op, plain))):
+        assert torch.equal(a, b)
+
+
+def test_bf16_artifact_decode_equals_the_live_engine(card, tmp_path):
+    """A bf16 artifact exported on the card (paged kernel, megastep 4,
+    spec k 3) served by an ArtifactRunner: its captured programs give
+    the live engine's greedy tokens over a driven script, bitwise; each
+    replay adds its paged launches (2 layers: 2, 8, 8); no recapture
+    after load.  Its programs are refused on the CPU."""
+    from veles_tpu_torch.export.compiled import export_compiled
+    from veles_tpu_torch.runtime.artifact import ArtifactError, ArtifactRunner
+    from veles_tpu_torch.runtime.engine import DecodeEngine
+    wf, ws = _serve_lm(card, "bfloat16")
+    kw = dict(slots=4, l_max=128, page_size=16, paged_kernel=True)
+    art = str(tmp_path / "art")
+    export_compiled(wf, ws, art, megastep=4, spec=True, spec_k=3, **kw)
+    runner = ArtifactRunner(art, window_ms=0.0, prefill_chunk=32,
+                            device=card)
+    live = DecodeEngine(wf, ws, window_ms=0.0, prefill_chunk=32,
+                        device=card, **kw)
+    comp0 = dict(runner.stats()["compile"])
+    assert comp0["captures"] == comp0["compiles"] == 7
+    per = {"decode": 2, "megastep": 8, "verify": 8}
+    for kind, n in per.items():
+        for name in (kind, kind + "_greedy"):
+            assert [m for c, (m, _) in runner._fns[name].launches
+                    if c is pa.launches] == [n], name
+    script = {0: [(np.arange(20) % 7, 12, {}), (np.arange(40) % 9, 20, {})],
+              3: [(np.arange(9) % 5, 9, {})]}
+    got = _drive(runner, script, 40)
+    want = _drive(live, script, 40)
+    assert all(r.done.is_set() for r in got)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.result, b.result)
+    comp = runner.stats()["compile"]
+    assert comp["compiles"] == comp0["compiles"] and comp["recompiles"] == 0
+    with pytest.raises(ArtifactError, match="re-export on the serving"):
+        ArtifactRunner(art, device="cpu")
+
+
+def test_a_collection_during_a_capture_frees_no_graph(card):
+    """Dead captured engines are reference cycles that hold CUDA graphs
+    until the cycle collector runs; a collection on the capturing thread
+    inside a capture would destroy their graphs there, a call the capture
+    forbids ("operation not permitted when stream is capturing"), and
+    invalidate it.  Allocation counts trigger a collection, so whether
+    one falls inside a given capture depends on the whole heap; the test
+    holds the condition that rules it out: ``StepCache`` captures with
+    the collector off, and turns it back on after the capture, which
+    then replays cleanly."""
+    import gc
+    from veles_tpu_torch.runtime.step_cache import StepCache
+    seen = []
+
+    class Step:
+        kind = "eval"
+
+        def begin(self, state):
+            return None
+
+        def run(self, state, inputs, host):
+            if torch.cuda.is_current_stream_capturing():
+                seen.append(gc.isenabled())
+            state["x"].add_(1.0)
+            return {"y": state["x"] * 2.0}
+
+    state = {"x": torch.zeros(8, device=card)}
+    assert gc.isenabled()
+    fn = StepCache().get_step("eval", ("gc",), Step, (state, {}))
+    assert fn.captured
+    assert seen and not any(seen)       # captured with the collector off
+    assert gc.isenabled()
+    out = fn(state, None)               # the warm-ups ran on a copy
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], torch.full((8,), 2.0, device=card))

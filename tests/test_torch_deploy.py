@@ -12,8 +12,9 @@ serving; the REST lifecycle endpoints follow the drain contract; the
 watcher swaps with back-off; the gauges reach the status page; a boot
 snapshot is reloadable and dedups the watcher; stage / commit / abort;
 a swap drops the prefix cache and refuses a VTKV1 blob from before it;
-a drain hands its hot pages to a successor.  Export-package, compiled
-artifact and forge sources come with export and are refused here."""
+a drain hands its hot pages to a successor; hot swaps under load from
+a compiled artifact, an export package of either package (a directory
+and a ``.zip``) and a ``forge://`` store, a foreign workflow's refused."""
 
 import json
 import threading
@@ -327,8 +328,8 @@ def test_reload_from_snapshot_updates_registry(tmp_path, pair_a, pair_b,
 def test_reload_failure_leaves_old_serving(tmp_path, pair_a, rng):
     """Every failure of a reload leaves the active version serving: a
     missing file, another architecture (the signature check names the
-    leaves), another workflow's snapshot, and the sources that come with
-    export (a package directory, an artifact, a forge store)."""
+    leaves), another workflow's snapshot, and unusable export sources (a
+    package directory, a .zip, an artifact, a forge store)."""
     jwf, jws, pwf, pws = pair_a
     small = build_pair(OTHER, B=2, T=6, seed=3)
     bad_arch = _snap(tmp_path, small[2], small[3], "bad")
@@ -348,9 +349,17 @@ def test_reload_failure_leaves_old_serving(tmp_path, pair_a, rng):
             dep.reload(bad_arch)
         with pytest.raises(ValueError, match="different workflow"):
             dep.reload(foreign)
-        for src in (str(pkg), str(tmp_path / "m.zip"),
-                    "artifact://" + str(pkg), "forge://store/name"):
-            with pytest.raises(ValueError, match="export"):
+        # the export sources, each unusable here: a package without
+        # units, a missing .zip, a directory that is no artifact, a
+        # forge store that does not hold the name
+        for src, err, match in (
+                (str(pkg), ValueError, "missing key 'units'"),
+                (str(tmp_path / "m.zip"), FileNotFoundError, "m.zip"),
+                ("artifact://" + str(pkg), RuntimeError,
+                 "not a compiled artifact"),
+                (f"forge://{tmp_path}/store/name", ValueError,
+                 "no such package")):
+            with pytest.raises(err, match=match):
                 dep.reload(src)
         assert dep.registry.active_version == 1
         assert dep.swaps == 0 and dep.last_error
@@ -741,3 +750,80 @@ def test_cli_lifecycle_flags(tmp_path):
             proc.wait(30)
     doc = json.loads(trace.read_text())
     assert any(e.get("name") == "request" for e in doc["traceEvents"])
+
+
+def test_reload_from_export_sources_under_load(tmp_path, pair_a, pair_b,
+                                               rng):
+    """A live engine hot-swapped under concurrent load from a compiled
+    artifact (``artifact://`` and the bare directory), the JAX package's
+    export package directory, the port's ``.zip`` and a ``forge://``
+    store: no request fails, nothing is built, each version serves the
+    JAX package's greedy tokens on its weights and the registry records
+    each source's kind; another workflow's package is refused (409)."""
+    from veles_tpu.export import export_package as jax_export_package
+    from veles_tpu_torch.export.compiled import export_compiled
+    from veles_tpu_torch.export.package import export_package
+    from veles_tpu_torch.forge.store import ForgeStore
+    jwf, jws_a, pwf, pws_a = pair_a
+    jws_b, pws_b = pair_b[1], pair_b[3]
+    art = str(tmp_path / "art")
+    export_compiled(pwf, pws_b, art, slots=2, l_max=32, megastep=1,
+                    spec=False)
+    jax_pkg = jax_export_package(jwf, jws_a, str(tmp_path / "jax_pkg"))
+    zpkg = export_package(pwf, pws_b, str(tmp_path / "port.zip"))
+    fpkg = export_package(pwf, pws_a, str(tmp_path / "fpkg"))
+    store = str(tmp_path / "forge")
+    ForgeStore(store).add(ForgeStore.pack_dir(fpkg, {
+        "name": "lm", "workflow": "contents.json",
+        "configuration": "contents.json", "author": "tests",
+        "short_description": "pair a"}))
+    eng = _engine(pwf, pws_a, slots=4, l_max=64).start()
+    dep = DeployController(engine=eng)
+    prompt = rng.integers(0, V, (1, 5)).astype(np.int32)
+    load = [rng.integers(0, V, (1, n)).astype(np.int32) for n in (3, 6, 9)]
+    errs, done, stop = [], [], threading.Event()
+
+    def worker(p):
+        while not stop.is_set():
+            try:
+                done.append(eng.generate(p, 3, timeout=180).shape)
+            except Exception as e:  # noqa: BLE001
+                errs.append(repr(e))
+                return
+
+    threads = [threading.Thread(target=worker, args=(p,)) for p in load]
+    try:
+        eng.generate(prompt, 4, timeout=120)
+        compiles = eng.stats()["compile"]["compiles"]
+        for t in threads:
+            t.start()
+        for src, jws, kind in (
+                ("artifact://" + art, jws_b, "artifact"),
+                (jax_pkg, jws_a, "package"), (art, jws_b, "artifact"),
+                (zpkg, jws_b, "package"), (f"forge://{store}/lm", jws_a,
+                                           "forge")):
+            n = len(done)
+            dep.reload(src)
+            deadline = time.monotonic() + 120
+            while len(done) < n + len(load):
+                assert time.monotonic() < deadline, errs
+                time.sleep(0.01)
+            assert dep.registry.active["kind"] == kind
+            np.testing.assert_array_equal(
+                eng.generate(prompt, 4, timeout=120),
+                np.asarray(jax_generate(jwf, jws, prompt, 4)))
+        other = build_pair(LAYERS[:1] + LAYERS[-2:], B=2, T=6, seed=3)
+        foreign = export_package(other[2], other[3], str(tmp_path / "fw"))
+        with pytest.raises(ValueError, match="different workflow"):
+            dep.reload(foreign)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=240)
+        eng.stop()
+    assert not errs, errs
+    assert dep.swaps == 5
+    assert dep.registry.active["source"] == f"forge://{store}/lm@1"
+    st = eng.stats()
+    assert st["compile"]["compiles"] == compiles
+    assert st["compile"]["recompiles"] == 0

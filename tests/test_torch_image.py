@@ -48,6 +48,7 @@ from veles_tpu_torch.runtime.snapshotter import (  # noqa: E402
     Snapshotter, wstate_from_jax, wstate_from_snapshot, wstate_to_numpy)
 from veles_tpu_torch.runtime.snapshotter import _flatten  # noqa: E402
 from veles_tpu_torch.units.base import Context, Spec  # noqa: E402
+from _torch_helpers import port_autotune_off  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

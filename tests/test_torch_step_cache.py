@@ -39,6 +39,7 @@ from veles_tpu_torch.runtime.trainer import Trainer  # noqa: E402
 from veles_tpu_torch.units import nn  # noqa: E402
 from veles_tpu_torch.units.base import Spec  # noqa: E402
 from veles_tpu_torch.units.workflow import Workflow, new_state  # noqa: E402
+from _torch_helpers import port_autotune_off  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

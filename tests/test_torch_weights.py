@@ -5,6 +5,7 @@ every JAX layout and refuses what does not fit, the port imports neither
 unless asked to."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -25,6 +26,7 @@ from veles_tpu_torch.units.workflow import seed_key  # noqa: E402
 
 from _torch_helpers import (build_pair, narrow_bench_layers,  # noqa: E402
                             tokens, vocab_of)
+from _torch_helpers import port_autotune_off  # noqa: E402,F401
 
 torch.set_num_threads(2)
 
@@ -219,3 +221,48 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
         RestfulServer(pwf.make_predict_step(), pws, 2, (12,), port=0)
     assert resolve_device("cpu").type == "cpu"
     assert kernel_route(torch.zeros(1), "any") is False
+
+
+def test_export_forge_and_artifact_modules_are_scanned_and_load_no_jax():
+    """The export package and compiled artifact, the forge store, the
+    artifact runner and autotune are among the scanned sources, and
+    importing them loads neither jax nor the JAX package."""
+    mods = ("export.package", "export.compiled", "forge.store",
+            "runtime.artifact", "runtime.autotune")
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for m in mods:
+        assert os.path.join("veles_tpu_torch",
+                            *m.split(".")) + ".py" in scanned
+    code = ("import sys\n"
+            + "".join(f"import veles_tpu_torch.{m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'veles_tpu'))\n"
+              "print(bad)\nsys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_a_jax_snapshot_exports_the_jax_package(tmp_path):
+    """A JAX-written snapshot carried into the port
+    (``wstate_from_snapshot``) and exported by the port's
+    ``export_package``: the package the JAX package writes from the same
+    snapshot, ``contents.json`` and every npy byte."""
+    from veles_tpu.export import export_package as jax_export
+    from veles_tpu_torch.export.package import export_package
+    from veles_tpu_torch.runtime.snapshotter import wstate_from_snapshot
+    jwf, jws, pwf, _ = build_pair(narrow_bench_layers(), B=2, T=12, seed=9)
+    snap = JaxSnap("lm", str(tmp_path / "snaps")).save(
+        "best", {"wstate": jax.device_get(jws),
+                 "workflow_checksum": jwf.checksum()})
+    jws_back = JaxSnap.load(snap)["wstate"]
+    jax_export(jwf, jws_back, str(tmp_path / "jax"))
+    export_package(pwf, wstate_from_snapshot(snap, pwf, device="cpu"),
+                   str(tmp_path / "port"))
+    want = (tmp_path / "jax" / "contents.json").read_text()
+    got = (tmp_path / "port" / "contents.json").read_text()
+    assert got == want
+    for u in json.loads(got)["units"]:
+        for fname in u["weights"].values():
+            assert (tmp_path / "port" / fname).read_bytes() == \
+                (tmp_path / "jax" / fname).read_bytes()

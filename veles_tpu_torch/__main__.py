@@ -17,6 +17,10 @@ serve it from a snapshot, or run a snapshot-phased curriculum
         [--model-dir DIR [--watch]] [--status-port P] [--trace-out F] \\
         [--fleet N | --join ROUTER_URL] [--device cpu] \\
         [root.common.serve.slots=4 ...]
+    python -m veles_tpu_torch CONFIG [--snapshot SRC] --export DIR[.zip] \\
+        [--compiled [--eos-id E]] [--device cpu]
+    python -m veles_tpu_torch --serve PORT --artifact DIR \\
+        [--fleet N | --join ROUTER_URL] [--device cpu]
 
 ``CONFIG`` is a ``configs/*.json`` file: its ``workflow`` section builds
 the model and optimizer, its ``loader`` section names the loader and its
@@ -45,10 +49,19 @@ the fleet router (``runtime/fleet.py``) on PORT: ``POST /generate``,
 (the coordinated swap), ``/admin/rolling-drain``, ``/admin/join``,
 ``/admin/drain`` and, with ``root.common.serve.jobs.dir``, ``/jobs``.
 ``--join ROUTER_URL`` registers this single replica with a running
-router after it boots.  ``--status-port`` serves the live status page
-(training or serving), ``--trace-out`` writes the span ring's timelines
-as a Chrome trace on exit.  Everything runs on the CUDA card unless
-``--device cpu`` is given.
+router after it boots.  ``--export DIR`` writes the (restored) model as
+an export package (contents.json + npy, a directory or a ``.zip``: what
+``serving/veles_serve`` loads) and exits; with ``--compiled`` it writes a
+sealed compiled artifact instead (``export/compiled.py``: the serving
+programs through ``torch.export``, a manifest and the weights) and
+prints its summary.  ``--serve PORT --artifact DIR`` serves such an
+artifact with no config: ``/generate`` through an ``ArtifactRunner``,
+``/predict`` through its sealed forward, the deploy control plane
+attached (``--fleet N``: N artifact replicas behind the router).
+``--status-port`` serves the live status page (training or serving),
+``--trace-out`` writes the span ring's timelines as a Chrome trace on
+exit.  Everything runs on the CUDA card unless ``--device cpu`` is
+given.
 
 ``--mesh data=D,pipe=P`` trains over a mesh of D*P ranks, one process
 each (``parallel/mesh.py``): the batch splits over ``data``, and a
@@ -76,7 +89,6 @@ import torch
 from . import prng
 from .config import apply_overrides, root
 from .logger import Logger, setup_logging
-from .models.standard import StandardWorkflow
 from .ops import resolve_device
 from .runtime.decision import Decision
 from .runtime.deploy import DeployController
@@ -86,7 +98,6 @@ from .runtime.restful import RestfulServer
 from .runtime.snapshotter import Snapshotter, wstate_from_snapshot
 from .runtime.status import StatusReporter, StatusServer
 from .units.base import Spec
-from .units.workflow import WorkflowError
 
 #: the loader names of the JAX CLI (veles_tpu/__main__.py:38-45)
 LOADERS = {"mnist": ("veles_tpu_torch.models.mnist", "MnistLoader"),
@@ -117,7 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m veles_tpu_torch",
         description="Train a veles config's workflow, or serve it from a "
                     "snapshot, on the CUDA card (PyTorch port).")
-    p.add_argument("config", help="configs/*.json workflow config")
+    p.add_argument("config", nargs="?", default=None,
+                   help="configs/*.json workflow config (none with "
+                        "--artifact)")
     p.add_argument("overrides", nargs="*",
                    help="root.path=value config overrides")
     p.add_argument("--snapshot",
@@ -133,6 +146,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "runtime/curriculum.py)")
     p.add_argument("--curriculum-out", default="curriculum_out",
                    help="directory for per-phase snapshots/results")
+    p.add_argument("--export", metavar="DIR[.zip]", default=None,
+                   help="write a native-serving package of the "
+                        "(restored) model and exit: contents.json + npy "
+                        "for serving/veles_serve (reference: "
+                        "Workflow.package_export, veles/workflow.py:868)")
+    p.add_argument("--compiled", action="store_true",
+                   help="with --export DIR: write a sealed compiled "
+                        "artifact instead (torch.export programs of the "
+                        "batched forward and the decode engine's program "
+                        "set, a manifest, the weights blob) and print the "
+                        "manifest summary; serve it with --serve "
+                        "--artifact DIR")
+    p.add_argument("--artifact", metavar="DIR", default=None,
+                   help="with --serve: boot from a compiled artifact "
+                        "directory (export_compiled): its loaded programs, "
+                        "no model Python, no config file")
     p.add_argument("--generate", type=int, metavar="N", default=None,
                    help="decode N tokens after --prompt with the "
                         "(restored) sequence model instead of training; "
@@ -230,12 +259,17 @@ def main(argv=None) -> int:
         raise SystemExit("--curriculum is a training meta-mode; "
                          "--generate/--serve apply to single runs (run "
                          "them on the final best snapshot)")
+    _check_export_args(args)
     if args.curriculum:
         # dispatched before the config is read: each phase subprocess
         # loads it itself
         return _curriculum(args)
-    with open(args.config) as f:
-        root.update(json.load(f))
+    if args.artifact is None:
+        if not args.config:
+            build_parser().print_help()
+            return 2
+        with open(args.config) as f:
+            root.update(json.load(f))
     apply_overrides(root, [o[len("root."):] if o.startswith("root.") else o
                            for o in args.overrides])
     if args.random_seed is not None:
@@ -265,6 +299,8 @@ def main(argv=None) -> int:
             name=root.workflow.get("name", "workflow"))
         status_server = StatusServer(status, port=args.status_port).start()
     try:
+        if args.artifact is not None:
+            return _serve_artifact(args, device, status, status_server)
         if args.serve is not None:
             if not args.snapshot:
                 raise SystemExit("--serve needs --snapshot (the weights)")
@@ -280,7 +316,75 @@ def main(argv=None) -> int:
         shutdown_distributed()
 
 
+def _check_export_args(args) -> None:
+    """The JAX CLI's export and artifact guards (veles_tpu/__main__.py:
+    863-918), before anything loads."""
+    if args.artifact is not None and args.config and "=" in args.config \
+            and not args.config.endswith(".json"):
+        # with no config, the first override lands in the config slot
+        args.overrides.insert(0, args.config)
+        args.config = None
+    if args.compiled and not args.export:
+        raise SystemExit("--compiled modifies --export DIR (it writes "
+                         "the compiled artifact there)")
+    if args.artifact is None:
+        if args.export and (args.serve is not None or args.curriculum
+                            or args.generate is not None):
+            raise SystemExit(
+                "--export writes the (restored) model and exits; it does "
+                "not combine with --serve, --generate or --curriculum "
+                "(export first, then serve)")
+        return
+    if args.serve is None:
+        raise SystemExit("--artifact serves a compiled artifact and needs "
+                         "--serve PORT")
+    if args.config:
+        raise SystemExit("--artifact serves sealed programs; a workflow "
+                         f"config cannot apply (drop {args.config!r}, or "
+                         "serve the config via --serve without --artifact)")
+    if args.export:
+        raise SystemExit("--export needs the model config to package; it "
+                         "cannot combine with --artifact serving (export "
+                         "first, then serve the artifact)")
+    if args.snapshot:
+        raise SystemExit("--artifact serves the artifact's sealed weights; "
+                         "--snapshot cannot apply (swap weights at runtime "
+                         "via POST /admin/reload)")
+    if args.generate is not None:
+        raise SystemExit("--generate is a one-shot decode of a "
+                         "config/snapshot model; with an artifact, serve it "
+                         "and POST /generate")
+
+
+def _export(args, trainer) -> int:
+    """``--export DIR[.zip]`` (``--compiled``: a sealed artifact) of the
+    (restored) model, at the loader's batch shape
+    (veles_tpu/__main__.py:1153-1175)."""
+    wf = trainer.workflow
+    spec = wf.specs["@input"]
+    input_spec = {"shape": [int(d) for d in spec.shape],
+                  "dtype": str(spec.dtype).replace("torch.", "")}
+    if args.compiled:
+        if args.export.endswith(".zip"):
+            raise SystemExit("--compiled exports a DIRECTORY artifact "
+                             "(programs + manifest + weights), not a .zip")
+        from .export.compiled import export_compiled, manifest_summary
+        man = export_compiled(wf, trainer.wstate, args.export,
+                              input_spec=input_spec, eos_id=args.eos_id)
+        out = {"exported": args.export, "compiled": True,
+               "manifest": manifest_summary(man)}
+    else:
+        from .export.package import export_package
+        export_package(wf, trainer.wstate, args.export,
+                       input_spec=input_spec)
+        out = {"exported": args.export, "units": len(wf.units)}
+    print(json.dumps(out), flush=True)
+    _write_result(args, out)
+    return 0
+
+
 def _train(args, device, status=None) -> int:
+    from .models.standard import StandardWorkflow
     wf_cfg = root.workflow.to_dict()
     sw = StandardWorkflow(wf_cfg)
     loader_cfg = root.loader.to_dict() if "loader" in root else {}
@@ -301,6 +405,8 @@ def _train(args, device, status=None) -> int:
     trainer.initialize()
     if args.snapshot:
         trainer.restore(args.snapshot)
+    if args.export:
+        return _export(args, trainer)
     if args.generate is not None:
         return _generate(args, trainer)
     results = trainer.run()
@@ -569,6 +675,8 @@ def _join(args, srv) -> None:
 
 
 def _serve(args, device, status=None, status_server=None) -> int:
+    from .models.standard import StandardWorkflow
+    from .units.workflow import WorkflowError
     log = Logger()
     sw = StandardWorkflow(root.workflow.to_dict())
     wf = sw.workflow
@@ -600,12 +708,65 @@ def _serve(args, device, status=None, status_server=None) -> int:
                                   status=status, boot_source=args.snapshot)
         return srv, deploy
 
+    return _run_stacks(args, stack, {"predict_head": head,
+                                     "device": str(device)},
+                       status_server)
+
+
+def _serve_artifact(args, device, status=None, status_server=None) -> int:
+    """``--serve PORT --artifact DIR``: serve a sealed compiled artifact
+    with no config and no model code (veles_tpu/__main__.py:607-680): a
+    decodable artifact's ``/generate`` through an ``ArtifactRunner``, its
+    sealed forward behind ``/predict``, the deploy control plane around
+    it (``/admin/reload`` swaps weights from snapshots, packages, other
+    artifacts or a forge store: the programs stay sealed)."""
+    from .runtime.artifact import ArtifactRunner, load_forward, read_manifest
+    man = read_manifest(args.artifact)
+    ispec = man.get("input_spec") or {}
+    shape = [int(d) for d in (ispec.get("shape") or (1, 1))]
+
+    def stack(port):
+        runner = None
+        if "decode" in man["programs"]:
+            runner = ArtifactRunner(args.artifact, status=status,
+                                    device=device).start()
+            wstate = runner.wstate
+            predict_fn = runner.predict if runner.has_forward else None
+        else:
+            predict_fn, wstate, _ = load_forward(args.artifact,
+                                                 device=device)
+        if predict_fn is None:
+            def predict_fn(wstate, batch):
+                raise ValueError("this artifact was exported without a "
+                                 "forward program; only /generate is "
+                                 "served")
+        srv = RestfulServer(
+            predict_fn, wstate, shape[0], tuple(shape[1:]), port=port,
+            engine=runner, device=device,
+            input_dtype=np.dtype(ispec.get("dtype", "float32")),
+            default_eos_id=man.get("eos_id"),
+            vocab_size=man.get("input_vocab"))
+        deploy = DeployController(server=srv, model_dir=args.model_dir,
+                                  drain_timeout_s=args.drain_timeout,
+                                  status=status,
+                                  boot_source=str(args.artifact))
+        return srv, deploy
+
+    return _run_stacks(args, stack, {
+        "artifact": args.artifact, "workflow": man.get("workflow"),
+        "programs": sorted(man["programs"]), "device": str(device)},
+        status_server)
+
+
+def _run_stacks(args, stack, banner: dict, status_server=None) -> int:
+    """Serve ``stack(port) -> (server, deploy)``: N replicas behind the
+    fleet router with ``--fleet``, else one, until a drain (SIGTERM or
+    ``POST /admin/drain``) or SIGINT."""
     if _fleet_n(args):
         def factory():
             return stack(0)[0].start()
 
-        return _serve_fleet(args, factory, {"predict_head": head,
-                                            "device": str(device)})
+        return _serve_fleet(args, factory, banner)
     srv, deploy = stack(args.serve)
     engine = srv.engine
     deploy.install_signal_handlers()     # SIGTERM drains
@@ -615,17 +776,13 @@ def _serve(args, device, status=None, status_server=None) -> int:
             _join(args, srv)
         if args.watch:
             deploy.start_watcher()
-        print(json.dumps({"serving": srv.port, "predict_head": head,
-                          "engine": engine is not None,
-                          "device": str(device),
-                          "model_dir": deploy.model_dir,
-                          "watching": deploy.watching,
-                          "status_port": (status_server.port
-                                          if status_server is not None
-                                          else None),
-                          "observe": ["/metrics", "/trace.json",
-                                      "/slo.json", "/memory.json",
-                                      "/models", "/debug/profile"]}),
+        print(json.dumps(dict(
+            banner, serving=srv.port, engine=engine is not None,
+            model_dir=deploy.model_dir, watching=deploy.watching,
+            status_port=(status_server.port if status_server is not None
+                         else None),
+            observe=["/metrics", "/trace.json", "/slo.json",
+                     "/memory.json", "/models", "/debug/profile"])),
               flush=True)
         try:
             deploy.wait()   # released by SIGTERM or POST /admin/drain

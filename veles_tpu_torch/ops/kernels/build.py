@@ -196,6 +196,24 @@ class LaunchCounter:
             return dict(self._variants)
 
 
+#: custom op (its default overload) -> (kernel name, cost of one call
+#: from the op's arguments): what a cost counter adds when a sealed
+#: program calls the op with no wrapper around it
+_OP_COSTS: Dict[object, tuple] = {}
+
+
+def register_op(op, name: str, cost_fn: Callable[..., Dict[str, float]]
+                ) -> None:
+    """Record ``op`` (a ``torch.library.custom_op``) as kernel ``name``
+    whose one call costs ``cost_fn(*op_args)``."""
+    _OP_COSTS[op._opoverload] = (name, cost_fn)
+
+
+def op_cost(func):
+    """``(name, cost_fn)`` of a registered kernel op, else None."""
+    return _OP_COSTS.get(func)
+
+
 def active_cost_counter():
     """The innermost cost counter (``runtime.step_cache.CostCounter``, a
     ``TorchDispatchMode``) on this thread's dispatch-mode stack, or None.

@@ -14,12 +14,20 @@ Hopper card launches the kernel, a CPU tensor takes
 the gradient: the backward saves (q, k, v, out, lse) and calls
 :func:`.flash_bwd_dq.flash_bwd_dq` and :func:`.flash_bwd_dkv.flash_bwd_dkv`
 — the dQ and dK/dV kernels on the card, their plain versions on the CPU.
+
+The forward is the custom op ``torch.ops.veles_tpu_torch.
+flash_attention_fwd``: its CUDA implementation launches the kernel (the
+launch counter moves there and nowhere else), its CPU implementation is
+the plain version, and its fake implementation gives ``torch.export``
+the output shapes, so a sealed forward program (``export/compiled.py``)
+calls the kernel as the live forward does.  ``_FlashAttention`` calls
+the op inside its forward; a call without gradient reaches it directly.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -79,10 +87,39 @@ def cost(q, k, v, causal: bool = False, window: Optional[int] = None):
 
 def _forward(q, k, v, causal, scale, window, block_k):
     with build.reporting(NAME, lambda: cost(q, k, v, causal, window)):
-        if kernel_route(q, NAME):
-            return _launch(q, k, v, causal, scale, window)
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     window=window, block_k=block_k)
+        return _op(q, k, v, causal, scale, window, block_k)
+
+
+@torch.library.custom_op("veles_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+        scale: float, window: Optional[int],
+        block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                 window=window, block_k=block_k)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(q, k, v, causal, scale, window, block_k):
+    """The op's CUDA implementation: the kernel of q's dtype, routed as
+    every wrapper routes (``kernel_route`` raises on a card it is not
+    built for)."""
+    if kernel_route(q, NAME):
+        return _launch(q, k, v, causal, scale, window)
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                 window=window, block_k=block_k)
+
+
+@_op.register_fake
+def _op_fake(q, k, v, causal, scale, window, block_k):
+    B, Tq, H, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, H, Tq), dtype=torch.float32))
+
+
+build.register_op(_op, NAME, lambda q, k, v, causal, scale, window, block_k:
+                  cost(q, k, v, causal, window))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -11,6 +11,13 @@ to the JAX kernel's and to its XLA form (``veles_tpu/ops/normalize.py``).
 takes :func:`mean_disp_normalize_plain`, a tensor on a Hopper card
 launches the kernel, and anything else raises.  No gradient flows: the
 normalizer is the first unit and its statistics are not trained.
+
+The wrapper calls the custom op ``torch.ops.veles_tpu_torch.
+mean_disp_normalize``: its CUDA implementation launches the kernel (the
+launch counter moves there and nowhere else), its CPU implementation is
+the plain version, and its fake implementation gives ``torch.export``
+the output's shape, so a sealed forward program (``export/compiled.py``)
+calls the kernel as the live forward does.
 """
 
 from __future__ import annotations
@@ -56,10 +63,34 @@ def mean_disp_normalize(x: torch.Tensor, mean: torch.Tensor,
                         rdisp: torch.Tensor) -> torch.Tensor:
     """``(float32(x) - mean) * rdisp`` for x (N, *features), uint8 or
     float32; float32 result of x's shape."""
+    _check(x, mean, rdisp)
     with build.reporting(NAME, lambda: cost(x, mean)):
-        if kernel_route(x, NAME):
-            return _launch(x, mean, rdisp)
-        return mean_disp_normalize_plain(x, mean, rdisp)
+        return _op(x, mean, rdisp)
+
+
+@torch.library.custom_op("veles_tpu_torch::mean_disp_normalize",
+                         mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, mean: torch.Tensor,
+        rdisp: torch.Tensor) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return mean_disp_normalize_plain(x, mean, rdisp)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x, mean, rdisp):
+    """The op's CUDA implementation: the kernel, routed as every wrapper
+    routes (``kernel_route`` raises on a card it is not built for)."""
+    if kernel_route(x, NAME):
+        return _launch(x, mean, rdisp)
+    return mean_disp_normalize_plain(x, mean, rdisp)
+
+
+@_op.register_fake
+def _op_fake(x, mean, rdisp):
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+build.register_op(_op, NAME, lambda x, mean, rdisp: cost(x, mean))
 
 
 def cost(x: torch.Tensor, mean: torch.Tensor) -> dict:

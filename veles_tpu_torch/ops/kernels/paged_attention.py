@@ -10,6 +10,14 @@ a Hopper card launches the kernel, a CPU tensor takes
 :func:`paged_attention_decode_plain` — the gather path
 ``_attn_decode_step`` takes without the knob (veles_tpu/runtime/
 generate.py:236-244 with the ``_attn_scores`` tail).
+
+The wrapper validates and calls the custom op
+``torch.ops.veles_tpu_torch.paged_attention_decode``: its CUDA
+implementation is the kernel launch (the launch counter moves there and
+nowhere else), its CPU implementation the plain version, and its fake
+implementation gives ``torch.export`` the output's shape, so a sealed
+decode program (``export/compiled.py``) calls the kernel as the live
+engine does.
 """
 
 from __future__ import annotations
@@ -80,18 +88,56 @@ def paged_attention_decode(q, k_pool, v_pool, ptab, pos, *, page_size: int,
     context before the output projection.  A row whose live pages include
     an entry outside [0, rows) comes back NaN: a corrupt page table shows
     in the output."""
-    G = _validate(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads)
+    _validate(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads)
     window = check_attention_window(window, True)
     scale = q.shape[2] ** -0.5 if scale is None else float(scale)
-    with build.reporting(NAME, lambda: cost(
-            q, k_pool, pos.cpu().numpy(), page_size=page_size,
-            window=window)):
-        if kernel_route(q, NAME):
-            return _launch(q, k_pool, v_pool, ptab, pos, G, page_size,
-                           scale, window)
-        return paged_attention_decode_plain(
-            q, k_pool, v_pool, ptab, pos, page_size=page_size,
-            n_kv_heads=n_kv_heads, scale=scale, window=window)
+    with build.reporting(NAME, lambda: _op_cost(
+            q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads, scale,
+            window)):
+        return _op(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads,
+                   scale, window)
+
+
+@torch.library.custom_op("veles_tpu_torch::paged_attention_decode",
+                         mutates_args=(), device_types="cpu")
+def _op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        ptab: torch.Tensor, pos: torch.Tensor, page_size: int,
+        n_kv_heads: int, scale: float,
+        window: Optional[int]) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return paged_attention_decode_plain(
+        q, k_pool, v_pool, ptab, pos, page_size=page_size,
+        n_kv_heads=n_kv_heads, scale=scale, window=window)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads, scale,
+             window):
+    """The op's CUDA implementation: the kernel, routed as every wrapper
+    routes (``kernel_route`` raises on a card it is not built for)."""
+    G = _validate(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads)
+    if kernel_route(q, NAME):
+        return _launch(q, k_pool, v_pool, ptab, pos, G, page_size, scale,
+                       window)
+    return paged_attention_decode_plain(
+        q, k_pool, v_pool, ptab, pos, page_size=page_size,
+        n_kv_heads=n_kv_heads, scale=scale, window=window)
+
+
+@_op.register_fake
+def _op_fake(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads, scale,
+             window):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+def _op_cost(q, k_pool, v_pool, ptab, pos, page_size, n_kv_heads, scale,
+             window):
+    """:func:`cost` from the op's arguments (``build.op_cost``)."""
+    return cost(q, k_pool, pos.cpu().numpy(), page_size=page_size,
+                window=window)
+
+
+build.register_op(_op, NAME, _op_cost)
 
 
 def cost(q, k_pool, pos, *, page_size: int, window: Optional[int] = None):

@@ -209,7 +209,9 @@ def benchmark_device(cache_dir: Optional[str] = None, refresh: bool = False,
     kind = device_kind(device)
     if not refresh:
         cached = load_device_infos(cache_dir).get(kind)
-        if cached:
+        # a record may hold autotune winners alone (runtime/autotune.py
+        # shares it): only a measured GEMM table is a rating
+        if cached and cached.get("results"):
             return cached
     info = DeviceBenchmark(device=device, **kw).run()
     save_device_info(info, cache_dir)

@@ -9,7 +9,13 @@ veles_tpu/runtime/deploy.py).
 * **hot swaps**: new weights load from a snapshot of either package
   (``runtime/snapshotter.py``; a manifest file, the ``_current`` /
   ``_best`` symlinks, a directory whose newest manifest is taken, a
-  ``sqlite://`` URI or an ``http(s)://`` manifest URL),
+  ``sqlite://`` URI or an ``http(s)://`` manifest URL), an export
+  package of either package (a ``contents.json`` directory or a
+  ``.zip``), a compiled artifact (``artifact://DIR``, the prefix
+  optional for a directory holding ``artifact.json``: its weights blob)
+  or ``forge://<root>/<name>[@version]`` (a package or an artifact in a
+  :class:`~..forge.store.ForgeStore`), each held to the served
+  workflow's checksum,
   are checked against the served tree and cast to its dtypes, placed on
   the device through pinned memory while the old version keeps serving
   (:meth:`DecodeEngine.stage_params`), then copied into the served
@@ -29,10 +35,8 @@ veles_tpu/runtime/deploy.py).
   retrying with exponential back-off, swapping on its own (``--model-dir
   --watch``).
 
-Export packages, compiled artifacts and forge stores as weight sources
-come with the export slice; each is refused with ValueError (409, the
-old version still serving).  :func:`http_retry` is the retry shape every
-HTTP fetch of a snapshot shares.
+:func:`http_retry` is the retry shape every HTTP fetch of a snapshot
+shares.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +59,8 @@ from ..ops.optimizers import tree_map
 from . import faults
 from .engine import EngineDraining, signature_mismatch
 from .metrics import registry as metrics_registry
-from .snapshotter import Snapshotter, list_snapshots, snapshot_checksum
+from .snapshotter import (Snapshotter, list_snapshots, sha256_files,
+                          snapshot_checksum)
 from .step_cache import tree_signature
 
 #: Shared retry back-off (veles_tpu/runtime/deploy.py:55-66): the
@@ -240,11 +245,32 @@ class DeployController(Logger):
         self._ck_lock = threading.Lock()
         self._ck_cache = None  # ((path, mtime), digest)  # guarded-by: self._ck_lock
         has_boot_src = boot_source not in (None, "", "live")
-        boot = self.registry.add(
-            label=boot_label, source=boot_source,
-            kind="snapshot" if has_boot_src else "live",
-            checksum=(self._snapshot_checksum(str(boot_source))
-                      if has_boot_src else ""))
+        boot_kind = "snapshot" if has_boot_src else "live"
+        boot_checksum = ""
+        # an artifact manifest's workflow checksum backs the foreign-
+        # workflow guard where no engine or workflow can be asked (a
+        # forward-only artifact server)
+        self._boot_workflow_checksum: Optional[str] = None
+        if has_boot_src:
+            from .artifact import is_artifact_dir, read_manifest
+            src = str(boot_source)
+            art = src[len("artifact://"):] \
+                if src.startswith("artifact://") else src
+            if src.startswith("artifact://") and not is_artifact_dir(art):
+                # an explicit artifact source never registers as an
+                # empty-checksum snapshot
+                raise ValueError(
+                    f"{src}: not a compiled artifact (no manifest)")
+            if is_artifact_dir(art):
+                boot_kind = "artifact"
+                bman = read_manifest(art)
+                boot_checksum = bman.get("tensors_sha256", "")
+                self._boot_workflow_checksum = bman.get(
+                    "workflow_checksum")
+            else:
+                boot_checksum = self._snapshot_checksum(src)
+        boot = self.registry.add(label=boot_label, source=boot_source,
+                                 kind=boot_kind, checksum=boot_checksum)
         self.registry.activate(boot["version"])
 
         # re-entrant: _watch_once holds it across its check and reload()
@@ -292,10 +318,14 @@ class DeployController(Logger):
         return self.server.wstate
 
     def _live_checksum(self) -> Optional[str]:
-        """Topology checksum of the served workflow, when known."""
+        """Topology checksum of the served workflow, when known (an
+        artifact runner's, or the boot artifact's, from its manifest)."""
         wf = getattr(self.engine, "plan", None)
         wf = getattr(wf, "wf", None) or getattr(self.server, "workflow", None)
-        return wf.checksum() if wf is not None else None
+        if wf is not None:
+            return wf.checksum()
+        return (getattr(self.engine, "workflow_checksum", None)
+                or self._boot_workflow_checksum)
 
     # -- source loading -----------------------------------------------------
     def _snapshot_checksum(self, path: str) -> str:
@@ -320,42 +350,134 @@ class DeployController(Logger):
         ``state`` where saved), ``meta`` label, kind, checksum and
         source.  A snapshot manifest path (or its ``_current`` /
         ``_best`` symlink), a ``sqlite://`` or ``http(s)://`` snapshot URI
-        (checksum unknown: ''), or a directory whose newest manifest is
-        taken."""
+        (checksum unknown: ''), an export package directory or ``.zip``,
+        a compiled artifact directory (``artifact://`` optional),
+        ``forge://<root>/<name>[@version]``, or a snapshot directory
+        whose newest manifest is taken (veles_tpu/runtime/deploy.py:
+        381-455)."""
         if not source:
             raise ValueError(
-                "reload needs a source (a snapshot manifest or directory) "
-                "or a registry version")
+                "reload needs a source (a snapshot manifest or directory, "
+                "a package, an artifact or a forge:// URI) or a registry "
+                "version")
         source = str(source)
-        if source.startswith(("artifact://", "forge://")) \
-                or source.endswith(".zip") or (
-                    os.path.isdir(source) and any(
-                        os.path.isfile(os.path.join(source, f))
-                        for f in ("contents.json", "artifact.json"))):
-            raise ValueError(
-                f"{source!r}: export packages, compiled artifacts and "
-                "forge stores are not weight sources of this port yet "
-                "(they come with export, ROADMAP.md item 7b); reload "
-                "from a snapshot manifest")
+        from .artifact import is_artifact_dir
+        if source.startswith("artifact://"):
+            return self._load_artifact(source[len("artifact://"):], source)
+        if source.startswith("forge://"):
+            path_part, _, ver = source[len("forge://"):].partition("@")
+            store_root, _, name = path_part.rpartition("/")
+            if not store_root or not name:
+                raise ValueError(
+                    f"bad forge source {source!r}; expected "
+                    "forge://<store_root>/<name>[@version]")
+            from ..forge.store import ForgeStore
+            store = ForgeStore(store_root)
+            # the registry pins the RESOLVED version: re-activating a
+            # bare forge://root/name entry must reload the same weights
+            resolved = store.resolve_version(name, ver or None)
+            vdir = store.version_dir(name, resolved)
+            uri = f"forge://{store_root}/{name}@{resolved}"
+            if is_artifact_dir(vdir):
+                return self._load_artifact(vdir, uri, kind="forge")
+            return self._load_package(vdir, uri, kind="forge")
         if source.startswith(("sqlite://", "http://", "https://")):
             return self._from_snapshot(Snapshotter.load(source), source, "")
+        if source.endswith(".zip"):
+            return self._load_package(source, source)
         if os.path.isdir(source):
+            if is_artifact_dir(source):
+                return self._load_artifact(source, source)
+            if os.path.isfile(os.path.join(source, "contents.json")):
+                return self._load_package(source, source)
             snaps = list_snapshots(source)
             if not snaps:
-                raise ValueError(f"{source!r} holds no snapshot manifests")
+                raise ValueError(
+                    f"{source!r} holds no snapshot manifests and is not an "
+                    "export package or a compiled artifact")
             source = snaps[-1]["path"]
         return self._from_snapshot(Snapshotter.load(source), source,
                                    self._snapshot_checksum(source))
 
-    def _from_snapshot(self, payload: dict, source: str,
-                       checksum: str) -> Tuple[dict, dict]:
-        saved = payload.get("workflow_checksum")
+    def _check_workflow(self, saved: Optional[str], source: str,
+                        what: str) -> None:
         live = self._live_checksum()
         if saved and live and saved != live:
+            verb = "taken" if what == "snapshot" else "exported"
             raise ValueError(
-                f"snapshot {source!r} was taken from a different "
-                f"workflow (checksum {saved!r} != served {live!r}); "
-                "refusing the swap, the old version keeps serving")
+                f"{what} {source!r} was {verb} from a different workflow "
+                f"(checksum {saved!r} != served {live!r}); refusing the "
+                "swap, the old version keeps serving")
+
+    def _load_artifact(self, path: str, source: str,
+                       kind: str = "artifact") -> Tuple[dict, dict]:
+        """A compiled artifact's weights blob as a weight source: a swap
+        moves weights only (a live engine keeps its captured programs,
+        an artifact runner its loaded ones).  Its integrity is the
+        manifest's tensors sha256 (SnapshotCorruptError: the 409)."""
+        from .artifact import load_artifact_weights, read_manifest
+        man = read_manifest(path)
+        self._check_workflow(man.get("workflow_checksum"), source,
+                             "artifact")
+        loaded = load_artifact_weights(path, man)
+        parts = {"params": loaded["params"]}
+        if loaded.get("state"):
+            parts["state"] = loaded["state"]
+        if not parts["params"]:
+            raise ValueError(f"artifact {source!r} holds no params")
+        label = man.get("workflow") \
+            or os.path.basename(path.rstrip("/")) or path
+        return parts, {"label": label, "kind": kind,
+                       "checksum": man.get("tensors_sha256", ""),
+                       "source": source}
+
+    def _load_package(self, path: str, source: str,
+                      kind: str = "package") -> Tuple[dict, dict]:
+        """An export package (contents.json + npy, either package's) as a
+        weight source, its tensors routed into params and state by the
+        live tree (the export prefixed a name collision with
+        ``state_``)."""
+        from ..export.package import load_package
+        contents = load_package(path)
+        self._check_workflow(contents.get("checksum"), source, "package")
+        template = self._live_wstate()
+        tparams = template.get("params") or {}
+        tstate = template.get("state") or {}
+        params: Dict[str, dict] = {}
+        state: Dict[str, dict] = {}
+        for u in contents.get("units", ()):
+            name = u["name"]
+            for pname, arr in u.get("tensors", {}).items():
+                if pname.startswith("state_") and \
+                        pname[len("state_"):] in tstate.get(name, {}):
+                    state.setdefault(name, {})[pname[len("state_"):]] = arr
+                elif pname in tparams.get(name, {}):
+                    params.setdefault(name, {})[pname] = arr
+                elif pname in tstate.get(name, {}):
+                    state.setdefault(name, {})[pname] = arr
+                else:
+                    # surfaces in the signature check with a clear path
+                    params.setdefault(name, {})[pname] = arr
+        if not params:
+            raise ValueError(f"package {source!r} holds no unit weights")
+        if path.endswith(".zip"):
+            checksum = sha256_files([path])
+        else:
+            checksum = sha256_files(sorted(
+                os.path.join(dp, fn)
+                for dp, _, fns in os.walk(path) for fn in fns))
+        parts = {"params": params}
+        if state:
+            parts["state"] = state
+        label = (contents.get("workflow")
+                 or os.path.basename(path.rstrip("/")) or path)
+        return parts, {"label": label, "kind": kind,
+                       "checksum": checksum, "source": source}
+
+    def _from_snapshot(self, payload: dict, source: str,
+                       checksum: str) -> Tuple[dict, dict]:
+        self._check_workflow(payload.get("workflow_checksum"), source,
+                             "snapshot")
         ws = payload.get("wstate") or {}
         parts = {k: ws[k] for k in ("params", "state") if ws.get(k)}
         if not parts.get("params"):

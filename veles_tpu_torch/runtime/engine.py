@@ -782,7 +782,10 @@ class DecodeEngine(Logger):
     ``wstate["params"]`` is then the served tree.  ``capture=False`` keeps the paged steps eager on
     the card (the eager-versus-captured witness).  ``status`` is a
     :class:`~.status.StatusReporter` the scheduler publishes its stats
-    to every 0.5 s (and a scheduler crash as an event)."""
+    to every 0.5 s (and a scheduler crash as an event).  A sealed
+    artifact's :class:`~.artifact.ArtifactRunner` is this engine with
+    its model hooks (:meth:`_load_model`, :meth:`_make_caches`,
+    :meth:`_make_steps`) reading the artifact instead of a workflow."""
 
     def __init__(self, workflow, wstate, *, slots: Optional[int] = None,
                  l_max: Optional[int] = None,
@@ -850,34 +853,12 @@ class DecodeEngine(Logger):
                 f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
         self.stream_buffer_tokens = int(
             serve.stream.get("buffer_tokens", 4096))
-        self.plan = DecodePlan(workflow, output_unit)
-        # the served tensors, which the steps read (the caller's where
-        # they already lie on the device in the served dtypes), and the
-        # signatures a swap's tree is held to: the caller's layout or
-        # the served one
-        self.params = serving_params(self.plan, wstate["params"],
-                                     self.device)
-        self.wstate = dict(wstate, params=self.params)
-        self._swap_sigs = (tree_signature(wstate["params"]),
-                           tree_signature(self.params))
-        # recurrent carried state is position-recurrent from token 0 and
-        # is not paged: such a chain takes no prefix shortcut, and its
-        # preempted requests re-prefill from token 0 (engine.py:1118)
-        self._prefix_ok = not self.plan._rec_units
         self._ctx = Context(train=False)
-        # the embedding table's rows: the bound on prompt token ids (the
-        # REST guard's), checked in submit before anything is enqueued
-        self._input_vocab = input_vocab(workflow, self.params)
+        self._load_model(workflow, wstate, output_unit)
 
         S = self.slots
         self._cache_dtype = cache_dtype
-        if self.paged:
-            self._caches = self.plan.init_caches(
-                self.params, S, self.l_max, cache_dtype, self.device,
-                kv_rows=self.pages + 1, page_size=self.page_size)
-        else:
-            self._caches = self.plan.init_caches(
-                self.params, S, self.l_max, cache_dtype, self.device)
+        self._caches = self._make_caches(cache_dtype)
         # the per-slot state on the device (one int32 buffer, the token
         # matrix and the fold-key table, which the steps read and write)
         # and its host mirror (scheduler thread); the mirror's pinned
@@ -1009,8 +990,6 @@ class DecodeEngine(Logger):
         self._ticks_since_attempt = _SPEC_PROBE_TICKS
         self._spec_attempts = 0
         self._spec_rate_mark = (float("-inf"), 0, 0)
-        # head width (the logits' last dim): top_k's keep-all sentinel
-        self._vocab = int(workflow.specs[self.plan.output].shape[-1])
 
         self._init_metrics()
         self._slo = slo_tracker()
@@ -1035,10 +1014,7 @@ class DecodeEngine(Logger):
             kinds.append(("megastep", self.megastep))
         if self.spec:
             kinds.append(("verify", self.spec_k + 1))
-        steps = [_TokenStep(self, kind, n, sampled)
-                 for kind, n in kinds for sampled in (True, False)]
-        if self.paged:
-            steps.append(_PrefillStep(self))
+        steps = self._make_steps(kinds)
         key = (id(self), S, self.l_max, self.page_size, self.pages,
                self.paged_kernel, str(cache_dtype), str(self.device))
         self._fns, self._stage = {}, {}
@@ -1062,6 +1038,50 @@ class DecodeEngine(Logger):
         self._prefill_staged = torch.cuda.Event() \
             if on_card and self.paged else None
         self._register_memory()
+
+    # -- the model: what a sealed artifact's runner supplies instead -------
+    def _load_model(self, workflow, wstate, output_unit):
+        """The decode plan and the served weights: ``plan``, ``params``
+        (the tensors the steps read: the caller's where they already lie
+        on the device in the served dtypes), ``wstate``, the signatures
+        a swap's tree is held to (the caller's layout or the served
+        one), ``_prefix_ok``, ``_input_vocab`` and the head width
+        ``_vocab``."""
+        self.plan = DecodePlan(workflow, output_unit)
+        self.params = serving_params(self.plan, wstate["params"],
+                                     self.device)
+        self.wstate = dict(wstate, params=self.params)
+        self._swap_sigs = (tree_signature(wstate["params"]),
+                           tree_signature(self.params))
+        # recurrent carried state is position-recurrent from token 0 and
+        # is not paged: such a chain takes no prefix shortcut, and its
+        # preempted requests re-prefill from token 0 (engine.py:1118)
+        self._prefix_ok = not self.plan._rec_units
+        # the embedding table's rows: the bound on prompt token ids (the
+        # REST guard's), checked in submit before anything is enqueued
+        self._input_vocab = input_vocab(workflow, self.params)
+        # head width (the logits' last dim): top_k's keep-all sentinel
+        self._vocab = int(workflow.specs[self.plan.output].shape[-1])
+
+    def _make_caches(self, cache_dtype) -> dict:
+        """The KV pool (paged: ``pages + 1`` rows, the last the scratch
+        page) or the dense rows, and the recurrent carries."""
+        if self.paged:
+            return self.plan.init_caches(
+                self.params, self.slots, self.l_max, cache_dtype,
+                self.device, kv_rows=self.pages + 1,
+                page_size=self.page_size)
+        return self.plan.init_caches(self.params, self.slots, self.l_max,
+                                     cache_dtype, self.device)
+
+    def _make_steps(self, kinds) -> list:
+        """Each token step of ``kinds`` [(kind, micro-steps)] sampling and
+        greedy-only, and (paged) the one-position prefill step."""
+        steps = [_TokenStep(self, kind, n, sampled)
+                 for kind, n in kinds for sampled in (True, False)]
+        if self.paged:
+            steps.append(_PrefillStep(self))
+        return steps
 
     def _register_memory(self):
         """Publish the engine's byte ledger (``GET /memory.json``): the

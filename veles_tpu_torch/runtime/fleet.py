@@ -8,8 +8,11 @@ single-process serving stack (:class:`~.engine.DecodeEngine` behind
 :class:`~.restful.RestfulServer` with a :class:`~.deploy.
 DeployController` attached), built in-process (:class:`InProcessReplica`,
 ``--serve PORT --fleet N``; on the card every replica is its own
-captured engine on the one device) or as independent processes that
-``--join ROUTER_URL`` themselves in.  Everything the router does
+captured engine on the one device), booted from a sealed compiled
+artifact (``--serve PORT --artifact DIR --fleet N``: each replica an
+:class:`~.artifact.ArtifactRunner` over the artifact's programs, and the
+rolling drain reboots each from the same artifact), or as independent
+processes that ``--join ROUTER_URL`` themselves in.  Everything the router does
 composes per-replica primitives that already exist — drain, two-phase
 swap staging, ``/ready``, the burn-rate SLO, ``/metrics``, ``/kv/pages``
 — into the fleet-level behaviours horizontal scale needs:

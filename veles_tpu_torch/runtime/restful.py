@@ -154,13 +154,26 @@ class RestfulServer(Logger):
     (batch_size, *input_shape) inputs; ``workflow`` / ``engine`` enable
     /generate; ``jobs_dir`` (with an engine) the job API.  ``device``
     defaults to the CUDA card.  The server does not own the engine:
-    whoever built it starts and stops it."""
+    whoever built it starts and stops it.  Without a workflow (a
+    compiled artifact's :class:`~.artifact.ArtifactRunner` as the
+    engine, its sealed forward as ``predict_fn``) the token bound is
+    ``vocab_size`` or the engine's, and ``default_eos_id`` is the eos of
+    a request that names none (restful.py:131-152 of the JAX
+    package)."""
 
     def __init__(self, predict_fn: Callable, wstate, batch_size: int,
                  input_shape, *, port: int = 0, host: str = "127.0.0.1",
                  workflow=None, engine=None, input_dtype=np.int32,
-                 device=None, jobs_dir: Optional[str] = None):
+                 device=None, jobs_dir: Optional[str] = None,
+                 default_eos_id: Optional[int] = None,
+                 vocab_size: Optional[int] = None):
         self.device = resolve_device(device)
+        # the eos of a request that names none (a compiled artifact's
+        # sealed eos), and the input-vocabulary bound of workflow-less
+        # serving (the artifact's embedding rows)
+        self.default_eos_id = (None if default_eos_id is None
+                               else int(default_eos_id))
+        self.vocab_size = None if vocab_size is None else int(vocab_size)
         self.predict_fn = predict_fn
         self.wstate = wstate
         self.batch_size = int(batch_size)
@@ -380,7 +393,10 @@ class RestfulServer(Logger):
 
     def _vocab_size(self) -> Optional[int]:
         if self.workflow is None:
-            return None
+            if self.vocab_size is not None:
+                return self.vocab_size
+            v = getattr(self.engine, "_input_vocab", None)
+            return int(v) if v else None
         from ..units.nn import input_vocab
         return input_vocab(self.workflow, self.wstate["params"])
 
@@ -429,6 +445,8 @@ class RestfulServer(Logger):
                 "top_k/top_p filter sampling and need temperature > 0 "
                 "(temperature 0 is greedy decoding)")
         eos_id = req.get("eos_id")
+        if eos_id is None:
+            eos_id = self.default_eos_id
         if eos_id is not None:
             eos_id = _req_int(eos_id, "eos_id")
             if not 0 <= eos_id < hi:

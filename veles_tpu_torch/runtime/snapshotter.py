@@ -115,6 +115,13 @@ def sha256_files(paths) -> str:
     return h.hexdigest()
 
 
+def _fsync_file(path: str) -> None:
+    """Flush a finished file's bytes to stable storage
+    (veles_tpu/runtime/snapshotter.py:41-46)."""
+    with open(path, "rb") as f:
+        os.fsync(f.fileno())
+
+
 def _fsync_dir(path: str) -> None:
     """Persist a directory's entries (the rename metadata); best effort
     where a directory cannot be opened (veles_tpu/runtime/snapshotter.py:

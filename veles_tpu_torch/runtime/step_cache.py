@@ -68,12 +68,16 @@ default ``"global"`` mode any such call fails.  And the process-wide
 capture window: the launch counters are process-wide, and a replay's
 launches counted meanwhile would be recorded as the new program's own.
 A replay waits for at most one capture; a capture waits for the replays
-in flight to return (their launches, not their device work).
+in flight to return (their launches, not their device work).  The
+cyclic collector is off inside a capture (:func:`without_gc`): a dead
+engine's graphs freed by a collection on the capturing thread would
+invalidate the capture.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 import weakref
@@ -86,6 +90,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from ..logger import Logger
+from ..ops.kernels.build import op_cost
 from ..ops.optimizers import tree_assign, tree_leaves, tree_map
 from .metrics import registry
 
@@ -214,6 +219,26 @@ def _claim_capture_stream(cache, device) -> "torch.cuda.Stream":
                        "a live step cache")
 
 
+@contextlib.contextmanager
+def without_gc():
+    """The cyclic collector off for a block.  Around a capture: engines
+    and trainers are reference cycles, and a collection that frees a dead
+    one's CUDA graph, stream or event on the capturing thread makes a
+    call the capture forbids and invalidates it ("operation not permitted
+    when stream is capturing"); the capture itself allocates enough to
+    trigger one.  Around a ``torch.export`` trace, save or load: each
+    collection they trigger walks the caller's whole heap (an export
+    inside a long process ran 2.2x slower than alone).  The block's
+    cycles are collected once it ends."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def _counters():
     from ..ops.kernels import KERNELS
     return [k.launches for k in KERNELS]
@@ -245,6 +270,10 @@ class CostCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        kernel = op_cost(func)
+        if kernel is not None and not self._quiet:
+            # a kernel's custom op outside its wrapper (a sealed program)
+            self.add_kernel_cost(kernel[0], kernel[1](*args, **kwargs))
         out = func(*args, **kwargs)
         formula = flop_registry.get(func.overloadpacket)
         if formula is not None and not self._quiet:
@@ -500,8 +529,9 @@ class StepCache(Logger):
         del scratch
         counters = _counters()
         graph = torch.cuda.CUDAGraph()
-        with CAPTURE_GATE.capture():
+        with CAPTURE_GATE.capture(), without_gc():
             before = [c.state() for c in counters]
+            # no cycle collection runs inside the capture (without_gc)
             with torch.cuda.graph(graph, stream=side,
                                   capture_error_mode="thread_local"):
                 # the host part stays out of the graph; nothing the

@@ -314,20 +314,76 @@ class Dropout(Unit):
 
 class LRN(Unit):
     """Local response normalization across channels.  ``method``:
-    "cumsum", "band" or "band_bf16" (ops/lrn.py); "auto" resolves to
-    "cumsum", the JAX package's pick with autotune off
-    (units/nn.py:379-382)."""
+    "cumsum", "band" or "band_bf16" (ops/lrn.py), or "auto": measured
+    forward plus backward on the device at the input shape, the winner
+    persisted per device kind (``runtime/autotune.py``; the JAX
+    package's units/nn.py:351-420).  ``root.common.autotune = False``
+    makes "auto" "cumsum" at build.  Else it resolves when the
+    workflow's state is initialized on a device (:meth:`init`), else at
+    :meth:`prepare` or the first call; ``method`` then names the pick
+    (what an export writes), never "auto"."""
 
     def __init__(self, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None,
                  inputs=("@input",), method="cumsum"):
         super().__init__(name, inputs)
         self.n, self.k, self.alpha, self.beta = n, k, alpha, beta
-        method = "cumsum" if method == "auto" else method
-        if method not in LRN_METHODS:
+        if method != "auto" and method not in LRN_METHODS:
             raise ValueError(f"LRN {self.name!r}: unknown method {method!r}")
         self.method = method
 
+    def output_spec(self, in_specs):
+        from ..config import root
+        if self.method == "auto" and not bool(root.common.autotune):
+            self.method = "cumsum"      # nothing to measure: at build
+        return super().output_spec(in_specs)
+
+    def init(self, generator, in_specs, device):
+        if torch.device(device).type != "meta":
+            self.prepare(in_specs, device)
+        return super().init(generator, in_specs, device)
+
+    def prepare(self, in_specs, device="cpu"):
+        """Resolve ``method="auto"`` at ``in_specs[0]``'s shape on
+        ``device``: the DB's winner, else the three formulations'
+        forward plus backward measured there."""
+        if self.method != "auto":
+            return
+        from ..config import root
+        from ..runtime import autotune
+        if not bool(root.common.autotune):
+            self.method = "cumsum"
+            return
+        spec = in_specs[0]
+        op = f"lrn_fwd_bwd_n{self.n}_b{self.beta}"
+        probe = torch.empty(tuple(spec.shape), dtype=spec.dtype,
+                            device="meta")
+        cached = autotune.lookup(op, LRN_METHODS, [probe], device=device)
+        if cached is not None:       # warm start: nothing allocated
+            self.method = cached
+            return
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(tuple(spec.shape), generator=gen).to(
+            device=device, dtype=spec.dtype)
+
+        def run(method):
+            def f(x):
+                x = x.detach().requires_grad_(True)
+                y = local_response_norm(x, n=self.n, k=self.k,
+                                        alpha=self.alpha, beta=self.beta,
+                                        method=method)
+                y.float().sum().backward()
+                return x.grad
+            return f
+
+        # n and beta in the key: the band's C x C product does not
+        # depend on n, the cumulative sum's cost does
+        self.method = autotune.pick(
+            op, {m: run(m) for m in LRN_METHODS}, [x], default="cumsum")
+
     def apply(self, params, state, xs, ctx):
+        if self.method == "auto":
+            self.prepare([Spec(tuple(xs[0].shape), xs[0].dtype)],
+                         xs[0].device)
         return local_response_norm(
             xs[0], n=self.n, k=self.k, alpha=self.alpha, beta=self.beta,
             method=self.method), state
