@@ -12,7 +12,8 @@ Phases, each of which fails the run with a non-zero exit:
    ptxas registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at its path's shapes and at edge cases (for the flash kernels, the
-   variant launched: tensor cores for bf16, SIMT for float32; for paged
+   variant launched: tensor cores for bf16, for float32 the SIMT forward
+   and the 3xTF32 tensor-core dQ and dK/dV; for paged
    decode, the edges of its per-row split across a cluster of blocks, a
    corrupt page-table entry, and two runs bitwise equal, on float32,
    bfloat16 and float16 pools),
@@ -109,7 +110,12 @@ Phases, each of which fails the run with a non-zero exit:
    an eval through the eager step (``StepCache(capture=False)``) and the
    captured one from one init and batch order, which must leave the same
    parameters, optimizer state and epoch sums bit for bit (each side's
-   median step and, bf16, its idle share printed); then a Decision
+   median step and, bf16, its idle share printed; the float32 captured
+   run's flash launches, counted from 0, all on float32's variants); then
+   the f32 flash forward, dQ and dK/dV at the full width (B=16, T=2048,
+   H=8, D=64, causal, path ``lm_f32``) against their plain versions
+   (the backward twice, bit for bit) and timed beside them, SDPA in
+   float32 and their bound at the f32 tensor-core rate; then a Decision
    rollback through a captured trainer's loop (Adam at lr 0, so epoch 1
    repeats epoch 0), which must halve the lr multiplier in the captured
    state and recapture nothing;
@@ -137,7 +143,7 @@ Phases, each of which fails the run with a non-zero exit:
    masks compared; one ``make_predict_step("fc8")`` batch;
 8. the curriculum path: one captured epoch of configs/induction_lm64.json
    (float32, B=100, T=64, 4 heads of 16) with the launch counts set to 0
-   before it, the f32 SIMT flash forward, dQ and dK/dV at that shape
+   before it, the f32 flash forward, dQ and dK/dV at that shape
    against their plain versions and timed beside them, SDPA and the bound
    of their ``cost()``, and the batch gather at that shape; then
    ``python -m veles_tpu_torch configs/induction_lm64.json --curriculum``
@@ -206,7 +212,7 @@ Phases, each of which fails the run with a non-zero exit:
    captured), ``induction_lm_pp``
    and ``induction_lm_pp_moe`` to <= 5 % (the ``_sp`` configs report
    theirs), then each config in-process for PP_BATCHES captured steps
-   and an eval (f32 SIMT flash launches, two dropout launches a stage
+   and an eval (f32 flash launches, two dropout launches a stage
    dropout a replay: forward and backward, one gather a batch), held
    against a profiled window's trace (idle share), the pp_moe step
    through the kernels against the plain versions in float32, and the
@@ -286,6 +292,11 @@ import numpy as np
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM)
 H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
+# float32-accurate products on the tensor cores: a 3xTF32 product is three
+# TF32 products (495 TFLOP/s dense), so 165 TFLOP/s of float32 work.  The
+# f32 flash rows are bound by the faster of the card's two float32-accurate
+# routes, whatever variant runs, so every share counts the same work.
+H100_F32_TC_FLOPS = 495e12 / 3
 H100_BYTES_S = 3.35e12        # HBM3 bandwidth
 
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # max |out - plain|
@@ -305,7 +316,13 @@ PAGED_TOL = 1e-4
 # and the cancellation in dP - delta, which leaves a small dQ entry with
 # a larger share of rounding.  A gradient whose exact value is 0 (dQ and
 # dK at causal Tq = Tk = 1) has no size of its own: it is held to
-# BWD_UNITS units of the terms that cancel (see _bwd_case).
+# BWD_UNITS units of the terms that cancel (see _bwd_case).  A float32
+# gradient is also held to its float64 evaluation from the same lse and
+# delta (bwd_float64): the plain version's own float32 rounding takes up
+# to ~900 of the 1024 units at T=2048 and has been read above them on
+# other inputs, so there the kernel within BWD_UNITS of float64 and no
+# further from it than the plain version is right even where it is more
+# than BWD_UNITS from the plain version (bwd_within).
 BWD_UNIT = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -24}
 BWD_UNITS = {"bfloat16": 2.0, "float32": 1024.0}
 # full-width float32 train step, kernels vs plain versions: relative
@@ -561,10 +578,17 @@ def _variant_delta(before, after):
             if n != before.get(k, 0)}
 
 
-def expected_variant(dtype):
-    """A flash kernel's variant for a dtype: the tensor-core kernels take
-    bf16, the SIMT kernels float32."""
-    return {"tc": 1} if str(dtype).endswith("bfloat16") else {"simt": 1}
+#: float32's variant of each flash kernel: the SIMT forward, the 3xTF32
+#: tensor-core dQ and dK/dV
+F32_VARIANTS = {"flash_attention": "simt", "flash_bwd_dq": "tf32x3",
+                "flash_bwd_dkv": "tf32x3"}
+
+
+def expected_variant(dtype, name):
+    """Flash kernel ``name``'s variant for a dtype, one launch: the
+    tensor-core kernels take bf16, :data:`F32_VARIANTS` float32."""
+    return ({"tc": 1} if str(dtype).endswith("bfloat16")
+            else {F32_VARIANTS[name]: 1})
 
 
 def _instance_usage(*libs):
@@ -667,7 +691,7 @@ def phase_kernels(torch):
             torch, gen, B, Tq, Tk, H, Hk, D, dt, causal, window)
         tol = FLASH_TOL[str(dt).split(".")[-1]]
         ok = (finite and err <= tol and lerr <= LSE_TOL
-              and ran == expected_variant(dt))
+              and ran == expected_variant(dt, fa.NAME))
         checks.append({"kernel": fa.NAME, "case": name, "variant": ran,
                        "max_abs_err": err, "tol": tol,
                        "lse_max_abs_err": lerr, "lse_tol": LSE_TOL,
@@ -852,8 +876,61 @@ def _bwd_case(torch, gen, B, Tq, Tk, H, Hk, D, dtype, causal, window):
                 "dk": terms * float(q.float().abs().max())}
     res = {name: bwd_agreement(torch, got[name], ref[name], zero.get(name))
            for name in ("dq", "dk", "dv")}
+    if dtype == torch.float32:
+        exact = dict(zip(("dq", "dk", "dv"), bwd_float64(torch, *args, **kw)))
+        for name in ("dq", "dk", "dv"):
+            res[name]["f64_units"] = bwd_agreement(
+                torch, got[name], exact[name], zero.get(name))["units"]
+            res[name]["plain_f64_units"] = bwd_agreement(
+                torch, ref[name], exact[name], zero.get(name))["units"]
     res["variant"] = {dq.NAME: ran_dq, dkv.NAME: ran}
     return args, kw, res
+
+
+def bwd_float64(torch, q, k, v, do, lse, delta, *, causal, scale, window):
+    """dQ, dK and dV of the flash backward evaluated in float64 from the
+    same inputs, lse and delta (the mask of ``key_blocks``: causal keys at
+    or before the query, within the window), rounded to the inputs'
+    dtype: the answer both the kernel and its plain version round."""
+    B, Tq, H, D = q.shape
+    Tk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    qh, doh = (x.transpose(1, 2).double() for x in (q, do))
+    kh, vh = (x.transpose(1, 2).double().repeat_interleave(G, dim=1)
+              for x in (k, v))
+    q_pos = torch.arange(Tq, device=q.device)[:, None]
+    k_pos = torch.arange(Tk, device=q.device)[None, :]
+    keep = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep = k_pos <= q_pos
+        if window is not None:
+            keep = keep & (k_pos > q_pos - window)
+    dq, dk, dv = (torch.empty_like(x) for x in (qh, kh, vh))
+    for b in range(B):      # one sequence's (H, Tq, Tk) at a time
+        p = torch.where(keep, torch.exp(qh[b] @ kh[b].transpose(-1, -2)
+                                        * scale
+                                        - lse[b].double()[..., None]), 0.0)
+        ds = p * (doh[b] @ vh[b].transpose(-1, -2)
+                  - delta[b].double()[..., None]) * scale
+        dq[b] = ds @ kh[b]
+        dk[b] = ds.transpose(-1, -2) @ qh[b]
+        dv[b] = p.transpose(-1, -2) @ doh[b]
+    dk, dv = (x.reshape(B, Hk, G, Tk, D).sum(2) for x in (dk, dv))
+    return tuple(x.transpose(1, 2).to(t.dtype).contiguous()
+                 for x, t in ((dq, q), (dk, k), (dv, v)))
+
+
+def bwd_within(r):
+    """The flash backward rule on one gradient's :func:`bwd_agreement`
+    (BWD_UNITS above): within BWD_UNITS of the plain version, and in
+    float32 within BWD_UNITS of the float64 evaluation as well; a float32
+    kernel further than BWD_UNITS from the plain version passes only where
+    the plain version is itself at least as far from float64."""
+    within = r["units"] <= r["units_tol"]
+    if "f64_units" not in r:
+        return within
+    return r["f64_units"] <= r["units_tol"] and (
+        within or r["plain_f64_units"] >= r["f64_units"])
 
 
 def bwd_agreement(torch, got, ref, zero_terms=None):
@@ -930,14 +1007,14 @@ def phase_train_kernels(torch):
         for kname, grads in ((dq.NAME, ("dq",)), (dkv.NAME, ("dk", "dv"))):
             rec = {"kernel": kname, "case": name,
                    "variant": res["variant"][kname]}
-            ok = res["variant"][kname] == expected_variant(dt)
+            ok = res["variant"][kname] == expected_variant(dt, kname)
             for g in grads:
                 r = res[g]
-                rec[g] = {k: r[k] for k in ("units", "units_tol",
-                                            "max_abs_err", "frob_rel_err",
-                                            "median_abs_plain")}
-                ok = ok and r["finite"] and r["dtype_ok"] \
-                    and r["units"] <= r["units_tol"]
+                rec[g] = {k: r[k] for k in (
+                    "units", "units_tol", "f64_units", "plain_f64_units",
+                    "max_abs_err", "frob_rel_err", "median_abs_plain")
+                    if k in r}
+                ok = ok and r["finite"] and r["dtype_ok"] and bwd_within(r)
             rec["ok"] = ok
             checks.append(rec)
             say(rec)
@@ -3051,12 +3128,29 @@ def phase_train(torch):
         say({"phase": "train_capture_witness", **eager})
         if not eager["ok"]:
             fail(f"the captured steps differ from the eager ones: {eager}")
+    # the float32 witness's captured run (counts set to 0 before it): every
+    # flash launch on float32's variant of its kernel
+    f32_run = eager["captured"]
+    f32_flash = {k.NAME: f32_run["launches"][k.NAME] for k in
+                 (flash_attention, flash_bwd_dq, flash_bwd_dkv)}
+    if not all(n and f32_run["variants"].get(name) == {F32_VARIANTS[name]: n}
+               for name, n in f32_flash.items()):
+        fail(f"the float32 LM steps did not launch float32's flash "
+             f"variants: {f32_run['variants']}")
+    lm_f32 = _f32_flash_timing(torch, TRAIN_B, TRAIN_T, HEADS, E // HEADS,
+                               "lm_f32", "the full-width f32 LM's")
+    say({"phase": "train_f32_kernel_timing",
+         "library_note": "library_ms of both flash backward kernels is one "
+                         "SDPA backward (dQ, dK and dV together), float32",
+         "witness_launches": f32_flash, **lm_f32})
     rollback = _rollback_check(torch)
     say({"phase": "train_rollback", **rollback})
     if not rollback["ok"]:
         fail(f"a Decision rollback recaptured or did not roll back: "
              f"{rollback}")
-    return launches
+    return launches, {"timing": lm_f32,
+                      "launches": {f"{name}/lm_f32": n
+                                   for name, n in f32_flash.items()}}
 
 
 def analytic_train_flops():
@@ -3119,7 +3213,8 @@ def _capture_witness(torch, dtype):
             "step_ms_median": float(np.median(run["step_s"])) * 1e3,
             "step_ms": [x * 1e3 for x in run["step_s"]],
             "epoch": trainer.decision.history[0],
-            "step_cache": run["step_cache"]}
+            "step_cache": run["step_cache"], "launches": run["launches"],
+            "variants": run["variants"]}
         if dtype == "bfloat16":
             prof = _train_profile(torch, trainer)
             runs[capture]["idle_share"] = prof["device_idle_share"]
@@ -3340,9 +3435,10 @@ def _settle(torch):
 #: launch counter names (None: a kernel built in one variant)
 KERNEL_SYMBOLS = {
     "flash_attention": {"tc": "flash_fwd_tc", "simt": "flash_fwd_kernel"},
-    "flash_bwd_dq": {"tc": "flash_bwd_dq_tc", "simt": "flash_bwd_dq_kernel"},
+    "flash_bwd_dq": {"tc": "flash_bwd_dq_tc",
+                     "tf32x3": "flash_bwd_dq_tf32x3"},
     "flash_bwd_dkv": {"tc": "flash_bwd_dkv_tc",
-                      "simt": "flash_bwd_dkv_kernel"},
+                      "tf32x3": "flash_bwd_dkv_tf32x3"},
     "gather_rows": {"batch": "gather_batch_kernel",
                     "rows": "gather_rows_kernel"},
     "fused_dropout": {None: "dropout_kernel"},
@@ -4797,27 +4893,36 @@ def _lm64_trainer(torch, n_train=CUR_TRAIN, n_valid=CUR_VALID, epochs=1):
 
 
 def _f32_flash_timing(torch, B, T, H, D, path, what):
-    """The f32 SIMT flash kernels at a path's shape (B, T, H, D, causal)
-    against their plain versions (forward FLASH_TOL, backward BWD_UNITS;
-    fails the run otherwise), each timed beside its plain version, SDPA
-    in float32 and the bound of its ``cost()``: the ``kernels`` line's
-    entries ``<name>/<path>``."""
+    """The f32 flash kernels (the SIMT forward, the 3xTF32 dQ and dK/dV)
+    at a path's shape (B, T, H, D, causal) against their plain versions
+    (forward FLASH_TOL, backward :func:`bwd_within`, the backward twice
+    bit for bit; fails the run otherwise), each timed beside its plain version,
+    SDPA in float32 and the bound of its ``cost()`` at the f32 tensor-core
+    rate: the ``kernels`` line's entries ``<name>/<path>``."""
     import torch.nn.functional as F
     from veles_tpu_torch.ops.kernels import flash_attention as fa
     from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
     from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(11)
     f32 = torch.float32
     (q, k, v), ferr, lerr, finite, ran = _flash_case(
         torch, gen, B, T, T, H, H, D, f32, True, None)
     args, kw, res = _bwd_case(torch, gen, B, T, T, H, H, D, f32, True, None)
+    first = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
+    second = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
+    repeat = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    del first, second
     ok = (ferr <= FLASH_TOL["float32"] and lerr <= LSE_TOL and finite
-          and ran == {"simt": 1}
-          and all(res[g]["units"] <= BWD_UNITS["float32"]
-                  and res[g]["finite"] for g in ("dq", "dk", "dv")))
+          and ran == expected_variant(f32, fa.NAME)
+          and all(res["variant"][m.NAME] == expected_variant(f32, m.NAME)
+                  for m in (dq, dkv))
+          and all(repeat)
+          and all(bwd_within(res[g]) and res[g]["finite"]
+                  for g in ("dq", "dk", "dv")))
     check = {"phase": path + "_kernels_check", "max_abs_err": ferr,
              "tol": FLASH_TOL["float32"], "lse_err": lerr,
-             "backward": res, "ok": ok}
+             "backward": res, "backward_two_runs_bitwise": repeat, "ok": ok}
     say(check)
     if not ok:
         fail(f"f32 flash kernels disagree with their plain versions at "
@@ -4830,6 +4935,8 @@ def _f32_flash_timing(torch, B, T, H, D, path, what):
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
     shape = {"B": B, "T": T, "H": H, "D": D, "dtype": "float32",
              "causal": True}
+    # the plain versions at full width: a few calls are enough
+    plain_iters = 20 if B * T * H * D <= 1 << 20 else 3
     timing = {}
     for mod, fn, plain, lib, err in (
             (fa, lambda: fa.flash_attention(q, k, v, True),
@@ -4845,14 +4952,15 @@ def _f32_flash_timing(torch, B, T, H, D, path, what):
              max(res["dk"]["max_abs_err"], res["dv"]["max_abs_err"]))):
         ms = cuda_ms(torch, fn, iters=100)
         c = mod.cost(q, k, v, True)
-        b_ms, b_by = cost_bound(c, H100_F32_FLOPS)
+        b_ms, b_by = cost_bound(c, H100_F32_TC_FLOPS)
+        variant = F32_VARIANTS[mod.NAME]
         timing[f"{mod.NAME}/{path}"] = {
             "max_abs_err": err, "ms": ms,
-            "plain_ms": cuda_ms(torch, plain, iters=20),
+            "plain_ms": cuda_ms(torch, plain, iters=plain_iters),
             "library_ms": cuda_ms(torch, lib, iters=100) if lib
             else bwd_lib,
-            "bound_ms": b_ms, "bound_by": b_by, "variant": "simt",
-            "source": mod.SOURCES["simt"], "path": path,
+            "bound_ms": b_ms, "bound_by": b_by, "variant": variant,
+            "source": mod.SOURCES[variant], "path": path,
             "tflops": c["flops"] / ms / 1e9, "bound_share": b_ms / ms,
             "shape": shape}
     return timing
@@ -4860,7 +4968,7 @@ def _f32_flash_timing(torch, B, T, H, D, path, what):
 
 def phase_curriculum_kernels(torch):
     """The curriculum's kernels: one epoch of its LM64 trainer (captured)
-    with the counts set to 0 before it, each f32 SIMT flash kernel at its
+    with the counts set to 0 before it, each f32 flash kernel at its
     shape (B=100, T=64, H=4, D=16, causal) against its plain version
     (forward 1e-4, backward BWD_UNITS) and timed beside the plain version,
     SDPA in float32 and the bound of its ``cost()``; the batch gather at
@@ -4887,7 +4995,8 @@ def phase_curriculum_kernels(torch):
     flash = (fa, dq, dkv)
     problems = [k.NAME for k in flash
                 if not launches[k.NAME]
-                or variants.get(k.NAME) != {"simt": launches[k.NAME]}]
+                or variants.get(k.NAME) != {F32_VARIANTS[k.NAME]:
+                                            launches[k.NAME]}]
     if problems or variants.get(gr.NAME) != {"batch": batches} \
             or not (st["train"]["captured"] and st["eval"]["captured"]):
         fail(f"the curriculum's epoch did not run its f32 kernels, one "
@@ -5185,6 +5294,15 @@ def _pp_cli_record(name, rc, stdout, stderr, wall, concurrent):
     return rec
 
 
+def _pp_flash_shape():
+    """(B, T, H, D) of the pp_moe stages' attention, from its config."""
+    cfg = _config(os.path.join("configs", PP_PATH + ".json"))
+    dim = cfg["workflow"]["layers"][0]["dim"]
+    heads = cfg["workflow"]["layers"][1]["stages"][0][0]["n_heads"]
+    return (cfg["loader"]["minibatch_size"], cfg["loader"]["seq_len"],
+            heads, dim // heads)
+
+
 def _pp_counted(torch, name):
     """The config's captured epoch of PP_BATCHES batches and its eval,
     every kernel count set to 0 before and read after; then a profiled
@@ -5219,8 +5337,8 @@ def _pp_counted(torch, name):
            "top_kernels_s": prof["top_kernels_s"],
            "launch_trace": prof["launch_trace"]}
     rec["ok"] = (st["train"]["captured"] and st["eval"]["captured"]
-                 and all(variants.get(k.NAME, {}).get("simt")
-                         and not variants[k.NAME].get("tc")
+                 and all(launches[k.NAME] and variants.get(k.NAME) == {
+                     F32_VARIANTS[k.NAME]: launches[k.NAME]}
                          for k in (fa, dq, dkv))
                  and variants.get(gr.NAME) == {"batch": PP_BATCHES + 1}
                  # a dropout launches forward and backward (its mask again)
@@ -5308,7 +5426,7 @@ def phase_pipeline_train(torch):
     epochs, the four runs at once (no mesh, captured; induction_lm_pp and
     induction_lm_pp_moe to the 5 % bar), then in-process a captured epoch
     of PP_BATCHES batches of each with the counts set to 0 before (f32
-    SIMT flash kernels, two dropout launches a stage dropout a replay,
+    flash kernels, two dropout launches a stage dropout a replay,
     one batch gather a batch) and a profiled window holding them against
     the trace; the pp_moe step through the kernels against the plain
     versions in float32; the path's kernels timed at its shape.  Returns
@@ -5336,9 +5454,7 @@ def phase_pipeline_train(torch):
     cfg = _config(os.path.join("configs", PP_PATH + ".json"))
     ld = cfg["loader"]
     dim = cfg["workflow"]["layers"][0]["dim"]
-    heads = cfg["workflow"]["layers"][1]["stages"][0][0]["n_heads"]
-    timing = _f32_flash_timing(torch, ld["minibatch_size"], ld["seq_len"],
-                               heads, dim // heads, PP_PATH,
+    timing = _f32_flash_timing(torch, *_pp_flash_shape(), PP_PATH,
                                "the pp_moe stages'")
     timing[f"{fd.NAME}/{PP_PATH}"] = _pp_dropout_timing(
         torch, ld["minibatch_size"], ld["seq_len"], dim,
@@ -6937,7 +7053,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="vt_lifecycle_") as snap_dir:
         timed("serving_lifecycle", phase_lifecycle, torch, snap_dir)
     rec_serve = timed("recurrent_serving", phase_recurrent_serving, torch)
-    train_launches = timed("train", phase_train, torch)
+    train_launches, lm_f32 = timed("train", phase_train, torch)
+    timing.update(lm_f32["timing"])
     rec_train = timed("recurrent_train", phase_recurrent_train, torch)
     image_launches, image_rec = timed("image", phase_image, torch)
     host = timed("image_host", phase_image_host, torch, image_rec)
@@ -6976,6 +7093,9 @@ def main():
     # training path (flash forward runs on both LM paths, the gather on
     # both training paths; the other counts are in the phase lines)
     launches = dict(train_launches)
+    # the full-width LM in float32: the f32 flash kernels over its
+    # witness's captured steps
+    launches.update(lm_f32["launches"])
     launches["paged_attention_decode"] = serve_launches[
         "paged_attention_decode"]
     for kname in IMG_MIN_LAUNCHES:

@@ -13,7 +13,9 @@ chip_smoke.py's: max |kernel - plain| 1e-4 in float32, 2e-2 in bfloat16
 kernels element by element, |kernel - plain| <= BWD_UNITS units u of the
 dtype (bf16 2^-8, f32 2^-24) times (|plain| + its row's largest |plain|,
 or the gradient's median |plain| where that is larger), and a gradient
-whose exact value is 0 to BWD_UNITS units of the terms that cancel; the
+whose exact value is 0 to BWD_UNITS units of the terms that cancel; in
+float32 also within BWD_UNITS of a float64 evaluation, which stands in
+for the plain version where that is the further of the two from it; the
 row gather
 bitwise; an attention unit's weight gradients
 kernel vs plain path rtol 1e-4 of each gradient's largest entry in
@@ -98,8 +100,13 @@ FLASH_CASES = {
 }
 
 
-def _variant(dtype):
-    return "tc" if dtype == bf16 else "simt"
+#: float32's variant of each flash kernel: the SIMT forward, the 3xTF32
+#: tensor-core backward
+F32_VARIANTS = {fa.NAME: "simt", dq.NAME: "tf32x3", dkv.NAME: "tf32x3"}
+
+
+def _variant(dtype, name):
+    return "tc" if dtype == bf16 else F32_VARIANTS[name]
 
 
 @pytest.mark.parametrize("B,Tq,Tk,H,Hk,D,dtype,causal,window",
@@ -115,7 +122,7 @@ def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Hk, D, dtype, causal,
     out, lse = fa.flash_attention(q, k, v, causal, None, window)
     assert fa.launches.count == before + 1
     after = fa.launches.by_variant()
-    vname = _variant(dtype)
+    vname = _variant(dtype, fa.NAME)
     assert after.get(vname, 0) == variants.get(vname, 0) + 1
     ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
@@ -336,7 +343,7 @@ def test_paged_kernel_refuses_a_misaligned_bf16_pool_view(card):
 def test_flash_kernels_refuse_a_misaligned_bf16_view(card):
     """A bf16 view at an odd element offset cannot feed the tensor-core
     kernels' 16-byte copies: the wrappers raise naming the kernel, and
-    nothing launches (no SIMT kernel, no plain version)."""
+    nothing launches (no float32 kernel, no plain version)."""
     base = torch.zeros(2 * 64 * 8 * 64 + 1, device=card, dtype=bf16)
     x = base[1:].view(2, 64, 8, 64)
     assert x.data_ptr() % 16 != 0
@@ -351,6 +358,31 @@ def test_flash_kernels_refuse_a_misaligned_bf16_view(card):
         dkv.flash_bwd_dkv(ok, ok, ok, x, lse, lse, causal=True, scale=0.125)
     assert (fa.launches.count, dq.launches.count,
             dkv.launches.count) == before
+
+
+def test_f32_flash_bwd_takes_a_misaligned_view(card):
+    """float32 views at an odd element offset (off the 16-byte boundary)
+    go to the 3xTF32 backward kernels, which then copy their tiles word by
+    word, and agree with the plain versions as aligned inputs do."""
+    args, kw = _bwd_inputs(card, 2, 100, 100, 4, 2, 64, torch.float32,
+                           True, 40)
+    views = []
+    for t in args[:4]:
+        base = torch.empty(t.numel() + 1, device=card)
+        view = base[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        views.append(view)
+    moved = tuple(views) + args[4:]
+    for m in (dq, dkv):
+        m.launches.reset()
+    got = (dq.flash_bwd_dq(*moved, **kw),) + dkv.flash_bwd_dkv(*moved, **kw)
+    assert dq.launches.by_variant() == {"tf32x3": 1}
+    assert dkv.launches.by_variant() == {"tf32x3": 1}
+    ref = (dq.flash_bwd_dq_plain(*args, **kw),) + dkv.flash_bwd_dkv_plain(
+        *args, **kw)
+    for g, r in zip(got, ref):
+        assert _bwd_units(g, r) <= BWD_UNITS[torch.float32]
 
 
 def _bwd_inputs(card, B, Tq, Tk, H, Hk, D, dtype, causal, window, seed=2):
@@ -375,6 +407,12 @@ BWD_CASES = {
         "bf16_cross_Tk_below_tile", "bf16_gqa2", "bf16_gqa4",
         "bf16_window_below_tile", "bf16_rows_without_keys",
         "bf16_D16_T2048", "D16_f32_curriculum")},
+    # configs/induction_lm.json's attention (f32, 4 heads of 16, T=32)
+    "D16_f32_induction_lm": (100, 32, 32, 4, 4, 16, torch.float32, True,
+                             None),
+    # the training path's full width in float32
+    "D64_f32_full_width": (16, 2048, 2048, 8, 8, 64, torch.float32, True,
+                           None),
 }
 
 
@@ -389,14 +427,17 @@ def test_flash_bwd_kernels_match_plain(card, B, Tq, Tk, H, Hk, D, dtype,
     got = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
     assert (dq.launches.count, dkv.launches.count) == (before[0] + 1,
                                                        before[1] + 1)
-    vname = _variant(dtype)
+    vname = _variant(dtype, dkv.NAME)
     assert dkv.launches.by_variant().get(vname, 0) \
         == variants.get(vname, 0) + 1
+    vname = _variant(dtype, dq.NAME)
     assert dq.launches.by_variant().get(vname, 0) \
         == dq_variants.get(vname, 0) + 1
     ref = (dq.flash_bwd_dq_plain(*args, **kw),) + dkv.flash_bwd_dkv_plain(
         *args, **kw)
     q, k, v, do = args[:4]
+    if dtype == torch.float32:
+        exact = dict(zip(("dq", "dk", "dv"), _bwd_float64(*args, **kw)))
     # causal Tq = Tk = 1: P = 1 and dP = delta, so the exact dQ and dK
     # are 0 and each side holds only its own rounding of dP - delta; those
     # two are held in units of the terms that cancel (|dO| |V| scale
@@ -409,8 +450,54 @@ def test_flash_bwd_kernels_match_plain(card, B, Tq, Tk, H, Hk, D, dtype,
             err = float((g.float() - r.float()).abs().max())
             assert err <= BWD_UNITS[dtype] * BWD_UNIT[dtype] * terms \
                 * _amax(other), name
+        elif dtype == torch.float32:
+            assert _f32_bwd_within(g, r, exact[name]), name
         else:
             assert _bwd_units(g, r) <= BWD_UNITS[dtype], name
+
+
+def _bwd_float64(q, k, v, do, lse, delta, *, causal, scale, window):
+    """dQ, dK and dV evaluated in float64 from the same inputs, lse and
+    delta (causal keys at or before the query, within the window), in the
+    inputs' dtype: the answer both the kernel and the plain version
+    round (chip_smoke.py's ``bwd_float64``)."""
+    B, Tq, H, D = q.shape
+    Tk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    qh, doh = (x.transpose(1, 2).double() for x in (q, do))
+    kh, vh = (x.transpose(1, 2).double().repeat_interleave(G, dim=1)
+              for x in (k, v))
+    q_pos = torch.arange(Tq, device=q.device)[:, None]
+    k_pos = torch.arange(Tk, device=q.device)[None, :]
+    keep = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep = k_pos <= q_pos
+        if window is not None:
+            keep = keep & (k_pos > q_pos - window)
+    dq_, dk_, dv_ = (torch.empty_like(x) for x in (qh, kh, vh))
+    for b in range(B):
+        p = torch.where(keep, torch.exp(qh[b] @ kh[b].transpose(-1, -2)
+                                        * scale
+                                        - lse[b].double()[..., None]), 0.0)
+        ds = p * (doh[b] @ vh[b].transpose(-1, -2)
+                  - delta[b].double()[..., None]) * scale
+        dq_[b] = ds @ kh[b]
+        dk_[b] = ds.transpose(-1, -2) @ qh[b]
+        dv_[b] = p.transpose(-1, -2) @ doh[b]
+    dk_, dv_ = (x.reshape(B, Hk, G, Tk, D).sum(2) for x in (dk_, dv_))
+    return tuple(x.transpose(1, 2).to(t.dtype).contiguous()
+                 for x, t in ((dq_, q), (dk_, k), (dv_, v)))
+
+
+def _f32_bwd_within(got, plain, exact):
+    """chip_smoke.py's float32 backward rule: within BWD_UNITS of the
+    float64 evaluation, and within BWD_UNITS of the plain version unless
+    the plain version is itself at least as far from float64 (its own
+    rounding takes most of the units at T=2048)."""
+    tol = BWD_UNITS[torch.float32]
+    to_f64 = _bwd_units(got, exact)
+    return to_f64 <= tol and (_bwd_units(got, plain) <= tol
+                              or _bwd_units(plain, exact) >= to_f64)
 
 
 def _amax(t):
@@ -430,13 +517,16 @@ def _bwd_units(got, ref):
     return float(units.max())
 
 
-@pytest.mark.parametrize("B,T,H,Hk", [(2, 384, 8, 2), (16, 2048, 8, 8)],
-                         ids=["gqa_384", "full_width_2048"])
-def test_flash_bwd_kernels_are_deterministic(card, B, T, H, Hk):
+@pytest.mark.parametrize("B,T,H,Hk,D,dtype", [
+    (2, 384, 8, 2, 64, bf16), (16, 2048, 8, 8, 64, bf16),
+    (100, 64, 4, 4, 16, torch.float32), (16, 2048, 8, 8, 64, torch.float32)],
+    ids=["gqa_384", "full_width_2048", "f32_D16_curriculum",
+         "f32_D64_full_width"])
+def test_flash_bwd_kernels_are_deterministic(card, B, T, H, Hk, D, dtype):
     """No float atomics: two backward runs give the same bits (the
-    tensor-core dK/dV and the dQ kernel, bf16, up to the training path's
-    full width)."""
-    args, kw = _bwd_inputs(card, B, T, T, H, Hk, 64, bf16, True, None)
+    tensor-core dK/dV and dQ kernels, bf16 and the 3xTF32 float32 ones,
+    up to the training path's full width)."""
+    args, kw = _bwd_inputs(card, B, T, T, H, Hk, D, dtype, True, None)
     first = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
     second = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args,
                                                                   **kw)
@@ -458,6 +548,23 @@ def test_bf16_attention_launches_only_the_tensor_core_variants(card):
     assert fa.launches.by_variant() == {"tc": 1}
     assert dq.launches.by_variant() == {"tc": 1}
     assert dkv.launches.by_variant() == {"tc": 1}
+
+
+@pytest.mark.parametrize("D", [16, 64])
+def test_f32_attention_launches_the_tf32x3_backward(card, D):
+    """A float32 forward and backward through the autograd.Function
+    launches the SIMT forward and the 3xTF32 dQ and dK/dV kernels, and no
+    other variant."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((2, 256, 4, D), generator=gen).to(card)
+               .requires_grad_(True) for _ in range(3))
+    for m in (fa, dq, dkv):
+        m.launches.reset()
+    out, _ = fa.flash_attention(q, k, v, True)
+    torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert fa.launches.by_variant() == {"simt": 1}
+    assert dq.launches.by_variant() == {"tf32x3": 1}
+    assert dkv.launches.by_variant() == {"tf32x3": 1}
 
 
 def _attention_grads(card, x, unit, params):
@@ -1729,6 +1836,45 @@ def test_process_with_the_memory_poller_exits_cleanly(card):
         "for _ in range(20):\n"
         "    x = x @ x.T / 2048\n"
         "torch.cuda.synchronize()\n")
+    root_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for _ in range(3):
+        r = subprocess.run([sys.executable, "-c", child], cwd=root_dir,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert "terminate called" not in r.stderr
+
+
+def test_process_exiting_while_its_engine_decodes_exits_cleanly(card):
+    """A process that returns while its started engine decodes on the
+    card exits with 0 and no C++ abort: the engine's exit hook stops and
+    joins the ``decode-engine`` thread before the interpreter ends daemon
+    threads."""
+    import os
+    import subprocess
+    import sys
+    child = (
+        "import threading, torch\n"
+        "from veles_tpu_torch.models.standard import StandardWorkflow\n"
+        "from veles_tpu_torch.runtime.engine import DecodeEngine\n"
+        "from veles_tpu_torch.units.base import Spec\n"
+        "layers = [{'type': 'embedding', 'vocab': 64, 'dim': 64,\n"
+        "           'name': 'emb'},\n"
+        "          {'type': 'attention', 'n_heads': 4, 'rope': True,\n"
+        "           'residual': True, 'name': 'attn'},\n"
+        "          {'type': 'all2all', 'output_size': 64,\n"
+        "           'per_position': True, 'name': 'head'}]\n"
+        "wf = StandardWorkflow({'name': 'lm', 'layers': layers}).workflow\n"
+        "wf.build({'@input': Spec((2, 16), torch.int32),\n"
+        "          '@labels': Spec((2, 16), torch.int32),\n"
+        "          '@mask': Spec((2,), torch.float32)})\n"
+        "ws = wf.init_state(0, device='cuda')\n"
+        "eng = DecodeEngine(wf, ws, slots=2, l_max=2048, page_size=16,\n"
+        "                   paged_kernel=True, window_ms=0.0,\n"
+        "                   device='cuda').start()\n"
+        "req = eng.submit([1, 2, 3], 2000)\n"
+        "while req.first_token_at is None:\n"
+        "    threading.Event().wait(0.001)\n"
+        "assert eng.started and not req.done.is_set()\n")
     root_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for _ in range(3):
         r = subprocess.run([sys.executable, "-c", child], cwd=root_dir,

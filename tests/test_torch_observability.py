@@ -218,6 +218,65 @@ def test_memory_gauges_and_a_freed_engine_leaves_the_ledger(lm):
     assert gauge.labels(component="engine.kv_cache").value == 0
 
 
+def _finishes(fn, seconds=10.0):
+    """Run ``fn`` on a daemon thread; True when it returned in time (a
+    thread that deadlocked on its own lock never does)."""
+    t = threading.Thread(target=fn, daemon=True)
+    t.start()
+    t.join(seconds)
+    return not t.is_alive()
+
+
+def test_a_finalizer_reentering_a_ledger_update_does_not_deadlock(
+        monkeypatch):
+    """A garbage collection inside ``set_component`` (an allocation under
+    the monitor's lock; here in the gauge's ``labels``) runs a dead
+    registrant's finalizer, ``drop_stamped_components``, on the same
+    thread: it re-enters the monitor, which must not deadlock (a run of
+    the tests once hung there).  A monitor of its own, so a regression
+    blocks no other test."""
+    from veles_tpu_torch.runtime.memory import MemoryMonitor
+    mon = MemoryMonitor()
+    dead = mon.set_component("test.reenter.dead", 1)
+    gauge = mon._g_comp
+    real = gauge.labels
+    fired = []
+
+    def labels(**kv):
+        if not fired:             # the finalizer, mid-update
+            fired.append(1)
+            mon.drop_component("test.reenter.dead", dead)
+        return real(**kv)
+
+    monkeypatch.setattr(gauge, "labels", labels)
+    assert _finishes(lambda: mon.set_component("test.reenter.live", 2))
+    monkeypatch.undo()
+    assert fired
+    assert mon.components() == {"test.reenter.live": 2}
+    mon.drop_component("test.reenter.live")
+
+
+def test_a_metric_labelled_again_while_making_a_child_does_not_deadlock(
+        monkeypatch):
+    """Making a labelled child allocates under the metric's lock; a
+    finalizer run by a collection there may label the same metric again
+    on the same thread (the memory ledger's gauge does)."""
+    g = registry().gauge("vt_test_reentrant_labels", "test", labels=("k",))
+    real = g._make_child
+    made = []
+
+    def make():
+        if not made:
+            made.append(1)
+            g.labels(k="inner").set(1)
+        return real()
+
+    monkeypatch.setattr(g, "_make_child", make)
+    assert _finishes(lambda: g.labels(k="outer").set(2))
+    assert g.labels(k="inner").value == 1
+    assert g.labels(k="outer").value == 2
+
+
 def test_memory_poller_stops_and_joins(monkeypatch):
     """The device poller leaves its wait at once when stopped (what the
     monitor's exit hook runs, so no poller is inside a CUDA call when

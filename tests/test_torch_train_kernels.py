@@ -134,24 +134,32 @@ def test_bwd_wrappers_refuse_bad_shapes():
 
 # -- which flash kernel a CUDA call launches (decided on CPU tensors) -------
 
+#: float32's variant of each flash kernel: the SIMT forward, the 3xTF32
+#: tensor-core backward
+F32 = {fa.NAME: "simt", dq.NAME: "tf32x3", dkv.NAME: "tf32x3"}
+
+
 @pytest.mark.parametrize("name", [fa.NAME, dq.NAME, dkv.NAME])
-@pytest.mark.parametrize("dtype,variant", [(torch.float32, "simt"),
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, F32),
                                            (torch.bfloat16, "tc")],
                          ids=["f32_simt", "bf16_tensor_cores"])
 def test_kernel_variant_follows_the_dtype(name, dtype, variant):
-    """float32 takes the SIMT kernel and bfloat16 the tensor-core one, at
-    every shape: odd T, Tq != Tk, head dim 16 or 64."""
+    """float32 takes the SIMT forward and the 3xTF32 backward kernels,
+    bfloat16 the tensor-core ones, at every shape: odd T, Tq != Tk, head
+    dim 16 or 64."""
+    want = variant[name] if isinstance(variant, dict) else variant
     for shape in ((1, 1, 8, 64), (3, 65, 4, 16), (2, 129, 8, 64)):
         ts = [torch.zeros(shape, dtype=dtype) for _ in range(4)]
         fc.check_kernel_inputs(name, ts, shape[3], shape[0] * shape[2])
-        assert fc.kernel_variant(name, ts) == variant
+        assert fc.kernel_variant(name, ts) == want
 
 
 @pytest.mark.parametrize("name", [fa.NAME, dq.NAME, dkv.NAME])
 def test_kernel_variant_refuses_a_misaligned_bf16_view(name):
     """A bf16 view at an odd element offset cannot feed the 16-byte
     copies: refused with the kernel's name, never routed elsewhere; the
-    same view in float32 (the SIMT kernel) is taken."""
+    same view in float32 (whose kernels copy word by word off the 16-byte
+    boundary) is taken by float32's kernel."""
     base = torch.zeros(2 * 64 * 8 * 64 + 1, dtype=torch.bfloat16)
     x = base[1:].view(2, 64, 8, 64)
     assert x.is_contiguous() and x.data_ptr() % fc.TC_ALIGN != 0
@@ -160,7 +168,7 @@ def test_kernel_variant_refuses_a_misaligned_bf16_view(name):
     with pytest.raises(ValueError, match=f"{name}: .*16-byte aligned"):
         fc.kernel_variant(name, (ok, ok, x))
     f32 = torch.zeros(2 * 64 * 8 * 64 + 1)[1:].view(2, 64, 8, 64)
-    assert fc.kernel_variant(name, (f32, f32, f32)) == "simt"
+    assert fc.kernel_variant(name, (f32, f32, f32)) == F32[name]
 
 
 def test_kernel_inputs_refuse_what_no_variant_takes():

@@ -1,6 +1,6 @@
 // Flash-attention backward, dK and dV, bf16, on Hopper's tensor cores
 // (sm_90a, wgmma); plain C interface for ctypes.  The float32 instances
-// stay on the SIMT kernel of flash_bwd_dkv.cu.
+// are flash_bwd_dkv_tf32x3.cu's (mma.sync, 3xTF32).
 //
 // Replaces the TPU kernel veles_tpu/ops/pallas_kernels.py `_flash_bwd`'s
 // dK/dV pallas_call (:411, kernel body `_flash_bwd_dkv_kernel` :312-357)

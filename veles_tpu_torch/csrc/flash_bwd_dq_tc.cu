@@ -1,6 +1,6 @@
 // Flash-attention backward, dQ, bf16, on Hopper's tensor cores (sm_90a,
-// wgmma); plain C interface for ctypes.  The float32 instances stay on the
-// SIMT kernel of flash_bwd_dq.cu.
+// wgmma); plain C interface for ctypes.  The float32 instances are
+// flash_bwd_dq_tf32x3.cu's (mma.sync, 3xTF32).
 //
 // Replaces the TPU kernel veles_tpu/ops/pallas_kernels.py `_flash_bwd`'s
 // dQ pallas_call (:384, kernel body `_flash_bwd_dq_kernel` :269-309) for

@@ -4,8 +4,8 @@
 // shared-memory layout that wgmma reads, wgmma shared-memory descriptors,
 // and the warpgroup products themselves as inline PTX.  No CUTLASS: the
 // handful of instructions the kernels use are written out here, which
-// keeps nvcc at seconds per source.  paged_attention.cu takes the cp.async
-// copies alone.
+// keeps nvcc at seconds per source.  paged_attention.cu and tf32x3.cuh
+// (the f32 backward) take the cp.async copies alone.
 //
 // Shared-memory tiles.  A tile holds rows of D bf16 (D = 64: 128 bytes;
 // D = 16: 32 bytes), row r at r * 2D bytes, and its 16-byte chunks

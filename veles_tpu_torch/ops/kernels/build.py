@@ -33,10 +33,10 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_fwd_tc": "flash_fwd_tc.cu",
-    "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dq_tc": "flash_bwd_dq_tc.cu",
-    "flash_bwd_dkv": "flash_bwd_dkv.cu",
+    "flash_bwd_dq_tf32x3": "flash_bwd_dq_tf32x3.cu",
     "flash_bwd_dkv_tc": "flash_bwd_dkv_tc.cu",
+    "flash_bwd_dkv_tf32x3": "flash_bwd_dkv_tf32x3.cu",
     "paged_attention": "paged_attention.cu",
     "gather_rows": "gather_rows.cu",
     "fused_dropout": "fused_dropout.cu",
@@ -148,7 +148,7 @@ class LaunchCounter:
     """Plain count of a kernel's launches; the wrapper adds one exactly
     where it launches the kernel, so a run can show that its main path
     went through the kernel.  A kernel built in variants (the flash
-    kernels: ``"tc"`` tensor cores for bf16, ``"simt"`` for float32) names
+    kernels: ``"tc"`` for bf16, ``"simt"`` or ``"tf32x3"`` for float32) names
     the variant it launched, and :meth:`by_variant` counts each."""
 
     def __init__(self):

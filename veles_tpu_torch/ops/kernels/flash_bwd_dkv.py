@@ -1,10 +1,10 @@
 """Flash-attention backward, dK and dV: the hand-written CUDA kernels and
 their plain PyTorch version.
 
-Two variants, chosen by dtype alone (``kernel_variant``): bfloat16 runs
-on the tensor cores (``csrc/flash_bwd_dkv_tc.cu``, wgmma), float32 on the
-SIMT cores (``csrc/flash_bwd_dkv.cu``); ``launches.by_variant()`` counts
-each.
+Two variants, chosen by dtype alone (``kernel_variant``), both on the
+tensor cores: bfloat16 in ``csrc/flash_bwd_dkv_tc.cu`` (wgmma, ``"tc"``),
+float32 in ``csrc/flash_bwd_dkv_tf32x3.cu`` (mma.sync with a 3xTF32 split,
+``"tf32x3"``); ``launches.by_variant()`` counts each.
 
 Replaces ``veles_tpu/ops/pallas_kernels.py`` ``_flash_bwd``'s dK/dV
 pallas_call (:411, body ``_flash_bwd_dkv_kernel`` :312-357).  The
@@ -30,7 +30,7 @@ from .flash_bwd_common import (_attention_cost, check_bwd_shapes,
 NAME = "flash_bwd_dkv"
 #: the source of each variant; SOURCE is the bf16 main path's
 SOURCES = {"tc": "veles_tpu_torch/csrc/flash_bwd_dkv_tc.cu",
-           "simt": "veles_tpu_torch/csrc/flash_bwd_dkv.cu"}
+           "tf32x3": "veles_tpu_torch/csrc/flash_bwd_dkv_tf32x3.cu"}
 SOURCE = SOURCES["tc"]
 REPLACES = "veles_tpu/ops/pallas_kernels.py:411"
 
@@ -86,10 +86,10 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, *, causal: bool,
 
 
 def _fn(variant):
-    lib = build.load("flash_bwd_dkv_tc" if variant == "tc"
-                     else "flash_bwd_dkv")
+    name = f"flash_bwd_dkv_{variant}"  # library and entry point
+    lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.vt_flash_bwd_dkv_tc if variant == "tc" else lib.vt_flash_bwd_dkv
+    fn = getattr(lib, "vt_" + name)
     if fn.argtypes is None:
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
     fn.restype = ctypes.c_int

@@ -1,10 +1,10 @@
 """Flash-attention backward, dQ: the hand-written CUDA kernels and their
 plain PyTorch version.
 
-Two variants, chosen by dtype alone (``kernel_variant``): bfloat16 runs
-on the tensor cores (``csrc/flash_bwd_dq_tc.cu``, wgmma), float32 on the
-SIMT cores (``csrc/flash_bwd_dq.cu``); ``launches.by_variant()`` counts
-each.
+Two variants, chosen by dtype alone (``kernel_variant``), both on the
+tensor cores: bfloat16 in ``csrc/flash_bwd_dq_tc.cu`` (wgmma, ``"tc"``),
+float32 in ``csrc/flash_bwd_dq_tf32x3.cu`` (mma.sync with a 3xTF32 split,
+``"tf32x3"``); ``launches.by_variant()`` counts each.
 
 Replaces ``veles_tpu/ops/pallas_kernels.py`` ``_flash_bwd``'s dQ
 pallas_call (:384, body ``_flash_bwd_dq_kernel`` :269-309).  The
@@ -28,7 +28,7 @@ from .flash_bwd_common import (_attention_cost, check_bwd_shapes,
 NAME = "flash_bwd_dq"
 #: the source of each variant; SOURCE is the bf16 main path's
 SOURCES = {"tc": "veles_tpu_torch/csrc/flash_bwd_dq_tc.cu",
-           "simt": "veles_tpu_torch/csrc/flash_bwd_dq.cu"}
+           "tf32x3": "veles_tpu_torch/csrc/flash_bwd_dq_tf32x3.cu"}
 SOURCE = SOURCES["tc"]
 REPLACES = "veles_tpu/ops/pallas_kernels.py:384"
 
@@ -76,9 +76,10 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, *, causal: bool,
 
 
 def _fn(variant):
-    lib = build.load("flash_bwd_dq_tc" if variant == "tc" else "flash_bwd_dq")
+    name = f"flash_bwd_dq_{variant}"  # library and entry point
+    lib = build.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.vt_flash_bwd_dq_tc if variant == "tc" else lib.vt_flash_bwd_dq
+    fn = getattr(lib, "vt_" + name)
     if fn.argtypes is None:
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
     fn.restype = ctypes.c_int

@@ -146,6 +146,7 @@ and the batch preemptions.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import hashlib
@@ -184,6 +185,44 @@ _KV_MAGIC = b"VTKV1\x00"
 #: decode plus one drafting attempt, and one measuring verify step, every
 #: this many ticks
 _SPEC_PROBE_TICKS = 64
+
+
+_LIVE_LOCK = threading.Lock()
+#: engines whose scheduler thread was started and not yet stopped; an
+#: engine leaves the set when it is collected
+_LIVE_ENGINES: "weakref.WeakSet[DecodeEngine]" = weakref.WeakSet()
+_EXIT_HOOK = False  # guarded-by: _LIVE_LOCK
+#: how long the exit hook waits for all engines' threads together: a
+#: decode step or capture ends well inside it
+_EXIT_JOIN_S = 10.0
+
+
+def _stop_live_engines() -> None:
+    """Stop and join every live engine's scheduler thread.  Registered
+    with ``atexit``, which runs before the interpreter ends daemon
+    threads: a ``decode-engine`` thread still inside a CUDA call (GIL
+    released) at finalization would be ended by ``pthread_exit``, whose
+    forced unwind through PyTorch's noexcept frames aborts the process
+    (``std::terminate``), as ``runtime/memory.py``'s poller once did."""
+    with _LIVE_LOCK:
+        engines = list(_LIVE_ENGINES)
+    me = threading.current_thread()
+    # a caller driving the loop itself is not waited for
+    engines = [eng for eng in engines if eng._thread is not me]
+    for eng in engines:             # signal all, then join within one wait
+        eng._signal_stop()
+    deadline = time.monotonic() + _EXIT_JOIN_S
+    for eng in engines:
+        eng.stop(timeout=max(0.0, deadline - time.monotonic()))
+
+
+def _register_live(engine) -> None:
+    global _EXIT_HOOK
+    with _LIVE_LOCK:
+        _LIVE_ENGINES.add(engine)
+        if not _EXIT_HOOK:
+            atexit.register(_stop_live_engines)
+            _EXIT_HOOK = True
 
 
 class EngineOverloaded(RuntimeError):
@@ -1213,18 +1252,31 @@ class DecodeEngine(Logger):
             self._thread = threading.Thread(
                 target=self._loop, name="decode-engine", daemon=True)
             self._thread.start()
+            _register_live(self)
         return self
 
     @property
     def started(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
 
-    def stop(self, timeout: float = 30.0):
+    def _signal_stop(self):
         self._stop_evt.set()
         self._wake.set()
+
+    def stop(self, timeout: float = 30.0):
+        """Stop the scheduler thread and wait up to ``timeout`` s for it.
+        A thread still running then stays the engine's (``started``) and
+        in the exit hook's registry, with a warning."""
+        self._signal_stop()
         if self._thread is not None:
             self._thread.join(timeout)
+            if self._thread.is_alive():
+                self.warning("decode-engine thread still running %.1f s "
+                             "after stop", timeout)
+                return
             self._thread = None
+        with _LIVE_LOCK:
+            _LIVE_ENGINES.discard(self)
 
     # -- lifecycle: hot swap and drain (runtime/deploy.py drives these) ----
     @property

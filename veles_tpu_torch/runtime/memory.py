@@ -60,7 +60,10 @@ class MemoryMonitor(Logger):
     registration of a name wins, as every process-global gauge here)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        # reentrant: a garbage collection inside a locked update (any
+        # allocation) runs the finalizers of dead registrants
+        # (drop_stamped_components) on this same thread
+        self._lock = threading.RLock()
         self._components: Dict[str, int] = {}  # guarded-by: self._lock
         self._stamps: Dict[str, int] = {}      # guarded-by: self._lock
         self._next_stamp = 0                   # guarded-by: self._lock

@@ -45,7 +45,10 @@ class _Metric:
         self.name = name
         self.help = help
         self.labelnames = tuple(labelnames)
-        self._lock = threading.Lock()
+        # reentrant: making a child allocates, and a garbage collection
+        # there can run a finalizer that labels this metric again on the
+        # same thread (runtime/memory.py drop_stamped_components)
+        self._lock = threading.RLock()
         self._children: Dict[Tuple[str, ...], object] = {}  # guarded-by: self._lock
 
     def _make_child(self):
