@@ -12,8 +12,9 @@ Phases, each of which fails the run with a non-zero exit:
    ptxas registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card,
    at its path's shapes and at edge cases (for the flash kernels, the
-   variant launched: tensor cores for bf16, for float32 the SIMT forward
-   and the 3xTF32 tensor-core dQ and dK/dV; for paged
+   variant launched: tensor cores for bf16, for float32 the 3xTF32
+   tensor-core forward, dQ and dK/dV, each float32 forward case's error
+   against a float64 evaluation reported beside; for paged
    decode, the edges of its per-row split across a cluster of blocks, a
    corrupt page-table entry, and two runs bitwise equal, on float32,
    bfloat16 and float16 pools),
@@ -114,7 +115,7 @@ Phases, each of which fails the run with a non-zero exit:
    run's flash launches, counted from 0, all on float32's variants); then
    the f32 flash forward, dQ and dK/dV at the full width (B=16, T=2048,
    H=8, D=64, causal, path ``lm_f32``) against their plain versions
-   (the backward twice, bit for bit) and timed beside them, SDPA in
+   (each twice, bit for bit) and timed beside them, SDPA in
    float32 and their bound at the f32 tensor-core rate; then a Decision
    rollback through a captured trainer's loop (Adam at lr 0, so epoch 1
    repeats epoch 0), which must halve the lr multiplier in the captured
@@ -569,7 +570,39 @@ def _flash_case(torch, gen, B, Tq, Tk, H, Hk, D, dtype, causal, window):
     err = float((out.float() - ref.float()).abs().max())
     lerr = float((lse - ref_lse).abs().max())
     finite = bool(torch.isfinite(out.float()).all())
-    return (q, k, v), err, lerr, finite, ran
+    f64 = {}
+    if dtype == torch.float32:
+        exact = fwd_float64(torch, q, k, v, causal=causal, window=window)
+        f64 = {"f64_err": float((out.double() - exact).abs().max()),
+               "plain_f64_err": float((ref.double() - exact).abs().max())}
+    return (q, k, v), err, lerr, finite, ran, f64
+
+
+def fwd_float64(torch, q, k, v, *, causal, window):
+    """The flash forward's output evaluated in float64 from the same
+    inputs (a row with no live key 0, as the kernels write it): the
+    answer the kernel and its plain version both round; a report beside
+    FLASH_TOL, not a second limit."""
+    B, Tq, H, D = q.shape
+    Tk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    q_pos = torch.arange(Tq, device=q.device)[:, None]
+    k_pos = torch.arange(Tk, device=q.device)[None, :]
+    keep = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep = k_pos <= q_pos
+        if window is not None:
+            keep = keep & (k_pos > q_pos - window)
+    out = torch.empty((B, H, Tq, D), dtype=torch.float64, device=q.device)
+    for b in range(B):      # one sequence's (H, Tq, Tk) at a time
+        qh = q[b].transpose(0, 1).double()
+        kh, vh = (x[b].transpose(0, 1).double().repeat_interleave(G, dim=0)
+                  for x in (k, v))
+        s = (qh @ kh.transpose(-1, -2) * D ** -0.5).masked_fill(
+            ~keep, float("-inf"))
+        p = torch.softmax(s, -1).nan_to_num(0.0)
+        out[b] = p @ vh
+    return out.transpose(1, 2)
 
 
 def _variant_delta(before, after):
@@ -578,17 +611,17 @@ def _variant_delta(before, after):
             if n != before.get(k, 0)}
 
 
-#: float32's variant of each flash kernel: the SIMT forward, the 3xTF32
-#: tensor-core dQ and dK/dV
-F32_VARIANTS = {"flash_attention": "simt", "flash_bwd_dq": "tf32x3",
-                "flash_bwd_dkv": "tf32x3"}
+#: the flash kernels: forward, dQ and dK/dV
+FLASH_NAMES = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+#: float32's variant of every flash kernel: 3xTF32 on the tensor cores
+F32_VARIANT = "tf32x3"
 
 
-def expected_variant(dtype, name):
-    """Flash kernel ``name``'s variant for a dtype, one launch: the
-    tensor-core kernels take bf16, :data:`F32_VARIANTS` float32."""
+def expected_variant(dtype):
+    """A flash kernel's variant for a dtype, one launch: the tensor-core
+    kernels take bf16, :data:`F32_VARIANT` float32."""
     return ({"tc": 1} if str(dtype).endswith("bfloat16")
-            else {F32_VARIANTS[name]: 1})
+            else {F32_VARIANT: 1})
 
 
 def _instance_usage(*libs):
@@ -679,6 +712,20 @@ def phase_kernels(torch):
               64),
              ("f32_causal_gqa_window", 2, 777, 777, 8, 4, 64, f32, True,
               100),
+             # the edges of the 3xTF32 forward's tiles (16-64 query rows
+             # by 32 keys)
+             ("T1_f32", 2, 1, 1, 8, 8, 64, f32, True, None),
+             ("T63_f32", 2, 63, 63, 8, 8, 64, f32, True, None),
+             ("T65_f32", 2, 65, 65, 8, 8, 64, f32, True, None),
+             ("T129_f32", 2, 129, 129, 8, 8, 64, f32, True, None),
+             ("cross_Tk_below_tile_f32", 2, 200, 20, 8, 8, 64, f32, False,
+              None),
+             ("gqa4_f32", 2, 300, 300, 8, 2, 64, f32, True, None),
+             ("window_below_tile_f32", 2, 400, 400, 8, 8, 64, f32, True,
+              20),
+             ("rows_without_keys_f32", 2, 300, 100, 8, 8, 64, f32, True,
+              64),
+             ("D16_cross_f32", 2, 150, 90, 4, 4, 16, f32, False, None),
              # head dim 16: configs/induction_lm*.json (E=64, 4 heads)
              ("induction_lm_D16_f32", 4, 128, 128, 4, 4, 16, f32, True,
               None),
@@ -687,14 +734,14 @@ def phase_kernels(torch):
              ("D16_bf16_T2048", 4, 2048, 2048, 4, 4, 16, bf16, True, None)]
     main_flash = None
     for name, B, Tq, Tk, H, Hk, D, dt, causal, window in flash:
-        args, err, lerr, finite, ran = _flash_case(
+        args, err, lerr, finite, ran, f64 = _flash_case(
             torch, gen, B, Tq, Tk, H, Hk, D, dt, causal, window)
         tol = FLASH_TOL[str(dt).split(".")[-1]]
         ok = (finite and err <= tol and lerr <= LSE_TOL
-              and ran == expected_variant(dt, fa.NAME))
+              and ran == expected_variant(dt))
         checks.append({"kernel": fa.NAME, "case": name, "variant": ran,
                        "max_abs_err": err, "tol": tol,
-                       "lse_max_abs_err": lerr, "lse_tol": LSE_TOL,
+                       "lse_max_abs_err": lerr, "lse_tol": LSE_TOL, **f64,
                        "ok": ok})
         say(checks[-1])
         if name.startswith("main"):
@@ -801,7 +848,7 @@ def phase_kernels(torch):
                   "source": fa.SOURCES["tc"],
                   "tflops": f_flops / f_ms / 1e9,
                   "bound_share": f_bound / f_ms,
-                  "ptxas": _instance_usage("flash_fwd_tc", "flash_fwd"),
+                  "ptxas": _instance_usage("flash_fwd_tc", "flash_fwd_tf32x3"),
                   "shape": {"B": B, "T": T, "H": H, "D": D,
                             "dtype": "bfloat16", "causal": causal}},
         pa.NAME: paged_timing["f32_pool"],
@@ -1007,7 +1054,7 @@ def phase_train_kernels(torch):
         for kname, grads in ((dq.NAME, ("dq",)), (dkv.NAME, ("dk", "dv"))):
             rec = {"kernel": kname, "case": name,
                    "variant": res["variant"][kname]}
-            ok = res["variant"][kname] == expected_variant(dt, kname)
+            ok = res["variant"][kname] == expected_variant(dt)
             for g in grads:
                 r = res[g]
                 rec[g] = {k: r[k] for k in (
@@ -1156,7 +1203,7 @@ def phase_train_kernels(torch):
                   "tflops": dq_flops / dq_ms / 1e9,
                   "bound_share": dq_bound[0] / dq_ms,
                   "ptxas": _instance_usage("flash_bwd_dq_tc",
-                                           "flash_bwd_dq"),
+                                           "flash_bwd_dq_tf32x3"),
                   "shape": shape},
         dkv.NAME: {"max_abs_err": max(res["dk"]["max_abs_err"],
                                       res["dv"]["max_abs_err"]),
@@ -1166,7 +1213,7 @@ def phase_train_kernels(torch):
                    "tflops": dkv_flops / dkv_ms / 1e9,
                    "bound_share": dkv_bound[0] / dkv_ms,
                    "ptxas": _instance_usage("flash_bwd_dkv_tc",
-                                            "flash_bwd_dkv"),
+                                            "flash_bwd_dkv_tf32x3"),
                    "shape": shape},
         gr.NAME: {"max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
                   "library_ms": None, "bound_ms": g_bound[0],
@@ -2301,8 +2348,6 @@ def _decode_window(torch, engine, prompts, advance):
     share and top kernels as :func:`phase_profile`'s; every counted
     launch held against the trace, the replays of each graph counted."""
     import threading
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from veles_tpu_torch.ops.kernels import KERNELS
     engine._thread = threading.current_thread()    # submit() wants one
     try:
         reqs = [engine.submit(row, PROFILE_NEW) for row in prompts]
@@ -2310,14 +2355,8 @@ def _decode_window(torch, engine, prompts, advance):
         while engine._chunking:
             engine._advance_prefills()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            torch.ones(1, device=engine.device).sum()
-            torch.cuda.synchronize()
-            prof.step()
-            _settle(torch)
-            counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+        with _profiled(torch, lambda: torch.ones(
+                1, device=engine.device).sum()) as win:
             s0 = engine.stats()
             t0 = time.perf_counter()
             i = 0
@@ -2327,16 +2366,15 @@ def _decode_window(torch, engine, prompts, advance):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             s1 = engine.stats()
-            _settle(torch)
     finally:
         engine._thread = None
     if not all(r.done.is_set() and r.error is None for r in reqs):
         fail("a profiled decode window's request did not finish")
     c0, c1 = _dispatch_counts(s0), _dispatch_counts(s1)
-    rec = _busy(prof, wall, f"{len(prompts)} x decode {PROFILE_NEW - 1} "
-                            "after the prefill")
+    rec = _busy(win["prof"], wall, f"{len(prompts)} x decode "
+                                   f"{PROFILE_NEW - 1} after the prefill")
     rec["replays"] = {k: c1[k] - c0[k] for k in engine._fns}
-    rec["launch_trace"] = _launch_trace_check(prof, counted0, [
+    rec["launch_trace"] = _launch_trace_check(win, [
         (engine._fns[k], n) for k, n in rec["replays"].items()])
     return rec
 
@@ -3133,7 +3171,7 @@ def phase_train(torch):
     f32_run = eager["captured"]
     f32_flash = {k.NAME: f32_run["launches"][k.NAME] for k in
                  (flash_attention, flash_bwd_dq, flash_bwd_dkv)}
-    if not all(n and f32_run["variants"].get(name) == {F32_VARIANTS[name]: n}
+    if not all(n and f32_run["variants"].get(name) == {F32_VARIANT: n}
                for name, n in f32_flash.items()):
         fail(f"the float32 LM steps did not launch float32's flash "
              f"variants: {f32_run['variants']}")
@@ -3390,51 +3428,148 @@ def _train_profile(torch, trainer,
     step; the launch counters held against the trace.  A fourth step
     runs first as the profiler's warm-up, traced and discarded: the
     trace can miss a kernel launched right after it starts."""
-    from torch.profiler import ProfilerActivity, profile, schedule
     from veles_tpu_torch.loader.base import TRAIN
-    from veles_tpu_torch.ops.kernels import KERNELS
     warm, *batches = [b for _, b in zip(range(4),
                                         trainer.loader.iter_epoch(TRAIN, 0))]
+
+    def step(batch):
+        trainer.wstate, _ = trainer._train_step(trainer.wstate, batch)
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        trainer.wstate, _ = trainer._train_step(trainer.wstate, warm)
-        torch.cuda.synchronize()
-        prof.step()
-        _settle(torch)
-        counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+    with _profiled(torch, lambda: step(warm), cpu=True) as win:
         t0 = time.perf_counter()
         for b in batches:
-            trainer.wstate, _ = trainer._train_step(trainer.wstate, b)
+            step(b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        _settle(torch)
-    rec = _busy(prof, wall, window, steps=len(batches))
+    rec = _busy(win["prof"], wall, window, steps=len(batches))
     rec["launch_trace"] = _launch_trace_check(
-        prof, counted0, [(trainer._train_step, len(batches))])
+        win, [(trainer._train_step, len(batches))])
     return rec
 
 
 def _settle(torch):
     """A pause at each end of a profiled window, after the profiler's
-    step into its active window and before the window closes: kernels
-    launched right after ``prof.step()`` have been missing from the
-    trace (the window's first gather and flash forward, in one run of
-    each kind; 7 of a fleet burst's first paged launches after a 0.1 s
-    pause), and so has one launched just before the window closed (1 of
-    a MoE decode window's 21 paged launches, late in a long run, the
-    start already padded), so each end has a margin.  Nothing launches
-    during the pauses, and each window's wall is taken before the
-    closing one."""
+    step into its active window and before the window closes.  Kineto
+    drops a device record whose timestamp, converted to the host's
+    clock, falls outside its capture window (it counts them only in its
+    log, "Out-of-range = N"), and the conversion can shift a whole
+    window's kernels by milliseconds, before or after their launch (each
+    window's ``clock`` record shows where they fell; PERF.md section 6).
+    Nothing launches during the pauses, and each window's wall is taken
+    before the closing one."""
     time.sleep(0.5)
     torch.cuda.synchronize()
+
+
+#: kineto's log level in this process (set before torch loads it): INFO,
+#: so each closed window logs its "Record counts: Out-of-range = N" line
+#: (the records it dropped as outside its capture window)
+KINETO_LOG_LEVEL = "1"
+_KINETO_LINE = re.compile(r"^(VERBOSE|INFO|WARNING|ERROR|STAGE):\d{4}-")
+
+
+@contextlib.contextmanager
+def _kineto_log():
+    """The process's stderr (fd 2) into a temporary file for the block:
+    yields a list that, after it, holds kineto's own log lines of the
+    block; every other line is written back to stderr."""
+    import tempfile
+    lines = []
+    with tempfile.TemporaryFile() as tmp:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(tmp.fileno(), 2)
+        try:
+            yield lines
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            tmp.seek(0)
+            for ln in tmp.read().decode(errors="replace").splitlines():
+                if _KINETO_LINE.match(ln):
+                    lines.append(ln)
+                else:
+                    print(ln, file=sys.stderr)
+            sys.stderr.flush()
+
+
+@contextlib.contextmanager
+def _profiled(torch, warm, cpu=False):
+    """A profiled window (CUDA activity, and the host's with ``cpu``):
+    ``warm()`` runs as the profiler's warm-up step, traced and discarded
+    (the trace can miss a kernel launched right after it starts), then
+    the body between two :func:`_settle` pauses.  Yields a dict the
+    body's counts and :func:`_launch_trace_check` read: ``counted0``
+    (every launch counter before the body), ``t0_ns`` / ``t1_ns`` (the
+    host clock, ``time.time_ns()``, at the body's start and after it,
+    synchronized) and, once the window closes, ``prof`` and
+    ``out_of_range`` (the records kineto logged as outside its window,
+    None where it logged no count)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from veles_tpu_torch.ops.kernels import KERNELS
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    win = {}
+    with _kineto_log() as log:
+        with profile(activities=acts, schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            warm()
+            torch.cuda.synchronize()
+            prof.step()
+            _settle(torch)
+            win["counted0"] = {k.NAME: k.launches.state() for k in KERNELS}
+            win["t0_ns"] = time.time_ns()
+            yield win
+            torch.cuda.synchronize()
+            win["t1_ns"] = time.time_ns()
+            _settle(torch)
+    win["prof"] = prof
+    counts = [int(n) for ln in log
+              for n in re.findall(r"Out-of-range = (\d+)", ln)]
+    win["out_of_range"] = counts[-1] if counts else None
+
+
+def _device_kernels(prof):
+    """``(name, start_ns, end_ns)`` of every kernel in a closed window's
+    trace, on the host clock the profiler converts the device's to
+    (None where this PyTorch does not expose its raw events)."""
+    from torch.autograd import DeviceType
+    try:
+        events = prof.profiler.kineto_results.events()
+        return [(e.name(), e.start_ns(), e.end_ns()) for e in events
+                if e.device_type() == DeviceType.CUDA
+                and not e.name().startswith("ProfilerStep")]
+    except AttributeError:
+        return None
+
+
+def _trace_clock(win, sym=None):
+    """Where a window's traced kernels (those of ``sym`` alone, when
+    given) sit on the host clock: ``lead_ms`` = the first one's start
+    minus ``t0_ns``, ``lag_ms`` = ``t1_ns`` minus the last one's end, and
+    their count; both >= 0 when the device's timestamps agree with the
+    host's, and a record the profiler drops for lying outside its window
+    (the window reaches 0.5 s past either end) shows as a skew beyond
+    that margin."""
+    kernels = _device_kernels(win["prof"])
+    if kernels is None:
+        return None
+    pat = re.compile(rf"(?<!\w){sym}(?!\w)") if sym else None
+    times = sorted((a, b) for n, a, b in kernels
+                   if pat is None or pat.search(n))
+    if not times:
+        return {"traced": 0}
+    return {"traced": len(times),
+            "lead_ms": (times[0][0] - win["t0_ns"]) / 1e6,
+            "lag_ms": (win["t1_ns"] - times[-1][1]) / 1e6}
 
 
 #: the ``__global__`` function each wrapper launches, by the variant its
 #: launch counter names (None: a kernel built in one variant)
 KERNEL_SYMBOLS = {
-    "flash_attention": {"tc": "flash_fwd_tc", "simt": "flash_fwd_kernel"},
+    "flash_attention": {"tc": "flash_fwd_tc",
+                        "tf32x3": "flash_fwd_tf32x3"},
     "flash_bwd_dq": {"tc": "flash_bwd_dq_tc",
                      "tf32x3": "flash_bwd_dq_tf32x3"},
     "flash_bwd_dkv": {"tc": "flash_bwd_dkv_tc",
@@ -3454,17 +3589,20 @@ POOL_VARIANTS = {"float32": "f32_pool", "bfloat16": "bf16_pool",
 PAGED_F32 = "paged_attention_decode/f32_pool"
 
 
-def _launch_trace_check(prof, counted0, replays):
-    """The launch counts of a profiled window held against the kernels
-    the device ran: for every wrapper and variant, the kernels of its
-    ``__global__`` name in the trace must equal the counter's change over
-    the window, and each captured step's share of that change must be at
-    least its replays in the window (``replays``: ``[(step, n)]``) times
-    what the cache recorded at capture (``per_replay`` sums one replay
-    of each program the window replayed).  So a replayed graph that no
-    longer runs a kernel it counts, or runs one it does not count,
-    fails."""
+def _launch_trace_check(win, replays):
+    """The launch counts of a profiled window (:func:`_profiled`) held
+    against the kernels the device ran: for every wrapper and variant,
+    the kernels of its ``__global__`` name in the trace must equal the
+    counter's change over the window, and each captured step's share of
+    that change must be at least its replays in the window (``replays``:
+    ``[(step, n)]``) times what the cache recorded at capture
+    (``per_replay`` sums one replay of each program the window
+    replayed).  So a replayed graph that no longer runs a kernel it
+    counts, or runs one it does not count, fails.  ``clock`` places the
+    window's traced kernels on the host clock (:func:`_trace_clock`),
+    and a mismatch names where the label's traced kernels sat."""
     from veles_tpu_torch.ops.kernels import KERNELS
+    prof, counted0 = win["prof"], win["counted0"]
     traced = {}
     for evt in prof.key_averages():
         if str(getattr(evt, "device_type", "")).endswith("CUDA"):
@@ -3483,7 +3621,10 @@ def _launch_trace_check(prof, counted0, replays):
                               else v1.get(variant, 0) - v0.get(variant, 0))
             if seen[label] != counted[label]:
                 bad.append(f"{label}: traced {seen[label]}, counted "
-                           f"{counted[label]}")
+                           f"{counted[label]}; on the host clock "
+                           f"{_trace_clock(win, sym)}; kineto dropped "
+                           f"{win['out_of_range']} records as outside "
+                           f"its window")
     replay, by_kind, replayed = {}, {}, {}
     for step, steps in replays:
         if not steps:       # a program the window did not replay
@@ -3505,13 +3646,15 @@ def _launch_trace_check(prof, counted0, replays):
             "replayed": replayed, "steps": [n for _, n in replays],
             "captured": all(getattr(step, "captured", False)
                             for step, _ in replays),
+            "clock": _trace_clock(win),
+            "kineto_out_of_range": win["out_of_range"],
             "mismatch": bad, "ok": not bad}
 
 
 #: kernel-name pieces whose device time a profiled step reports apart
-FLASH_KERNELS = ("flash_fwd_tc", "flash_fwd_kernel", "flash_bwd_dkv_tc",
-                 "flash_bwd_dkv_kernel", "flash_bwd_dq_tc",
-                 "flash_bwd_dq_kernel")
+FLASH_KERNELS = ("flash_fwd_tc", "flash_fwd_tf32x3", "flash_bwd_dkv_tc",
+                 "flash_bwd_dkv_tf32x3", "flash_bwd_dq_tc",
+                 "flash_bwd_dq_tf32x3")
 
 
 def _busy(prof, wall, window, steps=None):
@@ -3592,12 +3735,26 @@ def _train_step_f32_check(torch, trainer, params_from_jax, new_state):
                    and all(v > 0 for v in p_norms.values()))}
 
 
+#: a CLI child that runs ``python -m veles_tpu_torch``'s ``main`` with its
+#: own arguments and then prints every kernel's launches by variant on
+#: the last line of its standard error
+CLI_COUNTED = (
+    "import json, sys\n"
+    "from veles_tpu_torch.__main__ import main\n"
+    "from veles_tpu_torch.ops.kernels import KERNELS\n"
+    "rc = main(sys.argv[1:])\n"
+    "print(json.dumps({k.NAME: k.launches.by_variant() or k.launches.count"
+    " for k in KERNELS}), file=sys.stderr, flush=True)\n"
+    "sys.exit(rc)\n")
+
+
 def phase_quality(torch, snap_dir):
-    """The family's quality bar through the CLI, on the card; its
-    snapshots go to ``snap_dir`` and the best one's manifest path is
-    returned (the fleet phase's CLI serves it)."""
+    """The family's quality bar through the CLI, on the card (every f32
+    flash launch of the run on float32's variants, by the child's own
+    counters); its snapshots go to ``snap_dir`` and the best one's
+    manifest path is returned (the fleet phase's CLI serves it)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "veles_tpu_torch",
+    cmd = [sys.executable, "-c", CLI_COUNTED,
            os.path.join(here, "configs", "induction_lm.json"),
            "--random-seed", "1", "--snapshot-dir", snap_dir]
     t0 = time.perf_counter()
@@ -3611,14 +3768,20 @@ def phase_quality(torch, snap_dir):
         fail(f"the induction_lm CLI run exited {r.returncode}: "
              f"{r.stderr[-2000:]}")
     res = json.loads(r.stdout.strip().splitlines()[-1])
+    variants = json.loads(r.stderr.strip().splitlines()[-1])
     epochs = [ln for ln in r.stderr.splitlines() if "error_pct=" in ln]
     rec = {"phase": "quality", "config": "configs/induction_lm.json",
            "best_error_pct": res["best_value"],
            "best_epoch": res["best_epoch"], "epochs": res["epochs"],
            "seconds": took, "train_samples_per_s":
                res["train_samples_per_s"], "bar": QUALITY_BAR,
+           "flash_variants": {n: variants[n] for n in FLASH_NAMES},
            "per_epoch": [ln.split("Decision: ")[-1] for ln in epochs]}
     say(rec)
+    if not all(len(variants[n]) == 1 and variants[n].get(F32_VARIANT)
+               for n in FLASH_NAMES):
+        fail(f"the induction_lm CLI run did not launch float32's flash "
+             f"variants alone: {rec['flash_variants']}")
     if not res["best_value"] <= QUALITY_BAR:
         fail(f"induction_lm reached {res['best_value']} % validation "
              f"error, above the {QUALITY_BAR} % bar")
@@ -3688,30 +3851,21 @@ def phase_profile(torch, engine):
     processing of its trace takes about 1 ms a kernel on the host.  A
     shorter warm-up request runs first, traced and discarded: the trace
     can miss a kernel launched right after it starts."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from veles_tpu_torch.ops.kernels import KERNELS
     prompts = np.random.default_rng(12).integers(
         0, VOCAB, (SLOTS, PROFILE_PROMPT)).astype(np.int32)
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        engine.generate(prompts[:, :4], 2, timeout=900)
-        torch.cuda.synchronize()
-        prof.step()
-        _settle(torch)
-        counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+    with _profiled(torch, lambda: engine.generate(prompts[:, :4], 2,
+                                                  timeout=900)) as win:
         s0 = engine.stats()
         t0 = time.perf_counter()
         engine.generate(prompts, PROFILE_NEW, timeout=900)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         s1 = engine.stats()
-        _settle(torch)
-    rec = _busy(prof, wall, f"{SLOTS} x (prefill {PROFILE_PROMPT} + "
-                            f"decode {PROFILE_NEW})")
+    rec = _busy(win["prof"], wall, f"{SLOTS} x (prefill {PROFILE_PROMPT} "
+                                   f"+ decode {PROFILE_NEW})")
     c0, c1 = _dispatch_counts(s0), _dispatch_counts(s1)
     rec["replays"] = {k: c1[k] - c0[k] for k in engine._fns}
-    rec["launch_trace"] = _launch_trace_check(prof, counted0, [
+    rec["launch_trace"] = _launch_trace_check(win, [
         (engine._fns[k], n) for k, n in rec["replays"].items()])
     return rec
 
@@ -4031,6 +4185,24 @@ def _http_json(port, path, body=None, method=None):
         return code, raw
 
 
+#: seconds the lifecycle's on-demand profile (1 s of capture, then the
+#: trace's processing and export: about 5 s on an H100) may take
+PROFILE_CAPTURE_S = 120
+
+
+def _hung(what):
+    """Fail at once where a thread is stuck in a call that will not
+    return: every thread's Python stack to stderr, then out of the
+    process without the interpreter's teardown, which would wait on it."""
+    import faulthandler
+    print(f"chip_smoke: FAIL: {what}; the stacks of every thread follow",
+          file=sys.stderr, flush=True)
+    faulthandler.dump_traceback(all_threads=True)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(1)
+
+
 def _wait(cond, timeout, what):
     deadline = time.monotonic() + timeout
     while not cond():
@@ -4236,11 +4408,18 @@ def phase_lifecycle(torch, snap_dir):
         # records (one short request once finished in between), so short
         # requests follow one another until it returns, spaced so that
         # the window holds a few (each adds to the trace's processing)
+        deadline = time.monotonic() + PROFILE_CAPTURE_S
         while pt.is_alive():
-            eng.generate(probe[:1, :PROFILE_PROMPT], PROFILE_NEW,
-                         timeout=900)
+            if time.monotonic() > deadline:
+                _hung(f"the 1 s on-demand profile under traffic did not "
+                      f"return within {PROFILE_CAPTURE_S} s")
+            try:
+                eng.generate(probe[:1, :PROFILE_PROMPT], PROFILE_NEW,
+                             timeout=max(1.0, deadline - time.monotonic()))
+            except TimeoutError:
+                _hung("a short request during the on-demand profile did "
+                      f"not finish within {PROFILE_CAPTURE_S} s")
             time.sleep(0.25)
-        pt.join(900)
         with open(os.path.join(prof["doc"]["path"], "kernels.json")) as f:
             kernels = json.load(f)
         paged = [k for k in kernels if "paged_decode_kernel" in k["name"]]
@@ -4767,32 +4946,26 @@ def _host_profile(torch, trainer):
     thread (``Trainer._batches``), so the idle share counts the card's
     waits on the host; a fourth step first as the profiler's warm-up;
     the launch counters held against the trace."""
-    from torch.profiler import ProfilerActivity, profile, schedule
     from veles_tpu_torch.loader.base import TRAIN
-    from veles_tpu_torch.ops.kernels import KERNELS
     step = trainer._train_step
     it = trainer._batches(TRAIN, 0, step)
+
+    def run(batch):
+        trainer.wstate, _ = step(trainer.wstate, batch)
+
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            trainer.wstate, _ = step(trainer.wstate, next(it))
-            torch.cuda.synchronize()
-            prof.step()
-            _settle(torch)
-            counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+        with _profiled(torch, lambda: run(next(it)), cpu=True) as win:
             t0 = time.perf_counter()
             for _, b in zip(range(3), it):
-                trainer.wstate, _ = step(trainer.wstate, b)
+                run(b)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            _settle(torch)
     finally:
         it.close()
-    rec = _busy(prof, wall, f"3 AlexNet host-path steps, {IMG_B} images "
-                            "each, fed through the prefetch", steps=3)
-    rec["launch_trace"] = _launch_trace_check(prof, counted0, [(step, 3)])
+    rec = _busy(win["prof"], wall, f"3 AlexNet host-path steps, {IMG_B} "
+                                   "images each, fed through the prefetch",
+                steps=3)
+    rec["launch_trace"] = _launch_trace_check(win, [(step, 3)])
     return rec
 
 
@@ -4893,12 +5066,13 @@ def _lm64_trainer(torch, n_train=CUR_TRAIN, n_valid=CUR_VALID, epochs=1):
 
 
 def _f32_flash_timing(torch, B, T, H, D, path, what):
-    """The f32 flash kernels (the SIMT forward, the 3xTF32 dQ and dK/dV)
-    at a path's shape (B, T, H, D, causal) against their plain versions
-    (forward FLASH_TOL, backward :func:`bwd_within`, the backward twice
-    bit for bit; fails the run otherwise), each timed beside its plain version,
-    SDPA in float32 and the bound of its ``cost()`` at the f32 tensor-core
-    rate: the ``kernels`` line's entries ``<name>/<path>``."""
+    """The f32 flash kernels (the 3xTF32 forward, dQ and dK/dV) at a
+    path's shape (B, T, H, D, causal) against their plain versions
+    (forward FLASH_TOL, its error against float64 reported beside;
+    backward :func:`bwd_within`; each twice bit for bit; fails the run
+    otherwise), each timed beside its plain version, SDPA in float32 and
+    the bound of its ``cost()`` at the f32 tensor-core rate: the
+    ``kernels`` line's entries ``<name>/<path>``."""
     import torch.nn.functional as F
     from veles_tpu_torch.ops.kernels import flash_attention as fa
     from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
@@ -4906,22 +5080,26 @@ def _f32_flash_timing(torch, B, T, H, D, path, what):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(11)
     f32 = torch.float32
-    (q, k, v), ferr, lerr, finite, ran = _flash_case(
+    (q, k, v), ferr, lerr, finite, ran, f64 = _flash_case(
         torch, gen, B, T, T, H, H, D, f32, True, None)
+    # the forward twice: no float atomics, the same bits
+    repeat_fwd = all(torch.equal(a, b) for a, b in zip(
+        fa.flash_attention(q, k, v, True), fa.flash_attention(q, k, v, True)))
     args, kw, res = _bwd_case(torch, gen, B, T, T, H, H, D, f32, True, None)
     first = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
     second = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
     repeat = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
     del first, second
     ok = (ferr <= FLASH_TOL["float32"] and lerr <= LSE_TOL and finite
-          and ran == expected_variant(f32, fa.NAME)
-          and all(res["variant"][m.NAME] == expected_variant(f32, m.NAME)
+          and ran == expected_variant(f32)
+          and all(res["variant"][m.NAME] == expected_variant(f32)
                   for m in (dq, dkv))
-          and all(repeat)
+          and all(repeat) and repeat_fwd
           and all(bwd_within(res[g]) and res[g]["finite"]
                   for g in ("dq", "dk", "dv")))
     check = {"phase": path + "_kernels_check", "max_abs_err": ferr,
-             "tol": FLASH_TOL["float32"], "lse_err": lerr,
+             "tol": FLASH_TOL["float32"], "lse_err": lerr, **f64,
+             "forward_two_runs_bitwise": repeat_fwd,
              "backward": res, "backward_two_runs_bitwise": repeat, "ok": ok}
     say(check)
     if not ok:
@@ -4953,14 +5131,13 @@ def _f32_flash_timing(torch, B, T, H, D, path, what):
         ms = cuda_ms(torch, fn, iters=100)
         c = mod.cost(q, k, v, True)
         b_ms, b_by = cost_bound(c, H100_F32_TC_FLOPS)
-        variant = F32_VARIANTS[mod.NAME]
         timing[f"{mod.NAME}/{path}"] = {
-            "max_abs_err": err, "ms": ms,
+            "max_abs_err": err, **(f64 if mod is fa else {}), "ms": ms,
             "plain_ms": cuda_ms(torch, plain, iters=plain_iters),
             "library_ms": cuda_ms(torch, lib, iters=100) if lib
             else bwd_lib,
-            "bound_ms": b_ms, "bound_by": b_by, "variant": variant,
-            "source": mod.SOURCES[variant], "path": path,
+            "bound_ms": b_ms, "bound_by": b_by, "variant": F32_VARIANT,
+            "source": mod.SOURCES[F32_VARIANT], "path": path,
             "tflops": c["flops"] / ms / 1e9, "bound_share": b_ms / ms,
             "shape": shape}
     return timing
@@ -4995,8 +5172,7 @@ def phase_curriculum_kernels(torch):
     flash = (fa, dq, dkv)
     problems = [k.NAME for k in flash
                 if not launches[k.NAME]
-                or variants.get(k.NAME) != {F32_VARIANTS[k.NAME]:
-                                            launches[k.NAME]}]
+                or variants.get(k.NAME) != {F32_VARIANT: launches[k.NAME]}]
     if problems or variants.get(gr.NAME) != {"batch": batches} \
             or not (st["train"]["captured"] and st["eval"]["captured"]):
         fail(f"the curriculum's epoch did not run its f32 kernels, one "
@@ -5338,8 +5514,7 @@ def _pp_counted(torch, name):
            "launch_trace": prof["launch_trace"]}
     rec["ok"] = (st["train"]["captured"] and st["eval"]["captured"]
                  and all(launches[k.NAME] and variants.get(k.NAME) == {
-                     F32_VARIANTS[k.NAME]: launches[k.NAME]}
-                         for k in (fa, dq, dkv))
+                     F32_VARIANT: launches[k.NAME]} for k in (fa, dq, dkv))
                  and variants.get(gr.NAME) == {"batch": PP_BATCHES + 1}
                  # a dropout launches forward and backward (its mask again)
                  and per_replay.get(fd.NAME, 0) == 2 * len(seeded)
@@ -5862,18 +6037,10 @@ def _fleet_trace_window(torch, fleet, prompts):
     router, every replica's engine replaying: the counted launches held
     against the trace, each graph's replays counted (``_launch_trace_
     check``), and the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from veles_tpu_torch.ops.kernels import KERNELS
     engines = [rep.srv.engine for rep in fleet.live()]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        torch.ones(1, device=DEVICE).sum()
-        torch.cuda.synchronize()
-        prof.step()
-        _settle(torch)
-        counted0 = {k.NAME: k.launches.state() for k in KERNELS}
+    with _profiled(torch, lambda: torch.ones(1, device=DEVICE).sum()) \
+            as win:
         s0 = [e.stats() for e in engines]
         t0 = time.perf_counter()
         out = _concurrent(lambda row: _http_json(fleet.port, "/generate", {
@@ -5881,16 +6048,15 @@ def _fleet_trace_window(torch, fleet, prompts):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         s1 = [e.stats() for e in engines]
-        _settle(torch)
     if any(not isinstance(o, tuple) or o[0] != 200 for o in out):
         fail(f"a profiled fleet request failed: {out}")
     replays = []
     for e, a, b in zip(engines, s0, s1):
         c0, c1 = _dispatch_counts(a), _dispatch_counts(b)
         replays += [(e._fns[k], c1[k] - c0[k]) for k in c1]
-    rec = _busy(prof, wall, f"{len(prompts)} x ({FLEET_PROMPT} + "
-                            f"{FLEET_NEW}) through the router")
-    rec["launch_trace"] = _launch_trace_check(prof, counted0, replays)
+    rec = _busy(win["prof"], wall, f"{len(prompts)} x ({FLEET_PROMPT} + "
+                                   f"{FLEET_NEW}) through the router")
+    rec["launch_trace"] = _launch_trace_check(win, replays)
     return rec
 
 
@@ -7009,6 +7175,8 @@ def phase_artifact(torch, live, work_dir, exporter):
 
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
+    # before torch loads kineto: the profiled windows read its log
+    os.environ.setdefault("KINETO_LOG_LEVEL", KINETO_LOG_LEVEL)
     try:
         import torch
     except ImportError:

@@ -76,9 +76,13 @@ def card():
 
 bf16 = torch.bfloat16
 
+f32 = torch.float32
+
 # (B, Tq, Tk, H, Hk, D, dtype, causal, window).  bf16 runs on the
 # tensor-core kernels, whose tiles are 128 query rows by 64 keys (forward)
-# and 64 keys by 64 query rows (dK/dV): the edge cases cut them.
+# and 64 keys by 64 query rows (dK/dV): the edge cases cut them.  float32
+# runs in 3xTF32, its forward in tiles of 16-64 query rows by 32 keys: the
+# f32 edge cases cut those.
 FLASH_CASES = {
     "D16_f32": (2, 200, 200, 4, 4, 16, torch.float32, True, None),
     "D16_bf16": (2, 200, 200, 4, 4, 16, bf16, True, None),
@@ -97,16 +101,26 @@ FLASH_CASES = {
     # configs/induction_lm64.json's attention as the curriculum trains it
     "D16_f32_curriculum": (100, 64, 64, 4, 4, 16, torch.float32, True,
                            None),
+    "f32_T1": (2, 1, 1, 8, 8, 64, f32, True, None),
+    "f32_T63": (2, 63, 63, 8, 8, 64, f32, True, None),
+    "f32_T65": (2, 65, 65, 8, 8, 64, f32, True, None),
+    "f32_T129": (2, 129, 129, 8, 8, 64, f32, True, None),
+    "f32_cross_Tk_below_tile": (2, 200, 20, 8, 8, 64, f32, False, None),
+    "f32_gqa2": (2, 300, 300, 8, 4, 64, f32, True, None),
+    "f32_gqa4": (2, 300, 300, 8, 2, 64, f32, True, None),
+    "f32_window_below_tile": (2, 400, 400, 8, 8, 64, f32, True, 20),
+    # rows 164.. see no key (causal, window 64, Tq > Tk)
+    "f32_rows_without_keys": (2, 300, 100, 8, 8, 64, f32, True, 64),
+    "f32_D16_cross": (2, 150, 90, 4, 4, 16, f32, False, None),
+    "f32_D16_gqa2_window_below_tile": (2, 300, 300, 4, 2, 16, f32, True,
+                                       20),
 }
 
 
-#: float32's variant of each flash kernel: the SIMT forward, the 3xTF32
-#: tensor-core backward
-F32_VARIANTS = {fa.NAME: "simt", dq.NAME: "tf32x3", dkv.NAME: "tf32x3"}
-
-
-def _variant(dtype, name):
-    return "tc" if dtype == bf16 else F32_VARIANTS[name]
+def _variant(dtype):
+    """A flash kernel's variant: tensor cores in bf16, and in float32 the
+    3xTF32 forward and backward."""
+    return "tc" if dtype == bf16 else "tf32x3"
 
 
 @pytest.mark.parametrize("B,Tq,Tk,H,Hk,D,dtype,causal,window",
@@ -122,13 +136,49 @@ def test_flash_kernel_matches_plain(card, B, Tq, Tk, H, Hk, D, dtype, causal,
     out, lse = fa.flash_attention(q, k, v, causal, None, window)
     assert fa.launches.count == before + 1
     after = fa.launches.by_variant()
-    vname = _variant(dtype, fa.NAME)
+    vname = _variant(dtype)
     assert after.get(vname, 0) == variants.get(vname, 0) + 1
     ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
     assert out.dtype == dtype and out.shape == q.shape
     assert bool(torch.isfinite(out.float()).all())
     assert float((out.float() - ref.float()).abs().max()) <= FLASH_TOL[dtype]
+    assert float((lse - ref_lse).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("B,T,H,D", [(100, 64, 4, 16), (2, 2048, 8, 64)],
+                         ids=["D16", "D64"])
+def test_f32_flash_fwd_is_deterministic(card, B, T, H, D):
+    """No float atomics: two float32 forward runs give the same bits."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((B, T, H, D), generator=gen).to(card)
+               for _ in range(3))
+    fa.launches.reset()
+    first = fa.flash_attention(q, k, v, True)
+    second = fa.flash_attention(q, k, v, True)
+    assert fa.launches.by_variant() == {"tf32x3": 2}
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_f32_flash_fwd_takes_a_misaligned_view(card):
+    """float32 views at an odd element offset (off the 16-byte boundary)
+    go to the 3xTF32 forward, which then copies its K/V tiles word by
+    word, and agree with the plain version as aligned inputs do."""
+    gen = torch.Generator().manual_seed(4)
+    shapes = ((2, 100, 4, 64), (2, 100, 2, 64), (2, 100, 2, 64))
+    args = [torch.randn(s, generator=gen).to(card) for s in shapes]
+    views = []
+    for t in args:
+        base = torch.empty(t.numel() + 1, device=card)
+        view = base[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        views.append(view)
+    fa.launches.reset()
+    out, lse = fa.flash_attention(*views, True, None, 40)
+    assert fa.launches.by_variant() == {"tf32x3": 1}
+    ref, ref_lse = fa.flash_attention_plain(*args, causal=True, window=40)
+    assert float((out - ref).abs().max()) <= FLASH_TOL[f32]
     assert float((lse - ref_lse).abs().max()) <= LSE_TOL
 
 
@@ -427,10 +477,10 @@ def test_flash_bwd_kernels_match_plain(card, B, Tq, Tk, H, Hk, D, dtype,
     got = (dq.flash_bwd_dq(*args, **kw),) + dkv.flash_bwd_dkv(*args, **kw)
     assert (dq.launches.count, dkv.launches.count) == (before[0] + 1,
                                                        before[1] + 1)
-    vname = _variant(dtype, dkv.NAME)
+    vname = _variant(dtype)
     assert dkv.launches.by_variant().get(vname, 0) \
         == variants.get(vname, 0) + 1
-    vname = _variant(dtype, dq.NAME)
+    vname = _variant(dtype)
     assert dq.launches.by_variant().get(vname, 0) \
         == dq_variants.get(vname, 0) + 1
     ref = (dq.flash_bwd_dq_plain(*args, **kw),) + dkv.flash_bwd_dkv_plain(
@@ -536,8 +586,8 @@ def test_flash_bwd_kernels_are_deterministic(card, B, T, H, Hk, D, dtype):
 
 def test_bf16_attention_launches_only_the_tensor_core_variants(card):
     """A bf16 forward and backward through the autograd.Function counts
-    its flash forward, dQ and dK/dV launches on the tensor-core variant
-    and none on the SIMT one."""
+    its flash forward, dQ and dK/dV launches on the bf16 tensor-core
+    variant and none on float32's."""
     gen = torch.Generator().manual_seed(7)
     q, k, v = (torch.randn((2, 256, 8, 64), generator=gen).to(card, bf16)
                .requires_grad_(True) for _ in range(3))
@@ -553,8 +603,8 @@ def test_bf16_attention_launches_only_the_tensor_core_variants(card):
 @pytest.mark.parametrize("D", [16, 64])
 def test_f32_attention_launches_the_tf32x3_backward(card, D):
     """A float32 forward and backward through the autograd.Function
-    launches the SIMT forward and the 3xTF32 dQ and dK/dV kernels, and no
-    other variant."""
+    launches the 3xTF32 forward, dQ and dK/dV kernels, and no other
+    variant."""
     gen = torch.Generator().manual_seed(7)
     q, k, v = (torch.randn((2, 256, 4, D), generator=gen).to(card)
                .requires_grad_(True) for _ in range(3))
@@ -562,7 +612,7 @@ def test_f32_attention_launches_the_tf32x3_backward(card, D):
         m.launches.reset()
     out, _ = fa.flash_attention(q, k, v, True)
     torch.autograd.grad(out.square().sum(), (q, k, v))
-    assert fa.launches.by_variant() == {"simt": 1}
+    assert fa.launches.by_variant() == {"tf32x3": 1}
     assert dq.launches.by_variant() == {"tf32x3": 1}
     assert dkv.launches.by_variant() == {"tf32x3": 1}
 

@@ -134,24 +134,22 @@ def test_bwd_wrappers_refuse_bad_shapes():
 
 # -- which flash kernel a CUDA call launches (decided on CPU tensors) -------
 
-#: float32's variant of each flash kernel: the SIMT forward, the 3xTF32
-#: tensor-core backward
-F32 = {fa.NAME: "simt", dq.NAME: "tf32x3", dkv.NAME: "tf32x3"}
+#: float32's variant of every flash kernel: the 3xTF32 tensor-core forward
+#: and backward
+F32 = "tf32x3"
 
 
 @pytest.mark.parametrize("name", [fa.NAME, dq.NAME, dkv.NAME])
 @pytest.mark.parametrize("dtype,variant", [(torch.float32, F32),
                                            (torch.bfloat16, "tc")],
-                         ids=["f32_simt", "bf16_tensor_cores"])
+                         ids=["f32_tf32x3", "bf16_tensor_cores"])
 def test_kernel_variant_follows_the_dtype(name, dtype, variant):
-    """float32 takes the SIMT forward and the 3xTF32 backward kernels,
-    bfloat16 the tensor-core ones, at every shape: odd T, Tq != Tk, head
-    dim 16 or 64."""
-    want = variant[name] if isinstance(variant, dict) else variant
+    """float32 takes the 3xTF32 kernels, bfloat16 the bf16 tensor-core
+    ones, at every shape: odd T, Tq != Tk, head dim 16 or 64."""
     for shape in ((1, 1, 8, 64), (3, 65, 4, 16), (2, 129, 8, 64)):
         ts = [torch.zeros(shape, dtype=dtype) for _ in range(4)]
         fc.check_kernel_inputs(name, ts, shape[3], shape[0] * shape[2])
-        assert fc.kernel_variant(name, ts) == want
+        assert fc.kernel_variant(name, ts) == variant
 
 
 @pytest.mark.parametrize("name", [fa.NAME, dq.NAME, dkv.NAME])
@@ -168,7 +166,7 @@ def test_kernel_variant_refuses_a_misaligned_bf16_view(name):
     with pytest.raises(ValueError, match=f"{name}: .*16-byte aligned"):
         fc.kernel_variant(name, (ok, ok, x))
     f32 = torch.zeros(2 * 64 * 8 * 64 + 1)[1:].view(2, 64, 8, 64)
-    assert fc.kernel_variant(name, (f32, f32, f32)) == F32[name]
+    assert fc.kernel_variant(name, (f32, f32, f32)) == F32
 
 
 def test_kernel_inputs_refuse_what_no_variant_takes():

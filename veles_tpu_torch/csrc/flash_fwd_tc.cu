@@ -1,6 +1,6 @@
 // Flash-attention forward, bf16, on Hopper's tensor cores (sm_90a, wgmma);
-// plain C interface for ctypes.  The float32 instances stay on the SIMT
-// kernel of flash_fwd.cu.
+// plain C interface for ctypes.  The float32 instances run in 3xTF32 in
+// flash_fwd_tf32x3.cu.
 //
 // Replaces the TPU kernel veles_tpu/ops/pallas_kernels.py `_flash_fwd`
 // (pallas_call at :205, kernel body `_flash_fwd_kernel` at :85-154) for

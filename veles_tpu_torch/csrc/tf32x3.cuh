@@ -1,5 +1,5 @@
 // Float32-accurate products on Hopper's tensor cores (sm_90a), shared by
-// the float32 flash backward kernels (flash_bwd_dq_tf32x3.cu,
+// the float32 flash kernels (flash_fwd_tf32x3.cu, flash_bwd_dq_tf32x3.cu,
 // flash_bwd_dkv_tf32x3.cu): the 3xTF32 split, the mma.sync product, the
 // staged [row][D] float32 tiles' swizzle and the split tiles the
 // products read (the cp.async copies are hopper_tc.cuh's).
@@ -85,6 +85,36 @@ __device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
           "f"(0.f));
 }
 
+// d += a.b, one m16n8k8 TF32 product into d
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
+}
+
+// acc += a.b in 3xTF32, the three products chained in one fresh fragment
+// (small cross terms first, the big product last) and the chunk's sum
+// added to acc in float32: the tensor core's truncation cuts only this
+// chunk's own sum, never a running one, at one float32 add a register
+// where mma3 takes three.  The products wait on each other, so a caller
+// interleaves independent chunks (columns or output blocks).
+__device__ __forceinline__ void mma3c(float (&acc)[4],
+                                      const uint32_t (&a_big)[4],
+                                      const uint32_t (&a_small)[4],
+                                      const uint32_t (&b_big)[2],
+                                      const uint32_t (&b_small)[2]) {
+    float d[4];
+    mma0(d, a_small, b_big);
+    mma(d, a_big, b_small);
+    mma(d, a_big, b_big);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += d[i];
+}
+
 // acc += a.b in 3xTF32: the three products, each into a fresh fragment,
 // then (small cross terms first, the big product last) added to acc in
 // float32.  The tensor core's accumulate truncates toward zero relative
@@ -93,7 +123,11 @@ __device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
 // T = 2048, 11-58 times an fmaf chain's Frobenius error); each 8-wide
 // chunk's sums are cut once and meet in round-to-nearest adds, as fmaf's
 // partial sums do.  Three independent products also keep no product
-// waiting on another's result.
+// waiting on another's result.  The backward kernels use this one: on
+// mma3c their D = 64 instances reach 255 registers and spill (dQ 124
+// bytes of stores, dK/dV 12), and full width gains nothing (dQ + dK/dV
+// 7.20-7.24 against 7.22-7.26 ms on an H100 80GB HBM3 at 700 W, PERF.md
+// section 6).
 __device__ __forceinline__ void mma3(float (&acc)[4],
                                      const uint32_t (&a_big)[4],
                                      const uint32_t (&a_small)[4],

@@ -31,8 +31,8 @@ BUILD_DIR = _PKG / "_build"
 #: library name -> source file under csrc/ (``*.cuh`` headers there are
 #: shared: a change to one rebuilds every library)
 SOURCES = {
-    "flash_fwd": "flash_fwd.cu",
     "flash_fwd_tc": "flash_fwd_tc.cu",
+    "flash_fwd_tf32x3": "flash_fwd_tf32x3.cu",
     "flash_bwd_dq_tc": "flash_bwd_dq_tc.cu",
     "flash_bwd_dq_tf32x3": "flash_bwd_dq_tf32x3.cu",
     "flash_bwd_dkv_tc": "flash_bwd_dkv_tc.cu",
@@ -148,7 +148,7 @@ class LaunchCounter:
     """Plain count of a kernel's launches; the wrapper adds one exactly
     where it launches the kernel, so a run can show that its main path
     went through the kernel.  A kernel built in variants (the flash
-    kernels: ``"tc"`` for bf16, ``"simt"`` or ``"tf32x3"`` for float32) names
+    kernels: ``"tc"`` for bf16, ``"tf32x3"`` for float32) names
     the variant it launched, and :meth:`by_variant` counts each."""
 
     def __init__(self):

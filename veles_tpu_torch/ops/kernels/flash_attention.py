@@ -3,8 +3,9 @@ PyTorch version, joined with the two backward kernels into one
 ``torch.autograd.Function``.
 
 Two variants, chosen by dtype alone (``kernel_variant``): bfloat16 runs
-on the tensor cores (``csrc/flash_fwd_tc.cu``, wgmma), float32 on the
-SIMT cores (``csrc/flash_fwd.cu``); ``launches.by_variant()`` counts each.
+on the tensor cores (``csrc/flash_fwd_tc.cu``, wgmma), float32 on them
+too in 3xTF32 (``csrc/flash_fwd_tf32x3.cu``, mma.sync);
+``launches.by_variant()`` counts each.
 
 Replaces ``veles_tpu/ops/pallas_kernels.py`` ``_flash_fwd`` (pallas_call
 at :205) and the ``custom_vjp`` around it (:450-489).
@@ -41,7 +42,7 @@ from .flash_bwd_dq import flash_bwd_dq
 NAME = "flash_attention"
 #: the source of each variant; SOURCE is the bf16 main path's
 SOURCES = {"tc": "veles_tpu_torch/csrc/flash_fwd_tc.cu",
-           "simt": "veles_tpu_torch/csrc/flash_fwd.cu"}
+           "tf32x3": "veles_tpu_torch/csrc/flash_fwd_tf32x3.cu"}
 SOURCE = SOURCES["tc"]
 REPLACES = "veles_tpu/ops/pallas_kernels.py:205"
 
@@ -193,9 +194,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
 
 
 def _fn(variant):
-    lib = build.load("flash_fwd_tc" if variant == "tc" else "flash_fwd")
+    lib = build.load(f"flash_fwd_{variant}")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.vt_flash_fwd_tc if variant == "tc" else lib.vt_flash_fwd
+    fn = getattr(lib, f"vt_flash_fwd_{variant}")
     if fn.argtypes is None:
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i, p]
     fn.restype = ctypes.c_int

@@ -95,25 +95,23 @@ def check_kernel_args(name, q, k, v, dout, lse, delta):
         raise ValueError(f"{name}: inputs on different devices")
 
 
-#: the variant a float32 call of each flash kernel launches: the forward
-#: on the SIMT cores (``csrc/flash_fwd.cu``), the backward on the tensor
-#: cores in 3xTF32 (``csrc/flash_bwd_dq_tf32x3.cu``,
-#: ``csrc/flash_bwd_dkv_tf32x3.cu``)
-F32_VARIANTS = {"flash_attention": "simt", "flash_bwd_dq": "tf32x3",
-                "flash_bwd_dkv": "tf32x3"}
+#: the variant a float32 call of every flash kernel launches: the tensor
+#: cores in 3xTF32 (``csrc/flash_fwd_tf32x3.cu``,
+#: ``csrc/flash_bwd_dq_tf32x3.cu``, ``csrc/flash_bwd_dkv_tf32x3.cu``)
+F32_VARIANT = "tf32x3"
 
 
 def kernel_variant(name, tensors):
     """The variant a CUDA call of flash kernel ``name`` (forward, dQ,
     dK/dV) launches, chosen by dtype and never by shape: ``"tc"`` (the
-    bf16 tensor-core kernel) for bfloat16, :data:`F32_VARIANTS` for
+    bf16 tensor-core kernel) for bfloat16, :data:`F32_VARIANT` for
     float32.  The bf16 tensor-core kernels copy each row in 16-byte
     pieces, so a bf16 tensor whose base is not 16-byte aligned (a view at
     an odd element offset) raises, naming the kernel: it is never sent to
     another kernel or the plain version.  (The float32 kernels take any
     4-byte aligned base.)  Call after :func:`check_kernel_inputs`."""
     if tensors[0].dtype == torch.float32:
-        return F32_VARIANTS[name]
+        return F32_VARIANT
     bad = [i for i, t in enumerate(tensors) if t.data_ptr() % TC_ALIGN]
     if bad:
         raise ValueError(f"{name}: the bf16 tensor-core kernel needs "
