@@ -650,7 +650,7 @@ def _paged_inputs(torch, gen, S, H, Hk, Dh, psz, n_ptab, q_dtype, pos,
             torch.as_tensor(pos, dtype=torch.int32).cuda())
 
 
-def _corrupt_ptab_check(torch, gen, pos):
+def _corrupt_ptab_check(torch, gen, pos, pool_dtype):
     """A live page-table entry outside the pool turns its row into NaN in
     the kernel and in the plain version alike, whichever block of the
     row's split reads it; an out-of-range entry past a row's span is
@@ -658,7 +658,7 @@ def _corrupt_ptab_check(torch, gen, pos):
     from veles_tpu_torch.ops.kernels import paged_attention as pa
     q, pk, pv, ptab, ppos = _paged_inputs(
         torch, gen, SLOTS, HEADS, HEADS, 64, PAGE, L_MAX // PAGE,
-        torch.float32, pos, True)
+        torch.float32, pos, True, pool_dtype)
     rows = pk.shape[0]
     ptab[1, 60] = rows + 7              # row 1 (pos L-1): the last split
     ptab[2, 0] = rows + 5               # row 2 (pos 17): a live page
@@ -677,6 +677,7 @@ def _corrupt_ptab_check(torch, gen, pos):
     ok = (nan_rows == [1, 2] and ref_nan == [1, 2]
           and bool(torch.isnan(out[1:3]).all()) and err <= PAGED_TOL)
     return {"kernel": pa.NAME, "case": "corrupt_ptab_nan_row",
+            "variant": POOL_VARIANTS[str(pool_dtype).split(".")[-1]],
             "nan_rows": nan_rows, "plain_nan_rows": ref_nan,
             "max_abs_err": err, "tol": PAGED_TOL, "ok": ok}
 
@@ -762,8 +763,8 @@ def phase_kernels(torch):
              ("window_f32", HEADS, HEADS, 64, f32, edge_pos, 100, True),
              ("gqa_f32", HEADS, 2, 64, f32, edge_pos, None, False),
              ("gqa_window_bf16q", HEADS, 2, 64, bf16, edge_pos, 40, True),
-             # the edges of the kernel's split (8 blocks a row, 8 pages of
-             # 16 a block at pos L-1)
+             # the edges of the kernel's split (4 blocks a row, 16 pages
+             # of 16 a block at pos L-1)
              ("split_edges_f32", HEADS, HEADS, 64, f32, split_pos, None,
               True),
              ("window_across_splits_f32", HEADS, HEADS, 64, f32, edge_pos,
@@ -783,7 +784,15 @@ def phase_kernels(torch):
          200, True, bf16),
         ("bf16pool_gqa_window", HEADS, 2, 64, bf16, edge_pos, 40, True,
          bf16),
-        ("bf16pool_D16", 4, 4, 16, f32, edge_pos, None, True, bf16)]
+        ("bf16pool_D16", 4, 4, 16, f32, edge_pos, None, True, bf16),
+        # the redesign's edges: G = 8 and 4 at both head widths (blocks
+        # with no key at positions 0-16), a window starting inside a page
+        ("bf16pool_gqa8", HEADS, 1, 64, bf16, edge_pos, None, True, bf16),
+        ("bf16pool_gqa8_D16_window", HEADS, 1, 16, f32, edge_pos, 20, True,
+         bf16),
+        ("bf16pool_gqa4_D16", 4, 1, 16, bf16, edge_pos, None, True, bf16),
+        ("bf16pool_window_inside_a_page", HEADS, HEADS, 64, f32, split_pos,
+         37, True, bf16)]
     # the f16 pool of an engine with cache_dtype=torch.float16: the bf16
     # pool's cases
     f16 = torch.float16
@@ -809,8 +818,9 @@ def phase_kernels(torch):
         say(checks[-1])
         if name.startswith("main"):
             main_paged[variant] = (args, err, pos, H, Hk)
-    checks.append(_corrupt_ptab_check(torch, gen, edge_pos))
-    say(checks[-1])
+    for pdt in (f32, bf16, f16):
+        checks.append(_corrupt_ptab_check(torch, gen, edge_pos, pdt))
+        say(checks[-1])
     # fixed splits merged in rank order: two runs give the same bits
     for variant, (args, *_rest, Hk_) in main_paged.items():
         twice = [pa.paged_attention_decode(*args, page_size=PAGE,
@@ -860,8 +870,11 @@ def phase_kernels(torch):
 
 
 def _paged_timing(torch, pa, args, perr, pos, Hp, Hkp):
-    """Hot and cold-L2 times of the paged kernel at the main shape, its
-    plain version's, and the byte bound of this pool's dtype."""
+    """Hot and cold-L2 times of the paged kernel at a path's shape, its
+    plain version's, the byte bound of this pool's dtype and the share of
+    it each time reaches, and ``floor_ms``: the hot time at the same grid
+    with every row at position 0 (one key a row), the kernel's fixed
+    cost."""
     pq, pk_, pv_, ptab, ppos = args
     p_ms = cuda_ms(torch, lambda: pa.paged_attention_decode(
         *args, page_size=PAGE, n_kv_heads=Hkp), iters=50)
@@ -869,6 +882,10 @@ def _paged_timing(torch, pa, args, perr, pos, Hp, Hkp):
         *args, page_size=PAGE, n_kv_heads=Hkp))
     p_plain = cuda_ms(torch, lambda: pa.paged_attention_decode_plain(
         *args, page_size=PAGE, n_kv_heads=Hkp), iters=20)
+    S, _, Dh = pq.shape
+    zero = (pq, pk_, pv_, ptab, torch.zeros_like(ppos))
+    p_floor = cuda_ms(torch, lambda: pa.paged_attention_decode(
+        *zero, page_size=PAGE, n_kv_heads=Hkp), iters=50)
     p_cost = pa.cost(pq, pk_, pos, page_size=PAGE)
     p_bytes = p_cost["bytes"]
     p_bound, p_by = cost_bound(p_cost, H100_F32_FLOPS)
@@ -877,15 +894,17 @@ def _paged_timing(torch, pa, args, perr, pos, Hp, Hkp):
     symbol = KERNEL_SYMBOLS["paged_attention_decode"][variant]
     return {"max_abs_err": perr, "ms": p_ms, "plain_ms": p_plain,
             "library_ms": None, "bound_ms": p_bound, "bound_by": p_by,
-            "cold_l2_ms": p_cold, "bound_share": p_bound / p_cold,
+            "cold_l2_ms": p_cold, "floor_ms": p_floor,
+            "bound_share_hot": p_bound / p_ms,
+            "bound_share_cold": p_bound / p_cold,
             "gb_per_s_cold": p_bytes / p_cold / 1e6, "bytes": p_bytes,
             "variant": variant,
             "ptxas": {k: v for k, v in _instance_usage(
                 "paged_attention").items()
                 if re.search(rf"(?<!\w){symbol}(?!\w)", k)},
-            "shape": {"S": SLOTS, "H": Hp, "Hk": Hkp, "Dh": 64,
-                      "page_size": PAGE, "n_ptab": L_MAX // PAGE,
-                      "q": "bfloat16", "pool": pool,
+            "shape": {"S": S, "H": Hp, "Hk": Hkp, "Dh": Dh,
+                      "page_size": PAGE, "n_ptab": ptab.shape[1],
+                      "q": str(pq.dtype).split(".")[-1], "pool": pool,
                       "mean_pos": float(np.mean(pos))}}
 
 
@@ -5762,11 +5781,8 @@ def _moe_paged_timing(torch, wf, pos):
         fail(f"the paged kernel disagrees with its plain version at the "
              f"MoE chain's shape: {err}")
     t = _paged_timing(torch, pa, args, err, pos, H, u.n_kv_heads)
-    t["shape"] = {"S": MOE_ROWS, "H": H, "Hk": u.n_kv_heads, "Dh": Dh,
-                  "page_size": PAGE, "n_ptab": MOE_LMAX // PAGE,
-                  "q": "float32", "pool": "float32",
-                  "mean_pos": float(np.mean(pos))}
     t["path"] = "moe_serving"
+    say({"phase": "moe_kernel_timing", pa.NAME: t})
     return t
 
 

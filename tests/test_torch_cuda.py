@@ -230,10 +230,11 @@ def test_paged_kernel_corrupt_live_entry_gives_nan_row(card):
 
 
 # (H, Hk, Dh, q dtype, positions, window, pages a row) at page 16: the
-# kernel splits each row's live pages across a cluster of 8 blocks (8
+# kernel splits each row's live pages across a cluster of 4 blocks (16
 # pages a block at pos 1023 of 64 pages), so these cut the splits'
-# edges; at 256 pages a block's split outgrows the 128 keys it stages at
-# once and goes in chunks
+# edges; a block stages 72 keys at once with an f32 pool at Dh 64 (144
+# with a 16-bit pool, 288 and 576 at Dh 16), so its split goes in
+# chunks
 PAGED_SPLIT_CASES = {
     "pos_on_page_edges": (8, 8, 64, torch.float32,
                           [15, 16, 127, 128, 255, 256, 511, 512], None, 64),
@@ -248,6 +249,15 @@ PAGED_SPLIT_CASES = {
                        None, 256),
     "chunked_splits_D16_window": (4, 4, 16, torch.bfloat16,
                                   [4095, 3000, 2047, 5], 3000, 256),
+    # the merge's instance for G > 1 at Dh 16, eight query heads a kv
+    # head, rows with fewer live pages than blocks (blocks with no key),
+    # a window whose first key is inside a page
+    "gqa4_D16": (4, 1, 16, torch.float32, [1023, 544, 17, 300], None, 64),
+    "gqa8": (8, 1, 64, torch.bfloat16, [1023, 544, 17, 300], None, 64),
+    "fewer_pages_than_splits": (8, 8, 64, torch.float32, [0, 15, 16, 100],
+                                None, 64),
+    "window_starts_inside_a_page": (8, 8, 64, torch.float32,
+                                    [1023, 700, 130, 300], 37, 64),
 }
 
 
@@ -318,6 +328,22 @@ PAGED_BF16_POOL_CASES = {
                              [1023, 700, 130, 300], 200, 64),
     "chunked_splits_gqa": (8, 4, 64, torch.bfloat16,
                            [4095, 2100, 1100, 129], None, 256),
+    # the edges of the redesign: G = 8 and G = 4 at both head widths,
+    # rows with fewer live pages than blocks (blocks with no key), a
+    # window whose first key is inside a page, and at Dh 16 (576 keys a
+    # block's chunk) a split of 2048 keys
+    "gqa8_D64": (8, 1, 64, torch.bfloat16, [1023, 544, 17, 300], None, 64),
+    "gqa8_D16_window": (8, 1, 16, torch.float32, [1023, 544, 17, 300], 20,
+                        64),
+    "gqa4_D16": (4, 1, 16, torch.bfloat16, [0, 15, 16, 100], None, 64),
+    "fewer_pages_than_splits": (8, 8, 64, torch.bfloat16, [0, 15, 16, 100],
+                                None, 64),
+    "fewer_pages_than_splits_D16": (4, 4, 16, torch.float32,
+                                    [0, 15, 16, 100], None, 64),
+    "window_starts_inside_a_page": (8, 8, 64, torch.float32,
+                                    [1023, 700, 130, 300], 37, 64),
+    "chunked_splits_D16": (4, 4, 16, torch.bfloat16,
+                           [8191, 5000, 2100, 129], None, 512),
 }
 
 
@@ -345,7 +371,7 @@ def test_paged_kernel_f16_pool_matches_plain(card, H, Hk, Dh, q_dtype, pos,
                                              window, n_ptab):
     """The float16 pool (``cache_dtype=torch.float16``): K and V widened
     to f32 in registers, 8 halves a 16-byte piece, its own
-    ``paged_decode_f16pool_kernel``; the bf16 pool's seven shapes."""
+    ``paged_decode_f16pool_kernel``; the bf16 pool's shapes."""
     args = _paged(card, H, Hk, Dh, q_dtype, pos, S=len(pos), n_ptab=n_ptab,
                   pool_dtype=torch.float16)
     before = pa.launches.by_variant().get("f16_pool", 0)
@@ -358,12 +384,14 @@ def test_paged_kernel_f16_pool_matches_plain(card, H, Hk, Dh, q_dtype, pos,
     assert float((out - ref).abs().max()) <= PAGED_TOL
 
 
-def test_paged_kernel_bf16_pool_corrupt_entry_and_repeat(card):
-    """A corrupt live entry NaNs its row with a bf16 pool too, and two
-    runs give the same bits."""
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_paged_kernel_bf16_pool_corrupt_entry_and_repeat(card, pool_dtype):
+    """A corrupt live entry NaNs its row with a 16-bit pool too (bf16 and
+    f16), and two runs give the same bits."""
     q, pk, pv, ptab, pos = _paged(card, 8, 8, 64, torch.bfloat16,
                                   [1023, 1023, 544, 100], n_ptab=64,
-                                  pool_dtype=torch.bfloat16)
+                                  pool_dtype=pool_dtype)
     ptab[0, 60] = pk.shape[0] + 3
     first = pa.paged_attention_decode(q, pk, pv, ptab, pos, page_size=16,
                                       n_kv_heads=8)

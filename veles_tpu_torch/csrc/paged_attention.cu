@@ -15,52 +15,76 @@
 // in registers; scores, the softmax and the accumulators are f32.  Dh is
 // 16 or 64: the head widths of the repo's configurations
 // (configs/induction_lm*.json and the bench_lm.py-width model).  Each
-// (q, pool, Dh) combination is its own instance; the f32-pool instances
-// are ``paged_decode_kernel``, the bf16-pool ones
-// ``paged_decode_bf16pool_kernel``, the f16-pool ones
+// (pool, Dh, G = 1 or not) combination is its own instance (q's type is
+// read at run time); the f32-pool instances are ``paged_decode_kernel``,
+// the bf16-pool ones ``paged_decode_bf16pool_kernel``, the f16-pool ones
 // ``paged_decode_f16pool_kernel``.
 //
 // What bounds it on this card: it reads every live K/V byte once and does
 // ~1 flop per byte (2 with a 16-bit pool), so the bound is memory
-// bandwidth (3.35 TB/s): ~17.5 MB of an f32 pool for 8 slots at mean
-// position ~533, ~5.2 us; half of that with a bf16 or f16 pool.  One query
-// against ~533 keys per (b, kh) is little work per group, so the risk is
-// latency (too few loads in flight, too few blocks), not arithmetic.
+// bandwidth (3.35 TB/s): 8.78 MB of a bf16 or f16 pool for 8 slots at
+// mean position ~533, 2.62 us; 17.5 MB, 5.23 us, of an f32 pool.  What
+// held the kernel back was not the bytes but a fixed chain of dependent
+// steps in every block ("NVIDIA H100 80GB HBM3, 700.00 W", PERF.md
+// section 6): the body this one replaces took 13.3-13.5 us hot on a
+// bf16 or f16 pool and still 8.7-8.9 us with one key a row; stamped
+// phase by phase, a block spent 1.4 us on the page table, 3.5-6.5 us on
+// K in two register rounds and the scores, 2.2 us on a softmax by one
+// warp and P.V, and 1.4 us after the first cluster barrier on a merge by
+// rank 0 alone; an empty kernel of the same grid repeats every 2.0 us,
+// and two cluster barriers add 1.1-1.2 us to it.
 //
 // Design against that.  The G = H / Hk query heads of a kv head share
-// every K/V byte, so a (b, kh) group is one unit of work -- and its live
-// page range is split across a thread-block cluster of SPLITS blocks:
-// grid (B, Hk, SPLITS), cluster (1, 1, SPLITS), each block a contiguous
-// run of live pages fixed by (pos, SPLITS) (at l_max 1024 / page 16, at
-// most 8 pages of 16 keys a block; 512 blocks at the serving shape, not
-// 64).  Two warps a block: a cluster's 8 blocks must be resident in one
-// GPC at once, and at 41.5 KB of shared memory a block the card holds 77
-// such clusters with two warps (62 with four), so the serving shape's 64
-// clusters run in one wave.  A block:
-//   * reads its pages' table entries once, into per-key pool rows in
-//     shared memory; a live entry outside [0, rows) is never read and
-//     flags the group;
-//   * starts the V rows of its keys into shared memory by 16-byte
-//     cp.async, then loads the K rows in 16-byte pieces, 4 f32 or 8
-//     bf16/f16 elements a lane (an f32 Dh=64 row is 16 lanes, two keys a
-//     warp a load; 16-bit Dh=64 8 lanes, four keys; f32 Dh=16 4 lanes;
-//     16-bit Dh=16 2 lanes), KROUND keys a thread in flight, and takes
-//     each score with log2(lanes) shuffles within the row's lanes;
-//   * writes the scores to shared memory, takes one max over them, then
-//     exponentiates and takes P.V from the staged V rows: no per-key
-//     rescale (a split longer than CHUNK keys goes in chunks, one rescale
-//     a chunk);
-//   * leaves its partial state (m, l, acc[G][Dh], the bad flag) in shared
-//     memory.
-// After a cluster barrier the rank-0 block reads the SPLITS partial states
-// through distributed shared memory, merges them in rank order and writes
-// the output (NaN for the whole group when any block saw a corrupt live
-// entry); a second barrier keeps the other blocks' shared memory alive
-// until it has.  One launch per call, no global scratch, no atomics: the
-// splits and every reduction order are fixed, so two runs give the same
-// bits.  Pages wholly past pos, or wholly before the window, are never
-// read, so page-table entries past a slot's span (the scratch row) are
-// never dereferenced.
+// every K/V byte, so a (b, kh) group is one unit of work, and its live
+// page range is split across a thread-block cluster of SPLITS = 4 blocks
+// of 4 warps: grid (B, Hk, 4), cluster (1, 1, 4), each block a contiguous
+// run of live pages fixed by (pos, SPLITS).  A block:
+//   * reads pos, then the page-table entry of each of a thread's keys,
+//     all in flight at once, then starts its keys' K and V rows into
+//     shared memory by 16-byte cp.async, all at once: one round trip a
+//     chunk of 9 keys a key slot (144 keys at a 16-bit pool and Dh=64, 72
+//     at f32; 576 and 288 at Dh=16); a live entry outside [0, rows) is
+//     never dereferenced and flags the group;
+//   * a key row is LPK lanes of one 16-byte piece each (4 f32 or 8
+//     bf16/f16 elements a lane), and thread (slot, c) owns piece c of K
+//     and V of keys slot, slot + SLOTS, ...: it takes each score with
+//     log2(LPK) shuffles and keeps its own online softmax over its keys,
+//     one rescale a group of keys (a 16-bit chunk's 9 at once, an f32
+//     pool's in threes), so no barrier and no block-wide max;
+//   * merges its slots' states lane to lane within each warp, then
+//     writes each warp's state into the shared memory of the ranks that
+//     own its outputs (rank r owns G x Dh / SPLITS of them); a relaxed
+//     cluster arrive at the start, waited for before the first remote
+//     store, makes sure every block of the cluster has started;
+//   * after one cluster barrier, merges its own outputs from the SPLITS x
+//     NWARPS states in its own memory (lane r of a run of SPLITS lanes
+//     takes rank r's warps, the run merges across its lanes) and writes
+//     them, NaN for the whole group when any block saw a corrupt live
+//     entry.  No block reads another's memory after the barrier, so none
+//     waits for the others to leave.
+// G = 1 (H = Hk, the serving shape) is its own instance, with no dead
+// heads; G up to 8 is the other.  One launch per call, no global scratch,
+// no atomics: the splits and every reduction order are fixed, so two
+// runs give the same bits.  Pages wholly past pos, or wholly before the
+// window, are never read, so page-table entries past a slot's span (the
+// scratch row) are never dereferenced.
+//
+// Measured in one call against the body it replaces (PERF.md): bf16
+// and f16 pools 13.3-13.5 -> 6.8-6.9 us hot, 19.8-20.2 -> 13.5-13.7 us
+// cold; the f32 pool 15.0 -> 9.4 us hot, 24.3 -> 18.3-18.6 cold; the MoE
+// chain's shape 7.8 -> 4.3 us.  Stamped, a bf16 block now spends ~2.0 us
+// reading pos and its entries, 0.2 us waiting for K and V (3.1 us cold),
+// 1.0 us on its scores and P.V, and ~2.3 us on the merges and the
+// barrier.  Tried and not kept (the same calls): the old merge (rank 0
+// pulling every state through distributed shared memory behind two
+// barriers) with the new reads, 8.9-9.0 us; 8 splits of 2 warps with the
+// writes into the owners, 7.8 us; 4 splits of 2 warps, 7.9-8.0 us; 16
+// splits (a non-portable cluster, which the card grants) of 2 warps, 17.9
+// us; the chunk's page-table entries staged once a warp in shared memory
+// (fewer loads of the same lines), no faster on a 16-bit pool; an f32
+// pool's keys in groups of 9, 0.4 us slower at the MoE chain's shape.
+// 4 splits of 8 warps did not build: by our count its G <= 8 instance
+// needs ~60 KB of static shared memory, over the 48 KB limit.
 
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
@@ -77,35 +101,15 @@ using vt_tc::cp_async_commit;
 using vt_tc::cp_async_wait_all;
 using vt_tc::smem_u32;
 
-constexpr int SPLITS = 8;      // blocks a (b, kh) group: the portable cluster
-constexpr int NWARPS = 2;      // 64 threads: every cluster in one wave
+constexpr int SPLITS = 4;      // blocks a (b, kh) group: a cluster
+constexpr int NWARPS = 4;      // 128 threads a block
 constexpr int THREADS = NWARPS * 32;
 constexpr int MAX_G = 8;       // query heads per kv head handled per group
-constexpr int CHUNK = 128;     // keys a block stages at once
-constexpr int KROUND = 8;      // K rows a thread has in flight
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) {
-    return x;
-}
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-        __nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
+__device__ __forceinline__ float shfl_xor(float x, int o) {
+    return __shfl_xor_sync(0xffffffffu, x, o);
 }
 
 // a pool element type's 16-byte piece: VEC elements, widened to f32 in
@@ -149,53 +153,65 @@ template <> struct Piece<__half> {
 };
 
 // The kernel body, one block of one (b, kh) group's cluster; TK is the
-// pool's element type.  A key row of DH elements is LPK lanes of one
-// 16-byte piece each (f32 Dh=64: 16 lanes, bf16/f16 Dh=64: 8, f32 Dh=16:
-// 4, bf16/f16 Dh=16: 2); every lane keeps VEC accumulators a query head.
-template <typename TQ, typename TK, int DH>
+// pool's element type, MG the most query heads a kv head it serves (1:
+// G = 1 exactly; MAX_G: any G, dead heads skipped).  A key row of DH
+// elements is LPK lanes of one 16-byte piece each (f32 Dh=64: 16 lanes,
+// bf16/f16 Dh=64: 8, f32 Dh=16: 4, bf16/f16 Dh=16: 2); thread (slot, c)
+// owns piece c of the keys slot, slot + SLOTS, ... of a chunk, of K and
+// of V, and keeps its own softmax state (m, l, acc) over them.
+template <typename TK, int DH, int MG>
 __device__ __forceinline__ void paged_decode_body(
-        const TQ* __restrict__ q, const TK* __restrict__ kpool,
+        const void* __restrict__ q, int q_bf16, const TK* __restrict__ kpool,
         const TK* __restrict__ vpool, const int* __restrict__ ptab,
         const int* __restrict__ pos, float* __restrict__ out, int H, int Hk,
         int psz, int n_ptab, int rows, float scale, int window) {
     using P = Piece<TK>;
     constexpr int VEC = P::VEC;
     constexpr int LPK = DH / VEC;          // lanes a key row
-    constexpr int KPW = 32 / LPK;          // keys a warp loads at once
-    constexpr int SLOTS = NWARPS * KPW;    // keys the block loads at once
-    constexpr int KPT = CHUNK / SLOTS;     // keys a thread per chunk
-    constexpr int KR = KPT < KROUND ? KPT : KROUND;
-    static_assert(NWARPS * MAX_G * DH * 4 <= CHUNK * LPK * 16,
-                  "the warps' sums reuse the V staging buffer");
-    __shared__ uint4 sm_v[CHUNK * LPK];    // V rows; then the warps' sums
-    __shared__ float sm_s[MAX_G][CHUNK];   // scores, then probabilities
-    __shared__ int sm_row[CHUNK];          // pool row of each key, -1 bad
-    __shared__ __align__(16) float sm_q[MAX_G * DH];
-    __shared__ float sm_acc[MAX_G * DH];   // the block's partial P.V
-    __shared__ float sm_m[MAX_G], sm_l[MAX_G], sm_alpha[MAX_G];
-    __shared__ int sm_bad;
+    constexpr int SLOTS = THREADS / LPK;   // keys the block takes at once
+    // pieces a thread stages a chunk, of K and of V: 36 KB of shared
+    // memory a block
+    constexpr int KPT = 9;
+    constexpr int CHUNK = KPT * SLOTS;     // keys a block stages at once
+    // keys a thread scores before one rescale: a 16-bit chunk's 9 at
+    // once; an f32 pool in threes (at the MoE chain's few keys a block the
+    // unused scores of larger groups cost more than the rescales)
+    constexpr int KG = sizeof(TK) == 4 ? 3 : KPT;
+    static_assert(KPT % KG == 0, "whole groups of keys");
+    __shared__ uint4 sm_k[KPT * THREADS];  // each thread's own pieces
+    __shared__ uint4 sm_v[KPT * THREADS];
+    __shared__ __align__(16) float sm_q[MG * DH];
+    // the warp states of every rank, of this rank's outputs
+    constexpr int PER = MG * DH / SPLITS;
+    __shared__ float sm_m[SPLITS * NWARPS * MG], sm_l[SPLITS * NWARPS * MG];
+    __shared__ float sm_acc[SPLITS * NWARPS * PER];
+    __shared__ int sm_bad[SPLITS * NWARPS];
 
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
+    // a relaxed arrive: this block has started (waited for before the
+    // first store into another block's memory)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
     const int b = blockIdx.x;
     const int kh = blockIdx.y;
-    const int G = H / Hk;
+    const int G = MG == 1 ? 1 : H / Hk;
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;
     const int slot = tid / LPK;            // key slot of the block
     const int c = lane % LPK;              // piece of the row
 
+    const int p = pos[b];
+    // q, scaled so that q.k is the score in base 2
+    const float scale_log2 = scale * LOG2E;
+    const size_t q0 = ((size_t)b * H + kh * G) * DH;
     for (int i = tid; i < G * DH; i += THREADS)
-        sm_q[i] = to_f<TQ>(q[((size_t)b * H + kh * G) * DH + i]);
-    if (tid < MAX_G) {
-        sm_m[tid] = NEG;
-        sm_l[tid] = 0.f;
-    }
-    if (tid == 0) sm_bad = 0;
+        sm_q[i] = scale_log2 * (q_bf16
+            ? __bfloat162float(
+                  static_cast<const __nv_bfloat16*>(q)[q0 + i])
+            : static_cast<const float*>(q)[q0 + i]);
 
     // this block's split of the live pages [j_lo, j_hi] and its keys
-    const int p = pos[b];
     const int lo = window > 0 ? max(0, p - window + 1) : 0;
     const int j_lo = lo / psz;
     const int n_pages = max(0, min(p / psz, n_ptab - 1) - j_lo + 1);
@@ -204,245 +220,283 @@ __device__ __forceinline__ void paged_decode_body(
     const int t_begin = max(pa * psz, lo);
     const int n_keys = pb > pa ? min(pb * psz - 1, p) - t_begin + 1 : 0;
     const int* prow = ptab + (size_t)b * n_ptab;
-    const float scale_log2 = scale * LOG2E;
     const size_t ld = (size_t)Hk * DH;     // elements a pool position
     const TK* kbase = kpool + (size_t)kh * DH + c * VEC;
-    const TK* vbase = vpool + (size_t)kh * DH;
+    const TK* vbase = vpool + (size_t)kh * DH + c * VEC;
+    // the first slot of this warp: it has the most keys of the warp
+    const int slot0 = warp * (32 / LPK);
+    const int step_j = SLOTS / psz, step_off = SLOTS - step_j * psz;
 
-    float acc[MAX_G][VEC];
+    float m[MG], l[MG], acc[MG][VEC];
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
+    for (int g = 0; g < MG; ++g) {
+        m[g] = NEG;
+        l[g] = 0.f;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    }
+    bool bad = false;
 
     for (int c0 = 0; c0 < n_keys; c0 += CHUNK) {
         const int n = min(CHUNK, n_keys - c0);
-        __syncthreads();       // the last chunk's reads of shared memory
-        for (int i = tid; i < n; i += THREADS) {
-            const int t = t_begin + c0 + i;
-            const int j = t / psz;
-            const int phys = prow[j];
-            const bool ok = phys >= 0 && phys < rows;
-            if (!ok) sm_bad = 1;
-            sm_row[i] = ok ? phys * psz + (t - j * psz) : -1;
+        // the page-table entries of this thread's keys, all in flight,
+        // then their K and V pieces, all in flight (key slot + k SLOTS is
+        // at page j, offset off: one division a chunk)
+        int ent[KPT], offs[KPT];
+        {
+            const int t0 = t_begin + c0 + slot;
+            int j = t0 / psz, off = t0 - j * psz;
+#pragma unroll
+            for (int k = 0; k < KPT; ++k) {
+                offs[k] = off;
+                ent[k] = slot + k * SLOTS < n ? __ldg(prow + j) : 0;
+                off += step_off;
+                j += step_j;
+                if (off >= psz) {
+                    off -= psz;
+                    ++j;
+                }
+            }
         }
-        __syncthreads();
-        // V rows into shared memory, in flight while the scores are taken
-        for (int i = tid; i < n * LPK; i += THREADS) {
-            const int row = sm_row[i / LPK];
-            cp_async16(smem_u32(&sm_v[i]),
-                       vbase + (row >= 0 ? row * ld + (i % LPK) * VEC : 0),
-                       row >= 0);
+#pragma unroll
+        for (int k = 0; k < KPT; ++k) {
+            if (slot + k * SLOTS < n) {
+                const bool ok = ent[k] >= 0 && ent[k] < rows;
+                bad |= !ok;
+                const size_t off =
+                    ok ? ((size_t)ent[k] * psz + offs[k]) * ld : 0;
+                cp_async16(smem_u32(&sm_k[k * THREADS + tid]), kbase + off,
+                           ok);
+                cp_async16(smem_u32(&sm_v[k * THREADS + tid]), vbase + off,
+                           ok);
+            }
         }
         cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();       // sm_q
 
-        // scores (base 2), KR K rows a thread in flight
-        for (int r0 = 0; r0 < KPT && r0 * SLOTS < n; r0 += KR) {
-            uint4 kr[KR];
+        // this thread's keys in groups of KG: scores, one rescale a
+        // group, then P.V (a key past the chunk scores NEG, adds nothing)
+        const int nk = n > slot ? (n - slot - 1) / SLOTS + 1 : 0;
+        const int nk_warp = n > slot0 ? (n - slot0 - 1) / SLOTS + 1 : 0;
+        for (int k0 = 0; k0 < nk_warp; k0 += KG) {
+            float s[MG][KG];
 #pragma unroll
-            for (int u = 0; u < KR; ++u) {
-                const int idx = (r0 + u) * SLOTS + slot;
-                const int row = idx < n ? sm_row[idx] : -1;
-                kr[u] = row >= 0
-                    ? __ldg(reinterpret_cast<const uint4*>(kbase + row * ld))
-                    : make_uint4(0u, 0u, 0u, 0u);
-            }
-#pragma unroll
-            for (int u = 0; u < KR; ++u) {
-                const int idx = (r0 + u) * SLOTS + slot;
+            for (int u = 0; u < KG; ++u) {
                 float kf[VEC];
-                P::widen(kr[u], kf);
+                P::widen(sm_k[(k0 + u) * THREADS + tid], kf);
 #pragma unroll
-                for (int g = 0; g < MAX_G; ++g) {
-                    if (g < G) {
-                        float qv[VEC];
+                for (int g = 0; g < MG; ++g) {
+                    if (MG == 1 || g < G) {
                         const float4* q4 = reinterpret_cast<const float4*>(
                             sm_q + g * DH + c * VEC);
+                        float part = 0.f;
 #pragma unroll
                         for (int e4 = 0; e4 < VEC / 4; ++e4) {
                             const float4 t = q4[e4];
-                            qv[4 * e4] = t.x;
-                            qv[4 * e4 + 1] = t.y;
-                            qv[4 * e4 + 2] = t.z;
-                            qv[4 * e4 + 3] = t.w;
+                            part = fmaf(t.x, kf[4 * e4], part);
+                            part = fmaf(t.y, kf[4 * e4 + 1], part);
+                            part = fmaf(t.z, kf[4 * e4 + 2], part);
+                            part = fmaf(t.w, kf[4 * e4 + 3], part);
                         }
-                        float part = qv[0] * kf[0];
-#pragma unroll
-                        for (int e = 1; e < VEC; ++e)
-                            part = fmaf(qv[e], kf[e], part);
 #pragma unroll
                         for (int o = LPK / 2; o > 0; o >>= 1)
-                            part += __shfl_xor_sync(0xffffffffu, part, o);
-                        if (c == 0 && idx < n)
-                            sm_s[g][idx] =
-                                sm_row[idx] >= 0 ? part * scale_log2 : NEG;
+                            part += shfl_xor(part, o);
+                        s[g][u] = k0 + u < nk ? part : NEG;
+                    }
+                }
+            }
+#pragma unroll
+            for (int g = 0; g < MG; ++g) {
+                if (MG == 1 || g < G) {
+                    float mx = m[g];
+#pragma unroll
+                    for (int u = 0; u < KG; ++u) mx = fmaxf(mx, s[g][u]);
+                    const float alpha = exp2f(m[g] - mx);
+                    m[g] = mx;
+                    l[g] *= alpha;
+#pragma unroll
+                    for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < KG; ++u) {
+                if (k0 + u < nk) {
+                    float vf[VEC];
+                    P::widen(sm_v[(k0 + u) * THREADS + tid], vf);
+#pragma unroll
+                    for (int g = 0; g < MG; ++g) {
+                        if (MG == 1 || g < G) {
+                            const float pe = exp2f(s[g][u] - m[g]);
+                            l[g] += pe;
+#pragma unroll
+                            for (int e = 0; e < VEC; ++e)
+                                acc[g][e] = fmaf(pe, vf[e], acc[g][e]);
+                        }
                     }
                 }
             }
         }
-        __syncthreads();
+    }
 
-        // one max over the chunk, then P = exp2(s - m); warp w takes the
-        // heads g = w, w + NWARPS
-        for (int g = warp; g < G; g += NWARPS) {
-            const float m_old = sm_m[g];
-            float mx = NEG;
-            for (int i = lane; i < n; i += 32) mx = fmaxf(mx, sm_s[g][i]);
-            const float m_new = fmaxf(m_old, warp_max(mx));
-            float sum = 0.f;
-            for (int i = lane; i < n; i += 32) {
-                const float pe = exp2f(sm_s[g][i] - m_new);
-                sm_s[g][i] = pe;
-                sum += pe;
-            }
-            sum = warp_sum(sum);
-            if (lane == 0) {
-                const float alpha = exp2f(m_old - m_new);
-                sm_alpha[g] = alpha;
-                sm_l[g] = fmaf(sm_l[g], alpha, sum);
-                sm_m[g] = m_new;
+    // the warp's state: the slots' states merged lane to lane (lanes with
+    // the same c), in a fixed order
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) {
+#pragma unroll
+        for (int g = 0; g < MG; ++g) {
+            if (MG == 1 || g < G) {
+                const float mo = shfl_xor(m[g], o);
+                const float lo_ = shfl_xor(l[g], o);
+                const float mx = fmaxf(m[g], mo);
+                const float a = exp2f(m[g] - mx), ao = exp2f(mo - mx);
+                l[g] = l[g] * a + lo_ * ao;
+#pragma unroll
+                for (int e = 0; e < VEC; ++e)
+                    acc[g][e] = acc[g][e] * a + shfl_xor(acc[g][e], o) * ao;
+                m[g] = mx;
             }
         }
-        cp_async_wait_all();
-        __syncthreads();
+    }
+    const bool wbad = __any_sync(0xffffffffu, bad);
+    const int per = G * DH / SPLITS;       // outputs a rank
 
-        // acc = alpha acc + P.V over this thread's keys
+    // every block of the cluster has started: each warp writes its state
+    // into the memory of the ranks that own its outputs, then one cluster
+    // barrier, and no block reads another's memory after it
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    const int from = rank * NWARPS + warp;
+    if (lane < LPK) {
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
-            if (g < G) {
-                const float a = sm_alpha[g];
+        for (int g = 0; g < MG; ++g) {
+            if (MG == 1 || g < G) {
 #pragma unroll
-                for (int e = 0; e < VEC; ++e) acc[g][e] *= a;
-            }
-        }
-#pragma unroll 4
-        for (int idx = slot; idx < n; idx += SLOTS) {
-            float vf[VEC];
-            P::widen(sm_v[idx * LPK + c], vf);
-#pragma unroll
-            for (int g = 0; g < MAX_G; ++g) {
-                if (g < G) {
-                    const float s = sm_s[g][idx];
-#pragma unroll
-                    for (int e = 0; e < VEC; ++e)
-                        acc[g][e] = fmaf(s, vf[e], acc[g][e]);
+                for (int e = 0; e < VEC; ++e) {
+                    const int o = g * DH + lane * VEC + e;
+                    const int to = o / per;
+                    cluster.map_shared_rank(sm_acc, to)[
+                        from * PER + o - to * per] = acc[g][e];
                 }
             }
         }
     }
+    if (lane < SPLITS) {
+        float* dm = cluster.map_shared_rank(sm_m, lane);
+        float* dl = cluster.map_shared_rank(sm_l, lane);
+#pragma unroll
+        for (int g = 0; g < MG; ++g) {
+            dm[from * MG + g] = m[g];
+            dl[from * MG + g] = l[g];
+        }
+        cluster.map_shared_rank(sm_bad, lane)[from] = wbad;
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 
-    // the block's P.V: the key slots of a warp (lanes with the same c),
-    // then the warps, in a fixed order
+    // this rank's share of the group's G x DH outputs: lane r of a run of
+    // SPLITS lanes takes rank r's warp states, the run merges them across
+    // its lanes in a fixed order
+    const int r = tid % SPLITS;
+    constexpr int RUNS = THREADS / SPLITS;
+    const int steps = (per + RUNS - 1) / RUNS;
+    int rbad = 0;
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-        if (g < G) {
+    for (int w = 0; w < NWARPS; ++w) rbad |= sm_bad[r * NWARPS + w];
 #pragma unroll
-            for (int o = LPK; o < 32; o <<= 1)
+    for (int s = 1; s < SPLITS; s <<= 1)
+        rbad |= __shfl_xor_sync(0xffffffffu, rbad, s);
 #pragma unroll
-                for (int e = 0; e < VEC; ++e)
-                    acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    for (int i = 0; i < (PER + RUNS - 1) / RUNS; ++i) {
+        if (i < steps) {
+            const int ol = i * RUNS + tid / SPLITS;
+            const int oc = min(ol, per - 1);
+            const int g = (rank * per + oc) / DH;
+            float mw[NWARPS], lw[NWARPS], aw[NWARPS];
+#pragma unroll
+            for (int w = 0; w < NWARPS; ++w) {
+                mw[w] = sm_m[(r * NWARPS + w) * MG + g];
+                lw[w] = sm_l[(r * NWARPS + w) * MG + g];
+                aw[w] = sm_acc[(r * NWARPS + w) * PER + oc];
+            }
+            float mx = mw[0];
+#pragma unroll
+            for (int w = 1; w < NWARPS; ++w) mx = fmaxf(mx, mw[w]);
+            float ls = 0.f, as = 0.f;
+#pragma unroll
+            for (int w = 0; w < NWARPS; ++w) {
+                const float f = exp2f(mw[w] - mx);
+                ls = fmaf(lw[w], f, ls);
+                as = fmaf(aw[w], f, as);
+            }
+            float gm = mx;
+#pragma unroll
+            for (int s = 1; s < SPLITS; s <<= 1)
+                gm = fmaxf(gm, shfl_xor(gm, s));
+            const float f = exp2f(mx - gm);
+            ls *= f;
+            as *= f;
+#pragma unroll
+            for (int s = 1; s < SPLITS; s <<= 1) {
+                ls += shfl_xor(ls, s);
+                as += shfl_xor(as, s);
+            }
+            if (r == 0 && ol < per)
+                out[q0 + rank * per + ol] =
+                    rbad ? __int_as_float(0x7fc00000) : as / fmaxf(ls, 1e-30f);
         }
     }
-    __syncthreads();           // sm_v is free
-    float* red = reinterpret_cast<float*>(sm_v);   // [NWARPS][MAX_G][DH]
-    if (lane < LPK) {
-#pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-            if (g < G)
-#pragma unroll
-                for (int e = 0; e < VEC; ++e)
-                    red[(warp * MAX_G + g) * DH + lane * VEC + e] =
-                        acc[g][e];
-    }
-    __syncthreads();
-    for (int i = tid; i < G * DH; i += THREADS) {
-        float a = red[i];
-#pragma unroll
-        for (int w = 1; w < NWARPS; ++w) a += red[w * MAX_G * DH + i];
-        sm_acc[i] = a;
-    }
-
-    // merge the SPLITS partial states through distributed shared memory
-    cluster.sync();
-    if (rank == 0) {
-        int bad = 0;
-#pragma unroll
-        for (int r = 0; r < SPLITS; ++r)
-            bad |= *cluster.map_shared_rank(&sm_bad, r);
-        for (int i = tid; i < G * DH; i += THREADS) {
-            const int g = i / DH;
-            float mr[SPLITS];
-            float mx = NEG;
-#pragma unroll
-            for (int r = 0; r < SPLITS; ++r) {
-                mr[r] = *cluster.map_shared_rank(&sm_m[g], r);
-                mx = fmaxf(mx, mr[r]);
-            }
-            float l = 0.f, a = 0.f;
-#pragma unroll
-            for (int r = 0; r < SPLITS; ++r) {
-                const float f = exp2f(mr[r] - mx);
-                l = fmaf(*cluster.map_shared_rank(&sm_l[g], r), f, l);
-                a = fmaf(*cluster.map_shared_rank(&sm_acc[i], r), f, a);
-            }
-            out[((size_t)b * H + kh * G) * DH + i] =
-                bad ? __int_as_float(0x7fc00000) : a / fmaxf(l, 1e-30f);
-        }
-    }
-    cluster.sync();            // rank 0 is done with the others' memory
 }
 
 // one __global__ name a pool type, so a profiler trace tells them apart
 #define VT_PAGED_ARGS(TK)                                                   \
-    const TQ* __restrict__ q, const TK* __restrict__ kpool,                 \
+    const void* __restrict__ q, int q_bf16, const TK* __restrict__ kpool,   \
         const TK* __restrict__ vpool, const int* __restrict__ ptab,         \
         const int* __restrict__ pos, float* __restrict__ out, int H,        \
         int Hk, int psz, int n_ptab, int rows, float scale, int window
+#define VT_PAGED_CALL(TK)                                                   \
+    paged_decode_body<TK, DH, MG>(q, q_bf16, kpool, vpool, ptab, pos, out,  \
+                                  H, Hk, psz, n_ptab, rows, scale, window)
 
-template <typename TQ, int DH>
-__global__ void __cluster_dims__(1, 1, SPLITS) __launch_bounds__(THREADS, 4)
+template <int DH, int MG>
+__global__ void __cluster_dims__(1, 1, SPLITS) __launch_bounds__(THREADS, 2)
 paged_decode_kernel(VT_PAGED_ARGS(float)) {
-    paged_decode_body<TQ, float, DH>(q, kpool, vpool, ptab, pos, out, H, Hk,
-                                     psz, n_ptab, rows, scale, window);
+    VT_PAGED_CALL(float);
 }
 
-template <typename TQ, int DH>
-__global__ void __cluster_dims__(1, 1, SPLITS) __launch_bounds__(THREADS, 4)
+template <int DH, int MG>
+__global__ void __cluster_dims__(1, 1, SPLITS) __launch_bounds__(THREADS, 2)
 paged_decode_bf16pool_kernel(VT_PAGED_ARGS(__nv_bfloat16)) {
-    paged_decode_body<TQ, __nv_bfloat16, DH>(q, kpool, vpool, ptab, pos,
-                                             out, H, Hk, psz, n_ptab, rows,
-                                             scale, window);
+    VT_PAGED_CALL(__nv_bfloat16);
 }
 
-template <typename TQ, int DH>
-__global__ void __cluster_dims__(1, 1, SPLITS) __launch_bounds__(THREADS, 4)
+template <int DH, int MG>
+__global__ void __cluster_dims__(1, 1, SPLITS) __launch_bounds__(THREADS, 2)
 paged_decode_f16pool_kernel(VT_PAGED_ARGS(__half)) {
-    paged_decode_body<TQ, __half, DH>(q, kpool, vpool, ptab, pos, out, H,
-                                      Hk, psz, n_ptab, rows, scale, window);
+    VT_PAGED_CALL(__half);
 }
+#undef VT_PAGED_CALL
 #undef VT_PAGED_ARGS
 
-template <typename TQ, typename TK, int DH>
-void launch(const void* q, const void* kp, const void* vp, const int* ptab,
-            const int* pos, float* out, int B, int H, int Hk, int psz,
-            int n_ptab, int rows, float scale, int window,
+template <typename TK, int DH, int MG>
+void launch(const void* q, int q_bf16, const void* kp, const void* vp,
+            const int* ptab, const int* pos, float* out, int B, int H,
+            int Hk, int psz, int n_ptab, int rows, float scale, int window,
             cudaStream_t stream) {
     dim3 grid(B, Hk, SPLITS);
-    const TQ* qq = static_cast<const TQ*>(q);
     const TK* k = static_cast<const TK*>(kp);
     const TK* v = static_cast<const TK*>(vp);
     if constexpr (std::is_same<TK, float>::value)
-        paged_decode_kernel<TQ, DH><<<grid, THREADS, 0, stream>>>(
-            qq, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows, scale,
-            window);
+        paged_decode_kernel<DH, MG><<<grid, THREADS, 0, stream>>>(
+            q, q_bf16, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows,
+            scale, window);
     else if constexpr (std::is_same<TK, __half>::value)
-        paged_decode_f16pool_kernel<TQ, DH><<<grid, THREADS, 0, stream>>>(
-            qq, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows, scale,
-            window);
+        paged_decode_f16pool_kernel<DH, MG><<<grid, THREADS, 0, stream>>>(
+            q, q_bf16, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows,
+            scale, window);
     else
-        paged_decode_bf16pool_kernel<TQ, DH><<<grid, THREADS, 0, stream>>>(
-            qq, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows, scale,
-            window);
+        paged_decode_bf16pool_kernel<DH, MG><<<grid, THREADS, 0, stream>>>(
+            q, q_bf16, k, v, ptab, pos, out, H, Hk, psz, n_ptab, rows,
+            scale, window);
 }
 
 }  // namespace
@@ -468,19 +522,21 @@ int vt_paged_attention_decode(const void* q, const void* kpool,
     const int* pt = static_cast<const int*>(ptab);
     const int* ps = static_cast<const int*>(pos);
     float* o = static_cast<float*>(out);
-#define VT_LAUNCH(TQ, TK, DHV)                                              \
-    launch<TQ, TK, DHV>(q, kpool, vpool, pt, ps, o, B, H, Hk, psz, n_ptab,  \
-                        rows, scale, window, st)
-#define VT_POOL(TQ, DHV)                                                    \
-    if (kv_dtype == 0) VT_LAUNCH(TQ, float, DHV);                           \
-    else if (kv_dtype == 2) VT_LAUNCH(TQ, __half, DHV);                     \
-    else VT_LAUNCH(TQ, __nv_bfloat16, DHV)
-    if (Dh == 16 && q_dtype == 0) { VT_POOL(float, 16); }
-    else if (Dh == 16) { VT_POOL(__nv_bfloat16, 16); }
-    else if (Dh == 64 && q_dtype == 0) { VT_POOL(float, 64); }
-    else if (Dh == 64) { VT_POOL(__nv_bfloat16, 64); }
+#define VT_LAUNCH(TK, DHV, MG)                                              \
+    launch<TK, DHV, MG>(q, q_dtype, kpool, vpool, pt, ps, o, B, H, Hk, psz,  \
+                        n_ptab, rows, scale, window, st)
+#define VT_GROUP(TK, DHV)                                                   \
+    if (H == Hk) VT_LAUNCH(TK, DHV, 1);                                     \
+    else VT_LAUNCH(TK, DHV, MAX_G)
+#define VT_POOL(DHV)                                                        \
+    if (kv_dtype == 0) { VT_GROUP(float, DHV); }                            \
+    else if (kv_dtype == 2) { VT_GROUP(__half, DHV); }                      \
+    else { VT_GROUP(__nv_bfloat16, DHV); }
+    if (Dh == 16) { VT_POOL(16) }
+    else if (Dh == 64) { VT_POOL(64) }
     else return (int)cudaErrorInvalidValue;
 #undef VT_POOL
+#undef VT_GROUP
 #undef VT_LAUNCH
     return (int)cudaGetLastError();
 }
