@@ -5742,6 +5742,180 @@ def phase_distributed_one_rank(torch):
     return rec
 
 
+#: the ring's shape: bench_lm.py's attention (B, T, H, D), causal
+SEQ_B, SEQ_T, SEQ_H, SEQ_D = 16, 2048, 8, 64
+SEQ_RANKS = (2, 4)              # seq ranks of the in-process loop
+SEQ_WINDOW, SEQ_KV_HEADS = 256, 2   # the windowed grouped-query case
+#: (rtol, atol) of the ring against the single-device attention
+SEQ_TOL = {"float32": {"fwd": (2e-4, 2e-5), "grad": (2e-3, 2e-4)},
+           "bfloat16": {"fwd": (2e-2, 2e-2), "grad": (2e-2, 2e-2)}}
+#: induction_lm_pp_moe's MoE stage: dim, experts, hidden, top-k, and the
+#: tokens of one microbatch there (80 / 4 rows x 32 positions)
+SEQ_MOE = {"dim": 64, "experts": 4, "hidden": 128, "top_k": 2,
+           "tokens": 640}
+SEQ_MOE_RANKS = (2, 4)
+
+
+def _within(torch, got, ref, tol):
+    """|got - ref| <= atol + rtol |ref| everywhere, and finite."""
+    rtol, atol = tol
+    d = (got.float() - ref.float()).abs()
+    excess = float((d - (atol + rtol * ref.float().abs())).max())
+    finite = bool(torch.isfinite(got.float()).all())
+    return {"max_abs_err": float(d.max()), "ok": excess <= 0.0 and finite}
+
+
+def _attn_grads(torch, fn, q, k, v, do):
+    """``fn(q, k, v)``'s output and its (q, k, v) gradients for ``do``."""
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o = fn(qs, ks, vs)
+    g = torch.autograd.grad(o, (qs, ks, vs), do)
+    return o.detach(), g
+
+
+def _seq_summary(ring, moe):
+    """The phase's cases in one short record (times and each check's
+    largest error), so that they survive where the per-case lines are
+    cut from the output."""
+    def errs(chk):
+        return {k: c["max_abs_err"] for k, c in chk.items()}
+    return {
+        "ring": [{"case": f"{r['dtype']}/{r['case']}/seq{r['seq_ranks']}",
+                  **{k: r[k] for k in ("ring_ms", "ring_fwd_bwd_ms",
+                                       "flash_ms", "flash_fwd_bwd_ms",
+                                       "peak_gib")},
+                  "max_abs_err": {w: errs(c)
+                                  for w, c in r["against"].items()}}
+                 for r in ring],
+        "moe": [{"expert_ranks": m["expert_ranks"],
+                 "manual_fwd_bwd_ms": m["manual_fwd_bwd_ms"],
+                 "moe_apply_fwd_bwd_ms": m["moe_apply_fwd_bwd_ms"],
+                 "max_abs_err": errs(m["against_moe_apply"])}
+                for m in moe]}
+
+
+def phase_seq_expert_ranks(torch, smi):
+    """The seq and expert axes' per-rank bodies on the card, through
+    their in-process rank loops (one device runs every rank's step in
+    lockstep): ring attention at bench_lm.py's attention shape, causal,
+    float32 (TF32 off) and bfloat16, at SEQ_RANKS ranks, plain and with a
+    window and grouped-query heads, its output and (q, k, v) gradients
+    held within SEQ_TOL of the single-device flash kernels (forward, dQ,
+    dK/dV) and of the plain ``full_attention``; the expert exchange at
+    induction_lm_pp_moe's MoE stage (ample capacity) against
+    ``moe_apply``, output, aux and the bank's gradients.  Each case is
+    timed (forward and forward + backward) beside the single-device
+    kernels, with the card's name and power limit.  The ring and the
+    exchange are plain torch: they launch none of the port's kernels."""
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.parallel.moe import (init_moe_params, moe_apply,
+                                              moe_apply_manual_ranks)
+    from veles_tpu_torch.parallel.ring_attention import (
+        full_attention, ring_attention_ranks)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(19)
+    B, T, H, D = SEQ_B, SEQ_T, SEQ_H, SEQ_D
+    ring, ok = [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        tol = SEQ_TOL[dname]
+        for case, Hk, window in (("causal", H, None),
+                                 ("window_gqa", SEQ_KV_HEADS, SEQ_WINDOW)):
+            q = torch.randn((B, T, H, D), generator=gen).to(DEVICE, dtype)
+            k, v = (torch.randn((B, T, Hk, D), generator=gen).to(
+                DEVICE, dtype) for _ in range(2))
+            do = torch.randn((B, T, H, D), generator=gen).to(DEVICE, dtype)
+
+            def flash(q_, k_, v_):
+                return fa.flash_attention(q_, k_, v_, True, None, window)[0]
+            refs = {"flash": _attn_grads(torch, flash, q, k, v, do)}
+            if window is None:
+                refs["full_attention"] = _attn_grads(
+                    torch, lambda q_, k_, v_: full_attention(
+                        q_, k_.repeat_interleave(H // Hk, 2),
+                        v_.repeat_interleave(H // Hk, 2), causal=True),
+                    q, k, v, do)
+            flash_ms = cuda_ms(torch, lambda: flash(q, k, v), iters=10)
+            flash_fb_ms = cuda_ms(torch, lambda: _attn_grads(
+                torch, flash, q, k, v, do), iters=10)
+            for n in SEQ_RANKS:
+                def ring_fn(q_, k_, v_, n=n):
+                    return torch.cat(ring_attention_ranks(
+                        q_.chunk(n, 1), k_.chunk(n, 1), v_.chunk(n, 1),
+                        causal=True, window=window), 1)
+                o, g = _attn_grads(torch, ring_fn, q, k, v, do)
+                rec = {"dtype": dname, "case": case, "seq_ranks": n,
+                       "shape": {"B": B, "T": T, "H": H, "H_kv": Hk,
+                                 "D": D, "causal": True, "window": window},
+                       "against": {}}
+                for what, (ro, rg) in refs.items():
+                    chk = {"out": _within(torch, o, ro, tol["fwd"])}
+                    for name, a, b in zip(("dq", "dk", "dv"), g, rg):
+                        chk[name] = _within(torch, a, b, tol["grad"])
+                    rec["against"][what] = chk
+                    ok = ok and all(c["ok"] for c in chk.values())
+                del o, g
+                rec.update({
+                    "ring_ms": cuda_ms(torch, lambda: ring_fn(q, k, v),
+                                       iters=3, warmup=1),
+                    "ring_fwd_bwd_ms": cuda_ms(
+                        torch, lambda: _attn_grads(torch, ring_fn, q, k, v,
+                                                   do), iters=3, warmup=1),
+                    "flash_ms": flash_ms, "flash_fwd_bwd_ms": flash_fb_ms,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "nvidia_smi": smi})
+                ring.append(rec)
+                say({"phase": "seq_expert_ranks_ring", **rec})
+            del refs, q, k, v, do
+            torch.cuda.empty_cache()
+    moe = []
+    cfg = SEQ_MOE
+    tol = SEQ_TOL["float32"]
+    params = init_moe_params(torch.Generator().manual_seed(23),
+                             cfg["experts"], cfg["dim"], cfg["hidden"],
+                             device=DEVICE)
+    x = torch.randn((cfg["tokens"], cfg["dim"]), generator=gen).to(DEVICE)
+    wy = torch.randn((cfg["tokens"], cfg["dim"]), generator=gen).to(DEVICE)
+    cf = float(cfg["experts"])          # no route dropped
+
+    def moe_grads(fn):
+        p = {k_: t.detach().requires_grad_(True) for k_, t in params.items()}
+        y, aux = fn(p)
+        g = torch.autograd.grad((y * wy).sum() + aux, list(p.values()))
+        return y.detach(), aux.detach(), dict(zip(p, g))
+
+    def local(p):
+        return moe_apply(p, x, top_k=cfg["top_k"], capacity_factor=cf)
+    ry, raux, rg = moe_grads(local)
+    local_ms = cuda_ms(torch, lambda: moe_grads(local), iters=10)
+    for n in SEQ_MOE_RANKS:
+        def manual(p, n=n):
+            ys, aux = moe_apply_manual_ranks(p, list(x.chunk(n)),
+                                             top_k=cfg["top_k"],
+                                             capacity_factor=cf)
+            return torch.cat(ys), aux
+        y, aux, g = moe_grads(manual)
+        chk = {"y": _within(torch, y, ry, tol["fwd"]),
+               "aux": _within(torch, aux, raux, tol["fwd"]),
+               **{f"d{k_}": _within(torch, g[k_], rg[k_], tol["grad"])
+                  for k_ in rg}}
+        ok = ok and all(c["ok"] for c in chk.values())
+        rec = {"expert_ranks": n, **cfg, "capacity_factor": cf,
+               "against_moe_apply": chk,
+               "manual_fwd_bwd_ms": cuda_ms(torch, lambda: moe_grads(manual),
+                                            iters=10),
+               "moe_apply_fwd_bwd_ms": local_ms, "nvidia_smi": smi}
+        moe.append(rec)
+        say({"phase": "seq_expert_ranks_moe", **rec})
+    rec = {"phase": "seq_expert_ranks", **_seq_summary(ring, moe),
+           "nvidia_smi": smi, "ok": ok}
+    say(rec)
+    if not ok:
+        fail(f"the seq/expert rank loops disagree with the single-device "
+             f"attention or moe_apply: {ring} {moe}")
+    return {"ring": ring, "moe": moe}
+
+
 def _moe_chain(torch, seed=0):
     """induction_lm_pp_moe.json's chain at its width (dim 64, vocab 16):
     the three attention stages with their dropouts taken out, the MoE
@@ -6306,6 +6480,12 @@ def phase_fleet(torch, snapshot, work_dir):
         rec["kill"] = {"requests": len(out),
                        "ok": sum(isinstance(o, tuple) and o[0] == 200
                                  for o in out),
+                       # what a failed request got back (status and the
+                       # start of its body, or the client's exception)
+                       "failed": [[o[0], str(o[1])[:200]]
+                                  if isinstance(o, tuple) else o
+                                  for o in out if not (isinstance(o, tuple)
+                                                       and o[0] == 200)],
                        "ejected": [r["id"] for r in router.fleet_doc()[
                            "replicas"] if r["state"] == EJECTED],
                        "resubmissions": router._m_resubmissions.value
@@ -7265,6 +7445,7 @@ def main():
     pp = timed("pipeline_train", phase_pipeline_train, torch)
     timing.update(pp["timing"])
     timed("distributed_one_rank", phase_distributed_one_rank, torch)
+    timed("seq_expert_ranks", phase_seq_expert_ranks, torch, smi)
     moe = timed("moe_serving", phase_moe_serving, torch)
     # last: the artifact phase's runners, children and loaded programs
     # stay out of every earlier phase's profiled windows

@@ -372,7 +372,274 @@ def suite_hang(mesh, out_dir, rank):
     return {"error": err, "waited_s": time.monotonic() - t0}
 
 
-SUITES = {"schedules2": ("pipe=2", suite_schedules2),
+# -- ring attention and the expert exchange -----------------------------------
+
+#: (name, causal, window, heads, kv heads) of the ring's cases
+RING_CASES = (("full", False, None, 4, 4), ("causal", True, None, 4, 4),
+              ("window_gqa", True, 6, 4, 2))
+
+
+def ring_inputs(seed, H, Hk, B=2, T=16, D=8):
+    """q (B, T, H, D), k/v (B, T, Hk, D) and the loss weights w (like
+    q): the loss is sum(attention(q, k, v) * w)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hk, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hk, D)).astype(np.float32)
+    w = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    return q, k, v, w
+
+
+def moe_inputs(seed, N=32, D=16, E=4, Hd=24):
+    """A MoE layer's params (router (D, E), banks w1 (E, D, Hd), w2 (E,
+    Hd, D)), tokens x (N, D) and the loss weights wy (N, D)."""
+    rng = np.random.default_rng(seed)
+    p = {"router": rng.standard_normal((D, E)).astype(np.float32) * 0.5,
+         "w1": rng.standard_normal((E, D, Hd)).astype(np.float32) * 0.3,
+         "w2": rng.standard_normal((E, Hd, D)).astype(np.float32) * 0.3}
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    wy = rng.standard_normal((N, D)).astype(np.float32)
+    return p, x, wy
+
+
+#: MoE cases: (top_k, capacity_factor); 8.0 drops nothing
+MOE_CASES = ((1, 8.0), (2, 8.0))
+#: the aux loss's weight in the MoE cases' objective
+MOE_AUX_W = 0.5
+
+
+def suite_ring4(mesh):
+    """ring_attention over seq=4 and over data=2 x seq=2 (whole tensors
+    in, whole output and gradients out), and moe_apply_manual over
+    expert=4 and data=2 x expert=2 (tokens split over every axis; the
+    gradients summed over the world)."""
+    import torch.distributed as dist
+    from veles_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from veles_tpu_torch.parallel.moe import moe_apply_manual
+    from veles_tpu_torch.parallel.ring_attention import ring_attention
+    out = {}
+    meshes = {4: mesh, 2: make_mesh(MeshSpec(data=2, seq=2),
+                                    timeout_s=GROUP_TIMEOUT_S)}
+    for n, m in meshes.items():
+        for i, (name, causal, window, H, Hk) in enumerate(RING_CASES):
+            q, k, v, w = (t(a).requires_grad_(True)
+                          for a in ring_inputs(i, H, Hk))
+            o = ring_attention(q, k, v, m, causal=causal, window=window)
+            g = torch.autograd.grad((o * w).sum(), (q, k, v))
+            out[f"ring_{name}_seq{n}"] = {"o": o.detach(), "grads": g}
+    for spec in ("expert=4", "data=2,expert=2"):
+        m = make_mesh(MeshSpec.parse(spec), timeout_s=GROUP_TIMEOUT_S)
+        for top_k, cf in MOE_CASES:
+            p, x, wy = moe_inputs(top_k)
+            p = {k: t(a).requires_grad_(True) for k, a in p.items()}
+            rows = slice(mesh.rank * 8, mesh.rank * 8 + 8)
+            y, aux = moe_apply_manual(p, t(x)[rows], mesh=m, top_k=top_k,
+                                      capacity_factor=cf)
+            obj = (y * t(wy)[rows]).sum() + MOE_AUX_W * aux
+            g = torch.autograd.grad(obj, list(p.values()))
+            flat = torch.cat([a.reshape(-1) for a in g])
+            dist.all_reduce(flat)
+            out[f"moe_{spec}_k{top_k}"] = {
+                "y": y.detach(), "aux": float(aux),
+                "grads": {k: a for k, a in zip(p, flat.split(
+                    [a.numel() for a in g]))}}
+    return out
+
+
+# -- the seq and expert axes in the train steps ------------------------------
+
+AX_V, AX_E = 12, 16
+
+#: tests/test_pipeline_product.py's stage blocks
+SP_STAGE = [{"type": "attention", "n_heads": 2, "rope": True,
+             "residual": True}, {"type": "layer_norm"}]
+SWA_STAGE = [{"type": "attention", "n_heads": 4, "n_kv_heads": 2,
+              "window": 8, "rope": True, "residual": True},
+             {"type": "layer_norm"}]
+EP_STAGE = [{"type": "moe", "n_experts": 4, "d_hidden": 32, "top_k": 1,
+             "capacity_factor": 8.0, "aux_weight": 0.01},
+            {"type": "layer_norm"}]
+EP_BLOCK = [{"type": "attention", "n_heads": 2, "rope": True,
+             "residual": True}, {"type": "layer_norm"},
+            {"type": "moe", "n_experts": 4, "d_hidden": 32, "top_k": 1,
+             "capacity_factor": 8.0, "aux_weight": 0.0},
+            {"type": "layer_norm"}]
+SP_EP_BLOCK = [{"type": "attention", "n_heads": 2, "rope": True,
+                "residual": True},
+               {"type": "dropout", "dropout_ratio": 0.1},
+               {"type": "layer_norm"},
+               {"type": "moe", "n_experts": 4, "d_hidden": 32, "top_k": 1,
+                "capacity_factor": 4.0},
+               {"type": "layer_norm"}]
+
+
+def per_position_layers(stage, n_stages, n_mb=2):
+    """tests/test_pipeline_product.py:513's LM: embedding -> stack ->
+    per-position head (every folded edge unit positionwise)."""
+    return [{"type": "embedding", "vocab": AX_V, "dim": AX_E, "name": "emb"},
+            {"type": "pipeline_stack", "name": "stack",
+             "stages": [stage] * n_stages, "n_microbatches": n_mb},
+            {"type": "softmax", "output_size": AX_V, "per_position": True,
+             "name": "out"}]
+
+
+def het_layers():
+    """An attention stage and an FFN stage, seq_last and a head
+    (tests/test_pipeline_product.py:675 and :770)."""
+    return [{"type": "embedding", "vocab": AX_V, "dim": AX_E, "name": "emb"},
+            {"type": "pipeline_stack", "name": "stack", "n_microbatches": 2,
+             "stages": [SP_STAGE, [{"type": "ffn", "d_hidden": 32},
+                                   {"type": "layer_norm"}]]},
+            {"type": "seq_last", "name": "last"},
+            {"type": "softmax", "output_size": AX_V, "name": "out"}]
+
+
+def lm_batch(seed, B, T, ragged=0, per_position=True):
+    """Next-token batch (labels (B, T), or (B,) the last token); the
+    last ``ragged`` rows masked out."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, AX_V, (B, T)).astype(np.int32)
+    y = np.roll(x, -1, axis=1).astype(np.int32) if per_position \
+        else x[:, -1].copy()
+    mask = np.ones(B, np.float32)
+    if ragged:
+        mask[-ragged:] = 0.0
+    return {"@input": x, "@labels": y, "@mask": mask}
+
+
+def axes_workflow(layers, batch, lr, seed=0, momentum=0.0):
+    from veles_tpu_torch.models.standard import build_workflow
+    from veles_tpu_torch.ops.optimizers import SGD
+    from veles_tpu_torch.units.base import Spec
+    wf = build_workflow("axes", layers)
+    wf.build({k: Spec(v.shape, torch.from_numpy(v).dtype)
+              for k, v in batch.items()})
+    opt = SGD(lr, momentum=momentum)
+    return wf, wf.init_state(seed, opt, "cpu"), opt
+
+
+def fused_axes_step(mesh, layers, batch, *, n_mb=2, interleave=1, lr=0.1,
+                    steps=1):
+    """``steps`` fused steps of SGD(lr); the params and every step's
+    metrics."""
+    wf, ws, opt = axes_workflow(layers, batch, lr)
+    step = wf.make_pipeline_train_step(opt, mesh, n_microbatches=n_mb,
+                                       interleave=interleave)
+    mets = []
+    for _ in range(steps):
+        ws, m = step(ws, tree_t(batch))
+        mets.append({k: float(v) for k, v in m.items()})
+    return {"params": ws["params"], "metrics": mets}
+
+
+def sharded_axes_steps(mesh, layers, batch, *, lr, steps, momentum=0.0):
+    """``steps`` sharded train steps on one fixed batch; the params and
+    every step's metrics."""
+    wf, ws, opt = axes_workflow(layers, batch, lr, momentum=momentum)
+    step = wf.make_sharded_train_step(opt, mesh)
+    mets = []
+    for _ in range(steps):
+        ws, m = step(ws, tree_t(batch))
+        mets.append({k: float(v) for k, v in m.items()})
+    ev = wf.make_sharded_eval_step(mesh)(ws, tree_t(batch))
+    return {"params": ws["params"], "metrics": mets,
+            "eval": {k: float(v) for k, v in ev.items()}}
+
+
+def unit_layers(kind, capacity_factor=None):
+    """tests/test_parallel_units.py's configs: attention (sp), MoE (ep)
+    or both, then flatten and a 4-class head."""
+    attn = {"type": "attention", "n_heads": 2, "name": "attn",
+            "causal": False}
+    moe = {"type": "moe", "n_experts": 4 if kind == "ep" else 2,
+           "d_hidden": 32, "name": "moe1", "top_k": 2}
+    if capacity_factor is not None:
+        moe["capacity_factor"] = capacity_factor
+    body = {"sp": [attn], "ep": [moe], "sp_ep": [attn, moe]}[kind]
+    return body + [{"type": "flatten", "name": "flat"},
+                   {"type": "softmax", "output_size": 4, "name": "out"}]
+
+
+def unit_batch(seed=0, B=8, T=16, E=16, ragged=0):
+    """tests/test_parallel_units.py:20's task: the label is the quarter of
+    the feature space with the most energy in the mean token."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, E)).astype(np.float32)
+    mean = x.mean(1).reshape(B, 4, E // 4)
+    mask = np.ones(B, np.float32)
+    if ragged:
+        mask[-ragged:] = 0.0
+    return {"@input": x,
+            "@labels": np.abs(mean).sum(-1).argmax(-1).astype(np.int32),
+            "@mask": mask}
+
+
+def width_data(seed=31, L=2, M=2, mb=4, T=6, D=8):
+    """Stage-stacked tanh params (L, ...), x and targets (M, mb, T, D):
+    samples with a leading sequence dim for ``width_axes``."""
+    rng = np.random.default_rng(seed)
+    p = {"w": rng.standard_normal((L, D, D)).astype(np.float32) * 0.4,
+         "b": rng.standard_normal((L, D)).astype(np.float32) * 0.1}
+    x = rng.standard_normal((M, mb, T, D)).astype(np.float32)
+    y = rng.standard_normal((M, mb, T, D)).astype(np.float32)
+    return p, x, y
+
+
+#: (mesh spec, kind) of the sharded steps
+SHARDED_MESHES = (("data=2,seq=4", "sp"), ("data=2,expert=4", "ep"),
+                  ("data=2,seq=2,expert=2", "sp_ep"))
+
+
+def suite_axes8(mesh):
+    """8 ranks: the fused 1F1B step over pp2 x sp2 x dp2 (plain, ragged,
+    sliding window + GQA, interleaved), over pp2 x ep2 x dp2 (MoE stages,
+    interleaved attention + MoE blocks, an idle expert axis), over pp2 x
+    sp2 x ep2 (8 steps), and the sharded step over the
+    SHARDED_MESHES."""
+    from veles_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    def mk(spec):
+        return make_mesh(MeshSpec.parse(spec), timeout_s=GROUP_TIMEOUT_S)
+    from veles_tpu_torch.parallel.mesh import shard_rows
+    from veles_tpu_torch.parallel.pipeline import pipeline_train_step
+    out = {"coords": dict(mesh.coords)}
+    p, x, y = width_data()
+    out["width"] = pipeline_train_step(
+        tanh_stage, lambda h, tgt: mse(h, shard_rows(tgt, ("seq",), mesh,
+                                                     dim=1)),
+        tree_t(p), t(x), t(y), mesh, batch_axes=("data",),
+        width_axes=("seq",))
+    b8 = lm_batch(1, 8, 8)
+    out["sp"] = fused_axes_step(mesh, per_position_layers(SP_STAGE, 2), b8)
+    out["sp_ragged"] = fused_axes_step(
+        mesh, per_position_layers(SP_STAGE, 2), lm_batch(1, 8, 8, ragged=3))
+    out["sp_swa_gqa"] = fused_axes_step(
+        mesh, per_position_layers(SWA_STAGE, 2), lm_batch(2, 8, 16))
+    out["sp_interleaved"] = fused_axes_step(
+        mesh, per_position_layers(SP_STAGE, 4), b8, interleave=2)
+    ep = mk("data=2,expert=2,pipe=2")
+    out["ep"] = fused_axes_step(ep, per_position_layers(EP_STAGE, 2), b8)
+    out["ep_interleaved"] = fused_axes_step(
+        ep, per_position_layers(EP_BLOCK, 4), b8, interleave=2)
+    out["ep_idle"] = fused_axes_step(
+        ep, het_layers(), lm_batch(1, 8, 8, per_position=False))
+    out["sp_ep"] = fused_axes_step(
+        mk("seq=2,expert=2,pipe=2"), per_position_layers(SP_EP_BLOCK, 2),
+        b8, lr=0.3, steps=8)
+    for spec, kind in SHARDED_MESHES:
+        m = mk(spec)
+        out[f"exact_{spec}"] = sharded_axes_steps(
+            m, unit_layers(kind, capacity_factor=8.0),
+            unit_batch(3, ragged=2), lr=0.1, steps=2)
+        out[f"trains_{spec}"] = sharded_axes_steps(
+            m, unit_layers(kind), unit_batch(), lr=0.05, momentum=0.9,
+            steps=30 if kind != "sp_ep" else 15)
+    return out
+
+
+SUITES = {"axes8": ("data=2,seq=2,pipe=2", suite_axes8),
+          "ring4": ("seq=4", suite_ring4),
+          "schedules2": ("pipe=2", suite_schedules2),
           "schedules4": ("data=2,pipe=2", suite_schedules4),
           "dp": ("data=2", suite_dp), "hang": ("data=2", suite_hang)}
 

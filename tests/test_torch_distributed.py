@@ -14,7 +14,8 @@ rank that never joins fails the other's collective within the group's
 timeout.  The launcher's two-rank CLI runs (tests/test_multihost.py:31
 and :67): induction_lm.json data-parallel, and induction_lm_pp.json on
 the fused schedule (pipe=2, interleave 2), each against one process.
-The item-6b axes and a multi-rank mesh on the card are refused."""
+The fsdp and model axes (ROADMAP.md item 6c) and a multi-rank mesh on
+the card are refused."""
 
 import glob
 import json
@@ -105,25 +106,32 @@ def test_placement_rules_and_host_helpers_equal_jax():
 
 
 def test_item_6b_axes_raise():
+    """The seq and expert axes (ROADMAP.md item 6b) run now: the mesh
+    takes them, and attention and MoE on them reach their collectives
+    (which need the axes' process groups, absent from a one-process
+    mesh).  The fsdp and model axes still raise, naming item 6c, in the
+    mesh and the CLI."""
     from veles_tpu_torch.units.base import Context, Spec
     from veles_tpu_torch.units.parallel_nn import MoEFFN, MultiHeadAttention
-    for axis in ("seq", "expert", "fsdp", "model"):
-        with pytest.raises(NotImplementedError, match="item 6b"):
+    for axis in ("fsdp", "model"):
+        with pytest.raises(NotImplementedError, match="item 6c"):
             check_axes({axis: 2})
+    for axis in ("seq", "expert"):
+        check_axes({axis: 2})
     sizes = {**{a: 1 for a in AXES}, "seq": 2, "expert": 2}
     ctx = Context(mesh=Mesh(sizes))
     attn = MultiHeadAttention(2, name="a")
     p, _ = attn.init(torch.Generator(), [Spec((1, 4, 8), torch.float32)],
                      "cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(RuntimeError, match="'seq' axis .* process group"):
         attn.apply(p, {}, [torch.zeros(1, 4, 8)], ctx)
     moe = MoEFFN(2, 8, name="m")
     p, _ = moe.init(torch.Generator(), [Spec((4, 8), torch.float32)], "cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(RuntimeError, match="'expert' axis .* process group"):
         moe.apply(p, {}, [torch.zeros(4, 8)], ctx)
-    r = _cli(["configs/induction_lm.json", "--mesh", "data=2,seq=2",
+    r = _cli(["configs/induction_lm.json", "--mesh", "data=2,fsdp=2",
               "--device", "cpu"], check=False)
-    assert r.returncode != 0 and "item 6b" in r.stderr
+    assert r.returncode != 0 and "item 6c" in r.stderr
 
 
 def test_multi_rank_mesh_refused_on_the_card(monkeypatch):

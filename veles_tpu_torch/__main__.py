@@ -63,10 +63,13 @@ attached (``--fleet N``: N artifact replicas behind the router).
 exit.  Everything runs on the CUDA card unless ``--device cpu`` is
 given.
 
-``--mesh data=D,pipe=P`` trains over a mesh of D*P ranks, one process
-each (``parallel/mesh.py``): the batch splits over ``data``, and a
-``pipe`` axis above 1 trains the config's pipeline stack on the fused
-1F1B schedule (interleaved with the config's ``pipeline_interleave``).
+``--mesh data=D,seq=Q,pipe=P,expert=X`` trains over a mesh of D*Q*P*X
+ranks, one process each (``parallel/mesh.py``): the batch splits over
+``data`` (and over ``expert`` for a model with MoE layers, which
+exchange their tokens there), attention runs as ring attention over
+``seq``, and a ``pipe`` axis above 1 trains the config's pipeline stack
+on the fused 1F1B schedule (interleaved with the config's
+``pipeline_interleave``), the seq and expert axes inside its stages.
 Without ``--hosts`` the ranks start here as gloo processes on the CPU
 (``--device cpu``); a run on the card has one rank (one GPU), so a
 larger mesh there stops with an error.  ``--hosts h0,h1,...`` starts
@@ -233,9 +236,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "/debug/profile) on this port; 0 picks a free "
                         "port")
     p.add_argument("--mesh", default=None,
-                   help="mesh spec, e.g. data=2,pipe=2 (one rank process "
-                        "each; the seq/expert/fsdp/model axes come with "
-                        "ROADMAP.md item 6b)")
+                   help="mesh spec over the axes data, seq, pipe and "
+                        "expert, e.g. data=2,seq=2,pipe=2 (one rank "
+                        "process each; the fsdp/model axes come with "
+                        "ROADMAP.md item 6c)")
     p.add_argument("--hosts", default=None,
                    help="comma-separated hosts: respawn this command on "
                         "each (localhost entries spawn locally) as one "

@@ -3,5 +3,7 @@
 The local ``blockwise_attention``; the ``CliRunner`` / ``ParallelMap``
 pools of ``pool.py``; the mixture-of-experts layer (``moe.py``); the
 mesh over ``torch.distributed`` process groups (``mesh.py``,
-``distributed.py``, ``launcher.py``) and the pipeline schedules over its
-``pipe`` axis (``pipeline.py``, ``pipeline_compile.py``)."""
+``distributed.py``, ``launcher.py``), ring attention over its ``seq``
+axis (``ring_attention.py``), the expert all-to-all over its ``expert``
+axis (``moe.py``) and the pipeline schedules over its ``pipe`` axis
+(``pipeline.py``, ``pipeline_compile.py``)."""

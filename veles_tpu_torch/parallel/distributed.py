@@ -104,12 +104,20 @@ def host_index() -> int:
 
 def place_batch(batch, mesh, shardings):
     """This rank's part of a global batch under ``shardings``
-    (``parallel.mesh.batch_shardings``): rows of the split keys, the
-    others whole.  Every rank's loader yields the same global batch (the
-    same seed), so no rank ships rows to another."""
+    (``parallel.mesh.batch_shardings``: per key a partition tuple, one
+    entry a dim, each an axis name, a tuple of them or None): the chunk
+    of every split dim, the others whole.  Every rank's loader yields the
+    same global batch (the same seed), so no rank ships rows to
+    another."""
     from .mesh import shard_rows
-    return {k: shard_rows(v, shardings.get(k, ()), mesh)
-            for k, v in batch.items()}
+
+    def place(t, part):
+        for d, ax in enumerate(part):
+            if ax is not None:
+                t = shard_rows(t, (ax,) if isinstance(ax, str)
+                               else tuple(ax), mesh, dim=d)
+        return t
+    return {k: place(v, shardings.get(k, ())) for k, v in batch.items()}
 
 
 def gather_to_host(tree):

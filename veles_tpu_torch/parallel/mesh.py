@@ -1,7 +1,8 @@
 """The mesh of the port: ranks over named axes, one ``torch.distributed``
 process group per axis (counterpart of veles_tpu/parallel/mesh.py,
 ``MeshSpec`` :35-62, ``make_mesh`` :64, ``data_parallel_rules`` :104 and
-``batch_shardings`` :213, for the ``data`` and ``pipe`` axes).
+``batch_shardings`` :213, for the ``data``, ``seq``, ``pipe`` and
+``expert`` axes).
 
 One process is one rank is one device.  The world's ranks are laid out
 over the axes ``(data, fsdp, model, seq, pipe, expert)`` in the order the
@@ -10,9 +11,11 @@ mesh sits where the JAX mesh puts device ``r``.  Every rank holds the
 whole workflow state (parameters replicated; a stage's rank computes
 that stage's gradients and the step sums them over the world), so the
 placement rules here describe the JAX package's layout and place
-nothing.  The ``seq``, ``expert``, ``fsdp`` and ``model`` axes (ring
-attention, the expert all-to-all, ZeRO and tensor-parallel rules) come
-with ROADMAP.md item 6b: a size above 1 raises.
+nothing.  A ``seq`` axis runs ring attention over its group
+(``parallel/ring_attention.py``), an ``expert`` axis the expert
+all-to-all (``parallel/moe.py``).  The ``fsdp`` and ``model`` axes need
+real parameter sharding (gather on use, reduce-scatter of gradients):
+they come with ROADMAP.md item 6c, and a size above 1 raises.
 """
 
 from __future__ import annotations
@@ -23,17 +26,20 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 #: axis order of the JAX package's ``make_mesh`` (devices reshaped so)
 AXES = ("data", "fsdp", "model", "seq", "pipe", "expert")
-#: the axes the port runs; the others come with ROADMAP.md item 6b
-PORTED_AXES = ("data", "pipe")
+#: the axes the port runs; the others come with ROADMAP.md item 6c
+PORTED_AXES = ("data", "seq", "pipe", "expert")
+#: the axes whose group exists even at size 1 (the data-parallel and
+#: pipeline steps read it)
+ALWAYS_GROUPED = ("data", "pipe")
 
 
 def check_axes(sizes: Dict[str, int]) -> None:
-    """Raise ``NotImplementedError`` for an axis of item 6b above 1."""
+    """Raise ``NotImplementedError`` for an axis of item 6c above 1."""
     late = [a for a in AXES if a not in PORTED_AXES and sizes.get(a, 1) > 1]
     if late:
         raise NotImplementedError(
-            f"mesh axes {late} (sequence, expert, FSDP and tensor "
-            "parallelism) come with ROADMAP.md item 6b; the port runs "
+            f"mesh axes {late} (FSDP and tensor parallelism: parameter "
+            "sharding) come with ROADMAP.md item 6c; the port runs "
             f"{list(PORTED_AXES)}")
 
 
@@ -113,8 +119,8 @@ class Mesh:
     """This rank's view of the mesh: ``shape`` (axis -> size), its
     ``coords``, and per axis the global ranks of its group and the
     ``torch.distributed`` group over them (None without a process group,
-    a one-process mesh, and for the item-6b axes; the ``data`` and
-    ``pipe`` axes have a group even at size 1)."""
+    a one-process mesh, and for an axis of size 1 other than ``data``
+    and ``pipe``, which have a group even then)."""
 
     def __init__(self, sizes: Dict[str, int], rank: int = 0,
                  groups: Optional[Dict[str, object]] = None):
@@ -163,7 +169,7 @@ def make_mesh(spec: Optional[MeshSpec] = None, *,
             seconds=timeout_s if timeout_s is not None
             else default_timeout_s())
         for a in AXES:
-            if sizes[a] == 1 and a not in PORTED_AXES:
+            if sizes[a] == 1 and a not in ALWAYS_GROUPED:
                 continue
             for g in axis_groups(a, sizes):
                 pg = dist.new_group(g, timeout=td)
@@ -195,27 +201,40 @@ def state_placement(tree, rule: Optional[Rule] = None, prefix=()):
     return rule(prefix, tuple(getattr(tree, "shape", ())))
 
 
-def batch_shardings(batch_spec: Dict[str, object], mesh: Mesh
+def batch_shardings(batch_spec: Dict[str, object], mesh: Mesh, *,
+                    seq_axis: Optional[int] = None
                     ) -> Dict[str, tuple]:
-    """Per batch key, the axes its leading (batch) dim splits over:
-    ``("data",)`` where the data axis is above 1 and divides it, else
-    ``()`` (replicated; veles_tpu/parallel/mesh.py:213-231)."""
+    """Per batch key, the partition of its dims (a tuple, one entry a
+    dim up to the last split one; ``()`` is replicated): the leading
+    (batch) dim over ``"data"`` where the data axis is above 1 and
+    divides it, and with ``seq_axis`` that dim over ``"seq"`` where the
+    seq axis is above 1 and divides it (veles_tpu/parallel/mesh.py:
+    213-231)."""
     out = {}
     n = mesh.shape.get("data", 1)
+    n_seq = mesh.shape.get("seq", 1)
     for k, s in batch_spec.items():
         shape = tuple(getattr(s, "shape", ()))
-        out[k] = ("data",) if (n > 1 and shape and shape[0] % n == 0) \
-            else ()
+        parts = [None] * len(shape)
+        if n > 1 and shape and shape[0] % n == 0:
+            parts[0] = "data"
+        if (seq_axis is not None and len(shape) > seq_axis and n_seq > 1
+                and shape[seq_axis] % n_seq == 0):
+            parts[seq_axis] = "seq"
+        while parts and parts[-1] is None:
+            parts.pop()
+        out[k] = tuple(parts)
     return out
 
 
-def shard_rows(t, axes: Sequence[str], mesh: Mesh):
-    """This rank's rows of ``t`` under the partition ``axes``."""
+def shard_rows(t, axes: Sequence[str], mesh: Mesh, dim: int = 0):
+    """This rank's chunk of ``t`` along ``dim`` under the partition
+    ``axes`` (the first axis outermost)."""
     if not axes:
         return t
     n = math.prod(mesh.shape[a] for a in axes)
     i = 0
     for a in axes:
         i = i * mesh.shape[a] + mesh.axis_index(a)
-    rows = t.shape[0] // n
-    return t[i * rows:(i + 1) * rows]
+    rows = t.shape[dim] // n
+    return t.narrow(dim, i * rows, rows)

@@ -26,7 +26,8 @@ the derivation of the JAX schedules.
 
 Every rank holds every parameter; a rank's gradients are nonzero for the
 stages it ran, and the caller sums them over the world (the pipe ranks
-assemble the stages, the data ranks the batch) in one all-reduce.
+assemble the stages, the data and expert ranks the batch, the seq ranks
+the sequence's chunks) in one all-reduce.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch.distributed as dist
 
 from .. import prng
 from ..ops.optimizers import tree_leaves, tree_map
+from .mesh import shard_rows
 
 
 def stack_stage_params(per_stage_params) -> dict:
@@ -66,6 +68,49 @@ def pick_batch_axes(axis_sizes: dict, mb: int,
         if mb % prod == 0 and prod > best:
             best, picked = prod, sub
     return picked
+
+
+def row_layout(axis_sizes: dict, rows: int, *, moe: bool = False
+               ) -> Tuple[Tuple[str, ...], int, int]:
+    """How a batch's (or a microbatch's) ``rows`` split over the mesh:
+    ``(axes, n_split, replicas)``.  The rows split over ``data`` where it
+    divides them (a row count it does not divide runs whole on every
+    data rank, as the reference replicates it), and on a model with a MoE
+    unit over ``expert`` too, whose units exchange their tokens there:
+    that axis must divide the rows (ValueError).  ``replicas`` is the
+    number of data and expert ranks that hold each row slice."""
+    n_e = axis_sizes.get("expert", 1)
+    if moe and n_e > 1:
+        if rows % n_e:
+            raise ValueError(
+                f"a batch of {rows} rows does not divide over the expert "
+                f"axis ({n_e}): the MoE units exchange their tokens over "
+                "it")
+        axes = pick_batch_axes(axis_sizes, rows // n_e,
+                               candidates=("data",)) + ("expert",)
+    else:
+        axes = pick_batch_axes(axis_sizes, rows, candidates=("data",))
+    n_split = math.prod(axis_sizes[a] for a in axes)
+    return axes, n_split, axis_sizes.get("data", 1) * n_e // n_split
+
+
+def shard_microbatches(t, mesh, batch_axes: Sequence[str] = (),
+                       width_axes: Sequence[str] = ()):
+    """This rank's part of a microbatch stack ``(n_mb, mb, ...)``: its
+    rows over ``batch_axes`` and, over ``width_axes`` (``("seq",)``,
+    :612-621), its chunk of each sample's leading (sequence) dim."""
+    bsz = math.prod(mesh.shape[a] for a in batch_axes)
+    if t.shape[1] % bsz:
+        raise ValueError(
+            f"microbatch size {t.shape[1]} not divisible over batch axes "
+            f"{tuple(batch_axes)} (total {bsz})")
+    t = shard_rows(t, batch_axes, mesh, dim=1)
+    wsz = math.prod(mesh.shape[a] for a in width_axes)
+    if width_axes and (t.dim() < 3 or t.shape[2] % wsz):
+        raise ValueError(
+            f"sample shape {tuple(t.shape[2:])} has no leading dim "
+            f"divisible over width axes {tuple(width_axes)} (total {wsz})")
+    return shard_rows(t, width_axes, mesh, dim=2)
 
 
 def pipeline_stage_shardings(stacked_params, axis_name: str = "pipe"):
@@ -260,6 +305,7 @@ def all_reduce_grads(grads: list, scalars: Sequence[torch.Tensor],
 def pipeline_train_step(stage_fn, loss_fn: Callable, params, x, labels,
                         mesh, *, axis_name: str = "pipe",
                         batch_axes: Sequence[str] = (),
+                        width_axes: Sequence[str] = (),
                         rng=None, with_aux: bool = False,
                         interleave: int = 1):
     """The fused 1F1B training step (:566-708) on the uniform stage
@@ -271,9 +317,14 @@ def pipeline_train_step(stage_fn, loss_fn: Callable, params, x, labels,
     ``params`` (leading axis ``interleave * S``); heterogeneous: lists of
     S callables and param trees.  ``x``/``labels``: the global
     microbatch stacks (n_mb, mb, ...); ``batch_axes`` (``("data",)``)
-    split each microbatch's rows over those axes.  ``loss_fn(y, lbl)``
-    must be a mean over its slice; the loss returned is the mean over
-    microbatches (and data shards) and the grads are its gradient plus
+    split each microbatch's rows over those axes.  ``width_axes``
+    (``("seq",)``, :612-621) split each sample's leading (sequence) dim
+    of ``x`` over those axes: the stages and the activation ring carry
+    this rank's chunk, the labels stay whole, and ``loss_fn`` (which
+    takes its own chunk of them) is reduced over the width axes like a
+    batch axis.  ``loss_fn(y, lbl)`` must be a mean over its slice; the
+    loss returned is the mean over microbatches (and data and width
+    shards) and the grads are its gradient plus
     the aux losses' (cotangent 1 per stage and microbatch, rescaled the
     same way), as ``jax.value_and_grad`` over the GPipe forward gives.
     ``interleave=v > 1``: the virtual-stage timetable, stage ``l`` on
@@ -304,21 +355,14 @@ def pipeline_train_step(stage_fn, loss_fn: Callable, params, x, labels,
         raise ValueError("labels must have the same microbatch count as x")
     _check_mb(n_mb, S, axis_name)
     baxes = tuple(a for a in batch_axes if mesh.shape.get(a, 1) > 1)
-    bsz = math.prod(mesh.shape[a] for a in baxes) if baxes else 1
-    if baxes:
-        from .mesh import shard_rows
-        if x.shape[1] % bsz:
-            raise ValueError(
-                f"microbatch size {x.shape[1]} not divisible over batch "
-                f"axes {baxes} (total {bsz})")
-        x = shard_rows(x.transpose(0, 1), baxes, mesh).transpose(0, 1)
-        labels = shard_rows(labels.transpose(0, 1), baxes,
-                            mesh).transpose(0, 1)
+    waxes = tuple(a for a in width_axes if mesh.shape.get(a, 1) > 1)
+    x = shard_microbatches(x, mesh, baxes, waxes)
+    labels = shard_microbatches(labels, mesh, baxes)
     d = mesh.axis_index(axis_name)
     own = {l for l in range(L) if l % S == d}
     live = [tree_map(lambda t: t.detach().requires_grad_(True), p)
             if l in own else p for l, p in enumerate(plist)]
-    scale = 1.0 / (n_mb * bsz)
+    scale = 1.0 / (n_mb * math.prod(mesh.shape[a] for a in baxes + waxes))
 
     def fwd(l, m, h):
         cur = x[m] if l == 0 else h
@@ -351,7 +395,8 @@ def pipeline_train_step(stage_fn, loss_fn: Callable, params, x, labels,
 def interleaved_train_step(stage_fn: Callable, loss_fn: Callable, params,
                            x, labels, mesh, *, interleave: int,
                            axis_name: str = "pipe",
-                           batch_axes: Sequence[str] = (), rng=None,
+                           batch_axes: Sequence[str] = (),
+                           width_axes: Sequence[str] = (), rng=None,
                            with_aux: bool = False):
     """The interleaved (virtual-stage) 1F1B step (:922-989): ``params``
     stage-stacked with leading axis ``interleave * S``, stage ``l`` on
@@ -359,5 +404,5 @@ def interleaved_train_step(stage_fn: Callable, loss_fn: Callable, params,
     :func:`pipeline_train_step`."""
     return pipeline_train_step(stage_fn, loss_fn, params, x, labels, mesh,
                                axis_name=axis_name, batch_axes=batch_axes,
-                               rng=rng, with_aux=with_aux,
-                               interleave=interleave)
+                               width_axes=width_axes, rng=rng,
+                               with_aux=with_aux, interleave=interleave)

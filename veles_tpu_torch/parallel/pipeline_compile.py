@@ -21,11 +21,30 @@ Dropout in a stage draws from ``fold_in(step_key, m)`` for microbatch
 too, with stage 0's unit names, as the reference's shared template);
 MoE aux losses join through the schedule's aux channel.  Unit state
 (normalizer statistics) is read, never written.
+
+The ``seq`` and ``expert`` axes run inside the stages (:192-231,
+:625-674).  On a ``seq`` axis above 1 every transport carries this rank's
+chunk of the sequence: stage 0 reads its chunk of the input, the ring
+carries (mb, T/n, E) and the loss takes its chunk of the per-position
+labels, reduced over the seq ranks like a batch axis (so the masked
+mean of a ragged batch stays the global one); attention runs the ring's
+per-rank body (``Context.manual_axes``), RoPE at global positions, and a
+dropout key folds in the seq rank too.  The units folded into the edge
+stages must then be positionwise (``seq_last`` is refused).  On a model
+with a MoE unit an ``expert`` axis splits the microbatch rows like a
+data axis (it must divide them: ``pipeline.row_layout``), and the MoE
+units exchange tokens over it; on a model without one the axis stays
+idle (replicas).  With either axis in the stages the
+plan takes the reference's shared stage template (stage 0's units with
+each stage's params, the key folded with the stage), which needs
+structurally identical stages, and refuses a MoE unit in an edge stage
+under expert parallelism.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import math
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -33,15 +52,17 @@ from .. import prng
 from ..ops.optimizers import tree_leaves, tree_map
 from ..units.base import Context, Spec
 from ..units.workflow import sample_count
-from .pipeline import all_reduce_grads, run_schedule
+from .pipeline import (all_reduce_grads, row_layout, run_schedule,
+                       shard_microbatches)
 
 
 class PipelinePlan:
-    """Static plan: the unit partition, the transports' specs and the
-    stage closures (:81-577)."""
+    """Static plan: the unit partition, the transports' specs, the axes
+    the stages run collectives over and the stage closures (:81-577)."""
 
     def __init__(self, wf, mesh, n_microbatches: int, *,
-                 axis_name: str = "pipe", interleave: int = 1):
+                 axis_name: str = "pipe", seq_axis: str = "seq",
+                 interleave: int = 1):
         from ..units.parallel_nn import PipelineStack
         from ..units.workflow import WorkflowError
         if wf.evaluator is None:
@@ -87,10 +108,6 @@ class PipelinePlan:
                 + (f" with interleave {self.v} (needs {self.L} stages, "
                    "one chunk lane per virtual stage)"
                    if self.v > 1 else ""))
-        if self.v > 1 and not self.uniform_stages:
-            raise WorkflowError(
-                "the interleaved schedule needs structurally identical "
-                "pipeline stages (the reference's shared stage template)")
         si = order.index(self.stack)
         self.pre: List = order[:si]
         self.post: List = order[si + 1:]
@@ -110,18 +127,80 @@ class PipelinePlan:
                 f"n_microbatches={self.n_mb} must be a multiple of the "
                 f"pipeline depth {S}")
         self.mb = self.batch_size // self.n_mb
-        # a microbatch the data axis does not divide is computed whole by
-        # every data rank, as the reference replicates it (:486-487)
-        from .pipeline import pick_batch_axes
-        data = mesh.shape.get("data", 1)
-        self.split_data = pick_batch_axes({"data": data}, self.mb) != ()
-        self.n_data = data if self.split_data else 1
-        self.replicas = 1 if self.split_data else data
+        self.in_shape = tuple(in_spec.shape[1:])
         act_spec = specs[self.stack.inputs[0]]
         self.act_shape = tuple(act_spec.shape[1:])
         self.act_dtype = act_spec.dtype
-        self.y_dtype = specs[order[-1].name].dtype
+        y_spec = specs[order[-1].name]
+        self.y_shape = tuple(y_spec.shape[1:])
+        self.y_dtype = y_spec.dtype
         self.label_keys = tuple(ev.inputs[1:])
+        self.seq_axis = seq_axis
+        self.seq_shards = int(mesh.shape.get(seq_axis, 1))
+        if self.seq_shards > 1:
+            self._check_seq(specs)
+        # microbatch rows split over data (and, on a model with a MoE
+        # unit, expert: its units exchange tokens there; :625-641)
+        from ..units.parallel_nn import MoEFFN
+        has_moe = any(isinstance(u, MoEFFN) for u in
+                      self.pre + self.stack.sub_units() + self.post)
+        self.batch_axes, self.n_split, self.replicas = row_layout(
+            dict(mesh.shape), self.mb, moe=has_moe)
+        # the axes stage bodies run collectives over (:642-650)
+        self.manual = ((seq_axis,) if self.seq_shards > 1 else ()) + (
+            ("expert",) if "expert" in self.batch_axes else ())
+        self.shared = bool(self.manual) or self.v > 1
+        if self.shared and not self.uniform_stages:
+            raise WorkflowError(
+                "seq/expert parallelism inside the fused 1F1B stages and "
+                "the interleaved schedule require structurally IDENTICAL "
+                "pipeline stages (every stage runs the shared stage "
+                "template); make every stage the same block, or drop the "
+                "seq/expert mesh axes and the interleave to use the "
+                "heterogeneous-stage dispatch")
+        if "expert" in self.manual:
+            for u in self.pre + self.post:
+                if isinstance(u, MoEFFN):
+                    raise WorkflowError(
+                        f"MoE unit {u.name!r} cannot fold into a pipeline "
+                        "edge under expert parallelism; put it in the "
+                        "pipeline stages")
+
+    def _check_seq(self, specs) -> None:
+        """Under sequence parallelism every transport needs a leading
+        sequence dim the seq axis divides, and the units folded into the
+        edges must keep each position to itself (:196-224)."""
+        from ..units.parallel_nn import MultiHeadAttention
+        from ..units.workflow import WorkflowError
+        n_sp = self.seq_shards
+        for what, shape in (("input", self.in_shape),
+                            ("activation", self.act_shape),
+                            ("output", self.y_shape)):
+            if not shape or shape[0] % n_sp:
+                raise WorkflowError(
+                    f"sequence-parallel pipeline: the {what} shape {shape} "
+                    "must have a leading sequence dim divisible by the "
+                    f"{self.seq_axis!r} axis ({n_sp})")
+        for u in self.pre + self.post:
+            ispec = specs[u.inputs[0]]
+            ospec = specs[u.name]
+            t_in = ispec.shape[1] if len(ispec.shape) > 1 else None
+            t_out = ospec.shape[1] if len(ospec.shape) > 1 else None
+            if (isinstance(u, MultiHeadAttention) or t_in != t_out
+                    or len(ospec.shape) < len(ispec.shape)):
+                raise WorkflowError(
+                    f"unit {u.name!r} is not positionwise; under sequence "
+                    f"parallelism ({self.seq_axis}={n_sp}) folded pre/post "
+                    "units must preserve the sequence dim (use a "
+                    "per-position head, and put attention inside the "
+                    "pipeline stages)")
+
+    def _local(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """This rank's chunk of a transported per-sample shape: the
+        leading (sequence) dim divides over the seq axis (:226-231)."""
+        if self.seq_shards <= 1 or not shape:
+            return tuple(shape)
+        return (shape[0] // self.seq_shards,) + tuple(shape[1:])
 
     @property
     def uniform_stages(self) -> bool:
@@ -154,12 +233,15 @@ class PipelinePlan:
                 "read-only statistics")
         return y, aux
 
-    def stage_fn(self, params, states, inputs):
+    def stage_fn(self, params, states, inputs, mesh):
         """``fwd(l, m, h, key) -> (ring, out, aux)`` over the live
         ``params`` (the whole tree), read-only ``states`` and this rank's
-        input microbatches ``inputs`` (n_mb, mb_local, ...)."""
+        input microbatches ``inputs`` (n_mb, mb_local, ...), on this
+        rank's ``mesh``."""
         stack, L = self.stack, self.L
-        shared = self.v > 1
+        shared = self.shared
+        seq_rank = (mesh.axis_index(self.seq_axis)
+                    if self.seq_shards > 1 else None)
 
         def template(l, x, ictx):
             # the shared template: stage 0's units with stage l's params
@@ -177,7 +259,10 @@ class PipelinePlan:
         def fwd(l, m, h, key):
             if shared:
                 key = prng.fold_in(key, l)
-            ictx = Context(train=True, key=key)
+            if seq_rank is not None:
+                key = prng.fold_in(key, seq_rank)
+            ictx = Context(train=True, key=key, mesh=mesh,
+                           manual_axes=self.manual)
             aux = torch.zeros((), dtype=torch.float32,
                               device=inputs.device)
             if l == 0:
@@ -237,30 +322,33 @@ class PipelineTrainStep:
         return self._host.begin(wstate)
 
     def run(self, wstate, batch, sub):
-        from .mesh import shard_rows
         plan, mesh, ev = self.plan, self.mesh, self.plan.evaluator
         params = wstate["params"]
-        n_mb = plan.n_mb
-        dax = ("data",) if plan.split_data else ()
+        n_mb, n_sp = plan.n_mb, plan.seq_shards
+        t_glob = plan.y_shape[0] if plan.y_shape else None
 
-        def local(t):
-            # (B, ...) -> this rank's (n_mb, mb_local, ...)
-            tm = t.reshape((n_mb, plan.mb) + tuple(t.shape[1:]))
-            return shard_rows(tm.transpose(0, 1), dax,
-                              mesh).transpose(0, 1)
+        def local(t, seq):
+            # (B, ...) -> this rank's (n_mb, mb_local, ...), and with
+            # ``seq`` its chunk of the sample's leading (sequence) dim
+            return shard_microbatches(
+                t.reshape((n_mb, plan.mb) + tuple(t.shape[1:])), mesh,
+                plan.batch_axes, (plan.seq_axis,) if seq else ())
 
         side_g = [batch[k] for k in plan.label_keys]
         masked = len(plan.label_keys) >= 2
         if masked:
             norm = torch.clamp_min(sample_count(ev, side_g), 1.0)
-        inputs = local(batch["@input"])
-        side = [local(t) for t in side_g]
+        inputs = local(batch["@input"], n_sp > 1)
+        # per-position labels take their chunk too (:390-410)
+        side = [local(t, n_sp > 1 and t.dim() > 1 and t.shape[1] == t_glob)
+                for t in side_g]
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        fwd = plan.stage_fn(live, wstate["state"], inputs)
+        fwd = plan.stage_fn(live, wstate["state"], inputs, mesh)
         lctx = Context(train=True)
-        # the world's all-reduce sums the data ranks' shares (or the
-        # copies of a replicated microbatch: /replicas)
-        scale = 1.0 / (n_mb * plan.n_data * plan.replicas)
+        # the world's all-reduce sums the shares of the row-splitting
+        # ranks and the seq ranks (or the copies of a replicated
+        # microbatch: /replicas)
+        scale = 1.0 / (n_mb * plan.n_split * n_sp * plan.replicas)
 
         def loss(out, m):
             sm = [t[m] for t in side]
@@ -274,7 +362,7 @@ class PipelineTrainStep:
             lambda l, m, h: fwd(l, m, h, prng.fold_in(sub, m)), loss,
             n_mb=n_mb, S=plan.S, v=plan.v, d=d,
             ranks=mesh.axis_ranks(plan.axis_name),
-            act_shape=(inputs.shape[1],) + plan.act_shape,
+            act_shape=(inputs.shape[1],) + plan._local(plan.act_shape),
             act_dtype=plan.act_dtype, aux_scale=scale,
             device=inputs.device)
         gl = [torch.zeros_like(t) if t.grad is None else t.grad
@@ -298,7 +386,9 @@ def build_pipeline_step(wf, optimizer, mesh, *, n_microbatches: int,
                              interleave=interleave, axis_name=axis_name)
     plan = step.plan
     wf.info("1F1B plan: %d stages (pipe=%d x v=%d), %d microbatches of "
-            "%d, data=%d", plan.L, plan.S, plan.v, plan.n_mb, plan.mb,
-            plan.n_data)
+            "%d, rows split over %s (%d), seq shards %d, in-stage axes %s",
+            plan.L, plan.S, plan.v, plan.n_mb, plan.mb,
+            list(plan.batch_axes), plan.n_split, plan.seq_shards,
+            list(plan.manual))
     return step
 

@@ -46,12 +46,22 @@ class Context:
     (eager or captured) reads the seed there and takes no host value.
     ``generator`` is a ``torch.Generator`` made by ``make_generator`` on
     first use, for draws that have no JAX counterpart to match; a step
-    that draws nothing makes none."""
+    that draws nothing makes none.
+
+    ``manual_axes`` says how a unit finds its data laid out over the
+    mesh (veles_tpu/units/base.py:47-88).  ``None`` (the default): every
+    tensor the unit sees is the whole (logical) value on every rank of
+    the axes a unit parallelizes over, so the unit lays its work out
+    itself (ring attention slices its sequence chunk and gathers the
+    output).  A tuple: the caller (a pipeline schedule) has already
+    sharded the unit's data over the named axes, and the unit runs its
+    per-rank body with collectives over those axes only."""
     train: bool = False
     mesh: Optional[Any] = None
     make_generator: Optional[Callable[[], torch.Generator]] = None
     key: Optional[Tuple[int, int]] = None
     seeds: Optional[Dict[str, torch.Tensor]] = None
+    manual_axes: Optional[Tuple[str, ...]] = None
     _generator: Optional[torch.Generator] = dataclasses.field(
         default=None, init=False, repr=False)
 
@@ -66,6 +76,19 @@ class Context:
         if self.mesh is None:
             return 1
         return int(self.mesh.shape.get(name, 1))
+
+    def collective_mode(self, name: str) -> str:
+        """How a unit parallelizes over mesh axis ``name``: ``"none"``
+        (the axis is absent or of size 1, or a schedule did not lay the
+        unit's data out over it: the local formulation), ``"wrapper"``
+        (whole tensors: the unit lays out its own work over the axis) or
+        ``"manual"`` (the data is already sharded over the axis: the
+        per-rank body)."""
+        if self.axis_size(name) <= 1:
+            return "none"
+        if self.manual_axes is None:
+            return "wrapper"
+        return "manual" if name in self.manual_axes else "none"
 
     def unit_key(self, name: str) -> Optional[Tuple[int, int]]:
         """``fold_in(key, hash(name))`` as ``Context.unit_key`` of the

@@ -1,14 +1,20 @@
 """Parallelism-aware units (counterpart of veles_tpu/units/parallel_nn.py):
-``MultiHeadAttention`` (local path :178-222), ``MoEFFN`` (:225-282, the
-local path) and ``PipelineStack`` (:284-578), with ``pipeline_rules``
-(:596).
+``MultiHeadAttention`` (:178-222), ``MoEFFN`` (:225-282) and
+``PipelineStack`` (:284-578), with ``expert_rules`` (:581) and
+``pipeline_rules`` (:596).
 
 Attention covers RoPE, the residual stream, grouped-query attention and
-the sliding window.  Its sequence-parallel modes (ring attention over a
-``seq`` axis), MoE's expert-parallel mode and ``expert_rules`` come with
-ROADMAP.md item 6b, and the JAX package's build-time attention autotune
-(``prepare``) is not ported: on the card the flash kernels are the
-attention.  A stack runs its stages sequentially with no ``pipe`` axis
+the sliding window.  On a ``seq`` axis above 1 it is ring attention
+(``parallel/ring_attention.py``) in the mode ``Context.collective_mode``
+gives: ``"wrapper"`` (whole tensors on every rank: each takes its
+sequence chunk, runs the ring and gathers the output) or ``"manual"``
+(a pipeline schedule hands it this rank's chunk: the ring's per-rank
+body, RoPE at the chunk's global positions).  On an ``expert`` axis
+above 1, MoE is expert parallel (``parallel/moe.py``
+``moe_apply_manual``) over this rank's tokens in either mode.  The JAX
+package's build-time attention autotune (``prepare``) is not ported: on
+the card the flash kernels are the attention.  A stack runs its stages
+sequentially with no ``pipe`` axis
 (or one of size 1): the same math, so the configs are portable; on a
 ``pipe`` axis its eval forward runs the GPipe schedule
 (``parallel/pipeline.py``) and training the fused 1F1B schedule
@@ -23,10 +29,6 @@ import torch
 
 from ..ops import check_gqa_heads, rotary_embedding, smart_uniform_init
 from .base import Context, Forward, Spec, dtype_of
-
-#: the mesh axes of ROADMAP.md item 6b (not in the port yet)
-AXES_6B = ("seq", "expert", "fsdp", "model")
-
 
 class MultiHeadAttention(Forward):
     """Self-attention over (B, T, E) activations."""
@@ -72,12 +74,10 @@ class MultiHeadAttention(Forward):
         }, {}
 
     def apply(self, params, state, xs, ctx: Context):
-        from ..parallel.ring_attention import blockwise_attention
-        if ctx.axis_size(self.seq_axis) > 1:
-            raise NotImplementedError(
-                f"attention {self.name!r}: sequence-parallel (ring) "
-                f"attention over the {self.seq_axis!r} mesh axis comes with "
-                "ROADMAP.md item 6b")
+        from ..parallel.ring_attention import (_ring_attention_local,
+                                               blockwise_attention,
+                                               ring_attention)
+        mode = ctx.collective_mode(self.seq_axis)
         x = xs[0]
         B, T, E = x.shape
         H = self.n_heads
@@ -91,11 +91,24 @@ class MultiHeadAttention(Forward):
         k = proj(params["wk"], self.n_kv_heads)
         v = proj(params["wv"], self.n_kv_heads)
         if self.rope:
-            q = rotary_embedding(q)
-            k = rotary_embedding(k)
-        o = blockwise_attention(q.contiguous(), k.contiguous(),
-                                v.contiguous(), block_size=self.block_size,
-                                causal=self.causal, window=self.window)
+            # manual mode: x is this rank's chunk of the sequence, at
+            # global positions from rank * T on
+            off = (ctx.mesh.axis_index(self.seq_axis) * T
+                   if mode == "manual" else 0)
+            q = rotary_embedding(q, offset=off)
+            k = rotary_embedding(k, offset=off)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if mode == "manual":
+            o = _ring_attention_local(q, k, v, mesh=ctx.mesh,
+                                      axis_name=self.seq_axis,
+                                      causal=self.causal,
+                                      window=self.window)
+        elif mode == "wrapper":
+            o = ring_attention(q, k, v, ctx.mesh, axis_name=self.seq_axis,
+                               causal=self.causal, window=self.window)
+        else:
+            o = blockwise_attention(q, k, v, block_size=self.block_size,
+                                    causal=self.causal, window=self.window)
         y = o.reshape(B, T, -1) @ params["wo"].to(dt)
         if self.residual:
             y = y + xq
@@ -103,8 +116,11 @@ class MultiHeadAttention(Forward):
 
 
 class MoEFFN(Forward):
-    """Mixture-of-experts FFN over (B, T, E) or (N, E) activations, the
-    local path of veles_tpu/units/parallel_nn.py:225-282.  The
+    """Mixture-of-experts FFN over (B, T, E) or (N, E) activations
+    (veles_tpu/units/parallel_nn.py:225-282).  On an ``expert`` axis
+    above 1 (either collective mode) the layer is expert parallel over
+    this rank's tokens: the step splits the tokens over the axis and the
+    all-to-all dispatch sends each to the rank owning its expert.  The
     Switch/GShard load-balance loss rides the unit-state channel
     (``aux_loss``); the train step adds ``aux_weight * aux_loss`` to the
     training loss and reports it as ``aux_<name>``."""
@@ -143,19 +159,19 @@ class MoEFFN(Forward):
               capacity_factor=None):
         """``capacity_factor`` overrides the unit's (decode runs dropless
         at ``n_experts``, veles_tpu/runtime/generate.py:494-506)."""
-        from ..parallel.moe import moe_apply
-        if ctx.axis_size(self.expert_axis) > 1:
-            raise NotImplementedError(
-                f"MoEFFN {self.name!r}: expert parallelism over the "
-                f"{self.expert_axis!r} mesh axis (the all-to-all dispatch) "
-                "comes with ROADMAP.md item 6b")
+        from ..parallel.moe import moe_apply, moe_apply_manual
         x = xs[0]
         flat = x.reshape(-1, x.shape[-1])
         cf = self.capacity_factor if capacity_factor is None \
             else float(capacity_factor)
-        y, aux = moe_apply(params, flat, top_k=self.top_k,
-                           capacity_factor=cf,
-                           dispatch_mode=self.dispatch_mode)
+        if ctx.collective_mode(self.expert_axis) != "none":
+            y, aux = moe_apply_manual(params, flat, mesh=ctx.mesh,
+                                      axis_name=self.expert_axis,
+                                      top_k=self.top_k, capacity_factor=cf)
+        else:
+            y, aux = moe_apply(params, flat, top_k=self.top_k,
+                               capacity_factor=cf,
+                               dispatch_mode=self.dispatch_mode)
         return y.reshape(x.shape), {"aux_loss": aux.float()}
 
 
@@ -376,6 +392,21 @@ class PipelineStack(Forward):
         for i in range(self.n_stages):
             x = self._stage_fn(self.stage_param_slice(params, i), x)
         return x, state
+
+
+def expert_rules(axis: str = "expert"):
+    """Placement rule for MoEFFN params (veles_tpu/units/parallel_nn.py:
+    581-593): a 3-dim ``w1``/``w2`` bank splits its expert dim over
+    ``axis``, the router (and everything else) is replicated.  Every rank
+    holds the whole bank; the rule describes the layout, and each rank
+    computes the gradient of its own experts' slice."""
+
+    def rule(path, shape):
+        if len(path) >= 2 and path[-1] in ("w1", "w2") and len(shape) == 3:
+            return (axis,)
+        return ()
+
+    return rule
 
 
 def pipeline_rules(axis: str = "pipe"):

@@ -219,8 +219,8 @@ class Workflow(Logger):
 
     def make_sharded_train_step(self, optimizer: Optimizer,
                                 mesh) -> "ShardedTrainStep":
-        """The train step over the mesh's ``data`` axis
-        (veles_tpu/units/workflow.py:312-336): see
+        """The train step over the mesh's ``data``, ``seq`` and
+        ``expert`` axes (veles_tpu/units/workflow.py:312-336): see
         :class:`ShardedTrainStep`."""
         return ShardedTrainStep(self, optimizer, mesh)
 
@@ -495,27 +495,48 @@ def sample_count(ev, side) -> torch.Tensor:
     return torch.tensor(float(n), device=side[0].device)
 
 
-def _data_split(mesh, batch) -> bool:
-    """True when the step splits the batch over the mesh's data group:
-    there is one and the batch's rows divide over it (the JAX package
-    replicates a batch they do not divide,
-    veles_tpu/parallel/mesh.py:213-231; every rank then computes the
-    whole batch alike)."""
-    n = mesh.shape.get("data", 1)
-    return mesh.group("data") is not None and all(
-        int(v.shape[0]) % n == 0 for v in batch.values())
+class _Layout:
+    """How a sharded step lays a batch out over the mesh: the axes the
+    rows split over (``parallel.pipeline.row_layout``: ``data`` where it
+    divides them, and ``expert`` on a model with a MoE unit, which must
+    divide them) and the copies of each row slice (``replicas``: those
+    of ``row_layout``, times the ``seq`` ranks, which each take one
+    chunk of the sequence inside attention and see the whole output).
+    A ``None`` layout means the plain step: no process group, or only a
+    data axis that does not divide the rows (the reference replicates
+    such a batch and every rank computes it whole, with no exchange)."""
+
+    def __init__(self, workflow, mesh, batch):
+        from ..parallel.pipeline import row_layout
+        from .parallel_nn import MoEFFN
+        self.world = mesh.size
+        rows = {int(v.shape[0]) for v in batch.values()}
+        moe = any(isinstance(u, MoEFFN) for u in workflow.all_units())
+        self.axes, self.n_split, _ = row_layout(
+            dict(mesh.shape), min(rows) if len(rows) == 1 else 1, moe=moe)
+        self.replicas = self.world // self.n_split
+
+    @classmethod
+    def of(cls, workflow, mesh, batch):
+        if mesh.world_group is None:
+            return None
+        layout = cls(workflow, mesh, batch)
+        busy = any(mesh.shape.get(a, 1) > 1 for a in ("seq", "expert"))
+        if not (layout.axes or busy) and mesh.shape.get("data", 1) > 1:
+            return None
+        return layout
+
+    def local(self, mesh, batch):
+        from ..parallel.distributed import place_batch
+        return place_batch(batch, mesh, {k: (self.axes,) for k in batch})
 
 
-def _local_batch(mesh, batch):
-    from ..parallel.distributed import place_batch
-    return place_batch(batch, mesh, {k: ("data",) for k in batch})
-
-
-def _reduce_metrics(mets, weight, group, extra=()):
+def _reduce_metrics(mets, weight, group, extra=(), replicas=1):
     """All-reduce a rank's metrics over ``group``: ``loss`` weighted by
     ``weight`` (its share of the global masked mean), ``aux_*`` averaged,
-    the rest (counts, error sums) summed; ``extra`` tensors (gradients)
-    ride the same buffer.  Returns (metrics, extra)."""
+    the rest (counts, error sums) summed over the distinct row slices
+    (divided by their ``replicas``); ``extra`` tensors (gradients) ride
+    the same buffer.  Returns (metrics, extra)."""
     from ..parallel.pipeline import all_reduce_grads
     n = torch.distributed.get_world_size(group)
     keys = sorted(mets)
@@ -526,30 +547,37 @@ def _reduce_metrics(mets, weight, group, extra=()):
             v = v * weight
         elif k.startswith("aux_"):
             v = v / n
+        elif replicas > 1:
+            v = v / replicas
         vals.append(v)
     extra, vals = all_reduce_grads(list(extra), vals, group)
     return dict(zip(keys, vals)), extra
 
 
 class ShardedTrainStep(TrainStep):
-    """The train step over the mesh's ``data`` axis (one process a rank;
-    every rank's loader yields the same global batch): each data rank
-    runs forward and backward on its rows, its loss weighted by its
-    share of the global mask count (the sum over ranks is the global
-    masked mean the JAX package's GSPMD step computes), its aux losses by
-    1/n; the gradients and metrics are summed over the data group in one
-    all-reduce and every rank applies the same guarded update.  A batch
-    whose rows do not divide runs whole on every rank, with no
-    exchange.  MoE routing and
-    capacity are per rank (the reference's expert-parallel semantics).
-    Self-updating units do not train under a mesh."""
+    """The train step over the mesh (one process a rank; every rank's
+    loader yields the same global batch).  The rows split over ``data``
+    (and over ``expert`` on a model with a MoE unit: :class:`_Layout`);
+    each rank runs forward and backward on its rows with the mesh in its
+    context, so attention on a ``seq`` axis runs the ring over the seq
+    group (each seq rank takes one chunk of the sequence and every rank
+    sees the whole output) and MoE on an ``expert`` axis exchanges its
+    tokens over the expert group.  A rank's loss is weighted by its share
+    of the global mask count over the copies of its rows, its aux losses
+    by 1/world (the mean over the data shards, each MoE's aux being its
+    expert group's); the gradients and metrics are summed over the world
+    in one all-reduce and every rank applies the same guarded update.
+    A batch no axis divides runs whole on every rank, with no exchange,
+    on a mesh with only a data axis.  MoE routing and capacity are per
+    rank (the reference's expert-parallel semantics).  Self-updating
+    units do not train under a mesh."""
 
-    capture_reason = "the data-parallel step all-reduces over the mesh"
+    capture_reason = "the sharded step all-reduces over the mesh"
 
     def __init__(self, workflow, optimizer, mesh):
         super().__init__(workflow, optimizer)
         self.mesh = mesh
-        self.group = mesh.group("data")
+        self.group = mesh.world_group
         for u in workflow.units:
             if getattr(u, "self_updating", False):
                 raise WorkflowError(
@@ -561,13 +589,14 @@ class ShardedTrainStep(TrainStep):
         wf, ev = self.workflow, self.workflow.evaluator
         if ev is None:
             raise WorkflowError("a sharded train step needs an evaluator")
-        if not _data_split(self.mesh, batch):
+        layout = _Layout.of(wf, self.mesh, batch)
+        if layout is None:
             return super().run(wstate, batch, sub)
         side = [batch[k] for k in ev.inputs[1:]]
-        local = _local_batch(self.mesh, batch)
-        n = self.mesh.shape["data"]
+        local = layout.local(self.mesh, batch)
+        n = layout.world
         w = sample_count(ev, [local[k] for k in ev.inputs[1:]]) \
-            / torch.clamp_min(sample_count(ev, side), 1.0)
+            / torch.clamp_min(sample_count(ev, side), 1.0) / layout.replicas
         params = wstate["params"]
         ctx = Context(train=True, key=sub, seeds=self.seeds, mesh=self.mesh,
                       make_generator=functools.partial(
@@ -590,11 +619,12 @@ class ShardedTrainStep(TrainStep):
             mets = wf._metrics(params, wstate["state"], outs, ctx)
             for u in self.aux_units:
                 mets[f"aux_{u.name}"] = nstate[u.name]["aux_loss"].detach()
-            mets, grads = _reduce_metrics(mets, w, self.group, grads)
+            mets, grads = _reduce_metrics(mets, w, self.group, grads,
+                                          layout.replicas)
             it = iter(grads)
             grads = tree_map(lambda _: next(it), params)
             mets, ok = self.update(wstate, grads, mets["loss"], mets)
-            # the aux channel's state: the data group's mean
+            # the aux channel's state: the mean over the data shards
             state = {**wstate["state"], **{
                 u.name: {"aux_loss": mets[f"aux_{u.name}"]}
                 for u in self.aux_units}}
@@ -607,34 +637,38 @@ class ShardedTrainStep(TrainStep):
 
 
 class ShardedEvalStep(EvalStep):
-    """The eval step over the mesh: each data rank evaluates its rows of
-    the global batch (a pipeline stack runs the GPipe forward over the
-    pipe group), and the metrics are all-reduced over the data group
-    (``loss`` weighted into the global masked mean, counts summed)."""
+    """The eval step over the mesh: each rank evaluates its rows of the
+    global batch as the train step lays them out (attention on a ``seq``
+    axis runs the ring, MoE on an ``expert`` axis exchanges its tokens, a
+    pipeline stack runs the GPipe forward over the pipe group), and the
+    metrics are all-reduced over the world (``loss`` weighted into the
+    global masked mean, counts summed over the distinct row slices)."""
 
     capture_reason = "the sharded eval step all-reduces over the mesh"
 
     def __init__(self, workflow, mesh):
         super().__init__(workflow)
         self.mesh = mesh
-        self.group = mesh.group("data")
+        self.group = mesh.world_group
 
     def run(self, wstate, batch, sub):
         wf, ev = self.workflow, self.workflow.evaluator
-        split = ev is not None and _data_split(self.mesh, batch)
-        local = _local_batch(self.mesh, batch) if split else batch
+        layout = _Layout.of(wf, self.mesh, batch)
+        local = batch if layout is None else layout.local(self.mesh, batch)
         ctx = Context(train=False, mesh=self.mesh)
         with torch.inference_mode():
             outputs, _ = wf.forward(wstate["params"], wstate["state"],
                                     local, ctx)
             mets = wf._metrics(wstate["params"], wstate["state"], outputs,
                                ctx)
-            if not split:
+            if layout is None or ev is None:
                 return mets
             w = sample_count(ev, [local[k] for k in ev.inputs[1:]]) \
                 / torch.clamp_min(sample_count(
-                    ev, [batch[k] for k in ev.inputs[1:]]), 1.0)
-            return _reduce_metrics(mets, w, self.group)[0]
+                    ev, [batch[k] for k in ev.inputs[1:]]), 1.0) \
+                / layout.replicas
+            return _reduce_metrics(mets, w, self.group,
+                                   replicas=layout.replicas)[0]
 
 
 def with_aux_losses(loss, nstate, aux_units):
