@@ -149,16 +149,17 @@ Phases, each of which fails the run with a non-zero exit:
    of their ``cost()``, and the batch gather at that shape; then
    ``python -m veles_tpu_torch configs/induction_lm64.json --curriculum``
    over configs/induction_lm64_curriculum.json cut to its first two
-   phases (budgets 170 and 320 epochs; the whole chain of ~3,190 epochs
-   would not fit the script's time limit, see ``curriculum_two_phases``;
+   phases (budgets CUR_BUDGETS, 40 and 80 epochs of the published 170
+   and 320; the whole chain of ~3,190 epochs would not fit the script's
+   time limit, see ``curriculum_two_phases``;
    each phase's best value, epochs, wall and median step; every phase
    must run to its budget, phase 2 start from phase 1's best snapshot
    and the summary be whole; the bar is reported, see
    ``phase_curriculum``), while the image family's SynthDigits render on
    the host in the background; then ``--generate 64`` over 8 prompts of
    64 through the CLI from the curriculum's best snapshot, greedy and
-   ``--beams 4``, token for token an in-process ``generate()`` /
-   ``generate_beam()``;
+   ``--beams 4`` (the two CLI runs at once), token for token an
+   in-process ``generate()`` / ``generate_beam()``;
 9. the image/conv family: ``configs/synthdigits_conv.json`` at its
    published widths and minibatch (100) through the ``Trainer`` for one
    epoch (600 steps) and its eval over the mnist loader's 60k + 10k
@@ -174,8 +175,9 @@ Phases, each of which fails the run with a non-zero exit:
    and the conv autoencoder (reshape, conv, pool, depool, deconv,
    flatten) for 5 steps, each rmse finite and falling;
 10. quality: ``python -m veles_tpu_torch configs/induction_lm.json
-   --random-seed 1`` as a subprocess on the card (25 epochs) must reach
-   <= 5 % validation error;
+   --random-seed 1`` as a subprocess on the card (25 epochs, started
+   beside the image family's CLI run and autoencoders) must reach <= 5 %
+   validation error;
 11. the recurrent family and the host image path, each with the launch
    counts set to 0 at its start: ``recurrent_serving`` (after the
    lifecycle) serves the mixed chain of tests/test_generate.py:149-156 at
@@ -208,8 +210,8 @@ Phases, each of which fails the run with a non-zero exit:
 12. the pipeline stack and the MoE layer, each phase with the launch
    counts set to 0 where it drives its path: ``pipeline_train`` trains
    the four ``configs/induction_lm_pp*.json`` through ``python -m
-   veles_tpu_torch`` for their 25 published epochs, the four runs at
-   once (no mesh: the stack runs its stages one after the other;
+   veles_tpu_torch`` for PP_EPOCHS (10) of their 25 published epochs,
+   the four runs at once (no mesh: the stack runs its stages one after the other;
    captured), ``induction_lm_pp``
    and ``induction_lm_pp_moe`` to <= 5 % (the ``_sp`` configs report
    theirs), then each config in-process for PP_BATCHES captured steps
@@ -222,7 +224,16 @@ Phases, each of which fails the run with a non-zero exit:
    ``distributed_one_rank`` starts a one-rank NCCL process group
    (``initialize_distributed``, the mesh's groups) and holds DIST_STEPS
    data-parallel pp_moe steps through it bit for bit against the
-   no-mesh step; ``moe_serving`` serves pp_moe's stack (three attention
+   no-mesh step; ``seq_expert_ranks`` runs the ring and the expert
+   exchange through their in-process rank loops against the flash
+   kernels and ``moe_apply``; ``fsdp_model_ranks`` runs bench_lm.py's
+   attention + FFN block split the megatron way over 2 and 4 model ranks
+   in one process (float32 and bf16, forward and backward, against the
+   unsplit block: the forward elementwise within SEQ_TOL, each gradient
+   by its relative Frobenius error; each rank's flash launches at H/model
+   heads counted from 0 and held to the trace), the full-width LM's Adam
+   step with its state in 2 and 4 fsdp shards against the one-device
+   step, and the flash kernels at a rank's heads; ``moe_serving`` serves pp_moe's stack (three attention
    stages without dropout, the MoE stage decoded dropless inside the
    graphs) with an LM head on captured paged engines, greedy 8 x (64 +
    64): tokens equal ``generate()``'s, bitwise on an eager, a megastep
@@ -1857,7 +1868,8 @@ def phase_image_family(torch):
 
 def phase_image_quality(torch):
     """configs/synthdigits_conv.json through the CLI on the card, its
-    published 20 epochs, to the bar (BASELINE.md:138)."""
+    published 20 epochs, to the bar (BASELINE.md:138); the quality
+    phase's CLI run trains beside it (``concurrent_with``)."""
     here = os.path.dirname(os.path.abspath(__file__))
     warm = _digits_cache_warm()
     cmd = [sys.executable, "-m", "veles_tpu_torch",
@@ -1880,6 +1892,7 @@ def phase_image_quality(torch):
            "best_epoch": res["best_epoch"], "epochs": res["epochs"],
            "seconds": took, "train_s": res["elapsed_s"],
            "train_samples_per_s": res["train_samples_per_s"],
+           "concurrent_with": ["quality"],
            "bar": FAMILY_BAR, "per_epoch": epochs}
     say(rec)
     if not res["best_value"] <= FAMILY_BAR:
@@ -3767,25 +3780,28 @@ CLI_COUNTED = (
     "sys.exit(rc)\n")
 
 
-def phase_quality(torch, snap_dir):
-    """The family's quality bar through the CLI, on the card (every f32
-    flash launch of the run on float32's variants, by the child's own
-    counters); its snapshots go to ``snap_dir`` and the best one's
-    manifest path is returned (the fleet phase's CLI serves it)."""
+def quality_start(snap_dir):
+    """The quality phase's CLI run started (it runs beside the image
+    family's CLI run and autoencoders): ``(child, start time)``."""
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-c", CLI_COUNTED,
            os.path.join(here, "configs", "induction_lm.json"),
            "--random-seed", "1", "--snapshot-dir", snap_dir]
-    t0 = time.perf_counter()
-    try:
-        r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
-                           timeout=600)
-    except subprocess.TimeoutExpired:
-        fail("the induction_lm CLI run exceeded 600 s")
+    return _Child(cmd, here), time.perf_counter()
+
+
+def phase_quality(torch, snap_dir, started):
+    """The family's quality bar through the CLI (started by
+    :func:`quality_start`), on the card (every f32 flash launch of the
+    run on float32's variants, by the child's own counters); its
+    snapshots go to ``snap_dir`` and the best one's manifest path is
+    returned (the fleet phase's CLI serves it)."""
+    child, t0 = started
+    rc, out, err = child.wait(600, "the induction_lm CLI run")
     took = time.perf_counter() - t0
-    if r.returncode != 0:
-        fail(f"the induction_lm CLI run exited {r.returncode}: "
-             f"{r.stderr[-2000:]}")
+    if rc != 0:
+        fail(f"the induction_lm CLI run exited {rc}: {err[-2000:]}")
+    r = types.SimpleNamespace(stdout=out, stderr=err)
     res = json.loads(r.stdout.strip().splitlines()[-1])
     variants = json.loads(r.stderr.strip().splitlines()[-1])
     epochs = [ln for ln in r.stderr.splitlines() if "error_pct=" in ln]
@@ -3793,7 +3809,9 @@ def phase_quality(torch, snap_dir):
            "best_error_pct": res["best_value"],
            "best_epoch": res["best_epoch"], "epochs": res["epochs"],
            "seconds": took, "train_samples_per_s":
-               res["train_samples_per_s"], "bar": QUALITY_BAR,
+               res["train_samples_per_s"],
+           "concurrent_with": ["image_quality", "image_ae"],
+           "bar": QUALITY_BAR,
            "flash_variants": {n: variants[n] for n in FLASH_NAMES},
            "per_epoch": [ln.split("Decision: ")[-1] for ln in epochs]}
     say(rec)
@@ -5211,15 +5229,28 @@ def phase_curriculum_kernels(torch):
     return {"timing": timing, "launches": counts}
 
 
+#: the two phases' epoch budgets (the published 170 and 320, cut)
+CUR_BUDGETS = (40, 80)
+
+
 def curriculum_two_phases():
     """The published spec cut to its first two phases: the same
-    ``common``, ``bar`` and phase 1, and phase 2 once (``"repeat": 1``),
-    budgets 170 and 320 epochs.  Two phases still exercise the chain (the
-    second CLI process restores the first one's best snapshot); the whole
-    chain (~3,190 epochs) would push the script past its time limit."""
+    ``common``, ``bar`` and phase settings, phase 2 once (``"repeat":
+    1``), budgets CUR_BUDGETS epochs (published: 170 and 320).  Two
+    phases still exercise the chain (the second CLI process restores the
+    first one's best snapshot); the whole chain (~3,190 epochs) would
+    push the script past its time limit, and so did the published two
+    phases' 490 epochs beside the rest of the script."""
     spec = _config(CURRICULUM_SPEC)
     first, second = spec["phases"][:2]
-    return dict(spec, phases=[first, dict(second, repeat=1)])
+    b1, b2 = CUR_BUDGETS
+
+    def cut(ov):
+        return re.sub(r"^(workflow\.(max_epochs|fail_iterations))=\d+$",
+                      rf"\1={b1}", ov)
+    first = dict(first, overrides=[cut(o) for o in first["overrides"]])
+    return dict(spec, phases=[first, dict(second, repeat=1,
+                                          epochs_increment=b2 - b1)])
 
 
 def phase_curriculum(torch, out_dir):
@@ -5317,6 +5348,43 @@ def _seeded_lm64_snapshot(torch, out_dir):
         "seed0", trainer._payload(), best=True)
 
 
+class _Child:
+    """A CLI subprocess started now, its output in temporary files (two
+    children at once must not fill a pipe), collected by :meth:`wait`;
+    killed at exit if a failure ends the script first."""
+
+    def __init__(self, cmd, cwd, env=None):
+        import atexit
+        import tempfile
+        self.out = tempfile.TemporaryFile("w+")
+        self.err = tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen(cmd, cwd=cwd, stdout=self.out,
+                                     stderr=self.err, text=True, env=env)
+        atexit.register(self.kill)
+
+    def wait(self, timeout, what):
+        """(returncode, stdout, stderr); fails the run past ``timeout``
+        seconds."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(60)
+            fail(f"{what} exceeded {timeout} s")
+        self.out.seek(0)
+        self.err.seek(0)
+        res = rc, self.out.read(), self.err.read()
+        self.out.close()
+        self.err.close()
+        return res
+
+    def kill(self):
+        """End the child if it still runs (a failed phase's others)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+
+
 def phase_generate_cli(torch, snapshot, out_dir):
     """``--generate 64`` over 8 prompts of 64 ids through the CLI on the
     card, greedy and ``--beams 4``, token for token an in-process
@@ -5332,7 +5400,8 @@ def phase_generate_cli(torch, snapshot, out_dir):
         0, vocab, (GEN_ROWS, GEN_PROMPT)).astype(np.int32)
     prompt_file = os.path.join(out_dir, "prompt.npy")
     np.save(prompt_file, prompt)
-    cli = {}
+    # the greedy and the beam CLI runs at once (each mostly its start-up)
+    cli, runs = {}, []
     for mode, extra in (("greedy", []), ("beams", ["--beams",
                                                   str(GEN_BEAMS)])):
         res_path = os.path.join(out_dir, f"generate_{mode}.json")
@@ -5340,13 +5409,13 @@ def phase_generate_cli(torch, snapshot, out_dir):
                "--snapshot", snapshot, "--generate", str(GEN_NEW),
                "--prompt", "@" + prompt_file, "--result-file", res_path,
                "--device", DEVICE, *extra]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
-                           timeout=600)
+        runs.append((mode, res_path, _Child(cmd, here),
+                     time.perf_counter()))
+    for mode, res_path, child, t0 in runs:
+        rc, _, err = child.wait(600, f"the {mode} --generate CLI")
         wall = time.perf_counter() - t0
-        if r.returncode != 0:
-            fail(f"the {mode} --generate CLI exited {r.returncode}: "
-                 f"{r.stderr[-2000:]}")
+        if rc != 0:
+            fail(f"the {mode} --generate CLI exited {rc}: {err[-2000:]}")
         with open(res_path) as f:
             cli[mode] = {"out": json.load(f), "wall_s": wall}
     trainer = _lm64_trainer(torch, n_train=CUR_B, n_valid=CUR_B)
@@ -5393,6 +5462,9 @@ PP_CONFIGS = ("induction_lm_pp", "induction_lm_pp_moe", "induction_lm_pp_sp",
 #: the sequence family's bar (BASELINE.md:139, :141 for the MoE config);
 #: the _sp configs' published bars were measured on a seq=2 mesh
 PP_BARS = {"induction_lm_pp": 5.0, "induction_lm_pp_moe": 5.0}
+#: the epochs of each config's CLI run (published: 25; the two bars fell
+#: by epoch 2 and 5 in every run on the card so far, PERF.md section 4)
+PP_EPOCHS = 10
 PP_TIMEOUT = 600
 PP_PATH = "induction_lm_pp_moe"  # the kernels line's entries of this path
 PP_BATCHES = 8                  # batches of the in-process counted epoch
@@ -5420,45 +5492,31 @@ def _pp_trainer(torch, name, n_batches, capture=True):
 
 
 def _pp_clis(names):
-    """Each config through ``python -m veles_tpu_torch`` (its published 25
-    epochs, captured steps, no mesh), all of them at once on the card
-    (small LMs that leave it mostly idle: one after the other they took
+    """Each config through ``python -m veles_tpu_torch`` (PP_EPOCHS of its
+    published 25 epochs, captured steps, no mesh), all of them at once on
+    the card (small LMs that leave it mostly idle: one after the other they took
     ~155 s of the script); each run's record as :func:`_pp_cli_record`
     makes it, its walls those of concurrent runs."""
-    import tempfile
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, OMP_NUM_THREADS="2")
     runs = []
     try:
         for name in names:
-            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
-                "w+")
             cmd = [sys.executable, "-m", "veles_tpu_torch",
                    os.path.join("configs", name + ".json"),
-                   "--random-seed", "1"]
-            runs.append((name, subprocess.Popen(
-                cmd, cwd=here, stdout=out, stderr=err, text=True, env=env),
-                out, err, time.perf_counter()))
+                   "--random-seed", "1", "--max-epochs", str(PP_EPOCHS)]
+            runs.append((name, _Child(cmd, here, env), time.perf_counter()))
         recs = {}
-        for name, proc, out, err, t0 in runs:
-            try:
-                rc = proc.wait(timeout=max(1.0, t0 + PP_TIMEOUT
-                                           - time.perf_counter()))
-            except subprocess.TimeoutExpired:
-                fail(f"the {name} CLI run exceeded {PP_TIMEOUT} s")
-            wall = time.perf_counter() - t0
-            out.seek(0)
-            err.seek(0)
-            recs[name] = _pp_cli_record(name, rc, out.read(), err.read(),
-                                        wall, len(runs))
+        for name, child, t0 in runs:
+            rc, out, err = child.wait(
+                max(1.0, t0 + PP_TIMEOUT - time.perf_counter()),
+                f"the {name} CLI run")
+            recs[name] = _pp_cli_record(name, rc, out, err,
+                                        time.perf_counter() - t0, len(runs))
         return recs
     finally:
-        for _, proc, out, err, _ in runs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(60)
-            out.close()
-            err.close()
+        for _, child, _ in runs:
+            child.kill()
 
 
 def _pp_cli_record(name, rc, stdout, stderr, wall, concurrent):
@@ -5616,7 +5674,7 @@ def _pp_dropout_timing(torch, B, T, E_, rate):
 
 
 def phase_pipeline_train(torch):
-    """The four pipelined configs: each through the CLI for its 25
+    """The four pipelined configs: each through the CLI for PP_EPOCHS
     epochs, the four runs at once (no mesh, captured; induction_lm_pp and
     induction_lm_pp_moe to the 5 % bar), then in-process a captured epoch
     of PP_BATCHES batches of each with the counts set to 0 before (f32
@@ -5813,6 +5871,8 @@ def phase_seq_expert_ranks(torch, smi):
     from veles_tpu_torch.parallel.ring_attention import (
         full_attention, ring_attention_ranks)
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the case's peak, not the whole script's
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator().manual_seed(19)
     B, T, H, D = SEQ_B, SEQ_T, SEQ_H, SEQ_D
     ring, ok = [], True
@@ -5914,6 +5974,398 @@ def phase_seq_expert_ranks(torch, smi):
         fail(f"the seq/expert rank loops disagree with the single-device "
              f"attention or moe_apply: {ring} {moe}")
     return {"ring": ring, "moe": moe}
+
+
+#: the tensor-parallel block: bench_lm.py's attention (8 heads, RoPE,
+#: residual, causal) and FFN (2048, residual) at B = 16, T = 2048, dim 512
+TP_RANKS = (2, 4)               # model ranks of the in-process loop
+#: the megatron splits: attention by heads, the FFN by hidden columns
+TP_ATTN_SPLIT = {"wq": (None, "model"), "wk": (None, "model"),
+                 "wv": (None, "model"), "wo": ("model",)}
+TP_FFN_SPLIT = {"w1": (None, "model"), "w2": ("model",), "b1": ("model",)}
+ZERO_RANKS = (2, 4)             # fsdp ranks of the ZeRO step's loop
+ZERO_LR = 1e-3
+#: the ZeRO step against the one-device step: the Adam moments (linear
+#: and quadratic in the gradient) within (rtol, atol x the leaf's largest
+#: |value|); a weight moves by ~lr sign(g) in one Adam step, so where the
+#: reduce-scatter's other summation order flips a near-zero gradient's
+#: sign it lands up to 2 lr away (no limit can hold the largest weight
+#: error tighter): at most ZERO_FLIP_SHARE of the weights beyond 1e-6
+ZERO_MOMENT_TOL = (2e-3, 2e-4)
+ZERO_FLIP_SHARE = 1e-4
+
+
+def _tp_block(torch, dtype):
+    """(attention, its params, FFN, its params) at bench_lm.py's width:
+    ``dtype`` the units' compute dtype (bf16 as the LM's), weights
+    float32 from a fixed generator."""
+    from veles_tpu_torch.units.base import Spec
+    from veles_tpu_torch.units.nn import FFN as FFNUnit
+    from veles_tpu_torch.units.parallel_nn import MultiHeadAttention
+    cd = None if dtype == torch.float32 else "bfloat16"
+    gen = torch.Generator().manual_seed(20)
+    attn = MultiHeadAttention(HEADS, rope=True, residual=True, name="attn",
+                              compute_dtype=cd)
+    ffn = FFNUnit(FFN, name="ffn", compute_dtype=cd)
+    spec = [Spec((PREDICT_B, PREDICT_T, E), torch.float32)]
+    return (attn, attn.init(gen, spec, DEVICE)[0], ffn,
+            ffn.init(gen, spec, DEVICE)[0])
+
+
+def _within_norm(torch, got, ref, tol):
+    """A gradient held by its relative Frobenius error, within ``tol``'s
+    rtol, and finite; the elementwise :func:`_within` reported beside
+    (``elementwise_ok``, the share of elements outside it).  Behind the
+    FFN's relu an elementwise bound does not hold: where a
+    pre-activation lies within the split's rounding of 0 the two sides
+    take opposite branches, which moves a whole row of dx and a column
+    of dW1 by O(1)."""
+    rtol, atol = tol
+    d = (got.float() - ref.float())
+    rel = float(d.norm() / ref.float().norm().clamp_min(1e-30))
+    outside = (d.abs() > atol + rtol * ref.float().abs())
+    finite = bool(torch.isfinite(got.float()).all())
+    return {"max_abs_err": float(d.abs().max()), "rel_frobenius": rel,
+            "elementwise_ok": not bool(outside.any()),
+            "outside_share": float(outside.float().mean()),
+            "ok": rel <= rtol and finite}
+
+
+def _tp_grads(torch, fn, x, leaves, dy):
+    """``fn()``'s output and the gradients of (x, *leaves) for ``dy``
+    (zeros for a leaf the output does not use)."""
+    y = fn()
+    g = torch.autograd.grad(y, [x, *leaves], dy, allow_unused=True)
+    return y.detach(), [torch.zeros_like(t) if a is None else a
+                        for a, t in zip(g, [x, *leaves])]
+
+
+@contextlib.contextmanager
+def _flash_heads():
+    """Every flash launch's (kernel, query heads, kv heads) while the
+    block runs: the three wrappers' launch functions recorded."""
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    seen = []
+    stack = contextlib.ExitStack()
+    for mod in (fa, dq, dkv):
+        def rec(q, k, *a, _mod=mod, _orig=mod._launch):
+            seen.append((_mod.NAME, int(q.shape[2]), int(k.shape[2])))
+            return _orig(q, k, *a)
+        stack.enter_context(mock.patch.object(mod, "_launch", rec))
+    with stack:
+        yield seen
+
+
+def _tp_case(torch, dtype, n, smi):
+    """The block split over ``n`` model ranks in one process against the
+    unsplit block, forward and backward: output, input gradient, each
+    rank's weight-gradient blocks gathered and the whole leaves' summed;
+    the flash launches of the split run counted from 0, each at H/n
+    heads on the dtype's variant, and held to a profiled window's trace;
+    the split and unsplit block and the flash kernels at H/n heads
+    timed."""
+    from veles_tpu_torch.ops.kernels import KERNELS
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.parallel.tensor_parallel import (model_ranks,
+                                                          split_weights)
+    from veles_tpu_torch.units.base import Context
+    dname = str(dtype).split(".")[1]
+    tol = SEQ_TOL[dname]
+    torch.cuda.reset_peak_memory_stats()
+    attn, pa, ffn, pf = _tp_block(torch, dtype)
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn((PREDICT_B, PREDICT_T, E), generator=gen).to(DEVICE)
+    dy = torch.randn((PREDICT_B, PREDICT_T, E), generator=gen).to(DEVICE)
+    x = x.requires_grad_(True)
+
+    def leaves(p):
+        return {k: v.detach().clone().requires_grad_(True)
+                for k, v in p.items()}
+    wa, wf_ = leaves(pa), leaves(pf)
+
+    def whole():
+        h, _ = attn.apply(wa, {}, [x], Context())
+        return ffn.apply(wf_, {}, [h], Context())[0]
+    ra = [leaves(p) for p in split_weights(pa, TP_ATTN_SPLIT, n)]
+    rf = [leaves(p) for p in split_weights(pf, TP_FFN_SPLIT, n)]
+
+    def split():
+        return model_ranks(ffn, rf, model_ranks(attn, ra, x, TP_ATTN_SPLIT),
+                           TP_FFN_SPLIT)
+    ref_y, ref_g = _tp_grads(torch, whole, x, [*wa.values(), *wf_.values()],
+                             dy)
+    # the path: every rank's part forward and backward, counts from 0
+    split_leaves = [t for r in range(n) for t in (*ra[r].values(),
+                                                  *rf[r].values())]
+    _reset_counts()
+    with _flash_heads() as heads:
+        y, g = _tp_grads(torch, split, x, split_leaves, dy)
+        torch.cuda.synchronize()
+    launches = {k.NAME: k.launches.count for k in KERNELS
+                if k.launches.count}
+    variants = {k.NAME: k.launches.by_variant() for k in KERNELS
+                if k.launches.count}
+    chk = {"out": _within(torch, y, ref_y, tol["fwd"]),
+           "dx": _within_norm(torch, g[0], ref_g[0], tol["grad"])}
+    names = [("attn", k) for k in pa] + [("ffn", k) for k in pf]
+    ref = dict(zip(names, ref_g[1:]))
+    per = len(names)
+    for i, (unit, k) in enumerate(names):
+        split_of = TP_ATTN_SPLIT if unit == "attn" else TP_FFN_SPLIT
+        blocks = [g[1 + r * per + i] for r in range(n)]
+        if k in split_of:
+            dim = split_of[k].index("model")
+            got = torch.cat(blocks, dim=dim)
+        else:
+            got = sum(blocks)
+        chk[f"d{unit}/{k}"] = _within_norm(torch, got, ref[(unit, k)],
+                                           tol["grad"])
+    want = expected_variant(dtype)
+    variant = next(iter(want))
+    heads_ok = (len(heads) == 3 * n and all(
+        (hq, hk) == (HEADS // n, HEADS // n) for _, hq, hk in heads))
+    launch_ok = all(variants.get(nm) == {variant: n} for nm in FLASH_NAMES)
+
+    def fwd_bwd():
+        _tp_grads(torch, split, x, split_leaves, dy)
+    with _profiled(torch, fwd_bwd) as win:
+        fwd_bwd()
+    trace = _launch_trace_check(win, [])
+    traced_ok = trace["ok"] and all(
+        trace["traced"].get(f"{nm}/{variant}") == n for nm in FLASH_NAMES)
+    del g, ref_g
+    qh = torch.randn((PREDICT_B, PREDICT_T, HEADS // n, E // HEADS),
+                     generator=gen).to(DEVICE, dtype)
+    rec = {"dtype": dname, "model_ranks": n,
+           "shape": {"B": PREDICT_B, "T": PREDICT_T, "dim": E,
+                     "heads": HEADS, "heads_a_rank": HEADS // n,
+                     "D": E // HEADS, "ffn": FFN, "causal": True},
+           "against_unsplit": chk, "launches": launches,
+           "variants": variants, "flash_heads": sorted(set(heads)),
+           "launch_trace": {k: trace[k] for k in ("traced", "counted",
+                                                  "mismatch", "ok")},
+           "split_ms": cuda_ms(torch, lambda: split().detach(), iters=5,
+                               warmup=1),
+           "split_fwd_bwd_ms": cuda_ms(torch, fwd_bwd, iters=5, warmup=1),
+           "unsplit_ms": cuda_ms(torch, lambda: whole().detach(), iters=5,
+                                 warmup=1),
+           "unsplit_fwd_bwd_ms": cuda_ms(torch, lambda: _tp_grads(
+               torch, whole, x, [*wa.values(), *wf_.values()], dy),
+               iters=5, warmup=1),
+           "flash_at_rank_heads_ms": cuda_ms(torch, lambda: fa.flash_attention(
+               qh, qh, qh, True), iters=20),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "nvidia_smi": smi}
+    rec["ok"] = (all(c["ok"] for c in chk.values()) and heads_ok
+                 and launch_ok and traced_ok)
+    say({"phase": "fsdp_model_ranks_tp", **rec})
+    del x, dy, ra, rf, wa, wf_, split_leaves, qh
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _zero_case(torch, n, smi):
+    """The full-width LM's Adam step (float32, TF32 off) with its state
+    in ``n`` fsdp shards, every rank's step in one process
+    (``parallel.fsdp.zero_step_ranks``: the sharded step's own gather,
+    reduce-scatter and norm code, its collectives answered in lockstep;
+    each rank's rows, gradients reduce-scattered into the shards, each
+    shard updated on its own), against the one-device step from the same
+    init and batch: the gathered parameters and both Adam moments."""
+    from veles_tpu_torch.ops.optimizers import tree_leaves
+    from veles_tpu_torch.parallel.fsdp import zero_step_ranks
+    from veles_tpu_torch.parallel.mesh import fsdp_rules
+    from veles_tpu_torch.units.base import Spec
+    sw = _train_workflow(torch, None, lr=ZERO_LR)
+    wf, opt = sw.workflow, sw.optimizer
+    wf.build({"@input": Spec((PREDICT_B, PREDICT_T), torch.int32),
+              "@labels": Spec((PREDICT_B, PREDICT_T), torch.int32),
+              "@mask": Spec((PREDICT_B,), torch.float32)})
+    rng = np.random.default_rng(24)
+    toks = rng.integers(0, VOCAB, (PREDICT_B, PREDICT_T + 1)).astype(
+        np.int32)
+    batch = {"@input": torch.from_numpy(toks[:, :-1]).to(DEVICE),
+             "@labels": torch.from_numpy(toks[:, 1:]).to(DEVICE),
+             "@mask": torch.ones((PREDICT_B,), device=DEVICE)}
+    rule = fsdp_rules(axis_size=n)
+    ws = wf.init_state(0, opt, DEVICE)
+    t0 = time.perf_counter()
+    got = zero_step_ranks(wf, opt, ws, batch, n, rule)
+    torch.cuda.synchronize()
+    zero_s = time.perf_counter() - t0
+    from veles_tpu_torch.parallel.fsdp import ShardedState
+    from veles_tpu_torch.parallel.mesh import Mesh
+    sizes = {"data": 1, "fsdp": n, "model": 1, "seq": 1, "pipe": 1,
+             "expert": 1}
+    layout = ShardedState(wf, Mesh(sizes), rule, tensor_parallel=False)
+    split = sum(1 for lay in tree_leaves(layout.layouts) if lay.part)
+    ws_ref = wf.init_state(0, opt, DEVICE)
+    t0 = time.perf_counter()
+    ws_ref, mets = wf.make_train_step(opt)(ws_ref, batch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    params = {"max_abs_err": 0.0, "beyond_1e-6": 0, "elements": 0}
+    moments = {}
+    ok = True
+    for a, b in zip(tree_leaves(got["params"]), tree_leaves(
+            ws_ref["params"])):
+        d = (a - b).abs()
+        params["max_abs_err"] = max(params["max_abs_err"], float(d.max()))
+        params["beyond_1e-6"] += int((d > 1e-6).sum())
+        params["elements"] += d.numel()
+    ok = ok and params["beyond_1e-6"] <= ZERO_FLIP_SHARE * \
+        params["elements"]
+    rtol, atol = ZERO_MOMENT_TOL
+    for which in ("m", "v"):
+        i = "mv".index(which)
+        worst, fine = 0.0, True
+        for unit, slots in got["opt_state"].items():
+            if unit.startswith("__"):
+                continue
+            for pname, slot in slots.items():
+                a, b = slot[i], ws_ref["opt_state"][unit][pname][i]
+                d = (a - b).abs()
+                worst = max(worst, float(d.max()))
+                lim = rtol * b.abs() + atol * float(b.abs().max())
+                fine = fine and bool((d <= lim).all())
+        moments[which] = {"max_abs_err": worst, "ok": fine}
+        ok = ok and fine
+    loss_err = abs(float(got["loss"]) - float(mets["loss"]))
+    ok = ok and loss_err <= 1e-5 * abs(float(mets["loss"])) and bool(
+        torch.isfinite(got["grad_norm"]))
+    rec = {"fsdp_ranks": n, "optimizer": "adam", "lr": ZERO_LR,
+           "dtype": "float32", "split_leaves": split,
+           "loss": float(got["loss"]), "loss_one_device": float(
+               mets["loss"]), "loss_abs_err": loss_err,
+           "params": params, "moments": moments,
+           "zero_step_s": zero_s, "one_device_step_s": one_s,
+           "nvidia_smi": smi, "ok": ok}
+    say({"phase": "fsdp_model_ranks_zero", **rec})
+    del got, ws, ws_ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rank_heads(torch, smi):
+    """The flash forward, dQ and dK/dV at a model rank's heads
+    (bench_lm.py's B=16 T=2048 D=64 causal, H = 8 / model for model in
+    (1,) + TP_RANKS), float32 and bf16: at each split's heads every
+    kernel held against its plain version on the same inputs (forward
+    FLASH_TOL and LSE_TOL, backward :func:`bwd_within`, each on the
+    dtype's variant), and every case timed, so a head split's cost to a
+    kernel reads beside the 8-head times."""
+    from veles_tpu_torch.ops.kernels import flash_attention as fa
+    from veles_tpu_torch.ops.kernels import flash_bwd_dkv as dkv
+    from veles_tpu_torch.ops.kernels import flash_bwd_dq as dq
+    gen = torch.Generator().manual_seed(22)
+    D = E // HEADS
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for n in (1,) + TP_RANKS:
+            H = HEADS // n
+            (q, k, v), err, lerr, finite, ran, f64 = _flash_case(
+                torch, gen, PREDICT_B, PREDICT_T, PREDICT_T, H, H, D, dtype,
+                True, None)
+            args, kw, res = _bwd_case(torch, gen, PREDICT_B, PREDICT_T,
+                                      PREDICT_T, H, H, D, dtype, True, None)
+            rec = {"dtype": dname, "heads": H, "D": D}
+            if n > 1:
+                want = expected_variant(dtype)
+                rec["against_plain"] = {
+                    "forward": {"max_abs_err": err,
+                                "tol": FLASH_TOL[dname],
+                                "lse_max_abs_err": lerr, **f64,
+                                "variant": ran},
+                    "backward": res}
+                rec["ok"] = (finite and err <= FLASH_TOL[dname]
+                             and lerr <= LSE_TOL and ran == want
+                             and all(res["variant"][m.NAME] == want
+                                     for m in (dq, dkv))
+                             and all(bwd_within(res[g]) and res[g]["finite"]
+                                     for g in ("dq", "dk", "dv")))
+            rec.update({
+                "flash_attention_ms": cuda_ms(
+                    torch, lambda: fa.flash_attention(q, k, v, True)),
+                "flash_bwd_dq_ms": cuda_ms(
+                    torch, lambda: dq.flash_bwd_dq(*args, **kw)),
+                "flash_bwd_dkv_ms": cuda_ms(
+                    torch, lambda: dkv.flash_bwd_dkv(*args, **kw)),
+                "nvidia_smi": smi})
+            out.append(rec)
+            del q, k, v, args
+    say({"phase": "fsdp_model_ranks_flash_heads", "cases": out})
+    return out
+
+
+def _tp_summary(tp, zero):
+    """The phase's cases in one short record (times and each check's
+    largest error), as :func:`_seq_summary`."""
+    return {
+        "tp": [{"case": f"{r['dtype']}/model{r['model_ranks']}",
+                **{k: r[k] for k in ("split_ms", "split_fwd_bwd_ms",
+                                     "unsplit_ms", "unsplit_fwd_bwd_ms",
+                                     "flash_at_rank_heads_ms", "peak_gib",
+                                     "ok")},
+                "flash_launches": {k: r["variants"].get(k)
+                                   for k in FLASH_NAMES},
+                "max_abs_err": {k: c["max_abs_err"] for k, c in
+                                r["against_unsplit"].items()}}
+               for r in tp],
+        "zero": [{"fsdp_ranks": z["fsdp_ranks"],
+                  "params_max_abs_err": z["params"]["max_abs_err"],
+                  "params_beyond_1e-6": z["params"]["beyond_1e-6"],
+                  "m_max_abs_err": z["moments"]["m"]["max_abs_err"],
+                  "v_max_abs_err": z["moments"]["v"]["max_abs_err"],
+                  "loss_abs_err": z["loss_abs_err"], "ok": z["ok"]}
+                 for z in zero]}
+
+
+def phase_fsdp_model_ranks(torch, smi):
+    """The fsdp and model axes' per-rank bodies on the card, through
+    their in-process rank loops (one device runs every rank's part in
+    turn; NCCL refuses two ranks on one device): bench_lm.py's attention
+    + FFN block split over TP_RANKS model ranks the megatron way (each
+    rank's attention on H/model heads through the flash kernels, its FFN
+    on its hidden columns, the partial outputs summed as the all-reduce
+    does), in float32 (TF32 off) and bf16, forward and backward against
+    the unsplit block within SEQ_TOL, its flash launches counted from 0
+    and held to the trace; then the full-width LM's Adam step with its
+    state in ZERO_RANKS fsdp shards against the one-device step; the
+    flash kernels at each split's heads, float32 and bf16, against their
+    plain versions, and timed.  Returns the ``kernels``
+    line's ``<name>/fsdp_model_ranks`` entries: the float32 kernels at a
+    model = 2 rank's shape and their launches over the float32 split
+    runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tp, zero = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in TP_RANKS:
+            tp.append(_tp_case(torch, dtype, n, smi))
+    for n in ZERO_RANKS:
+        zero.append(_zero_case(torch, n, smi))
+    heads = _rank_heads(torch, smi)
+    ok = all(r.get("ok", True) for r in tp + zero + heads)
+    say({"phase": "fsdp_model_ranks", **_tp_summary(tp, zero),
+         "flash_heads": [{k: h[k] for k in h
+                          if k not in ("nvidia_smi", "against_plain")}
+                         for h in heads],
+         "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        fail(f"the fsdp/model rank loops disagree with the unsplit block "
+             f"or the one-device step, or a flash kernel at a rank's heads "
+             f"with its plain version: {tp} {zero} {heads}")
+    # the kernels line's entries: the float32 kernels at model = 2's
+    # rank (4 heads) against their plain versions, timed
+    timing = _f32_flash_timing(torch, PREDICT_B, PREDICT_T,
+                               HEADS // TP_RANKS[0], E // HEADS,
+                               "fsdp_model_ranks", "a model rank's")
+    launches = {f"{nm}/fsdp_model_ranks": sum(
+        r["variants"][nm][F32_VARIANT] for r in tp
+        if r["dtype"] == "float32") for nm in FLASH_NAMES}
+    return {"timing": timing, "launches": launches}
 
 
 def _moe_chain(torch, seed=0):
@@ -7436,16 +7888,19 @@ def main():
         say({"phase": "digits_synthesis", **synth.wait()})
     family = timed("image_family", phase_image_family, torch)
     timing.update(family["timing"])
-    timed("image_quality", phase_image_quality, torch)
-    timed("image_ae", phase_image_ae, torch)
     with tempfile.TemporaryDirectory(prefix="vt_quality_") as q_dir:
-        best = timed("quality", phase_quality, torch, q_dir)
+        # the quality CLI run beside the family's CLI run and the AEs
+        started = quality_start(q_dir)
+        timed("image_quality", phase_image_quality, torch)
+        timed("image_ae", phase_image_ae, torch)
+        best = timed("quality", phase_quality, torch, q_dir, started)
         with tempfile.TemporaryDirectory(prefix="vt_fleet_") as f_dir:
             fleet_launches = timed("fleet", phase_fleet, torch, best, f_dir)
     pp = timed("pipeline_train", phase_pipeline_train, torch)
     timing.update(pp["timing"])
     timed("distributed_one_rank", phase_distributed_one_rank, torch)
     timed("seq_expert_ranks", phase_seq_expert_ranks, torch, smi)
+    fm = timed("fsdp_model_ranks", phase_fsdp_model_ranks, torch, smi)
     moe = timed("moe_serving", phase_moe_serving, torch)
     # last: the artifact phase's runners, children and loaded programs
     # stay out of every earlier phase's profiled windows
@@ -7494,6 +7949,10 @@ def main():
     launches.update(pp["launches"])
     launches["paged_attention_decode/moe_serving"] = moe[
         "paged_attention_decode"]
+    # this slice's path: the f32 flash kernels at a model rank's heads
+    # over the fsdp/model phase's split blocks
+    launches.update(fm["launches"])
+    timing.update(fm["timing"])
     # this slice's path: paged decode on the fleet's replica engines (the
     # serving shape the kernel was timed at)
     launches["paged_attention_decode/fleet"] = fleet_launches["f32_pool"]

@@ -9,6 +9,7 @@ so the test process rebuilds them for its references.  Imports no JAX.
 created with its own timeout, so a rank that hangs fails the test within
 it."""
 
+import math
 import os
 import socket
 import subprocess
@@ -637,7 +638,344 @@ def suite_axes8(mesh):
     return out
 
 
+# -- the fsdp and model axes ---------------------------------------------------
+
+#: the LM's megatron table: attention by heads, the FFN by hidden columns
+TP_TABLE = {"attn/wq": (None, "model"), "attn/wk": (None, "model"),
+            "attn/wv": (None, "model"), "attn/wo": ("model", None),
+            "ffn/w1": (None, "model"), "ffn/w2": ("model", None)}
+
+
+def tp_lm_layers(n_heads=4, n_kv_heads=None):
+    """embedding -> attention (RoPE, residual) -> FFN -> layer norm ->
+    per-position head; ``n_kv_heads`` below the model axis splits no
+    whole kv head (gathered on use)."""
+    attn = {"type": "attention", "n_heads": n_heads, "rope": True,
+            "residual": True, "name": "attn"}
+    if n_kv_heads is not None:
+        attn["n_kv_heads"] = n_kv_heads
+    return [{"type": "embedding", "vocab": AX_V, "dim": AX_E, "name": "emb"},
+            attn, {"type": "ffn", "d_hidden": 32, "name": "ffn"},
+            {"type": "layer_norm", "name": "ln"},
+            {"type": "softmax", "output_size": AX_V, "per_position": True,
+             "name": "out"}]
+
+
+def image_batch(seed, B=16, ragged=3):
+    rng = np.random.default_rng(seed)
+    mask = np.ones(B, np.float32)
+    mask[-ragged:] = 0.0
+    return {"@input": rng.standard_normal((B, 16, 16, 3)).astype(np.float32),
+            "@labels": rng.integers(0, 10, B).astype(np.int32),
+            "@mask": mask}
+
+
+def tp_case(name):
+    """(layers, batch, rule table, fsdp min_size) of a TP_CASES entry."""
+    from veles_tpu_torch.parallel.dryrun import dryrun_layers
+    if name == "dryrun":
+        return (dryrun_layers(), image_batch(4),
+                {"fc6/w": (None, "model"), "fc7/w": ("model", None)}, 256)
+    kv = {"lm_whole": None, "lm_gqa_gathered": 1}[name]
+    return (tp_lm_layers(4 if kv is None else 2, kv),
+            lm_batch(5, 8, 8, ragged=2), TP_TABLE, 64)
+
+
+#: the sharded step's cases: the dryrun stack, an LM whose heads split
+#: whole, one whose single kv head does not split (gathered on use)
+TP_CASES = ("dryrun", "lm_whole", "lm_gqa_gathered")
+#: meshes over the 8 ranks: data x fsdp, data x model, all three
+TP_MESHES = ("data=4,fsdp=2", "data=4,model=2", "data=2,fsdp=2,model=2")
+TP_LR, TP_MOMENTUM, TP_STEPS = 0.1, 0.9, 2
+
+
+def tp_rule(table, min_size):
+    from veles_tpu_torch.parallel.mesh import (compose_rules, fsdp_rules,
+                                               tensor_parallel_rules)
+    return compose_rules(tensor_parallel_rules(table),
+                         fsdp_rules(min_size=min_size))
+
+
+def host_t(tree):
+    """A host (numpy) state tree as tensors, for ``torch.save``."""
+    if isinstance(tree, dict):
+        return {k: host_t(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_t(v) for v in tree)
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(tree))
+    return tree
+
+
+def gathered(step, ws):
+    """The whole params and optimizer state, gathered (collective)."""
+    full = step.state.gather_state(ws)
+    return host_t({"params": full["params"],
+                   "opt_state": full["opt_state"]})
+
+
+def stored_shapes(ws):
+    from veles_tpu_torch.ops.optimizers import tree_map
+    return {"params": tree_map(lambda x: tuple(x.shape), ws["params"]),
+            "opt_state": tree_map(lambda x: tuple(np.shape(x)),
+                                  ws["opt_state"])}
+
+
+def suite_tp8(mesh):
+    """The sharded train and eval steps over TP_MESHES x TP_CASES
+    (SGD with momentum, TP_STEPS steps on one ragged batch): each
+    rank's stored shapes, the splits its units compute over the model
+    group, every step's metrics, the eval metrics and the whole state
+    gathered after."""
+    from veles_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    out = {"coords": dict(mesh.coords)}
+    for spec in TP_MESHES:
+        m = make_mesh(MeshSpec.parse(spec), timeout_s=GROUP_TIMEOUT_S)
+        for name in TP_CASES:
+            layers, batch, table, min_size = tp_case(name)
+            rule = tp_rule(table, min_size)
+            wf, ws, opt = axes_workflow(layers, batch, TP_LR,
+                                        momentum=TP_MOMENTUM)
+            step = wf.make_sharded_train_step(opt, m, rule=rule)
+            ws = step.place(ws)
+            rec = {"stored": stored_shapes(ws), "tp": step.state.tp,
+                   "metrics": []}
+            for _ in range(TP_STEPS):
+                ws, mets = step(ws, tree_t(batch))
+                rec["metrics"].append({k: float(v) for k, v in mets.items()})
+            ev = wf.make_sharded_eval_step(m, rule=rule)(ws, tree_t(batch))
+            rec["eval"] = {k: float(v) for k, v in ev.items()}
+            rec["state"] = gathered(step, ws)
+            out[f"{spec}/{name}"] = rec
+    return out
+
+
+def fc_workflow(B=64, lr=0.1, per_unit=None):
+    """tests/test_parallel.py:24's fc workflow at batch ``B``."""
+    from veles_tpu_torch.models.standard import build_workflow
+    from veles_tpu_torch.ops.optimizers import SGD
+    from veles_tpu_torch.units.base import Spec
+    wf = build_workflow("fc", dp_layers())
+    wf.build({"@input": Spec((B, 16), torch.float32),
+              "@labels": Spec((B,), torch.int32),
+              "@mask": Spec((B,), torch.float32)})
+    opt = SGD(lr, momentum=0.9, per_unit=per_unit)
+    return wf, wf.init_state(0, opt, "cpu"), opt
+
+
+def fc_batch(seed=9, B=64, nan_rows=None):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, 16)).astype(np.float32) * 2
+    if nan_rows is not None:
+        x[nan_rows] = np.nan
+    mask = np.ones(B, np.float32)
+    mask[-7:] = 0.0
+    return {"@input": x, "@labels": rng.integers(0, 4, B).astype(np.int32),
+            "@mask": mask}
+
+
+def whole_grads(wf, ws, batch):
+    """The one-process step's gradients of the whole batch's masked
+    mean (a dict tree like the params)."""
+    from veles_tpu_torch.ops.optimizers import tree_leaves, tree_map
+    from veles_tpu_torch.units.base import Context
+    live = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                    ws["params"])
+    out, _ = wf.forward(live, ws["state"], tree_t(batch),
+                        Context(train=True))
+    leaves = tree_leaves(live)
+    it = iter(torch.autograd.grad(out[wf.evaluator.name], leaves))
+    return tree_map(lambda _: next(it), live)
+
+
+#: fsdp_rules(min_size) of the fc workflow (tests/test_parallel.py:87)
+FC_MIN = 128
+
+
+def clip_between(wf, ws, batch, layout, unit=None):
+    """A clip norm between the largest norm one rank's blocks give (its
+    stored blocks of the split leaves plus the whole replicated ones)
+    and the norm over all blocks: only a norm taken across the shards
+    clips."""
+    from veles_tpu_torch.ops.optimizers import tree_leaves
+    from veles_tpu_torch.parallel.fsdp import slice_block
+    from veles_tpu_torch.parallel.mesh import Mesh
+    g = whole_grads(wf, ws, batch)
+    lays = layout.layouts
+    if unit is not None:
+        g, lays = g[unit], lays[unit]
+    full = float(torch.sqrt(sum((x ** 2).sum() for x in tree_leaves(g))))
+    local = []
+    sizes = layout.sizes
+    for r in range(math.prod(sizes.values())):
+        m = Mesh(sizes, r)
+        local.append(float(torch.sqrt(sum(
+            (slice_block(x, lay.part, m) ** 2).sum()
+            for x, lay in zip(tree_leaves(g), tree_leaves(lays))))))
+    return (max(local) + full) / 2, max(local), full
+
+
+def suite_fsdp8(mesh, out_dir, rank):
+    """8 ranks, data=2 x fsdp=4: tests/test_parallel.py:74's fc workflow
+    under fsdp_rules(min_size=128) (stored shapes, two steps, eval),
+    clip norms that only the norm across the shards reaches, a NaN in
+    one data rank's rows, the fused 1F1B step over pp2 x fsdp2 x dp2
+    with stage arrays over (pipe, None, fsdp), and the trainer's
+    snapshot, restore and continued training under
+    fsdp_rules(min_size=16) (tests/_multihost_train.py:48-84)."""
+    import torch.distributed as dist
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops.optimizers import HyperParams
+    from veles_tpu_torch.parallel.mesh import MeshSpec, fsdp_rules, make_mesh
+    out = {"coords": dict(mesh.coords)}
+    rule = fsdp_rules(min_size=FC_MIN)
+    wf, ws, opt = fc_workflow()
+    step = wf.make_sharded_train_step(opt, mesh, rule=rule)
+    ws = step.place(ws)
+    rec = {"stored": stored_shapes(ws), "metrics": []}
+    for seed in (9, 10):
+        ws, mets = step(ws, tree_t(fc_batch(seed)))
+        rec["metrics"].append({k: float(v) for k, v in mets.items()})
+    rec["state"] = gathered(step, ws)
+    out["fc"] = rec
+    # clip norms reached only across the shards: the step's global
+    # clip_norm, then a per-unit one on fc1
+    for case in ("global", "per_unit"):
+        wf, ws, opt = fc_workflow(lr=0.5)
+        step = wf.make_sharded_train_step(opt, mesh, rule=rule)
+        c, local, full = clip_between(wf, ws, fc_batch(11), step.state,
+                                      None if case == "global" else "fc1")
+        if case == "global":
+            root.common.train.clip_norm = c
+        else:
+            wf, ws, opt = fc_workflow(lr=0.5, per_unit={
+                "fc1": HyperParams(clip_norm=c)})
+        try:
+            step = wf.make_sharded_train_step(opt, mesh, rule=rule)
+        finally:
+            root.common.train.clip_norm = 0.0
+        ws = step.place(ws)
+        ws, mets = step(ws, tree_t(fc_batch(11)))
+        out[f"clip_{case}"] = {"clip": c, "local": local, "full": full,
+                               "metrics": {k: float(v)
+                                           for k, v in mets.items()},
+                               "state": gathered(step, ws)}
+    # a NaN in data rank 1's rows only: every rank skips the step
+    wf, ws, opt = fc_workflow()
+    step = wf.make_sharded_train_step(opt, mesh, rule=rule)
+    ws = step.place(ws)
+    ws, mets = step(ws, tree_t(fc_batch(12, nan_rows=[40])))
+    out["nan"] = {"metrics": {k: float(v) for k, v in mets.items()},
+                  "state": gathered(step, ws)}
+    # the fused 1F1B step, stage arrays over (pipe, None, fsdp)
+    pp = make_mesh(MeshSpec(data=2, fsdp=2, pipe=2),
+                   timeout_s=GROUP_TIMEOUT_S)
+    wf, ws, opt = pp_fsdp_workflow()
+    step = wf.make_pipeline_train_step(opt, pp, n_microbatches=2,
+                                       rule=pp_fsdp_rule)
+    ws = step.place(ws)
+    stored = stored_shapes(ws)
+    ws, mets = step(ws, tree_t(pp_fsdp_batch()))
+    out["pp_fsdp"] = {"stored": stored, "coords": dict(pp.coords),
+                      "metrics": {k: float(v) for k, v in mets.items()},
+                      "state": gathered(step, ws)}
+    out["trainer"] = fsdp_trainer(mesh, out_dir, rank)
+    dist.barrier()
+    return out
+
+
+def pp_fsdp_rule(path, shape):
+    """tests/test_pipeline_product.py:848-852: the stage axis on pipe,
+    the hidden dim on fsdp."""
+    if path and path[-1].startswith("stage_"):
+        return ("pipe", None, "fsdp")
+    return ()
+
+
+PP_FSDP_LAYERS = [
+    {"type": "pipeline_stack", "n_stages": 2, "d_hidden": 64,
+     "n_microbatches": 2, "name": "stack"},
+    {"type": "softmax", "output_size": 5, "name": "out"}]
+
+
+def pp_fsdp_workflow():
+    from veles_tpu_torch.models.standard import build_workflow
+    from veles_tpu_torch.ops.optimizers import SGD
+    from veles_tpu_torch.units.base import Spec
+    wf = build_workflow("pp_fsdp", PP_FSDP_LAYERS)
+    wf.build({"@input": Spec((16, 16), torch.float32),
+              "@labels": Spec((16,), torch.int32),
+              "@mask": Spec((16,), torch.float32)})
+    opt = SGD(0.1)
+    return wf, wf.init_state(1, opt, "cpu"), opt
+
+
+def pp_fsdp_batch():
+    rng = np.random.default_rng(13)
+    return {"@input": rng.standard_normal((16, 16)).astype(np.float32),
+            "@labels": rng.integers(0, 5, 16).astype(np.int32),
+            "@mask": np.ones(16, np.float32)}
+
+
+def mh_data():
+    """tests/_multihost_train.py:36-38's task."""
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((512, 24)).astype(np.float32)
+    y = (X[:, :4].sum(1) > 0).astype(np.int32)
+    return X, y
+
+
+def mh_trainer(mesh, rank, world, max_epochs, snap_dir=None):
+    from veles_tpu_torch.loader.base import TRAIN, VALID, ArrayLoader
+    from veles_tpu_torch.models.standard import build_workflow
+    from veles_tpu_torch.ops.optimizers import SGD
+    from veles_tpu_torch.parallel.mesh import fsdp_rules
+    from veles_tpu_torch.runtime.decision import Decision
+    from veles_tpu_torch.runtime.snapshotter import Snapshotter
+    from veles_tpu_torch.runtime.trainer import Trainer
+    X, y = mh_data()
+    loader = ArrayLoader({TRAIN: X[:384], VALID: X[384:]},
+                         {TRAIN: y[:384], VALID: y[384:]},
+                         minibatch_size=32, shard_index=rank,
+                         shard_count=world)
+    wf = build_workflow("mh", [
+        {"type": "all2all_tanh", "output_size": 16, "name": "fc1"},
+        {"type": "softmax", "output_size": 2, "name": "out"}])
+    snap = Snapshotter("mh", snap_dir, interval=1) if snap_dir else None
+    return Trainer(wf, loader, SGD(0.1, momentum=0.9),
+                   Decision(max_epochs=max_epochs), snap, device="cpu",
+                   mesh=mesh, rule=fsdp_rules(min_size=16))
+
+
+def fsdp_trainer(mesh, out_dir, rank):
+    """tests/_multihost_train.py:48-84: train 3 epochs with snapshots
+    (rank 0 writes the gathered state), restore into a new trainer under
+    the same mesh, which keeps its own loader shard and trains on."""
+    import torch.distributed as dist
+    world = mesh.size
+    snaps = os.path.join(str(out_dir), "snaps")
+    tr = mh_trainer(mesh, rank, world, 3, snaps)
+    tr.initialize(seed=0)
+    res = tr.run()
+    dist.barrier()                 # rank 0's last snapshot is written
+    trained = host_t(tr.sharding.gather_state(tr.wstate)["params"])
+    tr2 = mh_trainer(mesh, rank, world, 4)
+    tr2.initialize(seed=1)
+    tr2.restore(os.path.join(snaps, "mh_current.json"))
+    restored = host_t(tr2.sharding.gather_state(tr2.wstate)["params"])
+    rec = {"results": {k: v for k, v in res.items()
+                       if isinstance(v, (int, float))},
+           "stored": stored_shapes(tr.wstate), "trained": trained,
+           "restored": restored, "shard": (tr2.loader.shard_index,
+                                           tr2.loader.shard_count)}
+    rec["results2"] = {k: v for k, v in tr2.run().items()
+                       if isinstance(v, (int, float))}
+    return rec
+
+
 SUITES = {"axes8": ("data=2,seq=2,pipe=2", suite_axes8),
+          "tp8": ("data=2,fsdp=2,model=2", suite_tp8),
+          "fsdp8": ("data=2,fsdp=4", suite_fsdp8),
           "ring4": ("seq=4", suite_ring4),
           "schedules2": ("pipe=2", suite_schedules2),
           "schedules4": ("data=2,pipe=2", suite_schedules4),
@@ -661,10 +999,12 @@ def main():
         torch.save(res, os.path.join(out_dir, f"{suite}_rank{rank}.pt"))
         os._exit(0)
     mesh = make_mesh(MeshSpec.parse(spec), timeout_s=timeout)
-    res = fn(mesh, out_dir, rank) if suite == "dp" else fn(mesh)
+    res = (fn(mesh, out_dir, rank) if suite in ("dp", "fsdp8")
+           else fn(mesh))
     torch.save(res, os.path.join(out_dir, f"{suite}_rank{rank}.pt"))
     shutdown_distributed()
 
 
 if __name__ == "__main__":
     main()
+

@@ -14,8 +14,9 @@ rank that never joins fails the other's collective within the group's
 timeout.  The launcher's two-rank CLI runs (tests/test_multihost.py:31
 and :67): induction_lm.json data-parallel, and induction_lm_pp.json on
 the fused schedule (pipe=2, interleave 2), each against one process.
-The fsdp and model axes (ROADMAP.md item 6c) and a multi-rank mesh on
-the card are refused."""
+The fsdp and model axes run (tests/test_torch_fsdp.py and
+tests/test_torch_tensor_parallel.py hold them to the one-process step);
+a multi-rank mesh on the card is refused."""
 
 import glob
 import json
@@ -73,27 +74,33 @@ def test_rank_layout_is_the_jax_device_layout():
 def test_placement_rules_and_host_helpers_equal_jax():
     """``data_parallel_rules``, ``pipeline_rules`` and
     ``pipeline_stage_shardings`` give the JAX package's partitions (as
-    tuples), ``state_placement`` walks a state tree, ``gather_to_host``
+    tuples), ``state_shardings`` walks a state tree, ``gather_to_host``
     copies it to numpy, and a lone process is one host."""
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
     from veles_tpu.parallel.mesh import data_parallel_rules as jax_dp
     from veles_tpu.units.parallel_nn import pipeline_rules as jax_pp
     from veles_tpu_torch.parallel import distributed as pd
-    from veles_tpu_torch.parallel.mesh import (data_parallel_rules,
-                                               state_placement)
+    from veles_tpu_torch.parallel.mesh import (AXES, data_parallel_rules,
+                                               state_shardings)
     from veles_tpu_torch.parallel.pipeline import pipeline_stage_shardings
     from veles_tpu_torch.units.parallel_nn import pipeline_rules
     params = {"stack": {"stage_w1": torch.zeros(3, 4, 5),
                         "stage_w2": torch.zeros(3, 5, 4)},
               "out": {"w": torch.zeros(4, 2)}}
-    got = state_placement(params, pipeline_rules())
+    sizes = {a: 1 for a in AXES}
+    sizes["pipe"] = 3
+    got = state_shardings(params, sizes, pipeline_rules())
     rule = jax_pp()
     for u, sub in params.items():
         for k, t in sub.items():
             want = rule(("params", u, k),
                         jax.ShapeDtypeStruct(tuple(t.shape), jnp.float32))
-            assert P(*got[u][k]) == want, (u, k)
+            # the guard trims trailing None: the same partition
+            want = tuple(want)
+            while want and want[-1] is None:
+                want = want[:-1]
+            assert got[u][k] == want, (u, k)
     assert data_parallel_rules(("x",), (4,)) == () and \
         jax_dp(("x",), None) == P()
     assert pipeline_stage_shardings(params["stack"]) == {
@@ -106,18 +113,16 @@ def test_placement_rules_and_host_helpers_equal_jax():
 
 
 def test_item_6b_axes_raise():
-    """The seq and expert axes (ROADMAP.md item 6b) run now: the mesh
-    takes them, and attention and MoE on them reach their collectives
-    (which need the axes' process groups, absent from a one-process
-    mesh).  The fsdp and model axes still raise, naming item 6c, in the
-    mesh and the CLI."""
+    """Every axis runs now: the mesh takes fsdp and model (an unknown
+    axis raises), attention and MoE on seq and expert and a model split
+    reach their collectives (which need the axes' process groups, absent
+    from a one-process mesh), and the CLI trains on ``--mesh fsdp=2``."""
     from veles_tpu_torch.units.base import Context, Spec
     from veles_tpu_torch.units.parallel_nn import MoEFFN, MultiHeadAttention
-    for axis in ("fsdp", "model"):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            check_axes({axis: 2})
-    for axis in ("seq", "expert"):
+    for axis in ("fsdp", "model", "seq", "expert"):
         check_axes({axis: 2})
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        check_axes({"tensor": 2})
     sizes = {**{a: 1 for a in AXES}, "seq": 2, "expert": 2}
     ctx = Context(mesh=Mesh(sizes))
     attn = MultiHeadAttention(2, name="a")
@@ -129,9 +134,16 @@ def test_item_6b_axes_raise():
     p, _ = moe.init(torch.Generator(), [Spec((4, 8), torch.float32)], "cpu")
     with pytest.raises(RuntimeError, match="'expert' axis .* process group"):
         moe.apply(p, {}, [torch.zeros(4, 8)], ctx)
-    r = _cli(["configs/induction_lm.json", "--mesh", "data=2,fsdp=2",
-              "--device", "cpu"], check=False)
-    assert r.returncode != 0 and "item 6c" in r.stderr
+    split = {k: (None, "model") for k in ("wq", "wk", "wv")}
+    split["wo"] = ("model",)
+    ctx = Context(mesh=Mesh({**{a: 1 for a in AXES}, "model": 2}),
+                  tp={"a": split})
+    p, _ = attn.init(torch.Generator(), [Spec((1, 4, 8), torch.float32)],
+                     "cpu")
+    with pytest.raises(RuntimeError, match="'model' axis .* process group"):
+        attn.apply(p, {}, [torch.zeros(1, 4, 8)], ctx)
+    r = _cli(["configs/induction_lm.json", *SMALL, "--mesh", "fsdp=2"])
+    assert _results(r)["epochs"] == 1
 
 
 def test_multi_rank_mesh_refused_on_the_card(monkeypatch):

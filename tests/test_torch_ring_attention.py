@@ -250,10 +250,10 @@ def test_in_process_moe_manual_matches_jax(n, top_k):
 
 def test_expert_placement_equals_jax():
     """``expert_rules`` and ``moe_shardings`` give the JAX package's
-    partitions (as tuples), and ``state_placement`` walks a state tree
+    partitions (as tuples), and ``state_shardings`` walks a state tree
     with the rule."""
     from veles_tpu.units.parallel_nn import expert_rules as jax_rules
-    from veles_tpu_torch.parallel.mesh import state_placement
+    from veles_tpu_torch.parallel.mesh import AXES, state_shardings
     from veles_tpu_torch.units.parallel_nn import expert_rules
     rule, jrule = expert_rules(), jax_rules()
     shapes = {"moe": {"router": (16, 4), "w1": (4, 16, 24),
@@ -267,5 +267,7 @@ def test_expert_placement_equals_jax():
                                       "w2": ("expert",)}
     params = {u: {k: torch.zeros(s) for k, s in sub.items()}
               for u, sub in shapes.items()}
-    assert state_placement(params, rule) == {
+    sizes = {a: 1 for a in AXES}
+    sizes["expert"] = 4
+    assert state_shardings(params, sizes, rule) == {
         "moe": tmoe.moe_shardings({}), "out": {"w": ()}}

@@ -63,13 +63,20 @@ attached (``--fleet N``: N artifact replicas behind the router).
 exit.  Everything runs on the CUDA card unless ``--device cpu`` is
 given.
 
-``--mesh data=D,seq=Q,pipe=P,expert=X`` trains over a mesh of D*Q*P*X
-ranks, one process each (``parallel/mesh.py``): the batch splits over
-``data`` (and over ``expert`` for a model with MoE layers, which
-exchange their tokens there), attention runs as ring attention over
-``seq``, and a ``pipe`` axis above 1 trains the config's pipeline stack
-on the fused 1F1B schedule (interleaved with the config's
-``pipeline_interleave``), the seq and expert axes inside its stages.
+``--mesh data=D,fsdp=F,model=M,seq=Q,pipe=P,expert=X`` trains over a
+mesh of D*F*M*Q*P*X ranks, one process each (``parallel/mesh.py``): the
+batch splits over ``data`` x ``fsdp`` (and over ``expert`` for a model
+with MoE layers, which exchange their tokens there), attention runs as
+ring attention over ``seq``, and a ``pipe`` axis above 1 trains the
+config's pipeline stack on the fused 1F1B schedule (interleaved with the
+config's ``pipeline_interleave``), the seq and expert axes inside its
+stages.  The state is placed as the JAX package's CLI places it
+(veles_tpu/__main__.py:281-297): expert banks over ``expert``, stage
+arrays over ``pipe``, and with ``fsdp`` above 1 every leaf of 64 Ki
+elements or more over ``fsdp`` (``fsdp_rules``): each rank stores its
+block, gathered on use.  ``model`` ranks compute the same rows: the
+CLI, like the reference's, has no tensor-parallel table, so a megatron
+split is reached through the API (``tensor_parallel_rules``).
 Without ``--hosts`` the ranks start here as gloo processes on the CPU
 (``--device cpu``); a run on the card has one rank (one GPU), so a
 larger mesh there stops with an error.  ``--hosts h0,h1,...`` starts
@@ -236,10 +243,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "/debug/profile) on this port; 0 picks a free "
                         "port")
     p.add_argument("--mesh", default=None,
-                   help="mesh spec over the axes data, seq, pipe and "
-                        "expert, e.g. data=2,seq=2,pipe=2 (one rank "
-                        "process each; the fsdp/model axes come with "
-                        "ROADMAP.md item 6c)")
+                   help="mesh spec over the axes data, fsdp, model, seq, "
+                        "pipe and expert, e.g. data=2,fsdp=2 or "
+                        "data=2,seq=2,pipe=2 (one rank process each; "
+                        "fsdp shards the large parameters and their "
+                        "optimizer state, model ranks compute the same "
+                        "rows)")
     p.add_argument("--hosts", default=None,
                    help="comma-separated hosts: respawn this command on "
                         "each (localhost entries spawn locally) as one "
@@ -404,8 +413,10 @@ def _train(args, device, status=None) -> int:
         # packages read either)
         snap = Snapshotter(wf_cfg.get("name", "workflow"), args.snapshot_dir,
                            compression=False)
+    mesh = _make_mesh(args, sw)
     trainer = sw.make_trainer(loader, decision, snap, device=device,
-                              status=status, mesh=_make_mesh(args, sw))
+                              status=status, mesh=mesh,
+                              rule=_mesh_rule(mesh, sw))
     trainer.initialize()
     if args.snapshot:
         trainer.restore(args.snapshot)
@@ -468,9 +479,7 @@ def _free_port() -> int:
 def _make_mesh(args, sw):
     """The run's mesh: ``--mesh`` (or pure data parallelism over a
     ``--hosts`` gang), None for a lone process
-    (veles_tpu/__main__.py:280-314).  The placement rules of its units
-    (``pipeline_rules`` on a pipe axis) describe the JAX layout; every
-    rank holds the whole state."""
+    (veles_tpu/__main__.py:280-314); ``_mesh_rule`` places its state."""
     from .parallel.distributed import host_count
     from .parallel.mesh import MeshSpec, make_mesh
     if host_count() == 1:
@@ -481,6 +490,27 @@ def _make_mesh(args, sw):
         return None
     return make_mesh(MeshSpec.parse(args.mesh) if args.mesh
                      else MeshSpec())
+
+
+def _mesh_rule(mesh, sw):
+    """The placement rule the JAX package's CLI composes for a mesh
+    (veles_tpu/__main__.py:281-297): expert banks over ``expert`` and
+    stage arrays over ``pipe`` where the graph has such units, then the
+    large leaves over ``fsdp``; None where nothing applies."""
+    if mesh is None:
+        return None
+    from .parallel.mesh import compose_rules, fsdp_rules
+    from .units.parallel_nn import (MoEFFN, PipelineStack, expert_rules,
+                                    pipeline_rules)
+    rules = []
+    kinds = {type(u) for u in sw.workflow.units}
+    if MoEFFN in kinds and mesh.shape.get("expert", 1) > 1:
+        rules.append(expert_rules())
+    if PipelineStack in kinds and mesh.shape.get("pipe", 1) > 1:
+        rules.append(pipeline_rules())
+    if mesh.shape.get("fsdp", 1) > 1:
+        rules.append(fsdp_rules(axis_size=mesh.shape["fsdp"]))
+    return compose_rules(*rules) if rules else None
 
 
 def _write_result(args, out) -> None:

@@ -142,13 +142,14 @@ class StandardWorkflow:
             **dict(self.config.get("optimizer_args", {})))
 
     def make_trainer(self, loader, decision=None, snapshotter=None, *,
-                     device=None, step_cache=None, status=None, mesh=None):
+                     device=None, step_cache=None, status=None, mesh=None,
+                     rule=None):
         """A :class:`~veles_tpu_torch.runtime.trainer.Trainer` over this
         workflow and optimizer (default decision: the config's
         ``max_epochs`` and ``fail_iterations``; default ``step_cache``: a
         fresh one that captures on the card), with the config's
         ``pipeline_microbatches`` and ``pipeline_interleave`` for a
-        ``mesh`` with a pipe axis."""
+        ``mesh`` with a pipe axis; ``rule`` places the state on it."""
         from ..runtime.decision import Decision
         from ..runtime.trainer import Trainer
         decision = decision or Decision(
@@ -156,7 +157,7 @@ class StandardWorkflow:
             fail_iterations=self.config.get("fail_iterations", 50))
         return Trainer(self.workflow, loader, self.optimizer, decision,
                        snapshotter, device=device, step_cache=step_cache,
-                       status=status, mesh=mesh,
+                       status=status, mesh=mesh, rule=rule,
                        pipeline_microbatches=self.config.get(
                            "pipeline_microbatches"),
                        pipeline_interleave=self.config.get(

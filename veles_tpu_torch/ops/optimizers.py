@@ -173,7 +173,7 @@ def tree_select(ok, new_tree, old_tree):
 
 def guarded_update(optimizer: "Optimizer", grads, opt_state, params, step,
                    loss, *, clip_norm: float = 0.0, sentinel: bool = True,
-                   lr=None, inject_nan=None):
+                   lr=None, inject_nan=None, norm=None):
     """Anomaly-guarded optimizer update (veles_tpu/ops/optimizers.py:
     134-197): runs ``optimizer.update`` and, with ``sentinel`` on, keeps
     the old params and slots where the loss or the gradients' global norm
@@ -182,8 +182,13 @@ def guarded_update(optimizer: "Optimizer", grads, opt_state, params, step,
     ``lr`` (a float32 device scalar) replaces ``schedule(step)``;
     ``inject_nan`` (a bool device scalar, the fault harness's
     ``nan_grad_at_step``) poisons every floating gradient with NaN where
-    it is true.  Returns ``(params, opt_state, ok, gnorm)``;
-    ``ok``/``gnorm`` are ``None`` where that machinery is off."""
+    it is true.  ``norm(grads, path)``: the global norm of a gradient
+    (sub)tree at ``path`` in the params tree (default
+    :func:`global_grad_norm`); a sharded state passes its norm over all
+    ranks' blocks (``parallel.fsdp.ShardedState.grad_norm``), so every
+    rank clips and skips alike.  Returns ``(params, opt_state, ok,
+    gnorm)``; ``ok``/``gnorm`` are ``None`` where that machinery is
+    off."""
     if inject_nan is not None:
         grads = tree_map(
             lambda g: torch.where(inject_nan, torch.full(
@@ -191,14 +196,15 @@ def guarded_update(optimizer: "Optimizer", grads, opt_state, params, step,
             if g.is_floating_point() else g, grads)
     clip_norm = float(clip_norm or 0.0)
     if not sentinel and clip_norm <= 0.0:
-        p, s = optimizer.update(grads, opt_state, params, step, lr=lr)
+        p, s = optimizer.update(grads, opt_state, params, step, lr=lr,
+                                norm=norm)
         return p, s, None, None
-    gnorm = global_grad_norm(grads)
+    gnorm = global_grad_norm(grads) if norm is None else norm(grads, ())
     if clip_norm > 0.0:
         scale = torch.clamp_max(clip_norm / gnorm, 1.0)
         grads = tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
     new_params, new_opt = optimizer.update(grads, opt_state, params, step,
-                                           lr=lr)
+                                           lr=lr, norm=norm)
     if not sentinel:
         return new_params, new_opt, None, gnorm
     ok = torch.isfinite(loss.float()) & torch.isfinite(gnorm)
@@ -263,9 +269,13 @@ class Optimizer:
     def _hp(self, unit_name: str) -> HyperParams:
         return self.per_unit.get(unit_name, HyperParams())
 
-    def update(self, grads, state, params, step, *, lr=None):
+    def update(self, grads, state, params, step, *, lr=None, norm=None):
         """``lr``: the float32 device scalar of ``schedule(step)`` (the
-        train step's); None computes it here."""
+        train step's); None computes it here.  ``norm(grads, path)``:
+        the global norm of a gradient (sub)tree (``guarded_update``)."""
+        if norm is None:
+            def norm(g, path):
+                return global_grad_norm(g)
         if lr is None:
             lr = torch.full((), float(self.schedule(step)),
                             dtype=torch.float32,
@@ -274,8 +284,7 @@ class Optimizer:
         if lr_mult is not None:
             lr = lr * lr_mult
         if self.clip_norm is not None:
-            scale = torch.clamp_max(self.clip_norm / global_grad_norm(grads),
-                                    1.0)
+            scale = torch.clamp_max(self.clip_norm / norm(grads, ()), 1.0)
             grads = tree_map(lambda g: g * scale, grads)
         new_params, new_state = {}, {}
         for k in (LR_MULT_KEY, ANOM_SKIP_KEY, ANOM_CONSEC_KEY):
@@ -287,7 +296,7 @@ class Optimizer:
             uscale = None
             if hp.clip_norm is not None:
                 uscale = torch.clamp_max(
-                    hp.clip_norm / global_grad_norm(ugrads), 1.0)
+                    hp.clip_norm / norm(ugrads, (uname,)), 1.0)
             new_params[uname], new_state[uname] = self._update_tree(
                 uparams, ugrads, state.get(uname) or {}, hp, lr, uscale)
         return new_params, new_state

@@ -121,9 +121,9 @@ def place_batch(batch, mesh, shardings):
 
 
 def gather_to_host(tree):
-    """Host numpy copy of a state tree.  Every rank holds the whole
-    state, so nothing crosses ranks (the JAX package all-gathers its
-    sharded leaves here)."""
+    """Host numpy copy of a state tree of whole tensors (a placed
+    state's blocks are gathered by ``parallel.fsdp.ShardedState.
+    gather_state``, veles_tpu/parallel/distributed.py:103-120)."""
     if isinstance(tree, dict):
         return {k: gather_to_host(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -24,10 +24,11 @@ the backward recomputes nothing and a dropout mask is the forward's.
 Microbatch ``m`` draws from ``fold_in(step_key, m)`` (:444-448, :785),
 the derivation of the JAX schedules.
 
-Every rank holds every parameter; a rank's gradients are nonzero for the
-stages it ran, and the caller sums them over the world (the pipe ranks
-assemble the stages, the data and expert ranks the batch, the seq ranks
-the sequence's chunks) in one all-reduce.
+A rank's gradients are nonzero for the stages it ran, and the caller
+sums them (the pipe ranks assemble the stages, the data, fsdp and expert
+ranks the batch, the seq ranks the sequence's chunks): here in one
+all-reduce over the world, in the workflow's fused step over the ranks
+that hold the same blocks (``parallel/fsdp.py``).
 """
 
 from __future__ import annotations
@@ -73,13 +74,17 @@ def pick_batch_axes(axis_sizes: dict, mb: int,
 def row_layout(axis_sizes: dict, rows: int, *, moe: bool = False
                ) -> Tuple[Tuple[str, ...], int, int]:
     """How a batch's (or a microbatch's) ``rows`` split over the mesh:
-    ``(axes, n_split, replicas)``.  The rows split over ``data`` where it
-    divides them (a row count it does not divide runs whole on every
-    data rank, as the reference replicates it), and on a model with a MoE
-    unit over ``expert`` too, whose units exchange their tokens there:
-    that axis must divide the rows (ValueError).  ``replicas`` is the
-    number of data and expert ranks that hold each row slice."""
+    ``(axes, n_split, replicas)``.  The rows split over ``data`` x
+    ``fsdp`` (fsdp ranks are data-parallel: veles_tpu/parallel/mesh.py:
+    213-231) where their product divides them, else over the subset
+    whose product is the largest that does (a row count none divides
+    runs whole on every such rank, as the reference replicates it), and
+    on a model with a MoE unit over ``expert`` too, whose units exchange
+    their tokens there: that axis must divide the rows (ValueError).
+    ``replicas`` is the number of data, fsdp and expert ranks that hold
+    each row slice."""
     n_e = axis_sizes.get("expert", 1)
+    dp = ("data", "fsdp")
     if moe and n_e > 1:
         if rows % n_e:
             raise ValueError(
@@ -87,11 +92,12 @@ def row_layout(axis_sizes: dict, rows: int, *, moe: bool = False
                 f"axis ({n_e}): the MoE units exchange their tokens over "
                 "it")
         axes = pick_batch_axes(axis_sizes, rows // n_e,
-                               candidates=("data",)) + ("expert",)
+                               candidates=dp) + ("expert",)
     else:
-        axes = pick_batch_axes(axis_sizes, rows, candidates=("data",))
+        axes = pick_batch_axes(axis_sizes, rows, candidates=dp)
     n_split = math.prod(axis_sizes[a] for a in axes)
-    return axes, n_split, axis_sizes.get("data", 1) * n_e // n_split
+    holders = math.prod(axis_sizes.get(a, 1) for a in dp) * n_e
+    return axes, n_split, holders // n_split
 
 
 def shard_microbatches(t, mesh, batch_axes: Sequence[str] = (),

@@ -34,7 +34,11 @@ stages must then be positionwise (``seq_last`` is refused).  On a model
 with a MoE unit an ``expert`` axis splits the microbatch rows like a
 data axis (it must divide them: ``pipeline.row_layout``), and the MoE
 units exchange tokens over it; on a model without one the axis stays
-idle (replicas).  With either axis in the stages the
+idle (replicas).  The rows split over ``data`` x ``fsdp`` (:579's
+``batch_axes``); a rule places the state (``parallel/fsdp.py``: the
+stages' parameters gathered at the step's entry, the gradients summed
+over the ranks that hold the same blocks and cut to this rank's), and
+``model`` ranks compute the same rows.  With either axis in the stages the
 plan takes the reference's shared stage template (stage 0's units with
 each stage's params, the key folded with the stage), which needs
 structurally identical stages, and refuses a MoE unit in an edge stage
@@ -52,8 +56,7 @@ from .. import prng
 from ..ops.optimizers import tree_leaves, tree_map
 from ..units.base import Context, Spec
 from ..units.workflow import sample_count
-from .pipeline import (all_reduce_grads, row_layout, run_schedule,
-                       shard_microbatches)
+from .pipeline import row_layout, run_schedule, shard_microbatches
 
 
 class PipelinePlan:
@@ -304,8 +307,9 @@ class PipelineTrainStep:
     capture_reason = "the fused pipeline step exchanges with other ranks"
 
     def __init__(self, workflow, optimizer, mesh, *, n_microbatches: int,
-                 interleave: int = 1, axis_name: str = "pipe"):
+                 interleave: int = 1, axis_name: str = "pipe", rule=None):
         from ..units.workflow import TrainStep
+        from .fsdp import ShardedState
         self.workflow = workflow
         self.mesh = mesh
         self.plan = PipelinePlan(workflow, mesh, n_microbatches,
@@ -313,6 +317,14 @@ class PipelineTrainStep:
                                  interleave=interleave)
         self._host = TrainStep(workflow, optimizer)
         self.optimizer = optimizer
+        # the stages use whole parameters: every split is gathered on use
+        self.state = ShardedState(workflow, mesh, rule,
+                                  tensor_parallel=False)
+
+    def place(self, wstate):
+        """This rank's blocks of a whole state (``ShardedTrainStep.
+        place``)."""
+        return self.state.shard_state(wstate)
 
     def __call__(self, wstate, batch):
         sub = self.begin(wstate)
@@ -342,12 +354,14 @@ class PipelineTrainStep:
         # per-position labels take their chunk too (:390-410)
         side = [local(t, n_sp > 1 and t.dim() > 1 and t.shape[1] == t_glob)
                 for t in side_g]
-        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        live = tree_map(lambda t: t.detach().requires_grad_(True),
+                        self.state.use_params(params))
         fwd = plan.stage_fn(live, wstate["state"], inputs, mesh)
         lctx = Context(train=True)
-        # the world's all-reduce sums the shares of the row-splitting
-        # ranks and the seq ranks (or the copies of a replicated
-        # microbatch: /replicas)
+        # the sum over the ranks that hold the same blocks adds the
+        # shares of the row-splitting ranks and the seq ranks (or the
+        # copies of a replicated microbatch: /replicas; model ranks
+        # compute the same rows and do not sum)
         scale = 1.0 / (n_mb * plan.n_split * n_sp * plan.replicas)
 
         def loss(out, m):
@@ -367,23 +381,30 @@ class PipelineTrainStep:
             device=inputs.device)
         gl = [torch.zeros_like(t) if t.grad is None else t.grad
               for t in tree_leaves(live)]
-        flat, (loss_t, aux_t) = all_reduce_grads(gl, [loss_sum, aux_sum],
-                                                 mesh.world_group)
+        flat, (loss_t, aux_t) = self.state.reduce(gl, [loss_sum, aux_sum],
+                                                  params)
         it = iter(flat)
         grads = tree_map(lambda _: next(it), params)
         with torch.no_grad():
             mets = {"loss": loss_t, "aux": aux_t,
                     "n_samples": torch.full((), float(plan.batch_size),
                                             device=loss_t.device)}
-            return self._host.update(wstate, grads, loss_t, mets)[0]
+            st = self.state
+            return self._host.update(wstate, grads, loss_t, mets,
+                                     norm=st.grad_norm if st.sharded
+                                     else None)[0]
 
 
 def build_pipeline_step(wf, optimizer, mesh, *, n_microbatches: int,
-                        axis_name: str = "pipe", interleave: int = 1):
-    """The fused step of ``Workflow.make_pipeline_train_step``."""
+                        axis_name: str = "pipe", interleave: int = 1,
+                        rule=None):
+    """The fused step of ``Workflow.make_pipeline_train_step``; ``rule``
+    places its state (:579; e.g. stage arrays over ``("pipe", None,
+    "fsdp")``)."""
     step = PipelineTrainStep(wf, optimizer, mesh,
                              n_microbatches=n_microbatches,
-                             interleave=interleave, axis_name=axis_name)
+                             interleave=interleave, axis_name=axis_name,
+                             rule=rule)
     plan = step.plan
     wf.info("1F1B plan: %d stages (pipe=%d x v=%d), %d microbatches of "
             "%d, rows split over %s (%d), seq shards %d, in-stage axes %s",

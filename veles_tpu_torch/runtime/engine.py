@@ -3057,8 +3057,11 @@ class DecodeEngine(Logger):
             good = self._goodput_summary()
             self._g_headroom.set(self._headroom_slots(
                 self._pages_summary()))
-            self._g_decode_bw.set(good["decode_bandwidth_bytes_per_sec"])
+            # the pair as one: a reader reads the bandwidth, then the
+            # MBU derived from it; MBU goes first, so a reader that sees
+            # a new bandwidth (rising or falling to 0) sees its MBU too
             self._g_decode_mbu.set(good["decode_mbu"])
+            self._g_decode_bw.set(good["decode_bandwidth_bytes_per_sec"])
             self._g_tps_chip.set(good["tokens_per_sec_per_chip"])
         b_t, b_n = self._batch_rate_mark
         if now - b_t >= 0.5:

@@ -33,8 +33,12 @@ rank's loader yielding the same global batches from the same seed) the
 train step is the data-parallel one, or with a ``pipe`` axis above 1 the
 fused 1F1B schedule (interleaved with ``pipeline_interleave`` > 1), and
 the eval step evaluates each data rank's rows (trainer.py:63-83,
-:203-210); those steps talk to other ranks and stay eager.  Every rank
-holds the same state; rank 0 alone writes snapshots.
+:203-210); those steps talk to other ranks and stay eager.  A ``rule``
+(``parallel.mesh``) places the state: each rank keeps its block of
+every leaf it splits (``parallel/fsdp.py``), every step factory takes
+it, a snapshot (and the in-memory best state) gathers every split leaf
+to the host on every rank (:676-679) and rank 0 alone writes it, and a
+restore or rollback cuts the whole state under the rule again.
 """
 
 from __future__ import annotations
@@ -104,9 +108,13 @@ class Trainer(Logger):
                  prefetch: int = 2, device=None,
                  step_cache: Optional[StepCache] = None, status=None,
                  mesh=None, pipeline_microbatches: Optional[int] = None,
-                 pipeline_interleave: int = 1):
+                 pipeline_interleave: int = 1, rule=None):
         self.workflow = workflow
         self.mesh = mesh
+        self.rule = rule
+        #: the placed state's layout (``parallel.fsdp.ShardedState``):
+        #: None without a mesh or with a whole state
+        self.sharding = None
         self.pipeline_microbatches = pipeline_microbatches
         self.pipeline_interleave = int(pipeline_interleave or 1)
         self.status = status      # runtime.status.StatusReporter (optional)
@@ -170,6 +178,12 @@ class Trainer(Logger):
                                                    self.device)
         self._batch_spec = specs
         self._compile_steps()
+        if self.mesh is not None and self.mesh.world_group is not None:
+            # the train step's layout (a collective step runs eagerly)
+            layout = self._train_step.step.state
+            if layout.sharded:
+                self.sharding = layout
+                self.wstate = layout.shard_state(self.wstate)
         # the ledger of GET /memory.json, from shapes; a freed trainer's
         # entries leave it unless a newer one took the names over
         mem = memory_monitor()
@@ -194,12 +208,13 @@ class Trainer(Logger):
         build_train, build_eval = self._step_factories()
         if self.mesh is not None:
             key += (("mesh", tuple(sorted(self.mesh.shape.items())),
-                     id(self.mesh), self.pipeline_microbatches,
+                     id(self.mesh), id(self.rule),
+                     self.pipeline_microbatches,
                      self.pipeline_interleave),)
         inputs = {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
                   for k, s in self._batch_spec.items()}
         args = (self.wstate, inputs)
-        pin = (self.workflow, self.optimizer, self.mesh)
+        pin = (self.workflow, self.optimizer, self.mesh, self.rule)
         self._train_step = self.step_cache.get_step(
             "train", key, build_train, args, pin=pin)
         # the cost of THIS trainer's program, never the kind's sum (a
@@ -233,7 +248,7 @@ class Trainer(Logger):
             def build_train():
                 return wf.make_pipeline_train_step(
                     opt, mesh, n_microbatches=n_mb,
-                    interleave=self.pipeline_interleave)
+                    interleave=self.pipeline_interleave, rule=self.rule)
         else:
             if self.pipeline_interleave > 1:
                 raise ValueError(
@@ -241,8 +256,9 @@ class Trainer(Logger):
                     "give the mesh a 'pipe' axis > 1")
 
             def build_train():
-                return wf.make_sharded_train_step(opt, mesh)
-        return build_train, (lambda: wf.make_sharded_eval_step(mesh))
+                return wf.make_sharded_train_step(opt, mesh, rule=self.rule)
+        return build_train, (lambda: wf.make_sharded_eval_step(
+            mesh, rule=self.rule))
 
     def _ensure_eval_step(self):
         if self._eval_step is None:
@@ -391,7 +407,7 @@ class Trainer(Logger):
             if self.decision.improved \
                     and (self.decision.rollback_after is not None
                          or self._anomaly_patience() > 0):
-                self._best_wstate = wstate_to_numpy(self.wstate)
+                self._best_wstate = self._host_state()
             if self.decision.want_rollback and self._best_wstate is not None:
                 # rollback to the best state + lr drop, written into the
                 # live tensors and the opt_state multiplier the train step
@@ -401,10 +417,12 @@ class Trainer(Logger):
             # advance first so a restored snapshot resumes at the NEXT epoch
             self.loader.next_epoch()
             if (self.snapshotter is not None
-                    and self.snapshotter.tick(best=self.decision.improved)
-                    and self.writes):
-                self.snapshotter.save(f"ep{epoch}", self._payload(),
-                                      best=self.decision.improved)
+                    and self.snapshotter.tick(best=self.decision.improved)):
+                # collective under a placed state: every rank gathers
+                payload = self._payload()
+                if self.writes:
+                    self.snapshotter.save(f"ep{epoch}", payload,
+                                          best=self.decision.improved)
             epoch = self.loader.epoch_number
             if stop:
                 break
@@ -510,10 +528,21 @@ class Trainer(Logger):
 
     # -- state writes, lr multiplier, payload, restore -----------------------
     def _write_state(self, payload: Dict[str, Any]) -> None:
-        """``payload["wstate"]`` (host numpy) checked against the live
-        state's structure and written into its tensors in place."""
+        """``payload["wstate"]`` (host numpy, whole) checked against the
+        live state's structure and written into its tensors in place,
+        cut to this rank's blocks under a placed state."""
+        if self.sharding is not None:
+            payload = {**payload, "wstate": self.sharding.shard_state(
+                payload["wstate"])}
         tree_assign(self.wstate, Snapshotter.restore_wstate(
             payload, like=self.wstate))
+
+    def _host_state(self) -> Dict[str, Any]:
+        """The whole state on the host (gathered under a placed state:
+        collective, every rank calls it)."""
+        if self.sharding is not None:
+            return self.sharding.gather_state(self.wstate)
+        return wstate_to_numpy(self.wstate)
 
     def _apply_lr_multiplier(self) -> None:
         """Write ``decision.lr_multiplier`` into the ``__lr_mult__``
@@ -539,7 +568,7 @@ class Trainer(Logger):
     def _payload(self) -> Dict[str, Any]:
         """The JAX ``Trainer``'s snapshot payload (trainer.py:682-690)."""
         return {
-            "wstate": wstate_to_numpy(self.wstate),
+            "wstate": self._host_state(),
             "loader": self.loader.state(),
             "decision": self.decision.state(),
             "prng": prng.streams.state(),

@@ -55,13 +55,20 @@ class Context:
     itself (ring attention slices its sequence chunk and gathers the
     output).  A tuple: the caller (a pipeline schedule) has already
     sharded the unit's data over the named axes, and the unit runs its
-    per-rank body with collectives over those axes only."""
+    per-rank body with collectives over those axes only.
+
+    ``tp`` maps a unit name to the ``model`` splits of its params it
+    computes over the model group itself (``Unit.tp_local``; its params
+    are then this rank's blocks there): the megatron operators of
+    ``parallel/tensor_parallel.py``.  None or a missing name: whole
+    params."""
     train: bool = False
     mesh: Optional[Any] = None
     make_generator: Optional[Callable[[], torch.Generator]] = None
     key: Optional[Tuple[int, int]] = None
     seeds: Optional[Dict[str, torch.Tensor]] = None
     manual_axes: Optional[Tuple[str, ...]] = None
+    tp: Optional[Dict[str, dict]] = None
     _generator: Optional[torch.Generator] = dataclasses.field(
         default=None, init=False, repr=False)
 
@@ -89,6 +96,11 @@ class Context:
         if self.manual_axes is None:
             return "wrapper"
         return "manual" if name in self.manual_axes else "none"
+
+    def tp_split(self, name: str) -> Optional[dict]:
+        """The model splits unit ``name`` computes over (None: whole
+        params)."""
+        return None if self.tp is None else self.tp.get(name)
 
     def unit_key(self, name: str) -> Optional[Tuple[int, int]]:
         """``fold_in(key, hash(name))`` as ``Context.unit_key`` of the
@@ -181,6 +193,12 @@ class Unit(Logger, metaclass=UnitMeta):
     def apply(self, params, state, xs, ctx: Context):
         """Forward: returns (output, new_state)."""
         raise NotImplementedError
+
+    def tp_local(self, parts: Dict[str, tuple], n_model: int) -> set:
+        """The params whose ``model`` split (``parts``: param -> its
+        partition under the rule) this unit computes over the model group
+        itself; the others are gathered on use.  None by default."""
+        return set()
 
     def __repr__(self):
         return f"{type(self).__name__}({self.name!r} <- {list(self.inputs)})"

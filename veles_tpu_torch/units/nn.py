@@ -32,9 +32,17 @@ from ..ops.pooling import avg_pool, avg_unpool, max_pool
 from .base import Forward, Spec, Unit, dtype_of
 
 
+#: a dense weight's megatron splits over the model axis (the guarded
+#: partition form: trailing None trimmed)
+COLUMN, ROW = (None, "model"), ("model",)
+
+
 class All2All(Forward):
     """Fully-connected layer; ``per_position`` projects only the trailing
-    feature axis ((B, T, E) -> (B, T, out)), else each sample flattens."""
+    feature axis ((B, T, E) -> (B, T, out)), else each sample flattens.
+    Under a ``model`` split of ``w`` (``Context.tp``) a column split
+    computes its output columns (gathered over the group) and a row
+    split its partial product of its input columns (all-reduced)."""
 
     def __init__(self, output_size: int, *, activation: str = "linear",
                  weights_scale: float = 1.0, include_bias: bool = True,
@@ -69,6 +77,11 @@ class All2All(Forward):
                                       dtype=torch.float32, device=device)
         return params, {}
 
+    def tp_local(self, parts, n_model):
+        if parts.get("w") == COLUMN:
+            return {"w"} | ({"b"} if parts.get("b") == ROW else set())
+        return {"w"} if parts.get("w") == ROW else set()
+
     def apply(self, params, state, xs, ctx):
         x = xs[0]
         if self.per_position:
@@ -77,11 +90,36 @@ class All2All(Forward):
         else:
             lead = None
             x = x.reshape(x.shape[0], -1)
-        y = ops.dense(x, params["w"], params.get("b"),
-                      compute_dtype=self.compute_dtype)
+        split = ctx.tp_split(self.name)
+        if split:
+            y = self._split_dense(params, x, ctx.mesh, split)
+        else:
+            y = ops.dense(x, params["w"], params.get("b"),
+                          compute_dtype=self.compute_dtype)
         if lead is not None:
             y = y.reshape(lead + (self.output_size,))
         return ACTIVATIONS[self.activation](y), state
+
+
+    def _split_dense(self, params, x, mesh, split):
+        from ..parallel import tensor_parallel as tp
+        cd = self.compute_dtype
+        if split["w"] == COLUMN:
+            b = (tp.local_param(params, "b", split, 0, mesh)
+                 if self.include_bias else None)
+            y = ops.dense(tp.copy_to_model(x, mesh), params["w"], b,
+                          compute_dtype=cd)
+            return tp.gather_from_model(y, -1, mesh)
+        part, finish = self._row_parts(params, x, mesh)
+        return finish(tp.reduce_from_model(part, mesh))
+
+    def _row_parts(self, params, x, mesh):
+        from ..parallel import tensor_parallel as tp
+        part = ops.dense(tp.scatter_to_model(x, -1, mesh), params["w"],
+                         None, compute_dtype=self.compute_dtype)
+        if not self.include_bias:
+            return part, lambda y: y
+        return part, lambda y: y + params["b"]
 
 
 class All2AllTanh(All2All):
@@ -458,7 +496,10 @@ class LayerNorm(Unit):
 
 
 class FFN(Unit):
-    """Per-position two-layer MLP with residual: y = x + W2.act(W1.x)."""
+    """Per-position two-layer MLP with residual: y = x + W2.act(W1.x).
+    Under the megatron split (``w1`` by columns, ``w2`` by rows over the
+    model group: ``Context.tp``) each model rank computes its hidden
+    columns and its partial product, all-reduced once."""
 
     def __init__(self, d_hidden: int, activation: str = "relu",
                  residual: bool = True, name=None, inputs=("@input",),
@@ -480,10 +521,22 @@ class FFN(Unit):
                 "w2": w2,
                 "b2": torch.zeros((E,), device=device)}, {}
 
+    def tp_local(self, parts, n_model):
+        # sincos picks sin or cos by the hidden column's index
+        if self.activation == "sincos" or not (
+                parts.get("w1") == COLUMN and parts.get("w2") == ROW):
+            return set()
+        return {"w1", "w2"} | ({"b1"} if parts.get("b1") == ROW
+                               else set())
+
     def apply(self, params, state, xs, ctx):
         x = xs[0]
         lead = tuple(x.shape[:-1])
         flat = x.reshape(-1, x.shape[-1])
+        if ctx.tp_split(self.name):
+            from ..parallel import tensor_parallel as tp
+            part, finish = self.tp_parts(params, x, ctx)
+            return finish(tp.reduce_from_model(part, ctx.mesh)), state
         h = ops.dense(flat, params["w1"], params["b1"],
                       compute_dtype=self.compute_dtype)
         h = ACTIVATIONS[self.activation](h)
@@ -493,6 +546,28 @@ class FFN(Unit):
         if self.residual:
             y = y + x
         return y.to(x.dtype), state
+
+    def tp_parts(self, params, x, ctx):
+        """This model rank's partial product (float32) and the
+        ``finish`` of the all-reduced sum (``parallel.tensor_parallel``):
+        the hidden columns of its ``w1`` block, their part of ``w2``;
+        then ``b2`` and the residual."""
+        from ..parallel import tensor_parallel as tp
+        mesh, split = ctx.mesh, ctx.tp_split(self.name)
+        cd = self.compute_dtype
+        flat = x.reshape(-1, x.shape[-1])
+        h = ops.dense(tp.copy_to_model(flat, mesh), params["w1"],
+                      tp.local_param(params, "b1", split, 0, mesh),
+                      compute_dtype=cd)
+        h = ACTIVATIONS[self.activation](h)
+        part = ops.dense(h, params["w2"], None, compute_dtype=cd)
+
+        def finish(y):
+            y = (y + params["b2"]).reshape(x.shape)
+            if self.residual:
+                y = y + x
+            return y.to(x.dtype)
+        return part, finish
 
 
 class Embedding(Unit):

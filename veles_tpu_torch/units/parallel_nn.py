@@ -31,7 +31,12 @@ from ..ops import check_gqa_heads, rotary_embedding, smart_uniform_init
 from .base import Context, Forward, Spec, dtype_of
 
 class MultiHeadAttention(Forward):
-    """Self-attention over (B, T, E) activations."""
+    """Self-attention over (B, T, E) activations.  Under the megatron
+    split over the model group (``wq``/``wk``/``wv`` by columns, ``wo``
+    by rows: ``Context.tp``) on whole heads and whole GQA groups, each
+    model rank runs attention on its H/model query and Hk/model kv heads
+    and its partial output product is all-reduced; any other split is
+    gathered on use."""
 
     def __init__(self, n_heads: int, head_dim: Optional[int] = None,
                  name=None, inputs=("@input",), *, causal: bool = True,
@@ -73,23 +78,67 @@ class MultiHeadAttention(Forward):
                                      device=device),
         }, {}
 
+    def tp_local(self, parts, n_model):
+        from .nn import COLUMN, ROW
+        whole = self.n_heads % n_model == 0 \
+            and self.n_kv_heads % n_model == 0
+        if whole and parts.get("wo") == ROW and all(
+                parts.get(k) == COLUMN for k in ("wq", "wk", "wv")):
+            return {"wq", "wk", "wv", "wo"}
+        return set()
+
     def apply(self, params, state, xs, ctx: Context):
+        if ctx.tp_split(self.name):
+            from ..parallel import tensor_parallel as tp
+            part, finish = self.tp_parts(params, xs[0], ctx)
+            return finish(tp.reduce_from_model(part, ctx.mesh)), state
+        x = xs[0]
+        dt = self.compute_dtype or x.dtype
+        xq = x.to(dt)
+        o = self._heads(params, xq, xq, self.n_heads, self.n_kv_heads, ctx)
+        y = o.reshape(x.shape[0], x.shape[1], -1) @ params["wo"].to(dt)
+        if self.residual:
+            y = y + xq
+        return y.to(x.dtype), state
+
+    def tp_parts(self, params, x, ctx):
+        """This model rank's partial output product (float32: the
+        compute dtype's operands, accumulated in float32 as its GEMM
+        does) over its H/model query and Hk/model kv heads, and the
+        ``finish`` of the all-reduced sum (``parallel.tensor_parallel``):
+        rounded to the compute dtype, the residual added."""
+        from ..parallel import tensor_parallel as tp
+        dt = self.compute_dtype or x.dtype
+        xq = x.to(dt)
+        n = ctx.mesh.shape["model"]
+        o = self._heads(params, xq, tp.copy_to_model(xq, ctx.mesh),
+                        self.n_heads // n, self.n_kv_heads // n, ctx)
+        part = o.reshape(x.shape[0], x.shape[1], -1).float() \
+            @ params["wo"].to(dt).float()
+
+        def finish(y):
+            y = y.to(dt)
+            if self.residual:
+                y = y + xq
+            return y.to(x.dtype)
+        return part, finish
+
+    def _heads(self, params, xq, xin, H, Hk, ctx):
+        """Attention over ``H`` query and ``Hk`` kv heads of ``xin``'s
+        projections (``xq``'s shape and dtype): (B, T, H, D)."""
         from ..parallel.ring_attention import (_ring_attention_local,
                                                blockwise_attention,
                                                ring_attention)
         mode = ctx.collective_mode(self.seq_axis)
-        x = xs[0]
-        B, T, E = x.shape
-        H = self.n_heads
-        dt = self.compute_dtype or x.dtype
-        xq = x.to(dt)
+        B, T, E = xq.shape
+        dt = xq.dtype
 
         def proj(w, nh):
-            return (xq @ w.to(dt)).reshape(B, T, nh, -1)
+            return (xin @ w.to(dt)).reshape(B, T, nh, -1)
 
         q = proj(params["wq"], H)
-        k = proj(params["wk"], self.n_kv_heads)
-        v = proj(params["wv"], self.n_kv_heads)
+        k = proj(params["wk"], Hk)
+        v = proj(params["wv"], Hk)
         if self.rope:
             # manual mode: x is this rank's chunk of the sequence, at
             # global positions from rank * T on
@@ -109,10 +158,7 @@ class MultiHeadAttention(Forward):
         else:
             o = blockwise_attention(q, k, v, block_size=self.block_size,
                                     causal=self.causal, window=self.window)
-        y = o.reshape(B, T, -1) @ params["wo"].to(dt)
-        if self.residual:
-            y = y + xq
-        return y.to(x.dtype), state
+        return o
 
 
 class MoEFFN(Forward):
@@ -397,9 +443,8 @@ class PipelineStack(Forward):
 def expert_rules(axis: str = "expert"):
     """Placement rule for MoEFFN params (veles_tpu/units/parallel_nn.py:
     581-593): a 3-dim ``w1``/``w2`` bank splits its expert dim over
-    ``axis``, the router (and everything else) is replicated.  Every rank
-    holds the whole bank; the rule describes the layout, and each rank
-    computes the gradient of its own experts' slice."""
+    ``axis``, the router (and everything else) is replicated.  A rank
+    stores its experts' block (``parallel/fsdp.py``), gathered on use."""
 
     def rule(path, shape):
         if len(path) >= 2 and path[-1] in ("w1", "w2") and len(shape) == 3:
@@ -414,7 +459,8 @@ def pipeline_rules(axis: str = "pipe"):
     (veles_tpu/units/parallel_nn.py:596-605): a ``stage_*`` leaf splits
     its leading stage axis over ``axis``, everything else is replicated.
     A rule maps ``(path, shape)`` to a partition tuple (``()``:
-    replicated); ``parallel.mesh.state_placement`` applies it."""
+    replicated); ``parallel.mesh.state_shardings`` applies it and
+    ``parallel/fsdp.py`` stores each rank's block."""
 
     def rule(path, shape):
         if path and path[-1].startswith("stage_"):

@@ -217,28 +217,33 @@ class Workflow(Logger):
                                 "(or a self-updating unit)")
         return TrainStep(self, optimizer)
 
-    def make_sharded_train_step(self, optimizer: Optimizer,
-                                mesh) -> "ShardedTrainStep":
-        """The train step over the mesh's ``data``, ``seq`` and
-        ``expert`` axes (veles_tpu/units/workflow.py:312-336): see
-        :class:`ShardedTrainStep`."""
-        return ShardedTrainStep(self, optimizer, mesh)
+    def make_sharded_train_step(self, optimizer: Optimizer, mesh, *,
+                                rule=None) -> "ShardedTrainStep":
+        """The train step over the mesh, its state placed by ``rule``
+        (``parallel.mesh``: a rule over ``(path, shape)``; None
+        replicates) (veles_tpu/units/workflow.py:312-336): see
+        :class:`ShardedTrainStep`; ``step.place(wstate)`` gives the state
+        it takes."""
+        return ShardedTrainStep(self, optimizer, mesh, rule=rule)
 
     def make_pipeline_train_step(self, optimizer: Optimizer, mesh, *,
-                                 n_microbatches: int, interleave: int = 1):
-        """The fused 1F1B train step over the mesh's ``pipe`` axis (and
-        ``data``), interleaved with ``interleave`` > 1
-        (veles_tpu/units/workflow.py:338-364; ``parallel/
-        pipeline_compile.py``)."""
+                                 n_microbatches: int, interleave: int = 1,
+                                 rule=None):
+        """The fused 1F1B train step over the mesh's ``pipe`` axis (the
+        rows over ``data`` x ``fsdp``), interleaved with ``interleave``
+        > 1, its state placed by ``rule`` (veles_tpu/units/workflow.py:
+        338-364; ``parallel/pipeline_compile.py``)."""
         from ..parallel.pipeline_compile import build_pipeline_step
         return build_pipeline_step(self, optimizer, mesh,
                                    n_microbatches=n_microbatches,
-                                   interleave=interleave)
+                                   interleave=interleave, rule=rule)
 
-    def make_sharded_eval_step(self, mesh) -> "ShardedEvalStep":
-        """The eval step over the mesh (veles_tpu/units/workflow.py:
-        366-380): see :class:`ShardedEvalStep`."""
-        return ShardedEvalStep(self, mesh)
+    def make_sharded_eval_step(self, mesh, *,
+                               rule=None) -> "ShardedEvalStep":
+        """The eval step over the mesh, on the state ``rule`` places
+        (veles_tpu/units/workflow.py:366-380): see
+        :class:`ShardedEvalStep`."""
+        return ShardedEvalStep(self, mesh, rule=rule)
 
     def make_eval_step(self) -> "EvalStep":
         """(wstate, batch) -> the evaluator's metrics, under
@@ -413,17 +418,19 @@ class TrainStep:
             tree_assign(wstate["state"], state)
         return mets
 
-    def update(self, wstate, grads, loss, mets):
-        """``guarded_update`` (the anomaly skip, ``clip_norm``) from this
-        step's staged lr and NaN flag, written into ``wstate``'s params
-        and optimizer state; returns the metrics (zeroed on a skipped
-        step, with ``anomaly_steps`` and ``grad_norm``) and the ok flag
-        (None without the sentinel)."""
+    def update(self, wstate, grads, loss, mets, norm=None):
+        """``guarded_update`` (the anomaly skip, ``clip_norm``; ``norm``:
+        a sharded state's global norm) from this step's staged lr and
+        NaN flag, written into ``wstate``'s params and optimizer state;
+        returns the metrics (zeroed on a skipped step, with
+        ``anomaly_steps`` and ``grad_norm``) and the ok flag (None
+        without the sentinel)."""
         new_params, opt_state, ok, gnorm = guarded_update(
             self.optimizer, grads, wstate["opt_state"], wstate["params"],
             None, loss, clip_norm=self.clip, sentinel=self.sentinel,
             lr=self.scalars[0],
-            inject_nan=(self.scalars[1] != 0) if self.inject else None)
+            inject_nan=(self.scalars[1] != 0) if self.inject else None,
+            norm=norm)
         if ok is not None:
             # a skipped step adds nothing to the epoch sums
             mets = {k: torch.where(ok, v, torch.zeros_like(v))
@@ -497,31 +504,36 @@ def sample_count(ev, side) -> torch.Tensor:
 
 class _Layout:
     """How a sharded step lays a batch out over the mesh: the axes the
-    rows split over (``parallel.pipeline.row_layout``: ``data`` where it
-    divides them, and ``expert`` on a model with a MoE unit, which must
-    divide them) and the copies of each row slice (``replicas``: those
-    of ``row_layout``, times the ``seq`` ranks, which each take one
+    rows split over (``parallel.pipeline.row_layout``: ``data`` x
+    ``fsdp`` where they divide them, and ``expert`` on a model with a MoE
+    unit, which must divide them) and the copies of each row slice among
+    the ranks that sum gradients (``replicas``: those of ``row_layout``
+    times the ``seq`` and ``pipe`` ranks; the ``seq`` ranks each take one
     chunk of the sequence inside attention and see the whole output).
-    A ``None`` layout means the plain step: no process group, or only a
-    data axis that does not divide the rows (the reference replicates
-    such a batch and every rank computes it whole, with no exchange)."""
+    ``model`` ranks compute the same rows and never sum: they are not
+    counted.  A ``None`` layout means the plain step: no process group,
+    or a whole state and only a data axis that does not divide the rows
+    (the reference replicates such a batch and every rank computes it
+    whole, with no exchange)."""
 
     def __init__(self, workflow, mesh, batch):
         from ..parallel.pipeline import row_layout
         from .parallel_nn import MoEFFN
-        self.world = mesh.size
         rows = {int(v.shape[0]) for v in batch.values()}
         moe = any(isinstance(u, MoEFFN) for u in workflow.all_units())
         self.axes, self.n_split, _ = row_layout(
             dict(mesh.shape), min(rows) if len(rows) == 1 else 1, moe=moe)
+        #: the ranks a gradient sums over
+        self.world = mesh.size // mesh.shape.get("model", 1)
         self.replicas = self.world // self.n_split
 
     @classmethod
-    def of(cls, workflow, mesh, batch):
+    def of(cls, workflow, mesh, batch, sharded=False):
         if mesh.world_group is None:
             return None
         layout = cls(workflow, mesh, batch)
-        busy = any(mesh.shape.get(a, 1) > 1 for a in ("seq", "expert"))
+        busy = sharded or any(mesh.shape.get(a, 1) > 1 for a in (
+            "seq", "expert", "fsdp", "model"))
         if not (layout.axes or busy) and mesh.shape.get("data", 1) > 1:
             return None
         return layout
@@ -531,14 +543,15 @@ class _Layout:
         return place_batch(batch, mesh, {k: (self.axes,) for k in batch})
 
 
-def _reduce_metrics(mets, weight, group, extra=(), replicas=1):
-    """All-reduce a rank's metrics over ``group``: ``loss`` weighted by
-    ``weight`` (its share of the global masked mean), ``aux_*`` averaged,
-    the rest (counts, error sums) summed over the distinct row slices
-    (divided by their ``replicas``); ``extra`` tensors (gradients) ride
-    the same buffer.  Returns (metrics, extra)."""
-    from ..parallel.pipeline import all_reduce_grads
-    n = torch.distributed.get_world_size(group)
+def _reduce_metrics(mets, weight, state, params, grads=(), replicas=1,
+                    world=1):
+    """Sum a rank's metrics and gradients over the ranks that hold the
+    same blocks (``state.reduce``: a ``parallel.fsdp.ShardedState``):
+    ``loss`` weighted by ``weight`` (its share of the global masked
+    mean), ``aux_*`` averaged over the ``world`` ranks that sum, the rest
+    (counts, error sums) summed over the distinct row slices (divided by
+    their ``replicas``); the gradients come back as this rank's blocks.
+    Returns (metrics, gradients)."""
     keys = sorted(mets)
     vals = []
     for k in keys:
@@ -546,38 +559,48 @@ def _reduce_metrics(mets, weight, group, extra=(), replicas=1):
         if k == "loss":
             v = v * weight
         elif k.startswith("aux_"):
-            v = v / n
+            v = v / world
         elif replicas > 1:
             v = v / replicas
         vals.append(v)
-    extra, vals = all_reduce_grads(list(extra), vals, group)
-    return dict(zip(keys, vals)), extra
+    grads, vals = state.reduce(list(grads), vals, params)
+    return dict(zip(keys, vals)), grads
 
 
 class ShardedTrainStep(TrainStep):
     """The train step over the mesh (one process a rank; every rank's
-    loader yields the same global batch).  The rows split over ``data``
-    (and over ``expert`` on a model with a MoE unit: :class:`_Layout`);
-    each rank runs forward and backward on its rows with the mesh in its
-    context, so attention on a ``seq`` axis runs the ring over the seq
-    group (each seq rank takes one chunk of the sequence and every rank
-    sees the whole output) and MoE on an ``expert`` axis exchanges its
-    tokens over the expert group.  A rank's loss is weighted by its share
-    of the global mask count over the copies of its rows, its aux losses
-    by 1/world (the mean over the data shards, each MoE's aux being its
-    expert group's); the gradients and metrics are summed over the world
-    in one all-reduce and every rank applies the same guarded update.
-    A batch no axis divides runs whole on every rank, with no exchange,
-    on a mesh with only a data axis.  MoE routing and capacity are per
-    rank (the reference's expert-parallel semantics).  Self-updating
-    units do not train under a mesh."""
+    loader yields the same global batch), its state placed by ``rule``
+    (``parallel/fsdp.py``: each rank stores its block of every leaf the
+    rule splits, parameters and optimizer slots; :meth:`place` cuts a
+    whole state to it).  The rows split over ``data`` x ``fsdp`` (and
+    over ``expert`` on a model with a MoE unit: :class:`_Layout`); each
+    rank gathers the parameters it uses, runs forward and backward on
+    its rows with the mesh in its context, so attention on a ``seq``
+    axis runs the ring over the seq group (each seq rank takes one chunk
+    of the sequence and every rank sees the whole output), MoE on an
+    ``expert`` axis exchanges its tokens over the expert group, and a
+    unit whose weights the rule splits the megatron way over ``model``
+    computes its part over the model group (``Context.tp``).  A rank's
+    loss is weighted by its share of the global mask count over the
+    copies of its rows, its aux losses by 1/the ranks that sum (the mean
+    over the data shards, each MoE's aux being its expert group's); the
+    gradients and metrics are summed over the ranks that hold the same
+    blocks (the model ranks compute the same rows) and cut to this
+    rank's blocks, and every rank applies the guarded update to its
+    blocks with the norm over all of them.  A batch no axis divides runs
+    whole on every rank, with no exchange, on a mesh with only a data
+    axis and a whole state.  MoE routing and capacity are per rank (the
+    reference's expert-parallel semantics).  Self-updating units do not
+    train under a mesh."""
 
     capture_reason = "the sharded step all-reduces over the mesh"
 
-    def __init__(self, workflow, optimizer, mesh):
+    def __init__(self, workflow, optimizer, mesh, rule=None):
+        from ..parallel.fsdp import ShardedState
         super().__init__(workflow, optimizer)
         self.mesh = mesh
         self.group = mesh.world_group
+        self.state = ShardedState(workflow, mesh, rule)
         for u in workflow.units:
             if getattr(u, "self_updating", False):
                 raise WorkflowError(
@@ -585,11 +608,17 @@ class ShardedTrainStep(TrainStep):
                     "mesh in the port (its state update would differ per "
                     "data rank)")
 
+    def place(self, wstate):
+        """This rank's blocks of a whole state (a new dict; tensors of
+        the split leaves copied into their own memory)."""
+        return self.state.shard_state(wstate)
+
     def run(self, wstate, batch, sub):
         wf, ev = self.workflow, self.workflow.evaluator
         if ev is None:
             raise WorkflowError("a sharded train step needs an evaluator")
-        layout = _Layout.of(wf, self.mesh, batch)
+        st = self.state
+        layout = _Layout.of(wf, self.mesh, batch, st.sharded)
         if layout is None:
             return super().run(wstate, batch, sub)
         side = [batch[k] for k in ev.inputs[1:]]
@@ -599,9 +628,11 @@ class ShardedTrainStep(TrainStep):
             / torch.clamp_min(sample_count(ev, side), 1.0) / layout.replicas
         params = wstate["params"]
         ctx = Context(train=True, key=sub, seeds=self.seeds, mesh=self.mesh,
+                      tp=st.tp or None,
                       make_generator=functools.partial(
                           _step_generator, sub, params))
-        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        live = tree_map(lambda t: t.detach().requires_grad_(True),
+                        st.use_params(params))
         with torch.enable_grad():
             outputs, nstate = wf.forward(live, wstate["state"], local, ctx)
             loss = outputs[ev.name]
@@ -612,18 +643,22 @@ class ShardedTrainStep(TrainStep):
             leaves = tree_leaves(live)
             flat = iter(torch.autograd.grad(objective, leaves,
                                             allow_unused=True))
-        grads = [_grad_or_zeros(next(flat), p) for p in tree_leaves(params)]
+        grads = [_grad_or_zeros(next(flat), p) for p in leaves]
         with torch.no_grad():
             outs = {k: (v.detach() if torch.is_tensor(v) else v)
                     for k, v in outputs.items()}
-            mets = wf._metrics(params, wstate["state"], outs, ctx)
+            mets = wf._metrics(live, wstate["state"], outs, ctx)
             for u in self.aux_units:
                 mets[f"aux_{u.name}"] = nstate[u.name]["aux_loss"].detach()
-            mets, grads = _reduce_metrics(mets, w, self.group, grads,
-                                          layout.replicas)
+            mets, grads = _reduce_metrics(mets, w, st, params, grads,
+                                          layout.replicas, n)
             it = iter(grads)
             grads = tree_map(lambda _: next(it), params)
-            mets, ok = self.update(wstate, grads, mets["loss"], mets)
+            # a whole state's gradients are the same on every rank: its
+            # norm is local; a split one's spans the ranks
+            mets, ok = self.update(wstate, grads, mets["loss"], mets,
+                                   norm=st.grad_norm if st.sharded
+                                   else None)
             # the aux channel's state: the mean over the data shards
             state = {**wstate["state"], **{
                 u.name: {"aux_loss": mets[f"aux_{u.name}"]}
@@ -637,38 +672,44 @@ class ShardedTrainStep(TrainStep):
 
 
 class ShardedEvalStep(EvalStep):
-    """The eval step over the mesh: each rank evaluates its rows of the
+    """The eval step over the mesh, on the state ``rule`` places: each
+    rank gathers the parameters it uses and evaluates its rows of the
     global batch as the train step lays them out (attention on a ``seq``
-    axis runs the ring, MoE on an ``expert`` axis exchanges its tokens, a
-    pipeline stack runs the GPipe forward over the pipe group), and the
-    metrics are all-reduced over the world (``loss`` weighted into the
-    global masked mean, counts summed over the distinct row slices)."""
+    axis runs the ring, MoE on an ``expert`` axis exchanges its tokens,
+    a megatron split computes over the model group, a pipeline stack
+    runs the GPipe forward over the pipe group), and the metrics are
+    summed over the ranks that hold the same blocks (``loss`` weighted
+    into the global masked mean, counts summed over the distinct row
+    slices)."""
 
     capture_reason = "the sharded eval step all-reduces over the mesh"
 
-    def __init__(self, workflow, mesh):
+    def __init__(self, workflow, mesh, rule=None):
+        from ..parallel.fsdp import ShardedState
         super().__init__(workflow)
         self.mesh = mesh
         self.group = mesh.world_group
+        self.state = ShardedState(workflow, mesh, rule)
 
     def run(self, wstate, batch, sub):
         wf, ev = self.workflow, self.workflow.evaluator
-        layout = _Layout.of(wf, self.mesh, batch)
+        st = self.state
+        layout = _Layout.of(wf, self.mesh, batch, st.sharded)
         local = batch if layout is None else layout.local(self.mesh, batch)
-        ctx = Context(train=False, mesh=self.mesh)
+        ctx = Context(train=False, mesh=self.mesh, tp=st.tp or None)
         with torch.inference_mode():
-            outputs, _ = wf.forward(wstate["params"], wstate["state"],
-                                    local, ctx)
-            mets = wf._metrics(wstate["params"], wstate["state"], outputs,
-                               ctx)
+            params = st.use_params(wstate["params"])
+            outputs, _ = wf.forward(params, wstate["state"], local, ctx)
+            mets = wf._metrics(params, wstate["state"], outputs, ctx)
             if layout is None or ev is None:
                 return mets
             w = sample_count(ev, [local[k] for k in ev.inputs[1:]]) \
                 / torch.clamp_min(sample_count(
                     ev, [batch[k] for k in ev.inputs[1:]]), 1.0) \
                 / layout.replicas
-            return _reduce_metrics(mets, w, self.group,
-                                   replicas=layout.replicas)[0]
+            return _reduce_metrics(mets, w, st, params,
+                                   replicas=layout.replicas,
+                                   world=layout.world)[0]
 
 
 def with_aux_losses(loss, nstate, aux_units):
